@@ -12,22 +12,46 @@ Phases, one JSON line each:
    build of every kernel from ``lightgbm_torch/csrc``;
 2. data: a synthetic HIGGS-shaped set (1,000,000 x 28 train, 200,000 x 28
    valid, 63 bins), binned by ``lightgbm_torch.Dataset``;
-3. kernels: B1-B4 at the main path's shapes, each held against its plain
-   PyTorch version on the card (B3 and B4 bit for bit, B1 and B2 within the
-   tolerances below; B3 from the root and from a mid-tree state with an NA
-   bin, B2 field by field with each regularisation term on in turn, B4
-   with NA bins), with the kernel's, the plain version's and (B1) the
-   library call's median times from CUDA events, and the bound from the
-   bytes and operations of this run's inputs;
-4. main path: ``lightgbm_torch.train`` (binary, 31 leaves, 63 bins, 50
-   rounds, one valid set, early stopping) with iterations/s, per-phase
-   milliseconds, host fetches per split, the valid AUC, and the launch
-   count of every kernel during that run against the count the trees
-   predict;
-5. reference: on a small input, training on the card agrees with the
+3. kernels: B1-B4, B3s and B12 at the main path's shapes, each held
+   against its plain PyTorch version on the card (B3, B3s and B4 bit for
+   bit, B1, B2 and B12 within the tolerances below; B3 from the root and
+   from a mid-tree state with an NA bin, B2 field by field with each
+   regularisation term on in turn, B4 with NA bins, B3s at every step of
+   whole 31-leaf trees, a max_depth tree and a stump, B12a with forced
+   ties and zero-weight rows, B12b for each metric id), with the
+   kernel's, the plain version's and the library call's median times
+   from CUDA events, and the bound from the bytes and operations of this
+   run's inputs;
+4. main path: the default ``lightgbm_torch.train`` (binary, 31 leaves, 63
+   bins, 50 rounds, one valid set, metrics auc and binary_logloss, early
+   stopping at 10 on the first metric), which takes the super-epoch
+   route: epochs of k = 10 iterations, each k replays of one captured
+   CUDA graph and one host fetch.  It reports iterations/s, epoch
+   milliseconds, epochs, host fetches (checked equal to the epochs),
+   graph replays, the valid AUC and best iteration, and the launches of
+   every kernel (captured launches times replays, checked against the
+   per-iteration count the grower's fixed step sequence gives; no eager
+   launch beyond the warm-up before capture);
+5. per_iteration: the same training with ``superepoch=-1, fused_chunk=1``
+   and the traced metrics (``fused_eval=true``), with per-phase
+   milliseconds; its model text equals the main path's (minus the path
+   parameter lines), it fetches once per tree and once per eval, and its
+   launches are PER_ITERATION per iteration.  The ``fused_loop`` line
+   then sets the captured iteration's (B14) steady milliseconds per
+   iteration beside this path's and beside the bound of the work the
+   main path's own trees needed (``iteration_bound``);
+6. fused_chunk: no valid set, 50 rounds as chunks of 25 replays; its model
+   text equals a per-iteration run's without a valid set, and both runs'
+   launches are PER_ITERATION_NO_VALID per iteration (captured and
+   warm-up, or eager);
+7. reference: on a small input, training on the card agrees with the
    port's CPU path (plain versions);
-6. round trip and determinism: predict, model text -> Booster -> equal
+8. round trip and determinism: predict, model text -> Booster -> equal
    predictions, and a second training run gives byte-identical model text.
+
+9. profile: one more main-path training traced with ``torch.profiler``:
+   the device time of each kernel and the device's busy share inside the
+   steady epochs.
 
 Then the ``kernels`` summary line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -55,6 +79,27 @@ F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 # the histogram (B1) or of each field of the split records (B2)
 HIST_RTOL = 1e-5
 SPLIT_RTOL = 1e-4
+# B12 sums f32 terms in blocks of 2048 in another order than the plain
+# version (torch.sum, index_add_ and cumsum over 200,000 rows)
+AUC_ATOL = 1e-5
+POINTWISE_RTOL = 1e-5
+METRICS = ["auc", "binary_logloss"]
+PATH_PARAMS = ("[superepoch:", "[fused_eval:", "[fused_chunk:")
+# launches of each kernel in one iteration: the root pass and L - 1 steps
+# of the grower (every step launches; a dead step's kernels exit at once),
+# one valid walk and one kernel per metric
+PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
+                 "partition": NUM_LEAVES - 1, "grow_step": NUM_LEAVES - 1,
+                 "predict": 1, "auc": 1, "pointwise": 1}
+# without a valid set: no walk and no metric
+PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
+                          "pointwise": 0}
+KERNEL_ORDER = ("histogram", "split", "partition", "grow_step", "predict",
+                "auc", "pointwise")
+
+
+def times(counts, n: int):
+    return {k: n * v for k, v in counts.items()}
 
 
 def source_digest(root: Path = Path(__file__).resolve().parent) -> str:
@@ -107,6 +152,41 @@ def bound_ms(nbytes: float, ops: float):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def iteration_bound(trees, n: int, f: int, B: int, L: int, nv: int):
+    """The least time of one boosting iteration of the main path, from
+    its own trees: the bytes and operations each step needs at the row
+    counts that tree gave it, averaged over the trees.  Per iteration:
+    gradients (score, label, weight read, [N, 3] vals written), the
+    root's histogram pass (every row's bins and vals), the train-score
+    update (score read and written, row -> leaf read), the valid walk
+    (B4's bytes) and the two metrics (B12's).  Per active split step: B3s
+    (table, tree buffer read and written), B3 over the split leaf's rows
+    (column byte and leaf id read, leaf id written), B1 over the smaller
+    child's rows (bins and vals) and its histogram out, the subtraction
+    (three histograms), B2 on the pair (two histograms in, two records
+    out).  A dead step needs nothing.  Returns (ms, by, bytes)."""
+    from lightgbm_torch.grower import tree_words
+    hist = f * B * 12
+    rec = 12 * 4
+    fixed = (24 * n + n * (f + 12) + hist + hist + rec + 12 * n
+             + nv * f + 8 * nv + 2 * (12 * nv + 4))
+    fixed_ops = (12 * n + 3 * n * f + 40 * 2 * f * B + 2 * n + 7 * nv
+                 + nv * float(np.log2(nv)) + 10 * nv + 30 * nv)
+    step = L * rec + 2 * tree_words(L) * 4 + 6 * hist + 2 * rec
+    step_ops = 40 * 2 * 2 * f * B + 3 * f * B
+    total = ops = 0.0
+    for t in trees:
+        for s in range(t.num_leaves - 1):
+            kids = [t.internal_count[c] if c >= 0 else t.leaf_count[~c]
+                    for c in (t.left_child[s], t.right_child[s])]
+            parent, small = int(t.internal_count[s]), int(min(kids))
+            total += step + 9 * parent + small * (f + 12)
+            ops += step_ops + 2 * parent + 3 * small * f
+    nbytes = fixed + total / len(trees)
+    ms, by = bound_ms(nbytes, fixed_ops + ops / len(trees))
+    return ms, by, nbytes
 
 
 def check_partition(torch, lor_k, lor_p, slot_k, slot_p, what: str) -> None:
@@ -193,6 +273,56 @@ def split_cases(torch, sp, tot, base):
     return cases
 
 
+def check_grow_step(torch, binned, vals, fmask, num_bin, na_bin, B, params,
+                    max_depth, case, snap):
+    """Grow one tree on the card with the B3s kernel, and at every step
+    run its plain version on copies of the step's inputs: the step record,
+    index, sums, flags and the whole tree buffer must be bit-equal.  Keeps
+    the state before the middle step in ``snap`` (for timing).  Returns
+    (steps, active steps)."""
+    from lightgbm_torch import grower as gr
+    n, f = binned.shape
+    ws = gr.GrowWorkspace(n, f, B, NUM_LEAVES, binned.device)
+    kernel = gr.grow_step
+    seen = {"steps": 0, "active": 0}
+
+    def both(table, tree, na, **kw):
+        if seen["steps"] == NUM_LEAVES // 2 and "state" not in snap:
+            snap["state"] = {"table": table.clone(), "tree0": tree.clone(),
+                             "tree": tree.clone(),
+                             **{k: kw[k].clone() for k in
+                                ("rec", "idx", "fstep", "flags")}}
+        tree_p = tree.clone()
+        kw_p = {k: (v.clone() if torch.is_tensor(v) else v)
+                for k, v in kw.items()}
+        gr.grow_step_plain(table, tree_p, na, **kw_p)
+        kernel(table, tree, na, **kw)
+        for k in ("rec", "idx", "fstep", "flags"):
+            if not torch.equal(kw[k], kw_p[k]):
+                raise AssertionError(f"B3s ({case}, step {seen['steps']}) "
+                                     f"{k}: {kw[k].tolist()} vs plain "
+                                     f"{kw_p[k].tolist()}")
+        if not torch.equal(tree, tree_p):
+            raise AssertionError(f"B3s ({case}, step {seen['steps']}) "
+                                 "tree buffer differs from the plain "
+                                 "version's")
+        seen["steps"] += 1
+        seen["active"] += int(kw["rec"][gr.ACTIVE])
+
+    gr.grow_step = both
+    try:
+        gr.grow_tree(binned, vals, fmask, num_bin, na_bin,
+                     num_leaves=NUM_LEAVES, num_bins=B, params=params,
+                     max_depth=max_depth, workspace=ws)
+    finally:
+        gr.grow_step = kernel
+    tree = gr.fetch_tree(ws)
+    if tree.num_leaves != seen["active"] + 1:
+        raise AssertionError(f"B3s ({case}): {tree.num_leaves} leaves "
+                             f"after {seen['active']} active steps")
+    return seen["steps"], seen["active"]
+
+
 def phase_environment(torch, lgt_kernels):
     nvcc = subprocess.run([lgt_kernels.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
@@ -255,11 +385,15 @@ def phase_kernels(torch, lgt, train, valid):
     params = sp.SplitParams()
     rows = []
 
+    def rec(leaf, new_leaf, feat, thr, dleft, na, smaller):
+        return torch.tensor([leaf, new_leaf, feat, thr, int(dleft), na,
+                             smaller, 1], dtype=torch.int32, device=dev)
+
     # B3 at the root split of feature 0, threshold mid-range
     lor = torch.zeros(n, dtype=torch.int32, device=dev)
     iota = torch.arange(B, dtype=torch.int32, device=dev)
     thr = int(num_bin[0].item()) // 2
-    args = (0, thr, False, int(na_bin[0].item()), iota, 0, 1, 1)
+    args = (rec(0, 1, 0, thr, False, int(na_bin[0].item()), 1), iota)
     lor_k, lor_p = lor.clone(), lor.clone()
     slot_k = partition(binned, lor_k, *args)
     slot_p = partition_plain(binned, lor_p, *args)
@@ -273,8 +407,8 @@ def phase_kernels(torch, lgt, train, valid):
     for feat, dleft, na, rank, smaller in ((3, False, "top", iota, 17),
                                            (7, True, 0, perm, 5)):
         na = int(num_bin[feat].item()) - 1 if na == "top" else na
-        margs = (feat, int(num_bin[feat].item()) // 2, dleft, na, rank, 5,
-                 17, smaller)
+        margs = (rec(5, 17, feat, int(num_bin[feat].item()) // 2, dleft, na,
+                     smaller), rank)
         in_leaf = lor_mid == 5
         if int(((binned[:, feat] == na) & in_leaf).sum()) == 0 \
                 or int((~in_leaf).sum()) == 0:
@@ -400,7 +534,8 @@ def phase_kernels(torch, lgt, train, valid):
         lc[node] = ~leaves[2 * (node - first_leaf)]
         rc[node] = ~leaves[2 * (node - first_leaf) + 1]
     tree = [torch.as_tensor(a).to(dev) for a in (sf, th)]
-    dl = torch.as_tensor(rng.rand(nodes) < 0.5).to(dev)
+    # int32 default_left, as the grower's device tree arrays carry it
+    dl = torch.as_tensor((rng.rand(nodes) < 0.5).astype(np.int32)).to(dev)
     lct, rct = torch.as_tensor(lc).to(dev), torch.as_tensor(rc).to(dev)
     lv = torch.as_tensor(rng.randn(nodes + 1).astype(np.float32)).to(dev)
     # a bin of each of half the features taken as its NA bin, so that
@@ -429,6 +564,112 @@ def phase_kernels(torch, lgt, train, valid):
                  "lightgbm_tpu/predict_device.py:72", 0.0, 0.0, t_k, t_p,
                  bound_ms(b4_bytes, 2 * nv + 5 * nv), None))
 
+    # B3s: whole trees at the main path's shape, with the plain version run
+    # on copies of the same inputs at every step (records and tree buffer
+    # bit for bit): the default parameters, max_depth 3, and a stump
+    snap = {}
+    cases = {"full": (params, -1), "max_depth_3": (params, 3),
+             "stump": (sp.SplitParams(min_gain_to_split=1e30), -1)}
+    b3s_steps = {}
+    for case, (prm, depth) in cases.items():
+        steps, active = check_grow_step(torch, binned, vals, fmask, num_bin,
+                                        na_bin, B, prm, depth, case, snap)
+        b3s_steps[case] = {"steps": steps, "active": active}
+    if b3s_steps["full"]["active"] != NUM_LEAVES - 1 \
+            or not 0 < b3s_steps["max_depth_3"]["active"] < NUM_LEAVES - 1 \
+            or b3s_steps["stump"]["active"] != 0:
+        raise AssertionError(f"B3s cases do not cover active, dead and "
+                             f"stump steps: {b3s_steps}")
+    from lightgbm_torch import grower as gr
+    st = snap["state"]
+
+    def b3s_call(fn):
+        st["tree"].copy_(st["tree0"])
+        fn(st["table"], st["tree"], na_bin, num_leaves=NUM_LEAVES,
+           max_depth=-1, rec=st["rec"], idx=st["idx"], fstep=st["fstep"],
+           flags=st["flags"])
+    t_k = median_ms(torch, lambda: b3s_call(gr.grow_step))
+    t_p = median_ms(torch, lambda: b3s_call(gr.grow_step_plain))
+    words = st["tree"].numel()
+    b3s_bytes = st["table"].numel() * 4 + 2 * words * 4 + f * 4 \
+        + 8 * 4 + 2 * 8 + 8 * 4 + 2
+    rows.append(("grow_step", "B3s split step", "lightgbm_torch/csrc/"
+                 "grow_step.cu", "lightgbm_tpu/grower.py:742", 0.0, 0.0,
+                 t_k, t_p, bound_ms(b3s_bytes, 2 * NUM_LEAVES), None))
+    emit({"phase": "kernel_grow_step", "cases": b3s_steps,
+          "timed_ms_includes": "a copy of the tree buffer to reset it"})
+
+    # B12a on the valid set's shape: random scores, scores with forced
+    # ties (the 32 values of one tree, as early in training), and the tied
+    # scores with zero-weight rows
+    from lightgbm_torch import metrics as tm
+    yv = torch.as_tensor(np.asarray(valid.metadata.label, np.float32)).to(dev)
+    ones = torch.ones(nv, device=dev)
+    sv = torch.randn(nv, device=dev, generator=gen)
+    tied = add_tree_score(torch.zeros(nv, device=dev), vbinned, tree[0],
+                          tree[1], dl, lct, rct, vna, lv, 1.0, steps=5)
+    zw = ones.clone()
+    zw[::7] = 0.0
+    err12a = 0.0
+    for case, (sc, w) in {"random": (sv, ones), "ties": (tied, ones),
+                          "ties_zero_weights": (tied, zw)}.items():
+        a = float(tm.traced_auc(sc, yv, w))
+        b = float(tm.traced_auc_plain(sc, yv, w))
+        if not abs(a - b) <= AUC_ATOL:
+            raise AssertionError(f"B12a ({case}): {a} vs plain {b}")
+        err12a = max(err12a, abs(a - b))
+    if int(torch.unique(tied).numel()) > 2 ** 5:
+        raise AssertionError("B12a tie case has no ties")
+    t_k = median_ms(torch, lambda: tm.traced_auc(sv, yv, ones))
+    t_p = median_ms(torch, lambda: tm.traced_auc_plain(sv, yv, ones))
+    t_lib = median_ms(torch, lambda: torch.sort(sv, stable=True))
+    lg = float(np.log2(nv))
+    rows.append(("auc", "B12a traced AUC", "lightgbm_torch/csrc/metrics.cu",
+                 "lightgbm_tpu/metrics.py:402", err12a, err12a, t_k, t_p,
+                 bound_ms(12 * nv + 4, nv * lg + 10 * nv), t_lib))
+
+    # B12b, each metric id on the valid set's shape
+    err12b = rel12b = 0.0
+    per_metric = {}
+    for metric in tm.POINTWISE_IDS:
+        a = float(tm.traced_pointwise(sv, yv, zw, metric=metric))
+        b = float(tm.traced_pointwise_plain(sv, yv, zw, metric=metric))
+        rel = abs(a - b) / abs(b)
+        if not rel <= POINTWISE_RTOL:
+            raise AssertionError(f"B12b {metric}: {a} vs plain {b}")
+        err12b, rel12b = max(err12b, abs(a - b)), max(rel12b, rel)
+        per_metric[metric] = {
+            "value": a, "plain": b,
+            "ms": median_ms(torch, lambda: tm.traced_pointwise(
+                sv, yv, ones, metric=metric)),
+            "plain_ms": median_ms(torch, lambda: tm.traced_pointwise_plain(
+                sv, yv, ones, metric=metric))}
+    import torch.nn.functional as F
+    t_lib = median_ms(torch, lambda: F.binary_cross_entropy_with_logits(
+        sv, yv, weight=ones))
+    lm = per_metric["binary_logloss"]
+    rows.append(("pointwise", "B12b traced pointwise metrics "
+                 "(binary_logloss timed)", "lightgbm_torch/csrc/metrics.cu",
+                 "lightgbm_tpu/metrics.py:391", err12b, rel12b, lm["ms"],
+                 lm["plain_ms"], bound_ms(12 * nv + 4, 30 * nv), t_lib))
+    emit({"phase": "kernel_pointwise", "metrics": per_metric})
+
+    # B5 (torch ops, no kernel of its own): the binary gradients and the
+    # [N, 3] vals stack at the training shape; bound: score, label and
+    # label weight read, vals written
+    from lightgbm_torch.config import Config
+    from lightgbm_torch.objectives import BinaryLogloss
+    obj = BinaryLogloss(Config({"objective": "binary"}))
+    obj.init(train.metadata, n, dev)
+    score5 = torch.randn(n, device=dev, generator=gen)
+
+    def b5():
+        g, h = obj.get_gradients(score5)
+        return torch.stack([g, h, torch.ones_like(g)], dim=1)
+    b5_bound, b5_by = bound_ms(12 * n + 12 * n, 12 * n)
+    emit({"phase": "b5_gradients", "ms": median_ms(torch, b5),
+          "bound_ms": b5_bound, "bound_by": b5_by})
+
     out = {}
     for key, name, src_path, replaces, err, rel, tk, tp, (bms, by), tl \
             in rows:
@@ -452,52 +693,177 @@ def _attach_timer(env):
 _attach_timer.before_iteration = True
 
 
-def train_main(lgt, train, valid, timed: bool):
+def train_main(lgt, train, valid, extra=None, timed=False, rounds=ROUNDS):
+    """The main path's training: default path parameters unless ``extra``
+    says otherwise."""
     ev = {}
-    cbs = [lgt.early_stopping(ES_ROUNDS, verbose=False),
+    cbs = [lgt.early_stopping(ES_ROUNDS, first_metric_only=True,
+                              verbose=False),
            lgt.record_evaluation(ev)]
     if timed:
         cbs.append(_attach_timer)
     params = {"objective": "binary", "num_leaves": NUM_LEAVES,
-              "max_bin": MAX_BIN, "learning_rate": 0.1, "metric": "auc",
-              "verbosity": -1}
+              "max_bin": MAX_BIN, "learning_rate": 0.1, "metric": METRICS,
+              "verbosity": -1, **(extra or {})}
     t0 = time.perf_counter()
-    bst = lgt.train(params, train, ROUNDS, valid_sets=[valid],
+    bst = lgt.train(params, train, rounds, valid_sets=[valid],
                     callbacks=cbs)
     return bst, ev, time.perf_counter() - t0
 
 
+def without_path_params(text: str) -> str:
+    return "\n".join(ln for ln in text.splitlines()
+                     if not ln.startswith(PATH_PARAMS))
+
+
+def fused_program(m):
+    """The one captured program of a fused run."""
+    progs = [p for p in m._programs.values() if p.graph is not None]
+    if len(progs) != 1:
+        raise AssertionError(f"expected one captured program, found "
+                             f"{len(progs)}")
+    return progs[0]
+
+
 def phase_main_path(torch, lgt, lgt_kernels, train, valid):
     lgt_kernels.reset_launch_counts()
-    bst, ev, secs = train_main(lgt, train, valid, timed=True)
+    bst, ev, secs = train_main(lgt, train, valid)
     torch.cuda.synchronize()
-    counts = lgt_kernels.launch_counts()
+    eager = lgt_kernels.launch_counts()
     m = bst._model
+    prog = fused_program(m)
     iters = m.num_iterations_trained
-    splits = sum(m.step_counts)
-    expect = {"histogram": iters + splits, "split": iters + splits,
-              "partition": splits, "predict": iters}
-    if counts != expect:
-        raise AssertionError(f"kernel launches {counts} != expected {expect}")
+    epochs = len(m.epoch_ms)
+    k = max(2, min(25, ES_ROUNDS))
+    if m.fetch_counts != {"epoch": epochs}:
+        raise AssertionError(f"host fetches {m.fetch_counts} are not one "
+                             f"per epoch ({epochs} epochs)")
+    if prog.replays != k * epochs or iters > prog.replays:
+        raise AssertionError(f"{prog.replays} replays for {epochs} epochs "
+                             f"of {k} and {iters} iterations")
+    # wrapper calls: the warm-up before capture and the capture, nothing
+    # eager besides
+    if prog.captured != PER_ITERATION or prog.warmup != PER_ITERATION \
+            or eager != {kk: 2 * v for kk, v in PER_ITERATION.items()}:
+        raise AssertionError(f"launches: captured {prog.captured}, warm-up "
+                             f"{prog.warmup}, wrapper calls {eager}, "
+                             f"expected {PER_ITERATION} each")
+    device = {kk: prog.warmup[kk] + v for kk, v in prog.launches().items()}
     auc = ev["valid_0"]["auc"]
     best = bst.best_iteration
     best_auc = auc[best - 1]
     if not 0.5 < best_auc <= 1.0:
         raise AssertionError(f"valid AUC {best_auc}")
+    steady = m.epoch_ms[1:] if epochs > 1 else m.epoch_ms
+    emit({"phase": "main_path", "path": "super-epoch", "k": k,
+          "iterations": iters, "best_iteration": best,
+          "valid_auc": best_auc, "seconds": secs,
+          "iterations_per_s": iters / secs, "epochs": epochs,
+          "epoch_ms": m.epoch_ms,
+          "steady_epoch_ms_median": statistics.median(steady),
+          "steady_iterations_per_s": 1e3 * k / statistics.median(steady),
+          "host_fetches": m.fetches, "graph_replays": prog.replays,
+          "active_split_steps": sum(m.step_counts),
+          "split_steps_launched": (prog.replays + 1) * (NUM_LEAVES - 1),
+          "captured_launches_per_replay": prog.captured,
+          "capture_ms": prog.capture_ms, "device_launches": device})
+    return bst, ev, device, statistics.median(steady) / k
+
+
+def phase_per_iteration(torch, lgt, lgt_kernels, train, valid, main_bst,
+                        main_ev):
+    """The same training on the per-iteration path, with the traced
+    metrics so that it makes the same early-stopping decisions: the same
+    model text and values, one fetch per tree and one per eval, and every
+    kernel launched eagerly PER_ITERATION times per iteration."""
+    lgt_kernels.reset_launch_counts()
+    bst, ev, secs = train_main(lgt, train, valid, timed=True, extra={
+        "superepoch": -1, "fused_chunk": 1, "fused_eval": "true"})
+    torch.cuda.synchronize()
+    launches = lgt_kernels.launch_counts()
+    m = bst._model
+    n = m.num_iterations_trained
+    if launches != times(PER_ITERATION, n):
+        raise AssertionError(f"per-iteration launches {launches} for {n} "
+                             f"iterations, expected {PER_ITERATION} each")
+    same = without_path_params(bst.model_to_string()) \
+        == without_path_params(main_bst.model_to_string())
+    if not same or ev != main_ev:
+        raise AssertionError("per-iteration model text or evals differ "
+                             "from the main path's")
+    if m.fetch_counts != {"tree": n, "traced_eval": n} or m._programs and \
+            any(p.graph is not None for p in m._programs.values()):
+        raise AssertionError(f"per-iteration fetches {m.fetch_counts}")
     eval_s = []
     for _ in range(5):
         t0 = time.perf_counter()
         bst.eval_valid()
         eval_s.append(time.perf_counter() - t0)
-    emit({"phase": "main_path", "iterations": iters,
-          "best_iteration": best, "valid_auc": best_auc,
-          "seconds": secs, "iterations_per_s": iters / secs,
+    emit({"phase": "per_iteration", "iterations": n, "seconds": secs,
+          "iterations_per_s": n / secs,
           "phase_ms": m.phase_timer.totals_ms(),
-          "valid_eval_ms_per_iteration": 1e3 * statistics.median(eval_s),
-          "splits": splits, "host_fetches": m.grow_stats.fetches,
-          "host_fetches_per_split": m.grow_stats.fetches / max(splits, 1),
-          "launches": counts})
-    return bst, counts
+          "host_fetches": m.fetch_counts, "model_text_equal": same,
+          "launches": launches,
+          "host_eval_ms_per_iteration": 1e3 * statistics.median(eval_s)})
+    return 1e3 * secs / n, launches
+
+
+def phase_fused_chunk(torch, lgt, lgt_kernels, train):
+    """No valid set: 50 rounds as fused chunks of 25, against a
+    per-iteration run; each run's launches are PER_ITERATION_NO_VALID per
+    iteration (captured once and replayed, or eagerly).  Returns the
+    fused run's device launches."""
+    texts, info = {}, {}
+    for name, extra in (("fused_chunk", {}),
+                        ("per_iteration", {"superepoch": -1,
+                                           "fused_chunk": 1})):
+        params = {"objective": "binary", "num_leaves": NUM_LEAVES,
+                  "max_bin": MAX_BIN, "learning_rate": 0.1,
+                  "verbosity": -1, **extra}
+        lgt_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = lgt.train(params, train, ROUNDS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        eager = lgt_kernels.launch_counts()
+        m = bst._model
+        n = m.num_iterations_trained
+        texts[name] = without_path_params(bst.model_to_string())
+        info[name] = {"seconds": secs, "iterations_per_s": ROUNDS / secs,
+                      "host_fetches": m.fetch_counts}
+        if name == "fused_chunk":
+            prog = fused_program(m)
+            device = {kk: prog.warmup[kk] + v
+                      for kk, v in prog.launches().items()}
+            info[name].update(graph_replays=prog.replays,
+                              epoch_ms=m.epoch_ms,
+                              capture_ms=prog.capture_ms,
+                              captured_launches_per_replay=prog.captured,
+                              launches=device)
+            if m.fetch_counts != {"epoch": 2} or prog.replays != ROUNDS:
+                raise AssertionError(f"fused chunks: {m.fetch_counts}, "
+                                     f"{prog.replays} replays")
+            # wrapper calls: the warm-up before capture and the capture
+            if prog.captured != PER_ITERATION_NO_VALID \
+                    or prog.warmup != PER_ITERATION_NO_VALID \
+                    or eager != times(PER_ITERATION_NO_VALID, 2):
+                raise AssertionError(
+                    f"fused-chunk launches: captured {prog.captured}, "
+                    f"warm-up {prog.warmup}, wrapper calls {eager}, "
+                    f"expected {PER_ITERATION_NO_VALID} each")
+        else:
+            info[name]["launches"] = eager
+            if eager != times(PER_ITERATION_NO_VALID, n):
+                raise AssertionError(
+                    f"per-iteration launches without a valid set {eager} "
+                    f"for {n} iterations, expected "
+                    f"{PER_ITERATION_NO_VALID} each")
+    if texts["fused_chunk"] != texts["per_iteration"]:
+        raise AssertionError("fused-chunk model text differs from the "
+                             "per-iteration run's")
+    emit({"phase": "fused_chunk", "rounds": ROUNDS, "model_text_equal": True,
+          **info})
+    return info["fused_chunk"]["launches"]
 
 
 def phase_reference(torch, lgt):
@@ -508,6 +874,9 @@ def phase_reference(torch, lgt):
     for device in ("cuda", "cpu"):
         params = {"objective": "binary", "num_leaves": 15, "max_bin": MAX_BIN,
                   "metric": "auc", "verbosity": -1, "device_type": device}
+        # the default path on both devices: a super-epoch of 10 replays on
+        # the card, the same epoch run eagerly through the plain versions
+        # on the CPU
         tr = lgt.Dataset(x, y)
         ev = {}
         bst = lgt.train(params, tr, 10,
@@ -533,13 +902,54 @@ def phase_roundtrip(lgt, bst, train, valid, xv):
     again = lgt.Booster(model_str=text).predict(xv)
     if not np.array_equal(pred, again):
         raise AssertionError("model text round trip changed predictions")
-    bst2, _, secs = train_main(lgt, train, valid, timed=False)
+    bst2, _, secs = train_main(lgt, train, valid)
     same = bst2.model_to_string() == text
     if not same:
         raise AssertionError("a second training run gave other model text")
     emit({"phase": "roundtrip", "trees": bst.num_trees(),
           "model_text_bytes": len(text), "byte_identical_rerun": same,
           "rerun_seconds": secs})
+
+
+def phase_profile(torch, lgt, train, valid):
+    """One more main-path training under ``torch.profiler``: device time
+    by kernel name, and the share of the steady epochs' wall time that
+    the device is busy (kernel time per iteration over the epoch
+    milliseconds per iteration)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bst, _, secs = train_main(lgt, train, valid)
+        torch.cuda.synchronize()
+    m = bst._model
+    prog = fused_program(m)
+
+    def dev_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(e, name, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+    # device kernels only: not the host ops' attributed time nor the
+    # dataset's upload, which happen outside the epochs
+    kernels = sorted(((e.key, dev_us(e), e.count)
+                      for e in prof.key_averages() if dev_us(e) > 0
+                      and not e.key.startswith(("aten::", "Memcpy HtoD"))),
+                     key=lambda r: -r[1])
+    total_ms = sum(r[1] for r in kernels) / 1e3
+    # the warm-up and every replay ran the body once each
+    per_iter_ms = total_ms / (prog.replays + 1) if kernels else None
+    steady = m.epoch_ms[1:]
+    k = prog.replays // len(m.epoch_ms)
+    busy = per_iter_ms * k / statistics.median(steady) \
+        if kernels and steady else None
+    emit({"phase": "profile", "seconds": secs,
+          "device_kernel_ms_total": total_ms if kernels else None,
+          "device_kernel_ms_per_iteration": per_iter_ms,
+          "steady_epoch_ms": steady,
+          "steady_busy_share": busy,
+          "top_kernels": [{"name": n[:90], "device_ms": us / 1e3,
+                           "count": c} for n, us, c in kernels[:20]]})
 
 
 def main() -> int:
@@ -554,12 +964,30 @@ def main() -> int:
     smi = phase_environment(torch, lgt_kernels)
     x, y, xv, yv, train, valid = phase_data(lgt)
     kernels = phase_kernels(torch, lgt, train, valid)
-    bst, counts = phase_main_path(torch, lgt, lgt_kernels, train, valid)
+    bst, ev, counts, epoch_ms_per_it = phase_main_path(
+        torch, lgt, lgt_kernels, train, valid)
+    eager_ms_per_it, per_it_counts = phase_per_iteration(
+        torch, lgt, lgt_kernels, train, valid, bst, ev)
+    # B14, the captured iteration: its steady time per iteration against
+    # the same body run eagerly (its plain version) and against the bound
+    # of the work the main path's own trees needed
+    b14_ms, b14_by, b14_bytes = iteration_bound(
+        bst._model.models, N_TRAIN, N_FEAT, int(train.max_bin), NUM_LEAVES,
+        N_VALID)
+    emit({"phase": "fused_loop", "ms_per_iteration": epoch_ms_per_it,
+          "plain_ms_per_iteration": eager_ms_per_it,
+          "bound_ms_per_iteration": b14_ms, "bound_by": b14_by,
+          "bound_bytes_per_iteration": b14_bytes, "library_ms": None})
+    chunk_counts = phase_fused_chunk(torch, lgt, lgt_kernels, train)
     phase_reference(torch, lgt)
     phase_roundtrip(lgt, bst, train, valid, xv)
-    emit({"kernels": [{**kernels[k], "launches": counts[k]}
-                      for k in ("histogram", "split", "partition",
-                                "predict")]})
+    phase_profile(torch, lgt, train, valid)
+    emit({"kernels": [{**kernels[k], "launches": counts[k],
+                       "launches_by_path": {
+                           "main_path": counts[k],
+                           "per_iteration": per_it_counts[k],
+                           "fused_chunk": chunk_counts[k]}}
+                      for k in KERNEL_ORDER]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

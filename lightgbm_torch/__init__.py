@@ -3,9 +3,12 @@
 The same public surface as the JAX package (``Dataset``, ``train``,
 ``Booster``, the callbacks) and the same model text, with the device work
 in hand-written CUDA kernels for Hopper (``csrc/``): B1 histogram, B2 split
-scan, B3 row partition and B4 tree score update, each beside its plain
-PyTorch version.  Training runs on the CUDA card unless the caller passes
-``device_type="cpu"``; then every kernel runs as its plain version.
+scan, B3 row partition, B3s split step, B4 tree score update and B12
+traced metrics, each beside its plain PyTorch version.  ``train`` takes
+the JAX package's default paths (super-epochs and fused chunks, as CUDA
+graph replays) or its per-iteration loop.  Training runs on the CUDA card
+unless the caller passes ``device_type="cpu"``; then every kernel runs as
+its plain version.
 """
 
 __version__ = "0.1.0"

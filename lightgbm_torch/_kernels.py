@@ -7,13 +7,19 @@ name that carries a hash of the source and the flags, so an edited source
 is rebuilt and a stale library is never loaded.  Nothing is built or
 loaded when this module is imported: the first launch of a kernel builds
 its library, or ``build_all`` builds every library at once, one ``nvcc``
-process per source, all started together.
+process per source, all started together.  When a library is loaded, its
+``lgbt_<name>_setup`` entry point runs once: it loads the kernels on the
+device and sets per-kernel attributes, so that no launch makes such a
+call (a CUDA graph captures launches only).
 
 Every C entry point launches on the stream it is given and returns the
 value of ``cudaGetLastError()`` after the launch; ``check`` raises on a
 non-zero value.  Each kernel wrapper counts its launches in ``LAUNCHES``
 (one per wrapper call that launches, whatever the number of CUDA kernels
-behind it), so a run can show that it went through the kernels.
+behind it), so a run can show that it went through the kernels.  A CUDA
+graph replay calls no wrapper and counts nothing: the fused trainer
+records what it captured and how often it replayed it
+(``models/fused.py``).
 """
 
 from __future__ import annotations
@@ -31,13 +37,26 @@ from typing import Dict, Tuple
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-# kernel id -> CUDA source; the id is also the launch-counter key
+# library -> CUDA source
 SOURCES: Dict[str, str] = {
     "histogram": "histogram.cu",    # B1
     "split": "split.cu",            # B2
     "partition": "partition.cu",    # B3
+    "grow_step": "grow_step.cu",    # B3s
     "predict": "predict.cu",        # B4
+    "metrics": "metrics.cu",        # B12a, B12b
 }
+
+# kernel (launch-counter key) -> library
+KERNELS: Dict[str, str] = {
+    "histogram": "histogram", "split": "split", "partition": "partition",
+    "grow_step": "grow_step", "predict": "predict", "auc": "metrics",
+    "pointwise": "metrics",
+}
+
+# dynamic shared memory the B1 kernel may use (227 KB, all a block may
+# have on Hopper), set once at load
+HIST_SMEM_BYTES = 227 * 1024
 
 # -fmad=false: no multiply-add contraction, so a kernel's f32 arithmetic
 # rounds at the same places as the op-by-op plain PyTorch version
@@ -49,24 +68,39 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "histogram": {
-        "lgbt_histogram": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+        "lgbt_histogram": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _P),
+        "lgbt_histogram_setup": (_I,),
     },
     "split": {
         "lgbt_split": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
-                       _F, _F, _F, _P, _P, _P, _P),
+                       _F, _F, _F, _P, _P, _P, _P, _P),
+        "lgbt_split_setup": (),
     },
     "partition": {
-        "lgbt_partition": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P,
-                           _P, _P),
+        "lgbt_partition": (_P, _I, _I, _P, _P, _P, _P, _P),
+        "lgbt_partition_setup": (),
+    },
+    "grow_step": {
+        "lgbt_grow_step": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+        "lgbt_grow_step_setup": (),
     },
     "predict": {
         "lgbt_add_tree_score": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                 _F, _I, _P),
+        "lgbt_predict_setup": (),
+    },
+    "metrics": {
+        "lgbt_auc": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+        "lgbt_pointwise": (_P, _P, _P, _I, _I, _F, _P, _P, _P),
+        "lgbt_metrics_setup": (),
     },
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# arguments of each library's setup entry point
+_SETUP_ARGS: Dict[str, tuple] = {"histogram": (HIST_SMEM_BYTES,)}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -155,15 +189,31 @@ def lib(name: str) -> ctypes.CDLL:
             cfn = getattr(handle, fn)
             cfn.argtypes = list(argtypes)
             cfn.restype = ctypes.c_int
+        check(getattr(handle, f"lgbt_{name}_setup")(
+            *_SETUP_ARGS.get(name, ())), f"{name} setup")
         _libs[name] = handle
         return handle
 
 
+def load_all() -> None:
+    """Build and load every library (and run its setup) now: a caller
+    that is about to capture a CUDA graph does this first."""
+    build_all()
+    for name in SOURCES:
+        lib(name)
+
+
 def check(err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+    """Raise if a launch (or a setup call) returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: "
                            f"cudaError {err}")
+
+
+def launched(kernel: str, err: int) -> None:
+    """Check a launch's error code and count the launch."""
+    check(err, kernel)
+    LAUNCHES[kernel] += 1
 
 
 def stream_ptr(device) -> int:

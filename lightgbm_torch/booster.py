@@ -1,7 +1,9 @@
 """Booster: the user-facing model handle.
 
 Counterpart of the JAX package's ``booster.py`` for this slice: training
-(``update``), evaluation, prediction by the host tree walk, and the
+(``update`` per iteration, ``update_chunk`` and ``update_superepoch``
+fused), evaluation (host metrics, or the traced ones with
+``eval_valid_traced``), prediction by the host tree walk, and the
 reference model text (``GBDT::SaveModelToString`` / ``LoadModelFromString``,
 gbdt_model_text.cpp:311, 421), byte for byte the JAX package's format, so
 models move between the two packages.  The bucketed device predictor
@@ -190,6 +192,35 @@ class Booster:
         self._sync_trees()
         return stopped
 
+    def update_chunk(self, k: int) -> bool:
+        """Run ``k`` iterations fused, one host fetch per chunk
+        (GBDTModel.train_chunk).  The caller checks ``supports_fused()``;
+        returns True if training hit a no-split iteration."""
+        stopped = self._model.train_chunk(k)
+        self._sync_trees()
+        return stopped
+
+    def update_superepoch(self, k: int, es_it0: int, eval_spec=(),
+                          es_spec=None) -> dict:
+        """Run ``k`` full iterations (growth, scores, valid walks, traced
+        metrics, early-stop vote) fused, with one host fetch
+        (GBDTModel.train_superepoch).  Returns the fetched block that
+        engine.train replays through the callbacks."""
+        out = self._model.train_superepoch(k, es_it0, eval_spec, es_spec)
+        self._sync_trees()
+        return out
+
+    def supports_fused(self) -> bool:
+        return (self._model is not None and self._model.supports_fused()
+                and not self._model.valid_sets)
+
+    def fused_reasons(self) -> List[str]:
+        """Why ``supports_fused()`` is False: specific blockers, empty when
+        fusion is eligible (GBDTModel.fused_reasons)."""
+        if self._model is None:
+            return ["no active training model"]
+        return self._model.fused_reasons()
+
     def _sync_trees(self) -> None:
         self.trees = self._model.models
         self.tree_weights = self._model.tree_weights
@@ -218,6 +249,22 @@ class Booster:
             out.extend(self._eval_set(name, score, self._valid_metrics[i],
                                       ds, feval))
         return out
+
+    def _traced_spec(self) -> Tuple:
+        return tuple((vi, name, mt.name, mt.is_higher_better)
+                     for vi, name in enumerate(self._valid_names)
+                     for mt in self._valid_metrics[vi])
+
+    def eval_valid_traced(self) -> List[Tuple]:
+        """Every valid-set metric by the traced metric kernels (B12) with
+        one host fetch: the kernels the fused epochs report through, so a
+        ``fused_eval=true`` per-iteration run reports the same bits as a
+        super-epoch run.  ``fused_eval=false`` keeps the host f64
+        ``eval_valid``."""
+        spec = self._traced_spec()
+        vals = self._model.eval_traced(spec)
+        return [(name, mn, float(vals[e]), hib)
+                for e, (_vi, name, mn, hib) in enumerate(spec)]
 
     def _eval_set(self, name, score, metrics, dataset, feval) -> List[Tuple]:
         results = []

@@ -34,6 +34,12 @@
 // Bins >= num_bins add nothing (the TPU program's one-hot drops them too).
 // This is a first, simple design: every pass reads all N rows, and a
 // thread's slice accesses hit data-dependent banks.
+//
+// `active` (optional, a device int32): the grower's step record flag.
+// When it is 0 (the tree is done) both kernels return at once and write
+// nothing, so a dead step of a captured tree costs two empty launches.
+// The kernel's shared-memory limit is raised once, when the library is
+// loaded (`lgbt_histogram_setup`), never per launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,7 +53,9 @@ __global__ void hist_partial(const uint8_t* __restrict__ binned,
                              const int32_t* __restrict__ slot,
                              int n, int num_features, int num_bins,
                              int rows_per_block, int tile_f, int subranges,
+                             const int32_t* __restrict__ active,
                              float* __restrict__ partial) {
+  if (active != nullptr && *active == 0) return;
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;                 // tile_f * subranges
@@ -92,7 +100,9 @@ __global__ void hist_partial(const uint8_t* __restrict__ binned,
 }
 
 __global__ void hist_reduce(const float* __restrict__ partial, int nblocks,
-                            int elems, float* __restrict__ out) {
+                            int elems, const int32_t* __restrict__ active,
+                            float* __restrict__ out) {
+  if (active != nullptr && *active == 0) return;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= elems) return;
   float acc = partial[e];
@@ -103,26 +113,35 @@ __global__ void hist_reduce(const float* __restrict__ partial, int nblocks,
 }  // namespace
 
 // partial: [ceil(n / rows_per_block), F, B, 3] f32 scratch; out: [F, B, 3].
-// slot may be null.  Returns cudaGetLastError() after the launches.
+// slot and active may be null.  Returns cudaGetLastError() after the
+// launches.
 extern "C" int lgbt_histogram(const uint8_t* binned, const float* vals,
                               const int32_t* slot, int n, int num_features,
                               int num_bins, int rows_per_block, int tile_f,
-                              int subranges, float* partial, float* out,
+                              int subranges, const int32_t* active,
+                              float* partial, float* out,
                               cudaStream_t stream) {
   const int nblocks = (n + rows_per_block - 1) / rows_per_block;
   const int ntiles = (num_features + tile_f - 1) / tile_f;
   const int threads = tile_f * subranges;
   const size_t smem = (size_t)threads * num_bins * kChannels * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   hist_partial<<<dim3(nblocks, ntiles), threads, smem, stream>>>(
       binned, vals, slot, n, num_features, num_bins, rows_per_block, tile_f,
-      subranges, partial);
-  err = cudaGetLastError();
+      subranges, active, partial);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int elems = num_features * num_bins * kChannels;
   hist_reduce<<<(elems + 255) / 256, 256, 0, stream>>>(partial, nblocks,
-                                                       elems, out);
+                                                       elems, active, out);
   return (int)cudaGetLastError();
+}
+
+// Once per process, before any launch: let hist_partial use up to
+// `smem_bytes` of dynamic shared memory, and load both kernels.
+extern "C" int lgbt_histogram_setup(int smem_bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      hist_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  return (int)cudaFuncGetAttributes(&attr, hist_reduce);
 }

@@ -13,6 +13,13 @@
 // the main path (Nv = 200,000, F = 28) that is 5.6 + 1.6 = 7.2 MB, about
 // 2 us at 3.35 TB/s; the node tables (a few hundred bytes) stay in cache.
 //
+// The node tables are the grower's device tree arrays as it leaves them
+// (int32 each, default_left too) and the leaf values the trainer's f32
+// shrinkage wrote on the device: nothing of the tree is uploaded from the
+// host.  Inside a captured iteration `steps` is the configuration's worst
+// case (utils/shapes.py `traversal_steps`); a row stops at its leaf, so
+// surplus steps cost nothing and change no result.
+//
 // Design: one thread per row, which stops walking at its leaf.  The update
 // is written __fadd_rn(score, __fmul_rn(weight, value)) so that nvcc cannot
 // contract it into an FMA: the plain PyTorch version (a multiply, then an
@@ -28,7 +35,7 @@ __global__ void tree_score(float* __restrict__ score,
                            int num_features,
                            const int32_t* __restrict__ split_feature,
                            const int32_t* __restrict__ threshold_bin,
-                           const uint8_t* __restrict__ default_left,
+                           const int32_t* __restrict__ default_left,
                            const int32_t* __restrict__ left_child,
                            const int32_t* __restrict__ right_child,
                            const int32_t* __restrict__ na_bin,
@@ -57,7 +64,7 @@ extern "C" int lgbt_add_tree_score(float* score, const uint8_t* binned, int n,
                                    int num_features,
                                    const int32_t* split_feature,
                                    const int32_t* threshold_bin,
-                                   const uint8_t* default_left,
+                                   const int32_t* default_left,
                                    const int32_t* left_child,
                                    const int32_t* right_child,
                                    const int32_t* na_bin,
@@ -70,4 +77,9 @@ extern "C" int lgbt_add_tree_score(float* score, const uint8_t* binned, int n,
       default_left, left_child, right_child, na_bin, leaf_value, weight,
       steps);
   return (int)cudaGetLastError();
+}
+
+extern "C" int lgbt_predict_setup() {
+  cudaFuncAttributes attr;
+  return (int)cudaFuncGetAttributes(&attr, tree_score);
 }

@@ -25,6 +25,9 @@
 // is the floor this kernel is held against.  Its scratch (gains and prefix
 // sums, 70 KB) stays in L2.
 //
+// `active` (optional, a device int32): the grower's step record flag; when
+// it is 0 (the tree is done) both kernels return at once and write nothing.
+//
 // Design.  `split_gains`: one block per (feature, leaf) loads the [B, 3]
 // histogram into shared memory; three threads scan the bins in order, one
 // channel each (the same sequential order as the plain version's cumsum on
@@ -85,8 +88,10 @@ __global__ void split_gains(const float* __restrict__ hist,
                             const int32_t* __restrict__ na_bin,
                             const uint8_t* __restrict__ feature_mask,
                             int num_features, int num_bins, Params p,
+                            const int32_t* __restrict__ active,
                             float* __restrict__ gains,
                             float* __restrict__ cum_out) {
+  if (active != nullptr && *active == 0) return;
   extern __shared__ float cum[];
   const int f = blockIdx.x, k = blockIdx.y, b = threadIdx.x;
   const long long base = ((long long)k * num_features + f) * num_bins * 3;
@@ -145,7 +150,9 @@ __global__ void split_pick(const float* __restrict__ gains,
                            const float* __restrict__ parent_out,
                            const int32_t* __restrict__ na_bin,
                            int num_features, int num_bins, Params p,
+                           const int32_t* __restrict__ active,
                            float* __restrict__ out) {
+  if (active != nullptr && *active == 0) return;
   __shared__ float best_g[kPickThreads];
   __shared__ int best_i[kPickThreads];
   const int k = blockIdx.x, tid = threadIdx.x;
@@ -203,26 +210,34 @@ __global__ void split_pick(const float* __restrict__ gains,
 
 // hist [K, F, B, 3], total [K, 3], parent_out [K], num_bin/na_bin [F]
 // int32, feature_mask [F] uint8; scratch gains [K, 2, F, B] and cum
-// [K, F, B, 3]; out [K, 12].  Returns cudaGetLastError() after the launches.
+// [K, F, B, 3]; out [K, 12]; active may be null.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int lgbt_split(const float* hist, const float* total,
                           const float* parent_out, const int32_t* num_bin,
                           const int32_t* na_bin, const uint8_t* feature_mask,
                           int num_leaves, int num_features, int num_bins,
                           float l1, float l2, float min_data, float min_hess,
                           float min_gain, float max_delta, float path_smooth,
-                          float* gains, float* cum, float* out,
-                          cudaStream_t stream) {
+                          const int32_t* active, float* gains, float* cum,
+                          float* out, cudaStream_t stream) {
   const Params p{l1, l2, min_data, min_hess, min_gain, max_delta,
                  path_smooth};
   const int threads = ((num_bins + 31) / 32) * 32;
   split_gains<<<dim3(num_features, num_leaves), threads,
                 num_bins * 3 * sizeof(float), stream>>>(
       hist, total, parent_out, num_bin, na_bin, feature_mask, num_features,
-      num_bins, p, gains, cum);
+      num_bins, p, active, gains, cum);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_pick<<<num_leaves, kPickThreads, 0, stream>>>(
       gains, cum, hist, total, parent_out, na_bin, num_features, num_bins, p,
-      out);
+      active, out);
   return (int)cudaGetLastError();
+}
+
+extern "C" int lgbt_split_setup() {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, split_gains);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncGetAttributes(&attr, split_pick);
 }

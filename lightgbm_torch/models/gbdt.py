@@ -4,17 +4,30 @@ Counterpart of the JAX package's ``models/gbdt.py`` ``GBDTModel`` for the
 slice this port runs: the masked (one tree per iteration, strict
 leaf-wise) learner on one device.  One iteration (gbdt.cpp:371
 ``TrainOneIter``) is: BoostFromAverage on the first iteration ->
-gradients (B5) -> one tree from the grower (B1-B3) -> f32 shrinkage ->
-train score += leaf value gathered through the grower's row -> leaf
-vector -> every valid score += tree walk (B4).  Trees are kept on the
-host (``Tree``) for the model text and a device copy of each
-(``_DeviceTree``) for the valid-set walk.
+gradients (B5) -> one tree from the device-resident grower (B1-B3s) ->
+f32 shrinkage -> train score += leaf value gathered through the grower's
+row -> leaf vector -> every valid score += tree walk (B4).  The iteration
+is ``models/fused.py``'s ``IterationProgram.body``, and three paths run
+it, as in the JAX package:
+
+- ``train_one_iter``, the per-iteration path: the body once, then one
+  host fetch of the tree;
+- ``train_chunk``, fused chunks (no valid set): k iterations as k
+  replays of the body's CUDA graph, one fetch per chunk;
+- ``train_superepoch``: k iterations with the valid walks, the traced
+  metrics (B12) and the early-stop vote in the graph, one fetch per
+  epoch.
+
+The three give the same trees.  The reported metric values are not the
+same: the fused paths (and ``fused_eval=true`` per-iteration runs) report
+the traced f32 metrics, the per-iteration path by default the host f64
+metrics (``metrics.py``), as the JAX package does.  Every training fetch
+goes through ``_fetch``, which counts it by site.  Trees are kept on the
+host (``Tree``) for the model text and on the device (``_DeviceTree``,
+views of the fetched block's device copy) for later tree walks.
 
 Parameter values that need modules the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item (``_refuse_unported``).
-``fused_chunk`` and ``superepoch`` are accepted and run the per-iteration
-loop, which the JAX package's own contract makes byte-identical to them;
-the fused CUDA-graph loop is ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -29,12 +42,13 @@ from ..basic import LightGBMError
 from ..binning import BinType
 from ..config import Config
 from ..dataset import Dataset
-from ..grower import GrowStats, TreeArrays, grow_tree
+from ..grower import GrowWorkspace, host_tree
 from ..objectives import ObjectiveFunction
 from ..ops.split import SplitParams
 from ..predict_device import add_tree_score
 from ..tree_model import Tree
-from ..utils.shapes import round_up_pow2
+from ..utils.shapes import round_up_pow2, traversal_steps
+from .fused import IterationProgram
 
 
 def resolve_device(config: Config) -> torch.device:
@@ -51,9 +65,9 @@ def resolve_device(config: Config) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _refuse_unported(config: Config, ds: Dataset) -> None:
-    """NotImplementedError for every parameter value whose module the port
-    does not have yet, naming the ROADMAP item that ports it."""
+def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
+    """(what, ROADMAP item) of every parameter value whose module the
+    port does not have yet."""
     c = config
     checks = [
         (c.boosting not in ("gbdt", "gbrt"), f"boosting={c.boosting}", "A9"),
@@ -92,17 +106,24 @@ def _refuse_unported(config: Config, ds: Dataset) -> None:
         (any(ds.bin_mappers[f].bin_type == BinType.CATEGORICAL
              for f in ds.used_features), "categorical features", "A9"),
     ]
-    for hit, what, item in checks:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to lightgbm_torch yet (ROADMAP {item})")
+    return [(what, item) for hit, what, item in checks if hit]
+
+
+def _refuse_unported(config: Config, ds: Dataset) -> None:
+    """NotImplementedError for the first parameter value whose module the
+    port does not have yet, naming the ROADMAP item that ports it."""
+    for what, item in _unported(config, ds):
+        raise NotImplementedError(
+            f"{what} is not ported to lightgbm_torch yet (ROADMAP {item})")
 
 
 class PhaseTimer:
-    """Per-phase time of the iteration loop.  On the card it records CUDA
-    events on the stream (no synchronisation while training) and sums the
-    spans between consecutive marks when read; on the CPU it reads the host
-    clock.  Off unless a caller sets ``GBDTModel.phase_timer``."""
+    """Per-phase time of the per-iteration loop.  On the card it records
+    CUDA events on the stream (no synchronisation while training) and sums
+    the spans between consecutive marks when read; on the CPU it reads
+    the host clock.  Off unless a caller sets ``GBDTModel.phase_timer``.
+    A fused epoch is one graph replay per iteration, inside which no
+    phase can be timed: ``GBDTModel.epoch_ms`` times whole epochs."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -130,23 +151,18 @@ class PhaseTimer:
 
 
 class _DeviceTree:
-    """A tree's node tables and leaf values on the device, for B4."""
+    """A tree's node tables and shrunk leaf values on the device (views
+    of a fetched block's device copy), for B4."""
 
     __slots__ = ("split_feature", "threshold_bin", "default_left",
                  "left_child", "right_child", "leaf_value", "steps")
 
-    def __init__(self, arrays: TreeArrays, leaf_value: np.ndarray,
-                 steps: int, device: torch.device):
-        nodes = np.stack([arrays.split_feature, arrays.threshold_bin,
-                          arrays.left_child, arrays.right_child]
-                         ).astype(np.int32)
-        nodes_dev = torch.as_tensor(nodes).to(device)
-        self.split_feature, self.threshold_bin, self.left_child, \
-            self.right_child = nodes_dev.unbind(0)
-        self.default_left = torch.as_tensor(
-            np.asarray(arrays.default_left, bool)).to(device)
-        self.leaf_value = torch.as_tensor(
-            np.asarray(leaf_value, np.float32)).to(device)
+    def __init__(self, fields: Dict[str, torch.Tensor],
+                 leaf_value: torch.Tensor, steps: int):
+        for name in ("split_feature", "threshold_bin", "default_left",
+                     "left_child", "right_child"):
+            setattr(self, name, fields[name])
+        self.leaf_value = leaf_value
         self.steps = steps
 
 
@@ -187,16 +203,24 @@ class GBDTModel:
         )
         num_bin = np.asarray([ds.bin_mappers[f].num_bin
                               for f in ds.used_features], np.int32)
-        self.na_bin_host = np.asarray([ds.bin_mappers[f].na_bin
-                                       for f in ds.used_features], np.int32)
+        na_bin = np.asarray([ds.bin_mappers[f].na_bin
+                             for f in ds.used_features], np.int32)
         self.max_bin = int(num_bin.max())
         dev = self.device
         self.num_bin_dev = torch.as_tensor(num_bin).to(dev)
-        self.na_bin_dev = torch.as_tensor(self.na_bin_host).to(dev)
+        self.na_bin_dev = torch.as_tensor(na_bin).to(dev)
         self.feature_mask = torch.ones(self.num_features, dtype=torch.bool,
                                        device=dev)
         self.binned_dev = torch.as_tensor(
             np.ascontiguousarray(ds.binned)).to(dev)
+        self.grow_ws = GrowWorkspace(self.num_data, self.num_features,
+                                     self.max_bin, config.num_leaves, dev)
+        # the valid walk's level count: the configuration's worst case, on
+        # every path (a row stops at its leaf, so the result is the same)
+        self.walk_steps = traversal_steps(config.max_depth,
+                                          config.num_leaves)
+        self._lr32 = torch.tensor(np.float32(self.learning_rate),
+                                  device=dev)
 
         if self.objective is not None:
             self.objective.init(ds.metadata, self.num_data, dev)
@@ -212,12 +236,21 @@ class GBDTModel:
         # validation sets: (dataset, device binned, device score)
         self.valid_sets: List[Tuple[Dataset, torch.Tensor,
                                     torch.Tensor]] = []
+        self._valid_ops: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.models: List[Tree] = []
         self.device_trees: List[_DeviceTree] = []
         self.tree_weights: List[float] = []
         self.step_counts: List[int] = []
-        self.grow_stats = GrowStats()
         self.phase_timer: Optional[PhaseTimer] = None
+        # host fetches of training, by site (``_fetch``)
+        self.fetch_counts: Dict[str, int] = {}
+        # (eval_spec, es key) -> IterationProgram
+        self._programs: Dict[tuple, IterationProgram] = {}
+        # traced early-stop vote state (best, best iter, has best, stop)
+        self.es_state: Optional[Tuple[torch.Tensor, ...]] = None
+        # device milliseconds of every fused epoch (CUDA events)
+        self.epoch_ms: List[float] = []
+        self._fusable = not self._config_blockers()
 
     # -- plumbing ----------------------------------------------------------
     def add_valid_set(self, valid: Dataset) -> None:
@@ -244,89 +277,274 @@ class GBDTModel:
             _apply_tree(score, binned, dt, self.na_bin_dev,
                         self.tree_weights[ti])
         self.valid_sets.append((valid, binned, score))
+        # captured programs hold the old list of valid sets
+        self._programs.clear()
+        self.es_state = None
+
+    def valid_ops(self, vi: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device (label, weight) of valid set ``vi`` for the traced
+        metrics (weight 1 where the set has none)."""
+        ops = self._valid_ops.get(vi)
+        if ops is None:
+            md = self.valid_sets[vi][0].metadata
+            label = np.asarray(md.label, np.float32).reshape(-1)
+            weight = (np.ones_like(label) if md.weight is None else
+                      np.asarray(md.weight, np.float32).reshape(-1))
+            ops = (torch.as_tensor(label).to(self.device),
+                   torch.as_tensor(weight).to(self.device))
+            self._valid_ops[vi] = ops
+        return ops
+
+    def _fetch(self, t: torch.Tensor, site: str) -> np.ndarray:
+        """The one host fetch of training (the JAX package's ``_eget``):
+        copies ``t`` to the host and counts the fetch under ``site``."""
+        self.fetch_counts[site] = self.fetch_counts.get(site, 0) + 1
+        return t.cpu().numpy()
+
+    @property
+    def fetches(self) -> int:
+        """Host fetches of training so far, over all sites."""
+        return sum(self.fetch_counts.values())
 
     def _mark(self, phase: str) -> None:
         if self.phase_timer is not None:
             self.phase_timer.mark(phase)
 
+    def shrink(self, leaf_value: torch.Tensor) -> torch.Tensor:
+        """Leaf values times the learning rate, on the device.  f32, as
+        the JAX package shrinks on every configuration its fused path
+        accepts; a custom objective (not fusable) shrinks in f64 and
+        rounds once to f32, as the JAX package's host does."""
+        if self._fusable_config():
+            return leaf_value * self._lr32
+        return (leaf_value.double() * self.learning_rate).float()
+
+    def _program(self, eval_spec: Tuple = (), es_spec=None,
+                 rows: int = 1) -> IterationProgram:
+        key = (tuple(eval_spec), repr(es_spec))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = IterationProgram(
+                self, eval_spec, es_spec, rows)
+        return prog
+
+    def _boost_from_average(self) -> float:
+        """BoostFromAverage (gbdt.cpp:346): before the first gradients,
+        add the init score to the train and every valid scorer, in place;
+        the first saved tree gets it as a bias (AddBias, gbdt.cpp:416-418).
+        Returns the bias of this iteration's tree."""
+        cfg = self.config
+        if not (self.iter_ == 0 and self.objective is not None
+                and cfg.boost_from_average and not self._init_applied):
+            return 0.0
+        init = self.objective.boost_from_score(0)
+        self._init_scores = [init]
+        if init != 0.0:
+            bias = torch.tensor(init, dtype=torch.float32,
+                                device=self.device)
+            self.score += bias
+            for _, _, vscore in self.valid_sets:
+                vscore += bias
+        return init
+
+    # -- the fused path's eligibility ----------------------------------------
+    def _fusable_config(self) -> bool:
+        """Whether this configuration has fused-path semantics (whether or
+        not fusion is on); it also selects the f32 shrinkage on every
+        path, so that toggling ``fused_chunk`` never changes the model."""
+        return self._fusable
+
+    def supports_fused(self) -> bool:
+        """True when whole iterations can run as graph replays."""
+        return self.config.fused_chunk > 1 and self._fusable_config()
+
+    def _config_blockers(self) -> List[str]:
+        """Why this configuration has no fused-path semantics: every
+        parameter value the port refuses, and the JAX package's blockers
+        that the port can meet."""
+        reasons = [f"{what} is not ported to lightgbm_torch yet (ROADMAP "
+                   f"{item})" for what, item in _unported(self.config,
+                                                          self.train_set)]
+        if self.objective is None:
+            reasons.append("custom objective (fobj): gradients arrive from "
+                           "the host every iteration")
+        elif self.objective.need_renew_tree_output:
+            reasons.append(f"objective={self.objective.name} renews leaf "
+                           "outputs host-side (RenewTreeOutput)")
+        return reasons
+
+    def fused_reasons(self) -> List[str]:
+        """Every reason ``supports_fused()`` is False, empty when the fused
+        path is eligible."""
+        reasons = self._config_blockers()
+        if self.config.fused_chunk <= 1:
+            reasons.append(f"fused_chunk={self.config.fused_chunk} (set > 1 "
+                           "to enable fusion)")
+        return reasons
+
+    def _require_fusable(self, what: str) -> None:
+        if not self._fusable_config():
+            raise ValueError(f"{what}: config not fusable: "
+                             + "; ".join(self._config_blockers()))
+
     # -- training ----------------------------------------------------------
     def train_one_iter(self, grad: Optional[np.ndarray] = None,
                        hess: Optional[np.ndarray] = None) -> bool:
-        """One boosting iteration (gbdt.cpp:371 TrainOneIter).
-        Returns True if training should stop (no split was possible)."""
-        cfg = self.config
+        """One boosting iteration (gbdt.cpp:371 TrainOneIter), with one
+        host fetch of the tree.  Returns True if training should stop (no
+        split was possible)."""
         dev = self.device
-        if self.iter_ == 0 and self.objective is not None \
-                and cfg.boost_from_average and not self._init_applied:
-            # BoostFromAverage (gbdt.cpp:346): add the init score to the
-            # train and valid scorers before the first gradients; the saved
-            # tree gets it as a bias (AddBias, gbdt.cpp:416-418)
-            init = self.objective.boost_from_score(0)
-            self._init_scores = [init]
-            if init != 0.0:
-                bias = torch.tensor(init, dtype=torch.float32, device=dev)
-                self.score += bias
-                for _, _, vscore in self.valid_sets:
-                    vscore += bias
-        init_score = self._init_scores[0] if self.iter_ == 0 else 0.0
+        start_iter = self.iter_
+        init0 = self._boost_from_average()
+        gh = None
+        if grad is not None:
+            gh = (torch.as_tensor(np.asarray(grad, np.float32).reshape(-1)
+                                  ).to(dev),
+                  torch.as_tensor(np.asarray(hess, np.float32).reshape(-1)
+                                  ).to(dev))
+        elif self.objective is None:
+            raise ValueError("a custom objective needs grad and hess")
+        prog = self._program()
+        block = prog.run(1, eager=True, gh=gh, mark=self._mark)
+        host = self._fetch(block, "tree")
+        out = self._ingest(prog, host, block.clone(), 1, start_iter, init0)
+        return out["stump"]
 
-        self._mark("gradients")
-        if grad is None:
-            g, h = self.objective.get_gradients(self.score)
+    def train_chunk(self, k: int) -> bool:
+        """Run ``k`` iterations as graph replays with one host fetch of
+        the k tree records (the JAX package's ``train_chunk``; no valid
+        sets).  Returns True when a no-split iteration occurred."""
+        if self.valid_sets:
+            raise ValueError(
+                "train_chunk requires no validation sets: per-iteration "
+                "eval/early-stop runs go through train_superepoch")
+        self._require_fusable("train_chunk")
+        return self._epoch(k, 0, (), None)["stump"]
+
+    def train_superepoch(self, k: int, es_it0: int, eval_spec=(),
+                         es_spec=None) -> dict:
+        """Run ``k`` full iterations — grow, score update, valid walks,
+        traced metrics and the early-stop vote — as graph replays, with
+        exactly one host fetch (trees, eval block, stop flags).
+        ``engine.train`` replays the block through the real callbacks.
+        ``es_it0``: the ``env.iteration`` of the epoch's first row.
+        Returns ``{"evals": f32 [done, E], "done", "stump",
+        "stop_row"}``."""
+        self._require_fusable("train_superepoch")
+        return self._epoch(k, es_it0, tuple(eval_spec), es_spec)
+
+    def _epoch(self, k: int, es_it0: int, eval_spec, es_spec) -> dict:
+        start_iter = self.iter_
+        init0 = self._boost_from_average()
+        E = len(eval_spec)
+        if es_spec is not None and (self.es_state is None
+                                    or self.es_state[0].shape[0] != E):
+            dev = self.device
+            self.es_state = (torch.zeros(E, dtype=torch.float32, device=dev),
+                            torch.zeros(E, dtype=torch.int32, device=dev),
+                            torch.zeros(E, dtype=torch.bool, device=dev),
+                            torch.zeros((), dtype=torch.bool, device=dev))
+        prog = self._program(eval_spec, es_spec, k)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
         else:
-            g = torch.as_tensor(np.asarray(grad, np.float32).reshape(-1)
-                                ).to(dev)
-            h = torch.as_tensor(np.asarray(hess, np.float32).reshape(-1)
-                                ).to(dev)
-        # (grad*w, hess*w, w) with w = 1: no bagging/GOSS in this slice
-        vals = torch.stack([g, h, torch.ones_like(g)], dim=1)
+            t0 = time.perf_counter()
+        block = prog.run(k, es_it0, eager=not cuda)
+        if cuda:
+            t1.record()
+        # the one sync of the epoch (trees + eval block + stop flags)
+        host = self._fetch(block, "epoch")
+        self.epoch_ms.append(t0.elapsed_time(t1) if cuda else
+                             (time.perf_counter() - t0) * 1e3)
+        return self._ingest(prog, host, block.clone(), k, start_iter, init0)
 
-        self._mark("grow")
-        arrays = grow_tree(self.binned_dev, vals, self.feature_mask,
-                           self.num_bin_dev, self.na_bin_dev,
-                           num_leaves=cfg.num_leaves, num_bins=self.max_bin,
-                           params=self.split_params,
-                           max_depth=cfg.max_depth,
-                           na_bin_host=self.na_bin_host,
-                           stats=self.grow_stats)
-        self._mark("score")
-        nl = arrays.num_leaves
-        self.step_counts.append(arrays.n_steps)
-        leaf_values = np.asarray(arrays.leaf_value, np.float64).copy()
-        stopped = nl <= 1
-        if stopped:
-            leaf_values[:] = 0.0  # a stump contributes nothing (gbdt.cpp)
-        shrinkage = self.learning_rate
-        if self.objective is not None:
-            # f32 shrinkage, as the JAX package applies it on every
-            # configuration its fused path accepts (an exact f64 product of
-            # f32 operands rounded to f32 is the device's f32 multiply)
-            leaf_values = (leaf_values * np.float64(np.float32(shrinkage))
-                           ).astype(np.float32).astype(np.float64)
-        else:
-            leaf_values *= shrinkage
-        ht = Tree.from_arrays(arrays, self.train_set.used_features,
-                              self.train_set.bin_mappers)
-        ht.internal_value = ht.internal_value * shrinkage
-        ht.shrinkage = shrinkage
-        # the scorers already carry the bias; the saved tree gets it
-        ht.leaf_value = (leaf_values + init_score)[:max(nl, 1)].copy()
+    def _ingest(self, prog: IterationProgram, host: np.ndarray,
+                block: torch.Tensor, k: int, start_iter: int,
+                init0: float) -> dict:
+        """Host ``Tree`` and ``_DeviceTree`` of each fetched row, up to and
+        including the first stump or stop row (the JAX package's
+        ``_se_ingest``)."""
+        lr = self.learning_rate
+        L = self.config.num_leaves
+        fusable = self._fusable_config()
+        stopped, stop_row = False, None
+        for j in range(k):
+            fields = prog.row_fields(host, j)
+            tj = host_tree(host[j][:prog.W], L, self.max_bin)
+            nl = tj.num_leaves
+            self.step_counts.append(tj.n_steps)
+            if fusable:
+                lvj = fields["lv"].astype(np.float64)
+            else:
+                lvj = np.asarray(tj.leaf_value, np.float64) * lr
+            if nl <= 1:
+                stopped = True
+                lvj = np.zeros_like(lvj)  # a stump contributes nothing
+            ht = Tree.from_arrays(tj, self.train_set.used_features,
+                                  self.train_set.bin_mappers)
+            ht.internal_value = ht.internal_value * lr
+            ht.shrinkage = lr
+            bias = init0 if (start_iter == 0 and j == 0) else 0.0
+            ht.leaf_value = lvj[:max(nl, 1)] + bias   # Tree::AddBias
+            self.models.append(ht)
+            dfields = prog.row_fields(block, j)
+            dev_lv = dfields["lv"] if nl > 1 else \
+                torch.zeros_like(dfields["lv"])
+            steps = round_up_pow2(max(ht.max_depth(), 1))
+            self.device_trees.append(_DeviceTree(dfields, dev_lv, steps))
+            self.tree_weights.append(1.0)
+            self.iter_ += 1
+            stop = bool(fields["stop"])
+            if stopped or stop:
+                if stop:
+                    stop_row = j
+                break
+        done = self.iter_ - start_iter
+        evals = np.stack([prog.row_fields(host, j)["ev"]
+                          for j in range(done)]) if done else \
+            np.zeros((0, prog.E), np.float32)
+        return {"evals": evals.reshape(done, prog.E), "done": done,
+                "stump": stopped, "stop_row": stop_row}
 
-        lv_dev = torch.as_tensor(leaf_values.astype(np.float32)).to(dev)
-        self.score += lv_dev.index_select(0, arrays.leaf_of_row)
+    def eval_traced(self, eval_spec) -> np.ndarray:
+        """Every entry of ``eval_spec`` by the traced metric kernels on
+        the current valid scores, in one host fetch (the ``fused_eval=
+        true`` per-iteration path; the same kernels as the fused
+        epochs)."""
+        prog = self._program(eval_spec)
+        ev = prog.teval([vs for _, _, vs in self.valid_sets],
+                        [self.valid_ops(vi)
+                         for vi in range(len(self.valid_sets))])
+        return self._fetch(ev, "traced_eval")
 
-        steps = round_up_pow2(max(ht.max_depth(), 1))
-        dt = _DeviceTree(arrays, leaf_values, steps, dev)
-        self._mark("valid")
-        for _, vbinned, vscore in self.valid_sets:
-            _apply_tree(vscore, vbinned, dt, self.na_bin_dev, 1.0)
-        self._mark("")
+    def drop_iterations(self, n: int) -> None:
+        """Take back the last ``n`` iterations (super-epoch replay
+        healing, when the host callbacks stop before the traced vote): the
+        trees go, and each one's contribution is subtracted from every
+        score by a tree walk with weight -1 (add-then-subtract is not bit
+        exact, but nothing trains on the healed score)."""
+        n = int(n)
+        if n <= 0:
+            return
+        for dt in self.device_trees[-n:]:
+            _apply_tree(self.score, self.binned_dev, dt, self.na_bin_dev,
+                        -1.0)
+            for _, vb, vs in self.valid_sets:
+                _apply_tree(vs, vb, dt, self.na_bin_dev, -1.0)
+        del self.models[-n:]
+        del self.device_trees[-n:]
+        del self.tree_weights[-n:]
+        del self.step_counts[-n:]
+        self.iter_ -= n
 
-        self.models.append(ht)
-        self.device_trees.append(dt)
-        self.tree_weights.append(1.0)
-        self.iter_ += 1
-        return stopped
+    def clear_es_stop(self) -> None:
+        """Reset the traced early-stop vote's stop latch (the vote tripped
+        but the host replay did not: trust the host, keep training)."""
+        if self.es_state is not None:
+            self.es_state[3].zero_()
 
     # -- scores ------------------------------------------------------------
     @property
@@ -334,10 +552,10 @@ class GBDTModel:
         return self.iter_
 
     def train_score(self) -> np.ndarray:
-        return self.score.cpu().numpy()
+        return self._fetch(self.score, "train_score")
 
     def valid_score(self, i: int) -> np.ndarray:
-        return self.valid_sets[i][2].cpu().numpy()
+        return self._fetch(self.valid_sets[i][2], "valid_score")
 
 
 def create_boosting(config: Config, train_set: Dataset,

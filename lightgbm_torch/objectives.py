@@ -61,6 +61,16 @@ class ObjectiveFunction:
 class RegressionL2(ObjectiveFunction):
     name = "regression"
 
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        # the f32 average, as the JAX package takes it on its device; read
+        # here, at set-up, so that training itself makes no host read
+        if self.weight is not None:
+            avg = torch.sum(self.label * self.weight) / torch.sum(self.weight)
+        else:
+            avg = torch.mean(self.label)
+        self._label_avg = float(avg)
+
     def get_gradients(self, score):
         grad = score - self.label
         hess = torch.ones_like(score)
@@ -69,11 +79,7 @@ class RegressionL2(ObjectiveFunction):
     def boost_from_score(self, class_id=0):
         if not self.config.boost_from_average:
             return 0.0
-        # an f32 average, as the JAX package takes it on its device
-        if self.weight is not None:
-            return float(torch.sum(self.label * self.weight)
-                         / torch.sum(self.weight))
-        return float(torch.mean(self.label))
+        return self._label_avg
 
 
 class BinaryLogloss(ObjectiveFunction):

@@ -20,9 +20,9 @@ import torch
 
 from .. import _kernels
 
-# shared memory a block may use on Hopper (227 KB), and the caps of the
-# kernel's launch shape (see csrc/histogram.cu)
-_SMEM_BYTES = 227 * 1024
+# shared memory a block may use on Hopper (227 KB, raised once at load),
+# and the caps of the kernel's launch shape (see csrc/histogram.cu)
+_SMEM_BYTES = _kernels.HIST_SMEM_BYTES
 _MAX_SUBRANGES = 8
 _MAX_THREADS = 1024
 # row blocks: about one per SM of an H100 (132), but never under 1024 rows.
@@ -51,7 +51,8 @@ def launch_shape(n: int, num_features: int,
 
 
 def _check(binned: torch.Tensor, vals: torch.Tensor,
-           slot: Optional[torch.Tensor]) -> None:
+           slot: Optional[torch.Tensor],
+           active: Optional[torch.Tensor] = None) -> None:
     if binned.dim() != 2 or binned.dtype != torch.uint8:
         raise TypeError("binned must be a [N, F] uint8 tensor")
     if vals.dim() != 2 or vals.shape != (binned.shape[0], 3) \
@@ -62,20 +63,29 @@ def _check(binned: torch.Tensor, vals: torch.Tensor,
         if slot.shape != (binned.shape[0],) or slot.dtype != torch.int32:
             raise TypeError("slot must be a [N] int32 tensor")
         tensors.append(slot)
+    if active is not None:
+        if active.shape != (1,) or active.dtype != torch.int32:
+            raise TypeError("active must be a [1] int32 tensor")
+        tensors.append(active)
     if any(t.device != binned.device for t in tensors):
-        raise ValueError("binned, vals and slot must be on one device")
+        raise ValueError("binned, vals, slot and active must be on one "
+                         "device")
 
 
 def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
                       num_bins: int,
-                      slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      slot: Optional[torch.Tensor] = None,
+                      active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[F, num_bins, 3] f32 histogram of ``vals`` over ``binned``; rows
     whose ``slot`` is negative add nothing.  The strict grower passes
     ``slot`` = 0 for the smaller child's rows and -1 elsewhere (the JAX
-    package's ``num_slots=1`` form; multi-slot is ROADMAP A8)."""
-    _check(binned, vals, slot)
+    package's ``num_slots=1`` form; multi-slot is ROADMAP A8), and its
+    step's ``active`` flag (a [1] int32 device tensor): where it is 0 the
+    pass does nothing and the result is unspecified."""
+    _check(binned, vals, slot, active)
     if binned.device.type == "cpu":
-        return histogram_plain(binned, vals, num_bins=num_bins, slot=slot)
+        return histogram_plain(binned, vals, num_bins=num_bins, slot=slot,
+                               active=active)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
     if not (binned.is_contiguous() and vals.is_contiguous()
@@ -94,18 +104,23 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
     err = lib.lgbt_histogram(
         binned.data_ptr(), vals.data_ptr(),
         None if slot is None else slot.data_ptr(), n, f, num_bins, rows,
-        tile_f, subranges, partial.data_ptr(), out.data_ptr(),
+        tile_f, subranges, None if active is None else active.data_ptr(),
+        partial.data_ptr(), out.data_ptr(),
         _kernels.stream_ptr(binned.device))
-    _kernels.check(err, "histogram")
-    _kernels.LAUNCHES["histogram"] += 1
+    _kernels.launched("histogram", err)
     return out
 
 
 def histogram_plain(binned: torch.Tensor, vals: torch.Tensor, *,
                     num_bins: int,
-                    slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    slot: Optional[torch.Tensor] = None,
+                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of B1: ``index_add_`` over ``f*B + bin``.
-    Bins >= num_bins add nothing, as in the kernel."""
+    Bins >= num_bins add nothing, as in the kernel; an inactive step
+    returns zeros."""
+    if active is not None and not bool(active[0]):
+        return torch.zeros((binned.shape[1], num_bins, 3),
+                           dtype=torch.float32, device=binned.device)
     if slot is not None:
         keep = slot >= 0
         binned, vals = binned[keep], vals[keep]

@@ -105,7 +105,8 @@ def leaf_gain(sum_g, sum_h, p: SplitParams, parent_output=None, count=None):
     return -(2.0 * tg * out + (sum_h + p.lambda_l2) * out * out)
 
 
-def _check(hist, total, parent_output, num_bin, na_bin, feature_mask):
+def _check(hist, total, parent_output, num_bin, na_bin, feature_mask,
+           active=None):
     if hist.dim() != 4 or hist.shape[-1] != 3 \
             or hist.dtype != torch.float32:
         raise TypeError("hist must be a [K, F, B, 3] float32 tensor")
@@ -119,23 +120,32 @@ def _check(hist, total, parent_output, num_bin, na_bin, feature_mask):
             raise TypeError(f"{name} must be a [F] int32 tensor")
     if feature_mask.shape != (f,) or feature_mask.dtype != torch.bool:
         raise TypeError("feature_mask must be a [F] bool tensor")
-    if any(t.device != hist.device for t in
-           (total, parent_output, num_bin, na_bin, feature_mask)):
+    others = [total, parent_output, num_bin, na_bin, feature_mask]
+    if active is not None:
+        if active.shape != (1,) or active.dtype != torch.int32:
+            raise TypeError("active must be a [1] int32 tensor")
+        others.append(active)
+    if any(t.device != hist.device for t in others):
         raise ValueError("find_best_split inputs must be on one device")
 
 
 def find_best_split(hist: torch.Tensor, total: torch.Tensor,
                     parent_output: torch.Tensor, num_bin: torch.Tensor,
                     na_bin: torch.Tensor, feature_mask: torch.Tensor,
-                    params: SplitParams) -> torch.Tensor:
+                    params: SplitParams,
+                    active: torch.Tensor | None = None) -> torch.Tensor:
     """Best numerical split of each of K leaves.
 
     hist [K, F, B, 3] f32, total [K, 3] (the leaves' g/h/count sums),
     parent_output [K] (path-smoothing anchor), num_bin / na_bin [F] int32
     (na_bin -1 = no NA bin), feature_mask [F] bool.  Returns [K, 12] split
-    records."""
-    _check(hist, total, parent_output, num_bin, na_bin, feature_mask)
+    records.  ``active`` (a [1] int32 device tensor, the grower's step
+    flag): where it is 0 nothing is computed and the records are
+    unspecified."""
+    _check(hist, total, parent_output, num_bin, na_bin, feature_mask, active)
     if hist.device.type == "cpu":
+        if active is not None and not bool(active[0]):
+            return torch.zeros((hist.shape[0], RECORD), dtype=torch.float32)
         return find_best_split_plain(hist, total, parent_output, num_bin,
                                      na_bin, feature_mask, params)
     if hist.device.type != "cuda":
@@ -157,10 +167,9 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
         k, f, b, p.lambda_l1, p.lambda_l2,
         float(p.min_data_in_leaf) - 0.5, p.min_sum_hessian_in_leaf,
         p.min_gain_to_split, p.max_delta_step, p.path_smooth,
-        gains.data_ptr(), cum.data_ptr(), out.data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(err, "split")
-    _kernels.LAUNCHES["split"] += 1
+        None if active is None else active.data_ptr(), gains.data_ptr(),
+        cum.data_ptr(), out.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.launched("split", err)
     return out
 
 

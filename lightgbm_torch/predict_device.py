@@ -5,7 +5,10 @@ Counterpart of the JAX package's ``predict_device.py``
 over its bins (NA bin -> ``default_left``, else ``bin <= threshold``) and
 ``score += weight * leaf_value[leaf]``.  The trainer runs it once per
 iteration on each validation set (the ScoreUpdater::AddScore path); the
-training score takes the leaf of each row from the grower instead.
+training score takes the leaf of each row from the grower instead.  The
+node tables are the grower's device tree arrays (int32, ``default_left``
+too; a bool ``default_left`` is also taken) and the leaf values the f32
+shrinkage left on the device: no tree is uploaded from the host.
 
 On CUDA tensors ``add_tree_score`` launches the kernel of
 ``csrc/predict.cu``; on CPU tensors it runs ``add_tree_score_plain``.  Both
@@ -34,9 +37,10 @@ def _check(score, binned, split_feature, threshold_bin, default_left,
         if t.dtype != torch.int32 or t.shape != nodes:
             raise TypeError(f"{name} must be an int32 tensor of the "
                             "split_feature shape")
-    if default_left.dtype != torch.bool or default_left.shape != nodes:
-        raise TypeError("default_left must be a bool tensor of the "
-                        "split_feature shape")
+    if default_left.dtype not in (torch.bool, torch.int32) \
+            or default_left.shape != nodes:
+        raise TypeError("default_left must be a bool or int32 tensor of "
+                        "the split_feature shape")
     if na_bin.dtype != torch.int32 or na_bin.shape != (binned.shape[1],):
         raise TypeError("na_bin must be a [F] int32 tensor")
     if leaf_value.dtype != torch.float32 or leaf_value.dim() != 1:
@@ -73,14 +77,15 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
     n, f = binned.shape
     if n == 0:
         return score
+    if default_left.dtype == torch.bool:
+        default_left = default_left.to(torch.int32)
     err = _kernels.lib("predict").lgbt_add_tree_score(
         score.data_ptr(), binned.data_ptr(), n, f, split_feature.data_ptr(),
         threshold_bin.data_ptr(), default_left.data_ptr(),
         left_child.data_ptr(), right_child.data_ptr(), na_bin.data_ptr(),
         leaf_value.data_ptr(), float(weight), int(steps),
         _kernels.stream_ptr(score.device))
-    _kernels.check(err, "add_tree_score")
-    _kernels.LAUNCHES["predict"] += 1
+    _kernels.launched("predict", err)
     return score
 
 
@@ -98,7 +103,7 @@ def traverse_tree_plain(binned, split_feature, threshold_bin, default_left,
         v = torch.gather(binned, 1, f[:, None])[:, 0].to(torch.int32)
         nb = na_bin[f]
         is_na = (nb >= 0) & (v == nb)
-        go_left = torch.where(is_na, default_left[nid],
+        go_left = torch.where(is_na, default_left[nid] != 0,
                               v <= threshold_bin[nid])
         nxt = torch.where(go_left, left_child[nid], right_child[nid])
         node = torch.where(internal, nxt, node)

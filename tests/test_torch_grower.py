@@ -1,15 +1,17 @@
-"""The port's strict grower (B1-B3 plain versions on the CPU) against the
-JAX package's masked ``make_grower`` on the same ``vals``.  On fixtures
-whose split gains are well separated the integer tree arrays and the
-row -> leaf vector are equal; f32 fields agree to ``RTOL`` (histogram
-sums are taken in another order)."""
+"""The port's device-resident strict grower (B1-B3s plain versions on the
+CPU) against the JAX package's masked ``make_grower`` on the same
+``vals``.  On fixtures whose split gains are well separated the integer
+tree arrays and the row -> leaf vector are equal; f32 fields agree to
+``RTOL`` (histogram sums are taken in another order).  The tree stays on
+the device until one fetch brings it to the host."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from lightgbm_torch.grower import GrowStats, grow_tree, partition_plain
+from lightgbm_torch.grower import (STEP_RECORD, GrowWorkspace, fetch_tree,
+                                   grow_tree, partition_plain)
 from lightgbm_torch.ops.split import SplitParams as TParams
 from lightgbm_tpu.grower import make_grower
 from lightgbm_tpu.ops.split import SplitParams as JParams
@@ -37,15 +39,17 @@ def test_grower_matches_jax(leaves, depth, params):
                        hist_overlap=True)
     tj = grow(jnp.asarray(binned), jnp.asarray(vals), jnp.asarray(mask),
               jnp.asarray(num_bin), jnp.asarray(na_bin))
-    stats = GrowStats()
-    tt = grow_tree(torch.as_tensor(binned), torch.as_tensor(vals),
-                   torch.as_tensor(mask), torch.as_tensor(num_bin),
-                   torch.as_tensor(na_bin), num_leaves=leaves, num_bins=31,
-                   params=TParams(**params), max_depth=depth, stats=stats)
+    ws = GrowWorkspace(4000, 8, 31, leaves, torch.device("cpu"))
+    args = [torch.as_tensor(a) for a in (binned, vals, mask, num_bin,
+                                         na_bin)]
+    grow_tree(*args, num_leaves=leaves, num_bins=31,
+              params=TParams(**params), max_depth=depth, workspace=ws)
+    # the tree stays in the workspace until this one fetch (one fetch per
+    # tree in training: tests/test_torch_fused.py)
+    tt = fetch_tree(ws)
     nl = int(tj.num_leaves)
     assert tt.num_leaves == nl and nl > 2
-    assert tt.n_steps == int(tj.n_steps) == stats.splits
-    assert stats.fetches == stats.splits + (1 if nl < leaves else 0)
+    assert tt.n_steps == int(tj.n_steps)
     n = nl - 1
     for name in ("split_feature", "threshold_bin", "default_left",
                  "left_child", "right_child"):
@@ -68,14 +72,25 @@ def test_grower_matches_jax(leaves, depth, params):
         assert tt.leaf_depth[:nl].max() <= depth
 
 
+def _rec(leaf, new_leaf, feature, threshold, default_left, na_bin,
+         smaller, active=1):
+    rec = torch.tensor([leaf, new_leaf, feature, threshold, default_left,
+                        na_bin, smaller, active], dtype=torch.int32)
+    assert rec.shape == (STEP_RECORD,)
+    return rec
+
+
 def test_partition_plain_moves_right_rows_and_slots():
     binned = torch.tensor([[0], [5], [9], [9], [2]], dtype=torch.uint8)
     lor = torch.tensor([0, 0, 0, 1, 1], dtype=torch.int32)
     rank = torch.arange(10, dtype=torch.int32)
     # threshold 4 on feature 0, bin 9 is the NA bin and goes left
-    slot = partition_plain(binned, lor, 0, 4, True, 9, rank, 0, 2, 2)
+    slot = partition_plain(binned, lor, _rec(0, 2, 0, 4, 1, 9, 2), rank)
     assert lor.tolist() == [0, 2, 0, 1, 1]
     assert slot.tolist() == [-1, 0, -1, -1, -1]
-    slot = partition_plain(binned, lor, 0, 4, False, 9, rank, 1, 3, 1)
+    slot = partition_plain(binned, lor, _rec(1, 3, 0, 4, 0, 9, 1), rank)
     assert lor.tolist() == [0, 2, 0, 3, 1]
     assert slot.tolist() == [-1, -1, -1, -1, 0]
+    # an inactive step (the tree is done) moves no row
+    partition_plain(binned, lor, _rec(0, 4, 0, 0, 0, -1, 4, active=0), rank)
+    assert lor.tolist() == [0, 2, 0, 3, 1]
