@@ -51,7 +51,38 @@ Phases, one JSON line each:
 
 9. profile: one more main-path training traced with ``torch.profiler``:
    the device time of each kernel and the device's busy share inside the
-   steady epochs.
+   steady epochs;
+10. serving_model: the serving model, SERVE_ROUNDS rounds of 31 leaves on
+   the 1M x 28 train set without a valid set (fused chunks);
+11. serve_kernels: B10a (forest walk), B10b (device binning) and B10c
+   (fused forest predict) against their plain versions on the card, bit
+   for bit, with the serving model's packed and int32 tables and with a
+   synthetic 500-tree forest with categorical splits and stumps, on the
+   200,000 valid rows with NaNs, exact threshold ties and out-of-range
+   values; then each kernel's, plain version's and library call's times
+   and bound on the plain valid rows;
+12. predict: ``Booster.predict`` of the main path's booster and of the
+   serving model on the 200,000 valid rows at ``predict_bucketed=auto``:
+   the engine route (B10a launched once per bucket chunk of each call,
+   counted around those calls alone), byte-identical to the host walk,
+   ``pred_leaf`` equal to the host trees' leaves, rows/s of both routes
+   and the engine route's breakdown (host binning, upload, walk, the
+   [rows, trees] leaf-id fetch, host accumulation);
+13. fused_serve: ``PredictorEngine.fused_predict`` on the 200,000 rows,
+   byte-identical to ``_fused_reference`` on the rows where f32 and f64
+   binning agree and to the fused plain version on all rows, with
+   ``self_check(device_binning=True)``, the launches of those calls held
+   to the self-check's probe chunks and one fused launch per chunk; the
+   deviation from the host f64 path is reported;
+14. serve_host and serve_fused: a ``Server`` over the serving model at the
+   defaults and with ``serve_device_binning=true``: eight client threads
+   send SERVE_REQUESTS requests of 1 to 64 rows, every answer is checked
+   (against the host walk, or the fused reference and plain version),
+   the launches of the server's load are held to its self-check's probe
+   chunks and those of the requests to one per batch, no batch falls
+   back to the host walk, the breaker stays
+   closed; rows/s, p50/p99 latency and batches; one ``/predict`` and one
+   ``/healthz`` round trip over HTTP on 127.0.0.1.
 
 Then the ``kernels`` summary line, the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, exits non-zero and
@@ -72,6 +103,15 @@ import numpy as np
 
 N_TRAIN, N_VALID, N_FEAT = 1_000_000, 200_000, 28
 NUM_LEAVES, MAX_BIN, ROUNDS, ES_ROUNDS = 31, 63, 50, 10
+# the serving model and the server's traffic
+SERVE_ROUNDS, SERVE_REQUESTS, SERVE_THREADS, SERVE_MAX_BATCH = \
+    500, 2000, 8, 1024
+# integer operations of one level of a forest walk (gathers, compares,
+# selects), counted against the f32 rate: the published peaks used here
+# list no int32 rate outside the tensor cores, and the H100 issues int32
+# at half its f32 rate, so this bound is lower (stricter) than an int32
+# one
+WALK_OPS_PER_LEVEL = 12
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 # B1 and B2 sum in another order than their plain versions (index_add_
@@ -90,12 +130,16 @@ PATH_PARAMS = ("[superepoch:", "[fused_eval:", "[fused_chunk:")
 # one valid walk and one kernel per metric
 PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "partition": NUM_LEAVES - 1, "grow_step": NUM_LEAVES - 1,
-                 "predict": 1, "auc": 1, "pointwise": 1}
+                 "predict": 1, "auc": 1, "pointwise": 1, "forest_walk": 0,
+                 "bin_rows": 0, "fused_predict": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
 KERNEL_ORDER = ("histogram", "split", "partition", "grow_step", "predict",
-                "auc", "pointwise")
+                "auc", "pointwise", "forest_walk", "bin_rows", "fused_predict")
+# the path whose run gives each serving kernel's ``launches``
+SERVE_KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
+                     "fused_predict": "serve_fused"}
 
 
 def times(counts, n: int):
@@ -952,6 +996,580 @@ def phase_profile(torch, lgt, train, valid):
                            "count": c} for n, us, c in kernels[:20]]})
 
 
+# ---------------------------------------------------------------------------
+# serving (B10)
+# ---------------------------------------------------------------------------
+
+def host_walk(bst, x, **kw):
+    """``Booster.predict`` by the host tree walk (``predict_bucketed=false``),
+    leaving the booster's mode and engine cache as they were."""
+    old, cache = bst.config.predict_bucketed, bst._engine_cache
+    bst.config.predict_bucketed = "false"
+    try:
+        return bst.predict(x, **kw)
+    finally:
+        bst.config.predict_bucketed = old
+        bst._engine_cache = cache
+
+
+def random_forest(rng, n_trees, n_feat, cat_feats, max_leaves, x):
+    """A forest of random leaf-wise trees over the columns of ``x``:
+    numerical splits at values taken from ``x`` (so rows tie them exactly),
+    NaN routed by default_left on every third feature and converted to 0.0
+    on the others, categorical splits (bitsets over 0..39) on
+    ``cat_feats``, and a stump every 37 trees."""
+    from lightgbm_torch.tree_model import Tree
+    miss = {f: (2 if f % 3 == 0 else 0) for f in range(n_feat)}
+    trees = []
+    for ti in range(n_trees):
+        nl = 1 if ti % 37 == 5 else int(rng.randint(2, max_leaves + 1))
+        t = Tree(nl)
+        parent = {0: None}
+        for i in range(nl - 1):
+            leaf = int(rng.randint(0, i + 1))
+            f = int(rng.randint(0, n_feat))
+            t.split_feature[i] = f
+            if f in cat_feats:
+                t.threshold[i] = t._add_cat_bitset(
+                    np.flatnonzero(rng.rand(40) < 0.4))
+                t.decision_type[i] = 1
+            else:
+                col = x[:, f]
+                col = col[np.isfinite(col)]
+                t.threshold[i] = float(col[rng.randint(0, len(col))])
+                t.decision_type[i] = (miss[f] << 2) \
+                    | (int(rng.rand() < 0.5) << 1)
+            if parent[leaf] is not None:
+                node, left = parent[leaf]
+                if left:
+                    t.left_child[node] = i
+                else:
+                    t.right_child[node] = i
+            t.left_child[i], t.right_child[i] = ~leaf, ~(i + 1)
+            parent[leaf], parent[i + 1] = (i, True), (i, False)
+        t.leaf_value[:] = rng.randn(nl) * 0.1
+        trees.append(t)
+    return trees
+
+
+def hard_rows(x, trees, rng, nan_frac=0.02):
+    """``x`` with NaNs, every numerical threshold of ``trees`` copied into
+    some row (exact ties), and out-of-range values (+-1e30, +-inf, -0.0)."""
+    x = np.array(x, np.float64)
+    x[rng.rand(*x.shape) < nan_frac] = np.nan
+    for t in trees:
+        for i in range(t.num_nodes()):
+            if not int(t.decision_type[i]) & 1:
+                x[rng.randint(0, len(x)), int(t.split_feature[i])] = \
+                    t.threshold[i]
+    for v in (1e30, -1e30, np.inf, -np.inf, -0.0):
+        x[rng.randint(0, len(x), 50), rng.randint(0, x.shape[1], 50)] = v
+    return x
+
+
+def forest_args(eng):
+    """The engine's node tables in ``traverse_forest_binned`` order (after
+    ``binned``), and in ``fused_forest_predict`` order (after the binning
+    tables) with its leaf values and weights."""
+    d = eng._dev
+    walk = (d["split_feature"], d["threshold_bin"], d["default_left"],
+            d["left_child"], d["right_child"], d["na_bin"],
+            d["is_cat_node"], d["cat_index"], d["cat_table"])
+    thr, zero_bin, cat_vals, cat_len = eng._device_bin_tables()
+    lv, w = eng._fused_dev_arrays()
+    bins = (thr, d["na_bin"], zero_bin, cat_vals, cat_len)
+    fused = (d["split_feature"], d["threshold_bin"], d["default_left"],
+             d["left_child"], d["right_child"], d["is_cat_node"],
+             d["cat_index"], d["cat_table"], lv, w)
+    return walk, bins, fused
+
+
+def leaf_depths(trees, leaves):
+    """Levels walked by every (row, tree) pair of ``leaves`` [N, T]: the
+    depth of the leaf it reached."""
+    total = 0
+    for ti, t in enumerate(trees):
+        depth = np.zeros(max(t.num_leaves, 1), np.int64)
+        stack = [(0, 1)] if t.num_leaves > 1 else []
+        while stack:
+            node, dep = stack.pop()
+            for c in (t.left_child[node], t.right_child[node]):
+                if c >= 0:
+                    stack.append((int(c), dep + 1))
+                else:
+                    depth[~c] = dep
+        # a stump's padded root is one level
+        depth = depth if t.num_leaves > 1 else np.ones(1, np.int64)
+        total += int(depth[leaves[:, ti]].sum())
+    return total
+
+
+def max_abs_diff(torch, a, b) -> float:
+    """Largest |a - b| over two tensors of one shape, in f64; raises when
+    they differ, as every B10 kernel must equal its plain version."""
+    d = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    if a.shape != b.shape or d != 0.0:
+        raise AssertionError(f"kernel differs from its plain version: "
+                             f"max |diff| {d}, shapes {a.shape} {b.shape}")
+    return d
+
+
+def forest_launches(lgt_kernels, **counts) -> dict:
+    """Every kernel's expected launches: ``counts``, the rest 0."""
+    return {k: counts.get(k, 0) for k in lgt_kernels.launch_counts()}
+
+
+def chunks(eng, n: int) -> int:
+    """Launches of one engine call on ``n`` rows: one per bucket chunk."""
+    return -(-n // eng._bucket(n))
+
+
+def self_check_launches(eng, device_binning: bool) -> dict:
+    """The launches a passing ``eng.self_check`` (at its default probe
+    sizes, 64 rows per chunk up to 4,096) makes: a walk per probe chunk
+    and, with device binning, on each chunk that holds rows where f32 and
+    f64 binning agree, one more binning and walk and, for a fused-capable
+    model, one fused launch."""
+    cands = eng._probe_candidates()
+    total = min(max(len(c) for c in cands), 4096)
+    n = {"forest_walk": 0, "bin_rows": 0, "fused_predict": 0}
+    for off in range(0, total, 64):
+        idx = off + np.arange(min(64, total - off))
+        probe = np.stack([c[idx % len(c)] for c in cands], axis=1)
+        n["forest_walk"] += 1
+        if device_binning and eng._f32_consensus_mask(probe).any():
+            n["bin_rows"] += 1
+            n["forest_walk"] += 1
+            n["fused_predict"] += int(eng.fused_reason is None)
+    return n
+
+
+def hold_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def same_bits(torch, a, b) -> bool:
+    """Whether two f32 tensors hold the same bits."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def check_forest_kernels(torch, eng, x, what: str) -> dict:
+    """B10a, B10b and B10c against their plain versions on the card, bit
+    for bit, on rows ``x`` (float64 host rows)."""
+    from lightgbm_torch import predict_device as pdv
+    from lightgbm_torch.serve.engine import _upload
+    walk, bins, fused = forest_args(eng)
+    binned = _upload(eng.bin_rows(x).astype(eng._bin_dtype), eng.device)
+    lk = pdv.traverse_forest_binned(binned, *walk, steps=eng._steps)
+    lp = pdv.traverse_forest_plain(binned, *walk, steps=eng._steps)
+    xd = torch.from_numpy(x.astype(np.float32)).to(eng.device)
+    bk = pdv.bin_rows_device_full(xd, *bins)
+    bp = pdv.bin_rows_plain(xd, *bins)
+    fk = pdv.fused_forest_predict(xd, *bins, *fused, eng._avg_denom,
+                                  steps=eng._steps, num_class=eng.num_class)
+    fp = pdv.fused_forest_plain(xd, *bins, *fused, eng._avg_denom,
+                                steps=eng._steps, num_class=eng.num_class)
+    torch.cuda.synchronize()
+    out = {"walk_equal": torch.equal(lk, lp),
+           "bins_equal": torch.equal(bk, bp),
+           "fused_bits_equal": same_bits(torch, fk, fp),
+           "binned_dtype": str(binned.dtype),
+           "threshold_dtype": str(walk[1].dtype),
+           "child_dtype": str(walk[3].dtype),
+           "cat_index_dtype": str(walk[7].dtype),
+           "cat_nodes": int(eng._is_cat_node.sum()),
+           "stumps": int(sum(t.num_leaves <= 1 for t in eng.trees)),
+           "nan_cells": int(np.isnan(x).sum()), "steps": eng._steps}
+    if not all(out[k] for k in ("walk_equal", "bins_equal",
+                                "fused_bits_equal")):
+        raise AssertionError(f"B10 ({what}) differs from its plain "
+                             f"version: {out}")
+    return out
+
+
+def phase_serving_model(torch, lgt, lgt_kernels, train):
+    """The serving model: SERVE_ROUNDS rounds on the train set without a
+    valid set, which takes fused chunks."""
+    params = {"objective": "binary", "num_leaves": NUM_LEAVES,
+              "max_bin": MAX_BIN, "learning_rate": 0.1, "verbosity": -1}
+    t0 = time.perf_counter()
+    bst = lgt.train(params, train, SERVE_ROUNDS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    m = bst._model
+    fused_program(m)
+    if set(m.fetch_counts) != {"epoch"}:
+        raise AssertionError(f"serving model did not take fused chunks: "
+                             f"{m.fetch_counts}")
+    depths = [t.max_depth() for t in bst.trees]
+    emit({"phase": "serving_model", "rounds": SERVE_ROUNDS,
+          "trees": bst.num_trees(), "seconds": secs,
+          "host_fetches": m.fetch_counts, "max_depth": max(depths),
+          "mean_depth": float(np.mean(depths))})
+    return bst
+
+
+def phase_serve_kernels(torch, lgt, bst, xv):
+    """B10a-c against their plain versions at the serving shapes, then
+    timed on the plain valid rows."""
+    from lightgbm_torch import predict_device as pdv
+    from lightgbm_torch.serve import PredictorEngine
+    from lightgbm_torch.serve.engine import _upload
+    rng = np.random.RandomState(11)
+    checks = {}
+    hard = hard_rows(xv, bst.trees, rng)
+    engines = {}
+    for packed in (True, False):
+        eng = PredictorEngine.from_booster(bst, packed=packed)
+        engines[packed] = eng
+        checks[f"serving_model_packed={packed}"] = check_forest_kernels(
+            torch, eng, hard, f"serving model, packed={packed}")
+    cat_feats = {5, 11, 20}
+    xs = np.array(xv[:, :N_FEAT], np.float64)
+    for f in cat_feats:
+        xs[:, f] = rng.randint(-2, 45, len(xs))
+    forest = random_forest(rng, SERVE_ROUNDS, N_FEAT, cat_feats, NUM_LEAVES,
+                           xs)
+    xs = hard_rows(xs, forest, rng, nan_frac=0.05)
+    for packed in (True, False):
+        eng = PredictorEngine(forest, [1.0] * len(forest), 1, N_FEAT,
+                              packed=packed,
+                              device_type=bst.config.device_type)
+        checks[f"categorical_forest_packed={packed}"] = check_forest_kernels(
+            torch, eng, xs, f"categorical forest, packed={packed}")
+    emit({"phase": "serve_kernels_check", "rows": len(xv), "cases": checks})
+
+    # times on the plain valid rows, with the serving model's packed tables
+    eng = engines[True]
+    walk, bins, fused = forest_args(eng)
+    x = np.asarray(xv, np.float64)
+    n, f, T = len(x), x.shape[1], len(eng.trees)
+    binned = _upload(eng.bin_rows(x).astype(eng._bin_dtype), eng.device)
+    xd = torch.from_numpy(x.astype(np.float32)).to(eng.device)
+    leaves = pdv.traverse_forest_binned(binned, *walk, steps=eng._steps)
+    visits = leaf_depths(eng.trees, leaves.cpu().numpy())
+    table_bytes = sum(t.numel() * t.element_size() for t in walk)
+    rows = {}
+    steps = eng._steps
+    # each kernel's largest deviation from its plain version on these rows
+    fargs = (xd, *bins, *fused, eng._avg_denom)
+    err = {"forest_walk": max_abs_diff(
+               torch, leaves,
+               pdv.traverse_forest_plain(binned, *walk, steps=steps)),
+           "bin_rows": max_abs_diff(
+               torch, pdv.bin_rows_device_full(xd, *bins),
+               pdv.bin_rows_plain(xd, *bins)),
+           "fused_predict": max_abs_diff(
+               torch,
+               pdv.fused_forest_predict(*fargs, steps=steps, num_class=1),
+               pdv.fused_forest_plain(*fargs, steps=steps, num_class=1))}
+    t_k = median_ms(torch, lambda: pdv.traverse_forest_binned(
+        binned, *walk, steps=steps))
+    t_p = median_ms(torch, lambda: pdv.traverse_forest_plain(
+        binned, *walk, steps=steps), reps=5, warmup=1)
+    rows["forest_walk"] = ("B10a forest walk", t_k, t_p, bound_ms(
+        binned.numel() * binned.element_size() + 4 * n * T + table_bytes,
+        WALK_OPS_PER_LEVEL * visits), None)
+    t_k = median_ms(torch, lambda: pdv.bin_rows_device_full(xd, *bins))
+    t_p = median_ms(torch, lambda: pdv.bin_rows_plain(xd, *bins), reps=10)
+    thr = bins[0]
+    xt = xd.t().contiguous()
+    t_lib = median_ms(torch, lambda: torch.searchsorted(thr, xt))
+    # a search needs ceil(log2(B)) + 1 compares per value
+    search = int(np.ceil(np.log2(thr.shape[1]))) + 1
+    rows["bin_rows"] = ("B10b device binning", t_k, t_p, bound_ms(
+        8 * n * f + thr.numel() * 4 + 12 * f, 2 * n * f * search), t_lib)
+    t_k = median_ms(torch, lambda: pdv.fused_forest_predict(
+        xd, *bins, *fused, eng._avg_denom, steps=steps, num_class=1))
+    t_p = median_ms(torch, lambda: pdv.fused_forest_plain(
+        xd, *bins, *fused, eng._avg_denom, steps=steps, num_class=1),
+        reps=5, warmup=1)
+    lv_bytes = fused[-2].numel() * 4 + fused[-1].numel() * 4
+    rows["fused_predict"] = ("B10c fused forest predict", t_k, t_p, bound_ms(
+        4 * n * f + 4 * n + table_bytes + lv_bytes,
+        WALK_OPS_PER_LEVEL * visits + 2 * n * f * search + 2 * n * T), None)
+    out = {}
+    src = {"forest_walk": "lightgbm_tpu/predict_device.py:144",
+           "bin_rows": "lightgbm_tpu/predict_device.py:195",
+           "fused_predict": "lightgbm_tpu/predict_device.py:245"}
+    for key, (name, tk, tp, (bms, by), tl) in rows.items():
+        out[key] = {"name": name, "route": "cuda",
+                    "source": "lightgbm_torch/csrc/forest.cu",
+                    "replaces": src[key], "max_abs_err": err[key], "ms": tk,
+                    "plain_ms": tp, "bound_ms": bms, "bound_by": by,
+                    "library_ms": tl}
+        emit({"phase": "kernel", **out[key], "rows": n, "trees": T,
+              "levels_walked": visits})
+    return out
+
+
+def phase_predict(torch, lgt, lgt_kernels, main_bst, serve_bst, xv):
+    """``Booster.predict`` at ``predict_bucketed=auto`` on the valid rows:
+    the engine route, byte-identical to the host walk, with pred_leaf;
+    returns the launches of those calls alone, held to one walk per
+    bucket chunk of each call (the breakdown's timing runs after)."""
+    from lightgbm_torch.serve import PredictorEngine
+    from lightgbm_torch.serve.engine import _upload
+    x = np.asarray(xv, np.float64)
+    launches = forest_launches(lgt_kernels)
+    info = {}
+    for name, bst in (("main_path_model", main_bst),
+                      ("serving_model", serve_bst)):
+        bst._drop_predict_cache()
+        torch.cuda.synchronize()
+        lgt_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = bst.predict(x)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = bst.predict(x)
+        eng_s = time.perf_counter() - t0
+        leaf = bst.predict(x, pred_leaf=True)
+        torch.cuda.synchronize()
+        path = lgt_kernels.launch_counts()
+        eng = bst._engine_cache
+        if not isinstance(eng, PredictorEngine):
+            raise AssertionError(f"{name}: Booster.predict did not take "
+                                 "the engine route")
+        hold_launches(f"predict ({name})", path, forest_launches(
+            lgt_kernels, forest_walk=3 * chunks(eng, len(x))))
+        launches = {k: launches[k] + path[k] for k in launches}
+        t0 = time.perf_counter()
+        ref = host_walk(bst, x)
+        host_s = time.perf_counter() - t0
+        if not (np.array_equal(got, ref) and np.array_equal(again, ref)):
+            raise AssertionError(f"{name}: the engine route differs from "
+                                 "the host walk")
+        host_leaf = np.stack([t.predict_leaf(x) for t in bst.trees], axis=1)
+        if not np.array_equal(leaf, host_leaf):
+            raise AssertionError(f"{name}: pred_leaf differs from the host "
+                                 "trees' leaves")
+        # the engine route's parts, on the same rows
+        t0 = time.perf_counter()
+        binned = eng.bin_rows(x).astype(eng._bin_dtype)
+        bin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bd = _upload(binned, eng.device)
+        torch.cuda.synchronize()
+        up_s = time.perf_counter() - t0
+        walk_ms = median_ms(torch, lambda: eng._traverse(bd), reps=10)
+        dl = eng._traverse(bd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_ids = dl.cpu().numpy()
+        fetch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.raw_scores(x, leaves=host_ids)
+        acc_s = time.perf_counter() - t0
+        info[name] = {
+            "trees": len(bst.trees), "engine_first_call_s": first_s,
+            "engine_rows_per_s": len(x) / eng_s,
+            "host_walk_rows_per_s": len(x) / host_s,
+            "byte_identical": True, "pred_leaf_equal": True,
+            "launches": path,
+            "breakdown_s": {"host_binning": bin_s, "upload": up_s,
+                            "walk_kernel": walk_ms / 1e3,
+                            "leaf_id_fetch": fetch_s,
+                            "leaf_id_fetch_bytes": host_ids.nbytes,
+                            "host_accumulate": acc_s}}
+    emit({"phase": "predict", "rows": len(x), **info, "launches": launches})
+    return launches
+
+
+def phase_fused_serve(torch, lgt, lgt_kernels, bst, xv):
+    """``fused_predict`` on the valid rows against ``_fused_reference`` and
+    the fused plain version, and ``self_check(device_binning=True)``;
+    returns the launches of those two engine calls alone."""
+    x = np.asarray(xv, np.float64)
+    eng = bst._engine_cache
+    torch.cuda.synchronize()
+    lgt_kernels.reset_launch_counts()
+    ok = eng.self_check(device_binning=True)
+    if ok is not True:
+        raise AssertionError("self_check(device_binning=True) failed")
+    eng.fused_predict(x)
+    t0 = time.perf_counter()
+    got = eng.fused_predict(x)
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = lgt_kernels.launch_counts()
+    want = self_check_launches(eng, device_binning=True)
+    want["fused_predict"] += 2 * chunks(eng, len(x))
+    hold_launches("fused_serve", launches,
+                  forest_launches(lgt_kernels, **want))
+    mask = eng._f32_consensus_mask(x)
+    ref = eng._fused_reference(x[mask])
+    if not np.array_equal(got[mask], ref):
+        raise AssertionError("fused_predict differs from _fused_reference "
+                             "on the consensus rows")
+    if not np.array_equal(got, fused_plain_scores(torch, eng, x)):
+        raise AssertionError("fused_predict differs from its plain version")
+    host = host_walk(bst, x)
+    dev = np.abs(got.astype(np.float64) - host.astype(np.float64))
+    emit({"phase": "fused_serve", "rows": len(x), "self_check": True,
+          "consensus_rows": int(mask.sum()),
+          "non_consensus_rows": int((~mask).sum()),
+          "equal_reference_on_consensus": True, "equal_plain_all": True,
+          "rows_per_s": len(x) / secs,
+          "max_abs_dev_from_host_f64": float(dev.max()),
+          "max_abs_dev_from_host_f64_consensus": float(dev[mask].max()),
+          "mean_abs_dev_from_host_f64": float(dev.mean()),
+          "launches": launches})
+    return launches
+
+
+def fused_plain_scores(torch, eng, rows):
+    """The fused path's answers by its plain version on the card (the
+    same device binning, walk, sum and transform, op by op)."""
+    from lightgbm_torch import predict_device as pdv
+    _, bins, fused = forest_args(eng)
+    xd = torch.from_numpy(rows.astype(np.float32)).to(eng.device)
+    return eng._transform(pdv.fused_forest_plain(
+        xd, *bins, *fused, eng._avg_denom, steps=eng._steps,
+        num_class=1)).cpu().numpy()
+
+
+def drive_server(srv, reqs):
+    """SERVE_THREADS closed-loop clients, each sending its share of
+    ``reqs`` one after another; returns (answers, seconds per request,
+    wall seconds)."""
+    import threading
+    answers = [None] * len(reqs)
+    lat = [0.0] * len(reqs)
+    errors = []
+
+    def client(ids):
+        try:
+            for i in ids:
+                t = time.perf_counter()
+                answers[i] = srv.predict(reqs[i], timeout=120)
+                lat[i] = time.perf_counter() - t
+        except Exception as e:       # noqa: BLE001 — reported below
+            errors.append(repr(e))
+    threads = [threading.Thread(target=client,
+                                args=(range(c, len(reqs), SERVE_THREADS),))
+               for c in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"serve clients failed: {errors[:3]}")
+    return answers, np.asarray(lat), wall
+
+
+def http_roundtrip(lgt, srv, rows):
+    """One ``/predict`` and one ``/healthz`` over HTTP on 127.0.0.1."""
+    import urllib.request
+    fe = lgt.serve.start_http(srv, host="127.0.0.1", port=0)
+    try:
+        base = f"http://127.0.0.1:{fe.port}"
+        resp = json.loads(urllib.request.urlopen(urllib.request.Request(
+            base + "/predict", data=json.dumps({"rows": rows.tolist()}
+                                               ).encode(),
+            headers={"Content-Type": "application/json"}),
+            timeout=60).read())
+        health = json.loads(urllib.request.urlopen(base + "/healthz",
+                                                   timeout=60).read())
+    finally:
+        fe.close()
+    return resp, health
+
+
+def phase_serve(torch, lgt, lgt_kernels, bst, xv, device_binning: bool):
+    """A Server over ``bst``: SERVE_THREADS client threads send
+    SERVE_REQUESTS requests of 1-64 rows; every answer is checked.
+    Returns the launches of the server's load (its self-check) and of the
+    clients' requests, held to the self-check's probe chunks and one
+    launch per batch; the checks and the HTTP trip run after."""
+    rng = np.random.RandomState(21 + int(device_binning))
+    sizes = rng.randint(1, 65, SERVE_REQUESTS)
+    starts = rng.randint(0, len(xv) - 64, SERVE_REQUESTS)
+    x = np.asarray(xv, np.float64)
+    reqs = [x[s:s + k] for s, k in zip(starts, sizes)]
+    allrows = np.concatenate(reqs)
+    kernel = "fused_predict" if device_binning else "forest_walk"
+    torch.cuda.synchronize()
+    lgt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = lgt.Server({"serve_max_batch": SERVE_MAX_BATCH,
+                      "serve_device_binning": device_binning,
+                      "verbosity": -1}, booster=bst)
+    try:
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        load = lgt_kernels.launch_counts()
+        served = srv.registry.current()
+        if served.engine is None or served.self_check_failed:
+            raise AssertionError("the server's engine failed its "
+                                 "self-check")
+        eng = served.engine
+        hold_launches("server load", load, forest_launches(
+            lgt_kernels, **self_check_launches(eng, device_binning)))
+        lgt_kernels.reset_launch_counts()
+        answers, lat, wall = drive_server(srv, reqs)
+        torch.cuda.synchronize()
+        batches = srv.batcher.batches_dispatched
+        drive = lgt_kernels.launch_counts()
+        hold_launches("server requests", drive,
+                      forest_launches(lgt_kernels, **{kernel: batches}))
+        launches = {k: load[k] + drive[k] for k in load}
+        got = np.concatenate(answers)
+        check = {}
+        if device_binning:
+            mask = eng._f32_consensus_mask(allrows)
+            if not (np.array_equal(got[mask],
+                                   eng._fused_reference(allrows[mask]))
+                    and np.array_equal(got, fused_plain_scores(
+                        torch, eng, allrows))):
+                raise AssertionError("fused serve answers differ from the "
+                                     "reference")
+            check = {"consensus_rows": int(mask.sum()),
+                     "non_consensus_rows": int((~mask).sum())}
+        elif not np.array_equal(got, host_walk(bst, allrows)):
+            raise AssertionError("served answers differ from the host "
+                                 "walk")
+        lgt_kernels.reset_launch_counts()
+        resp, health = http_roundtrip(lgt, srv, reqs[0])
+        torch.cuda.synchronize()
+        hold_launches("HTTP /predict", lgt_kernels.launch_counts(),
+                      forest_launches(lgt_kernels, **{kernel: 1}))
+        if not np.array_equal(np.asarray(resp["predictions"], got.dtype),
+                              answers[0]) or health["status"] != "ok":
+            raise AssertionError(f"HTTP round trip: {resp}, {health}")
+        snap = srv.metrics_snapshot()
+        breaker = srv.breaker.describe()["state"]
+    finally:
+        srv.close()
+    fallback = snap.get("serve.host_fallback_batches", {}).get("value", 0)
+    fused_b = snap.get("serve.fused_batches", {}).get("value", 0)
+    # the HTTP trip is one more batch
+    if fallback != 0 or breaker != "closed" \
+            or (device_binning and fused_b != batches + 1):
+        raise AssertionError(f"fallback batches {fallback}, fused batches "
+                             f"{fused_b} of {batches} + 1, breaker "
+                             f"{breaker}")
+    lat_ms = 1e3 * lat
+    emit({"phase": "serve_fused" if device_binning else "serve_host",
+          "requests": SERVE_REQUESTS, "rows": int(len(allrows)),
+          "client_threads": SERVE_THREADS, "max_batch": SERVE_MAX_BATCH,
+          "load_s": load_s, "seconds": wall,
+          "rows_per_s": len(allrows) / wall,
+          "requests_per_s": SERVE_REQUESTS / wall,
+          "p50_ms": float(np.percentile(lat_ms, 50)),
+          "p99_ms": float(np.percentile(lat_ms, 99)),
+          "batches": batches, "fused_batches": fused_b,
+          "host_fallback_batches": fallback, "breaker": breaker,
+          "http_roundtrip": True, "answers_checked": SERVE_REQUESTS,
+          **check, "launches": launches, "load_launches": load,
+          "request_launches": drive})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -982,11 +1600,24 @@ def main() -> int:
     phase_reference(torch, lgt)
     phase_roundtrip(lgt, bst, train, valid, xv)
     phase_profile(torch, lgt, train, valid)
-    emit({"kernels": [{**kernels[k], "launches": counts[k],
-                       "launches_by_path": {
-                           "main_path": counts[k],
-                           "per_iteration": per_it_counts[k],
-                           "fused_chunk": chunk_counts[k]}}
+    serve_bst = phase_serving_model(torch, lgt, lgt_kernels, train)
+    kernels.update(phase_serve_kernels(torch, lgt, serve_bst, xv))
+    by_path = {"main_path": counts, "per_iteration": per_it_counts,
+               "fused_chunk": chunk_counts,
+               "predict": phase_predict(torch, lgt, lgt_kernels, bst,
+                                        serve_bst, xv),
+               "fused_serve": phase_fused_serve(torch, lgt, lgt_kernels,
+                                                serve_bst, xv),
+               "serve_host": phase_serve(torch, lgt, lgt_kernels, serve_bst,
+                                         xv, device_binning=False),
+               "serve_fused": phase_serve(torch, lgt, lgt_kernels,
+                                          serve_bst, xv,
+                                          device_binning=True)}
+    emit({"kernels": [{**kernels[k],
+                       "launches": by_path[SERVE_KERNEL_PATH.get(
+                           k, "main_path")].get(k, 0),
+                       "launches_by_path": {p: c.get(k, 0)
+                                            for p, c in by_path.items()}}
                       for k in KERNEL_ORDER]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,13 +13,15 @@ device and sets per-kernel attributes, so that no launch makes such a
 call (a CUDA graph captures launches only).
 
 Every C entry point launches on the stream it is given and returns the
-value of ``cudaGetLastError()`` after the launch; ``check`` raises on a
-non-zero value.  Each kernel wrapper counts its launches in ``LAUNCHES``
-(one per wrapper call that launches, whatever the number of CUDA kernels
-behind it), so a run can show that it went through the kernels.  A CUDA
-graph replay calls no wrapper and counts nothing: the fused trainer
-records what it captured and how often it replayed it
-(``models/fused.py``).
+value of ``cudaGetLastError()`` after the launch; ``check`` raises
+:class:`KernelError` on a non-zero value, as a failed build does.  Each
+kernel wrapper counts its launches in ``LAUNCHES`` (one per wrapper call
+that launches, whatever the number of CUDA kernels behind it), so a run
+can show that it went through the kernels.  The count is taken under a
+lock: the serving batcher's worker thread, HTTP handler threads and the
+caller's thread all launch.  A CUDA graph replay calls no wrapper and
+counts nothing: the fused trainer records what it captured and how often
+it replayed it (``models/fused.py``).
 """
 
 from __future__ import annotations
@@ -45,18 +47,20 @@ SOURCES: Dict[str, str] = {
     "grow_step": "grow_step.cu",    # B3s
     "predict": "predict.cu",        # B4
     "metrics": "metrics.cu",        # B12a, B12b
+    "forest": "forest.cu",          # B10a, B10b, B10c
 }
 
 # kernel (launch-counter key) -> library
 KERNELS: Dict[str, str] = {
     "histogram": "histogram", "split": "split", "partition": "partition",
     "grow_step": "grow_step", "predict": "predict", "auc": "metrics",
-    "pointwise": "metrics",
+    "pointwise": "metrics", "forest_walk": "forest", "bin_rows": "forest",
+    "fused_predict": "forest",
 }
 
-# dynamic shared memory the B1 kernel may use (227 KB, all a block may
-# have on Hopper), set once at load
-HIST_SMEM_BYTES = 227 * 1024
+# dynamic shared memory the B1 and B10c kernels may use (227 KB, all a
+# block may have on Hopper), set once at load
+SMEM_BYTES = 227 * 1024
 
 # -fmad=false: no multiply-add contraction, so a kernel's f32 arithmetic
 # rounds at the same places as the op-by-op plain PyTorch version
@@ -95,24 +99,58 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_pointwise": (_P, _P, _P, _I, _I, _F, _P, _P, _P),
         "lgbt_metrics_setup": (),
     },
+    "forest": {
+        "lgbt_forest_walk": (_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I,
+                             _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P),
+        "lgbt_bin_rows": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P),
+        "lgbt_fused_predict": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P,
+                               _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P,
+                               _I, _I, _I, _I, _I, _P, _I, _P, _F, _I, _P,
+                               _I, _I, _P, _P),
+        "lgbt_forest_setup": (_I,),
+    },
 }
 
 # arguments of each library's setup entry point
-_SETUP_ARGS: Dict[str, tuple] = {"histogram": (HIST_SMEM_BYTES,)}
+_SETUP_ARGS: Dict[str, tuple] = {"histogram": (SMEM_BYTES,),
+                                  "forest": (SMEM_BYTES,)}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# guards LAUNCHES: a count is a read-modify-write and several threads
+# launch (the serving batcher's worker, HTTP handlers, the caller)
+_count_lock = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A kernel library did not build, did not load, or a launch returned
+    a CUDA error.  Never a reason to fall back to another path: callers
+    let it propagate."""
+
+
+def is_kernel_fault(exc: BaseException) -> bool:
+    """Whether ``exc`` is a kernel's failure to build or launch, or a CUDA
+    fault surfacing at a later synchronise (PyTorch raises those as
+    ``RuntimeError`` with "CUDA error" in the message).  Serving code
+    re-raises such an error instead of treating it as a failed check."""
+    if isinstance(exc, KernelError):
+        return True
+    msg = str(exc)
+    return isinstance(exc, RuntimeError) and ("CUDA error" in msg
+                                              or "cudaError" in msg)
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    with _count_lock:
+        return dict(LAUNCHES)
 
 
 def nvcc_path() -> str:
@@ -123,7 +161,7 @@ def nvcc_path() -> str:
             return str(p)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
             "and PATH): the lightgbm_torch CUDA kernels cannot be built")
     return found
@@ -168,7 +206,7 @@ def _build(names) -> Dict[str, float]:
         else:
             os.replace(tmp, out)
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return times
 
 
@@ -206,14 +244,15 @@ def load_all() -> None:
 def check(err: int, what: str) -> None:
     """Raise if a launch (or a setup call) returned a CUDA error code."""
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {what} failed to launch: "
-                           f"cudaError {err}")
+        raise KernelError(f"CUDA kernel {what} failed to launch: "
+                          f"cudaError {err}")
 
 
 def launched(kernel: str, err: int) -> None:
     """Check a launch's error code and count the launch."""
     check(err, kernel)
-    LAUNCHES[kernel] += 1
+    with _count_lock:
+        LAUNCHES[kernel] += 1
 
 
 def stream_ptr(device) -> int:

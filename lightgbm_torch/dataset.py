@@ -1033,8 +1033,8 @@ class Dataset:
     def save_binary(self, path: str) -> None:
         """Binary dataset cache (dataset.cpp SaveBinaryFile analog)."""
         raise NotImplementedError(
-            "save_binary needs the atomic file writer of utils/resilience.py, "
-            "which lightgbm_torch does not have yet (ROADMAP A12)")
+            "save_binary (the binary dataset cache) is not ported to "
+            "lightgbm_torch yet (ROADMAP A12)")
 
     @classmethod
     def from_ingest(cls, source: str, params: Optional[Dict[str, Any]] = None,

@@ -33,7 +33,7 @@ Parameter values that need modules the port does not have yet raise
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +55,13 @@ def resolve_device(config: Config) -> torch.device:
     """The training device: the CUDA card unless ``device_type=cpu``.
     With ``device_type=cuda`` and no card this raises; it never carries on
     on the CPU."""
-    if config.device_type == "cpu":
+    return device_for(config.device_type)
+
+
+def device_for(device_type: str) -> torch.device:
+    """The device of ``device_type`` (``cuda`` or ``cpu``; see
+    ``resolve_device``)."""
+    if device_type == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise LightGBMError(
@@ -238,6 +244,9 @@ class GBDTModel:
                                     torch.Tensor]] = []
         self._valid_ops: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.models: List[Tree] = []
+        # called after the model drops trees on its own (the booster's
+        # predictor-cache invalidation)
+        self.on_change: Optional[Callable[[], None]] = None
         self.device_trees: List[_DeviceTree] = []
         self.tree_weights: List[float] = []
         self.step_counts: List[int] = []
@@ -539,6 +548,8 @@ class GBDTModel:
         del self.tree_weights[-n:]
         del self.step_counts[-n:]
         self.iter_ -= n
+        if self.on_change is not None:
+            self.on_change()
 
     def clear_es_stop(self) -> None:
         """Reset the traced early-stop vote's stop latch (the vote tripped

@@ -22,7 +22,7 @@ from .. import _kernels
 
 # shared memory a block may use on Hopper (227 KB, raised once at load),
 # and the caps of the kernel's launch shape (see csrc/histogram.cu)
-_SMEM_BYTES = _kernels.HIST_SMEM_BYTES
+_SMEM_BYTES = _kernels.SMEM_BYTES
 _MAX_SUBRANGES = 8
 _MAX_THREADS = 1024
 # row blocks: about one per SM of an H100 (132), but never under 1024 rows.

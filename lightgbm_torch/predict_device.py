@@ -12,11 +12,39 @@ shrinkage left on the device: no tree is uploaded from the host.
 
 On CUDA tensors ``add_tree_score`` launches the kernel of
 ``csrc/predict.cu``; on CPU tensors it runs ``add_tree_score_plain``.  Both
-update ``score`` in place.  Numerical nodes only: categorical decisions are
-ROADMAP A9, EFB-bundled rows A9, the whole-forest serving walk A14.
+update ``score`` in place.  Numerical nodes only: categorical decisions in
+training are ROADMAP A9, EFB-bundled rows A9.
+
+The whole-forest serving functions (kernel B10, ``csrc/forest.cu``; the
+JAX package's ``traverse_forest_binned``, ``bin_rows_device``,
+``bin_rows_device_full`` and the raw part of ``fused_forest_predict``)
+take the serving engine's structure-of-arrays tables (serve/engine.py):
+
+- ``traverse_forest_binned`` (B10a): leaf id per (row, tree) of a binned
+  matrix, [N, F] -> [N, T] int32;
+- ``bin_rows_device_full`` (B10b): the model-derived binning of raw f32
+  rows, [N, F] -> [N, F] int32 (``bin_rows_device``: numerical only);
+- ``fused_forest_predict`` (B10c): raw rows -> bins -> walk -> f32 leaf
+  gather times tree weight -> tree-order f32 sum per class -> divided by
+  ``avg_denom``, [N, F] -> [N] or [N, k] f32 raw scores (the objective's
+  output transform is applied after it, by the engine, as torch ops).
+
+Each launches its kernel on CUDA tensors and runs its plain PyTorch
+version (``*_plain``) on CPU tensors; the plain versions compute what the
+JAX functions compute, op for op.  The node tables arrive packed
+(thresholds uint8/uint16/int32, children int8/int16/int32, split features
+and categorical row indices uint8/uint16/int32, rank table uint8 or
+int32).  A uint16 table travels as an int16 tensor of the same bits
+(``torch.uint16`` has few CUDA ops): in the unsigned roles an int16 tensor
+is read as uint16.  The JAX package's trace counters
+(``forest_trace_count``, ``fused_trace_count``) have no counterpart: a
+CUDA kernel does not recompile per shape; the launches are counted in
+``_kernels.LAUNCHES`` instead.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -121,3 +149,337 @@ def add_tree_score_plain(score, binned, split_feature, threshold_bin,
                                steps=steps)
     score.add_(leaf_value[leaf.to(torch.int64)] * float(weight))
     return score
+
+
+# ---------------------------------------------------------------------------
+# Whole-forest serving (B10a-c)
+# ---------------------------------------------------------------------------
+
+# width codes of the C interface (csrc/forest.cu ``with_unsigned`` /
+# ``with_signed``)
+_UNSIGNED_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
+_SIGNED_CODES = {torch.int8: 0, torch.int16: 1, torch.int32: 2}
+_TABLE_CODES = {torch.uint8: 0, torch.int32: 2}
+if hasattr(torch, "uint16"):
+    _UNSIGNED_CODES[torch.uint16] = 1
+
+
+def _code(t: torch.Tensor, codes: dict, name: str) -> int:
+    c = codes.get(t.dtype)
+    if c is None:
+        raise TypeError(f"{name} has dtype {t.dtype}; the forest kernels "
+                        f"take {sorted(str(d) for d in codes)}")
+    return c
+
+
+def widen_unsigned(t: torch.Tensor) -> torch.Tensor:
+    """int32 values of a table in an unsigned role (an int16 tensor holds
+    uint16 bits)."""
+    if t.dtype == torch.int16 or t.dtype == getattr(torch, "uint16", None):
+        return t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t.to(torch.int32)
+
+
+_NODE_FIELDS = ("split_feature", "threshold_bin", "default_left",
+                "left_child", "right_child", "is_cat_node", "cat_index")
+
+
+def _check_forest(split_feature, threshold_bin, default_left, left_child,
+                  right_child, na_bin, is_cat_node, cat_index, cat_table,
+                  device) -> dict:
+    """Validate the node tables; returns their width codes."""
+    tables = dict(zip(_NODE_FIELDS, (split_feature, threshold_bin,
+                                     default_left, left_child, right_child,
+                                     is_cat_node, cat_index)))
+    shape = split_feature.shape
+    if split_feature.dim() != 2:
+        raise TypeError("split_feature must be a [T, M] tensor")
+    for name, t in tables.items():
+        if t.shape != shape:
+            raise TypeError(f"{name} must have the split_feature shape "
+                            f"{tuple(shape)}, not {tuple(t.shape)}")
+    for name in ("default_left", "is_cat_node"):
+        if tables[name].dtype not in (torch.bool, torch.uint8):
+            raise TypeError(f"{name} must be bool or uint8")
+    if na_bin.dtype != torch.int32 or na_bin.dim() != 1:
+        raise TypeError("na_bin must be a [F] int32 tensor")
+    if cat_table.dim() != 2:
+        raise TypeError("cat_table must be a [C, W] tensor")
+    if left_child.dtype != right_child.dtype:
+        raise TypeError("left_child and right_child must share a dtype")
+    everything = (*tables.values(), na_bin, cat_table)
+    if any(t.device != device for t in everything):
+        raise ValueError("forest inputs must be on one device")
+    return {"feat": _code(split_feature, _UNSIGNED_CODES, "split_feature"),
+            "thr": _code(threshold_bin, _UNSIGNED_CODES, "threshold_bin"),
+            "child": _code(left_child, _SIGNED_CODES, "left_child"),
+            "ci": _code(cat_index, _UNSIGNED_CODES, "cat_index"),
+            "ct": _code(cat_table, _TABLE_CODES, "cat_table")}
+
+
+def _contiguous(tensors: Sequence[torch.Tensor], what: str) -> None:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} needs contiguous tensors")
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A bool table as the uint8 bytes the kernels read."""
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def traverse_forest_plain(binned, split_feature, threshold_bin,
+                          default_left, left_child, right_child, na_bin,
+                          is_cat_node, cat_index, cat_table, *,
+                          steps: int) -> torch.Tensor:
+    """Plain PyTorch version of B10a: the JAX package's ``_forest_walk``
+    op for op — every (row, tree) pair walks ``steps`` levels of gathers,
+    a finished pair keeps its ~leaf."""
+    n = binned.shape[0]
+    t, m = split_feature.shape
+    dev = binned.device
+    bins = widen_unsigned(binned)
+    sf = widen_unsigned(split_feature).reshape(-1)
+    thr = widen_unsigned(threshold_bin).reshape(-1)
+    dl = default_left.reshape(-1) != 0
+    lc = left_child.to(torch.int32).reshape(-1)
+    rc = right_child.to(torch.int32).reshape(-1)
+    cat_node = is_cat_node.reshape(-1) != 0
+    ci_all = widen_unsigned(cat_index).reshape(-1)
+    ct = cat_table.to(torch.int32)
+    node = torch.zeros((n, t), dtype=torch.int32, device=dev)
+    base = (torch.arange(t, dtype=torch.int64, device=dev) * m)[None, :]
+    for _ in range(steps):
+        internal = node >= 0
+        idx = base + node.clamp_min(0).to(torch.int64)        # [N, T]
+        f = sf[idx].to(torch.int64)
+        v = torch.gather(bins, 1, f)
+        cat = cat_node[idx]
+        nb = na_bin[f]
+        is_na = (nb >= 0) & (v == nb) & ~cat
+        ci = ci_all[idx].to(torch.int64)
+        # the JAX gather clamps out-of-range indices; only categorical
+        # nodes read the rank, so the clamp changes nothing they use
+        vc = v.clamp(0, ct.shape[1] - 1).to(torch.int64)
+        rank = torch.where(cat, ct[ci.clamp(0, ct.shape[0] - 1), vc], v)
+        go_left = torch.where(is_na, dl[idx], rank <= thr[idx])
+        nxt = torch.where(go_left, lc[idx], rc[idx])
+        node = torch.where(internal, nxt, node)
+    return ~node
+
+
+def traverse_forest_binned(binned, split_feature, threshold_bin,
+                           default_left, left_child, right_child, na_bin,
+                           is_cat_node, cat_index, cat_table, *,
+                           steps: int) -> torch.Tensor:
+    """Leaf index for every (row, tree) pair (B10a): ``binned`` [N, F]
+    (uint8, uint16 as int16, or int32) -> [N, T] int32.  Node tables are
+    [T, M]; ``cat_index`` maps a categorical node to its row of
+    ``cat_table`` [C, W] (0 = the bin's category goes left, 1 = not),
+    numerical nodes compare the bin itself with ``threshold_bin``."""
+    if binned.dim() != 2:
+        raise TypeError("binned must be a [N, F] tensor")
+    codes = _check_forest(split_feature, threshold_bin, default_left,
+                          left_child, right_child, na_bin, is_cat_node,
+                          cat_index, cat_table, binned.device)
+    bin_code = _code(binned, _UNSIGNED_CODES, "binned")
+    if na_bin.shape[0] != binned.shape[1]:
+        raise TypeError("na_bin must have one entry per column of binned")
+    if binned.device.type == "cpu":
+        return traverse_forest_plain(
+            binned, split_feature, threshold_bin, default_left, left_child,
+            right_child, na_bin, is_cat_node, cat_index, cat_table,
+            steps=steps)
+    if binned.device.type != "cuda":
+        raise ValueError(f"unsupported device {binned.device}")
+    tables = (binned, split_feature, threshold_bin, default_left, left_child,
+              right_child, na_bin, is_cat_node, cat_index, cat_table)
+    _contiguous(tables, "traverse_forest_binned")
+    n, nf = binned.shape
+    t, m = split_feature.shape
+    out = torch.empty((n, t), dtype=torch.int32, device=binned.device)
+    if n == 0 or t == 0:
+        return out
+    err = _kernels.lib("forest").lgbt_forest_walk(
+        binned.data_ptr(), n, nf, bin_code, split_feature.data_ptr(),
+        codes["feat"], threshold_bin.data_ptr(), codes["thr"],
+        _bytes(default_left).data_ptr(), left_child.data_ptr(),
+        right_child.data_ptr(), codes["child"], na_bin.data_ptr(),
+        _bytes(is_cat_node).data_ptr(), cat_index.data_ptr(), codes["ci"],
+        cat_table.data_ptr(), codes["ct"], cat_table.shape[1], t, m,
+        int(steps), out.data_ptr(), _kernels.stream_ptr(binned.device))
+    _kernels.launched("forest_walk", err)
+    return out
+
+
+def _check_bins(x, thresholds, na_bin, zero_bin, cat_values, cat_len):
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise TypeError("x must be a [N, F] float32 tensor")
+    nf = x.shape[1]
+    if thresholds.dtype != torch.float32 or thresholds.dim() != 2 \
+            or thresholds.shape[0] != nf:
+        raise TypeError("thresholds must be a [F, B] float32 tensor")
+    if cat_values.dtype != torch.float32 or cat_values.dim() != 2 \
+            or cat_values.shape[0] != nf:
+        raise TypeError("cat_values must be a [F, C] float32 tensor")
+    for name, t in (("na_bin", na_bin), ("zero_bin", zero_bin),
+                    ("cat_len", cat_len)):
+        if t.dtype != torch.int32 or t.shape != (nf,):
+            raise TypeError(f"{name} must be a [F] int32 tensor")
+    if any(t.device != x.device for t in (thresholds, na_bin, zero_bin,
+                                          cat_values, cat_len)):
+        raise ValueError("binning inputs must be on one device")
+
+
+def bin_rows_plain(x, thresholds, na_bin, zero_bin, cat_values,
+                   cat_len) -> torch.Tensor:
+    """Plain PyTorch version of B10b: the JAX package's
+    ``bin_rows_device_full`` op for op (comparison sums)."""
+    isnan = torch.isnan(x)
+    bins = (x[:, :, None] > thresholds[None, :, :]).sum(
+        dim=-1, dtype=torch.int32)
+    fallback = torch.where(na_bin >= 0, na_bin, zero_bin)[None, :]
+    bins = torch.where(isnan, fallback, bins)
+    if cat_values.shape[1] > 0:
+        iv = torch.where(torch.isfinite(x), torch.trunc(x),
+                         torch.full_like(x, -1.0))
+        pos = (cat_values[None, :, :] < iv[:, :, None]).sum(
+            dim=-1, dtype=torch.int32)
+        hi = (cat_len - 1).clamp_min(0)[None, :]
+        posc = torch.minimum(pos.clamp_min(0), hi).to(torch.int64)
+        hit = torch.gather(cat_values, 1, posc.t().contiguous()).t()
+        cat_bin = torch.where(hit == iv, posc.to(torch.int32),
+                              cat_len[None, :].expand_as(pos))
+        bins = torch.where((cat_len > 0)[None, :], cat_bin, bins)
+    return bins
+
+
+def bin_rows_device_full(x, thresholds, na_bin, zero_bin, cat_values,
+                         cat_len) -> torch.Tensor:
+    """Model-derived binning of raw f32 rows, both feature kinds (B10b):
+    [N, F] float32 -> [N, F] int32.  ``thresholds`` [F, B] and
+    ``cat_values`` [F, C] are each feature's sorted f32 table padded with
+    +inf; ``cat_len[f] > 0`` marks a categorical feature."""
+    _check_bins(x, thresholds, na_bin, zero_bin, cat_values, cat_len)
+    if x.device.type == "cpu":
+        return bin_rows_plain(x, thresholds, na_bin, zero_bin, cat_values,
+                              cat_len)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _contiguous((x, thresholds, na_bin, zero_bin, cat_values, cat_len),
+                "bin_rows_device_full")
+    n, nf = x.shape
+    out = torch.empty((n, nf), dtype=torch.int32, device=x.device)
+    if n == 0 or nf == 0:
+        return out
+    err = _kernels.lib("forest").lgbt_bin_rows(
+        x.data_ptr(), n, nf, thresholds.data_ptr(), thresholds.shape[1],
+        na_bin.data_ptr(), zero_bin.data_ptr(), cat_values.data_ptr(),
+        cat_values.shape[1], cat_len.data_ptr(), out.data_ptr(),
+        _kernels.stream_ptr(x.device))
+    _kernels.launched("bin_rows", err)
+    return out
+
+
+def bin_rows_device(x, thresholds, na_bin, zero_bin) -> torch.Tensor:
+    """Model-derived binning of raw numerical f32 rows (B10b without
+    categorical features)."""
+    nf = x.shape[1] if x.dim() == 2 else 0
+    return bin_rows_device_full(
+        x, thresholds, na_bin, zero_bin,
+        torch.empty((nf, 0), dtype=torch.float32, device=x.device),
+        torch.zeros(nf, dtype=torch.int32, device=x.device))
+
+
+def fused_forest_plain(x, thresholds, na_bin, zero_bin, cat_values, cat_len,
+                       split_feature, threshold_bin, default_left,
+                       left_child, right_child, is_cat_node, cat_index,
+                       cat_table, leaf_value, tree_weight,
+                       avg_denom: float, *, steps: int,
+                       num_class: int) -> torch.Tensor:
+    """Plain PyTorch version of B10c: bin, walk, gather, multiply, then
+    add in tree order per class and divide, each a separate f32 op as in
+    the JAX package's ``fused_forest_predict`` (raw scores)."""
+    binned = bin_rows_plain(x, thresholds, na_bin, zero_bin, cat_values,
+                            cat_len)
+    leaves = traverse_forest_plain(
+        binned, split_feature, threshold_bin, default_left, left_child,
+        right_child, na_bin, is_cat_node, cat_index, cat_table, steps=steps)
+    n, t = leaves.shape
+    leaves = leaves.clamp(0, leaf_value.shape[1] - 1).to(torch.int64)
+    vals = torch.gather(leaf_value, 1, leaves.t().contiguous()).t()
+    prods = vals * tree_weight[None, :]
+    k = max(1, int(num_class))
+    score = torch.zeros((n, k), dtype=torch.float32, device=x.device)
+    for ti in range(t):
+        score[:, ti % k] += prods[:, ti]
+    score = score / torch.tensor(avg_denom, dtype=torch.float32,
+                                 device=x.device)
+    return score if k > 1 else score[:, 0]
+
+
+def fused_forest_predict(x, thresholds, na_bin, zero_bin, cat_values,
+                         cat_len, split_feature, threshold_bin,
+                         default_left, left_child, right_child,
+                         is_cat_node, cat_index, cat_table, leaf_value,
+                         tree_weight, avg_denom: float, *, steps: int,
+                         num_class: int) -> torch.Tensor:
+    """Raw rows [N, F] f32 -> raw scores, one kernel (B10c): the bins of
+    B10b, the walk of B10a, ``leaf_value`` [T, Lp] f32 times
+    ``tree_weight`` [T] f32, summed per class in tree order, divided by
+    ``avg_denom``.  Returns [N] f32 for one class, else [N, k]."""
+    _check_bins(x, thresholds, na_bin, zero_bin, cat_values, cat_len)
+    codes = _check_forest(split_feature, threshold_bin, default_left,
+                          left_child, right_child, na_bin, is_cat_node,
+                          cat_index, cat_table, x.device)
+    t = split_feature.shape[0]
+    if leaf_value.dtype != torch.float32 or leaf_value.dim() != 2 \
+            or leaf_value.shape[0] != t or leaf_value.shape[1] < 1:
+        raise TypeError("leaf_value must be a [T, L] float32 tensor")
+    if tree_weight.dtype != torch.float32 or tree_weight.shape != (t,):
+        raise TypeError("tree_weight must be a [T] float32 tensor")
+    if any(v.device != x.device for v in (leaf_value, tree_weight)):
+        raise ValueError("fused_forest_predict inputs must be on one device")
+    args = (x, thresholds, na_bin, zero_bin, cat_values, cat_len,
+            split_feature, threshold_bin, default_left, left_child,
+            right_child, is_cat_node, cat_index, cat_table, leaf_value,
+            tree_weight)
+    if x.device.type == "cpu":
+        return fused_forest_plain(*args, avg_denom, steps=steps,
+                                  num_class=num_class)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _contiguous(args, "fused_forest_predict")
+    n, nf = x.shape
+    k = max(1, int(num_class))
+    out = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out if k > 1 else out[:, 0]
+    if t == 0:
+        out.zero_()
+        return out if k > 1 else out[:, 0]
+    # the row's bins in shared memory: 128 threads a block while they fit,
+    # fewer for wide rows, a global scratch row each beyond 32 threads'
+    # worth
+    row_bytes = 4 * max(nf, 1)
+    threads = min(128, _kernels.SMEM_BYTES // row_bytes // 32 * 32)
+    scratch = None
+    if threads < 32:
+        threads = 128
+        scratch = torch.empty((n, nf), dtype=torch.int32, device=x.device)
+    smem = 0 if scratch is not None else threads * row_bytes
+    m = split_feature.shape[1]
+    err = _kernels.lib("forest").lgbt_fused_predict(
+        x.data_ptr(), n, nf, thresholds.data_ptr(), thresholds.shape[1],
+        na_bin.data_ptr(), zero_bin.data_ptr(), cat_values.data_ptr(),
+        cat_values.shape[1], cat_len.data_ptr(), split_feature.data_ptr(),
+        codes["feat"], threshold_bin.data_ptr(), codes["thr"],
+        _bytes(default_left).data_ptr(), left_child.data_ptr(),
+        right_child.data_ptr(), codes["child"],
+        _bytes(is_cat_node).data_ptr(), cat_index.data_ptr(), codes["ci"],
+        cat_table.data_ptr(), codes["ct"], cat_table.shape[1], t, m,
+        int(steps), leaf_value.data_ptr(), leaf_value.shape[1],
+        tree_weight.data_ptr(), float(avg_denom), k,
+        None if scratch is None else scratch.data_ptr(), threads, smem,
+        out.data_ptr(), _kernels.stream_ptr(x.device))
+    _kernels.launched("fused_predict", err)
+    return out if k > 1 else out[:, 0]

@@ -152,3 +152,74 @@ def test_categorical_feature_raises():
         lgt.train({"objective": "binary", "verbosity": -1,
                    "device_type": "cpu"},
                   lgt.Dataset(x, y, categorical_feature=[0]), 2)
+
+
+@pytest.mark.parametrize("sub", ["serve", "fleet", "obs",
+                                 "utils/resilience.py", "utils/shapes.py"])
+def test_serving_modules_import_no_jax(sub):
+    path = ROOT / "lightgbm_torch" / sub
+    files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
+    assert files and all(p.is_file() for p in files)
+    bad = [(str(p.relative_to(ROOT)), m) for p in files
+           for m in _imported_modules(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "lightgbm_tpu")]
+    assert bad == []
+
+
+def test_serving_shapes_equal_jax():
+    from lightgbm_torch.utils import shapes as ts
+    from lightgbm_tpu.utils import shapes as js
+    for n in list(range(0, 70)) + [127, 128, 129, 1000, 65537]:
+        assert ts._pow2_floor(n, 16) == js._pow2_floor(n, 16)
+        for fn in ("bucket_nodes", "bucket_leaf_slots", "bucket_bins",
+                   "bucket_steps", "round_up_pow2"):
+            assert getattr(ts, fn)(n) == getattr(js, fn)(n), (fn, n)
+        for kw in ({}, {"min_bucket": 1}, {"cap": 64}, {"cap": 100}):
+            assert ts.bucket_rows(n, **kw) == js.bucket_rows(n, **kw)
+
+
+def test_resilience_equal_jax():
+    from lightgbm_torch.utils import resilience as tr
+    from lightgbm_tpu.utils import resilience as jr
+    assert tr._RETRYABLE_PATTERNS == jr._RETRYABLE_PATTERNS
+    errors = [RuntimeError("claim hung"), RuntimeError("DEADLINE_EXCEEDED"),
+              ValueError("bad"), TypeError("x"), RuntimeError("boom"),
+              RuntimeError("CUDA error: an illegal memory access"),
+              tr.WatchdogTimeout("sync", 1.0), KeyboardInterrupt()]
+    for e in errors:
+        assert tr.is_retryable_device_error(e) \
+            == jr.is_retryable_device_error(e), e
+    for mod in (tr, jr):
+        calls = []
+
+        def flaky():
+            calls.append(1)
+            if len(calls) < 3:
+                raise RuntimeError("connection reset")
+            return "ok"
+        assert mod.retry_call(flaky, policy=mod.RetryPolicy(
+            max_attempts=3, base_delay_s=0.001, jitter=0.0)) == "ok"
+        assert len(calls) == 3
+    # the two breakers walk the same states on the same event sequence
+    clocks = {"t": 0.0}
+    bt = tr.CircuitBreaker(2, 1.0, 4.0, clock=lambda: clocks["t"])
+    bj = jr.CircuitBreaker(2, 1.0, 4.0, clock=lambda: clocks["t"])
+    for step, ev in enumerate("ffaxfsafxaf"):
+        clocks["t"] = 0.7 * step
+        for b in (bt, bj):
+            {"f": b.record_failure, "s": b.record_success,
+             "a": b.allow, "x": b.release_probe}[ev]()
+        assert bt.describe() == bj.describe()
+    assert tr.Watchdog(5.0, on_timeout="raise").run(lambda: 3) == 3
+    with pytest.raises(tr.WatchdogTimeout):
+        import time
+        tr.Watchdog(0.05, on_timeout="raise").run(time.sleep, 2.0)
+
+
+def test_atomic_write(tmp_path):
+    from lightgbm_torch.utils.resilience import atomic_write
+    path = tmp_path / "sub" / "m.txt"
+    atomic_write(path, "abc")
+    atomic_write(path, "defg")
+    assert path.read_text() == "defg"
+    assert [p.name for p in path.parent.iterdir()] == ["m.txt"]

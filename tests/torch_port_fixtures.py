@@ -52,3 +52,90 @@ def raw_problem(seed: int, n: int = 3000, f: int = 8, task: str = "binary",
     else:
         y = (2.0 * logit + 0.3 * rs.randn(n)).astype(np.float32)
     return x, y
+
+
+def serve_rows(n, f=6, seed=0, nan_frac=0.08, cat_col=None):
+    """Raw rows for the serving tests: NaNs, and integer categories in
+    ``cat_col`` (unseen, negative and NaN ones included)."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, f)
+    if cat_col is not None:
+        x[:, cat_col] = rs.randint(-2, 15, n)
+    x[rs.rand(n, f) < nan_frac] = np.nan
+    return x
+
+
+def hard_rows(x, trees, seed=0):
+    """``x`` with the values a binning can get wrong: every numerical
+    split threshold of ``trees`` copied into some row (exact ties), and
+    out-of-range values (+-1e30, +-inf, -0.0) in others."""
+    rs = np.random.RandomState(seed)
+    x = np.array(x, np.float64)
+    for t in trees:
+        for i in range(t.num_nodes()):
+            if not int(t.decision_type[i]) & 1:
+                x[rs.randint(0, len(x)), int(t.split_feature[i])] = \
+                    t.threshold[i]
+    for v in (1e30, -1e30, np.inf, -np.inf, -0.0):
+        x[rs.randint(0, len(x), 3), rs.randint(0, x.shape[1])] = v
+    return x
+
+
+def jax_serve_models():
+    """JAX-trained models across the serving matrix, as
+    {tag: (model text, test rows)}: regression with NaNs, binary, binary
+    with a stump tree in the middle, 3-class, a categorical feature, and
+    a forest of stumps only."""
+    import lightgbm_tpu as lgb
+    from lightgbm_tpu.tree_model import Tree
+
+    def train(params, x, y, rounds=8, **kw):
+        return lgb.train({"verbosity": -1, "num_leaves": 8, **params},
+                         lgb.Dataset(x, label=y, **kw),
+                         num_boost_round=rounds)
+
+    rs = np.random.RandomState(7)
+    out = {}
+    x = serve_rows(500, seed=1)
+    y = np.where(np.isnan(x[:, 0]), 0.3, x[:, 0] + 0.5 * x[:, 1])
+    bst = train({"objective": "regression"}, x, y)
+    out["regression"] = (bst, serve_rows(150, seed=11))
+    x = serve_rows(500, seed=2)
+    y = (np.nan_to_num(x[:, 0]) > 0).astype(np.float64)
+    bst = train({"objective": "binary"}, x, y)
+    out["binary"] = (bst, serve_rows(150, seed=12))
+    stumped = lgb.Booster(model_str=bst.model_to_string())
+    stump = Tree(1)
+    stump.leaf_value[0] = 0.125
+    stumped.trees.insert(3, stump)
+    stumped.tree_weights.insert(3, 1.0)
+    out["binary_stump"] = (stumped, serve_rows(150, seed=12))
+    x = serve_rows(500, seed=3)
+    y = rs.randint(0, 3, len(x)).astype(np.float64)
+    bst = train({"objective": "multiclass", "num_class": 3}, x, y, rounds=5)
+    out["multiclass"] = (bst, serve_rows(150, seed=13))
+    x = serve_rows(500, seed=4)
+    x[:, 2] = rs.randint(0, 12, len(x))
+    x[rs.rand(len(x)) < 0.05, 2] = np.nan
+    y = (np.nan_to_num(x[:, 2]) % 3 == 0).astype(np.float64)
+    bst = train({"objective": "binary", "min_data_per_group": 5,
+                 "cat_smooth": 1.0}, x, y, categorical_feature=[2])
+    out["categorical"] = (bst, serve_rows(150, seed=14, cat_col=2))
+    x = serve_rows(300, seed=5)
+    bst = train({"objective": "regression", "min_data_in_leaf": 1000},
+                x, np.nan_to_num(x[:, 0]), rounds=4)
+    out["stumps"] = (bst, serve_rows(150, seed=15))
+    return {tag: (b.model_to_string(), hard_rows(xt, b.trees, seed=len(tag)))
+            for tag, (b, xt) in out.items()}
+
+
+def host_walk(bst, x, **kw):
+    """``bst.predict`` by the host tree walk (``predict_bucketed=false``),
+    leaving the booster's mode and engine cache as they were."""
+    old, cache = bst.config.predict_bucketed, bst._engine_cache
+    bst.config.predict_bucketed = "false"
+    try:
+        return bst.predict(x, **kw)
+    finally:
+        bst.config.predict_bucketed = old
+        bst._engine_cache = cache
