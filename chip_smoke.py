@@ -52,6 +52,26 @@ Phases, one JSON line each:
 9. profile: one more main-path training traced with ``torch.profiler``:
    the device time of each kernel and the device's busy share inside the
    steady epochs;
+   wide_kernels (run after the kernels phase): B1-K (K-slot histogram),
+   B3-K (batched partition), B3s-K (batched split step) and B6 (bagging
+   draw) against their plain versions at 1M x 28, 63 bins, 255 leaves:
+   B3s-K and B3-K bit for bit at every super-step of whole trees (K = 16
+   and 8, max_depth 5, a stump; the full trees end in budget-cut
+   super-steps) and on a table with tied gains, B1-K within HIST_RTOL at K
+   = 16 and 8 on a real super-step's target slots, B6 bit for bit for a
+   fraction and pos/neg fractions at two refresh epochs (whose masks
+   differ), with times, bounds and ``index_add_`` for B1-K;
+   wide_train: the default ``train`` at 255 leaves (split_batch auto ->
+   16) with bagging_fraction 0.8, bagging_freq 5, feature_fraction 0.8,
+   as super-epochs (launch counts held to WIDE_PER_ITERATION), with
+   it/s, live against launched super-steps per tree and the valid AUC;
+   the per-iteration path (10 rounds: the same trees and evals, eager
+   launches held) and fused chunks (25 rounds without a valid set: the
+   same trees, launches held); a byte-identical rerun; a profiled run
+   (device busy share); ``Booster.predict`` of the wide model through
+   the engine (one walk per bucket chunk, no other launch), byte-identical
+   to the host walk; then the ``wide_loop``
+   line (the captured wide iteration against its eager run and bound);
 10. serving_model: the serving model, SERVE_ROUNDS rounds of 31 leaves on
    the 1M x 28 train set without a valid set (fused chunks);
 11. serve_kernels: B10a (forest walk), B10b (device binning) and B10c
@@ -130,16 +150,42 @@ PATH_PARAMS = ("[superepoch:", "[fused_eval:", "[fused_chunk:")
 # one valid walk and one kernel per metric
 PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "partition": NUM_LEAVES - 1, "grow_step": NUM_LEAVES - 1,
+                 "histogram_slots": 0, "partition_slots": 0,
+                 "grow_step_batched": 0, "bag_vals": 0,
                  "predict": 1, "auc": 1, "pointwise": 1, "forest_walk": 0,
                  "bin_rows": 0, "fused_predict": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
-KERNEL_ORDER = ("histogram", "split", "partition", "grow_step", "predict",
-                "auc", "pointwise", "forest_walk", "bin_rows", "fused_predict")
-# the path whose run gives each serving kernel's ``launches``
-SERVE_KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
-                     "fused_predict": "serve_fused"}
+# the wide path: 255 leaves (split_batch auto -> 16), bagging and
+# feature_fraction; the reference's headline tree shape
+# (docs/Experiments.rst, bench.py higgs1m_255leaf)
+WIDE_LEAVES, WIDE_K = 255, 16
+WIDE_PARAMS = {"num_leaves": WIDE_LEAVES, "bagging_fraction": 0.8,
+               "bagging_freq": 5, "feature_fraction": 0.8}
+WIDE_PER_ITERATION_ROUNDS = 10
+# per iteration: the root pass (B1, B2), L - 1 super-steps (B3s-K, B3-K,
+# B1-K and B2 on the 2K children; a dead super-step's kernels exit at
+# once), one bagging draw, one valid walk, one kernel per metric
+WIDE_PER_ITERATION = {**{k: 0 for k in PER_ITERATION},
+                      "histogram": 1, "split": WIDE_LEAVES,
+                      "histogram_slots": WIDE_LEAVES - 1,
+                      "partition_slots": WIDE_LEAVES - 1,
+                      "grow_step_batched": WIDE_LEAVES - 1, "bag_vals": 1,
+                      "predict": 1, "auc": 1, "pointwise": 1}
+WIDE_PER_ITERATION_NO_VALID = {**WIDE_PER_ITERATION, "predict": 0,
+                               "auc": 0, "pointwise": 0}
+KERNEL_ORDER = ("histogram", "split", "partition", "grow_step",
+                "histogram_slots", "partition_slots", "grow_step_batched",
+                "bag_vals", "predict", "auc", "pointwise", "forest_walk",
+                "bin_rows", "fused_predict")
+# the path whose run gives a kernel's ``launches`` (the main path's where
+# not listed)
+KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
+               "fused_predict": "serve_fused",
+               "histogram_slots": "wide_train",
+               "partition_slots": "wide_train",
+               "grow_step_batched": "wide_train", "bag_vals": "wide_train"}
 
 
 def times(counts, n: int):
@@ -198,7 +244,8 @@ def bound_ms(nbytes: float, ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def iteration_bound(trees, n: int, f: int, B: int, L: int, nv: int):
+def iteration_bound(trees, n: int, f: int, B: int, L: int, nv: int,
+                    super_steps=None):
     """The least time of one boosting iteration of the main path, from
     its own trees: the bytes and operations each step needs at the row
     counts that tree gave it, averaged over the trees.  Per iteration:
@@ -210,7 +257,10 @@ def iteration_bound(trees, n: int, f: int, B: int, L: int, nv: int):
     (column byte and leaf id read, leaf id written), B1 over the smaller
     child's rows (bins and vals) and its histogram out, the subtraction
     (three histograms), B2 on the pair (two histograms in, two records
-    out).  A dead step needs nothing.  Returns (ms, by, bytes)."""
+    out).  A dead step needs nothing.  With ``super_steps`` (the live
+    super-steps of each tree, batched growth) the bookkeeping (B3s-K: the
+    table and the tree buffer) is counted once per super-step, and the
+    rest per split.  Returns (ms, by, bytes)."""
     from lightgbm_torch.grower import tree_words
     hist = f * B * 12
     rec = 12 * 4
@@ -218,10 +268,13 @@ def iteration_bound(trees, n: int, f: int, B: int, L: int, nv: int):
              + nv * f + 8 * nv + 2 * (12 * nv + 4))
     fixed_ops = (12 * n + 3 * n * f + 40 * 2 * f * B + 2 * n + 7 * nv
                  + nv * float(np.log2(nv)) + 10 * nv + 30 * nv)
-    step = L * rec + 2 * tree_words(L) * 4 + 6 * hist + 2 * rec
+    books = L * rec + 2 * tree_words(L) * 4
+    step = 6 * hist + 2 * rec + (books if super_steps is None else 0)
     step_ops = 40 * 2 * 2 * f * B + 3 * f * B
     total = ops = 0.0
-    for t in trees:
+    for i, t in enumerate(trees):
+        if super_steps is not None:
+            total += books * super_steps[i]
         for s in range(t.num_leaves - 1):
             kids = [t.internal_count[c] if c >= 0 else t.leaf_count[~c]
                     for c in (t.left_child[s], t.right_child[s])]
@@ -464,13 +517,20 @@ def phase_kernels(torch, lgt, train, valid):
         check_partition(torch, lk, lp, sk, sp_, f"mid-tree feature {feat}")
     # every timed call starts from the root state again (a 4 MB fill,
     # counted in both times)
+    lor_p = lor.clone()
     t_k = median_ms(torch, lambda: partition(binned, lor.fill_(0), *args))
-    t_p = median_ms(torch, lambda: partition_plain(binned, lor.fill_(0),
+    t_p = median_ms(torch, lambda: partition_plain(binned, lor_p.fill_(0),
                                                    *args))
+    # the timed call's outputs against the plain version's: one more call
+    # of each from the same state
+    err3 = exact_err(torch, [
+        (partition(binned, lor.fill_(0), *args),
+         partition_plain(binned, lor_p.fill_(0), *args)), (lor, lor_p)],
+        "B3 (timed call)")
     b3_bytes = n * f + 12 * n
     rows.append(("partition", "B3 row partition",
                  "lightgbm_torch/csrc/partition.cu",
-                 "lightgbm_tpu/grower.py:768", 0.0, 0.0, t_k, t_p,
+                 "lightgbm_tpu/grower.py:768", err3, err3, t_k, t_p,
                  bound_ms(b3_bytes, 2 * n), None))
 
     # B1: the smaller child's pass (slot from B3) and the root pass
@@ -602,10 +662,18 @@ def phase_kernels(torch, lgt, train, valid):
         s, vbinned, tree[0], tree[1], dl, lct, rct, vna, lv, 0.1, steps=5))
     t_p = median_ms(torch, lambda: add_tree_score_plain(
         s, vbinned, tree[0], tree[1], dl, lct, rct, vna, lv, 0.1, steps=5))
+    # the timed call against the plain version, from the timed score state
+    s_k, s_p = s.clone(), s.clone()
+    add_tree_score(s_k, vbinned, tree[0], tree[1], dl, lct, rct, vna, lv,
+                   0.1, steps=5)
+    add_tree_score_plain(s_p, vbinned, tree[0], tree[1], dl, lct, rct, vna,
+                         lv, 0.1, steps=5)
+    err4 = exact_err(torch, [(s_k, s_p)], "B4 (timed call)")
+    rel4 = err4 / max(float(s_p.abs().max()), 1e-30)
     b4_bytes = nv * f + 8 * nv
     rows.append(("predict", "B4 tree score update",
                  "lightgbm_torch/csrc/predict.cu",
-                 "lightgbm_tpu/predict_device.py:72", 0.0, 0.0, t_k, t_p,
+                 "lightgbm_tpu/predict_device.py:72", err4, rel4, t_k, t_p,
                  bound_ms(b4_bytes, 2 * nv + 5 * nv), None))
 
     # B3s: whole trees at the main path's shape, with the plain version run
@@ -627,18 +695,24 @@ def phase_kernels(torch, lgt, train, valid):
     from lightgbm_torch import grower as gr
     st = snap["state"]
 
+    outs = ("tree", "rec", "idx", "fstep", "flags")
+
     def b3s_call(fn):
         st["tree"].copy_(st["tree0"])
         fn(st["table"], st["tree"], na_bin, num_leaves=NUM_LEAVES,
            max_depth=-1, rec=st["rec"], idx=st["idx"], fstep=st["fstep"],
            flags=st["flags"])
+    # the outputs of the last timed call of each, compared after both
     t_k = median_ms(torch, lambda: b3s_call(gr.grow_step))
+    got_k = [st[o].clone() for o in outs]
     t_p = median_ms(torch, lambda: b3s_call(gr.grow_step_plain))
+    err3s = exact_err(torch, zip(got_k, [st[o] for o in outs]),
+                      "B3s (timed call)")
     words = st["tree"].numel()
     b3s_bytes = st["table"].numel() * 4 + 2 * words * 4 + f * 4 \
         + 8 * 4 + 2 * 8 + 8 * 4 + 2
     rows.append(("grow_step", "B3s split step", "lightgbm_torch/csrc/"
-                 "grow_step.cu", "lightgbm_tpu/grower.py:742", 0.0, 0.0,
+                 "grow_step.cu", "lightgbm_tpu/grower.py:742", err3s, err3s,
                  t_k, t_p, bound_ms(b3s_bytes, 2 * NUM_LEAVES), None))
     emit({"phase": "kernel_grow_step", "cases": b3s_steps,
           "timed_ms_includes": "a copy of the tree buffer to reset it"})
@@ -997,6 +1071,544 @@ def phase_profile(torch, lgt, train, valid):
 
 
 # ---------------------------------------------------------------------------
+# wide trees with row and feature sampling (B1-K, B3-K, B3s-K, B6)
+
+def equal_bits(torch, a, b) -> bool:
+    """Whether two tensors hold the same bits (f32 by their int32 view, so
+    that NaN in a scratch row equals the same NaN)."""
+    if a.dtype == torch.float32:
+        return same_bits(torch, a, b)
+    return torch.equal(a, b)
+
+
+def check_batched_tree(torch, binned, vals, fmask, num_bin, na_bin, B, L, K,
+                       params, max_depth, case, snap):
+    """Grow one tree on the card with the batched grower, and at every
+    super-step run the plain versions of B3s-K and B3-K on copies of the
+    step's inputs: every step output, the tree buffer, leaf_of_row and
+    the target slots bit for bit.  Keeps the state of the first super-step
+    with all K slots valid in ``snap`` (for timing and B1-K).  Returns
+    counts of super-steps: launched, live, budget-cut (0 < valid < K with
+    the budget exhausted)."""
+    from lightgbm_torch import grower as gr
+    n, f = binned.shape
+    ws = gr.GrowWorkspace(n, f, B, L, binned.device, split_batch=K)
+    step_k, part_k = gr.grow_step_batched, gr.partition_slots
+    seen = {"steps": 0, "live": 0, "budget_cut": 0}
+
+    def clone_step(st):
+        return gr.BatchedStep(*[t.clone() for t in st])
+
+    def step_both(table, tree, na, *, step, **kw):
+        tree_p, step_p = tree.clone(), clone_step(step)
+        nl = int(gr.tree_fields(tree, L)["num_leaves"][0])
+        if "state" not in snap:
+            snap["pre"] = {"table": table.clone(), "tree0": tree.clone(),
+                           "lor": ws.leaf_of_row.clone()}
+        gr.grow_step_batched_plain(table, tree_p, na, step=step_p, **kw)
+        step_k(table, tree, na, step=step, **kw)
+        for name in gr.BatchedStep._fields:
+            if not equal_bits(torch, getattr(step, name),
+                              getattr(step_p, name)):
+                raise AssertionError(
+                    f"B3s-K ({case}, super-step {seen['steps']}) {name}: "
+                    f"{getattr(step, name).tolist()} vs plain "
+                    f"{getattr(step_p, name).tolist()}")
+        if not torch.equal(tree, tree_p):
+            raise AssertionError(f"B3s-K ({case}, super-step "
+                                 f"{seen['steps']}) tree buffer differs "
+                                 "from the plain version's")
+        nv = int(step.status[1])
+        seen["steps"] += 1
+        seen["live"] += int(nv > 0)
+        seen["budget_cut"] += int(0 < nv < K and nv == L - nl)
+        if nv == K and "state" not in snap:
+            snap["state"] = {**snap["pre"], "step": clone_step(step),
+                             "step0": clone_step(step)}
+        if nv > 0 and "first" not in snap:
+            snap["first"] = {"used": step.status[1:2].clone()}
+
+    def part_both(binned_, lor, step, rank):
+        lor_p = lor.clone()
+        t_p = gr.partition_slots_plain(binned_, lor_p, step, rank)
+        t_k = part_k(binned_, lor, step, rank)
+        live = bool(step.status[0])
+        if not torch.equal(lor, lor_p) or (live and not torch.equal(t_k,
+                                                                     t_p)):
+            raise AssertionError(f"B3-K ({case}, super-step "
+                                 f"{seen['steps'] - 1}) differs from its "
+                                 "plain version")
+        if "state" in snap and "tslot" not in snap["state"]:
+            snap["state"]["tslot"] = t_k.clone()
+            snap["state"]["used"] = step.status[1:2].clone()
+        if "first" in snap and "tslot" not in snap["first"]:
+            snap["first"]["tslot"] = t_k.clone()
+        return t_k
+
+    gr.grow_step_batched, gr.partition_slots = step_both, part_both
+    try:
+        gr.grow_tree_batched(binned, vals, fmask, num_bin, na_bin,
+                             num_leaves=L, num_bins=B, params=params,
+                             max_depth=max_depth, split_batch=K,
+                             workspace=ws)
+    finally:
+        gr.grow_step_batched, gr.partition_slots = step_k, part_k
+    snap["ws"] = ws
+    tree = gr.fetch_tree(ws)
+    if tree.n_steps != seen["live"] or seen["steps"] != L - 1:
+        raise AssertionError(f"B3s-K ({case}): {tree.n_steps} live "
+                             f"super-steps counted, {seen}")
+    return {**seen, "leaves": tree.num_leaves}
+
+
+def phase_wide_kernels(torch, lgt, train):
+    """B1-K, B3-K, B3s-K and B6 against their plain versions at the wide
+    path's shapes (1M x 28, 63 bins, 255 leaves, K = 16 and 8), with
+    times, bounds and library times."""
+    from lightgbm_torch import grower as gr
+    from lightgbm_torch.ops import split as sp
+    from lightgbm_torch.ops.histogram import (compute_histogram,
+                                              histogram_slots_plain)
+    from lightgbm_torch.ops.random import bag_vals, bag_vals_plain
+    dev = torch.device("cuda", 0)
+    binned = torch.as_tensor(train.binned).to(dev)
+    n, f = binned.shape
+    B = int(train.max_bin)
+    mappers = [train.bin_mappers[i] for i in train.used_features]
+    num_bin = torch.tensor([m.num_bin for m in mappers], dtype=torch.int32,
+                           device=dev)
+    na_bin = torch.tensor([m.na_bin for m in mappers], dtype=torch.int32,
+                          device=dev)
+    y = torch.as_tensor(train.metadata.label).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p = torch.sigmoid(torch.randn(n, device=dev, generator=gen))
+    g, h = (p - y).contiguous(), (p * (1 - p)).contiguous()
+    positive = (y > 0).to(torch.uint8)
+    rows = []
+
+    # B6: bitwise, plain fraction and pos/neg, two refresh epochs
+    bag = {"seed": 3, "freq": 5, "fraction": 0.8}
+    posneg = {**bag, "pos_fraction": 0.7, "neg_fraction": 0.9,
+              "positive": positive}
+    masks = {}
+    for case, kw in (("bagging", bag), ("pos_neg", posneg)):
+        for it in (0, 7):
+            itd = torch.tensor([it], dtype=torch.int32, device=dev)
+            a = bag_vals(g, h, itd, **kw)
+            b = bag_vals_plain(g, h, itd, **kw)
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"B6 ({case}, iteration {it}) differs "
+                                     "from its plain version")
+            masks[(case, it)] = a[:, 2].clone()
+    for case in ("bagging", "pos_neg"):
+        if torch.equal(masks[(case, 0)], masks[(case, 7)]):
+            raise AssertionError(f"B6 ({case}): the masks of refresh "
+                                 "epochs 0 and 5 are equal")
+    in_bag = float(masks[("bagging", 0)].mean())
+    if not 0.79 < in_bag < 0.81:
+        raise AssertionError(f"B6 in-bag share {in_bag}, fraction 0.8")
+    it5 = torch.tensor([5], dtype=torch.int32, device=dev)
+    out6 = torch.empty((n, 3), device=dev)
+    t_k = median_ms(torch, lambda: bag_vals(g, h, it5, out=out6, **bag))
+    t_p = median_ms(torch, lambda: bag_vals_plain(g, h, it5, **bag))
+    err6 = exact_err(torch, [(out6, bag_vals_plain(g, h, it5, **bag))],
+                     "B6 (timed call)")
+    rel6 = err6 / max(float(out6.abs().max()), 1e-30)
+    rows.append(("bag_vals", "B6 bagging draw and vals stack",
+                 "lightgbm_torch/csrc/sample.cu",
+                 "lightgbm_tpu/models/gbdt.py:1305", err6, rel6, t_k, t_p,
+                 bound_ms(8 * n + 12 * n, 2 * 100 * n), None))
+
+    # whole 255-leaf trees with the plain versions of B3s-K and B3-K at
+    # every super-step: the default parameters (K = 16 and 8; budget-cut
+    # super-steps at the end), max_depth 5, and a stump; B3s-K again on a
+    # table with tied gains
+    vals = bag_vals(g, h, torch.tensor([0], dtype=torch.int32, device=dev),
+                    **bag)
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    fmask[torch.randperm(f, device=dev, generator=gen)[:f // 5]] = False
+    params = sp.SplitParams()
+    snaps, cases = {}, {}
+    for case, K, prm, depth in (
+            ("full_k16", 16, params, -1), ("full_k8", 8, params, -1),
+            ("max_depth_5", 16, params, 5),
+            ("stump", 16, sp.SplitParams(min_gain_to_split=1e30), -1)):
+        snaps[case] = {}
+        cases[case] = check_batched_tree(
+            torch, binned, vals, fmask, num_bin, na_bin, B, WIDE_LEAVES, K,
+            prm, depth, case, snaps[case])
+    full = cases["full_k16"]
+    if full["leaves"] != WIDE_LEAVES or full["budget_cut"] < 1 \
+            or cases["full_k8"]["leaves"] != WIDE_LEAVES \
+            or not 1 < cases["max_depth_5"]["leaves"] <= 32 \
+            or cases["stump"]["live"] != 0:
+        raise AssertionError(f"batched cases do not cover full, "
+                             f"budget-cut, depth-cut and stump trees: "
+                             f"{cases}")
+    st = snaps["full_k16"]["state"]
+    L, K = WIDE_LEAVES, WIDE_K
+    # ties: four leaves of the snapshot's table given one gain
+    tie_table = st["table"].clone()
+    live = torch.nonzero(tie_table[:L, sp.GAIN] > 0).flatten()[:4]
+    tie_table[live, sp.GAIN] = float(tie_table[live, sp.GAIN].max())
+    for case, table in (("ties", tie_table), ("snapshot", st["table"])):
+        tk, tp = st["tree0"].clone(), st["tree0"].clone()
+        sk, sp_ = (gr.BatchedStep(*[t.clone() for t in st["step0"]])
+                   for _ in range(2))
+        gr.grow_step_batched(table, tk, na_bin, num_leaves=L, split_batch=K,
+                             max_depth=-1, step=sk)
+        gr.grow_step_batched_plain(table, tp, na_bin, num_leaves=L,
+                                   split_batch=K, max_depth=-1, step=sp_)
+        if not torch.equal(tk, tp) or any(
+                not equal_bits(torch, a, b) for a, b in zip(sk, sp_)):
+            raise AssertionError(f"B3s-K ({case}) differs from its plain "
+                                 "version")
+        if case == "ties":
+            leaves = sk.recs[:, 0].tolist()
+            order = [leaves.index(int(x)) for x in sorted(live.tolist())]
+            if order != sorted(order):
+                raise AssertionError(f"B3s-K tie order {leaves} does not "
+                                     "take the lower leaf first")
+    # what a dead super-step costs on the device: 20 of them (the full
+    # tree's workspace is done) captured as one graph and replayed
+    ws = snaps["full_k16"]["ws"]
+    dead_args = (ws, binned, vals, fmask, num_bin, na_bin, params, -1)
+    words0 = ws.tree.clone()
+    gr._super_step(*dead_args)
+    torch.cuda.synchronize()
+    dead_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(dead_graph):
+        for _ in range(20):
+            gr._super_step(*dead_args)
+    dead_ms = median_ms(torch, dead_graph.replay, reps=10, warmup=2) / 20
+    if not torch.equal(ws.tree, words0):
+        raise AssertionError("dead super-steps changed the tree")
+    emit({"phase": "wide_kernel_checks", "cases": cases,
+          "b6_in_bag_share": in_bag, "dead_super_step_ms": dead_ms})
+
+    def b3sk_call(fn):
+        st["tree"] = st.get("tree", st["tree0"].clone())
+        st["tree"].copy_(st["tree0"])
+        fn(st["table"], st["tree"], na_bin, num_leaves=L, split_batch=K,
+           max_depth=-1, step=st["step"])
+    # the outputs of the last timed call of each, compared after both
+    t_k = median_ms(torch, lambda: b3sk_call(gr.grow_step_batched))
+    got_k = [t.clone() for t in (st["tree"], *st["step"])]
+    t_p = median_ms(torch, lambda: b3sk_call(gr.grow_step_batched_plain))
+    err3sk = exact_err(torch, zip(got_k, (st["tree"], *st["step"])),
+                       "B3s-K (timed call)")
+    words = st["tree0"].numel()
+    b3sk_bytes = L * 4 + K * sp.RECORD * 4 + 2 * words * 4 + f * 4 \
+        + K * 8 * 4 + L * 4 + 2 * K * (8 + 16 + 1) + K + 8
+    rows.append(("grow_step_batched", "B3s-K batched split step",
+                 "lightgbm_torch/csrc/grow_step.cu",
+                 "lightgbm_tpu/grower.py:999", err3sk, err3sk, t_k, t_p,
+                 bound_ms(b3sk_bytes, L * L), None))
+
+    # B3-K on the snapshot's super-step, every timed call from its state
+    lor, lor_p = st["lor"].clone(), st["lor"].clone()
+    iota = torch.arange(B, dtype=torch.int32, device=dev)
+    step = st["step"]
+    t_k = median_ms(torch, lambda: gr.partition_slots(
+        binned, lor.copy_(st["lor"]), step, iota))
+    t_p = median_ms(torch, lambda: gr.partition_slots_plain(
+        binned, lor_p.copy_(st["lor"]), step, iota))
+    # the timed call's outputs against the plain version's: one more call
+    # of each from the same state
+    err3k = exact_err(torch, [
+        (gr.partition_slots(binned, lor.copy_(st["lor"]), step, iota),
+         gr.partition_slots_plain(binned, lor_p.copy_(st["lor"]), step,
+                                  iota)), (lor, lor_p)], "B3-K (timed call)")
+    rows.append(("partition_slots", "B3-K batched row partition",
+                 "lightgbm_torch/csrc/partition.cu",
+                 "lightgbm_tpu/grower.py:1029", err3k, err3k, t_k, t_p,
+                 bound_ms(n * f + 12 * n, 3 * n), None))
+
+    # B1-K at K = 16 and 8 on the target slots of a real super-step with
+    # every slot valid, and at K = 16 on the first super-step's (one slot
+    # valid), each with the super-step's count of slots in use
+    err, rel, t16 = 0.0, 0.0, None
+    for case, k, snap_key in (("full_k16", 16, "state"),
+                              ("full_k8", 8, "state"),
+                              ("full_k16", 16, "first")):
+        tslot = snaps[case][snap_key]["tslot"]
+        used = snaps[case][snap_key]["used"]
+        b = histogram_slots_plain(binned, vals, tslot, num_slots=k,
+                                  num_bins=B)
+        a = compute_histogram(binned, vals, num_bins=B, slot=tslot,
+                              num_slots=k, slots_used=used)
+        a2 = compute_histogram(binned, vals, num_bins=B, slot=tslot,
+                               num_slots=k, slots_used=used)
+        what = f"K={k}, {snap_key}"
+        if not torch.equal(a, a2):
+            raise AssertionError(f"B1-K ({what}) is not bitwise "
+                                 "reproducible")
+        if not torch.equal(a[..., 2], b[..., 2]):
+            raise AssertionError(f"B1-K ({what}) count channel differs")
+        e = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if e > HIST_RTOL * max(1.0, scale):
+            raise AssertionError(f"B1-K ({what}) max abs error {e} "
+                                 f"(scale {scale})")
+        err, rel = max(err, e), max(rel, e / max(scale, 1e-30))
+        if k == 16 and snap_key == "state":
+            t16, used16 = tslot, used
+    first = snaps["full_k16"]["first"]
+    all16 = torch.tensor([16], dtype=torch.int32, device=dev)
+    if int(first["used"][0]) >= 16:
+        raise AssertionError("the first super-step has every slot valid")
+    first_ms = {
+        "slots_used": int(first["used"][0]),
+        "rows_in_slots": int((first["tslot"] >= 0).sum()),
+        "ms": median_ms(torch, lambda: compute_histogram(
+            binned, vals, num_bins=B, slot=first["tslot"], num_slots=16,
+            slots_used=first["used"])),
+        "ms_slots_used_16": median_ms(torch, lambda: compute_histogram(
+            binned, vals, num_bins=B, slot=first["tslot"], num_slots=16,
+            slots_used=all16))}
+    in_slots = int((t16 >= 0).sum())
+    t_k = median_ms(torch, lambda: compute_histogram(
+        binned, vals, num_bins=B, slot=t16, num_slots=16,
+        slots_used=used16))
+    t_p = median_ms(torch, lambda: histogram_slots_plain(
+        binned, vals, t16, num_slots=16, num_bins=B))
+    keep = t16 >= 0
+    sl = t16[keep].to(torch.int64)
+    idx = (binned[keep].to(torch.int64) + torch.arange(f, device=dev) * B
+           + (sl * (f * B))[:, None]).reshape(-1)
+    src = vals[keep].repeat_interleave(f, dim=0)
+    acc = torch.zeros((16 * f * B, 3), device=dev)
+    t_lib = median_ms(torch, lambda: acc.zero_().index_add_(0, idx, src))
+    b1k_bytes = n * f + 12 * n + 4 * n + 16 * f * B * 12
+    rows.append(("histogram_slots", "B1-K K-slot histogram (K = 16)",
+                 "lightgbm_torch/csrc/histogram.cu",
+                 "lightgbm_tpu/ops/histogram.py:129", err, rel, t_k, t_p,
+                 bound_ms(b1k_bytes, 3 * in_slots * f), t_lib))
+    # odd shapes, checked and not timed: 13 features x 255 bins (two pair
+    # tiles at K = 8), a row count that leaves a short last chunk, and a
+    # binned matrix 3 bytes into its allocation (byte-wise staging)
+    on, of_, ob = 50_001, 13, 255
+    obinned = torch.randint(0, ob, (on * of_ + 3,), dtype=torch.uint8,
+                            device=dev, generator=gen)[3:].view(on, of_)
+    og = torch.randn(on, device=dev, generator=gen)
+    ovals = torch.stack([og, og.abs() + 0.1, torch.ones_like(og)], dim=1)
+    oslot = torch.randint(-2, 8, (on,), dtype=torch.int32, device=dev,
+                          generator=gen)
+    a = compute_histogram(obinned, ovals, num_bins=ob, slot=oslot,
+                          num_slots=8, slots_used=torch.tensor(
+                              [8], dtype=torch.int32, device=dev))
+    b = histogram_slots_plain(obinned, ovals, oslot, num_slots=8,
+                              num_bins=ob)
+    oerr = float((a - b).abs().max())
+    if not torch.equal(a[..., 2], b[..., 2]) \
+            or oerr > HIST_RTOL * max(1.0, float(b.abs().max())):
+        raise AssertionError(f"B1-K (odd shapes) differs from its plain "
+                             f"version: {oerr}")
+    emit({"phase": "wide_kernel_odd", "rows": on, "features": of_,
+          "bins": ob, "hist_slots_max_abs_err": oerr})
+    from lightgbm_torch.ops.histogram import slots_launch_shape
+    rpb, pairs, chunk = slots_launch_shape(n, f, B, 16)
+    partial_mb = -(-n // rpb) * 16 * f * B * 12 / 1e6
+
+    out = {}
+    for key, name, src_path, replaces, e, r, tk, tp, (bms, by), tl in rows:
+        out[key] = {"name": name, "route": "cuda", "source": src_path,
+                    "replaces": replaces, "max_abs_err": e, "ms": tk,
+                    "plain_ms": tp, "bound_ms": bms, "bound_by": by,
+                    "library_ms": tl}
+        extra = {"rows_in_slots": in_slots, "partial_mb": partial_mb,
+                 "launch_shape": [rpb, pairs, chunk],
+                 "first_super_step": first_ms} \
+            if key == "histogram_slots" else {}
+        emit({"phase": "kernel", **out[key], "max_rel_err": r,
+              "kernel_ms": tk, **extra})
+    return out, dead_ms
+
+
+def train_wide(lgt, train, valid, extra=None, rounds=ROUNDS):
+    """The wide path's training: ``train_main`` with WIDE_PARAMS."""
+    return train_main(lgt, train, valid, rounds=rounds,
+                      extra={**WIDE_PARAMS, **(extra or {})})
+
+
+def tree_sections(text: str, k: int):
+    """The first ``k`` trees of a model text."""
+    return [t.strip() for t in
+            text.split("end of trees")[0].split("\nTree=")[1:k + 1]]
+
+
+def phase_wide_train(torch, lgt, lgt_kernels, train, valid, xv, dead_ms):
+    """Default ``train`` at 255 leaves (split_batch auto -> 16) with
+    bagging and feature_fraction, as super-epochs; then the per-iteration
+    path and fused chunks, a rerun, a profile, and ``Booster.predict``
+    of the wide model.  Returns (device launches by path, steady ms per
+    iteration, eager ms per iteration, the iteration's (bound ms, by,
+    bytes))."""
+    lgt_kernels.reset_launch_counts()
+    bst, ev, secs = train_wide(lgt, train, valid)
+    torch.cuda.synchronize()
+    eager = lgt_kernels.launch_counts()
+    m = bst._model
+    if m.split_batch != WIDE_K:
+        raise AssertionError(f"split_batch resolved to {m.split_batch}")
+    prog = fused_program(m)
+    iters = m.num_iterations_trained
+    epochs = len(m.epoch_ms)
+    k = max(2, min(25, ES_ROUNDS))
+    if m.fetch_counts != {"epoch": epochs} or prog.replays != k * epochs:
+        raise AssertionError(f"wide path: fetches {m.fetch_counts}, "
+                             f"{prog.replays} replays, {epochs} epochs")
+    if prog.captured != WIDE_PER_ITERATION \
+            or prog.warmup != WIDE_PER_ITERATION \
+            or eager != times(WIDE_PER_ITERATION, 2):
+        raise AssertionError(f"wide launches: captured {prog.captured}, "
+                             f"warm-up {prog.warmup}, wrapper calls "
+                             f"{eager}, expected {WIDE_PER_ITERATION} each")
+    device = {kk: prog.warmup[kk] + v for kk, v in prog.launches().items()}
+    auc = ev["valid_0"]["auc"]
+    best = bst.best_iteration
+    if not 0.5 < auc[best - 1] <= 1.0:
+        raise AssertionError(f"wide valid AUC {auc[best - 1]}")
+    leaves = [t.num_leaves for t in m.models]
+    if max(leaves) != WIDE_LEAVES:
+        raise AssertionError(f"wide trees reach {max(leaves)} leaves")
+    steady = m.epoch_ms[1:] if epochs > 1 else m.epoch_ms
+    ms_it = statistics.median(steady) / k
+    live = m.step_counts
+    b_ms, b_by, b_bytes = iteration_bound(
+        m.models, N_TRAIN, N_FEAT, int(train.max_bin), WIDE_LEAVES, N_VALID,
+        super_steps=live)
+    text = bst.model_to_string()
+    main = {"iterations": iters, "best_iteration": best,
+            "valid_auc": auc[best - 1], "seconds": secs,
+            "iterations_per_s": iters / secs, "epochs": epochs,
+            "epoch_ms": m.epoch_ms,
+            "steady_iterations_per_s": 1e3 / ms_it,
+            "ms_per_iteration": ms_it, "bound_ms_per_iteration": b_ms,
+            "bound_by": b_by, "bound_bytes_per_iteration": b_bytes,
+            "live_super_steps_per_tree": statistics.mean(live),
+            "dead_super_steps_ms_per_iteration": dead_ms * statistics.mean(
+                [WIDE_LEAVES - 1 - x for x in live]),
+            "live_super_steps_max": max(live),
+            "launched_super_steps_per_tree": WIDE_LEAVES - 1,
+            "leaves_per_tree": statistics.mean(leaves),
+            "capture_ms": prog.capture_ms, "device_launches": device}
+
+    # per-iteration, fewer rounds: the same first trees and evals
+    lgt_kernels.reset_launch_counts()
+    bp, evp, secs_p = train_wide(lgt, train, valid,
+                                 rounds=WIDE_PER_ITERATION_ROUNDS, extra={
+                                     "superepoch": -1, "fused_chunk": 1,
+                                     "fused_eval": "true"})
+    torch.cuda.synchronize()
+    per_it = lgt_kernels.launch_counts()
+    n_p = bp._model.num_iterations_trained
+    if per_it != times(WIDE_PER_ITERATION, n_p):
+        raise AssertionError(f"wide per-iteration launches {per_it} for "
+                             f"{n_p} iterations")
+    ta, tb = tree_sections(bp.model_to_string(), n_p), \
+        tree_sections(text, n_p)
+    if n_p != WIDE_PER_ITERATION_ROUNDS or iters < n_p or ta != tb \
+            or any(evp["valid_0"][kk] != ev["valid_0"][kk][:n_p]
+                   for kk in evp["valid_0"]):
+        first = next((i for i, (a, b) in enumerate(zip(ta, tb)) if a != b),
+                     None)
+        lines = [] if first is None else [
+            (x[:120], y[:120]) for x, y in zip(ta[first].splitlines(),
+                                               tb[first].splitlines())
+            if x != y][:3]
+        raise AssertionError(
+            f"wide per-iteration trees or evals differ from the "
+            f"super-epoch run's: {n_p} and {iters} iterations, first tree "
+            f"differing {first}: {lines}; evals {evp['valid_0']} vs "
+            f"{ {kk: v[:n_p] for kk, v in ev['valid_0'].items()} }")
+
+    # fused chunks without a valid set: the same first trees
+    params = {"objective": "binary", "max_bin": MAX_BIN,
+              "learning_rate": 0.1, "verbosity": -1, **WIDE_PARAMS}
+    lgt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    bc = lgt.train(params, train, 25)
+    torch.cuda.synchronize()
+    secs_c = time.perf_counter() - t0
+    eager_c = lgt_kernels.launch_counts()
+    pc = fused_program(bc._model)
+    chunk = {kk: pc.warmup[kk] + v for kk, v in pc.launches().items()}
+    if pc.captured != WIDE_PER_ITERATION_NO_VALID \
+            or eager_c != times(WIDE_PER_ITERATION_NO_VALID, 2) \
+            or pc.replays != 25 \
+            or tree_sections(bc.model_to_string(), n_p) \
+            != tree_sections(text, n_p):
+        raise AssertionError(f"wide fused chunks: captured {pc.captured}, "
+                             f"wrapper calls {eager_c}, {pc.replays} "
+                             "replays, or trees differ")
+
+    # a second super-epoch run: byte-identical model text
+    b2, _, secs2 = train_wide(lgt, train, valid)
+    if b2.model_to_string() != text:
+        raise AssertionError("a second wide run gave other model text")
+
+    # the profile of one more run: device busy share of the steady epochs
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        b3, _, _ = train_wide(lgt, train, valid, rounds=30)
+        torch.cuda.synchronize()
+    p3 = fused_program(b3._model)
+    dev_ms = sum(float(getattr(e, "self_device_time_total", 0) or 0)
+                 for e in prof.key_averages()
+                 if not e.key.startswith(("aten::", "Memcpy HtoD"))) / 1e3
+    per_iter = dev_ms / (p3.replays + 1)
+    st3 = b3._model.epoch_ms[1:]
+    busy = per_iter * k / statistics.median(st3) if st3 and dev_ms else None
+    top = sorted(((e.key[:90], float(getattr(e, "self_device_time_total", 0)
+                                     or 0) / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if (getattr(e, "self_device_time_total", 0) or 0) > 0
+                  and not e.key.startswith(("aten::", "Memcpy HtoD"))),
+                 key=lambda r: -r[1])[:15]
+
+    # Booster.predict of the wide model: the engine route, one walk per
+    # bucket chunk and no other launch, byte-identical to the host walk
+    from lightgbm_torch.serve import PredictorEngine
+    bst._drop_predict_cache()
+    torch.cuda.synchronize()
+    lgt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pe = bst.predict(xv)
+    t_eng = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    pred_counts = lgt_kernels.launch_counts()
+    eng = bst._engine_cache
+    if not isinstance(eng, PredictorEngine):
+        raise AssertionError("wide predict did not take the engine route")
+    hold_launches("wide predict", pred_counts, forest_launches(
+        lgt_kernels, forest_walk=chunks(eng, len(xv))))
+    ph = host_walk(bst, xv)
+    if not np.array_equal(pe, ph):
+        raise AssertionError("wide predict: the engine route differs from "
+                             "the host walk")
+    emit({"phase": "wide_train", **main,
+          "per_iteration": {"iterations": n_p, "seconds": secs_p,
+                            "iterations_per_s": n_p / secs_p,
+                            "ms_per_iteration": 1e3 * secs_p / n_p},
+          "fused_chunk": {"rounds": 25, "seconds": secs_c,
+                          "iterations_per_s": 25 / secs_c,
+                          "epoch_ms": bc._model.epoch_ms},
+          "rerun_byte_identical": True, "rerun_seconds": secs2,
+          "profile": {"device_kernel_ms_per_iteration": per_iter,
+                      "steady_busy_share": busy, "top_kernels": [
+                          {"name": n_, "device_ms": d, "count": c}
+                          for n_, d, c in top]},
+          "predict": {"rows_per_s": N_VALID / t_eng,
+                      "forest_walk_launches": pred_counts["forest_walk"],
+                      "byte_identical_to_host_walk": True}})
+    return {"wide_train": device, "wide_per_iteration": per_it,
+            "wide_fused_chunk": chunk}, ms_it, 1e3 * secs_p / n_p, \
+        (b_ms, b_by, b_bytes)
+
+
+# ---------------------------------------------------------------------------
 # serving (B10)
 # ---------------------------------------------------------------------------
 
@@ -1147,6 +1759,21 @@ def self_check_launches(eng, device_binning: bool) -> dict:
 def hold_launches(what: str, got: dict, want: dict) -> None:
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def exact_err(torch, pairs, what: str) -> float:
+    """Largest |kernel - plain| in f64 over (kernel, plain) output pairs
+    of a kernel that must equal its plain version, over the entries finite
+    in both; raises unless every pair holds the same bits."""
+    err = 0.0
+    for a, b in pairs:
+        if a.shape != b.shape or not equal_bits(torch, a, b):
+            raise AssertionError(f"{what} differs from its plain version")
+        d = a.double() - b.double()
+        d = d[torch.isfinite(a.double()) & torch.isfinite(b.double())]
+        if d.numel():
+            err = max(err, float(d.abs().max()))
+    return err
 
 
 def same_bits(torch, a, b) -> bool:
@@ -1582,6 +2209,8 @@ def main() -> int:
     smi = phase_environment(torch, lgt_kernels)
     x, y, xv, yv, train, valid = phase_data(lgt)
     kernels = phase_kernels(torch, lgt, train, valid)
+    wide_kernels, dead_ms = phase_wide_kernels(torch, lgt, train)
+    kernels.update(wide_kernels)
     bst, ev, counts, epoch_ms_per_it = phase_main_path(
         torch, lgt, lgt_kernels, train, valid)
     eager_ms_per_it, per_it_counts = phase_per_iteration(
@@ -1600,10 +2229,16 @@ def main() -> int:
     phase_reference(torch, lgt)
     phase_roundtrip(lgt, bst, train, valid, xv)
     phase_profile(torch, lgt, train, valid)
+    wide_counts, wide_ms, wide_eager_ms, (wb_ms, wb_by, wb_bytes) = \
+        phase_wide_train(torch, lgt, lgt_kernels, train, valid, xv, dead_ms)
+    emit({"phase": "wide_loop", "ms_per_iteration": wide_ms,
+          "plain_ms_per_iteration": wide_eager_ms,
+          "bound_ms_per_iteration": wb_ms, "bound_by": wb_by,
+          "bound_bytes_per_iteration": wb_bytes, "library_ms": None})
     serve_bst = phase_serving_model(torch, lgt, lgt_kernels, train)
     kernels.update(phase_serve_kernels(torch, lgt, serve_bst, xv))
     by_path = {"main_path": counts, "per_iteration": per_it_counts,
-               "fused_chunk": chunk_counts,
+               "fused_chunk": chunk_counts, **wide_counts,
                "predict": phase_predict(torch, lgt, lgt_kernels, bst,
                                         serve_bst, xv),
                "fused_serve": phase_fused_serve(torch, lgt, lgt_kernels,
@@ -1614,7 +2249,7 @@ def main() -> int:
                                           serve_bst, xv,
                                           device_binning=True)}
     emit({"kernels": [{**kernels[k],
-                       "launches": by_path[SERVE_KERNEL_PATH.get(
+                       "launches": by_path[KERNEL_PATH.get(
                            k, "main_path")].get(k, 0),
                        "launches_by_path": {p: c.get(k, 0)
                                             for p, c in by_path.items()}}

@@ -41,10 +41,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # library -> CUDA source
 SOURCES: Dict[str, str] = {
-    "histogram": "histogram.cu",    # B1
+    "histogram": "histogram.cu",    # B1, B1-K
     "split": "split.cu",            # B2
-    "partition": "partition.cu",    # B3
-    "grow_step": "grow_step.cu",    # B3s
+    "partition": "partition.cu",    # B3, B3-K
+    "grow_step": "grow_step.cu",    # B3s, B3s-K
+    "sample": "sample.cu",          # B6 (bagging)
     "predict": "predict.cu",        # B4
     "metrics": "metrics.cu",        # B12a, B12b
     "forest": "forest.cu",          # B10a, B10b, B10c
@@ -53,7 +54,9 @@ SOURCES: Dict[str, str] = {
 # kernel (launch-counter key) -> library
 KERNELS: Dict[str, str] = {
     "histogram": "histogram", "split": "split", "partition": "partition",
-    "grow_step": "grow_step", "predict": "predict", "auc": "metrics",
+    "grow_step": "grow_step", "histogram_slots": "histogram",
+    "partition_slots": "partition", "grow_step_batched": "grow_step",
+    "bag_vals": "sample", "predict": "predict", "auc": "metrics",
     "pointwise": "metrics", "forest_walk": "forest", "bin_rows": "forest",
     "fused_predict": "forest",
 }
@@ -74,6 +77,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "histogram": {
         "lgbt_histogram": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _P),
+        "lgbt_histogram_slots": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P, _P),
         "lgbt_histogram_setup": (_I,),
     },
     "split": {
@@ -83,11 +88,19 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "partition": {
         "lgbt_partition": (_P, _I, _I, _P, _P, _P, _P, _P),
+        "lgbt_partition_slots": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
         "lgbt_partition_setup": (),
     },
     "grow_step": {
         "lgbt_grow_step": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+        "lgbt_grow_step_batched": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                   _P, _P, _P, _P, _P),
         "lgbt_grow_step_setup": (),
+    },
+    "sample": {
+        "lgbt_bag_vals": (_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_uint,
+                          ctypes.c_uint, _I, _F, _F, _F, _P, _P),
+        "lgbt_sample_setup": (),
     },
     "predict": {
         "lgbt_add_tree_score": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,

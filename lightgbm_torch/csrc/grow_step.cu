@@ -31,7 +31,9 @@
 //   default_left[nn] left_child[nn] right_child[nn] split_gain[nn]
 //   internal_value[nn] internal_weight[nn] internal_count[nn]
 //   leaf_value[L] leaf_weight[L] leaf_count[L] leaf_depth[L]
-//   leaf_parent[L]
+//   leaf_parent[L] n_steps[1]
+// (n_steps counts the live steps of the tree: the splits here, the live
+// super-steps in the batched form below).
 //
 // Bound on this card: one launch.  The step reads the [L, 12] table
 // (1.5 KB at L = 31) and writes a few dozen words.  It is all copies and
@@ -74,6 +76,7 @@ __global__ void grow_step(const float* __restrict__ table,
   int32_t* leaf_count = leaf_weight + L;
   int32_t* leaf_depth = leaf_count + L;
   int32_t* leaf_parent = leaf_depth + L;
+  int32_t* n_steps = leaf_parent + L;
 
   const int nl = *num_leaves;
   int leaf = 0;
@@ -131,6 +134,7 @@ __global__ void grow_step(const float* __restrict__ table,
   leaf_depth[leaf] = leaf_depth[new_leaf] = d;
   leaf_parent[leaf] = leaf_parent[new_leaf] = i;
   *num_leaves = nl + 1;
+  *n_steps += 1;
 
   const bool smaller_left = lcount <= rcount;
   rec[2] = feat;
@@ -141,6 +145,196 @@ __global__ void grow_step(const float* __restrict__ table,
   for (int c = 0; c < 8; ++c) fstep[c] = r[4 + c];
   flags[0] = smaller_left ? 1 : 0;
   flags[1] = (max_depth <= 0 || d < max_depth) ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// B3s-K — one super-step of the batched grower.
+//
+// Replaces the bookkeeping of the JAX package's grower.py
+// `grow_tree_batched` -> `super_step` / `do_split` (:999-1028,
+// :1158-1210) for K = split_batch:
+//   - the top K cached gains over the L real leaves, in lax.top_k's order
+//     (larger gain first, the lower leaf index first on ties; a NaN gain
+//     ranks as -inf);
+//   - valid[k] = gain_k > 0 & k < L - num_leaves & !done, a prefix; when
+//     slot 0 is not valid the tree is done and the step is dead.  A
+//     super-step that finds the tree already done returns at once: its
+//     outputs are those the first dead super-step wrote;
+//   - valid slot k splits leaf_k into node num_leaves - 1 + k and new leaf
+//     num_leaves + k, with Tree::Split's bookkeeping (the parent's child
+//     pointer, children ~leaf/~new_leaf, internal value/weight/count from
+//     the leaf, both children's value, weight, count, depth and parent);
+//     num_leaves grows by the valid count.
+// Each valid slot's writes touch its own leaf, new leaf and node, and at
+// most one child pointer of its parent (siblings fix different pointers),
+// so thread k does slot k's bookkeeping, reading the leaf's old values
+// before it writes; the order of the JAX package's unrolled loop gives
+// the same result.  An invalid slot writes nothing into the tree (the JAX
+// package writes scratch nodes and leaves past L there, which it slices
+// off): its histogram and table rows go to scratch rows past L, leaf
+// L + k and new leaf L + K + k (the JAX package uses L + k for both; the
+// port keeps the 2K rows of a super-step's updates distinct so that the
+// torch index updates are deterministic).
+//
+// Outputs (the rest of the super-step reads them from the device):
+//   recs      int32[K, 8]: leaf, new leaf, feature, threshold,
+//                          default_left, na_bin[feature], smaller child,
+//                          valid (B3-K)
+//   slot_of_leaf int32[L]: k at each valid slot's leaf, else -1 (B3-K)
+//   idx2      int64[2K]  : the leaves, then the new leaves (scratch rows
+//                          for invalid slots): the hist and table rows
+//                          the torch ops update
+//   tot2      f32[2K, 3] : left sums, then right sums (B2's totals)
+//   po2       f32[2K]    : left outputs, then right outputs (B2's parent
+//                          outputs)
+//   small_left u8[K]     : the smaller child is the left one
+//   keep2     u8[2K]     : the child may split further (valid, max_depth)
+//   status    int32[2]   : active (slot 0 valid), valid count
+//
+// Bound on this card: one launch.  It reads L gains (staged in shared
+// memory; L^2 / blockDim compares each thread for the ranks) and K table
+// rows and writes a few hundred words; all copies and compares, so it equals its plain version
+// (grower.py `grow_step_batched_plain`) bit for bit.
+
+__device__ __forceinline__ float rank_key(float g) {
+  return g != g ? -__int_as_float(0x7f800000) : g;
+}
+
+__global__ void grow_step_batched(const float* __restrict__ table,
+                                  int32_t* __restrict__ tree,
+                                  const int32_t* __restrict__ na_bin, int L,
+                                  int K, int max_depth,
+                                  int32_t* __restrict__ recs,
+                                  int32_t* __restrict__ slot_of_leaf,
+                                  long long* __restrict__ idx2,
+                                  float* __restrict__ tot2,
+                                  float* __restrict__ po2,
+                                  uint8_t* __restrict__ small_left,
+                                  uint8_t* __restrict__ keep2,
+                                  int32_t* __restrict__ status) {
+  extern __shared__ int32_t top[];   // [K] leaves by rank, then L gains
+  const int nn = L - 1;
+  int32_t* num_leaves = tree;
+  int32_t* done = tree + 1;
+  int32_t* split_feature = tree + 2;
+  int32_t* threshold_bin = split_feature + nn;
+  int32_t* default_left = threshold_bin + nn;
+  int32_t* left_child = default_left + nn;
+  int32_t* right_child = left_child + nn;
+  int32_t* split_gain = right_child + nn;
+  int32_t* internal_value = split_gain + nn;
+  int32_t* internal_weight = internal_value + nn;
+  int32_t* internal_count = internal_weight + nn;
+  int32_t* leaf_value = internal_count + nn;
+  int32_t* leaf_weight = leaf_value + L;
+  int32_t* leaf_count = leaf_weight + L;
+  int32_t* leaf_depth = leaf_count + L;
+  int32_t* leaf_parent = leaf_depth + L;
+  int32_t* n_steps = leaf_parent + L;
+  const int tid = threadIdx.x;
+
+  // a tree that was done before this super-step: nothing changes, and the
+  // step outputs of the super-step that found it done stay as they are
+  if (*done != 0) return;
+  // ranks: rank(i) = #{j : key_j > key_i or (key_j == key_i and j < i)},
+  // over the L gains staged in shared memory
+  float* s_gain = reinterpret_cast<float*>(top + K);
+  for (int i = tid; i < L; i += blockDim.x)
+    s_gain[i] = rank_key(table[(long long)i * kRecord]);
+  __syncthreads();
+  for (int i = tid; i < L; i += blockDim.x) {
+    const float gi = s_gain[i];
+    int rank = 0;
+    for (int j = 0; j < L && rank < K; ++j) {
+      const float gj = s_gain[j];
+      rank += (gj > gi || (gj == gi && j < i)) ? 1 : 0;
+    }
+    if (rank < K) top[rank] = i;
+  }
+  for (int i = tid; i < L; i += blockDim.x) slot_of_leaf[i] = -1;
+  const int nl = *num_leaves;
+  __syncthreads();
+
+  // valid slots are a prefix (gains sorted, the budget a prefix)
+  int nvalid = 0;
+  while (nvalid < K && nvalid < L - nl &&
+           table[(long long)top[nvalid] * kRecord] > 0.f)
+      ++nvalid;
+  if (tid < K) {
+    const int k = tid;
+    const bool valid = k < nvalid;
+    const float gk = table[(long long)top[k] * kRecord];
+    const int leaf = valid ? top[k] : L + k;
+    const int new_leaf = valid ? nl + k : L + K + k;
+    const float* r = table + (long long)leaf * kRecord;
+    int32_t* rec = recs + k * 8;
+    idx2[k] = leaf;
+    idx2[K + k] = new_leaf;
+    for (int c = 0; c < 3; ++c) {
+      tot2[k * 3 + c] = r[4 + c];
+      tot2[(K + k) * 3 + c] = r[7 + c];
+    }
+    po2[k] = r[10];
+    po2[K + k] = r[11];
+    const bool sleft = r[6] <= r[9];
+    small_left[k] = sleft ? 1 : 0;
+    rec[0] = leaf;
+    rec[1] = new_leaf;
+    rec[7] = valid ? 1 : 0;
+    if (!valid) {
+      rec[2] = rec[3] = rec[4] = 0;
+      rec[5] = -1;
+      rec[6] = leaf;
+      keep2[k] = keep2[K + k] = 0;
+    } else {
+      const int feat = (int)r[1];
+      const int thr = (int)r[2];
+      const int dleft = r[3] != 0.f ? 1 : 0;
+      const int node = nl - 1 + k;
+      const int parent = leaf_parent[leaf];
+      if (parent >= 0) {
+        if (left_child[parent] == ~leaf) left_child[parent] = node;
+        if (right_child[parent] == ~leaf) right_child[parent] = node;
+      }
+      left_child[node] = ~leaf;
+      right_child[node] = ~new_leaf;
+      split_feature[node] = feat;
+      threshold_bin[node] = thr;
+      default_left[node] = dleft;
+      split_gain[node] = as_i(gk);
+      internal_value[node] = leaf_value[leaf];
+      internal_weight[node] = leaf_weight[leaf];
+      internal_count[node] = leaf_count[leaf];
+      leaf_value[leaf] = as_i(r[10]);
+      leaf_value[new_leaf] = as_i(r[11]);
+      leaf_weight[leaf] = as_i(r[5]);
+      leaf_weight[new_leaf] = as_i(r[8]);
+      leaf_count[leaf] = as_i(r[6]);
+      leaf_count[new_leaf] = as_i(r[9]);
+      const int d = leaf_depth[leaf] + 1;
+      leaf_depth[leaf] = leaf_depth[new_leaf] = d;
+      leaf_parent[leaf] = leaf_parent[new_leaf] = node;
+      rec[2] = feat;
+      rec[3] = thr;
+      rec[4] = dleft;
+      rec[5] = na_bin[feat];
+      rec[6] = sleft ? leaf : new_leaf;
+      const uint8_t keep = (max_depth <= 0 || d < max_depth) ? 1 : 0;
+      keep2[k] = keep2[K + k] = keep;
+      slot_of_leaf[leaf] = k;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    status[0] = nvalid > 0 ? 1 : 0;
+    status[1] = nvalid;
+    if (nvalid > 0) {
+      *num_leaves = nl + nvalid;
+      *n_steps += 1;
+    } else {
+      *done = 1;
+    }
+  }
 }
 
 }  // namespace
@@ -155,7 +349,28 @@ extern "C" int lgbt_grow_step(const float* table, int32_t* tree,
   return (int)cudaGetLastError();
 }
 
+// recs [K, 8], slot_of_leaf [L], idx2 [2K], tot2 [2K, 3], po2 [2K],
+// small_left [K], keep2 [2K], status [2]; table [L + 2K, 12].
+extern "C" int lgbt_grow_step_batched(const float* table, int32_t* tree,
+                                      const int32_t* na_bin, int num_leaves,
+                                      int split_batch, int max_depth,
+                                      int32_t* recs, int32_t* slot_of_leaf,
+                                      long long* idx2, float* tot2,
+                                      float* po2, uint8_t* small_left,
+                                      uint8_t* keep2, int32_t* status,
+                                      cudaStream_t stream) {
+  const int threads = 256;
+  const size_t smem = (size_t)split_batch * sizeof(int32_t) +
+                      (size_t)num_leaves * sizeof(float);
+  grow_step_batched<<<1, threads, smem, stream>>>(
+      table, tree, na_bin, num_leaves, split_batch, max_depth, recs,
+      slot_of_leaf, idx2, tot2, po2, small_left, keep2, status);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int lgbt_grow_step_setup() {
   cudaFuncAttributes attr;
-  return (int)cudaFuncGetAttributes(&attr, grow_step);
+  cudaError_t err = cudaFuncGetAttributes(&attr, grow_step);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncGetAttributes(&attr, grow_step_batched);
 }

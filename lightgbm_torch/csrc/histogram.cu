@@ -40,6 +40,38 @@
 // nothing, so a dead step of a captured tree costs two empty launches.
 // The kernel's shared-memory limit is raised once, when the library is
 // loaded (`lgbt_histogram_setup`), never per launch.
+//
+// B1-K — the K-slot form (the batched grower's child pass, grower.py
+// `grow_tree_batched` :1060-1070, `_hist(..., tslot, nC)`):
+//
+//     hist[k, f, b, c] = sum over rows n with slot[n] == k of
+//                        [binned[n, f] == b] * vals[n, c],  0 <= k < K
+//
+// (the JAX package lays it out as [F, B, 3K] with channel c of slot k at
+// c*K + k; the port keeps [K, F, B, 3], the grower's per-leaf layout).
+// A per-thread [B, 3K] slice would be 12 KB at K = 16 and a block's
+// [F, B, 3K] 338,688 B, beyond the 227 KB a block may have, so the kernel
+// tiles over (feature, slot) pairs instead:
+//   1. `hist_slots_partial`: grid (row blocks, pair tiles).  Thread t of
+//      tile y owns pair p = y * pairs_per_block + t, feature p % F and slot
+//      p / F (so a warp's lanes read neighbouring bytes of a row), and
+//      walks the block's rows in order into a private [B, 3] f32 slice of
+//      shared memory, adding the rows whose slot is its own.  The block
+//      stages its rows a chunk at a time in shared memory (slots, vals and
+//      binned rows, read once and coalesced), then marks each slot's
+//      rows of every 32-row group in one word (warp ballots), so that a
+//      thread visits only its own slot's rows, in row order, and reads no
+//      global memory.  When fewer slots are in use (the device count
+//      `slots_used`, the super-step's valid slots), a pair's 32-row
+//      groups are dealt over several threads, whose slices are summed in
+//      a fixed order; the tiles of unused slots only write zeros.  The
+//      block then writes its pairs to the partial [row blocks, K, F, B, 3]
+//      (they are contiguous there), coalesced.
+//   2. `hist_reduce` sums the partials in block order, as for one slot.
+// The order of every sum is fixed by the shapes and the count of slots
+// in use, so reruns are bitwise equal.  Bytes per pass do not grow with K (N*F + 12N + 4N, about 44 MB
+// at the main path); the partial buffer does: row blocks x K*F*B*3*4 B,
+// 44.7 MB at 132 row blocks, K = 16, F = 28, B = 63.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,6 +142,152 @@ __global__ void hist_reduce(const float* __restrict__ partial, int nblocks,
   out[e] = acc;
 }
 
+// Copy nbytes from global to shared memory with the whole block: 16-byte
+// words, kStage loads in flight per thread before their stores, then the
+// tail byte by byte (and everything byte by byte when either side is not
+// 16-byte aligned).
+constexpr int kStage = 8;
+
+__device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src,
+                                            int nbytes, int tid,
+                                            int nthreads) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) |
+        reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    const int n16 = nbytes >> 4;
+    const int4* s16 = reinterpret_cast<const int4*>(src);
+    int4* d16 = reinterpret_cast<int4*>(dst);
+    for (int base = tid; base < n16; base += nthreads * kStage) {
+      int4 r[kStage];
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = base + u * nthreads;
+        if (i < n16) r[u] = __ldg(s16 + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int i = base + u * nthreads;
+        if (i < n16) d16[i] = r[u];
+      }
+    }
+    done = n16 << 4;
+  }
+  for (int i = done + tid; i < nbytes; i += nthreads) dst[i] = src[i];
+}
+
+// one staged row i into a thread's [B, 3] slice
+__device__ __forceinline__ void add_row(float* mine, const uint8_t* s_bin,
+                                        const float* s_vals, int i,
+                                        int num_features, int f,
+                                        int num_bins) {
+  const int b = s_bin[i * num_features + f];
+  if (b >= num_bins) return;
+  const float* v = s_vals + i * kChannels;
+  mine[b * kChannels + 0] += v[0];
+  mine[b * kChannels + 1] += v[1];
+  mine[b * kChannels + 2] += v[2];
+}
+
+__global__ void hist_slots_partial(const uint8_t* __restrict__ binned,
+                                   const float* __restrict__ vals,
+                                   const int32_t* __restrict__ slot, int n,
+                                   int num_features, int num_bins,
+                                   int num_slots, int rows_per_block,
+                                   int pairs_per_block, int chunk,
+                                   const int32_t* __restrict__ active,
+                                   const int32_t* __restrict__ slots_used,
+                                   float* __restrict__ partial) {
+  if (active != nullptr && *active == 0) return;
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int slice = num_bins * kChannels;
+  const int pairs = num_features * num_slots;
+  const int p0 = blockIdx.y * pairs_per_block;
+  const int npairs = min(pairs_per_block, pairs - p0);
+  float* dst = partial + ((long long)blockIdx.x * pairs + p0) * slice;
+  // the tile's pairs of slots in use (slots 0..used-1) are its first q;
+  // the rest have no rows.  With few slots in use each pair's rows are
+  // split over `subs` threads (32-row groups dealt round robin), so the
+  // work does not fall on one warp.
+  const int used = min(*slots_used, num_slots);
+  const int q = max(0, min(npairs, used * num_features - p0));
+  if (q == 0) {
+    for (int e = tid; e < npairs * slice; e += nthreads) dst[e] = 0.f;
+    return;
+  }
+  const int subs = max(1, min(nthreads / q, chunk >> 5));
+  const bool owns = tid < q * subs;
+  const int pair = p0 + (owns ? tid % q : 0);
+  const int sub = owns ? tid / q : 0;
+  const int f = pair % num_features;
+  const int k = owns ? pair / num_features : -1;
+  // [threads x slice] slices, then the staged chunk: slots (int32), vals
+  // (f32 x 3), binned rows (bytes), and the chunk's row masks, one 32-bit
+  // word per (32-row group, slot)
+  int32_t* s_slot = reinterpret_cast<int32_t*>(smem + nthreads * slice);
+  float* s_vals = reinterpret_cast<float*>(s_slot + chunk);
+  uint8_t* s_bin = reinterpret_cast<uint8_t*>(s_vals + chunk * kChannels);
+  uint32_t* s_mask = reinterpret_cast<uint32_t*>(
+      s_bin + ((chunk * num_features + 15) & ~15));
+  float* mine = smem + tid * slice;
+  for (int i = 0; i < slice; ++i) mine[i] = 0.f;
+
+  const long long row0 = (long long)blockIdx.x * rows_per_block;
+  const long long row_stop = min(row0 + rows_per_block, (long long)n);
+  for (long long c0 = row0; c0 < row_stop; c0 += chunk) {
+    const int len = (int)min((long long)chunk, row_stop - c0);
+    const int groups = (len + 31) >> 5;
+    __syncthreads();
+    // stage the chunk (coalesced, 16 B loads, several in flight per
+    // thread); slots past len read as -1
+    stage_bytes(reinterpret_cast<uint8_t*>(s_slot),
+                reinterpret_cast<const uint8_t*>(slot + c0), len * 4, tid,
+                nthreads);
+    for (int i = len + tid; i < groups * 32; i += nthreads) s_slot[i] = -1;
+    stage_bytes(reinterpret_cast<uint8_t*>(s_vals),
+                reinterpret_cast<const uint8_t*>(vals + c0 * kChannels),
+                len * kChannels * 4, tid, nthreads);
+    stage_bytes(s_bin, binned + c0 * num_features, len * num_features, tid,
+                nthreads);
+    __syncthreads();
+    // the rows of each slot in use in each 32-row group, by warp ballots
+    for (int gi = warp; gi < groups; gi += nwarps) {
+      const int sl = s_slot[(gi << 5) + lane];
+      for (int kk = 0; kk < used; ++kk) {
+        const uint32_t m = __ballot_sync(0xffffffffu, sl == kk);
+        if (lane == (kk & 31)) s_mask[gi * num_slots + kk] = m;
+      }
+    }
+    __syncthreads();
+    if (!owns) continue;
+    // only this slot's rows of this thread's groups, in row order
+    for (int gi = sub; gi < groups; gi += subs) {
+      uint32_t m = s_mask[gi * num_slots + k];
+      while (m != 0u) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1u;
+        add_row(mine, s_bin, s_vals, (gi << 5) + j, num_features, f,
+                num_bins);
+      }
+    }
+  }
+  // the block's pairs are contiguous in the partial ([K, F] = pair order):
+  // write them out together, coalesced, each the sum of its sub-slices in
+  // sub order (zero for pairs of unused slots)
+  __syncthreads();
+  for (int e = tid; e < npairs * slice; e += nthreads) {
+    const int pl = e / slice, i = e - pl * slice;
+    float acc = 0.f;
+    if (pl < q) {
+      acc = smem[pl * slice + i];
+      for (int sb = 1; sb < subs; ++sb) acc += smem[(sb * q + pl) * slice + i];
+    }
+    dst[e] = acc;
+  }
+}
+
 }  // namespace
 
 // partial: [ceil(n / rows_per_block), F, B, 3] f32 scratch; out: [F, B, 3].
@@ -136,11 +314,46 @@ extern "C" int lgbt_histogram(const uint8_t* binned, const float* vals,
   return (int)cudaGetLastError();
 }
 
+// The K-slot form.  partial: [ceil(n / rows_per_block), K, F, B, 3] f32
+// scratch; out: [K, F, B, 3].  active may be null; slots_used (a device
+// int32) promises that no row has a slot >= it.
+extern "C" int lgbt_histogram_slots(const uint8_t* binned, const float* vals,
+                                    const int32_t* slot, int n,
+                                    int num_features, int num_bins,
+                                    int num_slots, int rows_per_block,
+                                    int pairs_per_block, int chunk,
+                                    const int32_t* active,
+                                    const int32_t* slots_used, float* partial,
+                                    float* out, cudaStream_t stream) {
+  const int nblocks = (n + rows_per_block - 1) / rows_per_block;
+  const int pairs = num_features * num_slots;
+  const int ntiles = (pairs + pairs_per_block - 1) / pairs_per_block;
+  const int threads = ((pairs_per_block + 31) / 32) * 32;
+  const size_t smem =
+      (size_t)threads * num_bins * kChannels * sizeof(float) +
+      (size_t)chunk * (sizeof(int32_t) + kChannels * sizeof(float)) +
+      (((size_t)chunk * num_features + 15) & ~(size_t)15) +
+      (size_t)(chunk / 32) * num_slots * sizeof(uint32_t);
+  hist_slots_partial<<<dim3(nblocks, ntiles), threads, smem, stream>>>(
+      binned, vals, slot, n, num_features, num_bins, num_slots,
+      rows_per_block, pairs_per_block, chunk, active, slots_used, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int elems = pairs * num_bins * kChannels;
+  hist_reduce<<<(elems + 255) / 256, 256, 0, stream>>>(partial, nblocks,
+                                                       elems, active, out);
+  return (int)cudaGetLastError();
+}
+
 // Once per process, before any launch: let hist_partial use up to
-// `smem_bytes` of dynamic shared memory, and load both kernels.
+// `smem_bytes` of dynamic shared memory, and load the kernels.
 extern "C" int lgbt_histogram_setup(int smem_bytes) {
   cudaError_t err = cudaFuncSetAttribute(
       hist_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(hist_slots_partial,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
   return (int)cudaFuncGetAttributes(&attr, hist_reduce);

@@ -29,6 +29,18 @@
 // that is 28 + 8 + 4 = 40 MB, about 12 us at 3.35 TB/s.  Reading the
 // column only for rows of the split leaf saves sectors as trees deepen.
 
+// B3-K — the batched grower's partition (grower.py `grow_tree_batched`
+// :1029-1067): one pass applies the K splits of a super-step.  The row's
+// slot is slot_of_leaf[leaf_of_row[r]] (the table the batched split step
+// B3s-K writes, -1 for leaves that do not split); for slot k >= 0 the row
+// takes record k's split (records of 8 int32 as above: leaf, new leaf,
+// feature, threshold, default_left, na_bin, smaller child, valid), and its
+// target slot for the K-slot histogram pass (B1-K) is k if it ends in
+// slot k's smaller child, else -1.  status[0] == 0 (a dead super-step)
+// returns at once and writes nothing.  Bound: bytes, as B3 (the matrix's
+// sectors, leaf_of_row read and written, the target slots written, and
+// slot_of_leaf gathers from L1), about 40 MB at the main path.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +71,35 @@ __global__ void partition_rows(const uint8_t* __restrict__ binned, int n,
   slot[r] = l == smaller ? 0 : -1;
 }
 
+__global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
+                                int num_features,
+                                const int32_t* __restrict__ recs,
+                                const int32_t* __restrict__ slot_of_leaf,
+                                const int32_t* __restrict__ status,
+                                const int32_t* __restrict__ rank_vec,
+                                int32_t* __restrict__ leaf_of_row,
+                                int32_t* __restrict__ tslot) {
+  if (status[0] == 0) return;
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  int l = leaf_of_row[r];
+  const int k = slot_of_leaf[l];
+  if (k < 0) {
+    tslot[r] = -1;
+    return;
+  }
+  const int32_t* rec = recs + k * 8;
+  const int b = binned[r * num_features + rec[2]];
+  const int na_bin = rec[5];
+  const bool is_na = na_bin >= 0 && b == na_bin;
+  const bool go_left = is_na ? rec[4] != 0 : rank_vec[b] <= rec[3];
+  if (!go_left) {
+    l = rec[1];
+    leaf_of_row[r] = l;
+  }
+  tslot[r] = l == rec[6] ? k : -1;
+}
+
 }  // namespace
 
 extern "C" int lgbt_partition(const uint8_t* binned, int n, int num_features,
@@ -72,7 +113,24 @@ extern "C" int lgbt_partition(const uint8_t* binned, int n, int num_features,
   return (int)cudaGetLastError();
 }
 
+extern "C" int lgbt_partition_slots(const uint8_t* binned, int n,
+                                    int num_features, const int32_t* recs,
+                                    const int32_t* slot_of_leaf,
+                                    const int32_t* status,
+                                    const int32_t* rank_vec,
+                                    int32_t* leaf_of_row, int32_t* tslot,
+                                    cudaStream_t stream) {
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  partition_slots<<<blocks, threads, 0, stream>>>(
+      binned, n, num_features, recs, slot_of_leaf, status, rank_vec,
+      leaf_of_row, tslot);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int lgbt_partition_setup() {
   cudaFuncAttributes attr;
-  return (int)cudaFuncGetAttributes(&attr, partition_rows);
+  cudaError_t err = cudaFuncGetAttributes(&attr, partition_rows);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncGetAttributes(&attr, partition_slots);
 }

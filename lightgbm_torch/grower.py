@@ -1,7 +1,8 @@
-"""Strict leaf-wise tree grower, resident on the device.
+"""Tree growers resident on the device: strict leaf-wise, and batched.
 
 Counterpart of the JAX package's ``grower.py`` ``grow_tree`` (the masked
-one-program learner at ``split_batch=1``).  The JAX package runs the tree
+one-program learner at ``split_batch=1``) and ``grow_tree_batched`` (K =
+``split_batch`` > 1 splits a super-step, at the end of this module).  The JAX package runs the tree
 build as one ``lax.while_loop`` over ``split_step``; here a tree is a
 fixed sequence of L - 1 steps whose every value stays on the device, so
 the whole tree, and a whole boosting iteration around it, can be captured
@@ -50,6 +51,7 @@ TREE_FIELDS = (
     ("internal_count", "n", "f"), ("leaf_value", "L", "f"),
     ("leaf_weight", "L", "f"), ("leaf_count", "L", "f"),
     ("leaf_depth", "L", "i"), ("leaf_parent", "L", "i"),
+    ("n_steps", 1, "i"),
 )
 # step record (int32) columns, written by B3s and read by B3, B1 and B2
 LEAF, NEW_LEAF, FEATURE, THRESHOLD, DEFAULT_LEFT, NA_BIN, SMALLER, ACTIVE = \
@@ -112,7 +114,8 @@ class TreeArrays(NamedTuple):
     leaf_of_row: Optional[torch.Tensor]  # [N] int32 — final row -> leaf
     is_cat_node: object          # [L-1] bool (all False: numerical only)
     cat_rank: object             # [L-1, B] int32 (identity rank)
-    n_steps: object              # split steps taken (== splits)
+    n_steps: object              # live steps: splits (strict), live
+                                 # super-steps (batched)
 
 
 def host_tree(words: np.ndarray, num_leaves: int, num_bins: int,
@@ -133,7 +136,7 @@ def host_tree(words: np.ndarray, num_leaves: int, num_bins: int,
         leaf_of_row=leaf_of_row, is_cat_node=np.zeros(nn, bool),
         cat_rank=np.broadcast_to(np.arange(num_bins, dtype=np.int32),
                                  (nn, num_bins)).copy(),
-        n_steps=nl - 1)
+        n_steps=int(v["n_steps"][0]))
 
 
 def fetch_tree(ws: "GrowWorkspace") -> TreeArrays:
@@ -144,34 +147,50 @@ def fetch_tree(ws: "GrowWorkspace") -> TreeArrays:
 
 class GrowWorkspace:
     """Every device tensor of a tree build, allocated once for the
-    shapes (N rows, F features, B bins, L leaves): the tree buffer and its
-    reset image, the [L, 12] best-split table, the per-leaf histograms,
-    the row -> leaf vector, the step record and its companions, and the
-    children's histogram pair."""
+    shapes (N rows, F features, B bins, L leaves, split batch K): the tree
+    buffer and its reset image, the best-split table, the per-leaf
+    histograms, the row -> leaf vector, the step outputs, and the
+    children's histograms.  The batched grower (K > 1) has 2K scratch rows
+    past L in the table and the histograms (an invalid slot's leaf and new
+    leaf) and K-wide step outputs (``grow_step_batched``)."""
 
     def __init__(self, n: int, num_features: int, num_bins: int,
-                 num_leaves: int, device: torch.device):
+                 num_leaves: int, device: torch.device, split_batch: int = 1):
         L, F, B = int(num_leaves), int(num_features), int(num_bins)
-        self.num_leaves, self.num_bins = L, B
+        K = batch_width(split_batch, L)
+        self.num_leaves, self.num_bins, self.split_batch = L, B, K
+        rows = L + 2 * K if K > 1 else L
         kw = {"device": device}
         init = torch.zeros(tree_words(L), dtype=torch.int32)
         tree_fields(init, L)["leaf_parent"].fill_(-1)
         self.tree_init = init.to(device)
         self.tree = self.tree_init.clone()
         self.fields = tree_fields(self.tree, L)
-        table_init = torch.zeros((L, sp.RECORD), dtype=torch.float32)
+        table_init = torch.zeros((rows, sp.RECORD), dtype=torch.float32)
         table_init[:, sp.GAIN] = float("-inf")
         self.table_init = table_init.to(device)
         self.table = self.table_init.clone()
-        self.hist = torch.zeros((L, F, B, 3), dtype=torch.float32, **kw)
-        self.pair = torch.zeros((2, F, B, 3), dtype=torch.float32, **kw)
+        self.hist = torch.zeros((rows, F, B, 3), dtype=torch.float32, **kw)
         self.leaf_of_row = torch.zeros(n, dtype=torch.int32, **kw)
         self.rank_iota = torch.arange(B, dtype=torch.int32, **kw)
-        self.rec = torch.zeros(STEP_RECORD, dtype=torch.int32, **kw)
-        self.idx = torch.zeros(2, dtype=torch.int64, **kw)
-        self.fstep = torch.zeros(8, dtype=torch.float32, **kw)
-        self.flags = torch.zeros(2, dtype=torch.bool, **kw)
         self.neg_inf = torch.full((), float("-inf"), **kw)
+        if K == 1:
+            self.pair = torch.zeros((2, F, B, 3), dtype=torch.float32, **kw)
+            self.rec = torch.zeros(STEP_RECORD, dtype=torch.int32, **kw)
+            self.idx = torch.zeros(2, dtype=torch.int64, **kw)
+            self.fstep = torch.zeros(8, dtype=torch.float32, **kw)
+            self.flags = torch.zeros(2, dtype=torch.bool, **kw)
+            return
+        self.pair = torch.zeros((2 * K, F, B, 3), dtype=torch.float32, **kw)
+        self.step = BatchedStep(
+            recs=torch.zeros((K, STEP_RECORD), dtype=torch.int32, **kw),
+            slot_of_leaf=torch.full((L,), -1, dtype=torch.int32, **kw),
+            idx2=torch.zeros(2 * K, dtype=torch.int64, **kw),
+            tot2=torch.zeros((2 * K, 3), dtype=torch.float32, **kw),
+            po2=torch.zeros(2 * K, dtype=torch.float32, **kw),
+            small_left=torch.zeros(K, dtype=torch.bool, **kw),
+            keep2=torch.zeros(2 * K, dtype=torch.bool, **kw),
+            status=torch.zeros(2, dtype=torch.int32, **kw))
 
     def arrays(self) -> TreeArrays:
         """The tree just grown, as device views."""
@@ -189,23 +208,33 @@ class GrowWorkspace:
             n_steps=None)
 
 
-def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
-              feature_mask: torch.Tensor, num_bin: torch.Tensor,
-              na_bin: torch.Tensor, *, num_leaves: int, num_bins: int,
-              params: SplitParams, max_depth: int = -1,
-              workspace: Optional[GrowWorkspace] = None) -> TreeArrays:
-    """Grow one tree on ``binned`` [N, F] uint8 with per-row ``vals``
-    [N, 3] f32 = (grad, hess, weight), all on one device, with no host
-    round trip.  Returns device views of ``workspace`` (a new one when
-    None); ``fetch_tree`` brings the tree to the host."""
-    n, f = binned.shape
-    L, B = int(num_leaves), int(num_bins)
-    ws = workspace if workspace is not None else GrowWorkspace(
-        n, f, B, L, binned.device)
-    v = ws.fields
+class BatchedStep(NamedTuple):
+    """The outputs of one batched super-step (B3s-K), which the rest of
+    the super-step reads from the device (layouts in csrc/grow_step.cu)."""
+    recs: torch.Tensor           # [K, 8] int32 step records
+    slot_of_leaf: torch.Tensor   # [L] int32
+    idx2: torch.Tensor           # [2K] int64 leaves, then new leaves
+    tot2: torch.Tensor           # [2K, 3] f32 children's totals
+    po2: torch.Tensor            # [2K] f32 children's parent outputs
+    small_left: torch.Tensor     # [K] bool
+    keep2: torch.Tensor          # [2K] bool the child may split further
+    status: torch.Tensor         # [2] int32 active, valid count
 
-    # --- root: histogram, sums, output, best split ------------------------
-    h0 = compute_histogram(binned, vals, num_bins=B)
+
+def batch_width(split_batch: int, num_leaves: int) -> int:
+    """The super-step width K the grower runs: the JAX package's clamp
+    ``max(1, min(split_batch, num_leaves - 1))``."""
+    L = int(num_leaves)
+    return max(1, min(int(split_batch), L - 1)) if L > 1 else 1
+
+
+def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
+          params) -> None:
+    """The root pass of either grower: histogram of all rows (B1), sums,
+    output and best split (B2), and the reset of the tree, the table and
+    the row -> leaf vector."""
+    v = ws.fields
+    h0 = compute_histogram(binned, vals, num_bins=ws.num_bins)
     ws.hist[0].copy_(h0)
     total0 = vals.sum(dim=0)
     root_out = leaf_output(total0[0], total0[1], params)
@@ -220,6 +249,23 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
     v["leaf_count"][0:1].copy_(total0[2:3])
     ws.leaf_of_row.zero_()
 
+
+def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
+              feature_mask: torch.Tensor, num_bin: torch.Tensor,
+              na_bin: torch.Tensor, *, num_leaves: int, num_bins: int,
+              params: SplitParams, max_depth: int = -1,
+              workspace: Optional[GrowWorkspace] = None) -> TreeArrays:
+    """Grow one tree on ``binned`` [N, F] uint8 with per-row ``vals``
+    [N, 3] f32 = (grad, hess, weight), all on one device, with no host
+    round trip.  Returns device views of ``workspace`` (a new one when
+    None); ``fetch_tree`` brings the tree to the host."""
+    n, f = binned.shape
+    L, B = int(num_leaves), int(num_bins)
+    ws = workspace if workspace is not None else GrowWorkspace(
+        n, f, B, L, binned.device)
+    if ws.split_batch != 1:
+        raise ValueError("grow_tree needs a workspace of split_batch 1")
+    _root(ws, binned, vals, feature_mask, num_bin, na_bin, params)
     for _ in range(L - 1):
         _split_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
                     max_depth)
@@ -342,6 +388,7 @@ def grow_step_plain(table, tree, na_bin, *, num_leaves: int,
         v["leaf_depth"][leaf] = v["leaf_depth"][new_leaf] = d
         v["leaf_parent"][leaf] = v["leaf_parent"][new_leaf] = i
         v["num_leaves"][0] = nl + 1
+        v["n_steps"][0] += 1
         smaller_left = rw[6] <= rw[9]
         r[FEATURE], r[THRESHOLD], r[DEFAULT_LEFT] = feat, thr, dleft
         r[NA_BIN] = int(na_bin[feat])
@@ -408,3 +455,274 @@ def partition_plain(binned, leaf_of_row, rec, rank_vec) -> torch.Tensor:
     move = (leaf_of_row == r[LEAF]) & ~go_left & (r[ACTIVE] != 0)
     leaf_of_row.copy_(torch.where(move, rec[NEW_LEAF], leaf_of_row))
     return torch.where(leaf_of_row == r[SMALLER], 0, -1).to(torch.int32)
+
+
+# --- the batched grower (split_batch = K > 1) -------------------------------
+
+def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
+                      feature_mask: torch.Tensor, num_bin: torch.Tensor,
+                      na_bin: torch.Tensor, *, num_leaves: int,
+                      num_bins: int, params: SplitParams,
+                      max_depth: int = -1, split_batch: int = 8,
+                      workspace: Optional[GrowWorkspace] = None
+                      ) -> TreeArrays:
+    """Grow one tree with K splits per super-step (the JAX package's
+    ``grow_tree_batched``, grower.py:945): each super-step takes the top K
+    leaves by cached gain and splits the valid prefix of them (B3s-K),
+    partitions the rows of all K in one pass (B3-K), builds the K smaller
+    children's histograms in one pass (B1-K), the larger ones by
+    subtraction, and the 2K children's best splits (B2).
+
+    The JAX package loops while the tree can grow; here the tree is a
+    fixed sequence of L - 1 super-steps (a chain-shaped tree splits one
+    leaf a step, so no smaller count is safe), so that a whole iteration
+    can be captured.  Once a super-step finds nothing to split the tree is
+    done, and every kernel of a later super-step exits at once; its torch
+    ops write only the scratch rows.  Returns device views of
+    ``workspace``, as ``grow_tree``."""
+    n, f = binned.shape
+    L, B = int(num_leaves), int(num_bins)
+    K = batch_width(split_batch, L)
+    ws = workspace if workspace is not None else GrowWorkspace(
+        n, f, B, L, binned.device, split_batch=K)
+    if ws.split_batch != K or K < 2:
+        raise ValueError(f"grow_tree_batched needs K > 1 and a workspace "
+                         f"of split_batch {K} (has {ws.split_batch})")
+    _root(ws, binned, vals, feature_mask, num_bin, na_bin, params)
+    for _ in range(L - 1):
+        _super_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
+                    max_depth)
+    return ws.arrays()
+
+
+def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
+                na_bin, params, max_depth) -> None:
+    """One super-step: B3s-K, B3-K, B1-K over the K smaller children, the
+    K subtractions, B2 on the 2K children with the depth mask, and the
+    table update, all indexed by the device step outputs."""
+    K, st = ws.split_batch, ws.step
+    grow_step_batched(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
+                      split_batch=K, max_depth=max_depth, step=st)
+    active = st.status[0:1]
+    tslot = partition_slots(binned, ws.leaf_of_row, st, ws.rank_iota)
+    small = compute_histogram(binned, vals, num_bins=ws.num_bins,
+                              slot=tslot, num_slots=K, active=active,
+                              slots_used=st.status[1:2])
+    large = ws.hist.index_select(0, st.idx2[:K]) - small
+    sel = st.small_left[:, None, None, None]
+    torch.where(sel, small, large, out=ws.pair[:K])
+    torch.where(sel, large, small, out=ws.pair[K:])
+    ws.hist.index_copy_(0, st.idx2, ws.pair)
+    children = find_best_split(ws.pair, st.tot2, st.po2, num_bin, na_bin,
+                               feature_mask, params, active=active)
+    children[:, sp.GAIN] = torch.where(st.keep2, children[:, sp.GAIN],
+                                       ws.neg_inf)
+    ws.table.index_copy_(0, st.idx2, children)
+
+
+def _check_batched(table, tree, na_bin, L, K, step: BatchedStep) -> None:
+    if table.shape != (L + 2 * K, sp.RECORD) or table.dtype != torch.float32:
+        raise TypeError("table must be a [L + 2K, 12] float32 tensor")
+    if tree.shape != (tree_words(L),) or tree.dtype != torch.int32:
+        raise TypeError("tree must be the int32 tree buffer of L leaves")
+    want = {"recs": ((K, STEP_RECORD), torch.int32),
+            "slot_of_leaf": ((L,), torch.int32),
+            "idx2": ((2 * K,), torch.int64),
+            "tot2": ((2 * K, 3), torch.float32),
+            "po2": ((2 * K,), torch.float32),
+            "small_left": ((K,), torch.bool),
+            "keep2": ((2 * K,), torch.bool),
+            "status": ((2,), torch.int32)}
+    for name, (shape, dtype) in want.items():
+        t = getattr(step, name)
+        if t.shape != shape or t.dtype != dtype or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous {dtype} tensor "
+                            f"of shape {shape}")
+        if t.device != table.device:
+            raise ValueError("grow_step_batched inputs must be on one "
+                             "device")
+    if na_bin.dtype != torch.int32 or na_bin.device != table.device:
+        raise TypeError("na_bin must be an int32 tensor on the table's "
+                        "device")
+    if not (table.is_contiguous() and tree.is_contiguous()):
+        raise ValueError("grow_step_batched needs contiguous tensors")
+    if not 1 < K < L or K > 256:
+        raise ValueError(f"split_batch {K} must be in 2..min(L - 1, 256)")
+
+
+def grow_step_batched(table: torch.Tensor, tree: torch.Tensor,
+                      na_bin: torch.Tensor, *, num_leaves: int,
+                      split_batch: int, max_depth: int,
+                      step: BatchedStep) -> None:
+    """One batched super-step's bookkeeping (kernel B3s-K), in place on
+    ``tree`` and the step outputs ``step`` (layouts in
+    csrc/grow_step.cu).  A super-step that finds the tree already done
+    changes nothing: the outputs of the super-step that found it done
+    stay.  CUDA tensors launch the kernel, CPU tensors run
+    ``grow_step_batched_plain``."""
+    L, K = int(num_leaves), int(split_batch)
+    _check_batched(table, tree, na_bin, L, K, step)
+    if table.device.type == "cpu":
+        return grow_step_batched_plain(table, tree, na_bin, num_leaves=L,
+                                       split_batch=K, max_depth=max_depth,
+                                       step=step)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    err = _kernels.lib("grow_step").lgbt_grow_step_batched(
+        table.data_ptr(), tree.data_ptr(), na_bin.data_ptr(), L, K,
+        int(max_depth), *[getattr(step, name).data_ptr()
+                          for name in BatchedStep._fields],
+        _kernels.stream_ptr(table.device))
+    _kernels.launched("grow_step_batched", err)
+
+
+def grow_step_batched_plain(table, tree, na_bin, *, num_leaves: int,
+                            split_batch: int, max_depth: int,
+                            step: BatchedStep) -> None:
+    """Plain version of B3s-K: the same super-step on host copies (numpy),
+    copied back in place."""
+    L, K = int(num_leaves), int(split_batch)
+    words = tree.cpu().numpy().copy()
+    v = tree_fields(words, L)
+    if int(v["done"][0]):
+        return               # the first dead super-step's outputs stay
+    tab = table.cpu().numpy()
+    nl = int(v["num_leaves"][0])
+    g = tab[:L, sp.GAIN]
+    key = np.where(np.isnan(g), -np.inf, g)
+    top = np.lexsort((np.arange(L), -key))[:K]     # lax.top_k's order
+    nvalid = 0
+    while nvalid < K and nvalid < L - nl and tab[top[nvalid], 0] > 0.0:
+        nvalid += 1
+    nab = na_bin.cpu().numpy()
+    recs = np.zeros((K, STEP_RECORD), np.int32)
+    slot_of_leaf = np.full(L, -1, np.int32)
+    idx2 = np.zeros(2 * K, np.int64)
+    tot2 = np.zeros((2 * K, 3), np.float32)
+    po2 = np.zeros(2 * K, np.float32)
+    small_left = np.zeros(K, bool)
+    keep2 = np.zeros(2 * K, bool)
+    for k in range(K):
+        valid = k < nvalid
+        leaf = int(top[k]) if valid else L + k
+        new_leaf = nl + k if valid else L + K + k
+        r = tab[leaf]
+        idx2[k], idx2[K + k] = leaf, new_leaf
+        tot2[k], tot2[K + k] = r[4:7], r[7:10]
+        po2[k], po2[K + k] = r[10], r[11]
+        sleft = bool(r[6] <= r[9])
+        small_left[k] = sleft
+        recs[k, LEAF], recs[k, NEW_LEAF] = leaf, new_leaf
+        recs[k, ACTIVE] = int(valid)
+        if not valid:
+            recs[k, NA_BIN], recs[k, SMALLER] = -1, leaf
+            continue
+        feat, thr = int(r[sp.FEATURE]), int(r[sp.THRESHOLD])
+        dleft = int(r[sp.DEFAULT_LEFT] != 0)
+        node = nl - 1 + k
+        parent = int(v["leaf_parent"][leaf])
+        if parent >= 0:
+            if v["left_child"][parent] == ~leaf:
+                v["left_child"][parent] = node
+            if v["right_child"][parent] == ~leaf:
+                v["right_child"][parent] = node
+        v["left_child"][node], v["right_child"][node] = ~leaf, ~new_leaf
+        v["split_feature"][node], v["threshold_bin"][node] = feat, thr
+        v["default_left"][node], v["split_gain"][node] = dleft, r[sp.GAIN]
+        for src, dst in (("leaf_value", "internal_value"),
+                         ("leaf_weight", "internal_weight"),
+                         ("leaf_count", "internal_count")):
+            v[dst][node] = v[src][leaf]
+        v["leaf_value"][leaf], v["leaf_value"][new_leaf] = r[10], r[11]
+        v["leaf_weight"][leaf], v["leaf_weight"][new_leaf] = r[5], r[8]
+        v["leaf_count"][leaf], v["leaf_count"][new_leaf] = r[6], r[9]
+        d = int(v["leaf_depth"][leaf]) + 1
+        v["leaf_depth"][leaf] = v["leaf_depth"][new_leaf] = d
+        v["leaf_parent"][leaf] = v["leaf_parent"][new_leaf] = node
+        recs[k, FEATURE], recs[k, THRESHOLD] = feat, thr
+        recs[k, DEFAULT_LEFT], recs[k, NA_BIN] = dleft, int(nab[feat])
+        recs[k, SMALLER] = leaf if sleft else new_leaf
+        keep2[k] = keep2[K + k] = max_depth <= 0 or d < max_depth
+        slot_of_leaf[leaf] = k
+    if nvalid > 0:
+        v["num_leaves"][0] = nl + nvalid
+        v["n_steps"][0] += 1
+    else:
+        v["done"][0] = 1
+    dev = tree.device
+    tree.copy_(torch.from_numpy(words).to(dev))
+    for name, arr in (("recs", recs), ("slot_of_leaf", slot_of_leaf),
+                      ("idx2", idx2), ("tot2", tot2), ("po2", po2),
+                      ("small_left", small_left), ("keep2", keep2),
+                      ("status", np.array([int(nvalid > 0), nvalid],
+                                          np.int32))):
+        getattr(step, name).copy_(torch.from_numpy(arr).to(dev))
+
+
+def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
+                    step: BatchedStep,
+                    rank_vec: torch.Tensor) -> torch.Tensor:
+    """The batched row partition (kernel B3-K), in place on
+    ``leaf_of_row``: a row of a leaf that splits in this super-step (slot
+    ``step.slot_of_leaf[leaf] = k``) takes record k's split (go left iff
+    NA bin ? default_left : rank_vec[bin] <= threshold; right rows move to
+    the new leaf).  Returns the [N] int32 target slots of the K-slot
+    histogram pass: k where the row ends in slot k's smaller child, else
+    -1; a dead super-step (``step.status[0] == 0``) changes nothing and
+    its target slots are unspecified.  CUDA tensors launch the kernel of
+    ``csrc/partition.cu``, CPU tensors run ``partition_slots_plain``."""
+    if binned.dim() != 2 or binned.dtype != torch.uint8:
+        raise TypeError("binned must be a [N, F] uint8 tensor")
+    if leaf_of_row.shape != (binned.shape[0],) \
+            or leaf_of_row.dtype != torch.int32:
+        raise TypeError("leaf_of_row must be a [N] int32 tensor")
+    if rank_vec.dtype != torch.int32 or rank_vec.dim() != 1:
+        raise TypeError("rank_vec must be an int32 vector")
+    if step.recs.dim() != 2 or step.recs.shape[1] != STEP_RECORD \
+            or step.recs.dtype != torch.int32 \
+            or step.slot_of_leaf.dtype != torch.int32 \
+            or step.status.dtype != torch.int32:
+        raise TypeError("step must hold int32 records, slots and status")
+    tensors = (leaf_of_row, rank_vec, step.recs, step.slot_of_leaf,
+               step.status)
+    if any(t.device != binned.device for t in tensors):
+        raise ValueError("partition_slots inputs must be on one device")
+    if binned.device.type == "cpu":
+        return partition_slots_plain(binned, leaf_of_row, step, rank_vec)
+    if binned.device.type != "cuda":
+        raise ValueError(f"unsupported device {binned.device}")
+    if not (binned.is_contiguous() and all(t.is_contiguous()
+                                           for t in tensors)):
+        raise ValueError("partition_slots needs contiguous tensors")
+    n, f = binned.shape
+    tslot = torch.empty(n, dtype=torch.int32, device=binned.device)
+    if n == 0:
+        return tslot
+    err = _kernels.lib("partition").lgbt_partition_slots(
+        binned.data_ptr(), n, f, step.recs.data_ptr(),
+        step.slot_of_leaf.data_ptr(), step.status.data_ptr(),
+        rank_vec.data_ptr(), leaf_of_row.data_ptr(), tslot.data_ptr(),
+        _kernels.stream_ptr(binned.device))
+    _kernels.launched("partition_slots", err)
+    return tslot
+
+
+def partition_slots_plain(binned, leaf_of_row, step: BatchedStep,
+                          rank_vec) -> torch.Tensor:
+    """Plain PyTorch version of B3-K (gathers and ``torch.where``), same
+    contract."""
+    if not bool(step.status[0]):
+        return torch.full_like(leaf_of_row, -1)
+    lor = leaf_of_row.to(torch.int64)
+    k = step.slot_of_leaf.to(torch.int64)[lor]
+    on = k >= 0
+    r = step.recs.to(torch.int64)[k.clamp_min(0)]           # [N, 8]
+    col = torch.gather(binned, 1, r[:, FEATURE:FEATURE + 1])[:, 0].to(
+        torch.int64)
+    is_na = (r[:, NA_BIN] >= 0) & (col == r[:, NA_BIN])
+    go_left = torch.where(is_na, r[:, DEFAULT_LEFT] != 0,
+                          rank_vec.to(torch.int64)[col] <= r[:, THRESHOLD])
+    new = torch.where(on & ~go_left, r[:, NEW_LEAF], lor)
+    leaf_of_row.copy_(new.to(torch.int32))
+    tslot = torch.where(on & (new == r[:, SMALLER]), k, -1)
+    return tslot.to(torch.int32)

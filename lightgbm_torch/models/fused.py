@@ -4,10 +4,14 @@ graph: the port's counterpart of the JAX package's fused programs (B14,
 ``_build_superepoch_body`` :1938).
 
 The JAX package runs k iterations in one ``lax.scan``.  Here one
-iteration — gradients, the device-resident tree build (B1-B3s), the f32
-shrinkage, the train-score update, each valid set's tree walk (B4), the
-traced metrics (B12) and the early-stop vote — is ``IterationProgram.body``
-over tensors allocated once.  On the card the body is captured once as a
+iteration — gradients, the bagging draw (B6), the device-resident tree
+build (the strict grower B1-B3s, or the batched one B1-K/B3-K/B3s-K from
+``split_batch`` 2 on), the f32 shrinkage, the train-score update, each
+valid set's tree walk (B4), the traced metrics (B12) and the early-stop
+vote — is ``IterationProgram.body`` over tensors allocated once.  The
+bagging key's iteration and the feature_fraction mask come from device
+tensors set before the first replay (``it0``, ``fmasks``) and the row
+counter, so every replay draws its own.  On the card the body is captured once as a
 ``torch.cuda.CUDAGraph`` and an epoch of k iterations is k replays: the
 iteration index lives in a device counter (``row``), and each iteration
 writes its outputs to row ``row`` of the static ``out`` buffer (its tree
@@ -41,8 +45,9 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..grower import grow_tree, tree_fields, tree_words
+from ..grower import grow_tree, grow_tree_batched, tree_fields, tree_words
 from ..metrics import build_traced_eval
+from ..ops.random import bag_vals
 from ..predict_device import add_tree_score
 
 
@@ -72,6 +77,17 @@ class IterationProgram:
         self.cur_ev = self.cur[W + L:W + L + E].view(torch.float32)
         self.cur_stop = self.cur[W + L + E:]
         self.row = torch.zeros(1, dtype=torch.int64, device=dev)
+        # sampling: the epoch's first iteration (the bagging key's
+        # iteration is it0 + row) and the feature_fraction mask of the
+        # current row, selected from ``fmasks`` [rows, F]
+        self.it0 = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.it_cur = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.bagging = m._bagging_active
+        self.sample_features = m.config.feature_fraction < 1.0
+        self.fmask_cur = torch.ones((1, m.num_features), dtype=torch.bool,
+                                    device=dev)
+        self.vals = torch.zeros((m.num_data, 3), dtype=torch.float32,
+                                device=dev) if self.bagging else None
         self.es_base = torch.zeros((), dtype=torch.int32, device=dev)
         self.dead = torch.zeros((), dtype=torch.bool, device=dev)
         self.zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -92,10 +108,13 @@ class IterationProgram:
 
     def _ensure_rows(self, rows: int) -> None:
         if rows > self.rows:
+            dev = self.model.device
             self.out = torch.zeros((rows, self.width), dtype=torch.int32,
-                                   device=self.model.device)
+                                   device=dev)
+            self.fmasks = torch.ones((rows, self.model.num_features),
+                                     dtype=torch.bool, device=dev)
             self.rows = rows
-            self.graph = None       # the graph wrote the old buffer
+            self.graph = None       # the graph used the old buffers
 
     # -- the iteration -----------------------------------------------------
     def body(self, gh=None, mark=None) -> None:
@@ -109,14 +128,25 @@ class IterationProgram:
         blocked = self.dead.clone() if stop is None else self.dead | stop
         mark("gradients")
         g, h = m.objective.get_gradients(m.score) if gh is None else gh
-        # (grad*w, hess*w, w) with w = 1: no bagging/GOSS in this slice
-        vals = torch.stack([g, h, torch.ones_like(g)], dim=1)
+        # (grad*w, hess*w, w): w the in-bag mask of this iteration (B6),
+        # keyed by the device iteration it0 + row, or 1 without bagging
+        if self.bagging:
+            torch.add(self.it0, self.row.to(torch.int32), out=self.it_cur)
+            vals = bag_vals(g.contiguous(), h.contiguous(), self.it_cur,
+                            out=self.vals, **m.bagging_args())
+        else:
+            vals = torch.stack([g, h, torch.ones_like(g)], dim=1)
+        fmask = m.feature_mask
+        if self.sample_features:
+            torch.index_select(self.fmasks, 0, self.row, out=self.fmask_cur)
+            fmask = self.fmask_cur[0]
         mark("grow")
-        arrays = grow_tree(m.binned_dev, vals, m.feature_mask,
-                           m.num_bin_dev, m.na_bin_dev,
-                           num_leaves=cfg.num_leaves, num_bins=m.max_bin,
-                           params=m.split_params, max_depth=cfg.max_depth,
-                           workspace=m.grow_ws)
+        grow = grow_tree if m.split_batch == 1 else grow_tree_batched
+        kw = {} if m.split_batch == 1 else {"split_batch": m.split_batch}
+        arrays = grow(m.binned_dev, vals, fmask, m.num_bin_dev,
+                      m.na_bin_dev, num_leaves=cfg.num_leaves,
+                      num_bins=m.max_bin, params=m.split_params,
+                      max_depth=cfg.max_depth, workspace=m.grow_ws, **kw)
         mark("score")
         nl = arrays.num_leaves[0]
         lv = m.shrink(arrays.leaf_value)
@@ -164,7 +194,7 @@ class IterationProgram:
     def _mutable(self) -> List[torch.Tensor]:
         """Every tensor the body changes that outlives it."""
         m = self.model
-        ts = [m.score, self.dead, self.row]
+        ts = [m.score, self.dead, self.row, self.it_cur, self.fmask_cur]
         ts += [vs for _, _, vs in m.valid_sets]
         if self.es_spec is not None:
             ts += list(m.es_state)
@@ -212,14 +242,20 @@ class IterationProgram:
         self.graph = graph
 
     def run(self, k: int, es_it0: int = 0, *, eager: bool,
-            gh=None, mark=None) -> torch.Tensor:
+            gh=None, mark=None, fmasks=None, it0: int = 0) -> torch.Tensor:
         """Run k iterations into ``out[:k]`` and return that (device)
         slice.  ``eager``: call the body (the per-iteration path, and every
-        path on the CPU); else replay the captured graph (CUDA only)."""
+        path on the CPU); else replay the captured graph (CUDA only).
+        ``fmasks``: the [k, F] host feature masks of the k iterations
+        (feature_fraction < 1), copied to the device before the first;
+        ``it0``: the first iteration's number, which keys bagging."""
         self._ensure_rows(k)
         self.row.zero_()
         self.dead.zero_()
         self.es_base.fill_(int(es_it0))
+        self.it0.fill_(int(it0))
+        if self.sample_features:
+            self.fmasks[:k].copy_(torch.as_tensor(np.asarray(fmasks, bool)))
         if eager:
             for _ in range(k):
                 self.body(gh, mark)

@@ -5,7 +5,9 @@ Counterpart of the JAX package's ``ops/histogram.py`` ``compute_histogram``
 
     hist[f, b, c] = sum over rows n of [binned[n, f] == b] * vals[n, c]
 
-over the rows whose ``slot`` is >= 0 (every row when ``slot`` is None).
+over the rows whose ``slot`` is >= 0 (every row when ``slot`` is None),
+and its K-slot form (``num_slots=K``, the batched grower's child pass),
+one histogram per slot over the rows whose ``slot`` is that slot.
 Channels are (grad*w, hess*w, w).  On a CUDA tensor this launches the
 hand-written kernel of ``csrc/histogram.cu`` (deterministic: its summation
 order is fixed by the shapes alone); on a CPU tensor it runs
@@ -30,6 +32,9 @@ _MAX_THREADS = 1024
 # trained model — depends on the shapes alone.
 _ROW_BLOCKS = 132
 _MIN_ROWS_PER_BLOCK = 1024
+# rows the K-slot kernel stages in shared memory at a time (slot, vals,
+# binned row and the row masks: 16 + F + K/8 bytes a row)
+_SLOT_CHUNK = 512
 
 
 def launch_shape(n: int, num_features: int,
@@ -48,6 +53,36 @@ def launch_shape(n: int, num_features: int,
     rows = max(-(-n // _ROW_BLOCKS), _MIN_ROWS_PER_BLOCK)
     rows = -(-rows // subranges) * subranges
     return rows, tile_f, subranges
+
+
+def slots_launch_shape(n: int, num_features: int, num_bins: int,
+                       num_slots: int) -> Tuple[int, int, int]:
+    """(rows_per_block, pairs_per_block, chunk) of the K-slot kernel: as
+    many (feature, slot) pairs per block as fit in shared memory beside
+    the staged chunk of rows, in whole warps, spread evenly over the
+    tiles; row blocks of whole chunks."""
+    slice_bytes = num_bins * 3 * 4
+
+    def staged(c):
+        return c * 16 + -(-c * num_features // 16) * 16 + c // 32 * \
+            num_slots * 4
+
+    chunk = _SLOT_CHUNK
+    while chunk > 32 and staged(chunk) > _SMEM_BYTES // 4:
+        chunk //= 2
+    max_pairs = min(_MAX_THREADS, (_SMEM_BYTES - staged(chunk))
+                    // slice_bytes)
+    if max_pairs >= 32:
+        max_pairs -= max_pairs % 32
+    if max_pairs < 1:
+        raise ValueError(f"num_bins={num_bins} is too large for one "
+                         "feature's histogram in shared memory")
+    pairs = num_features * num_slots
+    tiles = -(-pairs // max_pairs)
+    per = -(-pairs // tiles)
+    per = min(-(-per // 32) * 32, max_pairs)
+    rows = max(-(-n // _ROW_BLOCKS), _MIN_ROWS_PER_BLOCK)
+    return -(-rows // chunk) * chunk, per, chunk
 
 
 def _check(binned: torch.Tensor, vals: torch.Tensor,
@@ -75,14 +110,32 @@ def _check(binned: torch.Tensor, vals: torch.Tensor,
 def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
                       num_bins: int,
                       slot: Optional[torch.Tensor] = None,
-                      active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      num_slots: Optional[int] = None,
+                      active: Optional[torch.Tensor] = None,
+                      slots_used: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """[F, num_bins, 3] f32 histogram of ``vals`` over ``binned``; rows
     whose ``slot`` is negative add nothing.  The strict grower passes
     ``slot`` = 0 for the smaller child's rows and -1 elsewhere (the JAX
-    package's ``num_slots=1`` form; multi-slot is ROADMAP A8), and its
-    step's ``active`` flag (a [1] int32 device tensor): where it is 0 the
-    pass does nothing and the result is unspecified."""
+    package's ``num_slots=1`` form), and its step's ``active`` flag (a [1]
+    int32 device tensor): where it is 0 the pass does nothing and the
+    result is unspecified.  With ``num_slots=K`` (``slot`` required) the
+    result is [K, F, num_bins, 3], one histogram per slot 0..K-1 (the JAX
+    package's [F, B, 3K] with channel c of slot k at c*K + k, in the
+    grower's per-leaf layout); the batched grower's pass.  That form
+    also needs ``slots_used``, a [1] int32 device count that promises no
+    row's slot is at or past it (the super-step's valid count; a [1]
+    tensor holding K for all slots): the kernel spreads the rows of the
+    slots in use over the threads of the others."""
     _check(binned, vals, slot, active)
+    if num_slots is not None:
+        if slots_used is None or slots_used.shape != (1,) \
+                or slots_used.dtype != torch.int32 \
+                or slots_used.device != binned.device:
+            raise TypeError("the K-slot form needs slots_used, a [1] int32 "
+                            "tensor on the binned matrix's device")
+        return _histogram_slots(binned, vals, slot, int(num_slots),
+                                num_bins, active, slots_used)
     if binned.device.type == "cpu":
         return histogram_plain(binned, vals, num_bins=num_bins, slot=slot,
                                active=active)
@@ -109,6 +162,61 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
         _kernels.stream_ptr(binned.device))
     _kernels.launched("histogram", err)
     return out
+
+
+def _histogram_slots(binned, vals, slot, num_slots: int, num_bins: int,
+                     active, slots_used) -> torch.Tensor:
+    if slot is None or num_slots < 1:
+        raise ValueError("the K-slot form needs slot and num_slots >= 1")
+    if binned.device.type == "cpu":
+        return histogram_slots_plain(binned, vals, slot, num_slots=num_slots,
+                                     num_bins=num_bins, active=active)
+    if binned.device.type != "cuda":
+        raise ValueError(f"unsupported device {binned.device}")
+    if not (binned.is_contiguous() and vals.is_contiguous()
+            and slot.is_contiguous()):
+        raise ValueError("compute_histogram needs contiguous tensors")
+    n, f = binned.shape
+    out = torch.empty((num_slots, f, num_bins, 3), dtype=torch.float32,
+                      device=binned.device)
+    if n == 0:
+        return out.zero_()
+    rows, pairs, chunk = slots_launch_shape(n, f, num_bins, num_slots)
+    nblocks = -(-n // rows)
+    partial = torch.empty((nblocks, num_slots, f, num_bins, 3),
+                          dtype=torch.float32, device=binned.device)
+    err = _kernels.lib("histogram").lgbt_histogram_slots(
+        binned.data_ptr(), vals.data_ptr(), slot.data_ptr(), n, f, num_bins,
+        num_slots, rows, pairs, chunk,
+        None if active is None else active.data_ptr(),
+        slots_used.data_ptr(),
+        partial.data_ptr(), out.data_ptr(),
+        _kernels.stream_ptr(binned.device))
+    _kernels.launched("histogram_slots", err)
+    return out
+
+
+def histogram_slots_plain(binned: torch.Tensor, vals: torch.Tensor,
+                          slot: torch.Tensor, *, num_slots: int,
+                          num_bins: int,
+                          active: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of B1-K: ``index_add_`` over
+    ``(slot * F + f) * B + bin``; an inactive step returns zeros."""
+    f = binned.shape[1]
+    out = torch.zeros((num_slots * f * num_bins, 3), dtype=torch.float32,
+                      device=binned.device)
+    if active is not None and not bool(active[0]):
+        return out.reshape(num_slots, f, num_bins, 3)
+    keep = (slot >= 0) & (slot < num_slots)
+    b = binned[keep].to(torch.int64)
+    s = slot[keep].to(torch.int64)
+    offs = torch.arange(f, device=binned.device, dtype=torch.int64) * num_bins
+    idx = (b + offs + (s * (f * num_bins))[:, None]).reshape(-1)
+    ok = (b < num_bins).reshape(-1)
+    src = vals[keep].repeat_interleave(f, dim=0)
+    out.index_add_(0, idx[ok], src[ok])
+    return out.reshape(num_slots, f, num_bins, 3)
 
 
 def histogram_plain(binned: torch.Tensor, vals: torch.Tensor, *,

@@ -12,9 +12,20 @@ trip) and the serving engine's buckets (``bucket_rows``,
 A CUDA kernel does not recompile per shape, so in the port the buckets
 bound the number of distinct launch shapes and allocations, and they
 keep co-hosted versions of one model family on identical table shapes.
+The batched grower's width K is resolved by the JAX package's rules
+(``SPLIT_BATCH_SET``, ``snap_split_batch``, ``fit_split_batch``), so both
+packages grow the same trees; ``bucket_leaves`` is its padded leaf
+budget, which the port does not pad to but keeps for parity.
 """
 
 from __future__ import annotations
+
+# the super-step widths K of the batched grower: 1 = strict leaf-wise
+# growth, 8 and 16 = the automatic choices (64 and 128 leaves on), 32 and
+# 64 = the wide widths
+SPLIT_BATCH_SET = (1, 8, 16, 32, 64)
+# the smallest padded leaf budget of the JAX package's leaf buckets
+LEAF_BUCKET_FLOOR = 64
 
 
 def round_up_pow2(x: int) -> int:
@@ -38,6 +49,12 @@ def bucket_rows(n: int, min_bucket: int = 16, cap: int | None = None) -> int:
     if cap is not None:
         b = min(b, round_up_pow2(int(cap)))
     return b
+
+
+def bucket_leaves(num_leaves: int, floor: int = LEAF_BUCKET_FLOOR) -> int:
+    """Padded leaf budget covering ``num_leaves``: pow2 with a floor
+    (31 / 40 / 63 -> 64; 127 -> 128; 255 -> 256)."""
+    return _pow2_floor(num_leaves, floor)
 
 
 def bucket_nodes(n: int, floor: int = 16) -> int:
@@ -73,3 +90,30 @@ def traversal_steps(max_depth: int, leaf_budget: int) -> int:
     cap = int(max_depth) if int(max_depth) > 0 else max(int(leaf_budget) - 1,
                                                         1)
     return round_up_pow2(max(cap, 1))
+
+
+def snap_split_batch(k: int) -> int:
+    """Nearest width of ``SPLIT_BATCH_SET`` at or above the request
+    (capped at the largest); 0 and 1 pass through."""
+    k = int(k)
+    if k <= 1:
+        return k
+    for s in SPLIT_BATCH_SET:
+        if k <= s:
+            return s
+    return SPLIT_BATCH_SET[-1]
+
+
+def fit_split_batch(k: int, num_leaves: int) -> int:
+    """``snap_split_batch`` and then under the leaf budget: a super-step
+    splits at most ``num_leaves - 1`` leaves, so a width past the budget
+    steps down the set (31 leaves at K = 32 run K = 16)."""
+    k = snap_split_batch(k)
+    cap = int(num_leaves) - 1
+    if k <= cap:
+        return k
+    fit = 1
+    for s in SPLIT_BATCH_SET:
+        if s <= cap:
+            fit = s
+    return fit

@@ -106,6 +106,8 @@ def test_port_imports_no_jax():
                    if "_build" not in p.relative_to(ROOT).parts) \
         + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    # the threefry stream is the port's own, not jax.random's
+    assert ROOT / "lightgbm_torch" / "ops" / "random.py" in files
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "lightgbm_tpu")]
@@ -121,11 +123,11 @@ def test_default_device_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "A9"),
+    ({"feature_fraction_bynode": 0.5}, "A9"),
     ({"data_sample_strategy": "goss"}, "A9"),
-    ({"feature_fraction": 0.5}, "A9"),
+    ({"cegb_penalty_split": 1.0}, "A9"),
     ({"extra_trees": True}, "A9"),
-    ({"num_leaves": 64}, "A8"),
+    ({"forcedsplits_filename": "splits.json"}, "A11"),
     ({"linear_tree": True}, "A9"),
     ({"boosting": "dart"}, "A9"),
     ({"quant_train": True}, "A10"),
