@@ -67,11 +67,29 @@ Phases, one JSON line each:
    it/s, live against launched super-steps per tree and the valid AUC;
    the per-iteration path (10 rounds: the same trees and evals, eager
    launches held) and fused chunks (25 rounds without a valid set: the
-   same trees, launches held); a byte-identical rerun; a profiled run
-   (device busy share); ``Booster.predict`` of the wide model through
+   same trees, launches held); a profiled byte-identical rerun (device
+   busy share); ``Booster.predict`` of the wide model through
    the engine (one walk per bucket chunk, no other launch), byte-identical
    to the host walk; then the ``wide_loop``
    line (the captured wide iteration against its eager run and bound);
+   sample_kernels (run after wide_kernels): B6-GOSS bit for bit against
+   its plain version at 1M rows on random and tied gradients at two
+   iterations, its threshold equal to ``torch.kthvalue``'s top_k-th
+   largest; B6-node bit for bit for a strict step (2 children) and a 2K =
+   32 super-step at two iterations, and writing nothing on an inactive
+   step; B2 with the super-step's [2K, F] masks and random bins within
+   SPLIT_RTOL; each timed, and compared on its timed call's inputs; then
+   the GOSS and node draws captured in one graph and replayed at two
+   iterations, the replays differing and each equal to the eager calls;
+   goss_train: the default ``train`` at 255 leaves with GOSS (top_rate
+   0.2, other_rate 0.1) and feature_fraction_bynode 0.8 as super-epochs
+   (launches held to GOSS_PER_ITERATION), the per-iteration path (10
+   rounds, the same trees and evals) and fused chunks (25 rounds, the
+   same trees), a profiled rerun (byte-identical, device busy share), the
+   in-bag share, live super-steps and ``Booster.predict`` through the
+   engine, byte-identical to the host walk; extra_train: the same at 31
+   leaves (strict grower) with extra_trees and feature_fraction_bynode
+   0.8 (EXTRA_PER_ITERATION);
 10. serving_model: the serving model, SERVE_ROUNDS rounds of 31 leaves on
    the 1M x 28 train set without a valid set (fused chunks);
 11. serve_kernels: B10a (forest walk), B10b (device binning) and B10c
@@ -134,6 +152,9 @@ SERVE_ROUNDS, SERVE_REQUESTS, SERVE_THREADS, SERVE_MAX_BATCH = \
 WALK_OPS_PER_LEVEL = 12
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
+# integer operations of one threefry2x32: 20 rounds of an add, a rotation
+# (two shifts and an or) and a xor (its five key injections not counted)
+THREEFRY_OPS = 100
 # B1 and B2 sum in another order than their plain versions (index_add_
 # and torch.cumsum): f32 agreement relative to the largest magnitude of
 # the histogram (B1) or of each field of the split records (B2)
@@ -151,9 +172,9 @@ PATH_PARAMS = ("[superepoch:", "[fused_eval:", "[fused_chunk:")
 PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "partition": NUM_LEAVES - 1, "grow_step": NUM_LEAVES - 1,
                  "histogram_slots": 0, "partition_slots": 0,
-                 "grow_step_batched": 0, "bag_vals": 0,
-                 "predict": 1, "auc": 1, "pointwise": 1, "forest_walk": 0,
-                 "bin_rows": 0, "fused_predict": 0}
+                 "grow_step_batched": 0, "bag_vals": 0, "goss_vals": 0,
+                 "node_draws": 0, "predict": 1, "auc": 1, "pointwise": 1,
+                 "forest_walk": 0, "bin_rows": 0, "fused_predict": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -163,7 +184,6 @@ PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
 WIDE_LEAVES, WIDE_K = 255, 16
 WIDE_PARAMS = {"num_leaves": WIDE_LEAVES, "bagging_fraction": 0.8,
                "bagging_freq": 5, "feature_fraction": 0.8}
-WIDE_PER_ITERATION_ROUNDS = 10
 # per iteration: the root pass (B1, B2), L - 1 super-steps (B3s-K, B3-K,
 # B1-K and B2 on the 2K children; a dead super-step's kernels exit at
 # once), one bagging draw, one valid walk, one kernel per metric
@@ -173,19 +193,37 @@ WIDE_PER_ITERATION = {**{k: 0 for k in PER_ITERATION},
                       "partition_slots": WIDE_LEAVES - 1,
                       "grow_step_batched": WIDE_LEAVES - 1, "bag_vals": 1,
                       "predict": 1, "auc": 1, "pointwise": 1}
-WIDE_PER_ITERATION_NO_VALID = {**WIDE_PER_ITERATION, "predict": 0,
-                               "auc": 0, "pointwise": 0}
-KERNEL_ORDER = ("histogram", "split", "partition", "grow_step",
-                "histogram_slots", "partition_slots", "grow_step_batched",
-                "bag_vals", "predict", "auc", "pointwise", "forest_walk",
-                "bin_rows", "fused_predict")
+# GOSS (top_rate 0.2, other_rate 0.1 by default) with
+# feature_fraction_bynode at the wide shape: the GOSS draw replaces the
+# bagging draw, and the root and every super-step draw their children's
+# feature subsets (B6-node)
+GOSS_PARAMS = {"num_leaves": WIDE_LEAVES, "data_sample_strategy": "goss",
+               "feature_fraction_bynode": 0.8}
+GOSS_PER_ITERATION = {**WIDE_PER_ITERATION, "bag_vals": 0, "goss_vals": 1,
+                      "node_draws": WIDE_LEAVES}
+# extra_trees with feature_fraction_bynode at the main path's shape: the
+# root and every step of the strict grower draw masks and random bins
+EXTRA_PARAMS = {"num_leaves": NUM_LEAVES, "extra_trees": True,
+                "feature_fraction_bynode": 0.8}
+EXTRA_PER_ITERATION = {**PER_ITERATION, "node_draws": NUM_LEAVES}
+SAMPLED_PER_ITERATION_ROUNDS = 10
+KERNEL_ORDER = ("histogram", "split", "split_per_child", "partition",
+                "grow_step", "histogram_slots", "partition_slots",
+                "grow_step_batched", "bag_vals", "goss_vals", "node_draws",
+                "predict", "auc", "pointwise", "forest_walk", "bin_rows",
+                "fused_predict")
+# the launch counter of a kernels-line entry, where it is not its own key
+# (B2's per-child form is B2's wrapper and counter)
+KERNEL_COUNTER = {"split_per_child": "split"}
 # the path whose run gives a kernel's ``launches`` (the main path's where
 # not listed)
 KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "fused_predict": "serve_fused",
                "histogram_slots": "wide_train",
                "partition_slots": "wide_train",
-               "grow_step_batched": "wide_train", "bag_vals": "wide_train"}
+               "grow_step_batched": "wide_train", "bag_vals": "wide_train",
+               "goss_vals": "goss_train", "node_draws": "goss_train",
+               "split_per_child": "extra_train"}
 
 
 def times(counts, n: int):
@@ -1217,7 +1255,9 @@ def phase_wide_kernels(torch, lgt, train):
     rows.append(("bag_vals", "B6 bagging draw and vals stack",
                  "lightgbm_torch/csrc/sample.cu",
                  "lightgbm_tpu/models/gbdt.py:1305", err6, rel6, t_k, t_p,
-                 bound_ms(8 * n + 12 * n, 2 * 100 * n), None))
+                 # one threefry2x32 a row, the bits to float, the
+                 # compare and the three products
+                 bound_ms(8 * n + 12 * n, (THREEFRY_OPS + 7) * n), None))
 
     # whole 255-leaf trees with the plain versions of B3s-K and B3-K at
     # every super-step: the default parameters (K = 16 and 8; budget-cut
@@ -1425,90 +1465,366 @@ def phase_wide_kernels(torch, lgt, train):
     return out, dead_ms
 
 
-def train_wide(lgt, train, valid, extra=None, rounds=ROUNDS):
-    """The wide path's training: ``train_main`` with WIDE_PARAMS."""
-    return train_main(lgt, train, valid, rounds=rounds,
-                      extra={**WIDE_PARAMS, **(extra or {})})
-
-
 def tree_sections(text: str, k: int):
     """The first ``k`` trees of a model text."""
     return [t.strip() for t in
             text.split("end of trees")[0].split("\nTree=")[1:k + 1]]
 
 
-def phase_wide_train(torch, lgt, lgt_kernels, train, valid, xv, dead_ms):
-    """Default ``train`` at 255 leaves (split_batch auto -> 16) with
-    bagging and feature_fraction, as super-epochs; then the per-iteration
-    path and fused chunks, a rerun, a profile, and ``Booster.predict``
-    of the wide model.  Returns (device launches by path, steady ms per
-    iteration, eager ms per iteration, the iteration's (bound ms, by,
-    bytes))."""
+# ---------------------------------------------------------------------------
+# GOSS, feature_fraction_bynode and extra_trees (B6-GOSS, B6-node, B2's
+# per-child form)
+
+def goss_threshold_check(torch, g, h, vals, top_k: int, what: str):
+    """B6-GOSS's selection from its output: the smallest |g| * h of the
+    rows weighted 1 is the threshold; it equals ``torch.kthvalue``'s
+    top_k-th largest, every row at or above it is weighted 1, and fewer
+    than top_k rows lie above it.  Returns the threshold."""
+    a = g.abs() * h
+    n = a.numel()
+    top = vals[:, 2] == 1.0
+    thresh = a[top].min()
+    kth = torch.kthvalue(a, n - top_k + 1).values
+    if not same_bits(torch, thresh[None], kth[None]):
+        raise AssertionError(f"B6-GOSS ({what}) threshold {float(thresh)} "
+                             f"is not the {top_k}-th largest "
+                             f"{float(kth)}")
+    if not torch.equal(top, a >= thresh) or int((a > thresh).sum()) \
+            >= top_k or int(top.sum()) < top_k:
+        raise AssertionError(f"B6-GOSS ({what}) top set is not every row "
+                             "at or above the threshold")
+    return float(thresh)
+
+
+def phase_sample_kernels(torch, lgt, train):
+    """B6-GOSS, B6-node and B2 with per-child masks and random bins
+    against their plain versions at 1M x 28, 63 bins, each compared on
+    its timed call's own inputs; then the draws of two replays of one
+    captured graph against the eager calls of the same iterations."""
+    from lightgbm_torch.ops import random as rnd
+    from lightgbm_torch.ops import split as sp
+    from lightgbm_torch.ops.histogram import compute_histogram
+    dev = torch.device("cuda", 0)
+    binned = torch.as_tensor(train.binned).to(dev)
+    n, f = binned.shape
+    B = int(train.max_bin)
+    mappers = [train.bin_mappers[i] for i in train.used_features]
+    num_bin = torch.tensor([m.num_bin for m in mappers], dtype=torch.int32,
+                           device=dev)
+    na_bin = torch.tensor([m.na_bin for m in mappers], dtype=torch.int32,
+                          device=dev)
+    y = torch.as_tensor(train.metadata.label).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = torch.sigmoid(torch.randn(n, device=dev, generator=gen))
+    # gradients at a random score, and at iteration 0's constant score
+    # (two values of |g| * h: ties on every row)
+    p0 = torch.full_like(y, 0.47)
+    grads = {"random": ((p - y).contiguous(), (p * (1 - p)).contiguous()),
+             "ties": ((p0 - y).contiguous(), (p0 * (1 - p0)).contiguous())}
+    goss = {"seed": 3, "top_rate": 0.2, "other_rate": 0.1}
+    top_k, p_other, amp = rnd.goss_constants(n, 0.2, 0.1)
+    rows, checks = [], {}
+
+    # B6-GOSS: bitwise at two iterations, both gradient cases
+    for case, (g, h) in grads.items():
+        drawn = []
+        for it in (0, 7):
+            itd = torch.tensor([it], dtype=torch.int32, device=dev)
+            a = rnd.goss_vals(g, h, itd, **goss)
+            b = rnd.goss_vals_plain(g, h, itd, **goss)
+            if not same_bits(torch, a, b):
+                raise AssertionError(f"B6-GOSS ({case}, iteration {it}) "
+                                     "differs from its plain version")
+            thresh = goss_threshold_check(torch, g, h, a, top_k,
+                                          f"{case}, iteration {it}")
+            drawn.append(a[:, 2].clone())
+        if torch.equal(drawn[0], drawn[1]):
+            raise AssertionError(f"B6-GOSS ({case}): iterations 0 and 7 "
+                                 "drew the same weights")
+        w = drawn[0]
+        checks[f"goss_{case}"] = {
+            "threshold": thresh, "top_rows": int((w == 1.0).sum()),
+            "in_bag_share": float((w > 0).float().mean())}
+    if checks["goss_ties"]["top_rows"] <= top_k:
+        raise AssertionError("B6-GOSS tie case keeps no tie above top_k")
+    g, h = grads["random"]
+    it3 = torch.tensor([3], dtype=torch.int32, device=dev)
+    out6 = torch.empty((n, 3), device=dev)
+    gbuf = rnd.goss_buffers(n, dev)       # as the training body holds them
+    t_k = median_ms(torch, lambda: rnd.goss_vals(g, h, it3, out=out6,
+                                                 buffers=gbuf, **goss))
+    t_p = median_ms(torch, lambda: rnd.goss_vals_plain(g, h, it3, **goss))
+    a = g.abs() * h
+    t_lib = median_ms(torch, lambda: torch.kthvalue(a, n - top_k + 1))
+    err = exact_err(torch, [(out6, rnd.goss_vals_plain(g, h, it3, **goss))],
+                    "B6-GOSS (timed call)")
+    goss_threshold_check(torch, g, h, out6, top_k, "timed call")
+    # least bytes: g and h in, vals out (the kernel itself moves about
+    # 40 N: its three select passes read keys it writes); operations: one
+    # threefry2x32 a row (THREEFRY_OPS), and about 14 more: |g| * h, the
+    # uniform's bits to float, a linear select's two compares, the two
+    # compares and two selects of the weight, the three products
+    rows.append(("goss_vals", "B6-GOSS top-k threshold, keyed draw and "
+                 "vals stack", "lightgbm_torch/csrc/sample.cu",
+                 "lightgbm_tpu/models/gbdt.py:1337", err,
+                 err / max(float(out6.abs().max()), 1e-30), t_k, t_p,
+                 bound_ms(8 * n + 12 * n, (THREEFRY_OPS + 14) * n), t_lib))
+
+    # B6-node: a strict step (2 children) and a 2K = 32 super-step, two
+    # iterations each, both draws on
+    samp = rnd.NodeSampling(bynode_frac=0.8, bynode_seed=3,
+                            extra_trees=True, extra_seed=6)
+    base = torch.ones(f, dtype=torch.bool, device=dev)
+    base[torch.randperm(f, device=dev, generator=gen)[:f // 5]] = False
+    node = {}
+    for C, s in ((2, 4), (32, 2)):
+        for it in (0, 9):
+            itd = torch.tensor([it], dtype=torch.int32, device=dev)
+            kw = dict(count=C, bynode_id0=(s + 1) * C, extra_step=s + 1,
+                      sampling=samp)
+            mk = torch.zeros((C, f), dtype=torch.bool, device=dev)
+            bk = torch.zeros((C, f), dtype=torch.int32, device=dev)
+            rnd.node_draws(base, num_bin, itd, masks=mk, bins=bk, **kw)
+            mp, bp = rnd.node_draws_plain(base, num_bin, itd, **kw)
+            if not (torch.equal(mk, mp) and torch.equal(bk, bp)):
+                raise AssertionError(f"B6-node ({C} children, iteration "
+                                     f"{it}) differs from its plain version")
+            keep = rnd.bynode_count(int(base.sum()), 0.8)
+            if not torch.equal(mk.sum(dim=1), torch.full(
+                    (C,), keep, device=dev)) or bool((mk & ~base).any()):
+                raise AssertionError(f"B6-node ({C} children) masks keep "
+                                     "other than the drawn features")
+            node[(C, it)] = (mk, bk)
+        if torch.equal(node[(C, 0)][0], node[(C, 9)][0]) or torch.equal(
+                node[(C, 0)][1], node[(C, 9)][1]):
+            raise AssertionError(f"B6-node ({C} children): iterations 0 "
+                                 "and 9 drew the same")
+    # an inactive step writes nothing
+    mk, bk = (t.clone() for t in node[(32, 9)])
+    rnd.node_draws(base, num_bin, torch.tensor([1], dtype=torch.int32,
+                                               device=dev),
+                   count=32, bynode_id0=64, extra_step=2, sampling=samp,
+                   masks=mk, bins=bk,
+                   active=torch.zeros(1, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    if not (torch.equal(mk, node[(32, 9)][0])
+            and torch.equal(bk, node[(32, 9)][1])):
+        raise AssertionError("B6-node wrote on an inactive step")
+    it9 = torch.tensor([9], dtype=torch.int32, device=dev)
+    kw32 = dict(count=32, bynode_id0=96, extra_step=3, sampling=samp)
+    t_k = median_ms(torch, lambda: rnd.node_draws(base, num_bin, it9,
+                                                  masks=mk, bins=bk, **kw32))
+    t_p = median_ms(torch, lambda: rnd.node_draws_plain(base, num_bin, it9,
+                                                        **kw32))
+    mp, bp = rnd.node_draws_plain(base, num_bin, it9, **kw32)
+    err = exact_err(torch, [(mk, mp), (bk, bp)], "B6-node (timed call)")
+    C = 32
+    # operations of each (child, feature): two threefry2x32 (the bynode
+    # uniform and the random bin's) and the stable rank of the uniform, a
+    # sort's log2 F compares and a scatter (the kernel's own all-pairs
+    # rank does F compares, which the bound does not count)
+    rows.append(("node_draws", "B6-node per-child feature subsets and "
+                 "random bins (2K = 32 children)",
+                 "lightgbm_torch/csrc/sample.cu",
+                 "lightgbm_tpu/grower.py:495", err, err, t_k, t_p,
+                 bound_ms(f + 4 * f + 4 + C * f + 4 * C * f,
+                          C * f * (2 * THREEFRY_OPS
+                                   + int(np.ceil(np.log2(f))) + 1)), None))
+
+    # B2 on 2K = 32 children of a real split of the rows into 16 slots,
+    # with the super-step's masks and random bins: each operand alone and
+    # both (timed), within SPLIT_RTOL of the plain version
+    vals = torch.stack([g, h, torch.ones_like(g)], dim=1)
+    slot = torch.randint(0, 16, (n,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    small = compute_histogram(binned, vals, num_bins=B, slot=slot,
+                              num_slots=16,
+                              slots_used=torch.tensor([16], dtype=torch.int32,
+                                                      device=dev))
+    root = compute_histogram(binned, vals, num_bins=B)
+    pair = torch.cat([small, root[None] - small]).contiguous()
+    tot = pair[:, 0].sum(dim=1).contiguous()
+    po = torch.zeros(C, device=dev)
+    masks, bins = node[(32, 9)]
+    params = sp.SplitParams()
+    err2 = rel2 = 0.0
+    for case, (fm, rb) in {"masks": (masks, None), "bins": (base, bins),
+                           "both": (masks, bins)}.items():
+        r_k = sp.find_best_split(pair, tot, po, num_bin, na_bin, fm, params,
+                                 rand_bin=rb)
+        r_p = sp.find_best_split_plain(pair, tot, po, num_bin, na_bin, fm,
+                                       params, rand_bin=rb)
+        e, r = check_split(torch, sp, r_k, r_p, f"per-child {case}")
+        err2, rel2 = max(err2, e), max(rel2, r)
+        picked = r_k[:, sp.FEATURE].long()
+        live = ~torch.isneginf(r_k[:, sp.GAIN])
+        fmr = fm if fm.dim() == 2 else fm[None].expand(C, f)
+        if not bool(fmr[torch.arange(C, device=dev), picked][live].all()):
+            raise AssertionError(f"B2 per-child ({case}) splits on a "
+                                 "masked feature")
+        if rb is not None and not torch.equal(
+                r_k[live, sp.THRESHOLD].long(),
+                rb[torch.arange(C, device=dev), picked][live].long()):
+            raise AssertionError(f"B2 per-child ({case}) splits off its "
+                                 "random bin")
+        checks[f"split_{case}_children_with_a_split"] = int(live.sum())
+    t_k = median_ms(torch, lambda: sp.find_best_split(
+        pair, tot, po, num_bin, na_bin, masks, params, rand_bin=bins))
+    t_p = median_ms(torch, lambda: sp.find_best_split_plain(
+        pair, tot, po, num_bin, na_bin, masks, params, rand_bin=bins))
+    r_k = sp.find_best_split(pair, tot, po, num_bin, na_bin, masks, params,
+                             rand_bin=bins)
+    e, r = check_split(torch, sp, r_k, sp.find_best_split_plain(
+        pair, tot, po, num_bin, na_bin, masks, params, rand_bin=bins),
+        "per-child, timed inputs")
+    err2, rel2 = max(err2, e), max(rel2, r)
+    cand = 2 * C * f * B
+    b2_bytes = pair.numel() * 4 + C * 3 * 4 + C * 4 + 2 * f * 4 \
+        + C * f * 5 + C * sp.RECORD * 4
+    rows.append(("split_per_child", "B2 split scan, per-child masks and "
+                 "random bins (2K = 32 children)",
+                 "lightgbm_torch/csrc/split.cu",
+                 "lightgbm_tpu/ops/split.py:229", err2, rel2, t_k, t_p,
+                 bound_ms(b2_bytes, 40 * cand), None))
+
+    # keys in a graph: the GOSS draw and a super-step's node draws captured
+    # once, replayed at iterations 4 and 5, each replay equal to the eager
+    # calls (the per-iteration path's form) of its iteration
+    itg = torch.zeros(1, dtype=torch.int32, device=dev)
+    gv = torch.empty((n, 3), device=dev)
+    gm = torch.zeros((C, f), dtype=torch.bool, device=dev)
+    gb = torch.zeros((C, f), dtype=torch.int32, device=dev)
+
+    def draws():
+        rnd.goss_vals(g, h, itg, out=gv, **goss)
+        rnd.node_draws(base, num_bin, itg, masks=gm, bins=gb, **kw32)
+    draws()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        draws()
+    replays = []
+    for it in (4, 5):
+        itg.fill_(it)
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append((gv.clone(), gm.clone(), gb.clone()))
+        itd = torch.tensor([it], dtype=torch.int32, device=dev)
+        ev = rnd.goss_vals(g, h, itd, **goss)
+        em = torch.zeros_like(gm)
+        eb = torch.zeros_like(gb)
+        rnd.node_draws(base, num_bin, itd, masks=em, bins=eb, **kw32)
+        if not (same_bits(torch, gv, ev) and torch.equal(gm, em)
+                and torch.equal(gb, eb)):
+            raise AssertionError(f"graph replay at iteration {it} draws "
+                                 "other than the eager calls")
+    if any(torch.equal(a, b) for a, b in zip(*replays)):
+        raise AssertionError("two replays drew the same weights, masks or "
+                             "bins")
+    checks["graph_replays_differ_and_equal_eager"] = True
+
+    out = {}
+    for key, name, src_path, replaces, e, r, tk, tp, (bms, by), tl in rows:
+        out[key] = {"name": name, "route": "cuda", "source": src_path,
+                    "replaces": replaces, "max_abs_err": e, "ms": tk,
+                    "plain_ms": tp, "bound_ms": bms, "bound_by": by,
+                    "library_ms": tl}
+        emit({"phase": "kernel", **out[key], "max_rel_err": r,
+              "kernel_ms": tk})
+    emit({"phase": "sample_kernels", "top_k": top_k,
+          "p_other": float(p_other), "amp": float(amp), **checks})
+    return out
+
+
+def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
+                        prefix: str, params: dict, per_it: dict,
+                        dead_ms=None):
+    """Default ``train`` with ``params`` (sampling at a tree shape) as
+    super-epochs, launch counts held to ``per_it`` per iteration; the
+    per-iteration path (SAMPLED_PER_ITERATION_ROUNDS rounds: the same
+    trees and evals, eager launches held) and fused chunks (25 rounds
+    without a valid set: the same trees, launches held); a profiled rerun
+    with byte-identical model text (device busy share); ``Booster.predict``
+    of the model through the engine, byte-identical to the host walk.
+    Emits the ``{prefix}_train`` line; ``dead_ms`` (batched growth): what
+    one dead super-step costs.  Returns (device launches by path, steady
+    ms per iteration, eager ms per iteration, the iteration's (bound ms,
+    by, bytes) from the run's own trees)."""
+    name = f"{prefix}_train"
+    no_valid = {**per_it, "predict": 0, "auc": 0, "pointwise": 0}
+    L = params["num_leaves"]
     lgt_kernels.reset_launch_counts()
-    bst, ev, secs = train_wide(lgt, train, valid)
+    bst, ev, secs = train_main(lgt, train, valid, extra=params)
     torch.cuda.synchronize()
     eager = lgt_kernels.launch_counts()
     m = bst._model
-    if m.split_batch != WIDE_K:
-        raise AssertionError(f"split_batch resolved to {m.split_batch}")
+    batched = L == WIDE_LEAVES
+    if m.split_batch != (WIDE_K if batched else 1):
+        raise AssertionError(f"{name}: split_batch {m.split_batch}")
     prog = fused_program(m)
     iters = m.num_iterations_trained
     epochs = len(m.epoch_ms)
     k = max(2, min(25, ES_ROUNDS))
     if m.fetch_counts != {"epoch": epochs} or prog.replays != k * epochs:
-        raise AssertionError(f"wide path: fetches {m.fetch_counts}, "
+        raise AssertionError(f"{name}: fetches {m.fetch_counts}, "
                              f"{prog.replays} replays, {epochs} epochs")
-    if prog.captured != WIDE_PER_ITERATION \
-            or prog.warmup != WIDE_PER_ITERATION \
-            or eager != times(WIDE_PER_ITERATION, 2):
-        raise AssertionError(f"wide launches: captured {prog.captured}, "
+    if prog.captured != per_it or prog.warmup != per_it \
+            or eager != times(per_it, 2):
+        raise AssertionError(f"{name} launches: captured {prog.captured}, "
                              f"warm-up {prog.warmup}, wrapper calls "
-                             f"{eager}, expected {WIDE_PER_ITERATION} each")
+                             f"{eager}, expected {per_it} each")
     device = {kk: prog.warmup[kk] + v for kk, v in prog.launches().items()}
     auc = ev["valid_0"]["auc"]
     best = bst.best_iteration
     if not 0.5 < auc[best - 1] <= 1.0:
-        raise AssertionError(f"wide valid AUC {auc[best - 1]}")
-    leaves = [t.num_leaves for t in m.models]
-    if max(leaves) != WIDE_LEAVES:
-        raise AssertionError(f"wide trees reach {max(leaves)} leaves")
+        raise AssertionError(f"{name} valid AUC {auc[best - 1]}")
+    if max(t.num_leaves for t in m.models) != L:
+        raise AssertionError(f"{name} trees never reach {L} leaves")
     steady = m.epoch_ms[1:] if epochs > 1 else m.epoch_ms
     ms_it = statistics.median(steady) / k
     live = m.step_counts
     b_ms, b_by, b_bytes = iteration_bound(
-        m.models, N_TRAIN, N_FEAT, int(train.max_bin), WIDE_LEAVES, N_VALID,
-        super_steps=live)
+        m.models, N_TRAIN, N_FEAT, int(train.max_bin), L, N_VALID,
+        super_steps=live if batched else None)
     text = bst.model_to_string()
+    # the rows the last replay's GOSS draw kept (w > 0), read from the
+    # program's own vals buffer
+    in_bag = None
+    if m._goss:
+        in_bag = float((prog.vals[:, 2] > 0).float().mean())
+        if not 0.25 < in_bag < 0.35:
+            raise AssertionError(f"{name}: in-bag share {in_bag}")
     main = {"iterations": iters, "best_iteration": best,
             "valid_auc": auc[best - 1], "seconds": secs,
             "iterations_per_s": iters / secs, "epochs": epochs,
-            "epoch_ms": m.epoch_ms,
-            "steady_iterations_per_s": 1e3 / ms_it,
+            "epoch_ms": m.epoch_ms, "steady_iterations_per_s": 1e3 / ms_it,
             "ms_per_iteration": ms_it, "bound_ms_per_iteration": b_ms,
             "bound_by": b_by, "bound_bytes_per_iteration": b_bytes,
-            "live_super_steps_per_tree": statistics.mean(live),
-            "dead_super_steps_ms_per_iteration": dead_ms * statistics.mean(
-                [WIDE_LEAVES - 1 - x for x in live]),
-            "live_super_steps_max": max(live),
-            "launched_super_steps_per_tree": WIDE_LEAVES - 1,
-            "leaves_per_tree": statistics.mean(leaves),
+            "in_bag_share": in_bag,
+            "live_steps_per_tree": statistics.mean(live),
+            "live_steps_max": max(live), "launched_steps_per_tree": L - 1,
+            "leaves_per_tree": statistics.mean(t.num_leaves
+                                               for t in m.models),
             "capture_ms": prog.capture_ms, "device_launches": device}
+    if dead_ms is not None:
+        main["dead_super_steps_ms_per_iteration"] = dead_ms * \
+            statistics.mean([L - 1 - x for x in live])
 
     # per-iteration, fewer rounds: the same first trees and evals
     lgt_kernels.reset_launch_counts()
-    bp, evp, secs_p = train_wide(lgt, train, valid,
-                                 rounds=WIDE_PER_ITERATION_ROUNDS, extra={
-                                     "superepoch": -1, "fused_chunk": 1,
-                                     "fused_eval": "true"})
+    bp, evp, secs_p = train_main(
+        lgt, train, valid, rounds=SAMPLED_PER_ITERATION_ROUNDS,
+        extra={**params, "superepoch": -1, "fused_chunk": 1,
+               "fused_eval": "true"})
     torch.cuda.synchronize()
-    per_it = lgt_kernels.launch_counts()
+    per_it_counts = lgt_kernels.launch_counts()
     n_p = bp._model.num_iterations_trained
-    if per_it != times(WIDE_PER_ITERATION, n_p):
-        raise AssertionError(f"wide per-iteration launches {per_it} for "
-                             f"{n_p} iterations")
+    if per_it_counts != times(per_it, n_p):
+        raise AssertionError(f"{name} per-iteration launches "
+                             f"{per_it_counts} for {n_p} iterations")
     ta, tb = tree_sections(bp.model_to_string(), n_p), \
         tree_sections(text, n_p)
-    if n_p != WIDE_PER_ITERATION_ROUNDS or iters < n_p or ta != tb \
+    if n_p != SAMPLED_PER_ITERATION_ROUNDS or iters < n_p or ta != tb \
             or any(evp["valid_0"][kk] != ev["valid_0"][kk][:n_p]
                    for kk in evp["valid_0"]):
         first = next((i for i, (a, b) in enumerate(zip(ta, tb)) if a != b),
@@ -1518,58 +1834,53 @@ def phase_wide_train(torch, lgt, lgt_kernels, train, valid, xv, dead_ms):
                                                tb[first].splitlines())
             if x != y][:3]
         raise AssertionError(
-            f"wide per-iteration trees or evals differ from the "
+            f"{name}: per-iteration trees or evals differ from the "
             f"super-epoch run's: {n_p} and {iters} iterations, first tree "
             f"differing {first}: {lines}; evals {evp['valid_0']} vs "
             f"{ {kk: v[:n_p] for kk, v in ev['valid_0'].items()} }")
 
     # fused chunks without a valid set: the same first trees
-    params = {"objective": "binary", "max_bin": MAX_BIN,
-              "learning_rate": 0.1, "verbosity": -1, **WIDE_PARAMS}
+    cparams = {"objective": "binary", "max_bin": MAX_BIN,
+               "learning_rate": 0.1, "verbosity": -1, **params}
     lgt_kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    bc = lgt.train(params, train, 25)
+    bc = lgt.train(cparams, train, 25)
     torch.cuda.synchronize()
     secs_c = time.perf_counter() - t0
     eager_c = lgt_kernels.launch_counts()
     pc = fused_program(bc._model)
     chunk = {kk: pc.warmup[kk] + v for kk, v in pc.launches().items()}
-    if pc.captured != WIDE_PER_ITERATION_NO_VALID \
-            or eager_c != times(WIDE_PER_ITERATION_NO_VALID, 2) \
+    if pc.captured != no_valid or eager_c != times(no_valid, 2) \
             or pc.replays != 25 \
-            or tree_sections(bc.model_to_string(), n_p) \
-            != tree_sections(text, n_p):
-        raise AssertionError(f"wide fused chunks: captured {pc.captured}, "
+            or tree_sections(bc.model_to_string(), n_p) != tb:
+        raise AssertionError(f"{name} fused chunks: captured {pc.captured}, "
                              f"wrapper calls {eager_c}, {pc.replays} "
                              "replays, or trees differ")
 
-    # a second super-epoch run: byte-identical model text
-    b2, _, secs2 = train_wide(lgt, train, valid)
-    if b2.model_to_string() != text:
-        raise AssertionError("a second wide run gave other model text")
-
-    # the profile of one more run: device busy share of the steady epochs
+    # a profiled rerun: byte-identical model text, device busy share
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        b3, _, _ = train_wide(lgt, train, valid, rounds=30)
+        b2, _, secs2 = train_main(lgt, train, valid, extra=params)
         torch.cuda.synchronize()
-    p3 = fused_program(b3._model)
-    dev_ms = sum(float(getattr(e, "self_device_time_total", 0) or 0)
-                 for e in prof.key_averages()
-                 if not e.key.startswith(("aten::", "Memcpy HtoD"))) / 1e3
-    per_iter = dev_ms / (p3.replays + 1)
-    st3 = b3._model.epoch_ms[1:]
-    busy = per_iter * k / statistics.median(st3) if st3 and dev_ms else None
-    top = sorted(((e.key[:90], float(getattr(e, "self_device_time_total", 0)
-                                     or 0) / 1e3, e.count)
-                  for e in prof.key_averages()
-                  if (getattr(e, "self_device_time_total", 0) or 0) > 0
-                  and not e.key.startswith(("aten::", "Memcpy HtoD"))),
+    if b2.model_to_string() != text:
+        raise AssertionError(f"a second {name} run gave other model text")
+    p2 = fused_program(b2._model)
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total", 0) or 0)
+    events = [e for e in prof.key_averages() if dev_us(e) > 0
+              and not e.key.startswith(("aten::", "Memcpy HtoD"))]
+    dev_ms = sum(dev_us(e) for e in events) / 1e3
+    per_iter = dev_ms / (p2.replays + 1)
+    st2 = b2._model.epoch_ms[1:]
+    busy = per_iter * k / statistics.median(st2) if st2 and dev_ms \
+        else None
+    top = sorted(((e.key[:90], dev_us(e) / 1e3, e.count) for e in events),
                  key=lambda r: -r[1])[:15]
 
-    # Booster.predict of the wide model: the engine route, one walk per
-    # bucket chunk and no other launch, byte-identical to the host walk
+    # Booster.predict: the engine route, one walk per bucket chunk and no
+    # other launch, byte-identical to the host walk
     from lightgbm_torch.serve import PredictorEngine
     bst._drop_predict_cache()
     torch.cuda.synchronize()
@@ -1581,14 +1892,14 @@ def phase_wide_train(torch, lgt, lgt_kernels, train, valid, xv, dead_ms):
     pred_counts = lgt_kernels.launch_counts()
     eng = bst._engine_cache
     if not isinstance(eng, PredictorEngine):
-        raise AssertionError("wide predict did not take the engine route")
-    hold_launches("wide predict", pred_counts, forest_launches(
+        raise AssertionError(f"{name} predict did not take the engine "
+                             "route")
+    hold_launches(f"{name} predict", pred_counts, forest_launches(
         lgt_kernels, forest_walk=chunks(eng, len(xv))))
-    ph = host_walk(bst, xv)
-    if not np.array_equal(pe, ph):
-        raise AssertionError("wide predict: the engine route differs from "
-                             "the host walk")
-    emit({"phase": "wide_train", **main,
+    if not np.array_equal(pe, host_walk(bst, xv)):
+        raise AssertionError(f"{name} predict: the engine route differs "
+                             "from the host walk")
+    emit({"phase": name, "params": params, **main,
           "per_iteration": {"iterations": n_p, "seconds": secs_p,
                             "iterations_per_s": n_p / secs_p,
                             "ms_per_iteration": 1e3 * secs_p / n_p},
@@ -1603,8 +1914,8 @@ def phase_wide_train(torch, lgt, lgt_kernels, train, valid, xv, dead_ms):
           "predict": {"rows_per_s": N_VALID / t_eng,
                       "forest_walk_launches": pred_counts["forest_walk"],
                       "byte_identical_to_host_walk": True}})
-    return {"wide_train": device, "wide_per_iteration": per_it,
-            "wide_fused_chunk": chunk}, ms_it, 1e3 * secs_p / n_p, \
+    return {name: device, f"{prefix}_per_iteration": per_it_counts,
+            f"{prefix}_fused_chunk": chunk}, ms_it, 1e3 * secs_p / n_p, \
         (b_ms, b_by, b_bytes)
 
 
@@ -2211,6 +2522,7 @@ def main() -> int:
     kernels = phase_kernels(torch, lgt, train, valid)
     wide_kernels, dead_ms = phase_wide_kernels(torch, lgt, train)
     kernels.update(wide_kernels)
+    kernels.update(phase_sample_kernels(torch, lgt, train))
     bst, ev, counts, epoch_ms_per_it = phase_main_path(
         torch, lgt, lgt_kernels, train, valid)
     eager_ms_per_it, per_it_counts = phase_per_iteration(
@@ -2230,15 +2542,24 @@ def main() -> int:
     phase_roundtrip(lgt, bst, train, valid, xv)
     phase_profile(torch, lgt, train, valid)
     wide_counts, wide_ms, wide_eager_ms, (wb_ms, wb_by, wb_bytes) = \
-        phase_wide_train(torch, lgt, lgt_kernels, train, valid, xv, dead_ms)
+        phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
+                            "wide", WIDE_PARAMS, WIDE_PER_ITERATION, dead_ms)
     emit({"phase": "wide_loop", "ms_per_iteration": wide_ms,
           "plain_ms_per_iteration": wide_eager_ms,
           "bound_ms_per_iteration": wb_ms, "bound_by": wb_by,
           "bound_bytes_per_iteration": wb_bytes, "library_ms": None})
+    sampled_counts = {}
+    for prefix, params, per_it in (
+            ("goss", GOSS_PARAMS, GOSS_PER_ITERATION),
+            ("extra", EXTRA_PARAMS, EXTRA_PER_ITERATION)):
+        sampled_counts.update(phase_sampled_train(
+            torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
+            per_it)[0])
     serve_bst = phase_serving_model(torch, lgt, lgt_kernels, train)
     kernels.update(phase_serve_kernels(torch, lgt, serve_bst, xv))
     by_path = {"main_path": counts, "per_iteration": per_it_counts,
                "fused_chunk": chunk_counts, **wide_counts,
+               **sampled_counts,
                "predict": phase_predict(torch, lgt, lgt_kernels, bst,
                                         serve_bst, xv),
                "fused_serve": phase_fused_serve(torch, lgt, lgt_kernels,
@@ -2248,12 +2569,16 @@ def main() -> int:
                "serve_fused": phase_serve(torch, lgt, lgt_kernels,
                                           serve_bst, xv,
                                           device_binning=True)}
+    counter = {k: KERNEL_COUNTER.get(k, k) for k in KERNEL_ORDER}
     emit({"kernels": [{**kernels[k],
                        "launches": by_path[KERNEL_PATH.get(
-                           k, "main_path")].get(k, 0),
-                       "launches_by_path": {p: c.get(k, 0)
+                           k, "main_path")].get(counter[k], 0),
+                       "launches_by_path": {p: c.get(counter[k], 0)
                                             for p, c in by_path.items()}}
                       for k in KERNEL_ORDER]})
+    for k in ("goss_vals", "node_draws", "split_per_child"):
+        if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
+            raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

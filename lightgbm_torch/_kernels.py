@@ -45,7 +45,7 @@ SOURCES: Dict[str, str] = {
     "split": "split.cu",            # B2
     "partition": "partition.cu",    # B3, B3-K
     "grow_step": "grow_step.cu",    # B3s, B3s-K
-    "sample": "sample.cu",          # B6 (bagging)
+    "sample": "sample.cu",          # B6 (bagging, GOSS, node draws)
     "predict": "predict.cu",        # B4
     "metrics": "metrics.cu",        # B12a, B12b
     "forest": "forest.cu",          # B10a, B10b, B10c
@@ -56,7 +56,8 @@ KERNELS: Dict[str, str] = {
     "histogram": "histogram", "split": "split", "partition": "partition",
     "grow_step": "grow_step", "histogram_slots": "histogram",
     "partition_slots": "partition", "grow_step_batched": "grow_step",
-    "bag_vals": "sample", "predict": "predict", "auc": "metrics",
+    "bag_vals": "sample", "goss_vals": "sample", "node_draws": "sample",
+    "predict": "predict", "auc": "metrics",
     "pointwise": "metrics", "forest_walk": "forest", "bin_rows": "forest",
     "fused_predict": "forest",
 }
@@ -71,7 +72,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "histogram": {
@@ -82,8 +83,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_histogram_setup": (_I,),
     },
     "split": {
-        "lgbt_split": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
-                       _F, _F, _F, _P, _P, _P, _P, _P),
+        "lgbt_split": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F,
+                       _F, _F, _F, _F, _F, _P, _P, _P, _P, _P),
         "lgbt_split_setup": (),
     },
     "partition": {
@@ -98,8 +99,12 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_grow_step_setup": (),
     },
     "sample": {
-        "lgbt_bag_vals": (_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_uint,
-                          ctypes.c_uint, _I, _F, _F, _F, _P, _P),
+        "lgbt_bag_vals": (_P, _P, _P, ctypes.c_longlong, _P, _U, _U, _I, _F,
+                          _F, _F, _P, _P),
+        "lgbt_goss_vals": (_P, _P, ctypes.c_longlong, _P, _U, _U, _F, _F, _P,
+                           _P, _P, _P, _P),
+        "lgbt_node_draws": (_P, _P, _I, _I, _P, _P, _I, _U, _U, _U, _F, _I,
+                            _U, _U, _U, _P, _P, _P),
         "lgbt_sample_setup": (),
     },
     "predict": {

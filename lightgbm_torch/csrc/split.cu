@@ -28,6 +28,13 @@
 // `active` (optional, a device int32): the grower's step record flag; when
 // it is 0 (the tree is done) both kernels return at once and write nothing.
 //
+// Per-child operands (B6-node, feature_fraction_bynode and extra_trees;
+// ops/split.py `_numerical_candidates` rand_bin :229, grower.py `_best2`
+// :524): the feature mask is one [F] row for every leaf (mask_stride 0) or
+// one row a leaf (mask_stride F), and `rand_bin` (optional, [K, F] int32)
+// leaves one threshold bin a (leaf, feature) valid, in both NA
+// directions.  Without them the launches and results are as before.
+//
 // Design.  `split_gains`: one block per (feature, leaf) loads the [B, 3]
 // histogram into shared memory; three threads scan the bins in order, one
 // channel each (the same sequential order as the plain version's cumsum on
@@ -87,6 +94,8 @@ __global__ void split_gains(const float* __restrict__ hist,
                             const int32_t* __restrict__ num_bin,
                             const int32_t* __restrict__ na_bin,
                             const uint8_t* __restrict__ feature_mask,
+                            int mask_stride,
+                            const int32_t* __restrict__ rand_bin,
                             int num_features, int num_bins, Params p,
                             const int32_t* __restrict__ active,
                             float* __restrict__ gains,
@@ -120,7 +129,9 @@ __global__ void split_gains(const float* __restrict__ hist,
               t2 = total[k * 3 + 2];
   const float po = parent_out[k];
   const float shift = leaf_gain(t0, t1, t2, po, p) + p.min_gain;
-  const bool in_range = b <= num_bin[f] - 2 && feature_mask[f] != 0;
+  const bool in_range =
+      b <= num_bin[f] - 2 && feature_mask[k * mask_stride + f] != 0 &&
+      (rand_bin == nullptr || b == rand_bin[k * num_features + f]);
   const float c0 = cum[b * 3 + 0], c1 = cum[b * 3 + 1], c2 = cum[b * 3 + 2];
   for (int dir = 0; dir < 2; ++dir) {
     const float lg = dir ? c0 + na_g : c0;
@@ -209,12 +220,14 @@ __global__ void split_pick(const float* __restrict__ gains,
 }  // namespace
 
 // hist [K, F, B, 3], total [K, 3], parent_out [K], num_bin/na_bin [F]
-// int32, feature_mask [F] uint8; scratch gains [K, 2, F, B] and cum
+// int32, feature_mask [F] (mask_stride 0) or [K, F] (mask_stride F) uint8,
+// rand_bin [K, F] int32 or null; scratch gains [K, 2, F, B] and cum
 // [K, F, B, 3]; out [K, 12]; active may be null.  Returns
 // cudaGetLastError() after the launches.
 extern "C" int lgbt_split(const float* hist, const float* total,
                           const float* parent_out, const int32_t* num_bin,
                           const int32_t* na_bin, const uint8_t* feature_mask,
+                          int mask_stride, const int32_t* rand_bin,
                           int num_leaves, int num_features, int num_bins,
                           float l1, float l2, float min_data, float min_hess,
                           float min_gain, float max_delta, float path_smooth,
@@ -225,8 +238,8 @@ extern "C" int lgbt_split(const float* hist, const float* total,
   const int threads = ((num_bins + 31) / 32) * 32;
   split_gains<<<dim3(num_features, num_leaves), threads,
                 num_bins * 3 * sizeof(float), stream>>>(
-      hist, total, parent_out, num_bin, na_bin, feature_mask, num_features,
-      num_bins, p, active, gains, cum);
+      hist, total, parent_out, num_bin, na_bin, feature_mask, mask_stride,
+      rand_bin, num_features, num_bins, p, active, gains, cum);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_pick<<<num_leaves, kPickThreads, 0, stream>>>(

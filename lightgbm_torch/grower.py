@@ -18,6 +18,14 @@ in one CUDA graph (``models/fused.py``):
   parent minus smaller (torch ops indexed by the record), both children's
   best splits (B2 on the pair), and the ``max_depth`` mask.
 
+With ``feature_fraction_bynode`` or ``extra_trees`` (``NodeSampling``)
+the root and every step also draw their children's feature subsets and
+random threshold bins on the device (kernel B6-node, ``node_draws``),
+keyed by the device iteration ``rng_iter`` and the step's fixed position
+(the JAX grower's ids: the root 0, strict step i its two children 2(i+1)
+and 2(i+1)+1 and the extra_trees step i+1, batched super-step s its 2K
+children (s+1)·2K + j and step s+1), and B2 takes them per child.
+
 A step that cannot split (no positive gain) sets the tree's ``done`` flag;
 every later step's kernels then exit at once, as the reference's loop exit
 (grower.py:908-915).  The tree arrays live in one int32 buffer (f32 fields
@@ -37,6 +45,7 @@ import torch
 
 from .ops import split as sp
 from .ops.histogram import compute_histogram
+from .ops.random import NodeSampling, node_draws
 from .ops.split import SplitParams, find_best_split, leaf_output
 from . import _kernels
 
@@ -174,6 +183,9 @@ class GrowWorkspace:
         self.leaf_of_row = torch.zeros(n, dtype=torch.int32, **kw)
         self.rank_iota = torch.arange(B, dtype=torch.int32, **kw)
         self.neg_inf = torch.full((), float("-inf"), **kw)
+        # the per-node draws of a step's 2K children (the root uses row 0)
+        self.node_mask = torch.ones((2 * K, F), dtype=torch.bool, **kw)
+        self.node_bins = torch.zeros((2 * K, F), dtype=torch.int32, **kw)
         if K == 1:
             self.pair = torch.zeros((2, F, B, 3), dtype=torch.float32, **kw)
             self.rec = torch.zeros(STEP_RECORD, dtype=torch.int32, **kw)
@@ -228,18 +240,40 @@ def batch_width(split_batch: int, num_leaves: int) -> int:
     return max(1, min(int(split_batch), L - 1)) if L > 1 else 1
 
 
+def _draws(ws: GrowWorkspace, feature_mask, num_bin, sampling, rng_iter,
+           count: int, bynode_id0: int, extra_step: int, active=None):
+    """The per-node draws of ``count`` children (B6-node) into the
+    workspace, and B2's mask and random-bin operands: (mask, rand_bin),
+    ``(feature_mask, None)`` when no draw is on."""
+    if sampling is None or not sampling.on:
+        return feature_mask, None
+    masks, bins = ws.node_mask[:count], ws.node_bins[:count]
+    node_draws(feature_mask, num_bin, rng_iter, count=count,
+               bynode_id0=bynode_id0, extra_step=extra_step,
+               sampling=sampling, masks=masks, bins=bins, active=active)
+    return (masks if sampling.bynode else feature_mask,
+            bins if sampling.extra_trees else None)
+
+
+def _check_sampling(sampling, rng_iter) -> None:
+    if sampling is not None and sampling.on and rng_iter is None:
+        raise ValueError("feature_fraction_bynode and extra_trees need the "
+                         "device iteration rng_iter")
+
+
 def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
-          params) -> None:
+          params, sampling=None, rng_iter=None) -> None:
     """The root pass of either grower: histogram of all rows (B1), sums,
-    output and best split (B2), and the reset of the tree, the table and
-    the row -> leaf vector."""
+    output, the root's node draws (B6-node) and best split (B2), and the
+    reset of the tree, the table and the row -> leaf vector."""
     v = ws.fields
     h0 = compute_histogram(binned, vals, num_bins=ws.num_bins)
     ws.hist[0].copy_(h0)
     total0 = vals.sum(dim=0)
     root_out = leaf_output(total0[0], total0[1], params)
+    fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 1, 0, 0)
     rec0 = find_best_split(h0[None], total0[None], root_out[None], num_bin,
-                           na_bin, feature_mask, params)
+                           na_bin, fm, params, rand_bin=rb)
     ws.table.copy_(ws.table_init)
     ws.table[0:1].copy_(rec0)
     ws.tree.copy_(ws.tree_init)
@@ -254,28 +288,35 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
               feature_mask: torch.Tensor, num_bin: torch.Tensor,
               na_bin: torch.Tensor, *, num_leaves: int, num_bins: int,
               params: SplitParams, max_depth: int = -1,
-              workspace: Optional[GrowWorkspace] = None) -> TreeArrays:
+              workspace: Optional[GrowWorkspace] = None,
+              sampling: Optional[NodeSampling] = None,
+              rng_iter: Optional[torch.Tensor] = None) -> TreeArrays:
     """Grow one tree on ``binned`` [N, F] uint8 with per-row ``vals``
     [N, 3] f32 = (grad, hess, weight), all on one device, with no host
-    round trip.  Returns device views of ``workspace`` (a new one when
-    None); ``fetch_tree`` brings the tree to the host."""
+    round trip.  ``sampling``: the per-node draws, keyed by ``rng_iter``
+    (a [1] int32 device tensor).  Returns device views of ``workspace`` (a
+    new one when None); ``fetch_tree`` brings the tree to the host."""
     n, f = binned.shape
     L, B = int(num_leaves), int(num_bins)
     ws = workspace if workspace is not None else GrowWorkspace(
         n, f, B, L, binned.device)
     if ws.split_batch != 1:
         raise ValueError("grow_tree needs a workspace of split_batch 1")
-    _root(ws, binned, vals, feature_mask, num_bin, na_bin, params)
-    for _ in range(L - 1):
+    _check_sampling(sampling, rng_iter)
+    _root(ws, binned, vals, feature_mask, num_bin, na_bin, params, sampling,
+          rng_iter)
+    for i in range(L - 1):
         _split_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
-                    max_depth)
+                    max_depth, i, sampling, rng_iter)
     return ws.arrays()
 
 
 def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
-                na_bin, params, max_depth) -> None:
-    """One step: B3s, B3, B1 on the smaller child, the subtraction, B2 on
-    the pair and the depth mask, all indexed by the device step record."""
+                na_bin, params, max_depth, i=0, sampling=None,
+                rng_iter=None) -> None:
+    """Step ``i``: B3s, B3, B1 on the smaller child, the subtraction, the
+    children's node draws (B6-node), B2 on the pair and the depth mask,
+    all indexed by the device step record."""
     grow_step(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
               max_depth=max_depth, rec=ws.rec, idx=ws.idx, fstep=ws.fstep,
               flags=ws.flags)
@@ -288,9 +329,11 @@ def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     torch.where(smaller_left, small, large, out=ws.pair[0])
     torch.where(smaller_left, large, small, out=ws.pair[1])
     ws.hist.index_copy_(0, ws.idx, ws.pair)
+    fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2,
+                    2 * (i + 1), i + 1, active)
     children = find_best_split(ws.pair, ws.fstep[0:6].view(2, 3),
-                               ws.fstep[6:8], num_bin, na_bin, feature_mask,
-                               params, active=active)
+                               ws.fstep[6:8], num_bin, na_bin, fm, params,
+                               active=active, rand_bin=rb)
     children[:, sp.GAIN] = torch.where(ws.flags[1], children[:, sp.GAIN],
                                        ws.neg_inf)
     ws.table.index_copy_(0, ws.idx, children)
@@ -464,7 +507,9 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
                       na_bin: torch.Tensor, *, num_leaves: int,
                       num_bins: int, params: SplitParams,
                       max_depth: int = -1, split_batch: int = 8,
-                      workspace: Optional[GrowWorkspace] = None
+                      workspace: Optional[GrowWorkspace] = None,
+                      sampling: Optional[NodeSampling] = None,
+                      rng_iter: Optional[torch.Tensor] = None
                       ) -> TreeArrays:
     """Grow one tree with K splits per super-step (the JAX package's
     ``grow_tree_batched``, grower.py:945): each super-step takes the top K
@@ -478,8 +523,9 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
     leaf a step, so no smaller count is safe), so that a whole iteration
     can be captured.  Once a super-step finds nothing to split the tree is
     done, and every kernel of a later super-step exits at once; its torch
-    ops write only the scratch rows.  Returns device views of
-    ``workspace``, as ``grow_tree``."""
+    ops write only the scratch rows.  ``sampling``/``rng_iter`` as
+    ``grow_tree``; the draws of invalid slots keep their places in the
+    stream.  Returns device views of ``workspace``, as ``grow_tree``."""
     n, f = binned.shape
     L, B = int(num_leaves), int(num_bins)
     K = batch_width(split_batch, L)
@@ -488,18 +534,22 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
     if ws.split_batch != K or K < 2:
         raise ValueError(f"grow_tree_batched needs K > 1 and a workspace "
                          f"of split_batch {K} (has {ws.split_batch})")
-    _root(ws, binned, vals, feature_mask, num_bin, na_bin, params)
-    for _ in range(L - 1):
+    _check_sampling(sampling, rng_iter)
+    _root(ws, binned, vals, feature_mask, num_bin, na_bin, params, sampling,
+          rng_iter)
+    for s in range(L - 1):
         _super_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
-                    max_depth)
+                    max_depth, s, sampling, rng_iter)
     return ws.arrays()
 
 
 def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
-                na_bin, params, max_depth) -> None:
-    """One super-step: B3s-K, B3-K, B1-K over the K smaller children, the
-    K subtractions, B2 on the 2K children with the depth mask, and the
-    table update, all indexed by the device step outputs."""
+                na_bin, params, max_depth, s=0, sampling=None,
+                rng_iter=None) -> None:
+    """Super-step ``s``: B3s-K, B3-K, B1-K over the K smaller children,
+    the K subtractions, the 2K children's node draws (B6-node), B2 on the
+    2K children with the depth mask, and the table update, all indexed by
+    the device step outputs."""
     K, st = ws.split_batch, ws.step
     grow_step_batched(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
                       split_batch=K, max_depth=max_depth, step=st)
@@ -513,8 +563,10 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     torch.where(sel, small, large, out=ws.pair[:K])
     torch.where(sel, large, small, out=ws.pair[K:])
     ws.hist.index_copy_(0, st.idx2, ws.pair)
+    fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2 * K,
+                    (s + 1) * 2 * K, s + 1, active)
     children = find_best_split(ws.pair, st.tot2, st.po2, num_bin, na_bin,
-                               feature_mask, params, active=active)
+                               fm, params, active=active, rand_bin=rb)
     children[:, sp.GAIN] = torch.where(st.keep2, children[:, sp.GAIN],
                                        ws.neg_inf)
     ws.table.index_copy_(0, st.idx2, children)

@@ -4,14 +4,16 @@ graph: the port's counterpart of the JAX package's fused programs (B14,
 ``_build_superepoch_body`` :1938).
 
 The JAX package runs k iterations in one ``lax.scan``.  Here one
-iteration — gradients, the bagging draw (B6), the device-resident tree
-build (the strict grower B1-B3s, or the batched one B1-K/B3-K/B3s-K from
-``split_batch`` 2 on), the f32 shrinkage, the train-score update, each
-valid set's tree walk (B4), the traced metrics (B12) and the early-stop
-vote — is ``IterationProgram.body`` over tensors allocated once.  The
-bagging key's iteration and the feature_fraction mask come from device
-tensors set before the first replay (``it0``, ``fmasks``) and the row
-counter, so every replay draws its own.  On the card the body is captured once as a
+iteration — gradients, the row weights (B6: the bagging draw or GOSS),
+the device-resident tree build (the strict grower B1-B3s, or the batched
+one B1-K/B3-K/B3s-K from ``split_batch`` 2 on, with the per-node draws
+B6-node), the f32 shrinkage, the train-score update, each valid set's
+tree walk (B4), the traced metrics (B12) and the early-stop vote — is
+``IterationProgram.body`` over tensors allocated once.  The
+iteration that keys the bagging, GOSS and per-node draws and the
+feature_fraction mask come from device tensors set before the first
+replay (``it0``, ``fmasks``) and the row counter, so every replay draws
+its own.  On the card the body is captured once as a
 ``torch.cuda.CUDAGraph`` and an epoch of k iterations is k replays: the
 iteration index lives in a device counter (``row``), and each iteration
 writes its outputs to row ``row`` of the static ``out`` buffer (its tree
@@ -47,7 +49,7 @@ import torch
 from .. import _kernels
 from ..grower import grow_tree, grow_tree_batched, tree_fields, tree_words
 from ..metrics import build_traced_eval
-from ..ops.random import bag_vals
+from ..ops.random import bag_vals, goss_buffers, goss_vals
 from ..predict_device import add_tree_score
 
 
@@ -77,17 +79,24 @@ class IterationProgram:
         self.cur_ev = self.cur[W + L:W + L + E].view(torch.float32)
         self.cur_stop = self.cur[W + L + E:]
         self.row = torch.zeros(1, dtype=torch.int64, device=dev)
-        # sampling: the epoch's first iteration (the bagging key's
-        # iteration is it0 + row) and the feature_fraction mask of the
-        # current row, selected from ``fmasks`` [rows, F]
+        # sampling: the epoch's first iteration (the iteration that keys
+        # the bagging, GOSS and per-node draws is it0 + row) and the
+        # feature_fraction mask of the current row, selected from
+        # ``fmasks`` [rows, F]
         self.it0 = torch.zeros(1, dtype=torch.int32, device=dev)
         self.it_cur = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.bagging = m._bagging_active
+        self.goss = m._goss
+        self.bagging = m._use_bagging
+        self.keyed = self.goss or self.bagging \
+            or m.node_sampling is not None
         self.sample_features = m.config.feature_fraction < 1.0
         self.fmask_cur = torch.ones((1, m.num_features), dtype=torch.bool,
                                     device=dev)
         self.vals = torch.zeros((m.num_data, 3), dtype=torch.float32,
-                                device=dev) if self.bagging else None
+                                device=dev) \
+            if self.bagging or self.goss else None
+        self.goss_buffers = goss_buffers(m.num_data, dev) \
+            if self.goss else None
         self.es_base = torch.zeros((), dtype=torch.int32, device=dev)
         self.dead = torch.zeros((), dtype=torch.bool, device=dev)
         self.zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -128,10 +137,16 @@ class IterationProgram:
         blocked = self.dead.clone() if stop is None else self.dead | stop
         mark("gradients")
         g, h = m.objective.get_gradients(m.score) if gh is None else gh
-        # (grad*w, hess*w, w): w the in-bag mask of this iteration (B6),
-        # keyed by the device iteration it0 + row, or 1 without bagging
-        if self.bagging:
+        # (grad*w, hess*w, w): w the GOSS weights or the in-bag mask of
+        # this iteration (B6), keyed by the device iteration it0 + row, or
+        # 1 without sampling
+        if self.keyed:
             torch.add(self.it0, self.row.to(torch.int32), out=self.it_cur)
+        if self.goss:
+            vals = goss_vals(g.contiguous(), h.contiguous(), self.it_cur,
+                             out=self.vals, buffers=self.goss_buffers,
+                             **m.goss_args())
+        elif self.bagging:
             vals = bag_vals(g.contiguous(), h.contiguous(), self.it_cur,
                             out=self.vals, **m.bagging_args())
         else:
@@ -143,6 +158,8 @@ class IterationProgram:
         mark("grow")
         grow = grow_tree if m.split_batch == 1 else grow_tree_batched
         kw = {} if m.split_batch == 1 else {"split_batch": m.split_batch}
+        if m.node_sampling is not None:
+            kw.update(sampling=m.node_sampling, rng_iter=self.it_cur)
         arrays = grow(m.binned_dev, vals, fmask, m.num_bin_dev,
                       m.na_bin_dev, num_leaves=cfg.num_leaves,
                       num_bins=m.max_bin, params=m.split_params,
@@ -248,7 +265,8 @@ class IterationProgram:
         path on the CPU); else replay the captured graph (CUDA only).
         ``fmasks``: the [k, F] host feature masks of the k iterations
         (feature_fraction < 1), copied to the device before the first;
-        ``it0``: the first iteration's number, which keys bagging."""
+        ``it0``: the first iteration's number, which keys the bagging,
+        GOSS and per-node draws."""
         self._ensure_rows(k)
         self.row.zero_()
         self.dead.zero_()

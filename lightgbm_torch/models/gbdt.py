@@ -3,8 +3,10 @@
 Counterpart of the JAX package's ``models/gbdt.py`` ``GBDTModel`` for the
 slice this port runs: the masked (one tree per iteration) learner on one
 device.  One iteration (gbdt.cpp:371 ``TrainOneIter``) is:
-BoostFromAverage on the first iteration -> gradients (B5) -> the in-bag
-mask (B6, with bagging) -> one tree from the device-resident grower
+BoostFromAverage on the first iteration -> gradients (B5) -> the row
+weights (B6: the bagging mask, or GOSS's top-k and keyed draw) -> one tree
+from the device-resident grower (with the per-node draws of
+``feature_fraction_bynode`` and ``extra_trees``, B6-node)
 (strict B1-B3s below 64 leaves, batched B1-K/B3-K/B3s-K with K =
 ``split_batch`` from there, resolved as the JAX package resolves it) ->
 f32 shrinkage -> train score += leaf value gathered through the grower's
@@ -46,7 +48,7 @@ from ..config import Config
 from ..dataset import Dataset
 from ..grower import GrowWorkspace, batch_width, host_tree
 from ..objectives import ObjectiveFunction
-from ..ops.random import bag_mask_plain
+from ..ops.random import NodeSampling, bag_mask_plain
 from ..ops.split import SplitParams
 from ..predict_device import add_tree_score
 from ..tree_model import Tree
@@ -85,10 +87,6 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
         (c.num_model_per_iteration > 1, "multiclass objectives", "A9"),
         (c.tree_learner != "serial" or c.num_machines > 1,
          "distributed training (tree_learner/num_machines)", "A16"),
-        (c.data_sample_strategy == "goss", "GOSS", "A9 (B6)"),
-        (c.feature_fraction_bynode < 1.0, "feature_fraction_bynode < 1",
-         "A9 (B6)"),
-        (c.extra_trees, "extra_trees", "A9 (B6)"),
         (bool(c.monotone_constraints) and any(c.monotone_constraints),
          "monotone constraints", "A9"),
         (bool(c.interaction_constraints), "interaction constraints", "A9"),
@@ -261,12 +259,20 @@ class GBDTModel:
         if self.objective is not None:
             self.objective.init(ds.metadata, self.num_data, dev)
 
-        # sampling: the bagging draw's key offset (0 until resume, ROADMAP
-        # A12, sets it) and the feature_fraction mask stream
+        # sampling: the iteration keys' offset (0 until resume, ROADMAP
+        # A12, sets it), the feature_fraction mask stream, GOSS (which
+        # turns bagging off) and the growers' per-node draws
         self._iter_rng_offset = 0
         self._rng_feat = np.random.RandomState(config.feature_fraction_seed)
+        self._goss = config.data_sample_strategy == "goss"
+        sampling = NodeSampling(
+            bynode_frac=config.feature_fraction_bynode,
+            bynode_seed=config.feature_fraction_seed + 1,
+            extra_trees=bool(config.extra_trees),
+            extra_seed=config.extra_seed)
+        self.node_sampling = sampling if sampling.on else None
         self.bag_positive: Optional[torch.Tensor] = None
-        if self._bagging_active and self._pos_neg_bagging:
+        if self._use_bagging and self._pos_neg_bagging:
             label = np.asarray(ds.metadata.label).reshape(-1)
             self.bag_positive = torch.as_tensor(
                 (label > 0).astype(np.uint8)).to(dev)
@@ -310,6 +316,12 @@ class GBDTModel:
             or cfg.neg_bagging_fraction < 1.0)
 
     @property
+    def _use_bagging(self) -> bool:
+        """The bagging draw runs: bagging is active and GOSS is off (the
+        JAX package's ``use_bag``)."""
+        return self._bagging_active and not self._goss
+
+    @property
     def _pos_neg_bagging(self) -> bool:
         """pos/neg fractions apply: a binary objective with either < 1."""
         cfg = self.config
@@ -334,6 +346,12 @@ class GBDTModel:
         iteration through kernel B6 (``models/fused.py``)."""
         return bag_mask_plain(self.num_data, it, device=self.device,
                               **self.bagging_args())
+
+    def goss_args(self) -> dict:
+        """Keyword arguments of ``ops.random.goss_vals`` for this model."""
+        cfg = self.config
+        return dict(seed=cfg.bagging_seed, top_rate=cfg.top_rate,
+                    other_rate=cfg.other_rate)
 
     def _feature_mask(self) -> np.ndarray:
         """The next feature_fraction mask of the host stream (the JAX

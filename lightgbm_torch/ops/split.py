@@ -14,6 +14,12 @@ strict grower keeps its per-leaf best-split table in one device tensor and
 fetches it in one copy.  Integer fields (feature, threshold, default_left)
 are stored exactly as floats (< 2**24).  ``unpack`` gives the named form.
 
+The feature mask is one [F] row for every leaf, or one row a leaf ([K,
+F]: ``feature_fraction_bynode``'s per-child subsets), and an optional
+``rand_bin`` [K, F] (``extra_trees``) leaves one threshold bin a (leaf,
+feature) valid, in both NA directions, as the JAX package's
+``_numerical_candidates`` does.
+
 On a CUDA tensor ``find_best_split`` launches the kernel of
 ``csrc/split.cu``; on a CPU tensor it runs ``find_best_split_plain``.
 Categorical splits are ROADMAP A9.
@@ -106,7 +112,7 @@ def leaf_gain(sum_g, sum_h, p: SplitParams, parent_output=None, count=None):
 
 
 def _check(hist, total, parent_output, num_bin, na_bin, feature_mask,
-           active=None):
+           active=None, rand_bin=None):
     if hist.dim() != 4 or hist.shape[-1] != 3 \
             or hist.dtype != torch.float32:
         raise TypeError("hist must be a [K, F, B, 3] float32 tensor")
@@ -118,9 +124,14 @@ def _check(hist, total, parent_output, num_bin, na_bin, feature_mask,
     for name, t in (("num_bin", num_bin), ("na_bin", na_bin)):
         if t.shape != (f,) or t.dtype != torch.int32:
             raise TypeError(f"{name} must be a [F] int32 tensor")
-    if feature_mask.shape != (f,) or feature_mask.dtype != torch.bool:
-        raise TypeError("feature_mask must be a [F] bool tensor")
+    if feature_mask.shape not in ((f,), (k, f)) \
+            or feature_mask.dtype != torch.bool:
+        raise TypeError("feature_mask must be a [F] or [K, F] bool tensor")
     others = [total, parent_output, num_bin, na_bin, feature_mask]
+    if rand_bin is not None:
+        if rand_bin.shape != (k, f) or rand_bin.dtype != torch.int32:
+            raise TypeError("rand_bin must be a [K, F] int32 tensor")
+        others.append(rand_bin)
     if active is not None:
         if active.shape != (1,) or active.dtype != torch.int32:
             raise TypeError("active must be a [1] int32 tensor")
@@ -133,24 +144,28 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
                     parent_output: torch.Tensor, num_bin: torch.Tensor,
                     na_bin: torch.Tensor, feature_mask: torch.Tensor,
                     params: SplitParams,
-                    active: torch.Tensor | None = None) -> torch.Tensor:
+                    active: torch.Tensor | None = None,
+                    rand_bin: torch.Tensor | None = None) -> torch.Tensor:
     """Best numerical split of each of K leaves.
 
     hist [K, F, B, 3] f32, total [K, 3] (the leaves' g/h/count sums),
     parent_output [K] (path-smoothing anchor), num_bin / na_bin [F] int32
-    (na_bin -1 = no NA bin), feature_mask [F] bool.  Returns [K, 12] split
-    records.  ``active`` (a [1] int32 device tensor, the grower's step
-    flag): where it is 0 nothing is computed and the records are
-    unspecified."""
-    _check(hist, total, parent_output, num_bin, na_bin, feature_mask, active)
+    (na_bin -1 = no NA bin), feature_mask [F] or [K, F] bool, rand_bin
+    None or [K, F] int32 (the one valid threshold bin of each leaf and
+    feature).  Returns [K, 12] split records.  ``active`` (a [1] int32
+    device tensor, the grower's step flag): where it is 0 nothing is
+    computed and the records are unspecified."""
+    _check(hist, total, parent_output, num_bin, na_bin, feature_mask, active,
+           rand_bin)
     if hist.device.type == "cpu":
         if active is not None and not bool(active[0]):
             return torch.zeros((hist.shape[0], RECORD), dtype=torch.float32)
         return find_best_split_plain(hist, total, parent_output, num_bin,
-                                     na_bin, feature_mask, params)
+                                     na_bin, feature_mask, params, rand_bin)
     if hist.device.type != "cuda":
         raise ValueError(f"unsupported device {hist.device}")
-    tensors = (hist, total, parent_output, num_bin, na_bin, feature_mask)
+    tensors = (hist, total, parent_output, num_bin, na_bin, feature_mask) \
+        + (() if rand_bin is None else (rand_bin,))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("find_best_split needs contiguous tensors")
     k, f, b, _ = hist.shape
@@ -164,6 +179,8 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
     err = _kernels.lib("split").lgbt_split(
         hist.data_ptr(), total.data_ptr(), parent_output.data_ptr(),
         num_bin.data_ptr(), na_bin.data_ptr(), feature_mask.data_ptr(),
+        f if feature_mask.dim() == 2 else 0,
+        None if rand_bin is None else rand_bin.data_ptr(),
         k, f, b, p.lambda_l1, p.lambda_l2,
         float(p.min_data_in_leaf) - 0.5, p.min_sum_hessian_in_leaf,
         p.min_gain_to_split, p.max_delta_step, p.path_smooth,
@@ -176,7 +193,9 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
 def find_best_split_plain(hist: torch.Tensor, total: torch.Tensor,
                           parent_output: torch.Tensor, num_bin: torch.Tensor,
                           na_bin: torch.Tensor, feature_mask: torch.Tensor,
-                          params: SplitParams) -> torch.Tensor:
+                          params: SplitParams,
+                          rand_bin: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """Plain PyTorch version of B2 (cumsum-based), same records."""
     k, f, b, _ = hist.shape
     dev = hist.device
@@ -201,9 +220,12 @@ def find_best_split_plain(hist: torch.Tensor, total: torch.Tensor,
     mh = params.min_sum_hessian_in_leaf
     bins = torch.arange(b, device=dev, dtype=torch.int32)
     valid = bins[None, :] <= (num_bin - 2)[:, None]         # [F, B]
-    valid = valid & feature_mask[:, None]
-    valid = torch.stack([valid, valid & has_na[:, None]])   # [2, F, B]
-    valid = valid[None] & (cl >= md) & (cr >= md) & (hl >= mh) & (hr >= mh)
+    fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
+    valid = valid[None] & fm[:, :, None]                    # [K|1, F, B]
+    if rand_bin is not None:
+        valid = valid & (bins[None, None, :] == rand_bin[:, :, None])
+    valid = torch.stack([valid, valid & has_na[:, None]], dim=1)
+    valid = valid & (cl >= md) & (cr >= md) & (hl >= mh) & (hr >= mh)
     valid = valid & (split_gain > kEpsilon)
     gains = torch.where(valid, split_gain,
                         torch.full((), kMinScore, device=dev))

@@ -106,8 +106,11 @@ def test_port_imports_no_jax():
                    if "_build" not in p.relative_to(ROOT).parts) \
         + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
-    # the threefry stream is the port's own, not jax.random's
-    assert ROOT / "lightgbm_torch" / "ops" / "random.py" in files
+    # the threefry stream (bagging, GOSS and the node draws) and the
+    # growers that key on it are the port's own, not jax.random's
+    for mod in ("ops/random.py", "grower.py", "models/fused.py",
+                "ops/split.py"):
+        assert ROOT / "lightgbm_torch" / mod in files
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "lightgbm_tpu")]
@@ -123,10 +126,10 @@ def test_default_device_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"feature_fraction_bynode": 0.5}, "A9"),
-    ({"data_sample_strategy": "goss"}, "A9"),
+    ({"interaction_constraints": [[0, 1]]}, "A9"),
+    ({"feature_contri": [1.0, 0.5, 1.0, 1.0]}, "A9"),
     ({"cegb_penalty_split": 1.0}, "A9"),
-    ({"extra_trees": True}, "A9"),
+    ({"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5}, "A9"),
     ({"forcedsplits_filename": "splits.json"}, "A11"),
     ({"linear_tree": True}, "A9"),
     ({"boosting": "dart"}, "A9"),

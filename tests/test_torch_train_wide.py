@@ -22,7 +22,9 @@ the three paths (per-iteration, fused chunks, super-epochs):
   metrics are held within ``METRIC_RTOL``;
 - the wide model round-trips through its text and predicts by the
   engine route as by the host walk;
-- GOSS, feature_fraction_bynode and extra_trees still raise, naming
+- GOSS, feature_fraction_bynode and extra_trees train (their parity is
+  tests/test_torch_train_sampling.py); with a parameter whose module is
+  still to port (DART, multiclass, linear trees) they still raise, naming
   ROADMAP A9."""
 
 import numpy as np
@@ -240,9 +242,10 @@ def test_wide_model_round_trip_and_engine(es_runs):
 
 
 @pytest.mark.parametrize("params", [
-    {"data_sample_strategy": "goss"},
-    {"feature_fraction_bynode": 0.5},
-    {"extra_trees": True},
+    {"data_sample_strategy": "goss", "boosting": "dart"},
+    {"feature_fraction_bynode": 0.5, "objective": "multiclass",
+     "num_class": 3},
+    {"extra_trees": True, "linear_tree": True},
 ])
 def test_remaining_sampling_raises(params):
     x, y = raw_problem(4, n=400, f=4)
