@@ -90,6 +90,23 @@ Phases, one JSON line each:
    engine, byte-identical to the host walk; extra_train: the same at 31
    leaves (strict grower) with extra_trees and feature_fraction_bynode
    0.8 (EXTRA_PER_ITERATION);
+   cat_data and cat_kernels (run after sample_kernels): an airline-shaped
+   set (the reference's Expo experiment in the 8-column airline schema:
+   Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin, Dest categorical,
+   DepTime and Distance numerical; 1M train and 200k valid rows, 255
+   bins, columns and cardinalities as drawn), then B2-cat against its
+   plain version on 2K = 32 children (one-vs-rest, subsets over 7, 31 and
+   255 categories, a max_cat_threshold cut, cat_l2 and cat_smooth in
+   turn, tied ratios, [2K, F] masks, an inactive step, both merge
+   outcomes), B1 and B1-K at 255 bins, B3 with categorical records and
+   rank tables, B3s/B3 and B3s-K/B3-K at every step of whole categorical
+   trees (31 leaves; 255 at K = 16) and B4 on a categorical tree, each
+   timed; cat_train: the default ``train`` on that set at 255 leaves
+   (K = 16) without sampling (CAT_PER_ITERATION), and cat_strict_train at
+   31 leaves (CAT_STRICT_PER_ITERATION), each as goss_train (three paths,
+   profiled byte-identical rerun, engine predict) plus categorical nodes
+   a tree (> 0 in every tree), the fetch bytes an epoch, the model text
+   round trip and ``fused_predict`` held as fused_serve;
 10. serving_model: the serving model, SERVE_ROUNDS rounds of 31 leaves on
    the 1M x 28 train set without a valid set (fused chunks);
 11. serve_kernels: B10a (forest walk), B10b (device binning) and B10c
@@ -174,7 +191,8 @@ PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "histogram_slots": 0, "partition_slots": 0,
                  "grow_step_batched": 0, "bag_vals": 0, "goss_vals": 0,
                  "node_draws": 0, "predict": 1, "auc": 1, "pointwise": 1,
-                 "forest_walk": 0, "bin_rows": 0, "fused_predict": 0}
+                 "forest_walk": 0, "bin_rows": 0, "fused_predict": 0,
+                 "split_cat": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -207,7 +225,26 @@ EXTRA_PARAMS = {"num_leaves": NUM_LEAVES, "extra_trees": True,
                 "feature_fraction_bynode": 0.8}
 EXTRA_PER_ITERATION = {**PER_ITERATION, "node_draws": NUM_LEAVES}
 SAMPLED_PER_ITERATION_ROUNDS = 10
-KERNEL_ORDER = ("histogram", "split", "split_per_child", "partition",
+# the categorical cells: an airline-shaped set (the reference's Expo
+# experiment, docs/Experiments.rst, in the common 8-column airline schema):
+# Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest categorical
+# (Origin and Dest Zipf-skewed), DepTime and Distance numerical; rows cut
+# to N_TRAIN / N_VALID, columns and cardinalities not cut
+CAT_COLS = (0, 1, 2, 3, 4, 5)
+CAT_CARDS = (12, 31, 7, 22, 300, 300)
+CAT_ZIPF = (0.2, 0.1, 0.2, 0.9, 1.1, 1.1)
+CAT_EFFECT = (0.4, 0.2, 0.3, 0.8, 1.0, 1.0)
+CAT_MAX_BIN = 255
+# the wide path's settings without sampling, at 255 bins
+CAT_PARAMS = {"num_leaves": WIDE_LEAVES, "max_bin": CAT_MAX_BIN}
+# per iteration: the wide path's launches without the bagging draw, and
+# B2-cat beside every B2
+CAT_PER_ITERATION = {**WIDE_PER_ITERATION, "bag_vals": 0,
+                     "split_cat": WIDE_LEAVES}
+CAT_STRICT_PARAMS = {**CAT_PARAMS, "num_leaves": NUM_LEAVES}
+CAT_STRICT_PER_ITERATION = {**PER_ITERATION, "split_cat": NUM_LEAVES}
+KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
+                "partition",
                 "grow_step", "histogram_slots", "partition_slots",
                 "grow_step_batched", "bag_vals", "goss_vals", "node_draws",
                 "predict", "auc", "pointwise", "forest_walk", "bin_rows",
@@ -223,7 +260,7 @@ KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "partition_slots": "wide_train",
                "grow_step_batched": "wide_train", "bag_vals": "wide_train",
                "goss_vals": "goss_train", "node_draws": "goss_train",
-               "split_per_child": "extra_train"}
+               "split_per_child": "extra_train", "split_cat": "cat_train"}
 
 
 def times(counts, n: int):
@@ -409,16 +446,19 @@ def split_cases(torch, sp, tot, base):
 
 
 def check_grow_step(torch, binned, vals, fmask, num_bin, na_bin, B, params,
-                    max_depth, case, snap):
+                    max_depth, case, snap, is_cat=None):
     """Grow one tree on the card with the B3s kernel, and at every step
     run its plain version on copies of the step's inputs: the step record,
     index, sums, flags and the whole tree buffer must be bit-equal.  Keeps
-    the state before the middle step in ``snap`` (for timing).  Returns
-    (steps, active steps)."""
+    the state before the middle step in ``snap`` (for timing) and the
+    workspace in ``snap["ws"]``.  With ``is_cat`` (a categorical tree) B3
+    is held against its plain version at every step too.  Returns (steps,
+    active steps)."""
     from lightgbm_torch import grower as gr
     n, f = binned.shape
-    ws = gr.GrowWorkspace(n, f, B, NUM_LEAVES, binned.device)
-    kernel = gr.grow_step
+    ws = gr.GrowWorkspace(n, f, B, NUM_LEAVES, binned.device,
+                          categorical=is_cat is not None)
+    kernel, part_k = gr.grow_step, gr.partition
     seen = {"steps": 0, "active": 0}
 
     def both(table, tree, na, **kw):
@@ -444,13 +484,25 @@ def check_grow_step(torch, binned, vals, fmask, num_bin, na_bin, B, params,
         seen["steps"] += 1
         seen["active"] += int(kw["rec"][gr.ACTIVE])
 
+    def part_both(binned_, lor, rec, rank):
+        lor_p = lor.clone()
+        s_p = gr.partition_plain(binned_, lor_p, rec, rank)
+        s_k = part_k(binned_, lor, rec, rank)
+        if bool(rec[gr.ACTIVE]):
+            check_partition(torch, lor, lor_p, s_k, s_p,
+                            f"{case}, step {seen['steps'] - 1}")
+        return s_k
+
     gr.grow_step = both
+    if is_cat is not None:
+        gr.partition = part_both
     try:
         gr.grow_tree(binned, vals, fmask, num_bin, na_bin,
                      num_leaves=NUM_LEAVES, num_bins=B, params=params,
-                     max_depth=max_depth, workspace=ws)
+                     max_depth=max_depth, workspace=ws, is_cat=is_cat)
     finally:
-        gr.grow_step = kernel
+        gr.grow_step, gr.partition = kernel, part_k
+    snap["ws"] = ws
     tree = gr.fetch_tree(ws)
     if tree.num_leaves != seen["active"] + 1:
         raise AssertionError(f"B3s ({case}): {tree.num_leaves} leaves "
@@ -1120,7 +1172,7 @@ def equal_bits(torch, a, b) -> bool:
 
 
 def check_batched_tree(torch, binned, vals, fmask, num_bin, na_bin, B, L, K,
-                       params, max_depth, case, snap):
+                       params, max_depth, case, snap, is_cat=None):
     """Grow one tree on the card with the batched grower, and at every
     super-step run the plain versions of B3s-K and B3-K on copies of the
     step's inputs: every step output, the tree buffer, leaf_of_row and
@@ -1130,7 +1182,8 @@ def check_batched_tree(torch, binned, vals, fmask, num_bin, na_bin, B, L, K,
     the budget exhausted)."""
     from lightgbm_torch import grower as gr
     n, f = binned.shape
-    ws = gr.GrowWorkspace(n, f, B, L, binned.device, split_batch=K)
+    ws = gr.GrowWorkspace(n, f, B, L, binned.device, split_batch=K,
+                          categorical=is_cat is not None)
     step_k, part_k = gr.grow_step_batched, gr.partition_slots
     seen = {"steps": 0, "live": 0, "budget_cut": 0}
 
@@ -1188,7 +1241,7 @@ def check_batched_tree(torch, binned, vals, fmask, num_bin, na_bin, B, L, K,
         gr.grow_tree_batched(binned, vals, fmask, num_bin, na_bin,
                              num_leaves=L, num_bins=B, params=params,
                              max_depth=max_depth, split_batch=K,
-                             workspace=ws)
+                             workspace=ws, is_cat=is_cat)
     finally:
         gr.grow_step_batched, gr.partition_slots = step_k, part_k
     snap["ws"] = ws
@@ -1738,7 +1791,7 @@ def phase_sample_kernels(torch, lgt, train):
 
 def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
                         prefix: str, params: dict, per_it: dict,
-                        dead_ms=None):
+                        dead_ms=None, after=None):
     """Default ``train`` with ``params`` (sampling at a tree shape) as
     super-epochs, launch counts held to ``per_it`` per iteration; the
     per-iteration path (SAMPLED_PER_ITERATION_ROUNDS rounds: the same
@@ -1747,9 +1800,10 @@ def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
     with byte-identical model text (device busy share); ``Booster.predict``
     of the model through the engine, byte-identical to the host walk.
     Emits the ``{prefix}_train`` line; ``dead_ms`` (batched growth): what
-    one dead super-step costs.  Returns (device launches by path, steady
-    ms per iteration, eager ms per iteration, the iteration's (bound ms,
-    by, bytes) from the run's own trees)."""
+    one dead super-step costs; ``after(bst, prog)``: more checks of the
+    super-epoch model, whose dict joins the line.  Returns (device
+    launches by path, steady ms per iteration, eager ms per iteration, the
+    iteration's (bound ms, by, bytes) from the run's own trees)."""
     name = f"{prefix}_train"
     no_valid = {**per_it, "predict": 0, "auc": 0, "pointwise": 0}
     L = params["num_leaves"]
@@ -1783,8 +1837,9 @@ def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
     steady = m.epoch_ms[1:] if epochs > 1 else m.epoch_ms
     ms_it = statistics.median(steady) / k
     live = m.step_counts
+    (n_rows, n_feat), n_valid = train.binned.shape, valid.binned.shape[0]
     b_ms, b_by, b_bytes = iteration_bound(
-        m.models, N_TRAIN, N_FEAT, int(train.max_bin), L, N_VALID,
+        m.models, n_rows, n_feat, int(train.max_bin), L, n_valid,
         super_steps=live if batched else None)
     text = bst.model_to_string()
     # the rows the last replay's GOSS draw kept (w > 0), read from the
@@ -1899,6 +1954,8 @@ def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
     if not np.array_equal(pe, host_walk(bst, xv)):
         raise AssertionError(f"{name} predict: the engine route differs "
                              "from the host walk")
+    if after is not None:
+        main.update(after(bst, prog))
     emit({"phase": name, "params": params, **main,
           "per_iteration": {"iterations": n_p, "seconds": secs_p,
                             "iterations_per_s": n_p / secs_p,
@@ -1911,12 +1968,482 @@ def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
                       "steady_busy_share": busy, "top_kernels": [
                           {"name": n_, "device_ms": d, "count": c}
                           for n_, d, c in top]},
-          "predict": {"rows_per_s": N_VALID / t_eng,
+          "predict": {"rows_per_s": len(xv) / t_eng,
                       "forest_walk_launches": pred_counts["forest_walk"],
                       "byte_identical_to_host_walk": True}})
     return {name: device, f"{prefix}_per_iteration": per_it_counts,
             f"{prefix}_fused_chunk": chunk}, ms_it, 1e3 * secs_p / n_p, \
         (b_ms, b_by, b_bytes)
+
+
+# ---------------------------------------------------------------------------
+# categorical splits (B2-cat, rank rows through B3/B3-K, B3s/B3s-K, B4)
+# ---------------------------------------------------------------------------
+
+def make_expo_like(n: int, seed: int):
+    """An airline-shaped set (``CAT_CARDS`` categories a column, Zipf-
+    skewed by ``CAT_ZIPF``; DepTime as hhmm-like integers and Distance,
+    2% NaN each) with a binary label from seeded per-category effects
+    (the same effects for every seed), about 20% positive."""
+    rng = np.random.RandomState(seed)
+    eff = np.random.RandomState(1234)
+    x = np.empty((n, 8), np.float32)
+    logit = np.zeros(n)
+    for j, (c, z, e) in enumerate(zip(CAT_CARDS, CAT_ZIPF, CAT_EFFECT)):
+        p = 1.0 / np.arange(1, c + 1) ** z
+        col = rng.choice(c, size=n, p=p / p.sum())
+        x[:, j] = col
+        logit += e * eff.randn(c)[col]
+    dep = rng.randint(0, 2400, n)
+    dist = rng.gamma(2.0, 400.0, n)
+    logit += 0.8 * (dep > 1700) + 0.3 * np.log(dist / 800.0)
+    logit += 0.5 * rng.randn(n)
+    x[:, 6], x[:, 7] = dep, dist
+    x[:, 6:][rng.rand(n, 2) < 0.02] = np.nan
+    return x, (logit > 1.4).astype(np.float32)
+
+
+def phase_cat_data(lgt):
+    t0 = time.perf_counter()
+    x, y = make_expo_like(N_TRAIN, seed=10)
+    xv, yv = make_expo_like(N_VALID, seed=11)
+    params = {"max_bin": CAT_MAX_BIN, "verbosity": -1}
+    train = lgt.Dataset(x, y, categorical_feature=list(CAT_COLS),
+                        params=params).construct()
+    valid = lgt.Dataset(xv, yv, reference=train, params=params).construct()
+    mappers = [train.bin_mappers[i] for i in train.used_features]
+    cats = [len(m.categories) for m in mappers
+            if m.bin_type.name == "CATEGORICAL"]
+    if train.binned.shape != (N_TRAIN, 8) or train.binned.dtype != np.uint8 \
+            or len(cats) != len(CAT_COLS) or max(cats) < 250:
+        raise AssertionError(f"unexpected categorical set: "
+                             f"{train.binned.shape}, categories {cats}")
+    emit({"phase": "cat_data", "seconds": time.perf_counter() - t0,
+          "train": list(train.binned.shape),
+          "valid": list(valid.binned.shape), "max_bin": int(train.max_bin),
+          "categories_kept": cats, "categories_drawn": list(CAT_CARDS),
+          "positive_share": float(y.mean()),
+          "cut": "rows cut from Expo's millions to 1M train and 200k "
+                 "valid rows; columns and cardinalities not cut"})
+    return xv, train, valid
+
+
+def check_cat_split(torch, sp, args, params, is_cat, what):
+    """B2 with B2-cat on the card against the plain version on CPU copies
+    of the same inputs.  B2-cat's prefix sums, in the kernel and in the
+    plain version, accumulate in f64 in bin order (the CPU's cumsum), so
+    the mirrored subsets of a feature (an ascending prefix and the
+    descending prefix of the other used bins, whose gains tie up to
+    rounding) resolve alike; B2's numerical prefix sums are f32 in the
+    kernel, and its fields are held within SPLIT_RTOL.  The feature,
+    threshold, direction, is-categorical flag and rank rows are held
+    exactly.  Returns (max abs, max rel error, cat flags, thresholds)."""
+    rec, cat, rank = sp.find_best_split(*args, params, is_cat=is_cat)
+    cpu = [t.cpu() for t in args]
+    rp, cp, kp = sp.find_best_split_plain(*cpu, params,
+                                          is_cat=is_cat.cpu())
+    err, rel = check_split(torch, sp, rec.cpu(), rp, what)
+    if not torch.equal(cat.cpu(), cp) or not torch.equal(rank.cpu(), kp):
+        bad = torch.nonzero((rank.cpu() != kp).any(dim=1)).flatten()
+        raise AssertionError(f"B2-cat ({what}): flags {cat.tolist()} vs "
+                             f"{cp.tolist()}, rank rows differ at "
+                             f"{bad.tolist()}")
+    return err, rel, cp, rp[:, sp.THRESHOLD].to(torch.int64)
+
+
+def phase_cat_kernels(torch, lgt, train, valid):
+    """B2-cat against its plain version on 2K = 32 children of the
+    categorical set (255 bins): at the training shape, with [2K, F]
+    per-child masks, one-vs-rest, subsets over 7, 31 and 254 categories, a
+    max_cat_threshold cut, cat_l2 and cat_smooth in turn, exactly tied
+    ratios, an inactive step and both outcomes of the
+    numerical/categorical merge; B1 and B1-K at 255 bins; B3 with
+    categorical records and rank tables; B3s and B3-K/B3s-K at every step
+    of whole categorical trees (31 leaves, and 255 leaves at K = 16); B4
+    on a categorical tree over the valid rows with NaN in the numerical
+    columns.  Each timed, with bounds; emits the cat_kernels line and
+    returns the kernels-line row of B2-cat."""
+    from lightgbm_torch import grower as gr
+    from lightgbm_torch.ops import split as sp
+    from lightgbm_torch.ops.histogram import (compute_histogram,
+                                              histogram_plain,
+                                              histogram_slots_plain)
+    from lightgbm_torch.predict_device import (add_tree_score,
+                                               add_tree_score_plain)
+    dev = torch.device("cuda", 0)
+    binned = torch.as_tensor(train.binned).to(dev)
+    vbinned = torch.as_tensor(valid.binned).to(dev)
+    n, f = binned.shape
+    nv = vbinned.shape[0]
+    B = int(train.max_bin)
+    mappers = [train.bin_mappers[i] for i in train.used_features]
+    num_bin = torch.tensor([m.num_bin for m in mappers], dtype=torch.int32,
+                           device=dev)
+    na_bin = torch.tensor([m.na_bin for m in mappers], dtype=torch.int32,
+                          device=dev)
+    is_cat = torch.tensor([m.bin_type.name == "CATEGORICAL"
+                           for m in mappers], dtype=torch.bool, device=dev)
+    cat_f = torch.nonzero(is_cat).flatten().tolist()
+    num_f = [j for j in range(f) if j not in cat_f]
+    by_card = {int(num_bin[j]): j for j in cat_f}
+    y = torch.as_tensor(train.metadata.label).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p = torch.sigmoid(torch.randn(n, device=dev, generator=gen))
+    vals = torch.stack([p - y, p * (1 - p), torch.ones_like(y)], dim=1)
+    # the binary gradients at score 0 (+-0.5, 0.25): every histogram sum
+    # is exact in f32 whatever the order, so B1 and B1-K are held bit for
+    # bit on them.  On the gradients at a random score a bin of 250,000
+    # rows (the commonest carrier) sums to about 1e5, and the kernel's and
+    # index_add_'s f32 orders differ by units there: that difference is
+    # reported, not held
+    vals_exact = torch.stack([0.5 - y, torch.full_like(y, 0.25),
+                              torch.ones_like(y)], dim=1)
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    params = sp.SplitParams()
+    out = {}
+
+    # B1 at 255 bins: the root pass
+    h_k = compute_histogram(binned, vals_exact, num_bins=B)
+    h_p = histogram_plain(binned, vals_exact, num_bins=B)
+    if not torch.equal(h_k, h_p):
+        raise AssertionError(f"B1 (255 bins, exact sums) differs from its "
+                             f"plain version: "
+                             f"{float((h_k - h_p).abs().max())}")
+    h_k = compute_histogram(binned, vals, num_bins=B)
+    e1 = float((h_k - histogram_plain(binned, vals, num_bins=B)).abs().max())
+    idx = (binned.to(torch.int64) + torch.arange(f, device=dev) * B
+           ).reshape(-1)
+    src = vals.repeat_interleave(f, dim=0)
+    acc = torch.zeros((f * B, 3), device=dev)
+    out["histogram"] = {
+        "max_abs_err": 0.0, "max_abs_err_inexact": e1,
+        "ms": median_ms(torch, lambda: compute_histogram(binned, vals,
+                                                         num_bins=B)),
+        "plain_ms": median_ms(torch, lambda: histogram_plain(
+            binned, vals, num_bins=B)),
+        "library_ms": median_ms(torch, lambda: acc.zero_().index_add_(
+            0, idx, src)),
+        "bound": bound_ms(n * f + 12 * n + f * B * 12, 3 * n * f)}
+
+    # 2K = 32 children: nested random row subsets of the set
+    K2 = 2 * WIDE_K
+    u = torch.rand(n, device=dev, generator=gen)
+    fracs = torch.linspace(0.05, 1.0, K2)
+    hist = torch.stack([compute_histogram(
+        binned, vals, num_bins=B,
+        slot=torch.where(u < float(fr), 0, -1).to(torch.int32))
+        for fr in fracs]).contiguous()
+    tot = hist[:, num_f[0]].sum(dim=1).contiguous()
+    po = (0.01 * torch.randn(K2, device=dev, generator=gen)).contiguous()
+    base = (hist, tot, po, num_bin, na_bin, fmask)
+    err = rel = 0.0
+    cases = {}
+
+    def case(what, args, prm=params, want_cat=None):
+        nonlocal err, rel
+        e, r, cat, thr = check_cat_split(torch, sp, args, prm, is_cat, what)
+        err, rel = max(err, e), max(rel, r)
+        cases[what] = {"categorical_winners": int(cat.sum()),
+                       "max_threshold": int(thr[cat.bool()].max())
+                       if bool(cat.any()) else None}
+        if want_cat is True and not bool(cat.all()):
+            raise AssertionError(f"B2-cat ({what}): a numerical winner")
+        if want_cat is False and bool(cat.any()):
+            raise AssertionError(f"B2-cat ({what}): a categorical winner")
+        return cat, thr
+
+    case("training_shape", base)
+    masks = torch.rand((K2, f), device=dev, generator=gen) < 0.6
+    masks[:, cat_f[0]] = True
+    case("per_child_masks", base[:5] + (masks.contiguous(),))
+    for card in (7, 31, max(by_card)):
+        only = torch.zeros(f, dtype=torch.bool, device=dev)
+        only[by_card[card]] = True
+        cat, thr = case(f"subsets_{card}_categories", base[:5] + (only,),
+                        want_cat=True)
+        if not bool((thr > 0).any()):
+            raise AssertionError(f"B2-cat over {card} categories takes no "
+                                 "subset of more than one category")
+    origin = torch.zeros(f, dtype=torch.bool, device=dev)
+    origin[by_card[max(by_card)]] = True
+    _, thr = case("max_cat_threshold_4", base[:5] + (origin,),
+                  sp.SplitParams(max_cat_threshold=4), want_cat=True)
+    if int(thr.max()) > 3:
+        raise AssertionError("B2-cat exceeds max_cat_threshold")
+    case("cat_l2_0", base, sp.SplitParams(cat_l2=0.0))
+    case("cat_smooth_1", base, sp.SplitParams(cat_smooth=1.0))
+    # one-vs-rest: every categorical feature keeps 4 used bins
+    ovr = hist.clone()
+    ovr[:, cat_f, 4:] = 0.0
+    _, thr = case("one_vs_rest", (ovr,) + base[1:], want_cat=True)
+    if bool((thr != 0).any()):
+        raise AssertionError("B2-cat one-vs-rest threshold is not 0")
+    # exactly tied ratios: two Origin categories with equal sums
+    tied = hist.clone()
+    fo = by_card[max(by_card)]
+    tied[:, fo, 9] = tied[:, fo, 2]
+    case("tied_ratios", (tied,) + base[1:5] + (origin,), want_cat=True)
+    # the merge: a flat Month (no categorical gain) against DepTime, and
+    # Origin against a flat DepTime (no numerical gain)
+    dep = num_f[0]
+    pair = torch.zeros(f, dtype=torch.bool, device=dev)
+    pair[[by_card[12], dep]] = True
+    flat = hist.clone()
+    flat[:, by_card[12], :, 0] = flat[:, by_card[12], :, 1] * (
+        tot[:, 0] / tot[:, 1])[:, None]
+    case("numerical_wins", (flat,) + base[1:5] + (pair,), want_cat=False)
+    pair2 = torch.zeros(f, dtype=torch.bool, device=dev)
+    pair2[[fo, dep]] = True
+    flat2 = hist.clone()
+    flat2[:, dep] = 0.0
+    flat2[:, dep, 0] = tot
+    case("categorical_wins", (flat2,) + base[1:5] + (pair2,),
+         want_cat=True)
+    # an inactive step writes nothing into the records
+    r_num = sp.find_best_split(*base, params)
+    kept = r_num.clone()
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    sp._split_cat(hist, tot, po, fmask, 0, is_cat, params, zero.data_ptr(),
+                  kept)
+    torch.cuda.synchronize()
+    if not torch.equal(kept, r_num):
+        raise AssertionError("B2-cat wrote records on an inactive step")
+
+    # timing at the training shape: B2-cat alone (its merge into a copy
+    # of the numerical records), its plain version on the card, and
+    # torch.sort of the keys alone
+    work = r_num.clone()
+    t_k = median_ms(torch, lambda: sp._split_cat(
+        hist, tot, po, fmask, 0, is_cat, params, None, work.copy_(r_num)))
+    t_p = median_ms(torch, lambda: sp._categorical_plain(
+        hist, tot, po, fmask & is_cat, params, r_num))
+    hc = hist[:, cat_f]
+    used = hc[..., 2] >= max(0.5, params.min_data_per_group - 0.5)
+    ratio = hc[..., 0] / (hc[..., 1] + params.cat_smooth)
+    keys = torch.stack([torch.where(used, ratio, 1e30),
+                        torch.where(used, -ratio, 1e30)], dim=2)
+    t_lib = median_ms(torch, lambda: torch.sort(keys, dim=-1, stable=True))
+    nc = len(cat_f)
+    b2c_bytes = K2 * nc * B * 12 + K2 * 16 + 2 * K2 * sp.RECORD * 4 \
+        + K2 * 4 + K2 * B * 4 + 2 * f
+    # two stable sorts (B log2 B compares each), six prefix sums and
+    # three candidates' gains (about 40 operations) a bin
+    b2c_ops = K2 * nc * (2 * B * float(np.log2(B)) + 6 * B + 120 * B)
+    bms, by = bound_ms(b2c_bytes, b2c_ops)
+    row = {"name": "B2-cat categorical split scan", "route": "cuda",
+           "source": "lightgbm_torch/csrc/split.cu",
+           "replaces": "lightgbm_tpu/ops/split.py:236", "max_abs_err": err,
+           "ms": t_k, "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+           "library_ms": t_lib}
+    emit({"phase": "kernel", **row, "max_rel_err": rel, "kernel_ms": t_k,
+          "children": K2, "categorical_features": nc, "bins": B,
+          "cases": cases})
+
+    # B3 with categorical records: the root's B2-cat winner over Origin
+    # (na_bin -1, the rank row in row 0 of a [L, B] table), and mid-tree
+    # with rows spread over 17 leaves and a permuted rank row a leaf
+    res = sp.find_best_split(h_k[None], tot[-1:], po[:1], num_bin, na_bin,
+                             origin, params, is_cat=is_cat)
+    table = torch.stack([torch.randperm(B, device=dev, generator=gen)
+                         for _ in range(NUM_LEAVES)]).to(torch.int32)
+    table[0] = res[2][0]
+    thr0 = int(res[0][0, sp.THRESHOLD])
+
+    def crec(leaf, new_leaf, feat, thr, smaller):
+        return torch.tensor([leaf, new_leaf, feat, thr, 0, -1, smaller, 1],
+                            dtype=torch.int32, device=dev)
+    lor0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    lor_mid = torch.randint(0, 17, (n,), dtype=torch.int32, device=dev,
+                            generator=gen)
+    e3 = 0.0
+    for what, lor, rec in (("root", lor0, crec(0, 1, fo, thr0, 1)),
+                           ("mid_tree", lor_mid,
+                            crec(5, 17, by_card[31], 12, 5))):
+        lk, lp = lor.clone(), lor.clone()
+        sk = gr.partition(binned, lk, rec, table)
+        sp_ = gr.partition_plain(binned, lp, rec, table)
+        check_partition(torch, lk, lp, sk, sp_, f"categorical {what}")
+        if what == "root" and int((lk == 1).sum()) == 0:
+            raise AssertionError("B3 categorical root split moves no row")
+    args3 = (crec(0, 1, fo, thr0, 1), table)
+    lor_k, lor_p = lor0.clone(), lor0.clone()
+    out["partition"] = {
+        "ms": median_ms(torch, lambda: gr.partition(
+            binned, lor_k.fill_(0), *args3)),
+        "plain_ms": median_ms(torch, lambda: gr.partition_plain(
+            binned, lor_p.fill_(0), *args3)),
+        "bound": bound_ms(n * f + 12 * n, 2 * n)}
+    out["partition"]["max_abs_err"] = exact_err(torch, [
+        (gr.partition(binned, lor_k.fill_(0), *args3),
+         gr.partition_plain(binned, lor_p.fill_(0), *args3)),
+        (lor_k, lor_p)], "B3 categorical (timed call)")
+
+    # B3s (and B3) at every step of a whole categorical 31-leaf tree
+    snap = {}
+    steps, active = check_grow_step(torch, binned, vals, fmask, num_bin,
+                                    na_bin, B, params, -1, "categorical",
+                                    snap, is_cat=is_cat)
+    ws = snap["ws"]
+    tree = gr.fetch_tree(ws)
+    nn = tree.num_leaves - 1
+    n_cat_nodes = int(tree.is_cat_node[:nn].sum())
+    if active != NUM_LEAVES - 1 or n_cat_nodes == 0:
+        raise AssertionError(f"categorical strict tree: {active} active "
+                             f"steps, {n_cat_nodes} categorical nodes")
+    st = snap["state"]
+    outs = ("tree", "rec", "idx", "fstep", "flags")
+    lcat, lrank = ws.leaf_cat.clone(), ws.leaf_rank.clone()
+
+    def b3s_call(fn):
+        st["tree"].copy_(st["tree0"])
+        fn(st["table"], st["tree"], na_bin, num_leaves=NUM_LEAVES,
+           max_depth=-1, rec=st["rec"], idx=st["idx"], fstep=st["fstep"],
+           flags=st["flags"], leaf_cat=lcat, leaf_rank=lrank)
+    t_k = median_ms(torch, lambda: b3s_call(gr.grow_step))
+    got = [st[o].clone() for o in outs]
+    t_p = median_ms(torch, lambda: b3s_call(gr.grow_step_plain))
+    words = st["tree"].numel()
+    out["grow_step"] = {
+        "ms": t_k, "plain_ms": t_p,
+        "max_abs_err": exact_err(torch, zip(got, [st[o] for o in outs]),
+                                 "B3s categorical (timed call)"),
+        "bound": bound_ms(st["table"].numel() * 4 + 2 * words * 4
+                          + 2 * B * 4 + f * 4 + 64, 2 * NUM_LEAVES),
+        "tree_words": words}
+
+    # B4 on that tree over the valid rows (NaN bins in DepTime and
+    # Distance; a categorical node never takes the NA branch)
+    arr = ws.arrays()
+    walk = (vbinned, arr.split_feature, arr.threshold_bin, arr.default_left,
+            arr.left_child, arr.right_child, na_bin, arr.leaf_value, 0.1)
+    cat4 = {"steps": 32, "is_cat_node": arr.is_cat_node,
+            "cat_rank": arr.cat_rank}
+    na_rows = int(sum(int((vbinned[:, j] == na_bin[j]).sum())
+                      for j in num_f if int(na_bin[j]) >= 0))
+    if na_rows == 0:
+        raise AssertionError("B4 categorical check has no NA row")
+    score0 = torch.randn(nv, device=dev, generator=gen)
+    s_k, s_p = score0.clone(), score0.clone()
+    add_tree_score(s_k, *walk, **cat4)
+    add_tree_score_plain(s_p, *walk, **cat4)
+    e4 = exact_err(torch, [(s_k, s_p)], "B4 categorical")
+    s = score0.clone()
+    out["predict"] = {
+        "max_abs_err": e4,
+        "ms": median_ms(torch, lambda: add_tree_score(s, *walk, **cat4)),
+        "plain_ms": median_ms(torch, lambda: add_tree_score_plain(
+            s, *walk, **cat4)),
+        "bound": bound_ms(nv * f + 8 * nv, 7 * nv), "na_rows": na_rows}
+
+    # B3s-K and B3-K at every super-step of a whole 255-leaf categorical
+    # tree (K = 16), then B1-K at 255 bins on a super-step with every slot
+    # valid, B3-K and B3s-K timed on it
+    snaps = {}
+    bcase = check_batched_tree(torch, binned, vals, fmask, num_bin, na_bin,
+                               B, WIDE_LEAVES, WIDE_K, params, -1,
+                               "categorical", snaps, is_cat=is_cat)
+    wsb = snaps["ws"]
+    btree = gr.fetch_tree(wsb)
+    bn = btree.num_leaves - 1
+    b_cat_nodes = int(btree.is_cat_node[:bn].sum())
+    if btree.num_leaves != WIDE_LEAVES or b_cat_nodes == 0:
+        raise AssertionError(f"categorical batched tree: {bcase}, "
+                             f"{b_cat_nodes} categorical nodes")
+    sb = snaps["state"]
+    tslot, used = sb["tslot"], sb["used"]
+    a = compute_histogram(binned, vals_exact, num_bins=B, slot=tslot,
+                          num_slots=WIDE_K, slots_used=used)
+    b = histogram_slots_plain(binned, vals_exact, tslot, num_slots=WIDE_K,
+                              num_bins=B)
+    if not torch.equal(a, b):
+        raise AssertionError(f"B1-K (255 bins, exact sums) differs from its "
+                             f"plain version: {float((a - b).abs().max())}")
+    e1k = float((compute_histogram(
+        binned, vals, num_bins=B, slot=tslot, num_slots=WIDE_K,
+        slots_used=used) - histogram_slots_plain(
+            binned, vals, tslot, num_slots=WIDE_K, num_bins=B)).abs().max())
+    in_slots = int((tslot >= 0).sum())
+    out["histogram_slots"] = {
+        "max_abs_err": 0.0, "max_abs_err_inexact": e1k,
+        "ms": median_ms(torch, lambda: compute_histogram(
+            binned, vals, num_bins=B, slot=tslot, num_slots=WIDE_K,
+            slots_used=used)),
+        "plain_ms": median_ms(torch, lambda: histogram_slots_plain(
+            binned, vals, tslot, num_slots=WIDE_K, num_bins=B)),
+        "bound": bound_ms(n * f + 16 * n + WIDE_K * f * B * 12,
+                          3 * in_slots * f)}
+    lork, lorp = sb["lor"].clone(), sb["lor"].clone()
+    rank_t = wsb.leaf_rank.clone()
+    stp = sb["step"]
+    out["partition_slots"] = {
+        "ms": median_ms(torch, lambda: gr.partition_slots(
+            binned, lork.copy_(sb["lor"]), stp, rank_t)),
+        "plain_ms": median_ms(torch, lambda: gr.partition_slots_plain(
+            binned, lorp.copy_(sb["lor"]), stp, rank_t)),
+        "bound": bound_ms(n * f + 12 * n, 3 * n)}
+    out["partition_slots"]["max_abs_err"] = exact_err(torch, [
+        (gr.partition_slots(binned, lork.copy_(sb["lor"]), stp, rank_t),
+         gr.partition_slots_plain(binned, lorp.copy_(sb["lor"]), stp,
+                                  rank_t)), (lork, lorp)],
+        "B3-K categorical (timed call)")
+    bcat, brank = wsb.leaf_cat.clone(), wsb.leaf_rank.clone()
+
+    def b3sk_call(fn):
+        sb["tree"] = sb.get("tree", sb["tree0"].clone())
+        sb["tree"].copy_(sb["tree0"])
+        fn(sb["table"], sb["tree"], na_bin, num_leaves=WIDE_LEAVES,
+           split_batch=WIDE_K, max_depth=-1, step=sb["step"],
+           leaf_cat=bcat, leaf_rank=brank)
+    t_k = median_ms(torch, lambda: b3sk_call(gr.grow_step_batched))
+    got = [t.clone() for t in (sb["tree"], *sb["step"])]
+    t_p = median_ms(torch, lambda: b3sk_call(gr.grow_step_batched_plain))
+    words_b = sb["tree0"].numel()
+    out["grow_step_batched"] = {
+        "ms": t_k, "plain_ms": t_p,
+        "max_abs_err": exact_err(torch, zip(got, (sb["tree"], *sb["step"])),
+                                 "B3s-K categorical (timed call)"),
+        "bound": bound_ms(WIDE_LEAVES * 4 + WIDE_K * sp.RECORD * 4
+                          + 2 * words_b * 4 + WIDE_K * (B + 1) * 4
+                          + WIDE_K * 8 * 4 + 4 * WIDE_LEAVES,
+                          WIDE_LEAVES * WIDE_LEAVES),
+        "tree_words": words_b}
+    for v in out.values():
+        bms_, by_ = v.pop("bound")
+        v["bound_ms"], v["bound_by"] = bms_, by_
+    emit({"phase": "cat_kernels", "kernels": out,
+          "strict_tree": {"steps": steps, "active": active,
+                          "categorical_nodes": n_cat_nodes},
+          "batched_tree": {**bcase, "categorical_nodes": b_cat_nodes}})
+    return {"split_cat": row}
+
+
+def cat_after(torch, lgt, lgt_kernels, xv, prefix):
+    """cat_train's and cat_strict_train's own checks of the super-epoch
+    model: categorical nodes in every tree, the fetch bytes an epoch, the
+    model text round trip and ``fused_predict`` held as fused_serve holds
+    it."""
+    def after(bst, prog):
+        m = bst._model
+        cat_nodes = [int(sum(int(d) & 1 for d in t.decision_type))
+                     for t in m.models]
+        if min(cat_nodes) == 0:
+            raise AssertionError(f"{prefix}: a tree without a categorical "
+                                 f"node: {cat_nodes}")
+        k = max(2, min(25, ES_ROUNDS))
+        text = bst.model_to_string()
+        again = lgt.Booster(model_str=text)
+        if not np.array_equal(again.predict(xv), bst.predict(xv)):
+            raise AssertionError(f"{prefix}: model text -> Booster predicts "
+                                 "otherwise")
+        launches = phase_fused_serve(torch, lgt, lgt_kernels, bst, xv,
+                                     name=f"{prefix}_fused_serve")
+        return {"categorical_nodes_per_tree": statistics.mean(cat_nodes),
+                "categorical_nodes_min": min(cat_nodes),
+                "tree_words": prog.W, "fetch_bytes_per_epoch":
+                    int(prog.out[:k].numel()) * 4,
+                "round_trip_equal": True,
+                "fused_serve_launches": launches}
+    return after
 
 
 # ---------------------------------------------------------------------------
@@ -2316,7 +2843,8 @@ def phase_predict(torch, lgt, lgt_kernels, main_bst, serve_bst, xv):
     return launches
 
 
-def phase_fused_serve(torch, lgt, lgt_kernels, bst, xv):
+def phase_fused_serve(torch, lgt, lgt_kernels, bst, xv,
+                      name: str = "fused_serve"):
     """``fused_predict`` on the valid rows against ``_fused_reference`` and
     the fused plain version, and ``self_check(device_binning=True)``;
     returns the launches of those two engine calls alone."""
@@ -2335,8 +2863,7 @@ def phase_fused_serve(torch, lgt, lgt_kernels, bst, xv):
     launches = lgt_kernels.launch_counts()
     want = self_check_launches(eng, device_binning=True)
     want["fused_predict"] += 2 * chunks(eng, len(x))
-    hold_launches("fused_serve", launches,
-                  forest_launches(lgt_kernels, **want))
+    hold_launches(name, launches, forest_launches(lgt_kernels, **want))
     mask = eng._f32_consensus_mask(x)
     ref = eng._fused_reference(x[mask])
     if not np.array_equal(got[mask], ref):
@@ -2346,7 +2873,7 @@ def phase_fused_serve(torch, lgt, lgt_kernels, bst, xv):
         raise AssertionError("fused_predict differs from its plain version")
     host = host_walk(bst, x)
     dev = np.abs(got.astype(np.float64) - host.astype(np.float64))
-    emit({"phase": "fused_serve", "rows": len(x), "self_check": True,
+    emit({"phase": name, "rows": len(x), "self_check": True,
           "consensus_rows": int(mask.sum()),
           "non_consensus_rows": int((~mask).sum()),
           "equal_reference_on_consensus": True, "equal_plain_all": True,
@@ -2523,6 +3050,8 @@ def main() -> int:
     wide_kernels, dead_ms = phase_wide_kernels(torch, lgt, train)
     kernels.update(wide_kernels)
     kernels.update(phase_sample_kernels(torch, lgt, train))
+    cat_xv, cat_train, cat_valid = phase_cat_data(lgt)
+    kernels.update(phase_cat_kernels(torch, lgt, cat_train, cat_valid))
     bst, ev, counts, epoch_ms_per_it = phase_main_path(
         torch, lgt, lgt_kernels, train, valid)
     eager_ms_per_it, per_it_counts = phase_per_iteration(
@@ -2555,6 +3084,13 @@ def main() -> int:
         sampled_counts.update(phase_sampled_train(
             torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
             per_it)[0])
+    for prefix, params, per_it in (
+            ("cat", CAT_PARAMS, CAT_PER_ITERATION),
+            ("cat_strict", CAT_STRICT_PARAMS, CAT_STRICT_PER_ITERATION)):
+        sampled_counts.update(phase_sampled_train(
+            torch, lgt, lgt_kernels, cat_train, cat_valid, cat_xv, prefix,
+            params, per_it,
+            after=cat_after(torch, lgt, lgt_kernels, cat_xv, prefix))[0])
     serve_bst = phase_serving_model(torch, lgt, lgt_kernels, train)
     kernels.update(phase_serve_kernels(torch, lgt, serve_bst, xv))
     by_path = {"main_path": counts, "per_iteration": per_it_counts,
@@ -2576,7 +3112,7 @@ def main() -> int:
                        "launches_by_path": {p: c.get(counter[k], 0)
                                             for p, c in by_path.items()}}
                       for k in KERNEL_ORDER]})
-    for k in ("goss_vals", "node_draws", "split_per_child"):
+    for k in ("goss_vals", "node_draws", "split_per_child", "split_cat"):
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

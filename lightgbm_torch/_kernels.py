@@ -42,7 +42,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # library -> CUDA source
 SOURCES: Dict[str, str] = {
     "histogram": "histogram.cu",    # B1, B1-K
-    "split": "split.cu",            # B2
+    "split": "split.cu",            # B2, B2-cat
     "partition": "partition.cu",    # B3, B3-K
     "grow_step": "grow_step.cu",    # B3s, B3s-K
     "sample": "sample.cu",          # B6 (bagging, GOSS, node draws)
@@ -53,7 +53,8 @@ SOURCES: Dict[str, str] = {
 
 # kernel (launch-counter key) -> library
 KERNELS: Dict[str, str] = {
-    "histogram": "histogram", "split": "split", "partition": "partition",
+    "histogram": "histogram", "split": "split", "split_cat": "split",
+    "partition": "partition",
     "grow_step": "grow_step", "histogram_slots": "histogram",
     "partition_slots": "partition", "grow_step_batched": "grow_step",
     "bag_vals": "sample", "goss_vals": "sample", "node_draws": "sample",
@@ -83,19 +84,24 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_histogram_setup": (_I,),
     },
     "split": {
-        "lgbt_split": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F,
-                       _F, _F, _F, _F, _F, _P, _P, _P, _P, _P),
+        "lgbt_split": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F,
+                       _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P),
+        "lgbt_split_cat": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                           _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P,
+                           _P, _P, _P, _P),
         "lgbt_split_setup": (),
     },
     "partition": {
-        "lgbt_partition": (_P, _I, _I, _P, _P, _P, _P, _P),
-        "lgbt_partition_slots": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+        "lgbt_partition": (_P, _I, _I, _P, _P, _I, _P, _P, _P),
+        "lgbt_partition_slots": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                                 _P),
         "lgbt_partition_setup": (),
     },
     "grow_step": {
-        "lgbt_grow_step": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-        "lgbt_grow_step_batched": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                                   _P, _P, _P, _P, _P),
+        "lgbt_grow_step": (_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                           _P),
+        "lgbt_grow_step_batched": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _P,
+                                   _P, _P, _P, _P, _P, _P, _P, _P),
         "lgbt_grow_step_setup": (),
     },
     "sample": {
@@ -109,7 +115,7 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "predict": {
         "lgbt_add_tree_score": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                _F, _I, _P),
+                                _P, _I, _P, _F, _I, _P),
         "lgbt_predict_setup": (),
     },
     "metrics": {

@@ -20,16 +20,10 @@ from .grower import TreeArrays
 
 def tree_arrays_from_numpy(d: Dict[str, np.ndarray],
                            device="cpu") -> TreeArrays:
-    """TreeArrays from the JAX package's fields (numerical nodes only).
-    ``leaf_of_row`` goes to ``device``; tree-sized fields stay on the host
-    and are sliced to the tree's own budget when the JAX grower padded
-    its leaf axis."""
+    """TreeArrays from the JAX package's fields, categorical nodes
+    (``is_cat_node``, ``cat_rank``) included.  ``leaf_of_row`` goes to
+    ``device``; tree-sized fields stay on the host."""
     nl = int(np.asarray(d["num_leaves"]))
-    is_cat = np.asarray(d["is_cat_node"], bool)
-    if is_cat[:max(nl - 1, 0)].any():
-        raise NotImplementedError(
-            "categorical tree nodes are not ported to lightgbm_torch yet "
-            "(ROADMAP A9)")
     node = {k: np.asarray(d[k]) for k in (
         "split_feature", "threshold_bin", "default_left", "left_child",
         "right_child", "split_gain", "internal_value", "internal_weight",

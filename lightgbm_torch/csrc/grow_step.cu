@@ -33,7 +33,15 @@
 //   leaf_value[L] leaf_weight[L] leaf_count[L] leaf_depth[L]
 //   leaf_parent[L] n_steps[1]
 // (n_steps counts the live steps of the tree: the splits here, the live
-// super-steps in the batched form below).
+// super-steps in the batched form below).  With a categorical feature
+// (cat_bins = B > 0) two fields follow: is_cat_node[nn] and
+// cat_rank[nn, B]; the step then copies the split leaf's is-categorical
+// flag and rank row (leaf_cat [rows], leaf_rank [rows, B]: the table's
+// companions, the JAX package's `bic`/`brank`) into node i, as the JAX
+// step writes `is_cat_node`/`cat_rank` (:903-904), and writes na_bin -1
+// into the record of a categorical split (its partition ignores the NA
+// bin, :788).  Thread 0 does the bookkeeping; the block copies the rank
+// row.
 //
 // Bound on this card: one launch.  The step reads the [L, 12] table
 // (1.5 KB at L = 31) and writes a few dozen words.  It is all copies and
@@ -51,14 +59,18 @@ constexpr int kRecord = 12;
 
 __device__ __forceinline__ int32_t as_i(float v) { return __float_as_int(v); }
 
-__global__ void grow_step(const float* __restrict__ table,
-                          int32_t* __restrict__ tree,
-                          const int32_t* __restrict__ na_bin, int L,
-                          int max_depth, int32_t* __restrict__ rec,
-                          long long* __restrict__ idx,
-                          float* __restrict__ fstep,
-                          uint8_t* __restrict__ flags) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+// the bookkeeping of grow_step, one thread; *out_leaf and *out_node are
+// set when the step splits and a rank row is to be copied
+__device__ void split_node(const float* __restrict__ table,
+                           int32_t* __restrict__ tree,
+                           const int32_t* __restrict__ na_bin, int L,
+                           int max_depth,
+                           const int32_t* __restrict__ leaf_cat,
+                           int cat_bins, int32_t* __restrict__ rec,
+                           long long* __restrict__ idx,
+                           float* __restrict__ fstep,
+                           uint8_t* __restrict__ flags, int* out_leaf,
+                           int* out_node) {
   const int nn = L - 1;
   int32_t* num_leaves = tree;
   int32_t* done = tree + 1;
@@ -136,15 +148,47 @@ __global__ void grow_step(const float* __restrict__ table,
   *num_leaves = nl + 1;
   *n_steps += 1;
 
+  bool icat = false;
+  if (cat_bins > 0) {
+    icat = leaf_cat[leaf] != 0;
+    n_steps[1 + i] = icat ? 1 : 0;          // is_cat_node[i]
+    *out_leaf = leaf;
+    *out_node = i;
+  }
   const bool smaller_left = lcount <= rcount;
   rec[2] = feat;
   rec[3] = thr;
   rec[4] = dleft;
-  rec[5] = na_bin[feat];
+  rec[5] = icat ? -1 : na_bin[feat];
   rec[6] = smaller_left ? leaf : new_leaf;
   for (int c = 0; c < 8; ++c) fstep[c] = r[4 + c];
   flags[0] = smaller_left ? 1 : 0;
   flags[1] = (max_depth <= 0 || d < max_depth) ? 1 : 0;
+}
+
+__global__ void grow_step(const float* __restrict__ table,
+                          int32_t* __restrict__ tree,
+                          const int32_t* __restrict__ na_bin, int L,
+                          int max_depth,
+                          const int32_t* __restrict__ leaf_cat,
+                          const int32_t* __restrict__ leaf_rank,
+                          int cat_bins, int32_t* __restrict__ rec,
+                          long long* __restrict__ idx,
+                          float* __restrict__ fstep,
+                          uint8_t* __restrict__ flags) {
+  __shared__ int s_leaf, s_node;
+  const int nn = L - 1;
+  int32_t* cat_rank = tree + 2 + 9 * nn + 5 * L + 1 + nn;
+  if (threadIdx.x == 0) {
+    s_leaf = -1;
+    split_node(table, tree, na_bin, L, max_depth, leaf_cat, cat_bins, rec,
+               idx, fstep, flags, &s_leaf, &s_node);
+  }
+  __syncthreads();
+  if (cat_bins == 0 || s_leaf < 0) return;
+  for (int b = threadIdx.x; b < cat_bins; b += blockDim.x)
+    cat_rank[(long long)s_node * cat_bins + b] =
+        leaf_rank[(long long)s_leaf * cat_bins + b];
 }
 
 // ---------------------------------------------------------------------------
@@ -190,6 +234,11 @@ __global__ void grow_step(const float* __restrict__ table,
 //   small_left u8[K]     : the smaller child is the left one
 //   keep2     u8[2K]     : the child may split further (valid, max_depth)
 //   status    int32[2]   : active (slot 0 valid), valid count
+// With a categorical feature (cat_bins = B > 0) each valid slot's node
+// takes its leaf's is-categorical flag and rank row (the JAX step's
+// `is_cat_node`/`cat_rank` writes, :1206-1207), and a categorical split's
+// record has na_bin -1; the block copies the K rank rows after the
+// bookkeeping.
 //
 // Bound on this card: one launch.  It reads L gains (staged in shared
 // memory; L^2 / blockDim compares each thread for the ranks) and K table
@@ -204,6 +253,9 @@ __global__ void grow_step_batched(const float* __restrict__ table,
                                   int32_t* __restrict__ tree,
                                   const int32_t* __restrict__ na_bin, int L,
                                   int K, int max_depth,
+                                  const int32_t* __restrict__ leaf_cat,
+                                  const int32_t* __restrict__ leaf_rank,
+                                  int cat_bins,
                                   int32_t* __restrict__ recs,
                                   int32_t* __restrict__ slot_of_leaf,
                                   long long* __restrict__ idx2,
@@ -314,10 +366,15 @@ __global__ void grow_step_batched(const float* __restrict__ table,
       const int d = leaf_depth[leaf] + 1;
       leaf_depth[leaf] = leaf_depth[new_leaf] = d;
       leaf_parent[leaf] = leaf_parent[new_leaf] = node;
+      bool icat = false;
+      if (cat_bins > 0) {
+        icat = leaf_cat[leaf] != 0;
+        n_steps[1 + node] = icat ? 1 : 0;   // is_cat_node[node]
+      }
       rec[2] = feat;
       rec[3] = thr;
       rec[4] = dleft;
-      rec[5] = na_bin[feat];
+      rec[5] = icat ? -1 : na_bin[feat];
       rec[6] = sleft ? leaf : new_leaf;
       const uint8_t keep = (max_depth <= 0 || d < max_depth) ? 1 : 0;
       keep2[k] = keep2[K + k] = keep;
@@ -325,6 +382,14 @@ __global__ void grow_step_batched(const float* __restrict__ table,
     }
   }
   __syncthreads();
+  if (cat_bins > 0) {
+    int32_t* cat_rank = n_steps + 1 + nn;
+    for (int j = tid; j < nvalid * cat_bins; j += blockDim.x) {
+      const int k = j / cat_bins, b = j % cat_bins;
+      cat_rank[(long long)(nl - 1 + k) * cat_bins + b] =
+          leaf_rank[(long long)top[k] * cat_bins + b];
+    }
+  }
   if (tid == 0) {
     status[0] = nvalid > 0 ? 1 : 0;
     status[1] = nvalid;
@@ -339,21 +404,27 @@ __global__ void grow_step_batched(const float* __restrict__ table,
 
 }  // namespace
 
+// leaf_cat [L] and leaf_rank [L, B] may be null (cat_bins 0).
 extern "C" int lgbt_grow_step(const float* table, int32_t* tree,
                               const int32_t* na_bin, int num_leaves,
-                              int max_depth, int32_t* rec, long long* idx,
-                              float* fstep, uint8_t* flags,
-                              cudaStream_t stream) {
+                              int max_depth, const int32_t* leaf_cat,
+                              const int32_t* leaf_rank, int cat_bins,
+                              int32_t* rec, long long* idx, float* fstep,
+                              uint8_t* flags, cudaStream_t stream) {
   grow_step<<<1, 32, 0, stream>>>(table, tree, na_bin, num_leaves, max_depth,
-                                  rec, idx, fstep, flags);
+                                  leaf_cat, leaf_rank, cat_bins, rec, idx,
+                                  fstep, flags);
   return (int)cudaGetLastError();
 }
 
 // recs [K, 8], slot_of_leaf [L], idx2 [2K], tot2 [2K, 3], po2 [2K],
-// small_left [K], keep2 [2K], status [2]; table [L + 2K, 12].
+// small_left [K], keep2 [2K], status [2]; table [L + 2K, 12]; leaf_cat
+// [L + 2K] and leaf_rank [L + 2K, B] may be null (cat_bins 0).
 extern "C" int lgbt_grow_step_batched(const float* table, int32_t* tree,
                                       const int32_t* na_bin, int num_leaves,
                                       int split_batch, int max_depth,
+                                      const int32_t* leaf_cat,
+                                      const int32_t* leaf_rank, int cat_bins,
                                       int32_t* recs, int32_t* slot_of_leaf,
                                       long long* idx2, float* tot2,
                                       float* po2, uint8_t* small_left,
@@ -363,8 +434,9 @@ extern "C" int lgbt_grow_step_batched(const float* table, int32_t* tree,
   const size_t smem = (size_t)split_batch * sizeof(int32_t) +
                       (size_t)num_leaves * sizeof(float);
   grow_step_batched<<<1, threads, smem, stream>>>(
-      table, tree, na_bin, num_leaves, split_batch, max_depth, recs,
-      slot_of_leaf, idx2, tot2, po2, small_left, keep2, status);
+      table, tree, na_bin, num_leaves, split_batch, max_depth, leaf_cat,
+      leaf_rank, cat_bins, recs, slot_of_leaf, idx2, tot2, po2, small_left,
+      keep2, status);
   return (int)cudaGetLastError();
 }
 

@@ -5,11 +5,15 @@
 //
 //     leaf_of_row[n] := new_leaf   where leaf_of_row[n] == leaf and the row
 //                                  goes right,
-//     go left  <=>  NA bin ? default_left : rank_vec[bin] <= threshold,
+//     go left  <=>  NA bin ? default_left : rank[bin] <= threshold,
 //
-// with bin = binned[n, feature].  Numerical splits pass the identity rank
-// vector; categorical splits (ROADMAP A9) will pass their decision rank and
-// na_bin = -1, with no change to this kernel.  It also writes the slot
+// with bin = binned[n, feature].  Without a categorical feature every
+// split reads one identity rank vector (rank_stride 0).  With one, rank is
+// the grower's per-leaf table [R, B] (rank_stride B) and the split reads
+// the row of its leaf: the identity for a numerical split, the decision
+// rank of the chosen subset for a categorical one (the JAX package's
+// `rank_vec = st.brank[leaf]`, :758), whose record has na_bin = -1 (a
+// categorical split never takes the NA branch, :788).  It also writes the slot
 // vector of the next histogram pass, slot[n] = (leaf_of_row[n] == smaller)
 // ? 0 : -1, which the JAX package computes as a separate elementwise pass.
 // It updates leaf_of_row in place (the JAX program writes a new array).
@@ -37,7 +41,9 @@
 // feature, threshold, default_left, na_bin, smaller child, valid), and its
 // target slot for the K-slot histogram pass (B1-K) is k if it ends in
 // slot k's smaller child, else -1.  status[0] == 0 (a dead super-step)
-// returns at once and writes nothing.  Bound: bytes, as B3 (the matrix's
+// returns at once and writes nothing.  The rank row of slot k is the row
+// of its leaf (recs[k, 0]) in the per-leaf table, as the JAX package's
+// `rank_k = st.brank[leaf_sel]` (:1024).  Bound: bytes, as B3 (the matrix's
 // sectors, leaf_of_row read and written, the target slots written, and
 // slot_of_leaf gathers from L1), about 40 MB at the main path.
 
@@ -49,7 +55,8 @@ namespace {
 __global__ void partition_rows(const uint8_t* __restrict__ binned, int n,
                                int num_features,
                                const int32_t* __restrict__ rec,
-                               const int32_t* __restrict__ rank_vec,
+                               const int32_t* __restrict__ rank,
+                               int rank_stride,
                                int32_t* __restrict__ leaf_of_row,
                                int32_t* __restrict__ slot) {
   if (rec[7] == 0) return;
@@ -62,7 +69,9 @@ __global__ void partition_rows(const uint8_t* __restrict__ binned, int n,
   if (l == leaf) {
     const int b = binned[r * num_features + feature];
     const bool is_na = na_bin >= 0 && b == na_bin;
-    const bool go_left = is_na ? default_left != 0 : rank_vec[b] <= threshold;
+    const bool go_left =
+        is_na ? default_left != 0
+              : rank[(long long)leaf * rank_stride + b] <= threshold;
     if (!go_left) {
       l = new_leaf;
       leaf_of_row[r] = l;
@@ -76,7 +85,8 @@ __global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
                                 const int32_t* __restrict__ recs,
                                 const int32_t* __restrict__ slot_of_leaf,
                                 const int32_t* __restrict__ status,
-                                const int32_t* __restrict__ rank_vec,
+                                const int32_t* __restrict__ rank,
+                                int rank_stride,
                                 int32_t* __restrict__ leaf_of_row,
                                 int32_t* __restrict__ tslot) {
   if (status[0] == 0) return;
@@ -92,7 +102,9 @@ __global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
   const int b = binned[r * num_features + rec[2]];
   const int na_bin = rec[5];
   const bool is_na = na_bin >= 0 && b == na_bin;
-  const bool go_left = is_na ? rec[4] != 0 : rank_vec[b] <= rec[3];
+  const bool go_left =
+      is_na ? rec[4] != 0
+            : rank[(long long)rec[0] * rank_stride + b] <= rec[3];
   if (!go_left) {
     l = rec[1];
     leaf_of_row[r] = l;
@@ -102,14 +114,16 @@ __global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
 
 }  // namespace
 
+// rank [B] (rank_stride 0) or [R, B] (rank_stride B, indexed by the
+// split's leaf).
 extern "C" int lgbt_partition(const uint8_t* binned, int n, int num_features,
-                              const int32_t* rec, const int32_t* rank_vec,
-                              int32_t* leaf_of_row, int32_t* slot,
-                              cudaStream_t stream) {
+                              const int32_t* rec, const int32_t* rank,
+                              int rank_stride, int32_t* leaf_of_row,
+                              int32_t* slot, cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   partition_rows<<<blocks, threads, 0, stream>>>(
-      binned, n, num_features, rec, rank_vec, leaf_of_row, slot);
+      binned, n, num_features, rec, rank, rank_stride, leaf_of_row, slot);
   return (int)cudaGetLastError();
 }
 
@@ -117,14 +131,14 @@ extern "C" int lgbt_partition_slots(const uint8_t* binned, int n,
                                     int num_features, const int32_t* recs,
                                     const int32_t* slot_of_leaf,
                                     const int32_t* status,
-                                    const int32_t* rank_vec,
+                                    const int32_t* rank, int rank_stride,
                                     int32_t* leaf_of_row, int32_t* tslot,
                                     cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   partition_slots<<<blocks, threads, 0, stream>>>(
-      binned, n, num_features, recs, slot_of_leaf, status, rank_vec,
-      leaf_of_row, tslot);
+      binned, n, num_features, recs, slot_of_leaf, status, rank,
+      rank_stride, leaf_of_row, tslot);
   return (int)cudaGetLastError();
 }
 

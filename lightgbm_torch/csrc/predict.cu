@@ -1,11 +1,14 @@
 // B4 — tree score update over binned rows.
 //
 // Replaces the JAX package's lightgbm_tpu/predict_device.py
-// `traverse_tree_binned` and `add_tree_score` (numerical nodes), which
-// the trainer runs once per iteration on every validation set
+// `traverse_tree_binned` (:28-69) and `add_tree_score` (:72), which the
+// trainer runs once per iteration on every validation set
 // (models/gbdt.py `_apply_tree`): each row walks up to `steps` levels of
-// one tree over its bins (NA bin -> default_left, else bin <= threshold),
-// then `score[n] += weight * leaf_value[leaf]`.
+// one tree over its bins, then `score[n] += weight * leaf_value[leaf]`.
+// A numerical node sends the NA bin to default_left and other bins left
+// iff bin <= threshold; a categorical node (is_cat_node, optional: null
+// for a tree without them) never takes the NA branch and goes left iff
+// cat_rank[node, bin] <= threshold (cat_rank [nodes, cat_bins]).
 //
 // Bound on this card: bytes.  The walk reads a few bytes of each row, but
 // the row-major [Nv, F] matrix is read in 32-byte sectors that span about
@@ -39,6 +42,9 @@ __global__ void tree_score(float* __restrict__ score,
                            const int32_t* __restrict__ left_child,
                            const int32_t* __restrict__ right_child,
                            const int32_t* __restrict__ na_bin,
+                           const int32_t* __restrict__ is_cat_node,
+                           const int32_t* __restrict__ cat_rank,
+                           int cat_bins,
                            const float* __restrict__ leaf_value, float weight,
                            int steps) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -49,8 +55,12 @@ __global__ void tree_score(float* __restrict__ score,
     const int f = split_feature[node];
     const int v = row[f];
     const int nb = na_bin[f];
-    const bool go_left = (nb >= 0 && v == nb) ? default_left[node] != 0
-                                              : v <= threshold_bin[node];
+    bool go_left;
+    if (is_cat_node != nullptr && is_cat_node[node] != 0)
+      go_left = cat_rank[(long long)node * cat_bins + v] <= threshold_bin[node];
+    else
+      go_left = (nb >= 0 && v == nb) ? default_left[node] != 0
+                                     : v <= threshold_bin[node];
     node = go_left ? left_child[node] : right_child[node];
   }
   // a walk cut short by too few steps ends at leaf 0, never out of bounds
@@ -68,14 +78,16 @@ extern "C" int lgbt_add_tree_score(float* score, const uint8_t* binned, int n,
                                    const int32_t* left_child,
                                    const int32_t* right_child,
                                    const int32_t* na_bin,
+                                   const int32_t* is_cat_node,
+                                   const int32_t* cat_rank, int cat_bins,
                                    const float* leaf_value, float weight,
                                    int steps, cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   tree_score<<<blocks, threads, 0, stream>>>(
       score, binned, n, num_features, split_feature, threshold_bin,
-      default_left, left_child, right_child, na_bin, leaf_value, weight,
-      steps);
+      default_left, left_child, right_child, na_bin, is_cat_node, cat_rank,
+      cat_bins, leaf_value, weight, steps);
   return (int)cudaGetLastError();
 }
 

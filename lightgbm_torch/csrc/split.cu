@@ -28,6 +28,10 @@
 // `active` (optional, a device int32): the grower's step record flag; when
 // it is 0 (the tree is done) both kernels return at once and write nothing.
 //
+// Categorical features (`is_cat`, optional, [F] uint8): excluded from
+// this numerical scan, as the JAX package's `feature_mask & ~is_cat`;
+// B2-cat below scans them and merges its winner into these records.
+//
 // Per-child operands (B6-node, feature_fraction_bynode and extra_trees;
 // ops/split.py `_numerical_candidates` rand_bin :229, grower.py `_best2`
 // :524): the feature mask is one [F] row for every leaf (mask_stride 0) or
@@ -96,6 +100,7 @@ __global__ void split_gains(const float* __restrict__ hist,
                             const uint8_t* __restrict__ feature_mask,
                             int mask_stride,
                             const int32_t* __restrict__ rand_bin,
+                            const uint8_t* __restrict__ is_cat,
                             int num_features, int num_bins, Params p,
                             const int32_t* __restrict__ active,
                             float* __restrict__ gains,
@@ -131,6 +136,7 @@ __global__ void split_gains(const float* __restrict__ hist,
   const float shift = leaf_gain(t0, t1, t2, po, p) + p.min_gain;
   const bool in_range =
       b <= num_bin[f] - 2 && feature_mask[k * mask_stride + f] != 0 &&
+      (is_cat == nullptr || is_cat[f] == 0) &&
       (rand_bin == nullptr || b == rand_bin[k * num_features + f]);
   const float c0 = cum[b * 3 + 0], c1 = cum[b * 3 + 1], c2 = cum[b * 3 + 2];
   for (int dir = 0; dir < 2; ++dir) {
@@ -217,18 +223,290 @@ __global__ void split_pick(const float* __restrict__ gains,
   rec[11] = leaf_output(r[0], r[1], r[2], po, p);
 }
 
+// ---------------------------------------------------------------------------
+// B2-cat — the categorical scan of a batch of leaves, merged into B2's
+// records.
+//
+// Replaces the JAX package's lightgbm_tpu/ops/split.py
+// `_categorical_candidates` (:236-299) and the categorical half of
+// `find_best_split` (:394-493): for each leaf k and categorical feature f
+// (is_cat[f] and the leaf's feature mask), the bins with count >=
+// max(0.5, min_data_per_group - 0.5) are "used"; one-vs-rest candidates
+// (mode 0: one used bin left, the rest right) when at most
+// max_cat_to_onehot bins are used, else prefixes of the used bins sorted
+// by g / (h + cat_smooth) ascending (mode 1) and descending (mode 2), of
+// lengths 1 .. min(max_cat_threshold, used - 1).  Unused bins (and bins
+// past the feature's own count, which hold nothing) sort last.  The gains
+// use lambda_l2 + cat_l2; validity min_data_in_leaf,
+// min_sum_hessian_in_leaf and gain > kEpsilon.  The argmax over the
+// flattened [3, F, B] gains takes the smallest (mode, feature, position)
+// on ties, as jnp.argmax; the numerical record wins on >=.  A categorical
+// winner's record has threshold = its prefix position (0 for
+// one-vs-rest), default_left 0, leaf outputs with lambda_l2 + cat_l2, and
+// a rank row: each bin's place in the winning order (go left iff
+// rank <= threshold), or 0 for the chosen bin and B for every other bin
+// (one-vs-rest).  A numerical winner's rank row is the identity.
+//
+// Bound on this card: one launch at the training shapes.  At 2K = 32
+// children of 8 features and 256 bins the histograms are 786 KB, 0.23 us
+// at 3.35 TB/s; the stable ranks are B compares a bin (O(B^2) for a
+// feature, 2.1 M compares for the 32 x 6 categorical features of two
+// orders), 0.03 us at 67 TFLOP/s.  chip_smoke.py reports the larger.
+//
+// Design.  `split_cat_gains`: one block per (feature, leaf), 256 threads,
+// loads the [B, 3] histogram into shared memory; thread b computes bin
+// b's two keys and its stable rank in each order by counting the keys
+// before it (smaller, or equal at a lower bin index: jnp.argsort's stable
+// order; the descending order is the stable ascending order of -ratio,
+// not the ascending order reversed); six threads scan the sorted sums,
+// one per (order, channel), in order, accumulating in f64 and rounding
+// each prefix to f32, as the plain version's cumsum (in f64) does, so
+// that mirrored subsets (an ascending prefix and the descending prefix of
+// the other used bins, equal gains up to rounding) resolve alike in both;
+// thread p evaluates position p in the three modes; a block
+// reduction keeps the feature's best (gain, flat index), its left sums
+// and its rank row in scratch.  `split_cat_pick`: one block per leaf
+// takes the best feature, compares it with the numerical record and
+// writes the merged record, the is-categorical flag and the rank row.
+// -fmad=false and IEEE division make the keys, and so the orders, equal
+// to the plain version's bit for bit.
+
+constexpr int kCatThreads = 256;
+
+struct CatParams {
+  Params p;            // lambda_l2 here is lambda_l2 + cat_l2
+  float cat_smooth, used_min;
+  int max_cat_threshold, max_cat_to_onehot;
+};
+
+// NaN sorts with +inf, so every order is a permutation
+__device__ __forceinline__ float order_key(float v) {
+  return isnan(v) ? INFINITY : v;
+}
+
+__device__ __forceinline__ bool before(float ka, int a, float kb, int b) {
+  return ka < kb || (ka == kb && a < b);
+}
+
+__device__ __forceinline__ bool better(float g, int i, float bg, int bi) {
+  return g > bg || (g == bg && i < bi);
+}
+
+// grid (F, K); block kCatThreads >= B; dynamic smem (15 B + 2 threads)
+// words.  fbest [K, F, 4] (gain, left g/h/count), fidx [K, F] (flat index
+// of the feature's best candidate), frank [K, F, B].
+__global__ void split_cat_gains(const float* __restrict__ hist,
+                                const float* __restrict__ total,
+                                const float* __restrict__ parent_out,
+                                const uint8_t* __restrict__ is_cat,
+                                const uint8_t* __restrict__ feature_mask,
+                                int mask_stride, int num_features,
+                                int num_bins, CatParams cp,
+                                const int32_t* __restrict__ active,
+                                float* __restrict__ fbest,
+                                int32_t* __restrict__ fidx,
+                                int32_t* __restrict__ frank) {
+  if (active != nullptr && *active == 0) return;
+  const int f = blockIdx.x, k = blockIdx.y, t = threadIdx.x;
+  const int B = num_bins;
+  const long long kf = (long long)k * num_features + f;
+  if (is_cat[f] == 0 || feature_mask[k * mask_stride + f] == 0) {
+    if (t == 0) {
+      fbest[kf * 4] = -INFINITY;
+      fidx[kf] = 0x7fffffff;
+    }
+    return;
+  }
+  extern __shared__ float sm[];
+  float* hs = sm;                                  // [B, 3]
+  float* cum = hs + B * 3;                         // [2, B, 3]
+  float* key = cum + 2 * B * 3;                    // [2, B]
+  int* rank = reinterpret_cast<int*>(key + 2 * B); // [2, B] bin -> place
+  int* order = rank + 2 * B;                       // [2, B] place -> bin
+  float* red_g = reinterpret_cast<float*>(order + 2 * B);
+  int* red_i = reinterpret_cast<int*>(red_g + blockDim.x);
+
+  const long long base = kf * B * 3;
+  for (int i = t; i < B * 3; i += blockDim.x) hs[i] = hist[base + i];
+  __syncthreads();
+  bool used = false;
+  if (t < B) {
+    used = hs[t * 3 + 2] >= cp.used_min;
+    const float ratio = hs[t * 3] / (hs[t * 3 + 1] + cp.cat_smooth);
+    key[t] = order_key(used ? ratio : 1e30f);
+    key[B + t] = order_key(used ? -ratio : 1e30f);
+  }
+  const int n_used = __syncthreads_count(used);
+  if (t < B) {
+    for (int m = 0; m < 2; ++m) {
+      const float* km = key + m * B;
+      const float kt = km[t];
+      int r = 0;
+      for (int j = 0; j < B; ++j) r += before(km[j], j, kt, t) ? 1 : 0;
+      rank[m * B + t] = r;
+      order[m * B + r] = t;
+    }
+  }
+  __syncthreads();
+  if (t < 6) {
+    const int m = t / 3, c = t % 3;
+    const int* om = order + m * B;
+    float* cm = cum + m * B * 3;
+    double acc = hs[om[0] * 3 + c];
+    cm[c] = (float)acc;
+    for (int j = 1; j < B; ++j) {
+      acc += (double)hs[om[j] * 3 + c];
+      cm[j * 3 + c] = (float)acc;
+    }
+  }
+  __syncthreads();
+
+  const Params& p = cp.p;
+  const float t0 = total[k * 3 + 0], t1 = total[k * 3 + 1],
+              t2 = total[k * 3 + 2];
+  const float po = parent_out[k];
+  const float shift = leaf_gain(t0, t1, t2, po, p) + p.min_gain;
+  const bool few = n_used <= cp.max_cat_to_onehot;
+  const int k_max = min(cp.max_cat_threshold, n_used - 1);
+  const int fb = num_features * B;
+  float bg = -INFINITY;
+  int bi = 0x7fffffff;
+  if (t < B) {
+    for (int mode = 0; mode < 3; ++mode) {
+      const float* l;
+      bool ok;
+      if (mode == 0) {
+        l = hs + t * 3;
+        ok = few && l[2] >= cp.used_min;
+      } else {
+        l = cum + ((mode - 1) * B + t) * 3;
+        const int bin = order[(mode - 1) * B + t];
+        ok = !few && t < k_max && hs[bin * 3 + 2] >= cp.used_min;
+      }
+      const float lg = l[0], lh = l[1], lc = l[2];
+      const float rg = t0 - lg, rh = t1 - lh, rc = t2 - lc;
+      const float gain = leaf_gain(lg, lh, lc, po, p) +
+                         leaf_gain(rg, rh, rc, po, p) - shift;
+      ok = ok && lc >= p.min_data && rc >= p.min_data &&
+           lh >= p.min_hess && rh >= p.min_hess && gain > kEpsilon;
+      if (ok && gain > bg) {
+        bg = gain;
+        bi = mode * fb + f * B + t;
+      }
+    }
+  }
+  red_g[t] = bg;
+  red_i[t] = bi;
+  __syncthreads();
+  for (int step = blockDim.x / 2; step > 0; step >>= 1) {
+    if (t < step && better(red_g[t + step], red_i[t + step], red_g[t],
+                           red_i[t])) {
+      red_g[t] = red_g[t + step];
+      red_i[t] = red_i[t + step];
+    }
+    __syncthreads();
+  }
+  const float best = red_g[0];
+  const int idx = red_i[0];
+  if (t == 0) {
+    fbest[kf * 4] = best;
+    fidx[kf] = idx;
+  }
+  if (best == -INFINITY) return;
+  const int mode = idx / fb, pos = idx % B;
+  if (t < 3)
+    fbest[kf * 4 + 1 + t] =
+        mode == 0 ? hs[pos * 3 + t] : cum[((mode - 1) * B + pos) * 3 + t];
+  int32_t* fr = frank + kf * B;
+  for (int b = t; b < B; b += blockDim.x)
+    fr[b] = mode == 0 ? (b == pos ? 0 : B) : rank[(mode - 1) * B + b];
+}
+
+// grid (K); block kPickThreads.  Merges into out [K, 12] in place; writes
+// cat [K] int32 and rank [K, B] int32.
+__global__ void split_cat_pick(const float* __restrict__ total,
+                               const float* __restrict__ parent_out,
+                               int num_features, int num_bins, Params pc,
+                               const int32_t* __restrict__ active,
+                               const float* __restrict__ fbest,
+                               const int32_t* __restrict__ fidx,
+                               const int32_t* __restrict__ frank,
+                               float* __restrict__ out,
+                               int32_t* __restrict__ cat,
+                               int32_t* __restrict__ rank) {
+  if (active != nullptr && *active == 0) return;
+  __shared__ float best_g[kPickThreads];
+  __shared__ int best_i[kPickThreads], best_f[kPickThreads];
+  __shared__ int s_take;
+  const int k = blockIdx.x, tid = threadIdx.x, B = num_bins;
+  float bg = -INFINITY;
+  int bi = 0x7fffffff, bf = 0;
+  for (int f = tid; f < num_features; f += kPickThreads) {
+    const long long kf = (long long)k * num_features + f;
+    const float g = fbest[kf * 4];
+    const int i = fidx[kf];
+    if (better(g, i, bg, bi)) {
+      bg = g;
+      bi = i;
+      bf = f;
+    }
+  }
+  best_g[tid] = bg;
+  best_i[tid] = bi;
+  best_f[tid] = bf;
+  __syncthreads();
+  for (int step = kPickThreads / 2; step > 0; step >>= 1) {
+    if (tid < step && better(best_g[tid + step], best_i[tid + step],
+                             best_g[tid], best_i[tid])) {
+      best_g[tid] = best_g[tid + step];
+      best_i[tid] = best_i[tid + step];
+      best_f[tid] = best_f[tid + step];
+    }
+    __syncthreads();
+  }
+  const int f = best_f[0];
+  if (tid == 0) {
+    float* rec = out + (long long)k * kRecord;
+    const float cg = best_g[0];
+    const bool take_cat = !(rec[0] >= cg);
+    if (take_cat) {
+      const int idx = best_i[0];
+      const int mode = idx / (num_features * B), pos = idx % B;
+      const float* l = fbest + ((long long)k * num_features + f) * 4 + 1;
+      float r[3];
+      for (int c = 0; c < 3; ++c) r[c] = total[k * 3 + c] - l[c];
+      const float po = parent_out[k];
+      rec[0] = cg;
+      rec[1] = (float)f;
+      rec[2] = mode == 0 ? 0.f : (float)pos;
+      rec[3] = 0.f;
+      for (int c = 0; c < 3; ++c) rec[4 + c] = l[c];
+      for (int c = 0; c < 3; ++c) rec[7 + c] = r[c];
+      rec[10] = leaf_output(l[0], l[1], l[2], po, pc);
+      rec[11] = leaf_output(r[0], r[1], r[2], po, pc);
+    }
+    cat[k] = take_cat ? 1 : 0;
+    s_take = take_cat ? 1 : 0;
+  }
+  __syncthreads();
+  const int32_t* fr = frank + ((long long)k * num_features + f) * B;
+  for (int b = tid; b < B; b += kPickThreads)
+    rank[(long long)k * B + b] = s_take ? fr[b] : b;
+}
+
 }  // namespace
 
 // hist [K, F, B, 3], total [K, 3], parent_out [K], num_bin/na_bin [F]
 // int32, feature_mask [F] (mask_stride 0) or [K, F] (mask_stride F) uint8,
-// rand_bin [K, F] int32 or null; scratch gains [K, 2, F, B] and cum
-// [K, F, B, 3]; out [K, 12]; active may be null.  Returns
+// rand_bin [K, F] int32 or null, is_cat [F] uint8 or null; scratch gains
+// [K, 2, F, B] and cum [K, F, B, 3]; out [K, 12]; active may be null.  Returns
 // cudaGetLastError() after the launches.
 extern "C" int lgbt_split(const float* hist, const float* total,
                           const float* parent_out, const int32_t* num_bin,
                           const int32_t* na_bin, const uint8_t* feature_mask,
                           int mask_stride, const int32_t* rand_bin,
-                          int num_leaves, int num_features, int num_bins,
+                          const uint8_t* is_cat, int num_leaves,
+                          int num_features, int num_bins,
                           float l1, float l2, float min_data, float min_hess,
                           float min_gain, float max_delta, float path_smooth,
                           const int32_t* active, float* gains, float* cum,
@@ -239,7 +517,7 @@ extern "C" int lgbt_split(const float* hist, const float* total,
   split_gains<<<dim3(num_features, num_leaves), threads,
                 num_bins * 3 * sizeof(float), stream>>>(
       hist, total, parent_out, num_bin, na_bin, feature_mask, mask_stride,
-      rand_bin, num_features, num_bins, p, active, gains, cum);
+      rand_bin, is_cat, num_features, num_bins, p, active, gains, cum);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_pick<<<num_leaves, kPickThreads, 0, stream>>>(
@@ -248,9 +526,50 @@ extern "C" int lgbt_split(const float* hist, const float* total,
   return (int)cudaGetLastError();
 }
 
+// B2-cat after B2 on the same leaves: hist [K, F, B, 3] (B <= 256), total
+// [K, 3], parent_out [K], is_cat [F] uint8, feature_mask [F] or [K, F]
+// uint8 (mask_stride 0 or F); l2 is lambda_l2 + cat_l2; scratch fbest
+// [K, F, 4], fidx [K, F], frank [K, F, B]; out [K, 12] (B2's records,
+// merged in place), cat [K], rank [K, B]; active may be null.  Returns
+// cudaGetLastError() after the launches.
+extern "C" int lgbt_split_cat(const float* hist, const float* total,
+                              const float* parent_out, const uint8_t* is_cat,
+                              const uint8_t* feature_mask, int mask_stride,
+                              int num_leaves, int num_features, int num_bins,
+                              float l1, float l2, float min_data,
+                              float min_hess, float min_gain, float max_delta,
+                              float path_smooth, float cat_smooth,
+                              float used_min, int max_cat_threshold,
+                              int max_cat_to_onehot, const int32_t* active,
+                              float* fbest, int32_t* fidx, int32_t* frank,
+                              float* out, int32_t* cat, int32_t* rank,
+                              cudaStream_t stream) {
+  if (num_bins > kCatThreads) return (int)cudaErrorInvalidValue;
+  const Params pc{l1, l2, min_data, min_hess, min_gain, max_delta,
+                  path_smooth};
+  const CatParams cp{pc, cat_smooth, used_min, max_cat_threshold,
+                     max_cat_to_onehot};
+  const size_t smem = (size_t)(15 * num_bins + 2 * kCatThreads) * 4;
+  split_cat_gains<<<dim3(num_features, num_leaves), kCatThreads, smem,
+                    stream>>>(hist, total, parent_out, is_cat, feature_mask,
+                              mask_stride, num_features, num_bins, cp,
+                              active, fbest, fidx, frank);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  split_cat_pick<<<num_leaves, kPickThreads, 0, stream>>>(
+      total, parent_out, num_features, num_bins, pc, active, fbest, fidx,
+      frank, out, cat, rank);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int lgbt_split_setup() {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, split_gains);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncGetAttributes(&attr, split_pick);
+  const void* fns[] = {(const void*)split_gains, (const void*)split_pick,
+                       (const void*)split_cat_gains,
+                       (const void*)split_cat_pick};
+  for (const void* fn : fns) {
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

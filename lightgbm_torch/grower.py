@@ -62,37 +62,44 @@ TREE_FIELDS = (
     ("leaf_depth", "L", "i"), ("leaf_parent", "L", "i"),
     ("n_steps", 1, "i"),
 )
+# appended when the dataset has a categorical feature ("nB" = L - 1 rows
+# of the B bins): each node's is-categorical flag and rank row
+CAT_FIELDS = (("is_cat_node", "n", "i"), ("cat_rank", "nB", "i"))
 # step record (int32) columns, written by B3s and read by B3, B1 and B2
 LEAF, NEW_LEAF, FEATURE, THRESHOLD, DEFAULT_LEFT, NA_BIN, SMALLER, ACTIVE = \
     range(8)
 STEP_RECORD = 8
 
 
-def tree_layout(num_leaves: int) -> Dict[str, tuple]:
-    """name -> (offset, length, kind) of the tree buffer for L leaves."""
+def tree_layout(num_leaves: int, cat_bins: int = 0) -> Dict[str, tuple]:
+    """name -> (offset, length, kind) of the tree buffer for L leaves;
+    ``cat_bins`` B > 0 adds ``CAT_FIELDS``."""
     L = int(num_leaves)
-    sizes = {1: 1, "n": L - 1, "L": L}
+    sizes = {1: 1, "n": L - 1, "L": L, "nB": (L - 1) * int(cat_bins)}
     out, off = {}, 0
-    for name, size, kind in TREE_FIELDS:
+    for name, size, kind in TREE_FIELDS + (CAT_FIELDS if cat_bins else ()):
         out[name] = (off, sizes[size], kind)
         off += sizes[size]
     return out
 
 
-def tree_words(num_leaves: int) -> int:
+def tree_words(num_leaves: int, cat_bins: int = 0) -> int:
     """Length of the tree buffer in int32 words."""
-    return sum(n for _, n, _ in tree_layout(num_leaves).values())
+    return sum(n for _, n, _ in tree_layout(num_leaves, cat_bins).values())
 
 
-def tree_fields(words, num_leaves: int) -> Dict[str, object]:
+def tree_fields(words, num_leaves: int, cat_bins: int = 0
+                ) -> Dict[str, object]:
     """Views of every field of a tree buffer ``words`` (a torch int32
-    tensor or a numpy int32 array); f32 fields are views by bit
-    pattern."""
+    tensor or a numpy int32 array); f32 fields are views by bit pattern,
+    ``cat_rank`` a [L - 1, B] view."""
     f32 = torch.float32 if isinstance(words, torch.Tensor) else np.float32
     out = {}
-    for name, (off, n, kind) in tree_layout(num_leaves).items():
+    for name, (off, n, kind) in tree_layout(num_leaves, cat_bins).items():
         v = words[off:off + n]
         out[name] = v.view(f32) if kind == "f" else v
+    if cat_bins:
+        out["cat_rank"] = out["cat_rank"].reshape(-1, int(cat_bins))
     return out
 
 
@@ -102,10 +109,10 @@ class TreeArrays(NamedTuple):
     Internal nodes are 0..num_leaves-2; a child pointer < 0 encodes leaf
     ``~child``; tree-sized fields are sized to the leaf budget L.  From
     ``grow_tree`` every field is a device tensor (a view of the
-    workspace's tree buffer; ``num_leaves`` is a [1] tensor and
-    ``n_steps``, ``is_cat_node`` and ``cat_rank`` are None); from
-    ``host_tree`` they are numpy arrays and ``num_leaves``/``n_steps``
-    ints."""
+    workspace's tree buffer; ``num_leaves`` is a [1] tensor, ``n_steps``
+    is None, and so are ``is_cat_node`` and ``cat_rank`` when the
+    workspace has no categorical fields); from ``host_tree`` they are
+    numpy arrays and ``num_leaves``/``n_steps`` ints."""
     num_leaves: object           # actual number of leaves
     split_feature: object        # [L-1] int32 (used-feature slot)
     threshold_bin: object        # [L-1] int32
@@ -121,18 +128,30 @@ class TreeArrays(NamedTuple):
     internal_count: object       # [L-1] f32
     leaf_depth: object           # [L] int32
     leaf_of_row: Optional[torch.Tensor]  # [N] int32 — final row -> leaf
-    is_cat_node: object          # [L-1] bool (all False: numerical only)
-    cat_rank: object             # [L-1, B] int32 (identity rank)
+    is_cat_node: object          # [L-1] (int32 on the device, bool on
+                                 # host; None on the device without a
+                                 # categorical feature)
+    cat_rank: object             # [L-1, B] int32 (go left iff
+                                 # cat_rank[node, bin] <= threshold)
     n_steps: object              # live steps: splits (strict), live
                                  # super-steps (batched)
 
 
 def host_tree(words: np.ndarray, num_leaves: int, num_bins: int,
-              leaf_of_row: Optional[torch.Tensor] = None) -> TreeArrays:
-    """Host ``TreeArrays`` from a fetched tree buffer (numpy int32)."""
-    v = tree_fields(np.asarray(words, np.int32), num_leaves)
+              leaf_of_row: Optional[torch.Tensor] = None,
+              cat_bins: int = 0) -> TreeArrays:
+    """Host ``TreeArrays`` from a fetched tree buffer (numpy int32) of
+    ``tree_layout(num_leaves, cat_bins)``; without categorical fields
+    every node is numerical (identity rank rows)."""
+    v = tree_fields(np.asarray(words, np.int32), num_leaves, cat_bins)
     nl = int(v["num_leaves"][0])
     nn = max(int(num_leaves) - 1, 0)
+    if cat_bins:
+        is_cat, rank = v["is_cat_node"] != 0, v["cat_rank"]
+    else:
+        is_cat = np.zeros(nn, bool)
+        rank = np.broadcast_to(np.arange(num_bins, dtype=np.int32),
+                               (nn, num_bins)).copy()
     return TreeArrays(
         num_leaves=nl, split_feature=v["split_feature"],
         threshold_bin=v["threshold_bin"],
@@ -142,16 +161,14 @@ def host_tree(words: np.ndarray, num_leaves: int, num_bins: int,
         leaf_count=v["leaf_count"], internal_value=v["internal_value"],
         internal_weight=v["internal_weight"],
         internal_count=v["internal_count"], leaf_depth=v["leaf_depth"],
-        leaf_of_row=leaf_of_row, is_cat_node=np.zeros(nn, bool),
-        cat_rank=np.broadcast_to(np.arange(num_bins, dtype=np.int32),
-                                 (nn, num_bins)).copy(),
+        leaf_of_row=leaf_of_row, is_cat_node=is_cat, cat_rank=rank,
         n_steps=int(v["n_steps"][0]))
 
 
 def fetch_tree(ws: "GrowWorkspace") -> TreeArrays:
     """The workspace's last tree on the host, in one copy."""
     return host_tree(ws.tree.cpu().numpy(), ws.num_leaves, ws.num_bins,
-                     ws.leaf_of_row)
+                     ws.leaf_of_row, ws.cat_bins)
 
 
 class GrowWorkspace:
@@ -161,20 +178,26 @@ class GrowWorkspace:
     histograms, the row -> leaf vector, the step outputs, and the
     children's histograms.  The batched grower (K > 1) has 2K scratch rows
     past L in the table and the histograms (an invalid slot's leaf and new
-    leaf) and K-wide step outputs (``grow_step_batched``)."""
+    leaf) and K-wide step outputs (``grow_step_batched``).  With
+    ``categorical`` the table has two companions, each leaf's best split's
+    is-categorical flag (``leaf_cat``) and rank row (``leaf_rank``, [rows,
+    B]: the JAX grower's ``bic``/``brank``), and the tree buffer the
+    ``CAT_FIELDS``; without it B3 and B3-K read one identity rank."""
 
     def __init__(self, n: int, num_features: int, num_bins: int,
-                 num_leaves: int, device: torch.device, split_batch: int = 1):
+                 num_leaves: int, device: torch.device, split_batch: int = 1,
+                 categorical: bool = False):
         L, F, B = int(num_leaves), int(num_features), int(num_bins)
         K = batch_width(split_batch, L)
         self.num_leaves, self.num_bins, self.split_batch = L, B, K
+        self.cat_bins = B if categorical else 0
         rows = L + 2 * K if K > 1 else L
         kw = {"device": device}
-        init = torch.zeros(tree_words(L), dtype=torch.int32)
-        tree_fields(init, L)["leaf_parent"].fill_(-1)
+        init = torch.zeros(tree_words(L, self.cat_bins), dtype=torch.int32)
+        tree_fields(init, L, self.cat_bins)["leaf_parent"].fill_(-1)
         self.tree_init = init.to(device)
         self.tree = self.tree_init.clone()
-        self.fields = tree_fields(self.tree, L)
+        self.fields = tree_fields(self.tree, L, self.cat_bins)
         table_init = torch.zeros((rows, sp.RECORD), dtype=torch.float32)
         table_init[:, sp.GAIN] = float("-inf")
         self.table_init = table_init.to(device)
@@ -182,6 +205,10 @@ class GrowWorkspace:
         self.hist = torch.zeros((rows, F, B, 3), dtype=torch.float32, **kw)
         self.leaf_of_row = torch.zeros(n, dtype=torch.int32, **kw)
         self.rank_iota = torch.arange(B, dtype=torch.int32, **kw)
+        self.leaf_cat = self.leaf_rank = None
+        if categorical:
+            self.leaf_cat = torch.zeros(rows, dtype=torch.int32, **kw)
+            self.leaf_rank = torch.zeros((rows, B), dtype=torch.int32, **kw)
         self.neg_inf = torch.full((), float("-inf"), **kw)
         # the per-node draws of a step's 2K children (the root uses row 0)
         self.node_mask = torch.ones((2 * K, F), dtype=torch.bool, **kw)
@@ -216,8 +243,31 @@ class GrowWorkspace:
             leaf_count=v["leaf_count"], internal_value=v["internal_value"],
             internal_weight=v["internal_weight"],
             internal_count=v["internal_count"], leaf_depth=v["leaf_depth"],
-            leaf_of_row=self.leaf_of_row, is_cat_node=None, cat_rank=None,
-            n_steps=None)
+            leaf_of_row=self.leaf_of_row, is_cat_node=v.get("is_cat_node"),
+            cat_rank=v.get("cat_rank"), n_steps=None)
+
+    @property
+    def rank(self) -> torch.Tensor:
+        """B3's and B3-K's rank operand: the per-leaf rank table, or the
+        one identity rank when no feature is categorical."""
+        return self.rank_iota if self.leaf_rank is None else self.leaf_rank
+
+    def cat_state(self) -> dict:
+        """The categorical keyword arguments of B3s and B3s-K."""
+        return {} if self.leaf_rank is None else {
+            "leaf_cat": self.leaf_cat, "leaf_rank": self.leaf_rank}
+
+    def put_best(self, rows, res) -> None:
+        """Write B2's result ``res`` (records, or records, cat flags and
+        rank rows) into the table rows ``rows`` (an index tensor or a
+        slice)."""
+        parts = (res,) if self.leaf_rank is None else res
+        for dst, src in zip((self.table, self.leaf_cat, self.leaf_rank),
+                            parts):
+            if isinstance(rows, slice):
+                dst[rows].copy_(src)
+            else:
+                dst.index_copy_(0, rows, src)
 
 
 class BatchedStep(NamedTuple):
@@ -255,27 +305,31 @@ def _draws(ws: GrowWorkspace, feature_mask, num_bin, sampling, rng_iter,
             bins if sampling.extra_trees else None)
 
 
-def _check_sampling(sampling, rng_iter) -> None:
+def _check_grow(ws: GrowWorkspace, sampling, rng_iter, is_cat) -> None:
     if sampling is not None and sampling.on and rng_iter is None:
         raise ValueError("feature_fraction_bynode and extra_trees need the "
                          "device iteration rng_iter")
+    if (is_cat is None) != (ws.leaf_rank is None):
+        raise ValueError("is_cat needs a workspace with categorical "
+                         "fields, and such a workspace needs is_cat")
 
 
 def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
-          params, sampling=None, rng_iter=None) -> None:
+          params, sampling=None, rng_iter=None, is_cat=None) -> None:
     """The root pass of either grower: histogram of all rows (B1), sums,
-    output, the root's node draws (B6-node) and best split (B2), and the
-    reset of the tree, the table and the row -> leaf vector."""
+    output, the root's node draws (B6-node) and best split (B2, with
+    B2-cat), and the reset of the tree, the table and the row -> leaf
+    vector."""
     v = ws.fields
     h0 = compute_histogram(binned, vals, num_bins=ws.num_bins)
     ws.hist[0].copy_(h0)
     total0 = vals.sum(dim=0)
     root_out = leaf_output(total0[0], total0[1], params)
     fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 1, 0, 0)
-    rec0 = find_best_split(h0[None], total0[None], root_out[None], num_bin,
-                           na_bin, fm, params, rand_bin=rb)
+    res0 = find_best_split(h0[None], total0[None], root_out[None], num_bin,
+                           na_bin, fm, params, rand_bin=rb, is_cat=is_cat)
     ws.table.copy_(ws.table_init)
-    ws.table[0:1].copy_(rec0)
+    ws.put_best(slice(0, 1), res0)
     ws.tree.copy_(ws.tree_init)
     v["num_leaves"].fill_(1)
     v["leaf_value"][0:1].copy_(root_out[None])
@@ -290,38 +344,41 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
               params: SplitParams, max_depth: int = -1,
               workspace: Optional[GrowWorkspace] = None,
               sampling: Optional[NodeSampling] = None,
-              rng_iter: Optional[torch.Tensor] = None) -> TreeArrays:
+              rng_iter: Optional[torch.Tensor] = None,
+              is_cat: Optional[torch.Tensor] = None) -> TreeArrays:
     """Grow one tree on ``binned`` [N, F] uint8 with per-row ``vals``
     [N, 3] f32 = (grad, hess, weight), all on one device, with no host
     round trip.  ``sampling``: the per-node draws, keyed by ``rng_iter``
-    (a [1] int32 device tensor).  Returns device views of ``workspace`` (a
-    new one when None); ``fetch_tree`` brings the tree to the host."""
+    (a [1] int32 device tensor).  ``is_cat`` [F] bool: the categorical
+    features (the workspace then has categorical fields).  Returns device
+    views of ``workspace`` (a new one when None); ``fetch_tree`` brings
+    the tree to the host."""
     n, f = binned.shape
     L, B = int(num_leaves), int(num_bins)
     ws = workspace if workspace is not None else GrowWorkspace(
-        n, f, B, L, binned.device)
+        n, f, B, L, binned.device, categorical=is_cat is not None)
     if ws.split_batch != 1:
         raise ValueError("grow_tree needs a workspace of split_batch 1")
-    _check_sampling(sampling, rng_iter)
+    _check_grow(ws, sampling, rng_iter, is_cat)
     _root(ws, binned, vals, feature_mask, num_bin, na_bin, params, sampling,
-          rng_iter)
+          rng_iter, is_cat)
     for i in range(L - 1):
         _split_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
-                    max_depth, i, sampling, rng_iter)
+                    max_depth, i, sampling, rng_iter, is_cat)
     return ws.arrays()
 
 
 def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
                 na_bin, params, max_depth, i=0, sampling=None,
-                rng_iter=None) -> None:
+                rng_iter=None, is_cat=None) -> None:
     """Step ``i``: B3s, B3, B1 on the smaller child, the subtraction, the
     children's node draws (B6-node), B2 on the pair and the depth mask,
     all indexed by the device step record."""
     grow_step(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
               max_depth=max_depth, rec=ws.rec, idx=ws.idx, fstep=ws.fstep,
-              flags=ws.flags)
+              flags=ws.flags, **ws.cat_state())
     active = ws.rec[ACTIVE:ACTIVE + 1]
-    slot = partition(binned, ws.leaf_of_row, ws.rec, ws.rank_iota)
+    slot = partition(binned, ws.leaf_of_row, ws.rec, ws.rank)
     small = compute_histogram(binned, vals, num_bins=ws.num_bins, slot=slot,
                               active=active)
     large = ws.hist.index_select(0, ws.idx[0:1])[0] - small
@@ -331,19 +388,39 @@ def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     ws.hist.index_copy_(0, ws.idx, ws.pair)
     fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2,
                     2 * (i + 1), i + 1, active)
-    children = find_best_split(ws.pair, ws.fstep[0:6].view(2, 3),
-                               ws.fstep[6:8], num_bin, na_bin, fm, params,
-                               active=active, rand_bin=rb)
+    res = find_best_split(ws.pair, ws.fstep[0:6].view(2, 3), ws.fstep[6:8],
+                          num_bin, na_bin, fm, params, active=active,
+                          rand_bin=rb, is_cat=is_cat)
+    children = res if is_cat is None else res[0]
     children[:, sp.GAIN] = torch.where(ws.flags[1], children[:, sp.GAIN],
                                        ws.neg_inf)
-    ws.table.index_copy_(0, ws.idx, children)
+    ws.put_best(ws.idx, res)
 
 
-def _check_step(table, tree, na_bin, num_leaves, rec, idx, fstep, flags):
+def _cat_bins(table, leaf_cat, leaf_rank) -> int:
+    """B of the categorical state (0 without it), checked against the
+    table's rows."""
+    if leaf_rank is None and leaf_cat is None:
+        return 0
+    rows = table.shape[0]
+    if leaf_cat is None or leaf_rank is None or leaf_cat.shape != (rows,) \
+            or leaf_cat.dtype != torch.int32 or leaf_rank.dim() != 2 \
+            or leaf_rank.shape[0] != rows or leaf_rank.dtype != torch.int32 \
+            or not (leaf_cat.is_contiguous() and leaf_rank.is_contiguous()):
+        raise TypeError("leaf_cat and leaf_rank must be contiguous int32 "
+                        "[rows] and [rows, B] tensors beside the table")
+    if leaf_cat.device != table.device or leaf_rank.device != table.device:
+        raise ValueError("the categorical state must be on the table's "
+                         "device")
+    return int(leaf_rank.shape[1])
+
+
+def _check_step(table, tree, na_bin, num_leaves, rec, idx, fstep, flags,
+                cat_bins):
     L = int(num_leaves)
     if table.shape != (L, sp.RECORD) or table.dtype != torch.float32:
         raise TypeError("table must be a [L, 12] float32 tensor")
-    if tree.shape != (tree_words(L),) or tree.dtype != torch.int32:
+    if tree.shape != (tree_words(L, cat_bins),) or tree.dtype != torch.int32:
         raise TypeError("tree must be the int32 tree buffer of L leaves")
     for name, t, shape, dtype in (
             ("na_bin", na_bin, None, torch.int32),
@@ -363,35 +440,57 @@ def _check_step(table, tree, na_bin, num_leaves, rec, idx, fstep, flags):
 
 def grow_step(table: torch.Tensor, tree: torch.Tensor, na_bin: torch.Tensor,
               *, num_leaves: int, max_depth: int, rec: torch.Tensor,
-              idx: torch.Tensor, fstep: torch.Tensor,
-              flags: torch.Tensor) -> None:
+              idx: torch.Tensor, fstep: torch.Tensor, flags: torch.Tensor,
+              leaf_cat: Optional[torch.Tensor] = None,
+              leaf_rank: Optional[torch.Tensor] = None) -> None:
     """One split step's bookkeeping (kernel B3s), in place on ``tree`` and
     the step outputs ``rec``, ``idx``, ``fstep`` and ``flags`` (layouts in
-    csrc/grow_step.cu).  CUDA tensors launch the kernel, CPU tensors run
-    ``grow_step_plain``."""
-    _check_step(table, tree, na_bin, num_leaves, rec, idx, fstep, flags)
+    csrc/grow_step.cu).  With the table's categorical companions
+    ``leaf_cat`` [L] and ``leaf_rank`` [L, B] (the tree buffer then has
+    ``CAT_FIELDS``) the new node takes the leaf's flag and rank row, and a
+    categorical split's record has NA_BIN -1.  CUDA tensors launch the
+    kernel, CPU tensors run ``grow_step_plain``."""
+    cat_bins = _cat_bins(table, leaf_cat, leaf_rank)
+    _check_step(table, tree, na_bin, num_leaves, rec, idx, fstep, flags,
+                cat_bins)
     if table.device.type == "cpu":
         return grow_step_plain(table, tree, na_bin, num_leaves=num_leaves,
                                max_depth=max_depth, rec=rec, idx=idx,
-                               fstep=fstep, flags=flags)
+                               fstep=fstep, flags=flags, leaf_cat=leaf_cat,
+                               leaf_rank=leaf_rank)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     err = _kernels.lib("grow_step").lgbt_grow_step(
         table.data_ptr(), tree.data_ptr(), na_bin.data_ptr(),
-        int(num_leaves), int(max_depth), rec.data_ptr(), idx.data_ptr(),
-        fstep.data_ptr(), flags.data_ptr(),
-        _kernels.stream_ptr(table.device))
+        int(num_leaves), int(max_depth), _ptr(leaf_cat), _ptr(leaf_rank),
+        cat_bins, rec.data_ptr(), idx.data_ptr(), fstep.data_ptr(),
+        flags.data_ptr(), _kernels.stream_ptr(table.device))
     _kernels.launched("grow_step", err)
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _copy_cat(v, node: int, leaf: int, leaf_cat, leaf_rank) -> bool:
+    """The plain versions' copy of a leaf's categorical state into node
+    ``node`` of the tree fields ``v``; returns the leaf's flag."""
+    icat = bool(leaf_cat[leaf])
+    v["is_cat_node"][node] = int(icat)
+    v["cat_rank"][node] = leaf_rank[leaf]
+    return icat
+
+
 def grow_step_plain(table, tree, na_bin, *, num_leaves: int,
-                    max_depth: int, rec, idx, fstep, flags) -> None:
+                    max_depth: int, rec, idx, fstep, flags, leaf_cat=None,
+                    leaf_rank=None) -> None:
     """Plain version of B3s: the same step on host copies (numpy), copied
     back in place."""
     L = int(num_leaves)
     tab = table.cpu().numpy()
     words = tree.cpu().numpy().copy()
-    v = tree_fields(words, L)
+    cat_bins = 0 if leaf_rank is None else int(leaf_rank.shape[1])
+    v = tree_fields(words, L, cat_bins)
     nl, done = int(v["num_leaves"][0]), int(v["done"][0])
     leaf = int(np.argmax(tab[:, sp.GAIN]))      # first maximum
     best = tab[leaf, sp.GAIN]
@@ -433,8 +532,10 @@ def grow_step_plain(table, tree, na_bin, *, num_leaves: int,
         v["num_leaves"][0] = nl + 1
         v["n_steps"][0] += 1
         smaller_left = rw[6] <= rw[9]
+        icat = cat_bins and _copy_cat(v, i, leaf, leaf_cat.cpu().numpy(),
+                                      leaf_rank.cpu().numpy())
         r[FEATURE], r[THRESHOLD], r[DEFAULT_LEFT] = feat, thr, dleft
-        r[NA_BIN] = int(na_bin[feat])
+        r[NA_BIN] = -1 if icat else int(na_bin[feat])
         r[SMALLER] = leaf if smaller_left else new_leaf
         fs[:] = rw[4:12]
         fl[:] = (smaller_left, max_depth <= 0 or d < max_depth)
@@ -446,55 +547,64 @@ def grow_step_plain(table, tree, na_bin, *, num_leaves: int,
     flags.copy_(torch.from_numpy(fl).to(dev))
 
 
+def _check_rank(rank: torch.Tensor) -> int:
+    """The row stride of a rank operand: 0 for one [B] rank for every
+    split, B for a [R, B] table indexed by the split's leaf."""
+    if rank.dtype != torch.int32 or rank.dim() not in (1, 2):
+        raise TypeError("rank must be an int32 [B] vector or [R, B] table")
+    return 0 if rank.dim() == 1 else int(rank.shape[1])
+
+
 def partition(binned: torch.Tensor, leaf_of_row: torch.Tensor,
-              rec: torch.Tensor, rank_vec: torch.Tensor) -> torch.Tensor:
+              rec: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     """Row partition (kernel B3), in place on ``leaf_of_row``, of the
     split named by the device step record ``rec`` (int32 [8], columns
     ``LEAF`` .. ``ACTIVE``): rows of the leaf that go right move to the new
-    leaf (go left iff NA bin ? default_left : rank_vec[bin] <= threshold).
-    Returns the slot vector of the next histogram pass (0 where the row is
-    in the smaller child, else -1); an inactive step changes nothing and
-    its slot vector is unspecified.  CUDA tensors launch the kernel of
-    ``csrc/partition.cu``, CPU tensors run ``partition_plain``."""
+    leaf (go left iff NA bin ? default_left : r[bin] <= threshold, r =
+    ``rank`` [B], or the split leaf's row of ``rank`` [R, B]; a
+    categorical split's record has NA bin -1).  Returns the slot vector of
+    the next histogram pass (0 where the row is in the smaller child, else
+    -1); an inactive step changes nothing and its slot vector is
+    unspecified.  CUDA tensors launch the kernel of ``csrc/partition.cu``,
+    CPU tensors run ``partition_plain``."""
     if binned.dim() != 2 or binned.dtype != torch.uint8:
         raise TypeError("binned must be a [N, F] uint8 tensor")
     if leaf_of_row.shape != (binned.shape[0],) \
             or leaf_of_row.dtype != torch.int32:
         raise TypeError("leaf_of_row must be a [N] int32 tensor")
-    if rank_vec.dtype != torch.int32 or rank_vec.dim() != 1:
-        raise TypeError("rank_vec must be an int32 vector")
+    stride = _check_rank(rank)
     if rec.shape != (STEP_RECORD,) or rec.dtype != torch.int32:
         raise TypeError("rec must be an int32 step record of 8 columns")
-    if any(t.device != binned.device for t in (leaf_of_row, rank_vec, rec)):
+    if any(t.device != binned.device for t in (leaf_of_row, rank, rec)):
         raise ValueError("partition inputs must be on one device")
     if binned.device.type == "cpu":
-        return partition_plain(binned, leaf_of_row, rec, rank_vec)
+        return partition_plain(binned, leaf_of_row, rec, rank)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
     if not (binned.is_contiguous() and leaf_of_row.is_contiguous()
-            and rank_vec.is_contiguous() and rec.is_contiguous()):
+            and rank.is_contiguous() and rec.is_contiguous()):
         raise ValueError("partition needs contiguous tensors")
     n, f = binned.shape
     slot = torch.empty(n, dtype=torch.int32, device=binned.device)
     if n == 0:
         return slot
     err = _kernels.lib("partition").lgbt_partition(
-        binned.data_ptr(), n, f, rec.data_ptr(), rank_vec.data_ptr(),
+        binned.data_ptr(), n, f, rec.data_ptr(), rank.data_ptr(), stride,
         leaf_of_row.data_ptr(), slot.data_ptr(),
         _kernels.stream_ptr(binned.device))
     _kernels.launched("partition", err)
     return slot
 
 
-def partition_plain(binned, leaf_of_row, rec, rank_vec) -> torch.Tensor:
+def partition_plain(binned, leaf_of_row, rec, rank) -> torch.Tensor:
     """Plain PyTorch version of B3 (``torch.where``, reading the record on
     the device), same contract."""
     r = rec.to(torch.int64)
     col = binned.index_select(1, r[FEATURE:FEATURE + 1])[:, 0].to(
         torch.int64)
     is_na = (r[NA_BIN] >= 0) & (col == r[NA_BIN])
-    go_left = torch.where(is_na, r[DEFAULT_LEFT] != 0,
-                          rank_vec[col] <= r[THRESHOLD])
+    rv = rank[col] if rank.dim() == 1 else rank[r[LEAF], col]
+    go_left = torch.where(is_na, r[DEFAULT_LEFT] != 0, rv <= r[THRESHOLD])
     move = (leaf_of_row == r[LEAF]) & ~go_left & (r[ACTIVE] != 0)
     leaf_of_row.copy_(torch.where(move, rec[NEW_LEAF], leaf_of_row))
     return torch.where(leaf_of_row == r[SMALLER], 0, -1).to(torch.int32)
@@ -509,7 +619,8 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
                       max_depth: int = -1, split_batch: int = 8,
                       workspace: Optional[GrowWorkspace] = None,
                       sampling: Optional[NodeSampling] = None,
-                      rng_iter: Optional[torch.Tensor] = None
+                      rng_iter: Optional[torch.Tensor] = None,
+                      is_cat: Optional[torch.Tensor] = None
                       ) -> TreeArrays:
     """Grow one tree with K splits per super-step (the JAX package's
     ``grow_tree_batched``, grower.py:945): each super-step takes the top K
@@ -525,36 +636,39 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
     done, and every kernel of a later super-step exits at once; its torch
     ops write only the scratch rows.  ``sampling``/``rng_iter`` as
     ``grow_tree``; the draws of invalid slots keep their places in the
-    stream.  Returns device views of ``workspace``, as ``grow_tree``."""
+    stream.  ``is_cat`` as ``grow_tree``.  Returns device views of
+    ``workspace``, as ``grow_tree``."""
     n, f = binned.shape
     L, B = int(num_leaves), int(num_bins)
     K = batch_width(split_batch, L)
     ws = workspace if workspace is not None else GrowWorkspace(
-        n, f, B, L, binned.device, split_batch=K)
+        n, f, B, L, binned.device, split_batch=K,
+        categorical=is_cat is not None)
     if ws.split_batch != K or K < 2:
         raise ValueError(f"grow_tree_batched needs K > 1 and a workspace "
                          f"of split_batch {K} (has {ws.split_batch})")
-    _check_sampling(sampling, rng_iter)
+    _check_grow(ws, sampling, rng_iter, is_cat)
     _root(ws, binned, vals, feature_mask, num_bin, na_bin, params, sampling,
-          rng_iter)
+          rng_iter, is_cat)
     for s in range(L - 1):
         _super_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
-                    max_depth, s, sampling, rng_iter)
+                    max_depth, s, sampling, rng_iter, is_cat)
     return ws.arrays()
 
 
 def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
                 na_bin, params, max_depth, s=0, sampling=None,
-                rng_iter=None) -> None:
+                rng_iter=None, is_cat=None) -> None:
     """Super-step ``s``: B3s-K, B3-K, B1-K over the K smaller children,
     the K subtractions, the 2K children's node draws (B6-node), B2 on the
     2K children with the depth mask, and the table update, all indexed by
     the device step outputs."""
     K, st = ws.split_batch, ws.step
     grow_step_batched(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
-                      split_batch=K, max_depth=max_depth, step=st)
+                      split_batch=K, max_depth=max_depth, step=st,
+                      **ws.cat_state())
     active = st.status[0:1]
-    tslot = partition_slots(binned, ws.leaf_of_row, st, ws.rank_iota)
+    tslot = partition_slots(binned, ws.leaf_of_row, st, ws.rank)
     small = compute_histogram(binned, vals, num_bins=ws.num_bins,
                               slot=tslot, num_slots=K, active=active,
                               slots_used=st.status[1:2])
@@ -565,17 +679,19 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     ws.hist.index_copy_(0, st.idx2, ws.pair)
     fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2 * K,
                     (s + 1) * 2 * K, s + 1, active)
-    children = find_best_split(ws.pair, st.tot2, st.po2, num_bin, na_bin,
-                               fm, params, active=active, rand_bin=rb)
+    res = find_best_split(ws.pair, st.tot2, st.po2, num_bin, na_bin, fm,
+                          params, active=active, rand_bin=rb, is_cat=is_cat)
+    children = res if is_cat is None else res[0]
     children[:, sp.GAIN] = torch.where(st.keep2, children[:, sp.GAIN],
                                        ws.neg_inf)
-    ws.table.index_copy_(0, st.idx2, children)
+    ws.put_best(st.idx2, res)
 
 
-def _check_batched(table, tree, na_bin, L, K, step: BatchedStep) -> None:
+def _check_batched(table, tree, na_bin, L, K, step: BatchedStep,
+                   cat_bins: int) -> None:
     if table.shape != (L + 2 * K, sp.RECORD) or table.dtype != torch.float32:
         raise TypeError("table must be a [L + 2K, 12] float32 tensor")
-    if tree.shape != (tree_words(L),) or tree.dtype != torch.int32:
+    if tree.shape != (tree_words(L, cat_bins),) or tree.dtype != torch.int32:
         raise TypeError("tree must be the int32 tree buffer of L leaves")
     want = {"recs": ((K, STEP_RECORD), torch.int32),
             "slot_of_leaf": ((L,), torch.int32),
@@ -604,38 +720,44 @@ def _check_batched(table, tree, na_bin, L, K, step: BatchedStep) -> None:
 
 def grow_step_batched(table: torch.Tensor, tree: torch.Tensor,
                       na_bin: torch.Tensor, *, num_leaves: int,
-                      split_batch: int, max_depth: int,
-                      step: BatchedStep) -> None:
+                      split_batch: int, max_depth: int, step: BatchedStep,
+                      leaf_cat: Optional[torch.Tensor] = None,
+                      leaf_rank: Optional[torch.Tensor] = None) -> None:
     """One batched super-step's bookkeeping (kernel B3s-K), in place on
     ``tree`` and the step outputs ``step`` (layouts in
     csrc/grow_step.cu).  A super-step that finds the tree already done
     changes nothing: the outputs of the super-step that found it done
-    stay.  CUDA tensors launch the kernel, CPU tensors run
-    ``grow_step_batched_plain``."""
+    stay.  ``leaf_cat``/``leaf_rank`` [L + 2K, ..] as ``grow_step``: each
+    valid slot's node takes its leaf's flag and rank row.  CUDA tensors
+    launch the kernel, CPU tensors run ``grow_step_batched_plain``."""
     L, K = int(num_leaves), int(split_batch)
-    _check_batched(table, tree, na_bin, L, K, step)
+    cat_bins = _cat_bins(table, leaf_cat, leaf_rank)
+    _check_batched(table, tree, na_bin, L, K, step, cat_bins)
     if table.device.type == "cpu":
         return grow_step_batched_plain(table, tree, na_bin, num_leaves=L,
                                        split_batch=K, max_depth=max_depth,
-                                       step=step)
+                                       step=step, leaf_cat=leaf_cat,
+                                       leaf_rank=leaf_rank)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     err = _kernels.lib("grow_step").lgbt_grow_step_batched(
         table.data_ptr(), tree.data_ptr(), na_bin.data_ptr(), L, K,
-        int(max_depth), *[getattr(step, name).data_ptr()
-                          for name in BatchedStep._fields],
+        int(max_depth), _ptr(leaf_cat), _ptr(leaf_rank), cat_bins,
+        *[getattr(step, name).data_ptr() for name in BatchedStep._fields],
         _kernels.stream_ptr(table.device))
     _kernels.launched("grow_step_batched", err)
 
 
 def grow_step_batched_plain(table, tree, na_bin, *, num_leaves: int,
                             split_batch: int, max_depth: int,
-                            step: BatchedStep) -> None:
+                            step: BatchedStep, leaf_cat=None,
+                            leaf_rank=None) -> None:
     """Plain version of B3s-K: the same super-step on host copies (numpy),
     copied back in place."""
     L, K = int(num_leaves), int(split_batch)
     words = tree.cpu().numpy().copy()
-    v = tree_fields(words, L)
+    cat_bins = 0 if leaf_rank is None else int(leaf_rank.shape[1])
+    v = tree_fields(words, L, cat_bins)
     if int(v["done"][0]):
         return               # the first dead super-step's outputs stay
     tab = table.cpu().numpy()
@@ -647,6 +769,8 @@ def grow_step_batched_plain(table, tree, na_bin, *, num_leaves: int,
     while nvalid < K and nvalid < L - nl and tab[top[nvalid], 0] > 0.0:
         nvalid += 1
     nab = na_bin.cpu().numpy()
+    if cat_bins:
+        lcat, lrank = leaf_cat.cpu().numpy(), leaf_rank.cpu().numpy()
     recs = np.zeros((K, STEP_RECORD), np.int32)
     slot_of_leaf = np.full(L, -1, np.int32)
     idx2 = np.zeros(2 * K, np.int64)
@@ -691,8 +815,10 @@ def grow_step_batched_plain(table, tree, na_bin, *, num_leaves: int,
         d = int(v["leaf_depth"][leaf]) + 1
         v["leaf_depth"][leaf] = v["leaf_depth"][new_leaf] = d
         v["leaf_parent"][leaf] = v["leaf_parent"][new_leaf] = node
+        icat = cat_bins and _copy_cat(v, node, leaf, lcat, lrank)
         recs[k, FEATURE], recs[k, THRESHOLD] = feat, thr
-        recs[k, DEFAULT_LEFT], recs[k, NA_BIN] = dleft, int(nab[feat])
+        recs[k, DEFAULT_LEFT] = dleft
+        recs[k, NA_BIN] = -1 if icat else int(nab[feat])
         recs[k, SMALLER] = leaf if sleft else new_leaf
         keep2[k] = keep2[K + k] = max_depth <= 0 or d < max_depth
         slot_of_leaf[leaf] = k
@@ -712,13 +838,13 @@ def grow_step_batched_plain(table, tree, na_bin, *, num_leaves: int,
 
 
 def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
-                    step: BatchedStep,
-                    rank_vec: torch.Tensor) -> torch.Tensor:
+                    step: BatchedStep, rank: torch.Tensor) -> torch.Tensor:
     """The batched row partition (kernel B3-K), in place on
     ``leaf_of_row``: a row of a leaf that splits in this super-step (slot
     ``step.slot_of_leaf[leaf] = k``) takes record k's split (go left iff
-    NA bin ? default_left : rank_vec[bin] <= threshold; right rows move to
-    the new leaf).  Returns the [N] int32 target slots of the K-slot
+    NA bin ? default_left : r[bin] <= threshold, r = ``rank`` [B] or the
+    row of record k's leaf in ``rank`` [R, B]; right rows move to the new
+    leaf).  Returns the [N] int32 target slots of the K-slot
     histogram pass: k where the row ends in slot k's smaller child, else
     -1; a dead super-step (``step.status[0] == 0``) changes nothing and
     its target slots are unspecified.  CUDA tensors launch the kernel of
@@ -728,19 +854,18 @@ def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
     if leaf_of_row.shape != (binned.shape[0],) \
             or leaf_of_row.dtype != torch.int32:
         raise TypeError("leaf_of_row must be a [N] int32 tensor")
-    if rank_vec.dtype != torch.int32 or rank_vec.dim() != 1:
-        raise TypeError("rank_vec must be an int32 vector")
+    stride = _check_rank(rank)
     if step.recs.dim() != 2 or step.recs.shape[1] != STEP_RECORD \
             or step.recs.dtype != torch.int32 \
             or step.slot_of_leaf.dtype != torch.int32 \
             or step.status.dtype != torch.int32:
         raise TypeError("step must hold int32 records, slots and status")
-    tensors = (leaf_of_row, rank_vec, step.recs, step.slot_of_leaf,
+    tensors = (leaf_of_row, rank, step.recs, step.slot_of_leaf,
                step.status)
     if any(t.device != binned.device for t in tensors):
         raise ValueError("partition_slots inputs must be on one device")
     if binned.device.type == "cpu":
-        return partition_slots_plain(binned, leaf_of_row, step, rank_vec)
+        return partition_slots_plain(binned, leaf_of_row, step, rank)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
     if not (binned.is_contiguous() and all(t.is_contiguous()
@@ -753,14 +878,14 @@ def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
     err = _kernels.lib("partition").lgbt_partition_slots(
         binned.data_ptr(), n, f, step.recs.data_ptr(),
         step.slot_of_leaf.data_ptr(), step.status.data_ptr(),
-        rank_vec.data_ptr(), leaf_of_row.data_ptr(), tslot.data_ptr(),
+        rank.data_ptr(), stride, leaf_of_row.data_ptr(), tslot.data_ptr(),
         _kernels.stream_ptr(binned.device))
     _kernels.launched("partition_slots", err)
     return tslot
 
 
 def partition_slots_plain(binned, leaf_of_row, step: BatchedStep,
-                          rank_vec) -> torch.Tensor:
+                          rank) -> torch.Tensor:
     """Plain PyTorch version of B3-K (gathers and ``torch.where``), same
     contract."""
     if not bool(step.status[0]):
@@ -772,8 +897,9 @@ def partition_slots_plain(binned, leaf_of_row, step: BatchedStep,
     col = torch.gather(binned, 1, r[:, FEATURE:FEATURE + 1])[:, 0].to(
         torch.int64)
     is_na = (r[:, NA_BIN] >= 0) & (col == r[:, NA_BIN])
+    rv = rank[col] if rank.dim() == 1 else rank[r[:, LEAF], col]
     go_left = torch.where(is_na, r[:, DEFAULT_LEFT] != 0,
-                          rank_vec.to(torch.int64)[col] <= r[:, THRESHOLD])
+                          rv <= r[:, THRESHOLD])
     new = torch.where(on & ~go_left, r[:, NEW_LEAF], lor)
     leaf_of_row.copy_(new.to(torch.int32))
     tslot = torch.where(on & (new == r[:, SMALLER]), k, -1)

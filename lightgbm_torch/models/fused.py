@@ -66,7 +66,9 @@ class IterationProgram:
         self.eval_spec = tuple(eval_spec)
         self.es_spec = es_spec
         L = m.config.num_leaves
-        self.W, self.L, self.E = tree_words(L), L, len(self.eval_spec)
+        self.cat_bins = m.grow_ws.cat_bins
+        self.W, self.L, self.E = tree_words(L, self.cat_bins), L, \
+            len(self.eval_spec)
         self.width = self.W + L + self.E + 1
         self.rows = 0
         self.out = torch.empty(0)
@@ -160,6 +162,8 @@ class IterationProgram:
         kw = {} if m.split_batch == 1 else {"split_batch": m.split_batch}
         if m.node_sampling is not None:
             kw.update(sampling=m.node_sampling, rng_iter=self.it_cur)
+        if m.is_cat_dev is not None:
+            kw["is_cat"] = m.is_cat_dev
         arrays = grow(m.binned_dev, vals, fmask, m.num_bin_dev,
                       m.na_bin_dev, num_leaves=cfg.num_leaves,
                       num_bins=m.max_bin, params=m.split_params,
@@ -176,7 +180,9 @@ class IterationProgram:
             add_tree_score(vscore, vbinned, arrays.split_feature,
                            arrays.threshold_bin, arrays.default_left,
                            arrays.left_child, arrays.right_child,
-                           m.na_bin_dev, lv_ok, 1.0, steps=m.walk_steps)
+                           m.na_bin_dev, lv_ok, 1.0, steps=m.walk_steps,
+                           is_cat_node=arrays.is_cat_node,
+                           cat_rank=arrays.cat_rank)
         if self.E:
             ev = self.teval([vs for _, _, vs in m.valid_sets],
                             [m.valid_ops(vi)
@@ -299,7 +305,7 @@ class IterationProgram:
         r = rows[j]
         W, L, E = self.W, self.L, self.E
         f32 = torch.float32 if isinstance(r, torch.Tensor) else np.float32
-        out = tree_fields(r[:W], L)
+        out = tree_fields(r[:W], L, self.cat_bins)
         out["lv"] = r[W:W + L].view(f32)
         out["ev"] = r[W + L:W + L + E].view(f32)
         out["stop"] = r[W + L + E]

@@ -107,8 +107,6 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
          "A9 (B9)"),
         (ds.binned is None or ds.binned.dtype != np.uint8,
          "more than 256 bins per feature", "A9"),
-        (any(ds.bin_mappers[f].bin_type == BinType.CATEGORICAL
-             for f in ds.used_features), "categorical features", "A9"),
     ]
     return [(what, item) for hit, what, item in checks if hit]
 
@@ -182,18 +180,21 @@ class PhaseTimer:
         return out
 
 
+_NODE_TABLES = ("split_feature", "threshold_bin", "default_left",
+                "left_child", "right_child", "is_cat_node", "cat_rank")
+
+
 class _DeviceTree:
     """A tree's node tables and shrunk leaf values on the device (views
-    of a fetched block's device copy), for B4."""
+    of a fetched block's device copy), for B4; ``is_cat_node`` and
+    ``cat_rank`` are None without a categorical feature."""
 
-    __slots__ = ("split_feature", "threshold_bin", "default_left",
-                 "left_child", "right_child", "leaf_value", "steps")
+    __slots__ = _NODE_TABLES + ("leaf_value", "steps")
 
     def __init__(self, fields: Dict[str, torch.Tensor],
                  leaf_value: torch.Tensor, steps: int):
-        for name in ("split_feature", "threshold_bin", "default_left",
-                     "left_child", "right_child"):
-            setattr(self, name, fields[name])
+        for name in _NODE_TABLES:
+            setattr(self, name, fields.get(name))
         self.leaf_value = leaf_value
         self.steps = steps
 
@@ -203,7 +204,8 @@ def _apply_tree(score: torch.Tensor, binned: torch.Tensor, dt: _DeviceTree,
     """score += weight * tree(binned), in place (kernel B4)."""
     return add_tree_score(score, binned, dt.split_feature, dt.threshold_bin,
                           dt.default_left, dt.left_child, dt.right_child,
-                          na_bin, dt.leaf_value, weight, steps=dt.steps)
+                          na_bin, dt.leaf_value, weight, steps=dt.steps,
+                          is_cat_node=dt.is_cat_node, cat_rank=dt.cat_rank)
 
 
 class GBDTModel:
@@ -232,6 +234,11 @@ class GBDTModel:
             min_gain_to_split=config.min_gain_to_split,
             max_delta_step=config.max_delta_step,
             path_smooth=config.path_smooth,
+            cat_l2=config.cat_l2,
+            cat_smooth=config.cat_smooth,
+            max_cat_threshold=config.max_cat_threshold,
+            max_cat_to_onehot=config.max_cat_to_onehot,
+            min_data_per_group=config.min_data_per_group,
         )
         num_bin = np.asarray([ds.bin_mappers[f].num_bin
                               for f in ds.used_features], np.int32)
@@ -241,6 +248,13 @@ class GBDTModel:
         dev = self.device
         self.num_bin_dev = torch.as_tensor(num_bin).to(dev)
         self.na_bin_dev = torch.as_tensor(na_bin).to(dev)
+        # the categorical features (B2-cat and the rank rows), None
+        # without one
+        is_cat = np.asarray([ds.bin_mappers[f].bin_type
+                             == BinType.CATEGORICAL
+                             for f in ds.used_features], bool)
+        self.is_cat_dev = torch.as_tensor(is_cat).to(dev) \
+            if is_cat.any() else None
         self.feature_mask = torch.ones(self.num_features, dtype=torch.bool,
                                        device=dev)
         self.binned_dev = torch.as_tensor(
@@ -248,7 +262,8 @@ class GBDTModel:
         self.split_batch = resolve_split_batch(config)
         self.grow_ws = GrowWorkspace(self.num_data, self.num_features,
                                      self.max_bin, config.num_leaves, dev,
-                                     split_batch=self.split_batch)
+                                     split_batch=self.split_batch,
+                                     categorical=self.is_cat_dev is not None)
         # the valid walk's level count: the configuration's worst case, on
         # every path (a row stops at its leaf, so the result is the same)
         self.walk_steps = traversal_steps(config.max_depth,
@@ -283,7 +298,6 @@ class GBDTModel:
                                np.float32).reshape(-1)
         self.score = torch.as_tensor(init).to(dev)
         self._init_applied = ds.metadata.init_score is not None
-        self._init_scores = [0.0]
 
         # validation sets: (dataset, device binned, device score)
         self.valid_sets: List[Tuple[Dataset, torch.Tensor,
@@ -390,12 +404,9 @@ class GBDTModel:
         if valid.metadata.init_score is not None:
             init += np.asarray(valid.metadata.init_score,
                                np.float32).reshape(-1)
+        # the trees' replay, without the BoostFromAverage bias, as the JAX
+        # package's add_valid_set (its models/gbdt.py:1235-1290)
         score = torch.as_tensor(init).to(self.device)
-        if self.iter_ > 0 and self._init_scores[0] != 0.0:
-            # the BoostFromAverage bias was added to every scorer at the
-            # first iteration; device trees carry unbiased values
-            score += torch.tensor(self._init_scores[0], dtype=torch.float32,
-                                  device=self.device)
         for ti, dt in enumerate(self.device_trees):
             _apply_tree(score, binned, dt, self.na_bin_dev,
                         self.tree_weights[ti])
@@ -461,7 +472,6 @@ class GBDTModel:
                 and cfg.boost_from_average and not self._init_applied):
             return 0.0
         init = self.objective.boost_from_score(0)
-        self._init_scores = [init]
         if init != 0.0:
             bias = torch.tensor(init, dtype=torch.float32,
                                 device=self.device)
@@ -600,7 +610,8 @@ class GBDTModel:
         stopped, stop_row = False, None
         for j in range(k):
             fields = prog.row_fields(host, j)
-            tj = host_tree(host[j][:prog.W], L, self.max_bin)
+            tj = host_tree(host[j][:prog.W], L, self.max_bin,
+                           cat_bins=self.grow_ws.cat_bins)
             nl = tj.num_leaves
             self.step_counts.append(tj.n_steps)
             if fusable:

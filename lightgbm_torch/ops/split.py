@@ -20,9 +20,21 @@ F]: ``feature_fraction_bynode``'s per-child subsets), and an optional
 feature) valid, in both NA directions, as the JAX package's
 ``_numerical_candidates`` does.
 
-On a CUDA tensor ``find_best_split`` launches the kernel of
+With ``is_cat`` [F] (the categorical features) the numerical scan runs on
+``feature_mask & ~is_cat`` and the categorical scan (kernel B2-cat, the
+JAX package's ``_categorical_candidates`` and the categorical half of
+``find_best_split``) on ``feature_mask & is_cat``: one-vs-rest when a
+feature has at most ``max_cat_to_onehot`` used categories, else prefixes
+of the used bins sorted by g / (h + cat_smooth), ascending and
+descending, with ``lambda_l2 + cat_l2``.  The numerical winner is taken on
+``>=``.  Every split is then "go left iff rank[bin] <= threshold" over a
+rank row [B] int32: the identity for a numerical winner, the bins' places
+in the winning order for a subset, 0 for the chosen bin and B elsewhere
+(threshold 0) for one-vs-rest.  ``rand_bin`` does not touch the
+categorical scan, as in the JAX package.
+
+On a CUDA tensor ``find_best_split`` launches the kernels of
 ``csrc/split.cu``; on a CPU tensor it runs ``find_best_split_plain``.
-Categorical splits are ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -45,8 +57,7 @@ RECORD = 12
 
 
 class SplitParams(NamedTuple):
-    """Split hyperparameters (the numerical subset of the JAX package's
-    ``SplitParams``)."""
+    """Split hyperparameters (the JAX package's ``SplitParams``)."""
     lambda_l1: float = 0.0
     lambda_l2: float = 0.0
     min_data_in_leaf: int = 20
@@ -54,6 +65,18 @@ class SplitParams(NamedTuple):
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
     path_smooth: float = 0.0
+    # categorical (feature_histogram.hpp:278
+    # FindBestThresholdCategoricalInner)
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
+
+    def categorical(self) -> "SplitParams":
+        """The parameters of a categorical split's gains and outputs:
+        ``lambda_l2 + cat_l2``."""
+        return self._replace(lambda_l2=self.lambda_l2 + self.cat_l2)
 
 
 class SplitResult(NamedTuple):
@@ -112,7 +135,7 @@ def leaf_gain(sum_g, sum_h, p: SplitParams, parent_output=None, count=None):
 
 
 def _check(hist, total, parent_output, num_bin, na_bin, feature_mask,
-           active=None, rand_bin=None):
+           active=None, rand_bin=None, is_cat=None):
     if hist.dim() != 4 or hist.shape[-1] != 3 \
             or hist.dtype != torch.float32:
         raise TypeError("hist must be a [K, F, B, 3] float32 tensor")
@@ -132,6 +155,10 @@ def _check(hist, total, parent_output, num_bin, na_bin, feature_mask,
         if rand_bin.shape != (k, f) or rand_bin.dtype != torch.int32:
             raise TypeError("rand_bin must be a [K, F] int32 tensor")
         others.append(rand_bin)
+    if is_cat is not None:
+        if is_cat.shape != (f,) or is_cat.dtype != torch.bool:
+            raise TypeError("is_cat must be a [F] bool tensor")
+        others.append(is_cat)
     if active is not None:
         if active.shape != (1,) or active.dtype != torch.int32:
             raise TypeError("active must be a [1] int32 tensor")
@@ -145,30 +172,38 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
                     na_bin: torch.Tensor, feature_mask: torch.Tensor,
                     params: SplitParams,
                     active: torch.Tensor | None = None,
-                    rand_bin: torch.Tensor | None = None) -> torch.Tensor:
-    """Best numerical split of each of K leaves.
+                    rand_bin: torch.Tensor | None = None,
+                    is_cat: torch.Tensor | None = None):
+    """Best split of each of K leaves.
 
     hist [K, F, B, 3] f32, total [K, 3] (the leaves' g/h/count sums),
     parent_output [K] (path-smoothing anchor), num_bin / na_bin [F] int32
     (na_bin -1 = no NA bin), feature_mask [F] or [K, F] bool, rand_bin
     None or [K, F] int32 (the one valid threshold bin of each leaf and
-    feature).  Returns [K, 12] split records.  ``active`` (a [1] int32
+    numerical feature), is_cat None or [F] bool (the categorical
+    features).  Returns [K, 12] split records; with ``is_cat``, the tuple
+    (records, cat [K] int32 = 1 where the winner is categorical, rank
+    [K, B] int32 = the winner's rank row).  ``active`` (a [1] int32
     device tensor, the grower's step flag): where it is 0 nothing is
-    computed and the records are unspecified."""
+    computed and the outputs are unspecified."""
     _check(hist, total, parent_output, num_bin, na_bin, feature_mask, active,
-           rand_bin)
+           rand_bin, is_cat)
+    k, f, b, _ = hist.shape
     if hist.device.type == "cpu":
         if active is not None and not bool(active[0]):
-            return torch.zeros((hist.shape[0], RECORD), dtype=torch.float32)
+            rec = torch.zeros((k, RECORD), dtype=torch.float32)
+            return rec if is_cat is None else (
+                rec, torch.zeros(k, dtype=torch.int32),
+                torch.zeros((k, b), dtype=torch.int32))
         return find_best_split_plain(hist, total, parent_output, num_bin,
-                                     na_bin, feature_mask, params, rand_bin)
+                                     na_bin, feature_mask, params, rand_bin,
+                                     is_cat)
     if hist.device.type != "cuda":
         raise ValueError(f"unsupported device {hist.device}")
     tensors = (hist, total, parent_output, num_bin, na_bin, feature_mask) \
-        + (() if rand_bin is None else (rand_bin,))
+        + tuple(t for t in (rand_bin, is_cat) if t is not None)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("find_best_split needs contiguous tensors")
-    k, f, b, _ = hist.shape
     if b > 1024:
         raise ValueError("the split kernel takes at most 1024 bins")
     dev = hist.device
@@ -176,27 +211,78 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
     cum = torch.empty((k, f, b, 3), dtype=torch.float32, device=dev)
     out = torch.empty((k, RECORD), dtype=torch.float32, device=dev)
     p = params
+    mask_stride = f if feature_mask.dim() == 2 else 0
+    act = None if active is None else active.data_ptr()
     err = _kernels.lib("split").lgbt_split(
         hist.data_ptr(), total.data_ptr(), parent_output.data_ptr(),
         num_bin.data_ptr(), na_bin.data_ptr(), feature_mask.data_ptr(),
-        f if feature_mask.dim() == 2 else 0,
-        None if rand_bin is None else rand_bin.data_ptr(),
+        mask_stride, None if rand_bin is None else rand_bin.data_ptr(),
+        None if is_cat is None else is_cat.data_ptr(),
         k, f, b, p.lambda_l1, p.lambda_l2,
         float(p.min_data_in_leaf) - 0.5, p.min_sum_hessian_in_leaf,
-        p.min_gain_to_split, p.max_delta_step, p.path_smooth,
-        None if active is None else active.data_ptr(), gains.data_ptr(),
-        cum.data_ptr(), out.data_ptr(), _kernels.stream_ptr(dev))
+        p.min_gain_to_split, p.max_delta_step, p.path_smooth, act,
+        gains.data_ptr(), cum.data_ptr(), out.data_ptr(),
+        _kernels.stream_ptr(dev))
     _kernels.launched("split", err)
-    return out
+    if is_cat is None:
+        return out
+    return _split_cat(hist, total, parent_output, feature_mask, mask_stride,
+                      is_cat, p, act, out)
+
+
+def _split_cat(hist, total, parent_output, feature_mask, mask_stride,
+               is_cat, p: SplitParams, act, out):
+    """Kernel B2-cat: the categorical scan of every (leaf, categorical
+    feature) and its merge into the numerical records ``out`` (in place).
+    Returns (out, cat, rank)."""
+    k, f, b, _ = hist.shape
+    if b > 256:
+        raise ValueError("the categorical split kernel takes at most 256 "
+                         "bins")
+    dev = hist.device
+    cat = torch.empty(k, dtype=torch.int32, device=dev)
+    rank = torch.empty((k, b), dtype=torch.int32, device=dev)
+    fbest = torch.empty((k, f, 4), dtype=torch.float32, device=dev)
+    fidx = torch.empty((k, f), dtype=torch.int32, device=dev)
+    frank = torch.empty((k, f, b), dtype=torch.int32, device=dev)
+    pc = p.categorical()
+    err = _kernels.lib("split").lgbt_split_cat(
+        hist.data_ptr(), total.data_ptr(), parent_output.data_ptr(),
+        is_cat.data_ptr(), feature_mask.data_ptr(), mask_stride, k, f, b,
+        pc.lambda_l1, pc.lambda_l2, float(p.min_data_in_leaf) - 0.5,
+        p.min_sum_hessian_in_leaf, p.min_gain_to_split, p.max_delta_step,
+        p.path_smooth, p.cat_smooth, _used_min(p), int(p.max_cat_threshold),
+        int(p.max_cat_to_onehot), act, fbest.data_ptr(), fidx.data_ptr(),
+        frank.data_ptr(), out.data_ptr(), cat.data_ptr(), rank.data_ptr(),
+        _kernels.stream_ptr(dev))
+    _kernels.launched("split_cat", err)
+    return out, cat, rank
+
+
+def _used_min(p: SplitParams) -> float:
+    """A category's bin is used when its count reaches this."""
+    return max(0.5, float(p.min_data_per_group) - 0.5)
 
 
 def find_best_split_plain(hist: torch.Tensor, total: torch.Tensor,
                           parent_output: torch.Tensor, num_bin: torch.Tensor,
                           na_bin: torch.Tensor, feature_mask: torch.Tensor,
                           params: SplitParams,
-                          rand_bin: torch.Tensor | None = None
-                          ) -> torch.Tensor:
-    """Plain PyTorch version of B2 (cumsum-based), same records."""
+                          rand_bin: torch.Tensor | None = None,
+                          is_cat: torch.Tensor | None = None):
+    """Plain PyTorch version of B2 and B2-cat (cumsum-based), same
+    outputs."""
+    num_mask = feature_mask if is_cat is None else feature_mask & ~is_cat
+    rec = _numerical_plain(hist, total, parent_output, num_bin, na_bin,
+                           num_mask, params, rand_bin)
+    if is_cat is None:
+        return rec
+    return _categorical_plain(hist, total, parent_output,
+                              feature_mask & is_cat, params, rec)
+
+
+def _numerical_plain(hist, total, parent_output, num_bin, na_bin,
+                     feature_mask, params, rand_bin):
     k, f, b, _ = hist.shape
     dev = hist.device
     cum = torch.cumsum(hist, dim=2)                         # [K, F, B, 3]
@@ -235,12 +321,19 @@ def find_best_split_plain(hist: torch.Tensor, total: torch.Tensor,
     bf, bb = rem // b, rem % b
     ks = torch.arange(k, device=dev)
     left = lefts[ks, d, bf, bb]                             # [K, 3]
+    return _record(gains.reshape(k, -1)[ks, best], bf, bb, d == 1, left,
+                   total, parent_output, params)
+
+
+def _record(gain, feature, threshold, default_left, left, total,
+            parent_output, params) -> torch.Tensor:
+    k = gain.shape[0]
     right = total - left
-    out = torch.empty((k, RECORD), dtype=torch.float32, device=dev)
-    out[:, GAIN] = gains.reshape(k, -1)[ks, best]
-    out[:, FEATURE] = bf.to(torch.float32)
-    out[:, THRESHOLD] = bb.to(torch.float32)
-    out[:, DEFAULT_LEFT] = (d == 1).to(torch.float32)
+    out = torch.empty((k, RECORD), dtype=torch.float32, device=gain.device)
+    out[:, GAIN] = gain
+    out[:, FEATURE] = feature.to(torch.float32)
+    out[:, THRESHOLD] = threshold.to(torch.float32)
+    out[:, DEFAULT_LEFT] = default_left.to(torch.float32)
     out[:, LEFT_SUM] = left
     out[:, RIGHT_SUM] = right
     out[:, LEFT_OUTPUT] = leaf_output(left[:, 0], left[:, 1], params,
@@ -248,3 +341,75 @@ def find_best_split_plain(hist: torch.Tensor, total: torch.Tensor,
     out[:, RIGHT_OUTPUT] = leaf_output(right[:, 0], right[:, 1], params,
                                        parent_output, right[:, 2])
     return out
+
+
+def _order_key(key: torch.Tensor) -> torch.Tensor:
+    """The sort key of a categorical scan order: NaN sorts with +inf (so
+    every order is a permutation), then the bin index breaks ties."""
+    return torch.where(torch.isnan(key), float("inf"), key)
+
+
+def _categorical_plain(hist, total, parent_output, cat_mask, params, nrec):
+    """The JAX package's ``_categorical_candidates`` over K leaves and the
+    merge into the numerical records ``nrec``: (records, cat, rank)."""
+    k, f, b, _ = hist.shape
+    dev = hist.device
+    pc = params.categorical()
+    g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
+    used = c >= _used_min(params)                           # [K, F, B]
+    n_used = used.sum(dim=2)                                # [K, F]
+    pos = torch.arange(b, device=dev)
+    ratio = g / (h + params.cat_smooth)
+    big = torch.full((), 1e30, device=dev)
+    orders = [pos.expand(k, f, b)] + [
+        torch.argsort(_order_key(torch.where(used, key, big)), dim=2,
+                      stable=True) for key in (ratio, -ratio)]
+    orders = torch.stack(orders, dim=1)                     # [K, 3, F, B]
+    hist3 = hist[:, None].expand(k, 3, f, b, 3)
+    sorted_hist = torch.gather(hist3, 3, orders[..., None].expand(
+        k, 3, f, b, 3))
+    # prefix sums accumulated in f64, each rounded to f32 (as the kernel)
+    lefts = torch.cumsum(sorted_hist.double(), dim=3).float()
+    lefts[:, 0] = sorted_hist[:, 0]        # one-vs-rest: the bin alone
+    rights = total[:, None, None, None, :] - lefts
+    po = parent_output[:, None, None, None]
+    gl, hl, cl = lefts[..., 0], lefts[..., 1], lefts[..., 2]
+    gr, hr, cr = rights[..., 0], rights[..., 1], rights[..., 2]
+    gain_shift = leaf_gain(total[:, 0], total[:, 1], pc, parent_output,
+                           total[:, 2])
+    split_gain = leaf_gain(gl, hl, pc, po, cl) + leaf_gain(gr, hr, pc, po, cr) \
+        - (gain_shift + params.min_gain_to_split)[:, None, None, None]
+
+    md = float(params.min_data_in_leaf) - 0.5
+    mh = params.min_sum_hessian_in_leaf
+    few = (n_used <= params.max_cat_to_onehot)[..., None]   # [K, F, 1]
+    used3 = torch.gather(used[:, None].expand(k, 3, f, b), 3, orders)
+    k_max = torch.clamp_max(n_used - 1, params.max_cat_threshold)[..., None]
+    prefix_ok = (pos < k_max) & ~few
+    valid = torch.stack([few & used3[:, 0], prefix_ok & used3[:, 1],
+                         prefix_ok & used3[:, 2]], dim=1)
+    cm = cat_mask if cat_mask.dim() == 2 else cat_mask[None]
+    valid = valid & cm[:, None, :, None]
+    valid = valid & (cl >= md) & (cr >= md) & (hl >= mh) & (hr >= mh)
+    valid = valid & (split_gain > kEpsilon)
+    gains = torch.where(valid, split_gain,
+                        torch.full((), kMinScore, device=dev))
+
+    flat = gains.reshape(k, -1)
+    best = torch.argmax(flat, dim=1)                        # first max
+    ks = torch.arange(k, device=dev)
+    cgain = flat[ks, best]
+    mode, rem = best // (f * b), best % (f * b)
+    bf, bp = rem // b, rem % b
+    order = orders[ks, mode, bf]                            # [K, B] pos->bin
+    rank = torch.empty_like(order).scatter_(
+        1, order, pos.expand(k, b).contiguous())            # bin -> pos
+    ovr = torch.where(pos[None] == order[ks, bp][:, None], 0, b)
+    rank = torch.where((mode == 0)[:, None], ovr, rank)
+    thr = torch.where(mode == 0, 0, bp)
+    crec = _record(cgain, bf, thr, torch.zeros_like(bf), lefts[ks, mode, bf, bp],
+                   total, parent_output, pc)
+    take_cat = ~(nrec[:, GAIN] >= cgain)
+    rec = torch.where(take_cat[:, None], crec, nrec)
+    rank = torch.where(take_cat[:, None], rank, pos[None])
+    return rec, take_cat.to(torch.int32), rank.to(torch.int32)

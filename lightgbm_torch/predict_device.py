@@ -2,8 +2,10 @@
 
 Counterpart of the JAX package's ``predict_device.py``
 ``traverse_tree_binned`` / ``add_tree_score``: every row walks one tree
-over its bins (NA bin -> ``default_left``, else ``bin <= threshold``) and
-``score += weight * leaf_value[leaf]``.  The trainer runs it once per
+over its bins (at a numerical node NA bin -> ``default_left``, else
+``bin <= threshold``; at a categorical node ``cat_rank[node, bin] <=
+threshold``, never the NA branch) and ``score += weight *
+leaf_value[leaf]``.  The trainer runs it once per
 iteration on each validation set (the ScoreUpdater::AddScore path); the
 training score takes the leaf of each row from the grower instead.  The
 node tables are the grower's device tree arrays (int32, ``default_left``
@@ -12,8 +14,9 @@ shrinkage left on the device: no tree is uploaded from the host.
 
 On CUDA tensors ``add_tree_score`` launches the kernel of
 ``csrc/predict.cu``; on CPU tensors it runs ``add_tree_score_plain``.  Both
-update ``score`` in place.  Numerical nodes only: categorical decisions in
-training are ROADMAP A9, EFB-bundled rows A9.
+update ``score`` in place.  ``is_cat_node`` and ``cat_rank`` are None for a
+tree without categorical nodes, whose launches stay as they were.
+EFB-bundled rows are ROADMAP A9.4.
 
 The whole-forest serving functions (kernel B10, ``csrc/forest.cu``; the
 JAX package's ``traverse_forest_binned``, ``bin_rows_device``,
@@ -52,7 +55,8 @@ from . import _kernels
 
 
 def _check(score, binned, split_feature, threshold_bin, default_left,
-           left_child, right_child, na_bin, leaf_value):
+           left_child, right_child, na_bin, leaf_value, is_cat_node,
+           cat_rank):
     if score.dim() != 1 or score.dtype != torch.float32:
         raise TypeError("score must be a [N] float32 tensor")
     if binned.dim() != 2 or binned.dtype != torch.uint8 \
@@ -73,9 +77,18 @@ def _check(score, binned, split_feature, threshold_bin, default_left,
         raise TypeError("na_bin must be a [F] int32 tensor")
     if leaf_value.dtype != torch.float32 or leaf_value.dim() != 1:
         raise TypeError("leaf_value must be a float32 vector")
+    cat = () if is_cat_node is None else (is_cat_node, cat_rank)
+    if is_cat_node is not None and (
+            is_cat_node.dtype not in (torch.bool, torch.int32)
+            or is_cat_node.shape != nodes or cat_rank is None
+            or cat_rank.dtype != torch.int32 or cat_rank.dim() != 2
+            or cat_rank.shape[0] != nodes[0]):
+        raise TypeError("is_cat_node must be a bool or int32 tensor of the "
+                        "split_feature shape and cat_rank an int32 [nodes, "
+                        "B] tensor")
     if any(t.device != score.device for t in
            (binned, split_feature, threshold_bin, default_left, left_child,
-            right_child, na_bin, leaf_value)):
+            right_child, na_bin, leaf_value) + cat):
         raise ValueError("add_tree_score inputs must be on one device")
 
 
@@ -84,22 +97,28 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
                    default_left: torch.Tensor, left_child: torch.Tensor,
                    right_child: torch.Tensor, na_bin: torch.Tensor,
                    leaf_value: torch.Tensor, weight: float, *,
-                   steps: int) -> torch.Tensor:
+                   steps: int, is_cat_node: torch.Tensor | None = None,
+                   cat_rank: torch.Tensor | None = None) -> torch.Tensor:
     """``score += weight * tree(binned)`` in place; returns ``score``.
 
     Node tables are [L-1] (child < 0 encodes leaf ``~child``); ``steps``
-    must be at least the tree's depth."""
+    must be at least the tree's depth.  ``is_cat_node`` [L-1] and
+    ``cat_rank`` [L-1, B] (None: every node numerical) give the
+    categorical nodes and their rank rows."""
     _check(score, binned, split_feature, threshold_bin, default_left,
-           left_child, right_child, na_bin, leaf_value)
+           left_child, right_child, na_bin, leaf_value, is_cat_node,
+           cat_rank)
     if score.device.type == "cpu":
         return add_tree_score_plain(score, binned, split_feature,
                                     threshold_bin, default_left, left_child,
                                     right_child, na_bin, leaf_value, weight,
-                                    steps=steps)
+                                    steps=steps, is_cat_node=is_cat_node,
+                                    cat_rank=cat_rank)
     if score.device.type != "cuda":
         raise ValueError(f"unsupported device {score.device}")
     tensors = (score, binned, split_feature, threshold_bin, default_left,
-               left_child, right_child, na_bin, leaf_value)
+               left_child, right_child, na_bin, leaf_value) + tuple(
+                   t for t in (is_cat_node, cat_rank) if t is not None)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("add_tree_score needs contiguous tensors")
     n, f = binned.shape
@@ -107,10 +126,15 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
         return score
     if default_left.dtype == torch.bool:
         default_left = default_left.to(torch.int32)
+    if is_cat_node is not None and is_cat_node.dtype == torch.bool:
+        is_cat_node = is_cat_node.to(torch.int32)
     err = _kernels.lib("predict").lgbt_add_tree_score(
         score.data_ptr(), binned.data_ptr(), n, f, split_feature.data_ptr(),
         threshold_bin.data_ptr(), default_left.data_ptr(),
         left_child.data_ptr(), right_child.data_ptr(), na_bin.data_ptr(),
+        None if is_cat_node is None else is_cat_node.data_ptr(),
+        None if cat_rank is None else cat_rank.data_ptr(),
+        0 if cat_rank is None else int(cat_rank.shape[1]),
         leaf_value.data_ptr(), float(weight), int(steps),
         _kernels.stream_ptr(score.device))
     _kernels.launched("predict", err)
@@ -118,8 +142,8 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
 
 
 def traverse_tree_plain(binned, split_feature, threshold_bin, default_left,
-                        left_child, right_child, na_bin, *,
-                        steps: int) -> torch.Tensor:
+                        left_child, right_child, na_bin, *, steps: int,
+                        is_cat_node=None, cat_rank=None) -> torch.Tensor:
     """Leaf index of every row (a gather loop, one level per step); a walk
     cut short by too few steps ends at leaf 0, as in the kernel."""
     n = binned.shape[0]
@@ -131,8 +155,13 @@ def traverse_tree_plain(binned, split_feature, threshold_bin, default_left,
         v = torch.gather(binned, 1, f[:, None])[:, 0].to(torch.int32)
         nb = na_bin[f]
         is_na = (nb >= 0) & (v == nb)
+        rank = v
+        if is_cat_node is not None:
+            icat = is_cat_node[nid] != 0
+            is_na = is_na & ~icat
+            rank = torch.where(icat, cat_rank[nid, v.to(torch.int64)], v)
         go_left = torch.where(is_na, default_left[nid] != 0,
-                              v <= threshold_bin[nid])
+                              rank <= threshold_bin[nid])
         nxt = torch.where(go_left, left_child[nid], right_child[nid])
         node = torch.where(internal, nxt, node)
     return torch.where(node < 0, ~node, torch.zeros_like(node))
@@ -140,13 +169,14 @@ def traverse_tree_plain(binned, split_feature, threshold_bin, default_left,
 
 def add_tree_score_plain(score, binned, split_feature, threshold_bin,
                          default_left, left_child, right_child, na_bin,
-                         leaf_value, weight: float, *,
-                         steps: int) -> torch.Tensor:
+                         leaf_value, weight: float, *, steps: int,
+                         is_cat_node=None, cat_rank=None) -> torch.Tensor:
     """Plain PyTorch version of B4: the gather walk, then a multiply and an
     add, in place."""
     leaf = traverse_tree_plain(binned, split_feature, threshold_bin,
                                default_left, left_child, right_child, na_bin,
-                               steps=steps)
+                               steps=steps, is_cat_node=is_cat_node,
+                               cat_rank=cat_rank)
     score.add_(leaf_value[leaf.to(torch.int64)] * float(weight))
     return score
 

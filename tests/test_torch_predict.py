@@ -81,10 +81,37 @@ def test_add_tree_score_matches_jax(seed, leaves, weight):
 
 
 def test_convert_refuses_categorical_nodes():
-    _, fields, _, _ = _reference_tree(34, 4)
-    fields["is_cat_node"] = np.ones_like(fields["is_cat_node"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        convert.tree_arrays_from_numpy(fields)
+    """Categorical nodes are no longer refused: a JAX-grown tree with
+    categorical splits (features 0 and 1 categorical, NA bins in the
+    numerical features 2 and 5) converts with its ``is_cat_node`` and
+    ``cat_rank`` and walks to the JAX package's leaves."""
+    binned, vals, num_bin, na_bin = binned_problem(34, n=3000, f=6, bins=31)
+    is_cat = np.array([True, True, False, False, False, False])
+    grow = make_grower(num_leaves=15, num_bins=31,
+                       params=SplitParams(min_data_in_leaf=20,
+                                          min_data_per_group=20))
+    tj = grow(jnp.asarray(binned), jnp.asarray(vals), jnp.ones(6, bool),
+              jnp.asarray(num_bin), jnp.asarray(na_bin),
+              is_cat=jnp.asarray(is_cat))
+    tree = convert.tree_arrays_from_numpy(
+        {k: np.asarray(v) for k, v in tj._asdict().items()})
+    nn = tree.num_leaves - 1
+    assert tree.is_cat_node[:nn].any()
+    np.testing.assert_array_equal(tree.cat_rank, np.asarray(tj.cat_rank))
+    vb, _, _, _ = binned_problem(134, n=2000, f=6, bins=31)
+    steps = 16
+    node = [torch.as_tensor(getattr(tree, k)) for k in (
+        "split_feature", "threshold_bin", "default_left", "left_child",
+        "right_child")]
+    lt = traverse_tree_plain(
+        torch.as_tensor(vb), *node, torch.as_tensor(na_bin), steps=steps,
+        is_cat_node=torch.as_tensor(tree.is_cat_node),
+        cat_rank=torch.as_tensor(tree.cat_rank))
+    lj = traverse_tree_binned(
+        jnp.asarray(vb), tj.split_feature, tj.threshold_bin, tj.default_left,
+        tj.left_child, tj.right_child, jnp.asarray(na_bin), tj.is_cat_node,
+        tj.cat_rank, steps=steps)
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
 
 
 def test_short_walk_ends_at_leaf_zero():

@@ -150,13 +150,23 @@ def test_unported_parameters_raise(params, item):
 
 
 def test_categorical_feature_raises():
+    """Categorical features no longer raise: training splits on the
+    categorical column, writes category bitsets and predicts as the JAX
+    package does on the same model text."""
     rs = np.random.RandomState(5)
     x = rs.randint(0, 5, size=(400, 3)).astype(np.float64)
-    y = (x[:, 0] > 2).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="categorical"):
-        lgt.train({"objective": "binary", "verbosity": -1,
-                   "device_type": "cpu"},
-                  lgt.Dataset(x, y, categorical_feature=[0]), 2)
+    y = np.isin(x[:, 0], (1, 3)).astype(np.float32)
+    bst = lgt.train({"objective": "binary", "verbosity": -1,
+                     "device_type": "cpu", "min_data_per_group": 5,
+                     "min_data_in_leaf": 5},
+                    lgt.Dataset(x, y, categorical_feature=[0]), 2)
+    text = bst.model_to_string()
+    assert "num_cat=1" in text and "cat_threshold=" in text
+    t = bst._model.models[0]
+    assert t.split_feature[0] == 0 and int(t.decision_type[0]) & 1
+    np.testing.assert_allclose(
+        bst.predict(x), np.asarray(lgb.Booster(model_str=text).predict(x)),
+        rtol=1e-6)
 
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "obs",

@@ -22,7 +22,8 @@ package's same path:
 - GOSS with bagging parameters trains as GOSS alone (GOSS turns bagging
   off, as in the JAX package), and L2 with all three on equals the JAX
   package's trees;
-- categorical features and multiclass still raise, naming ROADMAP A9."""
+- multiclass still raises, naming ROADMAP A9; categorical features train
+  under GOSS and extra_trees."""
 
 import numpy as np
 import pytest
@@ -213,16 +214,22 @@ def test_l2_all_three_equal_jax(path):
 
 @pytest.mark.parametrize("what", ["categorical", "multiclass"])
 def test_categorical_and_multiclass_still_raise(what):
+    """Multiclass still raises, naming A9; categorical features train
+    under GOSS and extra_trees (they no longer raise) and split on the
+    categorical column."""
     rs = np.random.RandomState(5)
     x = rs.randint(0, 5, size=(400, 3)).astype(np.float64)
     params = {"verbosity": -1, "device_type": "cpu", **MODES["goss"],
               "extra_trees": True}
     if what == "categorical":
-        params["objective"] = "binary"
-        ds = lgt.Dataset(x, (x[:, 0] > 2).astype(np.float32),
+        params.update(objective="binary", min_data_per_group=10,
+                      min_data_in_leaf=5)
+        ds = lgt.Dataset(x, np.isin(x[:, 0], (1, 3)).astype(np.float32),
                          categorical_feature=[0])
-    else:
-        params.update(objective="multiclass", num_class=3)
-        ds = lgt.Dataset(x, x[:, 0] % 3)
+        bst = lgt.train(params, ds, 2)
+        assert "cat_threshold=" in bst.model_to_string()
+        return
+    params.update(objective="multiclass", num_class=3)
+    ds = lgt.Dataset(x, x[:, 0] % 3)
     with pytest.raises(NotImplementedError, match="A9"):
         lgt.train(params, ds, 2)
