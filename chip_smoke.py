@@ -107,6 +107,24 @@ Phases, one JSON line each:
    profiled byte-identical rerun, engine predict) plus categorical nodes
    a tree (> 0 in every tree), the fetch bytes an epoch, the model text
    round trip and ``fused_predict`` held as fused_serve;
+   multiclass_data and multiclass_kernels (after cat_kernels): a
+   Covertype-shaped set (``make_covertype_like``: 581,012 rows, 10
+   integer numeric and 44 one-hot columns, 7 classes at Covertype's
+   counts, 80/20 train and valid, 255 bins, ``enable_bundle=false``),
+   then B4's column form bit for bit at K = 7 for every column (a
+   numerical and a categorical tree; stride 1 and column 0 against the
+   one-column call) and B12c within POINTWISE_RTOL (random scores,
+   saturated rows, zero weights; NaN for a label outside [0, K)), each
+   timed beside ``cross_entropy``; multiclass_train (softmax, 31 leaves,
+   50 rounds), multiclassova_train (20 rounds) and multiclass_wide (255
+   leaves, bagging and feature_fraction, 10 rounds) on the per-iteration
+   loop: launches held to K x MC_PER_TREE (MC_WIDE_PER_TREE) plus K
+   walks an iteration, one tree fetch and one eval fetch an iteration,
+   a ``fused_eval=true`` run (one B12c launch an iteration, the same
+   model text, traced values held to the host ones) and a byte-identical
+   rerun; multiclass_serve: the softmax model through
+   ``Booster.predict`` (engine route), ``fused_predict`` and a
+   ``Server`` on both routes, every [rows, 7] answer checked;
 10. serving_model: the serving model, SERVE_ROUNDS rounds of 31 leaves on
    the 1M x 28 train set without a valid set (fused chunks);
 11. serve_kernels: B10a (forest walk), B10b (device binning) and B10c
@@ -192,7 +210,7 @@ PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "grow_step_batched": 0, "bag_vals": 0, "goss_vals": 0,
                  "node_draws": 0, "predict": 1, "auc": 1, "pointwise": 1,
                  "forest_walk": 0, "bin_rows": 0, "fused_predict": 0,
-                 "split_cat": 0}
+                 "split_cat": 0, "multi_logloss": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -243,15 +261,52 @@ CAT_PER_ITERATION = {**WIDE_PER_ITERATION, "bag_vals": 0,
                      "split_cat": WIDE_LEAVES}
 CAT_STRICT_PARAMS = {**CAT_PARAMS, "num_leaves": NUM_LEAVES}
 CAT_STRICT_PER_ITERATION = {**PER_ITERATION, "split_cat": NUM_LEAVES}
+# the multiclass cells: a Covertype-shaped set (UCI Covertype, Blackard &
+# Dean 1999; scikit-learn's fetch_covtype): 581,012 rows, 10 integer
+# numeric columns, 4 wilderness and 40 soil one-hot columns, 7 classes at
+# Covertype's counts; 80/20 train and valid; enable_bundle=false (the
+# port refuses EFB bundles until ROADMAP A9.4), the cell's one reduction
+COVTYPE_ROWS, COVTYPE_AREAS, COVTYPE_SOILS = 581_012, 4, 40
+COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+MC_CLASSES, MC_MAX_BIN, MC_ROUNDS, MC_OVA_ROUNDS, MC_WIDE_ROUNDS = \
+    7, 255, 50, 20, 10
+# rounds of the traced multiclass run (the tracer's post-processing
+# grows with the launches it saw)
+MC_PROFILE_ROUNDS = 5
+MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
+             "num_leaves": NUM_LEAVES, "max_bin": MC_MAX_BIN,
+             "learning_rate": 0.1, "enable_bundle": False,
+             "metric": ["multi_logloss", "multi_error"], "verbosity": -1}
+MC_WIDE_PARAMS = {"num_leaves": WIDE_LEAVES, "bagging_fraction": 0.8,
+                  "bagging_freq": 5, "feature_fraction": 0.8}
+# launches of one tree: the strict grower's (PER_ITERATION's grower
+# part), and the batched grower's with bagging (WIDE_PER_ITERATION's:
+# the bagging draw runs once a class, on the iteration's one mask)
+MC_PER_TREE = {**{k: 0 for k in PER_ITERATION},
+               **{k: PER_ITERATION[k] for k in ("histogram", "split",
+                                                "partition", "grow_step")}}
+MC_WIDE_PER_TREE = {**{k: 0 for k in PER_ITERATION},
+                    **{k: WIDE_PER_ITERATION[k] for k in (
+                        "histogram", "split", "histogram_slots",
+                        "partition_slots", "grow_step_batched",
+                        "bag_vals")}}
+# the traced multi_logloss (f32, B12c) and the host metric (numpy f32
+# softmax and a pairwise mean) against the same formula in f64 over the
+# 116,203 valid rows: f32 sums of the same terms in other orders, and
+# expf against numpy's exp
+MC_TRACED_RTOL = 1e-4
+# the valid rows multiclass_serve predicts and serves (its host-walk
+# checks of a 350-tree model take seconds per 10,000 rows)
+MC_SERVE_ROWS = 40_000
 KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
                 "partition",
                 "grow_step", "histogram_slots", "partition_slots",
                 "grow_step_batched", "bag_vals", "goss_vals", "node_draws",
-                "predict", "auc", "pointwise", "forest_walk", "bin_rows",
-                "fused_predict")
+                "predict", "predict_column", "auc", "pointwise",
+                "multi_logloss", "forest_walk", "bin_rows", "fused_predict")
 # the launch counter of a kernels-line entry, where it is not its own key
-# (B2's per-child form is B2's wrapper and counter)
-KERNEL_COUNTER = {"split_per_child": "split"}
+# (B2's per-child form is B2's wrapper and counter, B4's column form B4's)
+KERNEL_COUNTER = {"split_per_child": "split", "predict_column": "predict"}
 # the path whose run gives a kernel's ``launches`` (the main path's where
 # not listed)
 KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
@@ -260,7 +315,9 @@ KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "partition_slots": "wide_train",
                "grow_step_batched": "wide_train", "bag_vals": "wide_train",
                "goss_vals": "goss_train", "node_draws": "goss_train",
-               "split_per_child": "extra_train", "split_cat": "cat_train"}
+               "split_per_child": "extra_train", "split_cat": "cat_train",
+               "predict_column": "multiclass_train",
+               "multi_logloss": "multiclass_train_fused_eval"}
 
 
 def times(counts, n: int):
@@ -283,7 +340,14 @@ def source_digest(root: Path = Path(__file__).resolve().parent) -> str:
     return h.hexdigest()
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line; a phase line also carries ``t``,
+    the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -919,9 +983,11 @@ def train_main(lgt, train, valid, extra=None, timed=False, rounds=ROUNDS):
     return bst, ev, time.perf_counter() - t0
 
 
-def without_path_params(text: str) -> str:
+def without_path_params(text: str, *more: str) -> str:
+    """``text`` without the path parameter lines (and lines starting with
+    any of ``more``)."""
     return "\n".join(ln for ln in text.splitlines()
-                     if not ln.startswith(PATH_PARAMS))
+                     if not ln.startswith(PATH_PARAMS + more))
 
 
 def fused_program(m):
@@ -2447,6 +2513,469 @@ def cat_after(torch, lgt, lgt_kernels, xv, prefix):
 
 
 # ---------------------------------------------------------------------------
+# multiclass (K trees an iteration on the per-iteration loop, B4's column
+# form, B12c)
+# ---------------------------------------------------------------------------
+
+def make_covertype_like(n: int, seed: int):
+    """A Covertype-shaped set (UCI Covertype, Blackard & Dean 1999;
+    scikit-learn's ``fetch_covtype``): ``n`` rows of 54 columns, 10
+    integer-valued numeric ones at the data set's ranges (elevation,
+    aspect, slope, horizontal and vertical distance to hydrology, distance
+    to roadways, hillshade at 9am, noon and 3pm, distance to fire points),
+    then 4 wilderness-area and 40 soil-type 0/1 columns, each group one-hot;
+    7 classes at Covertype's counts (scaled to ``n``), each with its own
+    elevation, area, soil and distance profile so that the classes can be
+    learned.  Returns (x f32 [n, 54], label f32 [n])."""
+    rng = np.random.RandomState(seed)
+    prof = np.random.RandomState(1000)       # the class profiles
+    share = np.asarray(COVTYPE_COUNTS, np.float64) / sum(COVTYPE_COUNTS)
+    counts = np.floor(share * n).astype(np.int64)
+    counts[1] += n - counts.sum()
+    y = rng.permutation(np.repeat(np.arange(MC_CLASSES), counts))
+    elev_mu = np.asarray([3129, 2920, 2394, 2224, 2787, 2420, 3362.0])
+    elev_sd = np.asarray([120, 140, 180, 80, 100, 160, 90.0])
+    area_p = np.asarray([[.50, .05, .40, .05], [.45, .04, .40, .11],
+                         [0, 0, .30, .70], [0, 0, 0, 1], [.60, 0, .40, 0],
+                         [0, 0, .35, .65], [.30, .10, .60, 0]])
+    # every soil type drawn in every class, a few types dominating each
+    soil_p = 0.9 * prof.dirichlet(np.full(COVTYPE_SOILS, 0.2), MC_CLASSES) \
+        + 0.1 / COVTYPE_SOILS
+    scale = 0.6 + 0.8 * prof.rand(MC_CLASSES, 6)   # per-class distances
+    x = np.zeros((n, 10 + COVTYPE_AREAS + COVTYPE_SOILS), np.float32)
+
+    def clip(v, lo, hi):
+        return np.clip(np.rint(v), lo, hi)
+    x[:, 0] = clip(elev_mu[y] + elev_sd[y] * rng.randn(n), 1859, 3858)
+    x[:, 1] = clip(360 * rng.rand(n) + 40 * (y - 3), 0, 360)
+    x[:, 2] = clip(rng.gamma(2.5, 5.5 * scale[y, 0]), 0, 66)
+    x[:, 3] = clip(rng.exponential(250 * scale[y, 1]), 0, 1397)
+    x[:, 4] = clip(45 * scale[y, 2] + 55 * rng.randn(n), -173, 601)
+    x[:, 5] = clip(rng.exponential(1500 * scale[y, 3]), 0, 7117)
+    x[:, 6] = clip(212 + 27 * rng.randn(n) - 5 * (y - 3), 0, 254)
+    x[:, 7] = clip(223 + 20 * rng.randn(n), 0, 254)
+    x[:, 8] = clip(143 + 38 * rng.randn(n) + 4 * (y - 3), 0, 254)
+    x[:, 9] = clip(rng.exponential(1500 * scale[y, 4]), 0, 7173)
+    u = rng.rand(n)
+    area = np.zeros(n, np.int64)
+    soil = np.zeros(n, np.int64)
+    for c in range(MC_CLASSES):
+        rows = y == c
+        area[rows] = np.minimum(np.searchsorted(np.cumsum(area_p[c]),
+                                                u[rows], side="right"),
+                                COVTYPE_AREAS - 1)
+        soil[rows] = np.minimum(np.searchsorted(
+            np.cumsum(soil_p[c]), rng.rand(int(rows.sum())), side="right"),
+            COVTYPE_SOILS - 1)
+    x[np.arange(n), 10 + area] = 1.0
+    x[np.arange(n), 10 + COVTYPE_AREAS + soil] = 1.0
+    return x, y.astype(np.float32)
+
+
+def phase_mc_data(lgt):
+    """The Covertype-shaped set, 80/20 train and valid from one seeded
+    draw, binned at 255 bins with ``enable_bundle=false``."""
+    t0 = time.perf_counter()
+    x, y = make_covertype_like(COVTYPE_ROWS, seed=30)
+    perm = np.random.RandomState(31).permutation(len(y))
+    cut = int(0.8 * len(y))
+    tr, va = perm[:cut], perm[cut:]
+    params = {"max_bin": MC_MAX_BIN, "enable_bundle": False,
+              "verbosity": -1}
+    train = lgt.Dataset(x[tr], y[tr], params=params).construct()
+    valid = lgt.Dataset(x[va], y[va], reference=train,
+                        params=params).construct()
+    f = 10 + COVTYPE_AREAS + COVTYPE_SOILS
+    if train.binned.shape != (cut, f) or train.binned.dtype != np.uint8 \
+            or train.efb is not None:
+        raise AssertionError(f"unexpected covertype set "
+                             f"{train.binned.shape}, efb {train.efb}")
+    onehot = x[:, 10:]
+    if not (onehot[:, :COVTYPE_AREAS].sum(1) == 1).all() \
+            or not (onehot[:, COVTYPE_AREAS:].sum(1) == 1).all():
+        raise AssertionError("wilderness or soil columns are not one-hot")
+    emit({"phase": "multiclass_data", "seconds": time.perf_counter() - t0,
+          "train": list(train.binned.shape),
+          "valid": list(valid.binned.shape), "max_bin": int(train.max_bin),
+          "class_counts": np.bincount(y.astype(np.int64)).tolist(),
+          "reduced": ["enable_bundle=false: the 4 wilderness and 40 soil "
+                      "columns stay 44 columns where EFB would bundle them "
+                      "(the port refuses bundles until ROADMAP A9.4)"]})
+    return x[va], train, valid
+
+
+def check_b4_columns(torch, score0, binned, tree, na_bin, lv, weight,
+                     steps, what, **cat):
+    """B4's column form bit for bit against its plain version, for every
+    column of ``score0`` [Nv, K]; returns the largest |kernel - plain|."""
+    from lightgbm_torch.predict_device import (add_tree_score,
+                                               add_tree_score_plain)
+    err = 0.0
+    for col in range(score0.shape[1]):
+        s_k, s_p = score0.clone(), score0.clone()
+        add_tree_score(s_k, binned, *tree, na_bin, lv, weight, steps=steps,
+                       column=col, **cat)
+        add_tree_score_plain(s_p, binned, *tree, na_bin, lv, weight,
+                             steps=steps, column=col, **cat)
+        err = max(err, exact_err(torch, [(s_k, s_p)],
+                                 f"B4 column {col} ({what})"))
+        others = [c for c in range(score0.shape[1]) if c != col]
+        if not torch.equal(s_k[:, others], score0[:, others]) \
+                or torch.equal(s_k[:, col], score0[:, col]):
+            raise AssertionError(f"B4 column {col} ({what}) wrote outside "
+                                 "its column or not at all")
+    return err
+
+
+def phase_mc_kernels(torch, lgt, valid, xv):
+    """B4's column form at K = 7 on the Covertype-shaped valid matrix (a
+    numerical and a categorical tree, every column, stride 1 and column 0
+    against the one-column call) and B12c against its plain version
+    (random scores, saturated rows, zero weights), each timed."""
+    from lightgbm_torch import metrics as tm
+    from lightgbm_torch.predict_device import (add_tree_score,
+                                               add_tree_score_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    vbinned = torch.as_tensor(np.ascontiguousarray(valid.binned)).to(dev)
+    nv, f = vbinned.shape
+    K = MC_CLASSES
+    nb = np.asarray([valid.bin_mappers[j].num_bin
+                     for j in valid.used_features], np.int32)
+    na = torch.full((f,), -1, dtype=torch.int32, device=dev)
+    na[::5] = torch.as_tensor(nb[::5] - 1).to(dev)   # NA branches taken
+    rng = np.random.RandomState(8)
+    nodes = 2 ** 6 - 1
+    sf = rng.randint(0, f, nodes).astype(np.int32)
+    th = np.asarray([rng.randint(0, max(int(nb[j]) - 1, 1)) for j in sf],
+                    np.int32)
+    idx = np.arange(nodes)
+    lc = np.where(2 * idx + 1 < nodes, 2 * idx + 1, 0).astype(np.int32)
+    rc = np.where(2 * idx + 2 < nodes, 2 * idx + 2, 0).astype(np.int32)
+    first = nodes // 2
+    for node in range(first, nodes):
+        lc[node] = ~(2 * (node - first))
+        rc[node] = ~(2 * (node - first) + 1)
+    tree = [torch.as_tensor(a).to(dev) for a in (sf, th)]
+    tree += [torch.as_tensor((rng.rand(nodes) < 0.5).astype(np.int32)
+                             ).to(dev), torch.as_tensor(lc).to(dev),
+             torch.as_tensor(rc).to(dev)]
+    lv = torch.as_tensor(rng.randn(nodes + 1).astype(np.float32)).to(dev)
+    # a categorical tree: every third node categorical, with a random
+    # rank table over the 256 bin values
+    cat = {"is_cat_node": torch.as_tensor(
+               (idx % 3 == 0).astype(np.int32)).to(dev),
+           "cat_rank": torch.as_tensor(np.stack(
+               [rng.permutation(256) for _ in range(nodes)]).astype(
+                   np.int32)).to(dev)}
+    score0 = torch.randn(nv, K, device=dev, generator=gen)
+    err = max(check_b4_columns(torch, score0, vbinned, tree, na, lv, 1.0, 8,
+                               "numerical"),
+              check_b4_columns(torch, score0, vbinned, tree, na, lv, -0.1,
+                               8, "categorical", **cat))
+    # stride 1 and column 0: the one-column call's launch and bits
+    one = score0[:, 0].contiguous()
+    a, b, c = one.clone(), one.clone(), one[:, None].clone()
+    add_tree_score(a, vbinned, *tree, na, lv, 0.1, steps=8)
+    add_tree_score_plain(b, vbinned, *tree, na, lv, 0.1, steps=8)
+    add_tree_score(c, vbinned, *tree, na, lv, 0.1, steps=8, column=0)
+    err = max(err, exact_err(torch, [(a, b), (c[:, 0], b)],
+                             "B4 stride 1 column 0"))
+    s = score0.clone()
+    t_k = median_ms(torch, lambda: add_tree_score(
+        s, vbinned, *tree, na, lv, 1.0, steps=8, column=K - 1))
+    t_p = median_ms(torch, lambda: add_tree_score_plain(
+        s, vbinned, *tree, na, lv, 1.0, steps=8, column=K - 1))
+    t_one = median_ms(torch, lambda: add_tree_score(
+        a, vbinned, *tree, na, lv, 1.0, steps=8))
+    b4_bound = bound_ms(nv * f + 8 * nv, 7 * nv)
+    rows = {"predict_column": {
+        "name": "B4 tree score update, class column form (K = 7)",
+        "route": "cuda", "source": "lightgbm_torch/csrc/predict.cu",
+        "replaces": "lightgbm_tpu/predict_device.py:72", "max_abs_err": err,
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b4_bound[0],
+        "bound_by": b4_bound[1], "library_ms": None}}
+    emit({"phase": "kernel", **rows["predict_column"], "kernel_ms": t_k,
+          "one_column_ms": t_one, "rows": nv, "features": f, "classes": K})
+
+    # B12c on the valid labels
+    yv = torch.as_tensor(np.asarray(valid.metadata.label,
+                                    np.float32)).to(dev)
+    ones = torch.ones(nv, device=dev)
+    zw = ones.clone()
+    zw[::7] = 0.0
+    sv = 2.0 * torch.randn(nv, K, device=dev, generator=gen)
+    sat = sv.clone()
+    sat[::3] = 0.0
+    sat[::3, 0] = 80.0          # the label's probability under the clip
+    cases = {"random": (sv, ones), "saturated": (sat, ones),
+             "zero_weights": (sv, zw)}
+    err12 = 0.0
+    values = {}
+    for case, (sc, w) in cases.items():
+        got = float(tm.traced_multi_logloss(sc, yv, w))
+        want = float(tm.traced_multi_logloss_plain(sc, yv, w))
+        if not abs(got - want) <= POINTWISE_RTOL * abs(want):
+            raise AssertionError(f"B12c ({case}): {got} vs plain {want}")
+        err12 = max(err12, abs(got - want))
+        values[case] = {"kernel": got, "plain": want}
+    bad = yv.clone()
+    bad[5] = K
+    if not bool(torch.isnan(tm.traced_multi_logloss(sv, bad, ones))):
+        raise AssertionError("B12c took a label outside [0, K)")
+    import torch.nn.functional as F
+    ylong = yv.long()
+
+    def library():
+        ce = F.cross_entropy(sv, ylong, reduction="none")
+        return torch.sum(ce * ones) / torch.sum(ones)
+    lib_v = float(library())
+    t_k = median_ms(torch, lambda: tm.traced_multi_logloss(sv, yv, ones))
+    t_p = median_ms(torch, lambda: tm.traced_multi_logloss_plain(sv, yv,
+                                                                 ones))
+    t_l = median_ms(torch, library)
+    b12 = bound_ms(nv * K * 4 + 8 * nv + 4, (4 * K + 6) * nv)
+    rows["multi_logloss"] = {
+        "name": "B12c traced multi_logloss", "route": "cuda",
+        "source": "lightgbm_torch/csrc/metrics.cu",
+        "replaces": "lightgbm_tpu/metrics.py:445", "max_abs_err": err12,
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b12[0], "bound_by": b12[1],
+        "library_ms": t_l}
+    emit({"phase": "kernel", **rows["multi_logloss"], "kernel_ms": t_k,
+          "cases": values, "library_value_unclipped": lib_v,
+          "library_call": "cross_entropy(reduction='none') and a weighted "
+                          "mean (no clip)"})
+    return rows
+
+
+class _IterClock:
+    """A callback that records the host clock after every iteration."""
+
+    def __init__(self):
+        self.stamps = [time.perf_counter()]
+
+    def __call__(self, env):
+        self.stamps.append(time.perf_counter())
+
+    def steady_ms(self) -> float:
+        d = np.diff(self.stamps[1:])
+        return 1e3 * float(np.median(d)) if len(d) else float("nan")
+
+
+def train_mc(lgt, train, valid, rounds, extra=None, timed=False):
+    """Multiclass training on the Covertype-shaped set: 31 leaves, 255
+    bins, learning rate 0.1, multi_logloss and multi_error, early stopping
+    10 on the first metric."""
+    ev = {}
+    clock = _IterClock()
+    cbs = [lgt.early_stopping(ES_ROUNDS, first_metric_only=True,
+                              verbose=False),
+           lgt.record_evaluation(ev), clock]
+    if timed:
+        cbs.append(_attach_timer)
+    params = {**MC_PARAMS, **(extra or {})}
+    t0 = time.perf_counter()
+    clock.stamps[0] = t0
+    bst = lgt.train(params, train, rounds, valid_sets=[valid],
+                    callbacks=cbs)
+    return bst, ev, time.perf_counter() - t0, clock
+
+
+def phase_mc_train(torch, lgt, lgt_kernels, train, valid, name, extra,
+                   rounds, per_tree, fused_eval=True, rerun=True,
+                   profile_rounds=0):
+    """``objective=multiclass`` (or ``extra``'s) on the per-iteration
+    loop: launches held to K x ``per_tree`` plus K walks an iteration,
+    fetches to one tree fetch of K rows and one valid-score fetch an
+    iteration; then (``fused_eval``) the same run with the traced
+    multi_logloss alone: the same model text but for the path and metric
+    parameter lines, one B12c launch and one traced-eval fetch an
+    iteration, values held to the host ones as the comment below says;
+    (``rerun``) a second default run with byte-identical model text; and
+    (``profile_rounds``) a run of that many rounds traced by
+    ``torch.profiler`` (device ms an iteration, busy share).  Returns
+    (booster, launches by path)."""
+    K = MC_CLASSES
+    want_it = {k: K * v for k, v in per_tree.items()}
+    want_it["predict"] = K
+    lgt_kernels.reset_launch_counts()
+    bst, ev, secs, clock = train_mc(lgt, train, valid, rounds, extra,
+                                    timed=True)
+    torch.cuda.synchronize()
+    launches = lgt_kernels.launch_counts()
+    m = bst._model
+    n = m.num_iterations_trained
+    if bst.num_trees() != K * n or m.num_class != K:
+        raise AssertionError(f"{name}: {bst.num_trees()} trees for {n} "
+                             "iterations")
+    if launches != times(want_it, n):
+        raise AssertionError(f"{name}: launches {launches} for {n} "
+                             f"iterations, expected {want_it} each")
+    if m.fetch_counts != {"tree": n, "valid_score": n}:
+        raise AssertionError(f"{name}: host fetches {m.fetch_counts}")
+    if m._programs and any(p.graph is not None
+                           for p in m._programs.values()):
+        raise AssertionError(f"{name}: a graph was captured")
+    if not any("num_class" in r for r in bst.fused_reasons()):
+        raise AssertionError(f"{name}: fused_reasons {bst.fused_reasons()}")
+    best = bst.best_iteration if bst.best_iteration > 0 else n
+    ll = ev["valid_0"]["multi_logloss"]
+    err_key = [k for k in ev["valid_0"] if k.startswith("multi_error")][0]
+    if not (np.isfinite(ll).all() and ll[best - 1] < ll[0]
+            and ev["valid_0"][err_key][best - 1] < 0.5):
+        raise AssertionError(f"{name}: valid metrics {ev['valid_0']}")
+    if max(t.num_leaves for t in m.models) != MC_PARAMS["num_leaves"] \
+            and "num_leaves" not in (extra or {}):
+        raise AssertionError(f"{name}: no tree reaches the leaf budget")
+    text = bst.model_to_string()
+    phases = {k: v / n for k, v in m.phase_timer.totals_ms().items()}
+    out = {"phase": name, "params": {**MC_PARAMS, **(extra or {})},
+           "iterations": n, "trees": bst.num_trees(),
+           "best_iteration": best, "valid_multi_logloss": ll[best - 1],
+           "valid_multi_error": ev["valid_0"][err_key][best - 1],
+           "seconds": secs, "iterations_per_s": n / secs,
+           "steady_ms_per_iteration": clock.steady_ms(),
+           "steady_iterations_per_s": 1e3 / clock.steady_ms(),
+           "phase_ms_per_iteration": phases,
+           "host_fetches": m.fetch_counts, "launches": launches,
+           "split_steps_live_per_tree": statistics.mean(m.step_counts),
+           "leaves_per_tree": statistics.mean(t.num_leaves
+                                              for t in m.models)}
+    by_path = {name: launches}
+    if fused_eval:
+        lgt_kernels.reset_launch_counts()
+        # the traced path needs every metric traced: multi_logloss alone
+        # (multi_error has no traced form, as in the JAX package)
+        bf, evf, secs_f, clock_f = train_mc(
+            lgt, train, valid, rounds, {**(extra or {}),
+                                        "fused_eval": "true",
+                                        "metric": "multi_logloss"})
+        torch.cuda.synchronize()
+        lf = lgt_kernels.launch_counts()
+        nf = bf._model.num_iterations_trained
+        want_f = {**want_it, "multi_logloss": 1}
+        if lf != times(want_f, nf):
+            raise AssertionError(f"{name} fused_eval: launches {lf} for "
+                                 f"{nf} iterations, expected {want_f}")
+        fetches_f = dict(bf._model.fetch_counts)
+        if fetches_f != {"tree": nf, "traced_eval": nf}:
+            raise AssertionError(f"{name} fused_eval: fetches {fetches_f}")
+        if without_path_params(bf.model_to_string(), "[metric:") \
+                != without_path_params(text, "[metric:"):
+            raise AssertionError(f"{name}: the fused_eval run's model "
+                                 "text differs")
+        # the traced metric clips the label's probability at 1e-7, the
+        # host one at 1e-15 (as in the JAX package), so the two differ on
+        # rows past the clip: each iteration's traced value is at most the
+        # host one, and the last one equals, within MC_TRACED_RTOL, both
+        # clips applied on the host to the run's final valid scores
+        traced = np.asarray(evf["valid_0"]["multi_logloss"])
+        host = np.asarray(ll[:nf])
+        final = bf._model.valid_score(0).astype(np.float64)
+        p = np.exp(final - final.max(axis=1, keepdims=True))
+        p = (p / p.sum(axis=1, keepdims=True))[
+            np.arange(len(final)),
+            np.asarray(valid.metadata.label).astype(np.int64)]
+        clip7, clip15 = (float(np.mean(-np.log(np.maximum(p, c))))
+                         for c in (1e-7, 1e-15))
+        rel = max(abs(traced[-1] - clip7) / clip7,
+                  abs(host[-1] - clip15) / clip15)
+        if not (rel <= MC_TRACED_RTOL
+                and (traced <= host * (1 + MC_TRACED_RTOL)).all()):
+            raise AssertionError(
+                f"{name}: traced multi_logloss {traced} against host "
+                f"{host}; last {traced[-1]} vs {clip7} (clip 1e-7), host "
+                f"{host[-1]} vs {clip15} (clip 1e-15): {rel}")
+        out["fused_eval"] = {"iterations": nf, "seconds": secs_f,
+                             "iterations_per_s": nf / secs_f,
+                             "steady_ms_per_iteration": clock_f.steady_ms(),
+                             "traced_last_vs_host_recomputed_rel": rel,
+                             "host_minus_traced_max": float(
+                                 np.max(host - traced)),
+                             "rows_past_the_clip": int((p < 1e-7).sum()),
+                             "host_fetches": fetches_f,
+                             "launches": lf}
+        by_path[f"{name}_fused_eval"] = lf
+    if rerun:
+        b2, _, secs2, _ = train_mc(lgt, train, valid, rounds, extra)
+        if b2.model_to_string() != text:
+            raise AssertionError(f"a second {name} run gave other model "
+                                 "text")
+        out.update({"rerun_byte_identical": True, "rerun_seconds": secs2})
+    if profile_rounds:
+        # a short traced run: device time by kernel, and the device's busy
+        # share of the loop's wall time (the tracer's own host cost in it)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            b3, _, secs3, _ = train_mc(lgt, train, valid, profile_rounds,
+                                       extra)
+            torch.cuda.synchronize()
+        n3 = b3._model.num_iterations_trained
+
+        def dev_us(e):
+            return float(getattr(e, "self_device_time_total", 0) or 0)
+        # kernel events only: an aten op's device time is its kernels'
+        events = [e for e in prof.key_averages() if dev_us(e) > 0
+                  and not e.key.startswith(("aten::", "Memcpy HtoD"))]
+        dev_ms = sum(dev_us(e) for e in events) / 1e3
+        top = sorted(((e.key[:90], dev_us(e) / 1e3, e.count)
+                      for e in events), key=lambda r: -r[1])[:10]
+        out["profile"] = {
+            "iterations": n3, "device_ms_per_iteration": dev_ms / n3,
+            "busy_share": dev_ms / (1e3 * secs3),
+            "top_kernels": [{"name": n_, "device_ms": d, "count": c}
+                            for n_, d, c in top]}
+    emit(out)
+    return bst, by_path
+
+
+def phase_mc_serve(torch, lgt, lgt_kernels, bst, xv):
+    """The softmax model's serving: ``Booster.predict`` through the engine
+    (raw scores byte-identical to the host walk, probabilities equal, one
+    walk per bucket chunk), ``fused_predict`` against
+    ``_fused_reference`` (as fused_serve), and a Server host-binned and
+    fused (as serve_host and serve_fused), every answer [rows, 7]."""
+    from lightgbm_torch.serve import PredictorEngine
+    x = np.asarray(xv, np.float64)
+    bst._drop_predict_cache()
+    torch.cuda.synchronize()
+    lgt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    raw = bst.predict(x, raw_score=True)
+    prob = bst.predict(x)
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = lgt_kernels.launch_counts()
+    eng = bst._engine_cache
+    if not isinstance(eng, PredictorEngine):
+        raise AssertionError("multiclass predict did not take the engine "
+                             "route")
+    hold_launches("multiclass predict", launches, forest_launches(
+        lgt_kernels, forest_walk=2 * chunks(eng, len(x))))
+    if raw.shape != (len(x), MC_CLASSES) \
+            or not np.array_equal(raw, host_walk(bst, x, raw_score=True)) \
+            or not np.array_equal(prob, host_walk(bst, x)) \
+            or not np.allclose(prob.sum(axis=1), 1.0, rtol=1e-5):
+        raise AssertionError("multiclass predict: the engine route differs "
+                             "from the host walk")
+    emit({"phase": "multiclass_predict", "rows": len(x),
+          "trees": bst.num_trees(), "rows_per_s": 2 * len(x) / secs,
+          "byte_identical_to_host_walk": True, "launches": launches})
+    return {"multiclass_predict": launches,
+            "multiclass_fused_serve": phase_fused_serve(
+                torch, lgt, lgt_kernels, bst, x,
+                name="multiclass_fused_serve"),
+            "multiclass_serve_host": phase_serve(
+                torch, lgt, lgt_kernels, bst, x, device_binning=False,
+                name="multiclass_serve_host"),
+            "multiclass_serve_fused": phase_serve(
+                torch, lgt, lgt_kernels, bst, x, device_binning=True,
+                name="multiclass_serve_fused")}
+
+
+# ---------------------------------------------------------------------------
 # serving (B10)
 # ---------------------------------------------------------------------------
 
@@ -2893,7 +3422,7 @@ def fused_plain_scores(torch, eng, rows):
     xd = torch.from_numpy(rows.astype(np.float32)).to(eng.device)
     return eng._transform(pdv.fused_forest_plain(
         xd, *bins, *fused, eng._avg_denom, steps=eng._steps,
-        num_class=1)).cpu().numpy()
+        num_class=eng.num_class)).cpu().numpy()
 
 
 def drive_server(srv, reqs):
@@ -2945,7 +3474,8 @@ def http_roundtrip(lgt, srv, rows):
     return resp, health
 
 
-def phase_serve(torch, lgt, lgt_kernels, bst, xv, device_binning: bool):
+def phase_serve(torch, lgt, lgt_kernels, bst, xv, device_binning: bool,
+                name: str = ""):
     """A Server over ``bst``: SERVE_THREADS client threads send
     SERVE_REQUESTS requests of 1-64 rows; every answer is checked.
     Returns the launches of the server's load (its self-check) and of the
@@ -3019,7 +3549,8 @@ def phase_serve(torch, lgt, lgt_kernels, bst, xv, device_binning: bool):
                              f"{fused_b} of {batches} + 1, breaker "
                              f"{breaker}")
     lat_ms = 1e3 * lat
-    emit({"phase": "serve_fused" if device_binning else "serve_host",
+    emit({"phase": name or ("serve_fused" if device_binning
+                            else "serve_host"),
           "requests": SERVE_REQUESTS, "rows": int(len(allrows)),
           "client_threads": SERVE_THREADS, "max_batch": SERVE_MAX_BATCH,
           "load_s": load_s, "seconds": wall,
@@ -3052,6 +3583,8 @@ def main() -> int:
     kernels.update(phase_sample_kernels(torch, lgt, train))
     cat_xv, cat_train, cat_valid = phase_cat_data(lgt)
     kernels.update(phase_cat_kernels(torch, lgt, cat_train, cat_valid))
+    mc_xv, mc_train, mc_valid = phase_mc_data(lgt)
+    kernels.update(phase_mc_kernels(torch, lgt, mc_valid, mc_xv))
     bst, ev, counts, epoch_ms_per_it = phase_main_path(
         torch, lgt, lgt_kernels, train, valid)
     eager_ms_per_it, per_it_counts = phase_per_iteration(
@@ -3091,11 +3624,24 @@ def main() -> int:
             torch, lgt, lgt_kernels, cat_train, cat_valid, cat_xv, prefix,
             params, per_it,
             after=cat_after(torch, lgt, lgt_kernels, cat_xv, prefix))[0])
+    mc_bst, mc_counts = phase_mc_train(
+        torch, lgt, lgt_kernels, mc_train, mc_valid, "multiclass_train",
+        None, MC_ROUNDS, MC_PER_TREE, profile_rounds=MC_PROFILE_ROUNDS)
+    for name, extra, rounds, per_tree, full in (
+            ("multiclassova_train", {"objective": "multiclassova"},
+             MC_OVA_ROUNDS, MC_PER_TREE, True),
+            ("multiclass_wide", MC_WIDE_PARAMS, MC_WIDE_ROUNDS,
+             MC_WIDE_PER_TREE, False)):
+        mc_counts.update(phase_mc_train(
+            torch, lgt, lgt_kernels, mc_train, mc_valid, name, extra,
+            rounds, per_tree, fused_eval=full, rerun=full)[1])
+    mc_counts.update(phase_mc_serve(torch, lgt, lgt_kernels, mc_bst,
+                                    mc_xv[:MC_SERVE_ROWS]))
     serve_bst = phase_serving_model(torch, lgt, lgt_kernels, train)
     kernels.update(phase_serve_kernels(torch, lgt, serve_bst, xv))
     by_path = {"main_path": counts, "per_iteration": per_it_counts,
                "fused_chunk": chunk_counts, **wide_counts,
-               **sampled_counts,
+               **sampled_counts, **mc_counts,
                "predict": phase_predict(torch, lgt, lgt_kernels, bst,
                                         serve_bst, xv),
                "fused_serve": phase_fused_serve(torch, lgt, lgt_kernels,
@@ -3112,7 +3658,8 @@ def main() -> int:
                        "launches_by_path": {p: c.get(counter[k], 0)
                                             for p, c in by_path.items()}}
                       for k in KERNEL_ORDER]})
-    for k in ("goss_vals", "node_draws", "split_per_child", "split_cat"):
+    for k in ("goss_vals", "node_draws", "split_per_child", "split_cat",
+              "predict_column", "multi_logloss"):
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

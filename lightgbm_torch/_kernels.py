@@ -47,7 +47,7 @@ SOURCES: Dict[str, str] = {
     "grow_step": "grow_step.cu",    # B3s, B3s-K
     "sample": "sample.cu",          # B6 (bagging, GOSS, node draws)
     "predict": "predict.cu",        # B4
-    "metrics": "metrics.cu",        # B12a, B12b
+    "metrics": "metrics.cu",        # B12a, B12b, B12c
     "forest": "forest.cu",          # B10a, B10b, B10c
 }
 
@@ -59,7 +59,8 @@ KERNELS: Dict[str, str] = {
     "partition_slots": "partition", "grow_step_batched": "grow_step",
     "bag_vals": "sample", "goss_vals": "sample", "node_draws": "sample",
     "predict": "predict", "auc": "metrics",
-    "pointwise": "metrics", "forest_walk": "forest", "bin_rows": "forest",
+    "pointwise": "metrics", "multi_logloss": "metrics",
+    "forest_walk": "forest", "bin_rows": "forest",
     "fused_predict": "forest",
 }
 
@@ -114,13 +115,14 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_sample_setup": (),
     },
     "predict": {
-        "lgbt_add_tree_score": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _I, _P, _F, _I, _P),
+        "lgbt_add_tree_score": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _I, _P, _F, _I, _P),
         "lgbt_predict_setup": (),
     },
     "metrics": {
         "lgbt_auc": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
         "lgbt_pointwise": (_P, _P, _P, _I, _I, _F, _P, _P, _P),
+        "lgbt_multi_logloss": (_P, _P, _P, _I, _I, _P, _P, _P),
         "lgbt_metrics_setup": (),
     },
     "forest": {

@@ -187,15 +187,22 @@ class Booster:
             grad, hess = fobj(preds, self.train_set)
             grad, hess = np.asarray(grad), np.asarray(hess)
             n = self.train_set.num_data
+            k = self._num_tree_per_iteration
             if grad.size != hess.size:
                 raise ValueError(
                     f"Lengths of gradient ({grad.size}) and Hessian "
                     f"({hess.size}) don't match")
-            if grad.size != n:
+            if grad.size != n * k:
                 raise ValueError(
                     f"Lengths of gradient ({grad.size}) and Hessian "
                     f"({hess.size}) don't match training data length "
-                    f"({n}) * number of models per one iteration (1)")
+                    f"({n}) * number of models per one iteration ({k})")
+            if k > 1 and grad.ndim == 1:
+                # flat multiclass gradients arrive class-major (the
+                # reference's C convention, as the JAX package reads
+                # them); the model takes [n, k]
+                grad = grad.reshape(k, n).T
+                hess = hess.reshape(k, n).T
             stopped = self._model.train_one_iter(grad, hess)
         else:
             stopped = self._model.train_one_iter()

@@ -44,6 +44,18 @@
 // per block (8 rows a thread in order, then a fixed tree over the
 // threads), `pw_final` (one thread) sums the blocks in order and divides.
 //
+// B12c, multi_logloss (`lgbt_multi_logloss`): the JAX package's
+// `_t_multi_logloss` (:445), which only the per-iteration path with
+// fused_eval=true reaches (multiclass never fuses).  Over [N, K] raw
+// scores, row-major: one thread a row takes the row's max, the K
+// exponentials exp(s_c - max) summed in class order, p = exp(s_y - max) /
+// sum and -log(max(p, 1e-7)) times the row's weight; y is the label
+// truncated to an integer, and a label outside [0, K) makes the row's
+// loss NaN, so the value is NaN (the JAX gather's fill).  `ml_partial`
+// sums (loss * w, w) over 2048 rows a block as `pw_partial` does, and
+// `pw_final` sums the blocks in order and divides: deterministic, as
+// B12b.  K is a runtime argument.
+//
 // Bound on this card: bytes.  AUC reads the order (8 bytes a row) and
 // gathers score, label and weight (12), B12b reads 12 bytes a row; at the
 // main path's 200,000 valid rows that is 4 MB (1.2 us) and 2.4 MB
@@ -284,6 +296,45 @@ __global__ void pw_partial(const float* __restrict__ score,
   }
 }
 
+__global__ void ml_partial(const float* __restrict__ score,
+                           const float* __restrict__ label,
+                           const float* __restrict__ weight, int n, int k,
+                           float* __restrict__ partial) {
+  __shared__ float sh_lw[kThreads];
+  __shared__ float sh_w[kThreads];
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x * kChunk + (long long)t * kPer;
+  float lw = 0.f, ws = 0.f;
+  for (int e = 0; e < kPer; ++e) {
+    const long long i = base + e;
+    if (i >= n) break;
+    const float* s = score + i * k;
+    float mx = s[0];
+    for (int c = 1; c < k; ++c) mx = fmaxf(mx, s[c]);
+    float sum = 0.f;
+    for (int c = 0; c < k; ++c) sum += expf(s[c] - mx);
+    const float y = label[i];
+    float loss;
+    if (y > -1.f && y < (float)k) {
+      const float p = expf(s[(int)y] - mx) / sum;
+      loss = -logf(fmaxf(p, 1e-7f));
+    } else {
+      loss = NAN;  // also a NaN label: both comparisons are false
+    }
+    const float w = weight[i];
+    lw += loss * w;
+    ws += w;
+  }
+  sh_lw[t] = lw;
+  sh_w[t] = ws;
+  block_sum(sh_lw);
+  block_sum(sh_w);
+  if (t == 0) {
+    partial[2 * blockIdx.x] = sh_lw[0];
+    partial[2 * blockIdx.x + 1] = sh_w[0];
+  }
+}
+
 __global__ void pw_final(int nblocks, int metric,
                          const float* __restrict__ partial,
                          float* __restrict__ out) {
@@ -345,11 +396,26 @@ extern "C" int lgbt_pointwise(const float* score, const float* label,
   return (int)cudaGetLastError();
 }
 
+// score [n, k] f32 row-major; partial: [2 * nblocks] f32 scratch; out [1].
+extern "C" int lgbt_multi_logloss(const float* score, const float* label,
+                                  const float* weight, int n, int k,
+                                  float* partial, float* out,
+                                  cudaStream_t stream) {
+  const int nb = n > 0 ? (n + kChunk - 1) / kChunk : 1;
+  ml_partial<<<nb, kThreads, 0, stream>>>(score, label, weight, n, k,
+                                          partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pw_final<<<1, 32, 0, stream>>>(nb, 0, partial, out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int lgbt_metrics_setup() {
   cudaFuncAttributes attr;
   const void* fns[] = {(const void*)auc_local, (const void*)auc_scan,
                        (const void*)auc_area, (const void*)auc_final,
-                       (const void*)pw_partial, (const void*)pw_final};
+                       (const void*)pw_partial, (const void*)pw_final,
+                       (const void*)ml_partial};
   for (const void* f : fns) {
     cudaError_t err = cudaFuncGetAttributes(&attr, f);
     if (err != cudaSuccess) return (int)err;

@@ -4,7 +4,15 @@
 // `traverse_tree_binned` (:28-69) and `add_tree_score` (:72), which the
 // trainer runs once per iteration on every validation set
 // (models/gbdt.py `_apply_tree`): each row walks up to `steps` levels of
-// one tree over its bins, then `score[n] += weight * leaf_value[leaf]`.
+// one tree over its bins, then `score[r * stride + col] += weight *
+// leaf_value[leaf]`.  The column form serves multiclass models, whose
+// scores are [N, K] row-major (stride K) and whose tree t adds into
+// column t % K; stride 1 and column 0 are the one-column form, with the
+// same launches and bits as before the column existed.  The JAX package
+// walks class k's tree into a zero vector and then adds it to
+// `vscore[:, k]` (models/gbdt.py:2915-2921): at weight 1 that is
+// 0 + 1 * v = v exactly, then score + v, the same f32 result as this
+// kernel's single update.
 // A numerical node sends the NA bin to default_left and other bins left
 // iff bin <= threshold; a categorical node (is_cat_node, optional: null
 // for a tree without them) never takes the NA branch and goes left iff
@@ -12,7 +20,9 @@
 //
 // Bound on this card: bytes.  The walk reads a few bytes of each row, but
 // the row-major [Nv, F] matrix is read in 32-byte sectors that span about
-// all of it (Nv*F bytes), and score is read and written (8*Nv bytes).  At
+// all of it (Nv*F bytes), and score is read and written (8*Nv bytes; in
+// the column form the sectors also carry the other columns, so up to
+// 64*Nv bytes move for 8*Nv the function needs).  At
 // the main path (Nv = 200,000, F = 28) that is 5.6 + 1.6 = 7.2 MB, about
 // 2 us at 3.35 TB/s; the node tables (a few hundred bytes) stay in cache.
 //
@@ -33,7 +43,7 @@
 
 namespace {
 
-__global__ void tree_score(float* __restrict__ score,
+__global__ void tree_score(float* __restrict__ score, int stride, int col,
                            const uint8_t* __restrict__ binned, int n,
                            int num_features,
                            const int32_t* __restrict__ split_feature,
@@ -65,12 +75,14 @@ __global__ void tree_score(float* __restrict__ score,
   }
   // a walk cut short by too few steps ends at leaf 0, never out of bounds
   const int leaf = node < 0 ? ~node : 0;
-  score[r] = __fadd_rn(score[r], __fmul_rn(weight, leaf_value[leaf]));
+  float* s = score + r * stride + col;
+  *s = __fadd_rn(*s, __fmul_rn(weight, leaf_value[leaf]));
 }
 
 }  // namespace
 
-extern "C" int lgbt_add_tree_score(float* score, const uint8_t* binned, int n,
+extern "C" int lgbt_add_tree_score(float* score, int stride, int col,
+                                   const uint8_t* binned, int n,
                                    int num_features,
                                    const int32_t* split_feature,
                                    const int32_t* threshold_bin,
@@ -85,9 +97,9 @@ extern "C" int lgbt_add_tree_score(float* score, const uint8_t* binned, int n,
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   tree_score<<<blocks, threads, 0, stream>>>(
-      score, binned, n, num_features, split_feature, threshold_bin,
-      default_left, left_child, right_child, na_bin, is_cat_node, cat_rank,
-      cat_bins, leaf_value, weight, steps);
+      score, stride, col, binned, n, num_features, split_feature,
+      threshold_bin, default_left, left_child, right_child, na_bin,
+      is_cat_node, cat_rank, cat_bins, leaf_value, weight, steps);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,9 @@ the JAX package's three training paths, chosen the same way:
   replayed through the real callbacks, so ``record_evals``,
   ``best_iteration`` and ``best_score`` come out as a per-iteration run
   that evaluates through the traced metrics would give them;
-- the per-iteration loop otherwise, or with ``superepoch=-1``.
+- the per-iteration loop otherwise, or with ``superepoch=-1``; always
+  for a multiclass model (K trees an iteration), whose configuration
+  never fuses, as in the JAX package.
 
 The fused paths give the same trees as the per-iteration loop but report
 the traced f32 metric values, where the per-iteration loop reports the

@@ -2,10 +2,13 @@
 
 Two families, as in the JAX package's ``metrics.py``:
 
-- the host-side NumPy metric classes this slice runs (l2, rmse, l1,
-  binary_logloss, binary_error, auc), in f64 on scores fetched from the
-  device, which the per-iteration path reports by default.  All support
-  sample weights; each reports ``(name, value, is_higher_better)``;
+- the host-side NumPy metric classes the port runs (l2, rmse, l1,
+  binary_logloss, binary_error, auc, and over [N, K] scores
+  multi_logloss, multi_error and auc_mu), on scores fetched from the
+  device, which the per-iteration path reports by default: in f64, but
+  multi_logloss's softmax in the scores' f32, as the JAX package's.  All
+  support sample weights; each reports ``(name, value,
+  is_higher_better)``;
 - the traced metrics (kernel B12, ``csrc/metrics.cu``): f32
   ``(score, label, weight) -> value`` functions on device tensors that
   the fused training loop evaluates inside its captured iteration, for
@@ -14,10 +17,10 @@ Two families, as in the JAX package's ``metrics.py``:
   the pointwise metrics binary_logloss, l2, rmse and l1 (B12b) each have
   a CUDA kernel and a plain PyTorch version (``*_plain``), the JAX
   package's ``_t_*`` formulas in f32 (logloss clipped at 1e-7, since
-  ``1 - 1e-15`` rounds to 1 in f32).  ``traced_metric_fn`` returns None
-  for a metric without a traced form, which sends the engine to the
-  per-iteration host path; the traced multi_logloss waits for multiclass
-  (ROADMAP A9).
+  ``1 - 1e-15`` rounds to 1 in f32); multi_logloss over [N, K] raw
+  scores (B12c) likewise, clipped at 1e-7.  ``traced_metric_fn`` returns
+  None for a metric without a traced form, which sends the engine to the
+  per-iteration host path.
 
 The other metrics raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -144,6 +147,59 @@ class AUCMetric(Metric):
         return [(self.name, _auc(self.label, score, self.weight), True)]
 
 
+# ---- multiclass metrics (multiclass_metric.hpp:368) -----------------------
+
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def eval(self, score):
+        # score: [N, K] raw; softmax here
+        s = score - score.max(axis=1, keepdims=True)
+        p = np.exp(s)
+        p /= p.sum(axis=1, keepdims=True)
+        idx = self.label.astype(np.int64)
+        ll = -np.log(np.clip(p[np.arange(len(idx)), idx], 1e-15, None))
+        return [(self.name, self._avg(ll), False)]
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def eval(self, score):
+        k = self.config.multi_error_top_k
+        idx = self.label.astype(np.int64)
+        true_score = score[np.arange(len(idx)), idx]
+        rank = (score >= true_score[:, None]).sum(axis=1)
+        err = (rank > k).astype(np.float64)
+        # top-k > 1 reports as multi_error@k (multiclass_metric.hpp
+        # MultiErrorMetric::Name)
+        name = self.name if k <= 1 else f"{self.name}@{k}"
+        return [(name, self._avg(err), False)]
+
+
+class AucMuMetric(Metric):
+    """auc_mu: the mean AUC over class pairs (a, b), rows of the two
+    classes scored by ``s[:, a] - s[:, b]``, as the JAX package computes
+    it."""
+    name = "auc_mu"
+    is_higher_better = True
+
+    def eval(self, score):
+        k = score.shape[1]
+        idx = self.label.astype(np.int64)
+        aucs = []
+        for a in range(k):
+            for b in range(a + 1, k):
+                m = (idx == a) | (idx == b)
+                if not m.any():
+                    continue
+                y = (idx[m] == a).astype(np.float64)
+                s = score[m, a] - score[m, b]
+                w = self.weight[m] if self.weight is not None else None
+                aucs.append(_auc(y, s, w))
+        return [(self.name, float(np.mean(aucs)) if aucs else 1.0, True)]
+
+
 # ---- traced metrics (kernel B12) -------------------------------------------
 
 # B12b metric ids (csrc/metrics.cu `point_loss`)
@@ -264,11 +320,73 @@ def traced_pointwise_plain(score, label, weight, *, metric: str,
     return torch.sqrt(r) if metric == "rmse" else r
 
 
+def check_class_labels(label: np.ndarray, num_class: int) -> None:
+    """Raise unless every label is a class index in [0, num_class): the
+    host-side refusal of B12c's labels (the kernel itself answers NaN)."""
+    lbl = np.asarray(label, np.float64)
+    if lbl.size and not (np.isfinite(lbl).all()
+                         and lbl.min() > -1 and lbl.max() < num_class):
+        raise ValueError(f"multiclass labels must be in [0, {num_class})")
+
+
+def traced_multi_logloss(score: torch.Tensor, label: torch.Tensor,
+                         weight: torch.Tensor) -> torch.Tensor:
+    """Weighted mean of ``-log(max(softmax(score)[label], 1e-7))`` over
+    [N, K] raw scores, as a 0-d f32 tensor (kernel B12c).  A label outside
+    [0, K) (after truncation to an integer) makes the value NaN.  CUDA
+    tensors launch the kernel of ``csrc/metrics.cu``, CPU tensors run
+    ``traced_multi_logloss_plain``."""
+    if score.dim() != 2 or score.dtype != torch.float32:
+        raise TypeError("score must be an [N, K] float32 tensor")
+    if not score.is_contiguous():
+        raise ValueError("score must be contiguous")
+    for name, t in (("label", label), ("weight", weight)):
+        if t.dim() != 1 or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be a [N] float32 tensor")
+        if t.shape[0] != score.shape[0] or t.device != score.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, with the score's "
+                             "rows and device")
+    if score.device.type == "cpu":
+        return traced_multi_logloss_plain(score, label, weight)
+    if score.device.type != "cuda":
+        raise ValueError(f"unsupported device {score.device}")
+    n, k = score.shape
+    dev = score.device
+    nb = max(-(-n // _METRIC_CHUNK), 1)
+    partial = torch.zeros(2 * nb, dtype=torch.float32, device=dev)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    err = _kernels.lib("metrics").lgbt_multi_logloss(
+        score.data_ptr(), label.data_ptr(), weight.data_ptr(), n, k,
+        partial.data_ptr(), out.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.launched("multi_logloss", err)
+    return out[0]
+
+
+def traced_multi_logloss_plain(score, label, weight) -> torch.Tensor:
+    """Plain PyTorch version of B12c: the JAX package's
+    ``_t_multi_logloss`` in f32 (softmax as exponentials of ``s - max``
+    over their sum, the label's probability clipped at 1e-7); a label
+    outside [0, K) gives NaN, as the JAX gather's fill does."""
+    k = score.shape[1]
+    s = score - torch.amax(score, dim=1, keepdim=True)
+    p = torch.exp(s)
+    p = p / torch.sum(p, dim=1, keepdim=True)
+    idx = label.to(torch.int32).to(torch.int64)
+    ok = (idx >= 0) & (idx < k) & torch.isfinite(label)
+    picked = torch.gather(p, 1, idx.clamp(0, k - 1)[:, None])[:, 0]
+    picked = torch.where(ok, picked, torch.full_like(picked, float("nan")))
+    ll = -torch.log(torch.clamp(picked, min=1e-7))
+    return torch.sum(ll * weight) / torch.sum(weight)
+
+
 def traced_metric_fn(name: str, config: Config) -> Optional[Callable]:
     """``(score, label, weight) -> 0-d f32 tensor`` of metric ``name`` on
     the device, or None when it has no traced form here."""
     if name == "auc":
         return traced_auc
+    if name == "multi_logloss":
+        return traced_multi_logloss
     if name in POINTWISE_IDS:
         sig = float(config.sigmoid)
         return lambda s, y, w: traced_pointwise(s, y, w, metric=name,
@@ -300,14 +418,15 @@ def build_traced_eval(eval_spec: Sequence[Tuple],
 _METRICS = {
     "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
-    "auc": AUCMetric,
+    "auc": AUCMetric, "multi_logloss": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric, "auc_mu": AucMuMetric,
 }
 
 # metrics of the JAX package that this slice does not port yet
 _UNPORTED = {
     "quantile", "huber", "fair", "poisson", "mape", "gamma",
-    "gamma_deviance", "tweedie", "average_precision", "multi_logloss",
-    "multi_error", "auc_mu", "ndcg", "map", "cross_entropy",
+    "gamma_deviance", "tweedie", "average_precision", "ndcg", "map",
+    "cross_entropy",
     "cross_entropy_lambda", "kldiv",
 }
 

@@ -24,6 +24,17 @@ with the same fetch count.  The per-iteration path runs the same body
 eagerly for one row, so both paths run the same kernels with the same
 launch shapes and give the same bits.
 
+A multiclass model (K trees an iteration) never fuses: the JAX package
+grows its class trees in its host loop (``train_one_iter`` :2554-2935),
+and so does the port, through ``IterationProgram.body`` run eagerly for
+one iteration.  That body takes the [N, K] gradients once, then grows
+class k's tree on column k for k = 0..K-1 on one feature_fraction mask
+and one iteration key (so the bagging draw is the same mask for every
+class, GOSS runs on each class's g and h, and the per-node draws repeat),
+and writes the K trees to K rows of ``out``: one host fetch an
+iteration.  A class's stump adds nothing and does not stop the later
+classes.
+
 Semantics follow the JAX scan body: ``dead`` (a stump was grown this
 epoch) and ``stop`` (the early-stop vote tripped) block every later
 iteration's contribution to the scores; the vote is update-then-check of
@@ -66,13 +77,15 @@ class IterationProgram:
         self.eval_spec = tuple(eval_spec)
         self.es_spec = es_spec
         L = m.config.num_leaves
+        # trees an iteration, one output row each
+        self.K = m.num_class
         self.cat_bins = m.grow_ws.cat_bins
         self.W, self.L, self.E = tree_words(L, self.cat_bins), L, \
             len(self.eval_spec)
         self.width = self.W + L + self.E + 1
         self.rows = 0
         self.out = torch.empty(0)
-        self._ensure_rows(rows)
+        self._ensure_rows(rows * self.K)
         # one row of outputs, copied to out[row] at the end of the body
         self.cur = torch.zeros(self.width, dtype=torch.int32, device=dev)
         W, E = self.W, self.E
@@ -132,6 +145,9 @@ class IterationProgram:
         """One boosting iteration, entirely on the device.  ``gh``: host
         gradients (custom objective, per-iteration path only); ``mark``:
         the model's phase marker (per-iteration path only)."""
+        if self.K > 1:
+            self._body_multiclass(gh, mark)
+            return
         m = self.model
         cfg = m.config
         mark = mark or (lambda phase: None)
@@ -144,30 +160,11 @@ class IterationProgram:
         # 1 without sampling
         if self.keyed:
             torch.add(self.it0, self.row.to(torch.int32), out=self.it_cur)
-        if self.goss:
-            vals = goss_vals(g.contiguous(), h.contiguous(), self.it_cur,
-                             out=self.vals, buffers=self.goss_buffers,
-                             **m.goss_args())
-        elif self.bagging:
-            vals = bag_vals(g.contiguous(), h.contiguous(), self.it_cur,
-                            out=self.vals, **m.bagging_args())
-        else:
-            vals = torch.stack([g, h, torch.ones_like(g)], dim=1)
         fmask = m.feature_mask
         if self.sample_features:
             torch.index_select(self.fmasks, 0, self.row, out=self.fmask_cur)
             fmask = self.fmask_cur[0]
-        mark("grow")
-        grow = grow_tree if m.split_batch == 1 else grow_tree_batched
-        kw = {} if m.split_batch == 1 else {"split_batch": m.split_batch}
-        if m.node_sampling is not None:
-            kw.update(sampling=m.node_sampling, rng_iter=self.it_cur)
-        if m.is_cat_dev is not None:
-            kw["is_cat"] = m.is_cat_dev
-        arrays = grow(m.binned_dev, vals, fmask, m.num_bin_dev,
-                      m.na_bin_dev, num_leaves=cfg.num_leaves,
-                      num_bins=m.max_bin, params=m.split_params,
-                      max_depth=cfg.max_depth, workspace=m.grow_ws, **kw)
+        arrays = self._grow(g, h, fmask, mark)
         mark("score")
         nl = arrays.num_leaves[0]
         lv = m.shrink(arrays.leaf_value)
@@ -197,6 +194,67 @@ class IterationProgram:
             self.cur_stop.copy_(stop)
         self.out.index_copy_(0, self.row, self.cur[None])
         self.row.add_(1)
+
+    def _grow(self, g, h, fmask, mark):
+        """The row weights of g, h (B6: GOSS, the bagging draw, or none)
+        keyed by ``it_cur``, then one tree from the grower (B1-B3s, or
+        B1-K/B3-K/B3s-K, with the per-node draws B6-node)."""
+        m = self.model
+        cfg = m.config
+        if self.goss:
+            vals = goss_vals(g.contiguous(), h.contiguous(), self.it_cur,
+                             out=self.vals, buffers=self.goss_buffers,
+                             **m.goss_args())
+        elif self.bagging:
+            vals = bag_vals(g.contiguous(), h.contiguous(), self.it_cur,
+                            out=self.vals, **m.bagging_args())
+        else:
+            vals = torch.stack([g, h, torch.ones_like(g)], dim=1)
+        mark("grow")
+        grow = grow_tree if m.split_batch == 1 else grow_tree_batched
+        kw = {} if m.split_batch == 1 else {"split_batch": m.split_batch}
+        if m.node_sampling is not None:
+            kw.update(sampling=m.node_sampling, rng_iter=self.it_cur)
+        if m.is_cat_dev is not None:
+            kw["is_cat"] = m.is_cat_dev
+        return grow(m.binned_dev, vals, fmask, m.num_bin_dev,
+                    m.na_bin_dev, num_leaves=cfg.num_leaves,
+                    num_bins=m.max_bin, params=m.split_params,
+                    max_depth=cfg.max_depth, workspace=m.grow_ws, **kw)
+
+    def _body_multiclass(self, gh=None, mark=None) -> None:
+        """One multiclass iteration, eagerly (module docstring): the
+        [N, K] gradients once, then K trees, each into its score column
+        and its own row of ``out``."""
+        m = self.model
+        mark = mark or (lambda phase: None)
+        mark("gradients")
+        g_all, h_all = m.objective.get_gradients(m.score) if gh is None \
+            else gh
+        # one iteration a run: every class's draws take the iteration
+        # it0, and its feature_fraction mask is fmasks[0]
+        if self.keyed:
+            self.it_cur.copy_(self.it0)
+        fmask = self.fmasks[0] if self.sample_features else m.feature_mask
+        for c in range(self.K):
+            arrays = self._grow(g_all[:, c], h_all[:, c], fmask, mark)
+            mark("score")
+            lv = m.shrink(arrays.leaf_value)
+            lv_ok = torch.where(arrays.num_leaves[0] > 1, lv, self.zero)
+            m.score[:, c].add_(lv_ok.index_select(0, arrays.leaf_of_row))
+            mark("valid")
+            for _, vbinned, vscore in m.valid_sets:
+                add_tree_score(vscore, vbinned, arrays.split_feature,
+                               arrays.threshold_bin, arrays.default_left,
+                               arrays.left_child, arrays.right_child,
+                               m.na_bin_dev, lv_ok, 1.0, steps=m.walk_steps,
+                               is_cat_node=arrays.is_cat_node,
+                               cat_rank=arrays.cat_rank, column=c)
+            mark("")
+            self.cur_tree.copy_(m.grow_ws.tree)
+            self.cur_lv.copy_(lv)
+            self.out.index_copy_(0, self.row, self.cur[None])
+            self.row.add_(1)
 
     def _vote(self, ev: torch.Tensor, blocked: torch.Tensor) -> None:
         """callback.early_stopping's update-then-check, traced
@@ -272,8 +330,12 @@ class IterationProgram:
         ``fmasks``: the [k, F] host feature masks of the k iterations
         (feature_fraction < 1), copied to the device before the first;
         ``it0``: the first iteration's number, which keys the bagging,
-        GOSS and per-node draws."""
-        self._ensure_rows(k)
+        GOSS and per-node draws.  A multiclass program writes K rows an
+        iteration, eagerly only."""
+        if self.K > 1 and (k != 1 or not eager):
+            raise ValueError("a multiclass iteration runs eagerly, one "
+                             "at a time")
+        self._ensure_rows(k * self.K)
         self.row.zero_()
         self.dead.zero_()
         self.es_base.fill_(int(es_it0))
@@ -291,7 +353,7 @@ class IterationProgram:
             for _ in range(k):
                 self.graph.replay()
             self.replays += k
-        return self.out[:k]
+        return self.out[:k * self.K]
 
     def launches(self) -> Dict[str, int]:
         """Kernel launches on the device so far through this program's

@@ -1,9 +1,12 @@
 """Objective functions: per-row (gradient, hessian) on the device (B5).
 
-Counterpart of the JAX package's ``objectives.py`` for the objectives this
-slice ports, ``regression`` (L2) and ``binary``.  Gradients are elementwise
-f32 PyTorch ops in the same formulas as the JAX package (and the reference
-``regression_objective.hpp`` / ``binary_objective.hpp``); ``boost_from_score``
+Counterpart of the JAX package's ``objectives.py`` for the objectives the
+port has: ``regression`` (L2), ``binary``, and the multiclass pair
+``multiclass`` (softmax) and ``multiclassova`` (one sigmoid per class).
+Gradients are f32 PyTorch ops in the same formulas as the JAX package (and
+the reference ``regression_objective.hpp`` / ``binary_objective.hpp`` /
+``multiclass_objective.hpp``); a multiclass objective takes the [N, K]
+score and returns [N, K] gradients and hessians.  ``boost_from_score``
 stays in float64 on the host.  The other objectives raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -136,14 +139,110 @@ class BinaryLogloss(ObjectiveFunction):
         return 1.0 / (1.0 + torch.exp(-self.sigmoid * raw))
 
 
-_OBJECTIVES = {"regression": RegressionL2, "binary": BinaryLogloss}
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis as ``jax.nn.softmax`` forms it: the
+    exponentials of ``x - max``, divided by their sum."""
+    e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+class MulticlassSoftmax(ObjectiveFunction):
+    """Softmax cross-entropy over K classes (multiclass_objective.hpp:279),
+    with the reference's factor-2 hessian ``2 p (1 - p)``."""
+
+    name = "multiclass"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.num_class = config.num_class
+        self.num_model_per_iteration = config.num_class
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        lbl = np.asarray(metadata.label).astype(np.int32)
+        if lbl.min() < 0 or lbl.max() >= self.num_class:
+            raise ValueError("multiclass labels must be in [0, num_class)")
+        self._onehot_np = np.eye(self.num_class, dtype=np.float32)[lbl]
+        self.onehot = torch.as_tensor(self._onehot_np, device=self.device)
+        self._weight_np = None if metadata.weight is None else \
+            np.asarray(metadata.weight, np.float32)
+
+    def get_gradients(self, score):
+        p = _softmax(score)
+        grad = p - self.onehot
+        hess = 2.0 * p * (1.0 - p)
+        return self._apply_weight(grad, hess)
+
+    def _apply_weight(self, grad, hess):
+        if self.weight is not None:
+            return grad * self.weight[:, None], hess * self.weight[:, None]
+        return grad, hess
+
+    def boost_from_score(self, class_id=0):
+        # the log class prior (multiclass_objective.hpp:155
+        # class_init_probs_), in the JAX package's numpy ops and f32 types
+        oh = self._onehot_np
+        w = self._weight_np[:, None] if self._weight_np is not None else 1.0
+        probs = (oh * w).sum(axis=0)
+        probs = probs / max(probs.sum(), 1e-15)
+        return float(np.log(max(1e-15, probs[class_id])))
+
+    def convert_output(self, raw):
+        return _softmax(raw)
+
+
+class MulticlassOVA(MulticlassSoftmax):
+    """One-vs-all: K binary logloss problems, one sigmoid per class
+    (multiclass_objective.hpp:206)."""
+
+    name = "multiclassova"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.sigmoid = config.sigmoid
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        ObjectiveFunction.init(self, metadata, num_data, device)
+        # no range check, as in the JAX package: a label past K fails the
+        # one-hot lookup
+        lbl = np.asarray(metadata.label).astype(np.int32)
+        self._onehot_np = np.eye(self.num_class, dtype=np.float32)[lbl]
+        self.onehot = torch.as_tensor(self._onehot_np, device=self.device)
+        self._weight_np = None if metadata.weight is None else \
+            np.asarray(metadata.weight, np.float32)
+
+    def get_gradients(self, score):
+        y = self.onehot * 2.0 - 1.0
+        sig = self.sigmoid
+        response = -y * sig / (1.0 + torch.exp(y * sig * score))
+        absr = torch.abs(response)
+        hess = absr * (sig - absr)
+        return self._apply_weight(response, hess)
+
+    def boost_from_score(self, class_id=0):
+        # each class's binary BoostFromScore (multiclass_objective.hpp:261)
+        oh = self._onehot_np
+        w = self._weight_np if self._weight_np is not None \
+            else np.ones(len(oh))
+        pos = float((oh[:, class_id] * w).sum())
+        p = pos / max(float(w.sum()), 1e-15)
+        if p <= 0.0 or p >= 1.0:
+            return 0.0
+        return float(np.log(p / (1.0 - p)) / self.sigmoid)
+
+    def convert_output(self, raw):
+        return 1.0 / (1.0 + torch.exp(-self.sigmoid * raw))
+
+
+_OBJECTIVES = {"regression": RegressionL2, "binary": BinaryLogloss,
+               "multiclass": MulticlassSoftmax,
+               "multiclassova": MulticlassOVA}
 
 # objectives of the JAX package that this slice does not port yet
 _UNPORTED = {
     "regression_l1": "A9", "huber": "A9", "fair": "A9", "poisson": "A9",
     "quantile": "A9", "mape": "A9", "gamma": "A9", "tweedie": "A9",
     "cross_entropy": "A9", "cross_entropy_lambda": "A9",
-    "multiclass": "A9", "multiclassova": "A9",
     "lambdarank": "A9 (B13)", "rank_xendcg": "A9 (B13)",
 }
 

@@ -15,7 +15,10 @@ shrinkage left on the device: no tree is uploaded from the host.
 On CUDA tensors ``add_tree_score`` launches the kernel of
 ``csrc/predict.cu``; on CPU tensors it runs ``add_tree_score_plain``.  Both
 update ``score`` in place.  ``is_cat_node`` and ``cat_rank`` are None for a
-tree without categorical nodes, whose launches stay as they were.
+tree without categorical nodes, whose launches stay as they were.  A
+multiclass model's scores are [N, K] row-major and its tree t adds into
+column ``t % K``: the ``column`` form (the kernel's row stride K and
+column), whose column 0 of a [N] score is the one-column call.
 EFB-bundled rows are ROADMAP A9.4.
 
 The whole-forest serving functions (kernel B10, ``csrc/forest.cu``; the
@@ -56,9 +59,13 @@ from . import _kernels
 
 def _check(score, binned, split_feature, threshold_bin, default_left,
            left_child, right_child, na_bin, leaf_value, is_cat_node,
-           cat_rank):
-    if score.dim() != 1 or score.dtype != torch.float32:
-        raise TypeError("score must be a [N] float32 tensor")
+           cat_rank, column=0):
+    if score.dim() not in (1, 2) or score.dtype != torch.float32:
+        raise TypeError("score must be a [N] or [N, K] float32 tensor")
+    width = 1 if score.dim() == 1 else score.shape[1]
+    if not 0 <= column < width:
+        raise ValueError(f"column {column} is outside the score's "
+                         f"{width} column(s)")
     if binned.dim() != 2 or binned.dtype != torch.uint8 \
             or binned.shape[0] != score.shape[0]:
         raise TypeError("binned must be a [N, F] uint8 tensor")
@@ -98,8 +105,10 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
                    right_child: torch.Tensor, na_bin: torch.Tensor,
                    leaf_value: torch.Tensor, weight: float, *,
                    steps: int, is_cat_node: torch.Tensor | None = None,
-                   cat_rank: torch.Tensor | None = None) -> torch.Tensor:
+                   cat_rank: torch.Tensor | None = None,
+                   column: int = 0) -> torch.Tensor:
     """``score += weight * tree(binned)`` in place; returns ``score``.
+    On an [N, K] score, ``score[:, column]`` takes the update.
 
     Node tables are [L-1] (child < 0 encodes leaf ``~child``); ``steps``
     must be at least the tree's depth.  ``is_cat_node`` [L-1] and
@@ -107,13 +116,13 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
     categorical nodes and their rank rows."""
     _check(score, binned, split_feature, threshold_bin, default_left,
            left_child, right_child, na_bin, leaf_value, is_cat_node,
-           cat_rank)
+           cat_rank, column)
     if score.device.type == "cpu":
         return add_tree_score_plain(score, binned, split_feature,
                                     threshold_bin, default_left, left_child,
                                     right_child, na_bin, leaf_value, weight,
                                     steps=steps, is_cat_node=is_cat_node,
-                                    cat_rank=cat_rank)
+                                    cat_rank=cat_rank, column=column)
     if score.device.type != "cuda":
         raise ValueError(f"unsupported device {score.device}")
     tensors = (score, binned, split_feature, threshold_bin, default_left,
@@ -128,8 +137,10 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
         default_left = default_left.to(torch.int32)
     if is_cat_node is not None and is_cat_node.dtype == torch.bool:
         is_cat_node = is_cat_node.to(torch.int32)
+    stride = 1 if score.dim() == 1 else int(score.shape[1])
     err = _kernels.lib("predict").lgbt_add_tree_score(
-        score.data_ptr(), binned.data_ptr(), n, f, split_feature.data_ptr(),
+        score.data_ptr(), stride, int(column), binned.data_ptr(), n, f,
+        split_feature.data_ptr(),
         threshold_bin.data_ptr(), default_left.data_ptr(),
         left_child.data_ptr(), right_child.data_ptr(), na_bin.data_ptr(),
         None if is_cat_node is None else is_cat_node.data_ptr(),
@@ -170,14 +181,16 @@ def traverse_tree_plain(binned, split_feature, threshold_bin, default_left,
 def add_tree_score_plain(score, binned, split_feature, threshold_bin,
                          default_left, left_child, right_child, na_bin,
                          leaf_value, weight: float, *, steps: int,
-                         is_cat_node=None, cat_rank=None) -> torch.Tensor:
+                         is_cat_node=None, cat_rank=None,
+                         column: int = 0) -> torch.Tensor:
     """Plain PyTorch version of B4: the gather walk, then a multiply and an
-    add, in place."""
+    add, in place (into ``score[:, column]`` of an [N, K] score)."""
     leaf = traverse_tree_plain(binned, split_feature, threshold_bin,
                                default_left, left_child, right_child, na_bin,
                                steps=steps, is_cat_node=is_cat_node,
                                cat_rank=cat_rank)
-    score.add_(leaf_value[leaf.to(torch.int64)] * float(weight))
+    target = score if score.dim() == 1 else score[:, column]
+    target.add_(leaf_value[leaf.to(torch.int64)] * float(weight))
     return score
 
 

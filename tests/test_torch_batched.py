@@ -37,9 +37,8 @@ from lightgbm_tpu.ops.histogram import compute_histogram
 from lightgbm_tpu.ops.split import SplitParams as JParams
 from lightgbm_tpu.utils import shapes as jshapes
 
-from torch_port_fixtures import binned_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    binned_problem, pin_torch_threads, pin_torch_threads_module)
 
 RTOL = 1e-6
 

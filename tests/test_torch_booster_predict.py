@@ -17,10 +17,9 @@ import lightgbm_torch as lgt
 import lightgbm_tpu as lgb
 from lightgbm_torch.serve import PredictorEngine
 
-from torch_port_fixtures import (host_walk, jax_serve_models, raw_problem,
-                                 serve_rows)
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    host_walk, jax_serve_models, pin_torch_threads, pin_torch_threads_module,
+    raw_problem, serve_rows)
 
 CPU = {"device_type": "cpu", "verbosity": -1}
 TRANSFORM_RTOL = 1e-6

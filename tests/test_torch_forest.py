@@ -23,9 +23,8 @@ from lightgbm_torch import predict_device as pd
 from lightgbm_tpu.predict_device import bin_rows_device, bin_rows_device_full
 from lightgbm_tpu.serve import engine as jengine
 
-from torch_port_fixtures import jax_serve_models
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    jax_serve_models, pin_torch_threads, pin_torch_threads_module)
 
 TAGS = ["regression", "binary", "binary_stump", "multiclass", "categorical",
         "stumps"]

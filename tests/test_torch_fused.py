@@ -18,14 +18,12 @@ import math
 
 import numpy as np
 import pytest
-import torch
 
 import lightgbm_torch as lgt
 import lightgbm_tpu as lgb
 
-from torch_port_fixtures import raw_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    pin_torch_threads, pin_torch_threads_module, raw_problem)
 
 _PATH_PARAMS = ("[superepoch:", "[fused_eval:", "[fused_chunk:")
 # model-text lines that carry f32 sums of the trees, or are derived from

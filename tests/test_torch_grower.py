@@ -16,9 +16,8 @@ from lightgbm_torch.ops.split import SplitParams as TParams
 from lightgbm_tpu.grower import make_grower
 from lightgbm_tpu.ops.split import SplitParams as JParams
 
-from torch_port_fixtures import binned_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    binned_problem, pin_torch_threads, pin_torch_threads_module)
 
 RTOL = 1e-5
 

@@ -13,9 +13,8 @@ import torch
 from lightgbm_torch.ops import histogram as th
 from lightgbm_tpu.ops.histogram import compute_histogram
 
-from torch_port_fixtures import binned_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    binned_problem, pin_torch_threads, pin_torch_threads_module)
 
 RTOL = 2e-6
 

@@ -14,7 +14,8 @@ from lightgbm_torch.config import Config as TConfig
 from lightgbm_tpu import metrics as jm
 from lightgbm_tpu.config import Config as JConfig
 
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    pin_torch_threads, pin_torch_threads_module)
 
 AUC_ATOL = 1e-6
 RTOL = 1e-6
@@ -103,10 +104,17 @@ def test_traced_eval_stacks_entries_and_refuses_untraced_metrics():
     assert float(ev[0]) == float(tm.traced_auc_plain(t[0], t[1], t[2]))
     assert float(ev[2]) == float(tm.traced_pointwise_plain(
         svecs[1], t[1], t[2], metric="binary_logloss"))
-    # multiclass waits for ROADMAP A9: no traced form, so the engine
-    # takes the per-iteration host path
-    assert tm.traced_metric_fn("multi_logloss", cfg) is None
-    assert tm.build_traced_eval(((0, "v", "multi_logloss", False),),
+    # multi_logloss has its traced form (B12c) over [N, K] scores;
+    # multi_error has none, so the engine takes the host metrics
+    assert tm.traced_metric_fn("multi_logloss", cfg) \
+        is tm.traced_multi_logloss
+    mc = tm.build_traced_eval(((0, "v", "multi_logloss", False),), cfg)
+    s3 = torch.stack([t[0], -t[0], 0.5 * t[0]], dim=1).contiguous()
+    lbl = (torch.arange(s3.shape[0]) % 3).to(torch.float32)
+    assert float(mc([s3], [(lbl, t[2])])[0]) == float(
+        tm.traced_multi_logloss_plain(s3, lbl, t[2]))
+    assert tm.traced_metric_fn("multi_error", cfg) is None
+    assert tm.build_traced_eval(((0, "v", "multi_error", False),),
                                 cfg) is None
 
 

@@ -21,9 +21,8 @@ from lightgbm_tpu.ops.split import SplitParams
 from lightgbm_tpu.predict_device import add_tree_score as j_add_tree_score
 from lightgbm_tpu.predict_device import traverse_tree_binned
 
-from torch_port_fixtures import binned_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    binned_problem, pin_torch_threads, pin_torch_threads_module)
 
 
 def _reference_tree(seed, leaves):

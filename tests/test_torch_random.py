@@ -23,9 +23,8 @@ from lightgbm_torch.ops import random as trandom
 from lightgbm_tpu.grower import make_grower
 from lightgbm_tpu.ops.split import SplitParams as JParams
 
-from torch_port_fixtures import raw_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    pin_torch_threads, pin_torch_threads_module, raw_problem)
 
 SEEDS = [0, 3, 42, -1, -7, 2**31 + 5, 2**32 + 9, 2**40 + 1]
 

@@ -35,9 +35,9 @@ from lightgbm_torch.serve import (ArtifactVerificationError, BacklogFull,
 from lightgbm_torch.serve.registry import _sha256_hex
 from lightgbm_torch.utils.resilience import CircuitBreaker, RetryPolicy
 
-from torch_port_fixtures import host_walk, jax_serve_models, serve_rows
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    host_walk, jax_serve_models, pin_torch_threads, pin_torch_threads_module,
+    serve_rows)
 
 CPU = {"device_type": "cpu", "verbosity": -1}
 TRANSFORM_RTOL = 1e-6

@@ -21,9 +21,9 @@ import lightgbm_tpu as lgb
 from lightgbm_torch.serve import engine as tengine
 from lightgbm_tpu.serve import engine as jengine
 
-from torch_port_fixtures import host_walk, jax_serve_models, serve_rows
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    host_walk, jax_serve_models, pin_torch_threads, pin_torch_threads_module,
+    serve_rows)
 
 TAGS = ["regression", "binary", "binary_stump", "multiclass", "categorical",
         "stumps"]

@@ -13,9 +13,8 @@ from lightgbm_torch.ops import split as ts
 from lightgbm_tpu.ops import split as js
 from lightgbm_tpu.ops.histogram import compute_histogram
 
-from torch_port_fixtures import binned_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    binned_problem, pin_torch_threads, pin_torch_threads_module)
 
 RTOL = 1e-5
 

@@ -45,7 +45,8 @@ from lightgbm_tpu.ops import split as js
 from lightgbm_tpu.ops.histogram import compute_histogram
 from lightgbm_tpu.predict_device import add_tree_score as j_add_tree_score
 
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    pin_torch_threads, pin_torch_threads_module)
 
 RTOL = 1e-5
 BINS = 40

@@ -30,9 +30,8 @@ from lightgbm_tpu.grower import make_grower
 from lightgbm_tpu.ops import split as js
 from lightgbm_tpu.ops.histogram import compute_histogram
 
-from torch_port_fixtures import binned_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    binned_problem, pin_torch_threads, pin_torch_threads_module)
 
 RTOL = 1e-5
 PARAMS = {"default": {}, "l1_l2": {"lambda_l1": 1.0, "lambda_l2": 2.0},

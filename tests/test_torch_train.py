@@ -15,9 +15,8 @@ import lightgbm_tpu as lgb
 from lightgbm_torch.objectives import BinaryLogloss, RegressionL2
 from lightgbm_tpu import objectives as jobj
 
-from torch_port_fixtures import raw_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    pin_torch_threads, pin_torch_threads_module, raw_problem)
 
 PRED_RTOL = 1e-5
 STRUCTURAL = ("Tree", "num_leaves", "num_cat", "split_feature", "threshold",

@@ -27,15 +27,13 @@ Distance numerical) against the JAX package's ``train``
 
 import numpy as np
 import pytest
-import torch
 
 import lightgbm_torch as lgt
 import lightgbm_tpu as lgb
 from lightgbm_torch.serve import Server
 
-from torch_port_fixtures import host_walk, raw_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    host_walk, pin_torch_threads, pin_torch_threads_module, raw_problem)
 
 METRIC_RTOL = 0.02
 CAT_COLS = [0, 1, 2, 3, 4, 5]

@@ -22,19 +22,17 @@ package's same path:
 - GOSS with bagging parameters trains as GOSS alone (GOSS turns bagging
   off, as in the JAX package), and L2 with all three on equals the JAX
   package's trees;
-- multiclass still raises, naming ROADMAP A9; categorical features train
-  under GOSS and extra_trees."""
+- categorical features and multiclass train under GOSS and
+  extra_trees."""
 
 import numpy as np
 import pytest
-import torch
 
 import lightgbm_torch as lgt
 import lightgbm_tpu as lgb
 
-from torch_port_fixtures import raw_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    pin_torch_threads, pin_torch_threads_module, raw_problem)
 
 # leaf values agree to the last bits, so the logloss agrees closely; the
 # AUC of a 31-leaf model's few distinct scores moves where rows tie in one
@@ -214,9 +212,10 @@ def test_l2_all_three_equal_jax(path):
 
 @pytest.mark.parametrize("what", ["categorical", "multiclass"])
 def test_categorical_and_multiclass_still_raise(what):
-    """Multiclass still raises, naming A9; categorical features train
-    under GOSS and extra_trees (they no longer raise) and split on the
-    categorical column."""
+    """Categorical features and multiclass both train under GOSS and
+    extra_trees (neither raises any more): the categorical model splits
+    on the categorical column; the multiclass model grows three trees an
+    iteration, the first iteration's equal to the JAX package's."""
     rs = np.random.RandomState(5)
     x = rs.randint(0, 5, size=(400, 3)).astype(np.float64)
     params = {"verbosity": -1, "device_type": "cpu", **MODES["goss"],
@@ -229,7 +228,15 @@ def test_categorical_and_multiclass_still_raise(what):
         bst = lgt.train(params, ds, 2)
         assert "cat_threshold=" in bst.model_to_string()
         return
-    params.update(objective="multiclass", num_class=3)
-    ds = lgt.Dataset(x, x[:, 0] % 3)
-    with pytest.raises(NotImplementedError, match="A9"):
-        lgt.train(params, ds, 2)
+    # the label is a function of column 0: gains past its splits are
+    # rounding residue, which min_gain_to_split keeps out of the trees
+    params.update(objective="multiclass", num_class=3, min_data_in_leaf=5,
+                  min_gain_to_split=1.0)
+    bt = lgt.train(params, lgt.Dataset(x, x[:, 0] % 3), 2)
+    bj = lgb.train({**params, "device_type": "cpu", "tpu_learner": "masked"},
+                   lgb.Dataset(x, x[:, 0] % 3), 2)
+    assert bt.num_trees() == bj.num_trees() == 6
+    first = [_structure("Tree=" + t) for t in _trees(bt.model_to_string())]
+    assert first[:3] == [_structure("Tree=" + t)
+                         for t in _trees(bj.model_to_string())][:3]
+    assert all("num_leaves=1" not in t for t in first[:3])

@@ -24,19 +24,17 @@ the three paths (per-iteration, fused chunks, super-epochs):
   engine route as by the host walk;
 - GOSS, feature_fraction_bynode and extra_trees train (their parity is
   tests/test_torch_train_sampling.py); with a parameter whose module is
-  still to port (DART, multiclass, linear trees) they still raise, naming
-  ROADMAP A9."""
+  still to port (DART, the huber objective, linear trees) they still
+  raise, naming ROADMAP A9."""
 
 import numpy as np
 import pytest
-import torch
 
 import lightgbm_torch as lgt
 import lightgbm_tpu as lgb
 
-from torch_port_fixtures import host_walk, raw_problem
-
-torch.set_num_threads(2)
+from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
+    host_walk, pin_torch_threads, pin_torch_threads_module, raw_problem)
 
 METRIC_RTOL = 0.02
 SAMPLING = {"bagging_fraction": 0.8, "bagging_freq": 3,
@@ -243,8 +241,7 @@ def test_wide_model_round_trip_and_engine(es_runs):
 
 @pytest.mark.parametrize("params", [
     {"data_sample_strategy": "goss", "boosting": "dart"},
-    {"feature_fraction_bynode": 0.5, "objective": "multiclass",
-     "num_class": 3},
+    {"feature_fraction_bynode": 0.5, "objective": "huber"},
     {"extra_trees": True, "linear_tree": True},
 ])
 def test_remaining_sampling_raises(params):

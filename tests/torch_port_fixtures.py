@@ -6,6 +6,11 @@ the JAX package (the reference, run on the CPU) and its PyTorch port
 """
 
 import numpy as np
+import pytest
+import torch
+
+# the intra-op thread count of every port test (``pin_torch_threads``)
+TORCH_THREADS = 2
 
 
 def binned_problem(seed: int, n: int = 4000, f: int = 8, bins: int = 31,
@@ -139,3 +144,36 @@ def host_walk(bst, x, **kw):
     finally:
         bst.config.predict_bucketed = old
         bst._engine_cache = cache
+
+
+@pytest.fixture(autouse=True, scope="module")
+def pin_torch_threads_module():
+    """``pin_torch_threads`` for a module's own module-scoped fixtures,
+    which pytest sets up before any function-scoped one."""
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+
+
+@pytest.fixture(autouse=True)
+def pin_torch_threads(pin_torch_threads_module):
+    """Run every port test on ``TORCH_THREADS`` intra-op threads, set just
+    before the test whatever an earlier test or module changed: a float
+    reduction of the plain versions splits its work by the thread count,
+    so a count that moved between two trainings of one test could round
+    their sums differently.  Imported into each ``tests/test_torch_*.py``
+    (an imported fixture is the module's own)."""
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+
+
+def multiclass_problem(seed: int, n: int = 3000, f: int = 6, k: int = 3,
+                       nan_frac: float = 0.0):
+    """Raw features and a k-class label from well separated per-class
+    logits (class c driven mostly by feature c)."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, f)
+    logits = np.stack([2.0 * x[:, c % f] - 0.5 * x[:, (c + 1) % f]
+                       for c in range(k)], axis=1)
+    y = np.argmax(logits + 0.4 * rs.randn(n, k), axis=1).astype(np.float32)
+    x[rs.rand(n, f) < nan_frac] = np.nan
+    return x, y
