@@ -110,8 +110,10 @@ Phases, one JSON line each:
    multiclass_data and multiclass_kernels (after cat_kernels): a
    Covertype-shaped set (``make_covertype_like``: 581,012 rows, 10
    integer numeric and 44 one-hot columns, 7 classes at Covertype's
-   counts, 80/20 train and valid, 255 bins, ``enable_bundle=false``),
-   then B4's column form bit for bit at K = 7 for every column (a
+   counts, 80/20 train and valid, 255 bins, the default ``enable_bundle``:
+   the one-hot blocks bundle, G columns printed beside F = 54),
+   then B4's column form bit for bit at K = 7 for every column on the
+   grouped valid matrix through the EFB maps (a
    numerical and a categorical tree; stride 1 and column 0 against the
    one-column call) and B12c within POINTWISE_RTOL (random scores,
    saturated rows, zero weights; NaN for a label outside [0, K)), each
@@ -125,6 +127,25 @@ Phases, one JSON line each:
    rerun; multiclass_serve: the softmax model through
    ``Booster.predict`` (engine route), ``fused_predict`` and a
    ``Server`` on both routes, every [rows, 7] answer checked;
+   efb_data and efb_kernels (after multiclass_kernels): a
+   Flight-Delay-shaped set (``make_flight_like``, after the EFB
+   experiment of Ke et al. 2017: six one-hot blocks of 12, 31, 7, 22, 255
+   and 255 columns and two numerical ones, 584 columns; 500,000 train and
+   100,000 valid rows, 255 bins), bundled at the defaults into EFB_GROUPS
+   groups (uint8) and checked to unbundle to its ``enable_bundle=false``
+   twin; then B9 bit for bit against its plain version on 1, 2 and 32
+   children's group histograms, an inactive step and singleton-only maps,
+   B3/B3-K and B4 with the decode maps bit for bit against their plain
+   versions on CPU copies (a permuted rank row and categorical nodes
+   beside the bundles), each timed; efb_train (after cat_strict_train):
+   the main path's configuration at 255 bins on that set as the sampled
+   cells run (EFB_PER_ITERATION, three paths, profiled byte-identical
+   rerun, engine predict), then the unbundled twin: the same trees bit
+   for bit on exact gradients, the bundled first tree's leaves within
+   EFB_LEAF_RTOL of the f64 sums of their rows, the unbundled binary
+   run's predictions, leaf error and steady it/s and B1's root pass
+   reported beside the bundled one; efb_wide_train: 255 leaves (K = 16) with
+   bagging for EFB_WIDE_ROUNDS rounds (EFB_WIDE_PER_ITERATION);
 10. serving_model: the serving model, SERVE_ROUNDS rounds of 31 leaves on
    the 1M x 28 train set without a valid set (fused chunks);
 11. serve_kernels: B10a (forest walk), B10b (device binning) and B10c
@@ -210,7 +231,7 @@ PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "grow_step_batched": 0, "bag_vals": 0, "goss_vals": 0,
                  "node_draws": 0, "predict": 1, "auc": 1, "pointwise": 1,
                  "forest_walk": 0, "bin_rows": 0, "fused_predict": 0,
-                 "split_cat": 0, "multi_logloss": 0}
+                 "split_cat": 0, "multi_logloss": 0, "expand_group_hist": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -264,8 +285,8 @@ CAT_STRICT_PER_ITERATION = {**PER_ITERATION, "split_cat": NUM_LEAVES}
 # the multiclass cells: a Covertype-shaped set (UCI Covertype, Blackard &
 # Dean 1999; scikit-learn's fetch_covtype): 581,012 rows, 10 integer
 # numeric columns, 4 wilderness and 40 soil one-hot columns, 7 classes at
-# Covertype's counts; 80/20 train and valid; enable_bundle=false (the
-# port refuses EFB bundles until ROADMAP A9.4), the cell's one reduction
+# Covertype's counts; 80/20 train and valid, at the default
+# enable_bundle (the one-hot blocks bundle)
 COVTYPE_ROWS, COVTYPE_AREAS, COVTYPE_SOILS = 581_012, 4, 40
 COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
 MC_CLASSES, MC_MAX_BIN, MC_ROUNDS, MC_OVA_ROUNDS, MC_WIDE_ROUNDS = \
@@ -275,21 +296,23 @@ MC_CLASSES, MC_MAX_BIN, MC_ROUNDS, MC_OVA_ROUNDS, MC_WIDE_ROUNDS = \
 MC_PROFILE_ROUNDS = 5
 MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
              "num_leaves": NUM_LEAVES, "max_bin": MC_MAX_BIN,
-             "learning_rate": 0.1, "enable_bundle": False,
+             "learning_rate": 0.1,
              "metric": ["multi_logloss", "multi_error"], "verbosity": -1}
 MC_WIDE_PARAMS = {"num_leaves": WIDE_LEAVES, "bagging_fraction": 0.8,
                   "bagging_freq": 5, "feature_fraction": 0.8}
 # launches of one tree: the strict grower's (PER_ITERATION's grower
 # part), and the batched grower's with bagging (WIDE_PER_ITERATION's:
 # the bagging draw runs once a class, on the iteration's one mask)
+# the bundled one-hot blocks add B9 beside every B2
 MC_PER_TREE = {**{k: 0 for k in PER_ITERATION},
                **{k: PER_ITERATION[k] for k in ("histogram", "split",
-                                                "partition", "grow_step")}}
+                                                "partition", "grow_step")},
+               "expand_group_hist": NUM_LEAVES}
 MC_WIDE_PER_TREE = {**{k: 0 for k in PER_ITERATION},
                     **{k: WIDE_PER_ITERATION[k] for k in (
                         "histogram", "split", "histogram_slots",
                         "partition_slots", "grow_step_batched",
-                        "bag_vals")}}
+                        "bag_vals")}, "expand_group_hist": WIDE_LEAVES}
 # the traced multi_logloss (f32, B12c) and the host metric (numpy f32
 # softmax and a pairwise mean) against the same formula in f64 over the
 # 116,203 valid rows: f32 sums of the same terms in other orders, and
@@ -298,12 +321,43 @@ MC_TRACED_RTOL = 1e-4
 # the valid rows multiclass_serve predicts and serves (its host-walk
 # checks of a 350-tree model take seconds per 10,000 rows)
 MC_SERVE_ROWS = 40_000
+# the EFB cells: a Flight-Delay-shaped binary set after the EFB experiment
+# of Ke et al. 2017 (the airline on-time data, one-hot encoded): Month,
+# DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest one-hot (Origin
+# and Dest Zipf-skewed as CAT_ZIPF), DepTime and Distance numerical; rows
+# cut from the paper's 10M, airports capped at 255 so that every bundle
+# keeps to 256 bins (uint8) until ROADMAP A9.5
+EFB_CARDS = (12, 31, 7, 22, 255, 255)
+EFB_TRAIN, EFB_VALID, EFB_MAX_BIN = 500_000, 100_000, 255
+EFB_COLS = sum(EFB_CARDS) + 2
+# the six one-hot blocks as six groups, DepTime and Distance singletons
+EFB_GROUPS = 8
+# the main path's configuration at 255 bins (train_main's binary, 31
+# leaves, auc and logloss, early stopping); the wide one (255 leaves,
+# K = 16, bagging) for EFB_WIDE_ROUNDS rounds
+EFB_PARAMS = {"num_leaves": NUM_LEAVES, "max_bin": EFB_MAX_BIN}
+EFB_PER_ITERATION = {**PER_ITERATION, "expand_group_hist": NUM_LEAVES}
+EFB_WIDE_PARAMS = {"num_leaves": WIDE_LEAVES, "max_bin": EFB_MAX_BIN,
+                   "bagging_fraction": 0.8, "bagging_freq": 5}
+EFB_WIDE_PER_ITERATION = {**WIDE_PER_ITERATION,
+                          "expand_group_hist": WIDE_LEAVES}
+EFB_WIDE_ROUNDS = 10
+# the bundled run against its unbundled twin: on exact gradients (every
+# histogram sum exact in f32) the two write the same trees, bit for bit,
+# in EFB_EXACT_ROUNDS rounds; on the binary run the bundled first tree's
+# leaf values sit within EFB_LEAF_RTOL of the f64 sums of their rows (f32
+# sums of up to 500,000 rows; the unbundled run's B1 sums a one-hot
+# feature's bin 0, nearly every row, in long f32 runs and is reported,
+# not held: ROADMAP C)
+EFB_EXACT_ROUNDS = 10
+EFB_LEAF_RTOL = 1e-4
 KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
                 "partition",
                 "grow_step", "histogram_slots", "partition_slots",
                 "grow_step_batched", "bag_vals", "goss_vals", "node_draws",
                 "predict", "predict_column", "auc", "pointwise",
-                "multi_logloss", "forest_walk", "bin_rows", "fused_predict")
+                "multi_logloss", "expand_group_hist", "forest_walk",
+                "bin_rows", "fused_predict")
 # the launch counter of a kernels-line entry, where it is not its own key
 # (B2's per-child form is B2's wrapper and counter, B4's column form B4's)
 KERNEL_COUNTER = {"split_per_child": "split", "predict_column": "predict"}
@@ -317,7 +371,8 @@ KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "goss_vals": "goss_train", "node_draws": "goss_train",
                "split_per_child": "extra_train", "split_cat": "cat_train",
                "predict_column": "multiclass_train",
-               "multi_logloss": "multiclass_train_fused_eval"}
+               "multi_logloss": "multiclass_train_fused_eval",
+               "expand_group_hist": "efb_train"}
 
 
 def times(counts, n: int):
@@ -384,7 +439,7 @@ def bound_ms(nbytes: float, ops: float):
 
 
 def iteration_bound(trees, n: int, f: int, B: int, L: int, nv: int,
-                    super_steps=None):
+                    super_steps=None, scan=None):
     """The least time of one boosting iteration of the main path, from
     its own trees: the bytes and operations each step needs at the row
     counts that tree gave it, averaged over the trees.  Per iteration:
@@ -399,17 +454,25 @@ def iteration_bound(trees, n: int, f: int, B: int, L: int, nv: int,
     out).  A dead step needs nothing.  With ``super_steps`` (the live
     super-steps of each tree, batched growth) the bookkeeping (B3s-K: the
     table and the tree buffer) is counted once per super-step, and the
-    rest per split.  Returns (ms, by, bytes)."""
+    rest per split.  With ``scan`` = (F, Bs) (EFB) ``f`` and ``B`` are the
+    bundled matrix's G columns and group bins, the histogram passes and
+    the subtraction work in group space, and each child's histogram is
+    expanded (B9: its group histogram read, its [F, Bs, 3] written) before
+    B2 reads it.  Returns (ms, by, bytes)."""
     from lightgbm_torch.grower import tree_words
     hist = f * B * 12
+    sf, sb = (f, B) if scan is None else scan
+    shist = sf * sb * 12
     rec = 12 * 4
-    fixed = (24 * n + n * (f + 12) + hist + hist + rec + 12 * n
+    expand = 0 if scan is None else hist + shist
+    fixed = (24 * n + n * (f + 12) + hist + expand + shist + rec + 12 * n
              + nv * f + 8 * nv + 2 * (12 * nv + 4))
-    fixed_ops = (12 * n + 3 * n * f + 40 * 2 * f * B + 2 * n + 7 * nv
+    fixed_ops = (12 * n + 3 * n * f + 40 * 2 * sf * sb + 2 * n + 7 * nv
                  + nv * float(np.log2(nv)) + 10 * nv + 30 * nv)
     books = L * rec + 2 * tree_words(L) * 4
-    step = 6 * hist + 2 * rec + (books if super_steps is None else 0)
-    step_ops = 40 * 2 * 2 * f * B + 3 * f * B
+    step = 4 * hist + 2 * expand + 2 * shist + 2 * rec \
+        + (books if super_steps is None else 0)
+    step_ops = 40 * 2 * 2 * sf * sb + 3 * f * B
     total = ops = 0.0
     for i, t in enumerate(trees):
         if super_steps is not None:
@@ -548,10 +611,10 @@ def check_grow_step(torch, binned, vals, fmask, num_bin, na_bin, B, params,
         seen["steps"] += 1
         seen["active"] += int(kw["rec"][gr.ACTIVE])
 
-    def part_both(binned_, lor, rec, rank):
+    def part_both(binned_, lor, rec, rank, efb=None):
         lor_p = lor.clone()
-        s_p = gr.partition_plain(binned_, lor_p, rec, rank)
-        s_k = part_k(binned_, lor, rec, rank)
+        s_p = gr.partition_plain(binned_, lor_p, rec, rank, efb)
+        s_k = part_k(binned_, lor, rec, rank, efb)
         if bool(rec[gr.ACTIVE]):
             check_partition(torch, lor, lor_p, s_k, s_p,
                             f"{case}, step {seen['steps'] - 1}")
@@ -1285,10 +1348,10 @@ def check_batched_tree(torch, binned, vals, fmask, num_bin, na_bin, B, L, K,
         if nv > 0 and "first" not in snap:
             snap["first"] = {"used": step.status[1:2].clone()}
 
-    def part_both(binned_, lor, step, rank):
+    def part_both(binned_, lor, step, rank, efb=None):
         lor_p = lor.clone()
-        t_p = gr.partition_slots_plain(binned_, lor_p, step, rank)
-        t_k = part_k(binned_, lor, step, rank)
+        t_p = gr.partition_slots_plain(binned_, lor_p, step, rank, efb)
+        t_k = part_k(binned_, lor, step, rank, efb)
         live = bool(step.status[0])
         if not torch.equal(lor, lor_p) or (live and not torch.equal(t_k,
                                                                      t_p)):
@@ -1857,7 +1920,7 @@ def phase_sample_kernels(torch, lgt, train):
 
 def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
                         prefix: str, params: dict, per_it: dict,
-                        dead_ms=None, after=None):
+                        dead_ms=None, after=None, rounds=ROUNDS):
     """Default ``train`` with ``params`` (sampling at a tree shape) as
     super-epochs, launch counts held to ``per_it`` per iteration; the
     per-iteration path (SAMPLED_PER_ITERATION_ROUNDS rounds: the same
@@ -1867,14 +1930,16 @@ def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
     of the model through the engine, byte-identical to the host walk.
     Emits the ``{prefix}_train`` line; ``dead_ms`` (batched growth): what
     one dead super-step costs; ``after(bst, prog)``: more checks of the
-    super-epoch model, whose dict joins the line.  Returns (device
-    launches by path, steady ms per iteration, eager ms per iteration, the
-    iteration's (bound ms, by, bytes) from the run's own trees)."""
+    super-epoch model, whose dict joins the line; ``rounds``: the
+    super-epoch run's rounds.  Returns (device launches by path, steady ms
+    per iteration, eager ms per iteration, the iteration's (bound ms, by,
+    bytes) from the run's own trees)."""
     name = f"{prefix}_train"
     no_valid = {**per_it, "predict": 0, "auc": 0, "pointwise": 0}
     L = params["num_leaves"]
     lgt_kernels.reset_launch_counts()
-    bst, ev, secs = train_main(lgt, train, valid, extra=params)
+    bst, ev, secs = train_main(lgt, train, valid, extra=params,
+                               rounds=rounds)
     torch.cuda.synchronize()
     eager = lgt_kernels.launch_counts()
     m = bst._model
@@ -1903,10 +1968,13 @@ def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
     steady = m.epoch_ms[1:] if epochs > 1 else m.epoch_ms
     ms_it = statistics.median(steady) / k
     live = m.step_counts
-    (n_rows, n_feat), n_valid = train.binned.shape, valid.binned.shape[0]
+    (n_rows, n_cols), n_valid = train.binned.shape, valid.binned.shape[0]
+    efb = m.efb_dev
     b_ms, b_by, b_bytes = iteration_bound(
-        m.models, n_rows, n_feat, int(train.max_bin), L, n_valid,
-        super_steps=live if batched else None)
+        m.models, n_rows, n_cols,
+        int(train.max_bin) if efb is None else efb.group_bins, L, n_valid,
+        super_steps=live if batched else None,
+        scan=None if efb is None else (m.num_features, int(train.max_bin)))
     text = bst.model_to_string()
     # the rows the last replay's GOSS draw kept (w > 0), read from the
     # program's own vals buffer
@@ -1982,7 +2050,8 @@ def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        b2, _, secs2 = train_main(lgt, train, valid, extra=params)
+        b2, _, secs2 = train_main(lgt, train, valid, extra=params,
+                                  rounds=rounds)
         torch.cuda.synchronize()
     if b2.model_to_string() != text:
         raise AssertionError(f"a second {name} run gave other model text")
@@ -2513,6 +2582,438 @@ def cat_after(torch, lgt, lgt_kernels, xv, prefix):
 
 
 # ---------------------------------------------------------------------------
+# EFB (bundled one-hot blocks: B9, the bundle decode of B3/B3-K and B4)
+# ---------------------------------------------------------------------------
+
+def make_flight_like(n: int, seed: int):
+    """A Flight-Delay-shaped set (the EFB experiment of Ke et al. 2017: the
+    airline on-time data, one-hot encoded): Month, DayofMonth, DayOfWeek,
+    UniqueCarrier, Origin and Dest drawn as ``make_expo_like`` draws them
+    (``EFB_CARDS`` categories, ``CAT_ZIPF`` skew) and one-hot encoded,
+    then DepTime (hhmm-like integers) and Distance; a binary "delayed"
+    label from seeded per-category effects (the same for every seed),
+    about 20% positive.  Returns (x f32 [n, EFB_COLS], y f32 [n])."""
+    rng = np.random.RandomState(seed)
+    eff = np.random.RandomState(1234)
+    x = np.zeros((n, EFB_COLS), np.float32)
+    logit = np.zeros(n)
+    rows = np.arange(n)
+    off = 0
+    for c, z, e in zip(EFB_CARDS, CAT_ZIPF, CAT_EFFECT):
+        p = 1.0 / np.arange(1, c + 1) ** z
+        col = rng.choice(c, size=n, p=p / p.sum())
+        x[rows, off + col] = 1.0
+        logit += e * eff.randn(c)[col]
+        off += c
+    dep = rng.randint(0, 2400, n)
+    dist = rng.gamma(2.0, 400.0, n)
+    logit += 0.8 * (dep > 1700) + 0.3 * np.log(dist / 800.0)
+    logit += 0.5 * rng.randn(n)
+    x[:, off], x[:, off + 1] = dep, dist
+    return x, (logit > 1.4).astype(np.float32)
+
+
+def phase_efb_data(lgt):
+    """The Flight-Delay-shaped set, binned at 255 bins at the default
+    ``enable_bundle`` (the six one-hot blocks bundle into six groups, the
+    two numerical columns stay singletons: G = EFB_GROUPS, uint8), its
+    valid set built with ``reference=``, and the same rows unbundled
+    (``enable_bundle=false``, [N, F]) for the comparison run; the bundled
+    matrix unbundles to the unbundled one."""
+    t0 = time.perf_counter()
+    x, y = make_flight_like(EFB_TRAIN, seed=40)
+    xv, yv = make_flight_like(EFB_VALID, seed=41)
+    t_make = time.perf_counter() - t0
+    params = {"max_bin": EFB_MAX_BIN, "verbosity": -1}
+    t1 = time.perf_counter()
+    train = lgt.Dataset(x, y, params=params).construct()
+    valid = lgt.Dataset(xv, yv, reference=train, params=params).construct()
+    t_build = time.perf_counter() - t1
+    efb = train.efb
+    nf = train.num_features
+    if efb is None or efb.num_groups != EFB_GROUPS \
+            or train.binned.shape != (EFB_TRAIN, EFB_GROUPS) \
+            or train.binned.dtype != np.uint8 or valid.efb is not efb \
+            or nf < EFB_COLS - 10:
+        raise AssertionError(
+            f"unexpected bundles: binned {train.binned.shape} "
+            f"{train.binned.dtype}, {nf} features, groups "
+            f"{None if efb is None else efb.num_groups}")
+    flat = {**params, "enable_bundle": False}
+    t2 = time.perf_counter()
+    train_u = lgt.Dataset(x, y, params=flat).construct()
+    valid_u = lgt.Dataset(xv, yv, reference=train_u, params=flat).construct()
+    t_build_u = time.perf_counter() - t2
+    if train_u.efb is not None or train_u.binned.shape != (EFB_TRAIN, nf) \
+            or not np.array_equal(train.feature_binned(), train_u.binned) \
+            or not np.array_equal(valid.feature_binned(), valid_u.binned):
+        raise AssertionError("the bundled matrix does not unbundle to the "
+                             "unbundled one")
+    sizes = sorted(len(g) for g in efb.groups)
+    emit({"phase": "efb_data", "seconds": time.perf_counter() - t0,
+          "make_seconds": t_make, "dataset_build_seconds": t_build,
+          "unbundled_build_seconds": t_build_u,
+          "train": [EFB_TRAIN, nf], "valid": [EFB_VALID, nf],
+          "groups": efb.num_groups, "group_sizes": sizes,
+          "max_group_bin": efb.max_group_bin,
+          "group_bins": efb.group_num_bin.tolist(),
+          "grouped_dtype": str(train.binned.dtype),
+          "max_bin": int(train.max_bin), "positive_share": float(y.mean()),
+          "reduced": ["rows: 500,000 train and 100,000 valid, cut from the "
+                      "paper's 10M", "Origin and Dest capped at 255 "
+                      "airports each, so that every bundle keeps to 256 "
+                      "bins (uint8) until ROADMAP A9.5"]})
+    return xv, train, valid, train_u, valid_u, x, y
+
+
+def phase_efb_kernels(torch, lgt, train, valid):
+    """B9 bit for bit against its plain version at the cell's shapes, on
+    C = 1, 2 and 2K = 32 children's real group histograms (B1-K over
+    random row slots, each child's totals its rows' sums), an inactive
+    step (output untouched) and singleton-only maps; B3 and B3-K with the
+    decode maps against their plain versions on CPU copies (bundled
+    one-hot features, a numerical singleton with an NA bin, a singleton
+    split through a permuted rank row as a categorical split is); B4 with
+    the maps on the grouped valid matrix (numerical and categorical
+    nodes, one column and the column form) against its plain version on
+    CPU copies; each timed."""
+    from lightgbm_torch.efb import (EFBInfo, expand_group_hist,
+                                    expand_group_hist_plain,
+                                    make_device_efb)
+    from lightgbm_torch.grower import (BatchedStep, partition,
+                                       partition_plain, partition_slots,
+                                       partition_slots_plain)
+    from lightgbm_torch.ops.histogram import compute_histogram
+    from lightgbm_torch.predict_device import (add_tree_score,
+                                               add_tree_score_plain)
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    nb = np.asarray([train.bin_mappers[i].num_bin
+                     for i in train.used_features], np.int32)
+    F, B = len(nb), int(nb.max())
+    efb, efb_c = (make_device_efb(train.efb, nb, B, d) for d in (dev, cpu))
+    binned = torch.as_tensor(train.binned).to(dev)
+    n, G = binned.shape
+    Bg = efb.group_bins
+    y = torch.as_tensor(np.asarray(train.metadata.label,
+                                   np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(40)
+    pr = torch.sigmoid(torch.randn(n, device=dev, generator=gen))
+    vals = torch.stack([pr - y, pr * (1 - pr), torch.ones_like(y)], 1)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+
+    # B9
+    err9 = 0.0
+    cases = {}
+    for C in (1, 2, 2 * WIDE_K):
+        slot = torch.randint(0, C, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+        gh = compute_histogram(binned, vals, num_bins=Bg, slot=slot,
+                               num_slots=C, active=one,
+                               slots_used=torch.tensor(
+                                   [C], dtype=torch.int32, device=dev))
+        tot = torch.zeros((C, 3), device=dev).index_add_(0, slot.long(),
+                                                          vals)
+        out_k = expand_group_hist(gh, tot, efb)
+        out_p = expand_group_hist_plain(gh, tot, efb)
+        err9 = max(err9, exact_err(torch, [
+            (out_k, out_p),
+            (out_k.cpu(), expand_group_hist_plain(gh.cpu(), tot.cpu(),
+                                                  efb_c))],
+            f"B9 at C = {C}"))
+        cases[C] = (gh, tot)
+    gh, tot = cases[2]
+    out = torch.full((2, F, B, 3), 7.0, device=dev)
+    keep = out.clone()
+    expand_group_hist(gh, tot, efb, active=torch.zeros(
+        1, dtype=torch.int32, device=dev), out=out)
+    torch.cuda.synchronize()
+    if not torch.equal(out, keep):
+        raise AssertionError("B9 wrote on an inactive step")
+    single = EFBInfo(groups=[[j] for j in range(F)],
+                     group_of_feat=np.arange(F, dtype=np.int32),
+                     off_of_feat=np.full(F, -1, np.int32),
+                     group_num_bin=nb.copy())
+    sdev = make_device_efb(single, nb, B, dev)
+    inside = (torch.arange(B, device=dev)[None, :]
+              < torch.as_tensor(nb).to(dev)[:, None])[None, :, :, None]
+    hs = torch.where(inside, torch.randn((2, F, B, 3), device=dev,
+                                         generator=gen), 0.0)
+    err9 = max(err9, exact_err(torch, [
+        (expand_group_hist(hs, tot, sdev), hs),
+        (expand_group_hist_plain(hs, tot, sdev), hs)], "B9 singletons"))
+    t_k = {C: median_ms(torch, lambda: expand_group_hist(*cases[C], efb))
+           for C in cases}
+    t_p = median_ms(torch, lambda: expand_group_hist_plain(gh, tot, efb))
+    gof = efb.group_of_feat.long()
+    idx = efb.col_idx.clamp_min(0).long()[None, :, :, None].expand(
+        2, F, B, 3)
+
+    def library():
+        return torch.gather(gh.index_select(1, gof), 2, idx)[:, :, 1:] \
+            .sum(dim=2)
+    t_l = median_ms(torch, library)
+
+    def b9_bound(C):
+        nbytes = C * G * Bg * 12 + F * B * 4 + 5 * F + C * 12 \
+            + C * F * B * 12
+        return bound_ms(nbytes, C * 3 * int((efb_c.fix0).sum()) * B)
+    bd = b9_bound(2)
+    rows = {"expand_group_hist": {
+        "name": "B9 EFB group -> feature histogram expansion",
+        "route": "cuda", "source": "lightgbm_torch/csrc/efb.cu",
+        "replaces": "lightgbm_tpu/efb.py:257", "max_abs_err": err9,
+        "ms": t_k[2], "plain_ms": t_p, "bound_ms": bd[0],
+        "bound_by": bd[1], "library_ms": t_l}}
+    emit({"phase": "kernel", **rows["expand_group_hist"],
+          "children": 2, "groups": G, "group_bins": Bg, "features": F,
+          "bins": B, "ms_by_children": t_k,
+          "bound_ms_by_children": {C: b9_bound(C)[0] for C in cases},
+          "library_call": "index_select + gather + sum (no mask, no "
+                          "bin-0 fix)"})
+
+    # B3 and B3-K with the decode maps, against the plain versions on CPU
+    # copies
+    off = np.asarray(train.efb.off_of_feat)
+    bundled = np.nonzero(off >= 0)[0]
+    singles = np.nonzero(off < 0)[0]
+    perm = torch.as_tensor(np.random.RandomState(41).permutation(B).astype(
+        np.int32))
+    rank = torch.arange(B, dtype=torch.int32).repeat(40, 1)
+    rank[5] = perm                            # leaf 5's split: by rank row
+    bcpu = torch.as_tensor(train.binned)
+    lor_mid = torch.randint(0, 17, (n,), dtype=torch.int32, device=dev,
+                            generator=gen)
+    splits = [(int(bundled[0]), 0, -1, 3), (int(bundled[len(bundled) // 2]),
+                                            0, -1, 5),
+              (int(bundled[-1]), 0, -1, 7),
+              (int(singles[0]), int(nb[singles[0]]) // 2,
+               int(nb[singles[0]]) - 1, 9),
+              (int(singles[-1]), int(nb[singles[-1]]) // 3, -1, 5)]
+    pairs = []
+    moved = 0
+    for feat, thr, na, leaf in splits:
+        rec = torch.tensor([leaf, 17, feat, thr, 1, na, 17, 1],
+                           dtype=torch.int32)
+        lk, lp = lor_mid.clone(), lor_mid.cpu().clone()
+        sk = partition(binned, lk, rec.to(dev), rank.to(dev), efb)
+        sp_ = partition_plain(bcpu, lp, rec, rank, efb_c)
+        pairs += [(lk.cpu(), lp), (sk.cpu(), sp_)]
+        moved += int((lp == 17).sum())
+    if moved == 0:
+        raise AssertionError("B3 with maps moved no row")
+    K = WIDE_K
+    feats = np.concatenate([bundled[:: max(1, len(bundled) // (K - 2))]
+                            [:K - 2], singles])[:K]
+    recs = torch.tensor([[k, 17 + k, int(feats[k]),
+                          int(nb[feats[k]]) // 2 if off[feats[k]] < 0 else 0,
+                          k % 2, -1, k, 1] for k in range(K)],
+                        dtype=torch.int32)
+    slot_of_leaf = torch.full((40,), -1, dtype=torch.int32)
+    slot_of_leaf[:K] = torch.arange(K, dtype=torch.int32)
+    z = torch.zeros
+    step = BatchedStep(recs=recs, slot_of_leaf=slot_of_leaf,
+                       idx2=z(2 * K, dtype=torch.int64), tot2=z((2 * K, 3)),
+                       po2=z(2 * K), small_left=z(K, dtype=torch.bool),
+                       keep2=z(2 * K, dtype=torch.bool),
+                       status=torch.tensor([1, K], dtype=torch.int32))
+    step_d = BatchedStep(*(t.to(dev) for t in step))
+    lk, lp = lor_mid.clone(), lor_mid.cpu().clone()
+    tk = partition_slots(binned, lk, step_d, rank.to(dev), efb)
+    tp = partition_slots_plain(bcpu, lp, step, rank, efb_c)
+    pairs += [(lk.cpu(), lp), (tk.cpu(), tp)]
+    err3 = exact_err(torch, pairs, "B3/B3-K with EFB maps")
+    lor = torch.zeros(n, dtype=torch.int32, device=dev)
+    rec0 = torch.tensor([0, 1, int(bundled[0]), 0, 1, -1, 1, 1],
+                        dtype=torch.int32, device=dev)
+    iota = torch.arange(B, dtype=torch.int32, device=dev)
+    t3k = median_ms(torch, lambda: partition(binned, lor.fill_(0), rec0,
+                                             iota, efb))
+    lor_p = lor.clone()
+    t3p = median_ms(torch, lambda: partition_plain(binned, lor_p.fill_(0),
+                                                   rec0, iota, efb))
+    b3 = bound_ms(n * G + 12 * n, 2 * n)
+    emit({"phase": "kernel", "name": "B3 row partition, EFB decode",
+          "route": "cuda", "source": "lightgbm_torch/csrc/partition.cu",
+          "replaces": "lightgbm_tpu/grower.py:778", "max_abs_err": err3,
+          "ms": t3k, "plain_ms": t3p, "bound_ms": b3[0], "bound_by": b3[1],
+          "library_ms": None, "columns": G, "rows_moved": moved,
+          "batched_checked": K})
+
+    # B4 with the maps on the grouped valid matrix
+    vb = torch.as_tensor(valid.binned).to(dev)
+    vcpu = torch.as_tensor(valid.binned)
+    nv = vb.shape[0]
+    rng = np.random.RandomState(42)
+    nodes = 2 ** 6 - 1
+    sf = np.where(rng.rand(nodes) < 0.8, rng.choice(bundled, nodes),
+                  rng.choice(singles, nodes)).astype(np.int32)
+    th = np.asarray([0 if off[j] >= 0 else rng.randint(0, int(nb[j]) - 1)
+                     for j in sf], np.int32)
+    ix = np.arange(nodes)
+    lc = np.where(2 * ix + 1 < nodes, 2 * ix + 1, 0).astype(np.int32)
+    rc = np.where(2 * ix + 2 < nodes, 2 * ix + 2, 0).astype(np.int32)
+    first = nodes // 2
+    for node in range(first, nodes):
+        lc[node] = ~(2 * (node - first))
+        rc[node] = ~(2 * (node - first) + 1)
+    na_np = np.full(F, -1, np.int32)
+    na_np[singles] = nb[singles] - 1
+    tree_c = [torch.as_tensor(a) for a in (
+        sf, th, (rng.rand(nodes) < 0.5).astype(np.int32), lc, rc)]
+    cat_c = {"is_cat_node": torch.as_tensor(
+                 (np.isin(sf, singles) & (ix % 2 == 0)).astype(np.int32)),
+             "cat_rank": torch.as_tensor(np.stack(
+                 [rng.permutation(B) for _ in range(nodes)]).astype(
+                     np.int32))}
+    lv_c = torch.as_tensor(rng.randn(nodes + 1).astype(np.float32))
+    na_c = torch.as_tensor(na_np)
+    tree_d = [t.to(dev) for t in tree_c]
+    cat_d = {k: v.to(dev) for k, v in cat_c.items()}
+    lv_d, na_d = lv_c.to(dev), na_c.to(dev)
+    s0 = torch.randn(nv, 3, generator=torch.Generator().manual_seed(43))
+    pairs = []
+    for w, cat, col in ((1.0, False, 0), (-0.1, True, 2)):
+        kw_d = {**(cat_d if cat else {}), "efb_maps": efb.maps}
+        kw_c = {**(cat_c if cat else {}), "efb_maps": efb_c.maps}
+        for sc in (s0[:, 0].contiguous(), s0):
+            extra = {} if sc.dim() == 1 else {"column": col}
+            sk, sp_ = sc.clone().to(dev), sc.clone()
+            add_tree_score(sk, vb, *tree_d, na_d, lv_d, w, steps=8,
+                           **kw_d, **extra)
+            add_tree_score_plain(sp_, vcpu, *tree_c, na_c, lv_c, w,
+                                 steps=8, **kw_c, **extra)
+            pairs.append((sk.cpu(), sp_))
+    err4 = exact_err(torch, pairs, "B4 with EFB maps")
+    s1 = s0[:, 0].contiguous().to(dev)
+    t4k = median_ms(torch, lambda: add_tree_score(
+        s1, vb, *tree_d, na_d, lv_d, 1.0, steps=8, efb_maps=efb.maps))
+    t4p = median_ms(torch, lambda: add_tree_score_plain(
+        s1, vb, *tree_d, na_d, lv_d, 1.0, steps=8, efb_maps=efb.maps))
+    b4 = bound_ms(nv * G + 8 * nv, 7 * nv)
+    emit({"phase": "kernel", "name": "B4 tree score update, EFB decode",
+          "route": "cuda", "source": "lightgbm_torch/csrc/predict.cu",
+          "replaces": "lightgbm_tpu/predict_device.py:49", "max_abs_err":
+              err4, "ms": t4k, "plain_ms": t4p, "bound_ms": b4[0],
+          "bound_by": b4[1], "library_ms": None, "rows": nv,
+          "columns": G})
+    return rows
+
+
+def _exact_l2(preds, ds):
+    """A custom objective whose every histogram sum is exact in f32: L2
+    gradients rounded to 1/8, hessians 1."""
+    g = np.round(8.0 * (np.asarray(preds, np.float64) - ds.get_label())) / 8
+    return g.astype(np.float32), np.ones(len(g), np.float32)
+
+
+def _tree0_leaf_err(bst, x, y) -> float:
+    """Largest relative error of the first tree's shrunk leaf values
+    against the f64 sums of its own rows' first gradients (binary, all
+    rows at the BoostFromAverage bias, learning rate 0.1)."""
+    lbl = y.astype(np.float64)
+    bias = np.log(lbl.mean() / (1 - lbl.mean()))
+    p0 = 1 / (1 + np.exp(-bias))
+    leaves = bst.predict(x, pred_leaf=True, num_iteration=1)[:, 0]
+    t = bst._model.models[0]
+    nl = t.num_leaves
+    g = np.bincount(leaves, weights=p0 - lbl, minlength=nl)
+    h = np.bincount(leaves, minlength=nl) * p0 * (1 - p0)
+    exact = -0.1 * g / h
+    got = np.asarray(t.leaf_value, np.float64)[:nl] - bias
+    return float(np.max(np.abs(got - exact) / np.abs(exact)))
+
+
+def phase_efb_train(torch, lgt, lgt_kernels, train, valid, xv, train_u,
+                    valid_u, x, y):
+    """efb_train: the main path's configuration (binary, 31 leaves, 255
+    bins) on the bundled set as ``phase_sampled_train`` runs a cell
+    (super-epochs held to EFB_PER_ITERATION, the per-iteration path and
+    fused chunks with the same trees, a profiled byte-identical rerun,
+    engine predict), then against the unbundled twin: on exact gradients
+    (``_exact_l2``, the per-iteration path) the two write the same trees
+    bit for bit, and on the binary run the bundled first tree's leaf
+    values sit within EFB_LEAF_RTOL of the f64 sums of their rows; the
+    unbundled binary run's predictions, steady it/s and first-tree error,
+    and B1's ms a launch (the root pass, all rows) on both matrices, are
+    reported beside the bundled run's.  efb_wide_train: 255 leaves
+    (K = 16) with bagging for EFB_WIDE_ROUNDS rounds, held to
+    EFB_WIDE_PER_ITERATION.  Returns the launches by path."""
+    from lightgbm_torch.ops.histogram import compute_histogram
+    k = max(2, min(25, ES_ROUNDS))
+
+    def after(bst, prog):
+        m = bst._model
+        if m.efb_dev is None or m.binned_dev.shape[1] >= m.num_features:
+            raise AssertionError("efb_train did not train on the bundled "
+                                 "matrix")
+        exact = {}
+        for tag, (a, b) in (("bundled", (train, valid)),
+                            ("unbundled", (train_u, valid_u))):
+            be = lgt.train({"objective": "none", "num_leaves": NUM_LEAVES,
+                            "max_bin": EFB_MAX_BIN, "learning_rate": 0.5,
+                            "metric": "l2", "verbosity": -1}, a,
+                           EFB_EXACT_ROUNDS, valid_sets=[b], fobj=_exact_l2)
+            if (be._model.efb_dev is None) != (tag == "unbundled"):
+                raise AssertionError(f"the exact {tag} run's matrix")
+            exact[tag] = be
+        te = {tag: tree_sections(be.model_to_string(), EFB_EXACT_ROUNDS)
+              for tag, be in exact.items()}
+        if te["bundled"] != te["unbundled"] or not np.array_equal(
+                exact["bundled"].predict(xv), exact["unbundled"].predict(xv)):
+            raise AssertionError("on exact gradients the bundled and "
+                                 "unbundled runs wrote other trees")
+        bu, _, secs_u = train_main(lgt, train_u, valid_u, extra=EFB_PARAMS)
+        mu = bu._model
+        if mu.efb_dev is not None:
+            raise AssertionError("the unbundled run bundled")
+        err_b, err_u = _tree0_leaf_err(bst, x, y), _tree0_leaf_err(bu, x, y)
+        if not err_b <= EFB_LEAF_RTOL:
+            raise AssertionError(f"the bundled first tree's leaf values sit "
+                                 f"{err_b} from the f64 sums of their rows")
+        pb, pu = bst.predict(xv), bu.predict(xv)
+        first = next((i for i, (a, b) in enumerate(zip(m.models, mu.models))
+                      if not (np.array_equal(a.split_feature,
+                                             b.split_feature)
+                              and np.array_equal(a.threshold, b.threshold))),
+                     None)
+        dev = m.device
+        vals = torch.rand((m.num_data, 3), device=dev)
+        bins = {}
+        for tag, mm in (("bundled", m), ("unbundled", mu)):
+            hb = mm.grow_ws.hist_bins
+            bins[tag] = median_ms(torch, lambda: compute_histogram(
+                mm.binned_dev, vals, num_bins=hb))
+        st_u = mu.epoch_ms[1:] if len(mu.epoch_ms) > 1 else mu.epoch_ms
+        return {"groups": int(m.binned_dev.shape[1]),
+                "features": m.num_features,
+                "exact_gradients_same_trees": True,
+                "exact_rounds": EFB_EXACT_ROUNDS,
+                "tree0_leaf_rel_err": err_b,
+                "tree0_root_gain": float(m.models[0].split_gain[0]),
+                "unbundled": {
+                    "seconds": secs_u,
+                    "steady_iterations_per_s":
+                        1e3 * k / statistics.median(st_u),
+                    "ms_per_iteration": statistics.median(st_u) / k,
+                    "tree0_leaf_rel_err": err_u,
+                    "tree0_root_gain": float(mu.models[0].split_gain[0]),
+                    "first_tree_parting": first,
+                    "predictions_max_abs_diff": float(
+                        np.max(np.abs(pb - pu))),
+                    "predictions_within_rtol_1e-5": bool(np.allclose(
+                        pb, pu, rtol=1e-5, atol=1e-6))},
+                "b1_root_pass_ms": bins}
+    counts = phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
+                                 "efb", EFB_PARAMS, EFB_PER_ITERATION,
+                                 after=after)[0]
+    counts.update(phase_sampled_train(
+        torch, lgt, lgt_kernels, train, valid, xv, "efb_wide",
+        EFB_WIDE_PARAMS, EFB_WIDE_PER_ITERATION,
+        rounds=EFB_WIDE_ROUNDS)[0])
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # multiclass (K trees an iteration on the per-iteration loop, B4's column
 # form, B12c)
 # ---------------------------------------------------------------------------
@@ -2574,20 +3075,22 @@ def make_covertype_like(n: int, seed: int):
 
 def phase_mc_data(lgt):
     """The Covertype-shaped set, 80/20 train and valid from one seeded
-    draw, binned at 255 bins with ``enable_bundle=false``."""
+    draw, binned at 255 bins at the default ``enable_bundle``: the 4
+    wilderness and 40 soil one-hot columns bundle, so the matrix has G
+    columns where PR 7's unbundled one had F = 54."""
     t0 = time.perf_counter()
     x, y = make_covertype_like(COVTYPE_ROWS, seed=30)
     perm = np.random.RandomState(31).permutation(len(y))
     cut = int(0.8 * len(y))
     tr, va = perm[:cut], perm[cut:]
-    params = {"max_bin": MC_MAX_BIN, "enable_bundle": False,
-              "verbosity": -1}
+    params = {"max_bin": MC_MAX_BIN, "verbosity": -1}
     train = lgt.Dataset(x[tr], y[tr], params=params).construct()
     valid = lgt.Dataset(x[va], y[va], reference=train,
                         params=params).construct()
     f = 10 + COVTYPE_AREAS + COVTYPE_SOILS
-    if train.binned.shape != (cut, f) or train.binned.dtype != np.uint8 \
-            or train.efb is not None:
+    if train.efb is None or train.num_features != f \
+            or train.binned.shape[1] >= f or train.binned.dtype != np.uint8 \
+            or valid.efb is not train.efb:
         raise AssertionError(f"unexpected covertype set "
                              f"{train.binned.shape}, efb {train.efb}")
     onehot = x[:, 10:]
@@ -2598,9 +3101,10 @@ def phase_mc_data(lgt):
           "train": list(train.binned.shape),
           "valid": list(valid.binned.shape), "max_bin": int(train.max_bin),
           "class_counts": np.bincount(y.astype(np.int64)).tolist(),
-          "reduced": ["enable_bundle=false: the 4 wilderness and 40 soil "
-                      "columns stay 44 columns where EFB would bundle them "
-                      "(the port refuses bundles until ROADMAP A9.4)"]})
+          "features": f, "groups": train.efb.num_groups,
+          "group_sizes": sorted(len(g) for g in train.efb.groups),
+          "max_group_bin": train.efb.max_group_bin,
+          "pr7_columns_unbundled": f})
     return x[va], train, valid
 
 
@@ -2628,21 +3132,26 @@ def check_b4_columns(torch, score0, binned, tree, na_bin, lv, weight,
 
 
 def phase_mc_kernels(torch, lgt, valid, xv):
-    """B4's column form at K = 7 on the Covertype-shaped valid matrix (a
+    """B4's column form at K = 7 on the Covertype-shaped valid matrix,
+    grouped by its EFB bundles and walked through the decode maps (a
     numerical and a categorical tree, every column, stride 1 and column 0
     against the one-column call) and B12c against its plain version
     (random scores, saturated rows, zero weights), each timed."""
     from lightgbm_torch import metrics as tm
+    from lightgbm_torch.efb import make_device_efb
     from lightgbm_torch.predict_device import (add_tree_score,
                                                add_tree_score_plain)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     vbinned = torch.as_tensor(np.ascontiguousarray(valid.binned)).to(dev)
-    nv, f = vbinned.shape
+    nv, g = vbinned.shape
     K = MC_CLASSES
     nb = np.asarray([valid.bin_mappers[j].num_bin
                      for j in valid.used_features], np.int32)
+    f = len(nb)
+    maps = {"efb_maps": make_device_efb(valid.efb, nb, int(nb.max()),
+                                        dev).maps}
     na = torch.full((f,), -1, dtype=torch.int32, device=dev)
     na[::5] = torch.as_tensor(nb[::5] - 1).to(dev)   # NA branches taken
     rng = np.random.RandomState(8)
@@ -2671,25 +3180,26 @@ def phase_mc_kernels(torch, lgt, valid, xv):
                    np.int32)).to(dev)}
     score0 = torch.randn(nv, K, device=dev, generator=gen)
     err = max(check_b4_columns(torch, score0, vbinned, tree, na, lv, 1.0, 8,
-                               "numerical"),
+                               "numerical", **maps),
               check_b4_columns(torch, score0, vbinned, tree, na, lv, -0.1,
-                               8, "categorical", **cat))
+                               8, "categorical", **cat, **maps))
     # stride 1 and column 0: the one-column call's launch and bits
     one = score0[:, 0].contiguous()
     a, b, c = one.clone(), one.clone(), one[:, None].clone()
-    add_tree_score(a, vbinned, *tree, na, lv, 0.1, steps=8)
-    add_tree_score_plain(b, vbinned, *tree, na, lv, 0.1, steps=8)
-    add_tree_score(c, vbinned, *tree, na, lv, 0.1, steps=8, column=0)
+    add_tree_score(a, vbinned, *tree, na, lv, 0.1, steps=8, **maps)
+    add_tree_score_plain(b, vbinned, *tree, na, lv, 0.1, steps=8, **maps)
+    add_tree_score(c, vbinned, *tree, na, lv, 0.1, steps=8, column=0,
+                   **maps)
     err = max(err, exact_err(torch, [(a, b), (c[:, 0], b)],
                              "B4 stride 1 column 0"))
     s = score0.clone()
     t_k = median_ms(torch, lambda: add_tree_score(
-        s, vbinned, *tree, na, lv, 1.0, steps=8, column=K - 1))
+        s, vbinned, *tree, na, lv, 1.0, steps=8, column=K - 1, **maps))
     t_p = median_ms(torch, lambda: add_tree_score_plain(
-        s, vbinned, *tree, na, lv, 1.0, steps=8, column=K - 1))
+        s, vbinned, *tree, na, lv, 1.0, steps=8, column=K - 1, **maps))
     t_one = median_ms(torch, lambda: add_tree_score(
-        a, vbinned, *tree, na, lv, 1.0, steps=8))
-    b4_bound = bound_ms(nv * f + 8 * nv, 7 * nv)
+        a, vbinned, *tree, na, lv, 1.0, steps=8, **maps))
+    b4_bound = bound_ms(nv * g + 8 * nv, 7 * nv)
     rows = {"predict_column": {
         "name": "B4 tree score update, class column form (K = 7)",
         "route": "cuda", "source": "lightgbm_torch/csrc/predict.cu",
@@ -2697,7 +3207,8 @@ def phase_mc_kernels(torch, lgt, valid, xv):
         "ms": t_k, "plain_ms": t_p, "bound_ms": b4_bound[0],
         "bound_by": b4_bound[1], "library_ms": None}}
     emit({"phase": "kernel", **rows["predict_column"], "kernel_ms": t_k,
-          "one_column_ms": t_one, "rows": nv, "features": f, "classes": K})
+          "one_column_ms": t_one, "rows": nv, "features": f, "columns": g,
+          "classes": K})
 
     # B12c on the valid labels
     yv = torch.as_tensor(np.asarray(valid.metadata.label,
@@ -3585,6 +4096,8 @@ def main() -> int:
     kernels.update(phase_cat_kernels(torch, lgt, cat_train, cat_valid))
     mc_xv, mc_train, mc_valid = phase_mc_data(lgt)
     kernels.update(phase_mc_kernels(torch, lgt, mc_valid, mc_xv))
+    efb_sets = phase_efb_data(lgt)
+    kernels.update(phase_efb_kernels(torch, lgt, *efb_sets[1:3]))
     bst, ev, counts, epoch_ms_per_it = phase_main_path(
         torch, lgt, lgt_kernels, train, valid)
     eager_ms_per_it, per_it_counts = phase_per_iteration(
@@ -3624,6 +4137,10 @@ def main() -> int:
             torch, lgt, lgt_kernels, cat_train, cat_valid, cat_xv, prefix,
             params, per_it,
             after=cat_after(torch, lgt, lgt_kernels, cat_xv, prefix))[0])
+    sampled_counts.update(phase_efb_train(
+        torch, lgt, lgt_kernels, efb_sets[1], efb_sets[2], efb_sets[0],
+        *efb_sets[3:]))
+    del efb_sets
     mc_bst, mc_counts = phase_mc_train(
         torch, lgt, lgt_kernels, mc_train, mc_valid, "multiclass_train",
         None, MC_ROUNDS, MC_PER_TREE, profile_rounds=MC_PROFILE_ROUNDS)
@@ -3659,7 +4176,7 @@ def main() -> int:
                                             for p, c in by_path.items()}}
                       for k in KERNEL_ORDER]})
     for k in ("goss_vals", "node_draws", "split_per_child", "split_cat",
-              "predict_column", "multi_logloss"):
+              "predict_column", "multi_logloss", "expand_group_hist"):
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

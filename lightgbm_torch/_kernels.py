@@ -49,6 +49,7 @@ SOURCES: Dict[str, str] = {
     "predict": "predict.cu",        # B4
     "metrics": "metrics.cu",        # B12a, B12b, B12c
     "forest": "forest.cu",          # B10a, B10b, B10c
+    "efb": "efb.cu",                # B9
 }
 
 # kernel (launch-counter key) -> library
@@ -61,7 +62,7 @@ KERNELS: Dict[str, str] = {
     "predict": "predict", "auc": "metrics",
     "pointwise": "metrics", "multi_logloss": "metrics",
     "forest_walk": "forest", "bin_rows": "forest",
-    "fused_predict": "forest",
+    "fused_predict": "forest", "expand_group_hist": "efb",
 }
 
 # dynamic shared memory the B1 and B10c kernels may use (227 KB, all a
@@ -93,9 +94,9 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_split_setup": (),
     },
     "partition": {
-        "lgbt_partition": (_P, _I, _I, _P, _P, _I, _P, _P, _P),
+        "lgbt_partition": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P),
         "lgbt_partition_slots": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
-                                 _P),
+                                 _P, _P, _P, _P),
         "lgbt_partition_setup": (),
     },
     "grow_step": {
@@ -116,7 +117,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "predict": {
         "lgbt_add_tree_score": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
-                                _P, _P, _P, _I, _P, _F, _I, _P),
+                                _P, _P, _P, _I, _P, _P, _P, _P, _F, _I,
+                                _P),
         "lgbt_predict_setup": (),
     },
     "metrics": {
@@ -134,6 +136,11 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                _I, _I, _I, _I, _I, _P, _I, _P, _F, _I, _P,
                                _I, _I, _P, _P),
         "lgbt_forest_setup": (_I,),
+    },
+    "efb": {
+        "lgbt_expand_group_hist": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P, _P, _P),
+        "lgbt_efb_setup": (),
     },
 }
 

@@ -33,6 +33,15 @@
 // that is 28 + 8 + 4 = 40 MB, about 12 us at 3.35 TB/s.  Reading the
 // column only for rows of the split leaf saves sectors as trees deepen.
 
+// With EFB (the JAX package's do_split, :771-785, and batched :1035-1050)
+// the matrix is the bundled [N, G] one and the feature's bin is decoded
+// from its bundle column before the test: col = binned[n, group_of_feat[
+// feature]], and for a bundled feature (off_of_feat[feature] >= 0) bin =
+// off <= col < off + num_bin[feature] - 1 ? col - off + 1 : 0; a
+// singleton's column is its bin.  The NA test and the rank lookup read the
+// decoded bin.  Null maps keep the unbundled path (the column is the
+// feature).
+
 // B3-K — the batched grower's partition (grower.py `grow_tree_batched`
 // :1029-1067): one pass applies the K splits of a super-step.  The row's
 // slot is slot_of_leaf[leaf_of_row[r]] (the table the batched split step
@@ -52,11 +61,29 @@
 
 namespace {
 
+// the feature's bin of row r: its own column, or decoded from its EFB
+// bundle column (maps non-null)
+__device__ __forceinline__ int feature_bin(
+    const uint8_t* __restrict__ binned, long long r, int num_cols,
+    int feature, const int32_t* __restrict__ group_of_feat,
+    const int32_t* __restrict__ off_of_feat,
+    const int32_t* __restrict__ num_bin) {
+  if (group_of_feat == nullptr) return binned[r * num_cols + feature];
+  const int col = binned[r * num_cols + group_of_feat[feature]];
+  const int off = off_of_feat[feature];
+  if (off < 0) return col;
+  return (col >= off && col < off + num_bin[feature] - 1) ? col - off + 1
+                                                          : 0;
+}
+
 __global__ void partition_rows(const uint8_t* __restrict__ binned, int n,
-                               int num_features,
+                               int num_cols,
                                const int32_t* __restrict__ rec,
                                const int32_t* __restrict__ rank,
                                int rank_stride,
+                               const int32_t* __restrict__ group_of_feat,
+                               const int32_t* __restrict__ off_of_feat,
+                               const int32_t* __restrict__ num_bin,
                                int32_t* __restrict__ leaf_of_row,
                                int32_t* __restrict__ slot) {
   if (rec[7] == 0) return;
@@ -67,7 +94,8 @@ __global__ void partition_rows(const uint8_t* __restrict__ binned, int n,
   const int smaller = rec[6];
   int l = leaf_of_row[r];
   if (l == leaf) {
-    const int b = binned[r * num_features + feature];
+    const int b = feature_bin(binned, r, num_cols, feature, group_of_feat,
+                              off_of_feat, num_bin);
     const bool is_na = na_bin >= 0 && b == na_bin;
     const bool go_left =
         is_na ? default_left != 0
@@ -81,12 +109,15 @@ __global__ void partition_rows(const uint8_t* __restrict__ binned, int n,
 }
 
 __global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
-                                int num_features,
+                                int num_cols,
                                 const int32_t* __restrict__ recs,
                                 const int32_t* __restrict__ slot_of_leaf,
                                 const int32_t* __restrict__ status,
                                 const int32_t* __restrict__ rank,
                                 int rank_stride,
+                                const int32_t* __restrict__ group_of_feat,
+                                const int32_t* __restrict__ off_of_feat,
+                                const int32_t* __restrict__ num_bin,
                                 int32_t* __restrict__ leaf_of_row,
                                 int32_t* __restrict__ tslot) {
   if (status[0] == 0) return;
@@ -99,7 +130,8 @@ __global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
     return;
   }
   const int32_t* rec = recs + k * 8;
-  const int b = binned[r * num_features + rec[2]];
+  const int b = feature_bin(binned, r, num_cols, rec[2], group_of_feat,
+                            off_of_feat, num_bin);
   const int na_bin = rec[5];
   const bool is_na = na_bin >= 0 && b == na_bin;
   const bool go_left =
@@ -114,31 +146,38 @@ __global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
 
 }  // namespace
 
-// rank [B] (rank_stride 0) or [R, B] (rank_stride B, indexed by the
-// split's leaf).
-extern "C" int lgbt_partition(const uint8_t* binned, int n, int num_features,
+// binned [N, num_cols]; rank [B] (rank_stride 0) or [R, B] (rank_stride
+// B, indexed by the split's leaf); group_of_feat, off_of_feat and num_bin
+// [F] (all null without EFB).
+extern "C" int lgbt_partition(const uint8_t* binned, int n, int num_cols,
                               const int32_t* rec, const int32_t* rank,
-                              int rank_stride, int32_t* leaf_of_row,
+                              int rank_stride, const int32_t* group_of_feat,
+                              const int32_t* off_of_feat,
+                              const int32_t* num_bin, int32_t* leaf_of_row,
                               int32_t* slot, cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   partition_rows<<<blocks, threads, 0, stream>>>(
-      binned, n, num_features, rec, rank, rank_stride, leaf_of_row, slot);
+      binned, n, num_cols, rec, rank, rank_stride, group_of_feat,
+      off_of_feat, num_bin, leaf_of_row, slot);
   return (int)cudaGetLastError();
 }
 
 extern "C" int lgbt_partition_slots(const uint8_t* binned, int n,
-                                    int num_features, const int32_t* recs,
+                                    int num_cols, const int32_t* recs,
                                     const int32_t* slot_of_leaf,
                                     const int32_t* status,
                                     const int32_t* rank, int rank_stride,
+                                    const int32_t* group_of_feat,
+                                    const int32_t* off_of_feat,
+                                    const int32_t* num_bin,
                                     int32_t* leaf_of_row, int32_t* tslot,
                                     cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   partition_slots<<<blocks, threads, 0, stream>>>(
-      binned, n, num_features, recs, slot_of_leaf, status, rank,
-      rank_stride, leaf_of_row, tslot);
+      binned, n, num_cols, recs, slot_of_leaf, status, rank, rank_stride,
+      group_of_feat, off_of_feat, num_bin, leaf_of_row, tslot);
   return (int)cudaGetLastError();
 }
 

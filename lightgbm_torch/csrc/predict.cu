@@ -17,6 +17,11 @@
 // iff bin <= threshold; a categorical node (is_cat_node, optional: null
 // for a tree without them) never takes the NA branch and goes left iff
 // cat_rank[node, bin] <= threshold (cat_rank [nodes, cat_bins]).
+// With EFB maps (the JAX package's `efb_maps`, predict_device.py:49-57:
+// group_of_feat, off_of_feat and nbm1 = num_bin - 1, each [F]; null
+// without EFB) the rows are the bundled [Nv, G] matrix and a node's bin
+// is decoded from its feature's bundle column: v = row[group_of_feat[f]],
+// then off_of_feat[f] < 0 ? v : (off <= v < off + nbm1 ? v - off + 1 : 0).
 //
 // Bound on this card: bytes.  The walk reads a few bytes of each row, but
 // the row-major [Nv, F] matrix is read in 32-byte sectors that span about
@@ -45,7 +50,7 @@ namespace {
 
 __global__ void tree_score(float* __restrict__ score, int stride, int col,
                            const uint8_t* __restrict__ binned, int n,
-                           int num_features,
+                           int num_cols,
                            const int32_t* __restrict__ split_feature,
                            const int32_t* __restrict__ threshold_bin,
                            const int32_t* __restrict__ default_left,
@@ -55,15 +60,25 @@ __global__ void tree_score(float* __restrict__ score, int stride, int col,
                            const int32_t* __restrict__ is_cat_node,
                            const int32_t* __restrict__ cat_rank,
                            int cat_bins,
+                           const int32_t* __restrict__ group_of_feat,
+                           const int32_t* __restrict__ off_of_feat,
+                           const int32_t* __restrict__ nbm1,
                            const float* __restrict__ leaf_value, float weight,
                            int steps) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
-  const uint8_t* row = binned + r * num_features;
+  const uint8_t* row = binned + r * num_cols;
   int node = 0;
   for (int s = 0; s < steps && node >= 0; ++s) {
     const int f = split_feature[node];
-    const int v = row[f];
+    int v;
+    if (group_of_feat == nullptr) {
+      v = row[f];
+    } else {
+      v = row[group_of_feat[f]];
+      const int off = off_of_feat[f];
+      if (off >= 0) v = (v >= off && v < off + nbm1[f]) ? v - off + 1 : 0;
+    }
     const int nb = na_bin[f];
     bool go_left;
     if (is_cat_node != nullptr && is_cat_node[node] != 0)
@@ -83,7 +98,7 @@ __global__ void tree_score(float* __restrict__ score, int stride, int col,
 
 extern "C" int lgbt_add_tree_score(float* score, int stride, int col,
                                    const uint8_t* binned, int n,
-                                   int num_features,
+                                   int num_cols,
                                    const int32_t* split_feature,
                                    const int32_t* threshold_bin,
                                    const int32_t* default_left,
@@ -92,14 +107,18 @@ extern "C" int lgbt_add_tree_score(float* score, int stride, int col,
                                    const int32_t* na_bin,
                                    const int32_t* is_cat_node,
                                    const int32_t* cat_rank, int cat_bins,
+                                   const int32_t* group_of_feat,
+                                   const int32_t* off_of_feat,
+                                   const int32_t* nbm1,
                                    const float* leaf_value, float weight,
                                    int steps, cudaStream_t stream) {
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   tree_score<<<blocks, threads, 0, stream>>>(
-      score, stride, col, binned, n, num_features, split_feature,
+      score, stride, col, binned, n, num_cols, split_feature,
       threshold_bin, default_left, left_child, right_child, na_bin,
-      is_cat_node, cat_rank, cat_bins, leaf_value, weight, steps);
+      is_cat_node, cat_rank, cat_bins, group_of_feat, off_of_feat, nbm1,
+      leaf_value, weight, steps);
   return (int)cudaGetLastError();
 }
 

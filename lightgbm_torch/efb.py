@@ -6,10 +6,14 @@ features (e.g. one-hot blocks) are folded into one shared column so the
 binned matrix narrows from F to G columns, which cuts the bytes streamed
 per histogram pass, the bandwidth-bound term.
 
-This is the host half of the JAX package's ``efb.py``: bundle finding,
-grouped binning and unbundling, which ``dataset.py`` imports.  The device
-half (the group -> feature histogram expansion) is not ported yet
-(ROADMAP A9/B9), so the port's trainer refuses a bundled dataset.
+The host half (bundle finding, grouped binning, unbundling, the gather
+maps) is the JAX package's ``efb.py``; ``dataset.py`` imports it.  The
+device half is ``EFBDevice``/``make_device_efb`` (the trainer's maps on
+its device) and ``expand_group_hist`` (kernel B9, ``csrc/efb.cu``): the
+grower keeps its histograms in group space and expands each child's to
+feature space just before the split scan.  B3/B3-K and B4 decode a
+feature's bin from its bundle column (``grower.partition``,
+``predict_device.add_tree_score``).
 
 Scheme (bundle of features j1..jk, each with default bin 0):
   group bin 0            = every constituent at its default bin
@@ -24,9 +28,12 @@ bit-for-bit; a nonzero rate trades accuracy for width like the reference.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
+import torch
+
+from . import _kernels
 
 
 class EFBInfo(NamedTuple):
@@ -234,3 +241,132 @@ def expansion_maps(efb: EFBInfo, num_bin: np.ndarray, max_bin: int):
             fix0[j] = True
             col_idx[j, 1:nb] = off + np.arange(nb - 1)
     return col_idx, fix0
+
+
+class EFBDevice(NamedTuple):
+    """A trainer's bundling state on its device (the JAX package's
+    ``EFBDevice``, efb.py:233): the maps of ``expansion_maps`` and the
+    decode maps of B3/B3-K and B4, every tensor on one device."""
+    group_of_feat: torch.Tensor   # [F] int32 the feature's group (column)
+    col_idx: torch.Tensor         # [F, B] int32 gather map (-1 = masked)
+    fix0: torch.Tensor            # [F] bool bin 0 rebuilt (bundled)
+    off_of_feat: torch.Tensor     # [F] int32 first group bin (-1 singleton)
+    num_bin: torch.Tensor         # [F] int32 the feature's bins
+    nbm1: torch.Tensor            # [F] int32 num_bin - 1
+    num_groups: int               # G, the grouped matrix's columns
+    group_bins: int               # Bg, the most bins of a group
+
+    @property
+    def maps(self):
+        """B4's ``efb_maps`` (the JAX package's ``(group_of_feat,
+        off_of_feat, num_bin - 1)``)."""
+        return self.group_of_feat, self.off_of_feat, self.nbm1
+
+
+def make_device_efb(efb: Optional[EFBInfo], num_bin: np.ndarray,
+                    max_bin: int, device) -> Optional[EFBDevice]:
+    """``EFBDevice`` of ``efb`` (None for None) on ``device``; ``num_bin``
+    [F] the used features' bins, ``max_bin`` B the feature histograms'
+    bin axis."""
+    if efb is None:
+        return None
+    col_idx, fix0 = expansion_maps(efb, num_bin, max_bin)
+    nb = np.asarray(num_bin, np.int32)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+    return EFBDevice(group_of_feat=dev(np.asarray(efb.group_of_feat,
+                                                  np.int32)),
+                     col_idx=dev(col_idx), fix0=dev(fix0),
+                     off_of_feat=dev(np.asarray(efb.off_of_feat, np.int32)),
+                     num_bin=dev(nb), nbm1=dev(nb - 1),
+                     num_groups=efb.num_groups,
+                     group_bins=efb.max_group_bin)
+
+
+def _check_expand(ghist, total, efb: EFBDevice, active, out):
+    if ghist.dim() != 4 or ghist.shape[3] != 3 \
+            or ghist.dtype != torch.float32:
+        raise TypeError("ghist must be a [C, G, Bg, 3] float32 tensor")
+    c, g = ghist.shape[:2]
+    f, b = efb.col_idx.shape
+    if g != efb.num_groups or ghist.shape[2] < efb.group_bins:
+        raise ValueError(f"ghist has {g} groups of {ghist.shape[2]} bins; "
+                         f"the maps need {efb.num_groups} of "
+                         f"{efb.group_bins}")
+    if total.shape != (c, 3) or total.dtype != torch.float32:
+        raise TypeError("total must be a [C, 3] float32 tensor")
+    tensors = [ghist, total, efb.group_of_feat, efb.col_idx, efb.fix0]
+    if active is not None:
+        if active.shape != (1,) or active.dtype != torch.int32:
+            raise TypeError("active must be a [1] int32 tensor")
+        tensors.append(active)
+    if out is not None:
+        if out.shape != (c, f, b, 3) or out.dtype != torch.float32:
+            raise TypeError(f"out must be a [{c}, {f}, {b}, 3] float32 "
+                            "tensor")
+        tensors.append(out)
+    if any(t.device != ghist.device for t in tensors):
+        raise ValueError("expand_group_hist inputs must be on one device")
+
+
+def expand_group_hist(ghist: torch.Tensor, total: torch.Tensor,
+                      efb: EFBDevice, *, active: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Group histograms ``ghist`` [C, G, Bg, 3] of C children -> their
+    feature histograms [C, F, B, 3] (kernel B9): each feature's bins
+    gathered from its group's row through ``efb.col_idx`` (0 where the
+    map is -1), and a bundled feature's bin 0 rebuilt as the child's
+    ``total`` [C, 3] minus its bins 1..B-1 summed in bin order
+    (FixHistogram).  ``active`` (a [1] int32 device tensor, the grower's
+    step flag): where it is 0 nothing is written (``out``, if given, keeps
+    its values; a new result is unspecified).  ``out``: the [C, F, B, 3]
+    tensor to write into (else a new one).  CUDA tensors launch the kernel
+    of ``csrc/efb.cu``, CPU tensors run ``expand_group_hist_plain``."""
+    _check_expand(ghist, total, efb, active, out)
+    c = ghist.shape[0]
+    f, b = efb.col_idx.shape
+    if ghist.device.type == "cpu":
+        if active is not None and not bool(active[0]):
+            return out if out is not None else torch.zeros((c, f, b, 3))
+        res = expand_group_hist_plain(ghist, total, efb)
+        return res if out is None else out.copy_(res)
+    if ghist.device.type != "cuda":
+        raise ValueError(f"unsupported device {ghist.device}")
+    if not (ghist.is_contiguous() and total.is_contiguous()
+            and (out is None or out.is_contiguous())):
+        raise ValueError("expand_group_hist needs contiguous tensors")
+    if b > 1024 or c > 65535:
+        raise ValueError("expand_group_hist takes at most 1024 bins and "
+                         "65,535 children")
+    if out is None:
+        out = torch.empty((c, f, b, 3), dtype=torch.float32,
+                          device=ghist.device)
+    err = _kernels.lib("efb").lgbt_expand_group_hist(
+        ghist.data_ptr(), total.data_ptr(), efb.group_of_feat.data_ptr(),
+        efb.col_idx.data_ptr(), efb.fix0.data_ptr(), c, ghist.shape[1],
+        ghist.shape[2], f, b, None if active is None else active.data_ptr(),
+        out.data_ptr(), _kernels.stream_ptr(ghist.device))
+    _kernels.launched("expand_group_hist", err)
+    return out
+
+
+def expand_group_hist_plain(ghist: torch.Tensor, total: torch.Tensor,
+                            efb: EFBDevice) -> torch.Tensor:
+    """Plain PyTorch version of B9, the JAX package's ``expand_group_hist``
+    step by step over C children: gather the group rows, gather the bins,
+    mask, then bin 0 = total - (bin 1 + ... + bin B-1) where ``fix0``,
+    summed one bin at a time in bin order (the kernel's order)."""
+    c, _, bg, _ = ghist.shape
+    f, b = efb.col_idx.shape
+    src = ghist.index_select(1, efb.group_of_feat.to(torch.int64))
+    idx = efb.col_idx.clamp(0, bg - 1).to(torch.int64)
+    fh = torch.gather(src, 2, idx[None, :, :, None].expand(c, f, b, 3))
+    fh = torch.where((efb.col_idx >= 0)[None, :, :, None], fh,
+                     torch.zeros((), dtype=fh.dtype, device=fh.device))
+    rest = fh[:, :, 1] if b > 1 else torch.zeros_like(fh[:, :, 0])
+    for j in range(2, b):
+        rest = rest + fh[:, :, j]
+    fh[:, :, 0] = torch.where(efb.fix0[None, :, None],
+                              total[:, None, :] - rest, fh[:, :, 0])
+    return fh

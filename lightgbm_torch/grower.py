@@ -18,6 +18,14 @@ in one CUDA graph (``models/fused.py``):
   parent minus smaller (torch ops indexed by the record), both children's
   best splits (B2 on the pair), and the ``max_depth`` mask.
 
+With EFB (``efb``, an ``efb.EFBDevice``) ``binned`` is the bundled
+[N, G] matrix, as in the JAX package's masked grower: B1/B1-K build group
+histograms [G, Bg, 3], the per-leaf histograms and the subtraction stay
+in group space, and kernel B9 (``efb.expand_group_hist``) expands the
+root's and each step's children's histograms to feature space [F, B, 3],
+with each child's totals from its step record, just before the node
+draws and B2; B3/B3-K decode each feature's bin from its bundle column.
+
 With ``feature_fraction_bynode`` or ``extra_trees`` (``NodeSampling``)
 the root and every step also draw their children's feature subsets and
 random threshold bins on the device (kernel B6-node, ``node_draws``),
@@ -43,6 +51,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .efb import EFBDevice, expand_group_hist
 from .ops import split as sp
 from .ops.histogram import compute_histogram
 from .ops.random import NodeSampling, node_draws
@@ -182,14 +191,22 @@ class GrowWorkspace:
     ``categorical`` the table has two companions, each leaf's best split's
     is-categorical flag (``leaf_cat``) and rank row (``leaf_rank``, [rows,
     B]: the JAX grower's ``bic``/``brank``), and the tree buffer the
-    ``CAT_FIELDS``; without it B3 and B3-K read one identity rank."""
+    ``CAT_FIELDS``; without it B3 and B3-K read one identity rank.  With
+    ``efb`` the per-leaf histograms are group histograms [rows, G, Bg, 3]
+    and ``gpair`` holds a step's children's in group space, ``pair``
+    their expansion; without it ``gpair`` is ``pair``."""
 
     def __init__(self, n: int, num_features: int, num_bins: int,
                  num_leaves: int, device: torch.device, split_batch: int = 1,
-                 categorical: bool = False):
+                 categorical: bool = False,
+                 efb: Optional[EFBDevice] = None):
         L, F, B = int(num_leaves), int(num_features), int(num_bins)
         K = batch_width(split_batch, L)
         self.num_leaves, self.num_bins, self.split_batch = L, B, K
+        self.efb = efb
+        # the histograms' columns and bin axis: groups or features
+        HF, HB = (F, B) if efb is None else (efb.num_groups, efb.group_bins)
+        self.hist_bins = HB
         self.cat_bins = B if categorical else 0
         rows = L + 2 * K if K > 1 else L
         kw = {"device": device}
@@ -202,7 +219,8 @@ class GrowWorkspace:
         table_init[:, sp.GAIN] = float("-inf")
         self.table_init = table_init.to(device)
         self.table = self.table_init.clone()
-        self.hist = torch.zeros((rows, F, B, 3), dtype=torch.float32, **kw)
+        self.hist = torch.zeros((rows, HF, HB, 3), dtype=torch.float32,
+                                **kw)
         self.leaf_of_row = torch.zeros(n, dtype=torch.int32, **kw)
         self.rank_iota = torch.arange(B, dtype=torch.int32, **kw)
         self.leaf_cat = self.leaf_rank = None
@@ -213,14 +231,16 @@ class GrowWorkspace:
         # the per-node draws of a step's 2K children (the root uses row 0)
         self.node_mask = torch.ones((2 * K, F), dtype=torch.bool, **kw)
         self.node_bins = torch.zeros((2 * K, F), dtype=torch.int32, **kw)
+        C = 2 if K == 1 else 2 * K
+        self.pair = torch.zeros((C, F, B, 3), dtype=torch.float32, **kw)
+        self.gpair = self.pair if efb is None else torch.zeros(
+            (C, HF, HB, 3), dtype=torch.float32, **kw)
         if K == 1:
-            self.pair = torch.zeros((2, F, B, 3), dtype=torch.float32, **kw)
             self.rec = torch.zeros(STEP_RECORD, dtype=torch.int32, **kw)
             self.idx = torch.zeros(2, dtype=torch.int64, **kw)
             self.fstep = torch.zeros(8, dtype=torch.float32, **kw)
             self.flags = torch.zeros(2, dtype=torch.bool, **kw)
             return
-        self.pair = torch.zeros((2 * K, F, B, 3), dtype=torch.float32, **kw)
         self.step = BatchedStep(
             recs=torch.zeros((K, STEP_RECORD), dtype=torch.int32, **kw),
             slot_of_leaf=torch.full((L,), -1, dtype=torch.int32, **kw),
@@ -305,7 +325,11 @@ def _draws(ws: GrowWorkspace, feature_mask, num_bin, sampling, rng_iter,
             bins if sampling.extra_trees else None)
 
 
-def _check_grow(ws: GrowWorkspace, sampling, rng_iter, is_cat) -> None:
+def _check_grow(ws: GrowWorkspace, sampling, rng_iter, is_cat,
+                efb=None) -> None:
+    if ws.efb is not efb:
+        raise ValueError("the workspace must be made with the grower's "
+                         "efb maps")
     if sampling is not None and sampling.on and rng_iter is None:
         raise ValueError("feature_fraction_bynode and extra_trees need the "
                          "device iteration rng_iter")
@@ -321,12 +345,14 @@ def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
     B2-cat), and the reset of the tree, the table and the row -> leaf
     vector."""
     v = ws.fields
-    h0 = compute_histogram(binned, vals, num_bins=ws.num_bins)
+    h0 = compute_histogram(binned, vals, num_bins=ws.hist_bins)
     ws.hist[0].copy_(h0)
     total0 = vals.sum(dim=0)
     root_out = leaf_output(total0[0], total0[1], params)
+    fh0 = h0[None] if ws.efb is None else expand_group_hist(
+        h0[None], total0[None], ws.efb, out=ws.pair[0:1])
     fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 1, 0, 0)
-    res0 = find_best_split(h0[None], total0[None], root_out[None], num_bin,
+    res0 = find_best_split(fh0, total0[None], root_out[None], num_bin,
                            na_bin, fm, params, rand_bin=rb, is_cat=is_cat)
     ws.table.copy_(ws.table_init)
     ws.put_best(slice(0, 1), res0)
@@ -345,21 +371,23 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
               workspace: Optional[GrowWorkspace] = None,
               sampling: Optional[NodeSampling] = None,
               rng_iter: Optional[torch.Tensor] = None,
-              is_cat: Optional[torch.Tensor] = None) -> TreeArrays:
+              is_cat: Optional[torch.Tensor] = None,
+              efb: Optional[EFBDevice] = None) -> TreeArrays:
     """Grow one tree on ``binned`` [N, F] uint8 with per-row ``vals``
     [N, 3] f32 = (grad, hess, weight), all on one device, with no host
     round trip.  ``sampling``: the per-node draws, keyed by ``rng_iter``
     (a [1] int32 device tensor).  ``is_cat`` [F] bool: the categorical
-    features (the workspace then has categorical fields).  Returns device
+    features (the workspace then has categorical fields).  ``efb``: the
+    EFB maps, ``binned`` then the bundled [N, G] matrix.  Returns device
     views of ``workspace`` (a new one when None); ``fetch_tree`` brings
     the tree to the host."""
-    n, f = binned.shape
+    n, f = binned.shape[0], num_bin.shape[0]
     L, B = int(num_leaves), int(num_bins)
     ws = workspace if workspace is not None else GrowWorkspace(
-        n, f, B, L, binned.device, categorical=is_cat is not None)
+        n, f, B, L, binned.device, categorical=is_cat is not None, efb=efb)
     if ws.split_batch != 1:
         raise ValueError("grow_tree needs a workspace of split_batch 1")
-    _check_grow(ws, sampling, rng_iter, is_cat)
+    _check_grow(ws, sampling, rng_iter, is_cat, efb)
     _root(ws, binned, vals, feature_mask, num_bin, na_bin, params, sampling,
           rng_iter, is_cat)
     for i in range(L - 1):
@@ -371,21 +399,25 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
 def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
                 na_bin, params, max_depth, i=0, sampling=None,
                 rng_iter=None, is_cat=None) -> None:
-    """Step ``i``: B3s, B3, B1 on the smaller child, the subtraction, the
-    children's node draws (B6-node), B2 on the pair and the depth mask,
-    all indexed by the device step record."""
+    """Step ``i``: B3s, B3, B1 on the smaller child, the subtraction (B9
+    after it with EFB), the children's node draws (B6-node), B2 on the
+    pair and the depth mask, all indexed by the device step record."""
     grow_step(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
               max_depth=max_depth, rec=ws.rec, idx=ws.idx, fstep=ws.fstep,
               flags=ws.flags, **ws.cat_state())
     active = ws.rec[ACTIVE:ACTIVE + 1]
-    slot = partition(binned, ws.leaf_of_row, ws.rec, ws.rank)
-    small = compute_histogram(binned, vals, num_bins=ws.num_bins, slot=slot,
+    slot = partition(binned, ws.leaf_of_row, ws.rec, ws.rank, ws.efb)
+    small = compute_histogram(binned, vals, num_bins=ws.hist_bins, slot=slot,
                               active=active)
     large = ws.hist.index_select(0, ws.idx[0:1])[0] - small
     smaller_left = ws.flags[0]
-    torch.where(smaller_left, small, large, out=ws.pair[0])
-    torch.where(smaller_left, large, small, out=ws.pair[1])
-    ws.hist.index_copy_(0, ws.idx, ws.pair)
+    torch.where(smaller_left, small, large, out=ws.gpair[0])
+    torch.where(smaller_left, large, small, out=ws.gpair[1])
+    ws.hist.index_copy_(0, ws.idx, ws.gpair)
+    if ws.efb is not None:
+        # the children's totals: the split's left and right sums
+        expand_group_hist(ws.gpair, ws.fstep[0:6].view(2, 3), ws.efb,
+                          active=active, out=ws.pair)
     fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2,
                     2 * (i + 1), i + 1, active)
     res = find_best_split(ws.pair, ws.fstep[0:6].view(2, 3), ws.fstep[6:8],
@@ -555,18 +587,53 @@ def _check_rank(rank: torch.Tensor) -> int:
     return 0 if rank.dim() == 1 else int(rank.shape[1])
 
 
+def _efb_ptrs(efb) -> tuple:
+    """B3's and B3-K's decode maps: (group_of_feat, off_of_feat, num_bin)
+    data pointers, or nulls without EFB."""
+    if efb is None:
+        return None, None, None
+    return (efb.group_of_feat.data_ptr(), efb.off_of_feat.data_ptr(),
+            efb.num_bin.data_ptr())
+
+
+def _check_efb(efb, binned) -> None:
+    if efb is not None and (binned.shape[1] != efb.num_groups
+                            or efb.group_of_feat.device != binned.device):
+        raise ValueError(f"binned has {binned.shape[1]} columns on "
+                         f"{binned.device}; the EFB maps need "
+                         f"{efb.num_groups} on {efb.group_of_feat.device}")
+
+
+def _feature_column(binned, feat, efb) -> torch.Tensor:
+    """The plain versions' bins of feature ``feat`` ([N] int64 feature
+    ids): its column, or decoded from its EFB bundle column as the JAX
+    package's ``do_split`` does (grower.py:780-785)."""
+    if efb is None:
+        return torch.gather(binned, 1, feat[:, None])[:, 0].to(torch.int64)
+    grp = efb.group_of_feat.to(torch.int64)[feat]
+    gcol = torch.gather(binned, 1, grp[:, None])[:, 0].to(torch.int64)
+    off = efb.off_of_feat.to(torch.int64)[feat]
+    nb = efb.num_bin.to(torch.int64)[feat]
+    in_range = (gcol >= off) & (gcol < off + nb - 1)
+    return torch.where(off < 0, gcol,
+                       torch.where(in_range, gcol - off + 1, 0))
+
+
 def partition(binned: torch.Tensor, leaf_of_row: torch.Tensor,
-              rec: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+              rec: torch.Tensor, rank: torch.Tensor,
+              efb=None) -> torch.Tensor:
     """Row partition (kernel B3), in place on ``leaf_of_row``, of the
     split named by the device step record ``rec`` (int32 [8], columns
     ``LEAF`` .. ``ACTIVE``): rows of the leaf that go right move to the new
     leaf (go left iff NA bin ? default_left : r[bin] <= threshold, r =
     ``rank`` [B], or the split leaf's row of ``rank`` [R, B]; a
-    categorical split's record has NA bin -1).  Returns the slot vector of
-    the next histogram pass (0 where the row is in the smaller child, else
-    -1); an inactive step changes nothing and its slot vector is
-    unspecified.  CUDA tensors launch the kernel of ``csrc/partition.cu``,
-    CPU tensors run ``partition_plain``."""
+    categorical split's record has NA bin -1).  With ``efb`` (an
+    ``efb.EFBDevice``) ``binned`` is the bundled [N, G] matrix and the
+    bin is decoded from the feature's bundle column.  Returns the slot
+    vector of the next histogram pass (0 where the row is in the smaller
+    child, else -1); an inactive step changes nothing and its slot vector
+    is unspecified.  CUDA tensors launch the kernel of
+    ``csrc/partition.cu``, CPU tensors run ``partition_plain``."""
     if binned.dim() != 2 or binned.dtype != torch.uint8:
         raise TypeError("binned must be a [N, F] uint8 tensor")
     if leaf_of_row.shape != (binned.shape[0],) \
@@ -577,8 +644,9 @@ def partition(binned: torch.Tensor, leaf_of_row: torch.Tensor,
         raise TypeError("rec must be an int32 step record of 8 columns")
     if any(t.device != binned.device for t in (leaf_of_row, rank, rec)):
         raise ValueError("partition inputs must be on one device")
+    _check_efb(efb, binned)
     if binned.device.type == "cpu":
-        return partition_plain(binned, leaf_of_row, rec, rank)
+        return partition_plain(binned, leaf_of_row, rec, rank, efb)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
     if not (binned.is_contiguous() and leaf_of_row.is_contiguous()
@@ -590,18 +658,18 @@ def partition(binned: torch.Tensor, leaf_of_row: torch.Tensor,
         return slot
     err = _kernels.lib("partition").lgbt_partition(
         binned.data_ptr(), n, f, rec.data_ptr(), rank.data_ptr(), stride,
-        leaf_of_row.data_ptr(), slot.data_ptr(),
+        *_efb_ptrs(efb), leaf_of_row.data_ptr(), slot.data_ptr(),
         _kernels.stream_ptr(binned.device))
     _kernels.launched("partition", err)
     return slot
 
 
-def partition_plain(binned, leaf_of_row, rec, rank) -> torch.Tensor:
+def partition_plain(binned, leaf_of_row, rec, rank, efb=None
+                    ) -> torch.Tensor:
     """Plain PyTorch version of B3 (``torch.where``, reading the record on
     the device), same contract."""
     r = rec.to(torch.int64)
-    col = binned.index_select(1, r[FEATURE:FEATURE + 1])[:, 0].to(
-        torch.int64)
+    col = _feature_column(binned, r[FEATURE].expand(binned.shape[0]), efb)
     is_na = (r[NA_BIN] >= 0) & (col == r[NA_BIN])
     rv = rank[col] if rank.dim() == 1 else rank[r[LEAF], col]
     go_left = torch.where(is_na, r[DEFAULT_LEFT] != 0, rv <= r[THRESHOLD])
@@ -620,8 +688,8 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
                       workspace: Optional[GrowWorkspace] = None,
                       sampling: Optional[NodeSampling] = None,
                       rng_iter: Optional[torch.Tensor] = None,
-                      is_cat: Optional[torch.Tensor] = None
-                      ) -> TreeArrays:
+                      is_cat: Optional[torch.Tensor] = None,
+                      efb: Optional[EFBDevice] = None) -> TreeArrays:
     """Grow one tree with K splits per super-step (the JAX package's
     ``grow_tree_batched``, grower.py:945): each super-step takes the top K
     leaves by cached gain and splits the valid prefix of them (B3s-K),
@@ -636,18 +704,18 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
     done, and every kernel of a later super-step exits at once; its torch
     ops write only the scratch rows.  ``sampling``/``rng_iter`` as
     ``grow_tree``; the draws of invalid slots keep their places in the
-    stream.  ``is_cat`` as ``grow_tree``.  Returns device views of
-    ``workspace``, as ``grow_tree``."""
-    n, f = binned.shape
+    stream.  ``is_cat`` and ``efb`` as ``grow_tree``.  Returns device
+    views of ``workspace``, as ``grow_tree``."""
+    n, f = binned.shape[0], num_bin.shape[0]
     L, B = int(num_leaves), int(num_bins)
     K = batch_width(split_batch, L)
     ws = workspace if workspace is not None else GrowWorkspace(
         n, f, B, L, binned.device, split_batch=K,
-        categorical=is_cat is not None)
+        categorical=is_cat is not None, efb=efb)
     if ws.split_batch != K or K < 2:
         raise ValueError(f"grow_tree_batched needs K > 1 and a workspace "
                          f"of split_batch {K} (has {ws.split_batch})")
-    _check_grow(ws, sampling, rng_iter, is_cat)
+    _check_grow(ws, sampling, rng_iter, is_cat, efb)
     _root(ws, binned, vals, feature_mask, num_bin, na_bin, params, sampling,
           rng_iter, is_cat)
     for s in range(L - 1):
@@ -660,23 +728,26 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
                 na_bin, params, max_depth, s=0, sampling=None,
                 rng_iter=None, is_cat=None) -> None:
     """Super-step ``s``: B3s-K, B3-K, B1-K over the K smaller children,
-    the K subtractions, the 2K children's node draws (B6-node), B2 on the
-    2K children with the depth mask, and the table update, all indexed by
-    the device step outputs."""
+    the K subtractions (B9 after them with EFB), the 2K children's node
+    draws (B6-node), B2 on the 2K children with the depth mask, and the
+    table update, all indexed by the device step outputs."""
     K, st = ws.split_batch, ws.step
     grow_step_batched(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
                       split_batch=K, max_depth=max_depth, step=st,
                       **ws.cat_state())
     active = st.status[0:1]
-    tslot = partition_slots(binned, ws.leaf_of_row, st, ws.rank)
-    small = compute_histogram(binned, vals, num_bins=ws.num_bins,
+    tslot = partition_slots(binned, ws.leaf_of_row, st, ws.rank, ws.efb)
+    small = compute_histogram(binned, vals, num_bins=ws.hist_bins,
                               slot=tslot, num_slots=K, active=active,
                               slots_used=st.status[1:2])
     large = ws.hist.index_select(0, st.idx2[:K]) - small
     sel = st.small_left[:, None, None, None]
-    torch.where(sel, small, large, out=ws.pair[:K])
-    torch.where(sel, large, small, out=ws.pair[K:])
-    ws.hist.index_copy_(0, st.idx2, ws.pair)
+    torch.where(sel, small, large, out=ws.gpair[:K])
+    torch.where(sel, large, small, out=ws.gpair[K:])
+    ws.hist.index_copy_(0, st.idx2, ws.gpair)
+    if ws.efb is not None:
+        expand_group_hist(ws.gpair, st.tot2, ws.efb, active=active,
+                          out=ws.pair)
     fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2 * K,
                     (s + 1) * 2 * K, s + 1, active)
     res = find_best_split(ws.pair, st.tot2, st.po2, num_bin, na_bin, fm,
@@ -838,7 +909,8 @@ def grow_step_batched_plain(table, tree, na_bin, *, num_leaves: int,
 
 
 def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
-                    step: BatchedStep, rank: torch.Tensor) -> torch.Tensor:
+                    step: BatchedStep, rank: torch.Tensor,
+                    efb=None) -> torch.Tensor:
     """The batched row partition (kernel B3-K), in place on
     ``leaf_of_row``: a row of a leaf that splits in this super-step (slot
     ``step.slot_of_leaf[leaf] = k``) takes record k's split (go left iff
@@ -847,7 +919,8 @@ def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
     leaf).  Returns the [N] int32 target slots of the K-slot
     histogram pass: k where the row ends in slot k's smaller child, else
     -1; a dead super-step (``step.status[0] == 0``) changes nothing and
-    its target slots are unspecified.  CUDA tensors launch the kernel of
+    its target slots are unspecified.  ``efb``: the bundled matrix's
+    decode maps, as ``partition``.  CUDA tensors launch the kernel of
     ``csrc/partition.cu``, CPU tensors run ``partition_slots_plain``."""
     if binned.dim() != 2 or binned.dtype != torch.uint8:
         raise TypeError("binned must be a [N, F] uint8 tensor")
@@ -864,8 +937,9 @@ def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
                step.status)
     if any(t.device != binned.device for t in tensors):
         raise ValueError("partition_slots inputs must be on one device")
+    _check_efb(efb, binned)
     if binned.device.type == "cpu":
-        return partition_slots_plain(binned, leaf_of_row, step, rank)
+        return partition_slots_plain(binned, leaf_of_row, step, rank, efb)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
     if not (binned.is_contiguous() and all(t.is_contiguous()
@@ -878,14 +952,14 @@ def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
     err = _kernels.lib("partition").lgbt_partition_slots(
         binned.data_ptr(), n, f, step.recs.data_ptr(),
         step.slot_of_leaf.data_ptr(), step.status.data_ptr(),
-        rank.data_ptr(), stride, leaf_of_row.data_ptr(), tslot.data_ptr(),
-        _kernels.stream_ptr(binned.device))
+        rank.data_ptr(), stride, *_efb_ptrs(efb), leaf_of_row.data_ptr(),
+        tslot.data_ptr(), _kernels.stream_ptr(binned.device))
     _kernels.launched("partition_slots", err)
     return tslot
 
 
 def partition_slots_plain(binned, leaf_of_row, step: BatchedStep,
-                          rank) -> torch.Tensor:
+                          rank, efb=None) -> torch.Tensor:
     """Plain PyTorch version of B3-K (gathers and ``torch.where``), same
     contract."""
     if not bool(step.status[0]):
@@ -894,8 +968,7 @@ def partition_slots_plain(binned, leaf_of_row, step: BatchedStep,
     k = step.slot_of_leaf.to(torch.int64)[lor]
     on = k >= 0
     r = step.recs.to(torch.int64)[k.clamp_min(0)]           # [N, 8]
-    col = torch.gather(binned, 1, r[:, FEATURE:FEATURE + 1])[:, 0].to(
-        torch.int64)
+    col = _feature_column(binned, r[:, FEATURE], efb)
     is_na = (r[:, NA_BIN] >= 0) & (col == r[:, NA_BIN])
     rv = rank[col] if rank.dim() == 1 else rank[r[:, LEAF], col]
     go_left = torch.where(is_na, r[:, DEFAULT_LEFT] != 0,

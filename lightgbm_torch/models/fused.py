@@ -7,8 +7,9 @@ The JAX package runs k iterations in one ``lax.scan``.  Here one
 iteration — gradients, the row weights (B6: the bagging draw or GOSS),
 the device-resident tree build (the strict grower B1-B3s, or the batched
 one B1-K/B3-K/B3s-K from ``split_batch`` 2 on, with the per-node draws
-B6-node), the f32 shrinkage, the train-score update, each valid set's
-tree walk (B4), the traced metrics (B12) and the early-stop vote — is
+B6-node, and B9 on an EFB-bundled matrix), the f32 shrinkage, the
+train-score update, each valid set's tree walk (B4), the traced metrics
+(B12) and the early-stop vote — is
 ``IterationProgram.body`` over tensors allocated once.  The
 iteration that keys the bagging, GOSS and per-node draws and the
 feature_fraction mask come from device tensors set before the first
@@ -179,7 +180,7 @@ class IterationProgram:
                            arrays.left_child, arrays.right_child,
                            m.na_bin_dev, lv_ok, 1.0, steps=m.walk_steps,
                            is_cat_node=arrays.is_cat_node,
-                           cat_rank=arrays.cat_rank)
+                           cat_rank=arrays.cat_rank, efb_maps=m.efb_maps)
         if self.E:
             ev = self.teval([vs for _, _, vs in m.valid_sets],
                             [m.valid_ops(vi)
@@ -198,7 +199,8 @@ class IterationProgram:
     def _grow(self, g, h, fmask, mark):
         """The row weights of g, h (B6: GOSS, the bagging draw, or none)
         keyed by ``it_cur``, then one tree from the grower (B1-B3s, or
-        B1-K/B3-K/B3s-K, with the per-node draws B6-node)."""
+        B1-K/B3-K/B3s-K, with the per-node draws B6-node, and B9 on an
+        EFB-bundled matrix)."""
         m = self.model
         cfg = m.config
         if self.goss:
@@ -217,6 +219,8 @@ class IterationProgram:
             kw.update(sampling=m.node_sampling, rng_iter=self.it_cur)
         if m.is_cat_dev is not None:
             kw["is_cat"] = m.is_cat_dev
+        if m.efb_dev is not None:
+            kw["efb"] = m.efb_dev
         return grow(m.binned_dev, vals, fmask, m.num_bin_dev,
                     m.na_bin_dev, num_leaves=cfg.num_leaves,
                     num_bins=m.max_bin, params=m.split_params,
@@ -249,7 +253,8 @@ class IterationProgram:
                                arrays.left_child, arrays.right_child,
                                m.na_bin_dev, lv_ok, 1.0, steps=m.walk_steps,
                                is_cat_node=arrays.is_cat_node,
-                               cat_rank=arrays.cat_rank, column=c)
+                               cat_rank=arrays.cat_rank, column=c,
+                               efb_maps=m.efb_maps)
             mark("")
             self.cur_tree.copy_(m.grow_ws.tree)
             self.cur_lv.copy_(lv)

@@ -9,7 +9,8 @@ weights (B6: the bagging mask, or GOSS's top-k and keyed draw) -> one tree
 from the device-resident grower (with the per-node draws of
 ``feature_fraction_bynode`` and ``extra_trees``, B6-node)
 (strict B1-B3s below 64 leaves, batched B1-K/B3-K/B3s-K with K =
-``split_batch`` from there, resolved as the JAX package resolves it) ->
+``split_batch`` from there, resolved as the JAX package resolves it; on
+an EFB-bundled matrix with B9 before each split scan) ->
 f32 shrinkage -> train score += leaf value gathered through the grower's
 row -> leaf vector -> every valid score += tree walk (B4).  The iteration
 is ``models/fused.py``'s ``IterationProgram.body``, and three paths run
@@ -57,6 +58,7 @@ from ..basic import LightGBMError
 from ..binning import BinType
 from ..config import Config
 from ..dataset import Dataset
+from ..efb import bin_grouped, make_device_efb
 from ..grower import GrowWorkspace, batch_width, host_tree
 from ..metrics import check_class_labels
 from ..objectives import ObjectiveFunction
@@ -114,10 +116,8 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
         (c.finite_check_freq > 0, "finite checks", "A12"),
         (c.telemetry or c.telemetry_blackbox, "telemetry", "A15"),
         (c.hist_tune == "on", "hist_tune", "A17 (B15)"),
-        (ds.efb is not None, "EFB feature bundling (pass enable_bundle=false)",
-         "A9 (B9)"),
         (ds.binned is None or ds.binned.dtype != np.uint8,
-         "more than 256 bins per feature", "A9"),
+         "more than 256 bins per feature or per EFB bundle", "A9.5"),
     ]
     return [(what, item) for hit, what, item in checks if hit]
 
@@ -211,15 +211,16 @@ class _DeviceTree:
 
 
 def _apply_tree(score: torch.Tensor, binned: torch.Tensor, dt: _DeviceTree,
-                na_bin: torch.Tensor, weight: float,
-                column: int = 0) -> torch.Tensor:
+                na_bin: torch.Tensor, weight: float, column: int = 0,
+                efb_maps=None) -> torch.Tensor:
     """score += weight * tree(binned), in place (kernel B4), into
-    ``score[:, column]`` of a multiclass [N, K] score."""
+    ``score[:, column]`` of a multiclass [N, K] score; ``efb_maps`` for
+    the bundled matrix."""
     return add_tree_score(score, binned, dt.split_feature, dt.threshold_bin,
                           dt.default_left, dt.left_child, dt.right_child,
                           na_bin, dt.leaf_value, weight, steps=dt.steps,
                           is_cat_node=dt.is_cat_node, cat_rank=dt.cat_rank,
-                          column=column)
+                          column=column, efb_maps=efb_maps)
 
 
 def _init_scores(init_score, n: int, k: int) -> np.ndarray:
@@ -284,13 +285,20 @@ class GBDTModel:
             if is_cat.any() else None
         self.feature_mask = torch.ones(self.num_features, dtype=torch.bool,
                                        device=dev)
+        # EFB (the JAX package's :289-291, :381-389; the port has the
+        # masked learner on one device only): the device matrix stays
+        # bundled, [N, G]; the growers expand histograms (B9) and B3/B3-K
+        # and B4 decode bins through the maps
+        self.efb_dev = make_device_efb(ds.efb, num_bin, self.max_bin, dev)
+        self.efb_maps = None if self.efb_dev is None else self.efb_dev.maps
         self.binned_dev = torch.as_tensor(
             np.ascontiguousarray(ds.binned)).to(dev)
         self.split_batch = resolve_split_batch(config)
         self.grow_ws = GrowWorkspace(self.num_data, self.num_features,
                                      self.max_bin, config.num_leaves, dev,
                                      split_batch=self.split_batch,
-                                     categorical=self.is_cat_dev is not None)
+                                     categorical=self.is_cat_dev is not None,
+                                     efb=self.efb_dev)
         # the valid walk's level count: the configuration's worst case, on
         # every path (a row stops at its leaf, so the result is the same)
         self.walk_steps = traversal_steps(config.max_depth,
@@ -319,8 +327,11 @@ class GBDTModel:
             self.bag_positive = torch.as_tensor(
                 (label > 0).astype(np.uint8)).to(dev)
 
-        self.score = torch.as_tensor(_init_scores(
-            ds.metadata.init_score, self.num_data, self.num_class)).to(dev)
+        # a torch allocation (``torch.tensor`` copies), never a view of
+        # numpy-owned memory: every buffer the gradients read is torch's
+        self.score = torch.tensor(_init_scores(
+            ds.metadata.init_score, self.num_data, self.num_class),
+            device=dev)
         self._init_applied = ds.metadata.init_score is not None
 
         # validation sets: (dataset, device binned, device score)
@@ -414,24 +425,44 @@ class GBDTModel:
         return np.ones((k, self.num_features), bool)
 
     # -- plumbing ----------------------------------------------------------
+    def _valid_binned(self, valid: Dataset) -> np.ndarray:
+        """The valid set's rows in the train matrix's layout: bundled by
+        the train set's EFB groups (its own matrix when a ``reference=``
+        set shares them, as the JAX package reads ``valid.binned``,
+        :1242), else per feature."""
+        if valid.binned is None:
+            raise NotImplementedError(
+                "valid sets need dense bins in lightgbm_torch (ROADMAP A11)")
+        efb = self.train_set.efb
+        if efb is None:
+            vb = valid.feature_binned()
+        elif valid.efb is efb:
+            vb = valid.binned
+        else:
+            flat = valid.feature_binned()
+            vb = bin_grouped(lambda j: flat[:, j].astype(np.int64), efb,
+                             valid.num_data)
+        if vb.dtype != np.uint8:
+            raise NotImplementedError(
+                "valid sets with more than 256 bins per feature or per EFB "
+                "bundle are not ported to lightgbm_torch yet (ROADMAP "
+                "A9.5)")
+        return vb
+
     def add_valid_set(self, valid: Dataset) -> None:
         valid.construct(self.config)
-        if valid.binned is None or valid.binned.dtype != np.uint8 \
-                or valid.efb is not None:
-            raise NotImplementedError(
-                "valid sets need dense uint8 bins in lightgbm_torch "
-                "(ROADMAP A9/A11)")
         nv = valid.num_data
-        binned = torch.as_tensor(np.ascontiguousarray(valid.binned)
-                                 ).to(self.device)
+        binned = torch.as_tensor(np.ascontiguousarray(
+            self._valid_binned(valid))).to(self.device)
         init = _init_scores(valid.metadata.init_score, nv, self.num_class)
         # the trees' replay, without the BoostFromAverage bias, tree t
         # into class column t % K, as the JAX package's add_valid_set (its
         # models/gbdt.py:1235-1290)
-        score = torch.as_tensor(init).to(self.device)
+        score = torch.tensor(init, device=self.device)
         for ti, dt in enumerate(self.device_trees):
             _apply_tree(score, binned, dt, self.na_bin_dev,
-                        self.tree_weights[ti], ti % self.num_class)
+                        self.tree_weights[ti], ti % self.num_class,
+                        self.efb_maps)
         self.valid_sets.append((valid, binned, score))
         # captured programs hold the old list of valid sets
         self._programs.clear()
@@ -448,8 +479,8 @@ class GBDTModel:
                 check_class_labels(label, self.num_class)
             weight = (np.ones_like(label) if md.weight is None else
                       np.asarray(md.weight, np.float32).reshape(-1))
-            ops = (torch.as_tensor(label).to(self.device),
-                   torch.as_tensor(weight).to(self.device))
+            ops = (torch.tensor(label, device=self.device),
+                   torch.tensor(weight, device=self.device))
             self._valid_ops[vi] = ops
         return ops
 
@@ -714,9 +745,10 @@ class GBDTModel:
         first = len(self.device_trees) - nt
         for ti, dt in enumerate(self.device_trees[first:], first):
             _apply_tree(self.score, self.binned_dev, dt, self.na_bin_dev,
-                        -1.0, ti % K)
+                        -1.0, ti % K, self.efb_maps)
             for _, vb, vs in self.valid_sets:
-                _apply_tree(vs, vb, dt, self.na_bin_dev, -1.0, ti % K)
+                _apply_tree(vs, vb, dt, self.na_bin_dev, -1.0, ti % K,
+                            self.efb_maps)
         del self.models[-nt:]
         del self.device_trees[-nt:]
         del self.tree_weights[-nt:]

@@ -38,10 +38,12 @@ class ObjectiveFunction:
              device: torch.device = torch.device("cpu")) -> None:
         self.device = torch.device(device)
         self.num_data = num_data
-        self.label = torch.as_tensor(np.asarray(metadata.label, np.float32),
-                                     device=self.device)
+        # torch allocations (``torch.tensor`` copies), never views of the
+        # Dataset's numpy arrays
+        self.label = torch.tensor(np.asarray(metadata.label, np.float32),
+                                  device=self.device)
         w = metadata.weight
-        self.weight = None if w is None else torch.as_tensor(
+        self.weight = None if w is None else torch.tensor(
             np.asarray(w, np.float32), device=self.device)
 
     def get_gradients(self, score: torch.Tensor
@@ -97,8 +99,8 @@ class BinaryLogloss(ObjectiveFunction):
         # reference positivity rule (binary_objective.hpp:37 is_pos_):
         # label > 0 is positive — {0, 10} labels train like {0, 1}
         lbl = (np.asarray(metadata.label) > 0).astype(np.float64)
-        self.label = torch.as_tensor(lbl.astype(np.float32),
-                                     device=self.device)
+        self.label = torch.tensor(lbl.astype(np.float32),
+                                  device=self.device)
         cnt_pos = float(lbl.sum()) if metadata.weight is None else \
             float((lbl * metadata.weight).sum())
         cnt_neg = (float(len(lbl) - lbl.sum()) if metadata.weight is None
@@ -163,7 +165,7 @@ class MulticlassSoftmax(ObjectiveFunction):
         if lbl.min() < 0 or lbl.max() >= self.num_class:
             raise ValueError("multiclass labels must be in [0, num_class)")
         self._onehot_np = np.eye(self.num_class, dtype=np.float32)[lbl]
-        self.onehot = torch.as_tensor(self._onehot_np, device=self.device)
+        self.onehot = torch.tensor(self._onehot_np, device=self.device)
         self._weight_np = None if metadata.weight is None else \
             np.asarray(metadata.weight, np.float32)
 
@@ -207,7 +209,7 @@ class MulticlassOVA(MulticlassSoftmax):
         # one-hot lookup
         lbl = np.asarray(metadata.label).astype(np.int32)
         self._onehot_np = np.eye(self.num_class, dtype=np.float32)[lbl]
-        self.onehot = torch.as_tensor(self._onehot_np, device=self.device)
+        self.onehot = torch.tensor(self._onehot_np, device=self.device)
         self._weight_np = None if metadata.weight is None else \
             np.asarray(metadata.weight, np.float32)
 

@@ -19,7 +19,10 @@ tree without categorical nodes, whose launches stay as they were.  A
 multiclass model's scores are [N, K] row-major and its tree t adds into
 column ``t % K``: the ``column`` form (the kernel's row stride K and
 column), whose column 0 of a [N] score is the one-column call.
-EFB-bundled rows are ROADMAP A9.4.
+With ``efb_maps`` (the JAX package's ``(group_of_feat, off_of_feat,
+num_bin - 1)``, each [F] int32) the rows are the EFB-bundled [N, G]
+matrix and each node's bin is decoded from its feature's bundle column
+(``predict_device.py:49-57``).
 
 The whole-forest serving functions (kernel B10, ``csrc/forest.cu``; the
 JAX package's ``traverse_forest_binned``, ``bin_rows_device``,
@@ -59,7 +62,7 @@ from . import _kernels
 
 def _check(score, binned, split_feature, threshold_bin, default_left,
            left_child, right_child, na_bin, leaf_value, is_cat_node,
-           cat_rank, column=0):
+           cat_rank, column=0, efb_maps=None):
     if score.dim() not in (1, 2) or score.dtype != torch.float32:
         raise TypeError("score must be a [N] or [N, K] float32 tensor")
     width = 1 if score.dim() == 1 else score.shape[1]
@@ -80,8 +83,15 @@ def _check(score, binned, split_feature, threshold_bin, default_left,
             or default_left.shape != nodes:
         raise TypeError("default_left must be a bool or int32 tensor of "
                         "the split_feature shape")
-    if na_bin.dtype != torch.int32 or na_bin.shape != (binned.shape[1],):
+    nf = binned.shape[1] if efb_maps is None else na_bin.shape[0]
+    if na_bin.dtype != torch.int32 or na_bin.shape != (nf,) \
+            or na_bin.dim() != 1:
         raise TypeError("na_bin must be a [F] int32 tensor")
+    maps = () if efb_maps is None else tuple(efb_maps)
+    if efb_maps is not None and (len(maps) != 3 or any(
+            t.dtype != torch.int32 or t.shape != (nf,) for t in maps)):
+        raise TypeError("efb_maps must be three [F] int32 tensors "
+                        "(group_of_feat, off_of_feat, num_bin - 1)")
     if leaf_value.dtype != torch.float32 or leaf_value.dim() != 1:
         raise TypeError("leaf_value must be a float32 vector")
     cat = () if is_cat_node is None else (is_cat_node, cat_rank)
@@ -95,7 +105,7 @@ def _check(score, binned, split_feature, threshold_bin, default_left,
                         "B] tensor")
     if any(t.device != score.device for t in
            (binned, split_feature, threshold_bin, default_left, left_child,
-            right_child, na_bin, leaf_value) + cat):
+            right_child, na_bin, leaf_value) + cat + maps):
         raise ValueError("add_tree_score inputs must be on one device")
 
 
@@ -106,28 +116,32 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
                    leaf_value: torch.Tensor, weight: float, *,
                    steps: int, is_cat_node: torch.Tensor | None = None,
                    cat_rank: torch.Tensor | None = None,
-                   column: int = 0) -> torch.Tensor:
+                   column: int = 0, efb_maps=None) -> torch.Tensor:
     """``score += weight * tree(binned)`` in place; returns ``score``.
     On an [N, K] score, ``score[:, column]`` takes the update.
 
     Node tables are [L-1] (child < 0 encodes leaf ``~child``); ``steps``
     must be at least the tree's depth.  ``is_cat_node`` [L-1] and
     ``cat_rank`` [L-1, B] (None: every node numerical) give the
-    categorical nodes and their rank rows."""
+    categorical nodes and their rank rows.  ``efb_maps``: the decode maps
+    of the bundled [N, G] ``binned`` (module docstring), or None."""
     _check(score, binned, split_feature, threshold_bin, default_left,
            left_child, right_child, na_bin, leaf_value, is_cat_node,
-           cat_rank, column)
+           cat_rank, column, efb_maps)
     if score.device.type == "cpu":
         return add_tree_score_plain(score, binned, split_feature,
                                     threshold_bin, default_left, left_child,
                                     right_child, na_bin, leaf_value, weight,
                                     steps=steps, is_cat_node=is_cat_node,
-                                    cat_rank=cat_rank, column=column)
+                                    cat_rank=cat_rank, column=column,
+                                    efb_maps=efb_maps)
     if score.device.type != "cuda":
         raise ValueError(f"unsupported device {score.device}")
+    maps = (None,) * 3 if efb_maps is None else tuple(efb_maps)
     tensors = (score, binned, split_feature, threshold_bin, default_left,
                left_child, right_child, na_bin, leaf_value) + tuple(
-                   t for t in (is_cat_node, cat_rank) if t is not None)
+                   t for t in (is_cat_node, cat_rank) + maps
+                   if t is not None)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("add_tree_score needs contiguous tensors")
     n, f = binned.shape
@@ -146,6 +160,7 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
         None if is_cat_node is None else is_cat_node.data_ptr(),
         None if cat_rank is None else cat_rank.data_ptr(),
         0 if cat_rank is None else int(cat_rank.shape[1]),
+        *(None if t is None else t.data_ptr() for t in maps),
         leaf_value.data_ptr(), float(weight), int(steps),
         _kernels.stream_ptr(score.device))
     _kernels.launched("predict", err)
@@ -154,16 +169,25 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
 
 def traverse_tree_plain(binned, split_feature, threshold_bin, default_left,
                         left_child, right_child, na_bin, *, steps: int,
-                        is_cat_node=None, cat_rank=None) -> torch.Tensor:
+                        is_cat_node=None, cat_rank=None,
+                        efb_maps=None) -> torch.Tensor:
     """Leaf index of every row (a gather loop, one level per step); a walk
-    cut short by too few steps ends at leaf 0, as in the kernel."""
+    cut short by too few steps ends at leaf 0, as in the kernel.  With
+    ``efb_maps`` each level decodes the bin from the feature's bundle
+    column, as the JAX package's ``traverse_tree_binned``."""
     n = binned.shape[0]
     node = torch.zeros(n, dtype=torch.int32, device=binned.device)
     for _ in range(steps):
         internal = node >= 0
         nid = node.clamp_min(0).to(torch.int64)
         f = split_feature[nid].to(torch.int64)
-        v = torch.gather(binned, 1, f[:, None])[:, 0].to(torch.int32)
+        col = f if efb_maps is None else efb_maps[0][f].to(torch.int64)
+        v = torch.gather(binned, 1, col[:, None])[:, 0].to(torch.int32)
+        if efb_maps is not None:
+            off, nbm1 = efb_maps[1][f], efb_maps[2][f]
+            v = torch.where(off < 0, v,
+                            torch.where((v >= off) & (v < off + nbm1),
+                                        v - off + 1, 0)).to(torch.int32)
         nb = na_bin[f]
         is_na = (nb >= 0) & (v == nb)
         rank = v
@@ -182,13 +206,13 @@ def add_tree_score_plain(score, binned, split_feature, threshold_bin,
                          default_left, left_child, right_child, na_bin,
                          leaf_value, weight: float, *, steps: int,
                          is_cat_node=None, cat_rank=None,
-                         column: int = 0) -> torch.Tensor:
+                         column: int = 0, efb_maps=None) -> torch.Tensor:
     """Plain PyTorch version of B4: the gather walk, then a multiply and an
     add, in place (into ``score[:, column]`` of an [N, K] score)."""
     leaf = traverse_tree_plain(binned, split_feature, threshold_bin,
                                default_left, left_child, right_child, na_bin,
                                steps=steps, is_cat_node=is_cat_node,
-                               cat_rank=cat_rank)
+                               cat_rank=cat_rank, efb_maps=efb_maps)
     target = score if score.dim() == 1 else score[:, column]
     target.add_(leaf_value[leaf.to(torch.int64)] * float(weight))
     return score

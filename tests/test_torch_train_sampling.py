@@ -27,6 +27,7 @@ package's same path:
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_torch as lgt
 import lightgbm_tpu as lgb
@@ -64,6 +65,49 @@ def _structure(text):
             if ln.split("=")[0] in STRUCTURAL]
 
 
+def _iteration0_ties(env):
+    """Before the port's first per-iteration step: every row of one label
+    must get one (g, h) from the iteration-0 score, since every row starts
+    from the same BoostFromAverage bias.  The check adds the bias to the
+    model's own score buffer as ``_boost_from_average`` does, takes the
+    gradients from it, and takes the bias off again (0 + b - b is 0
+    exactly).  On failure it names the distinct score and label values,
+    the (g, h) of each label and the buffers' addresses, so a recurrence
+    shows whether the score, the label or the gradient pass went wrong."""
+    if env.iteration != 0:
+        return
+    m = env.model._model
+    obj = m.objective
+    if obj is None or m.iter_ != 0:
+        return
+    bias = torch.tensor(obj.boost_from_score(0), dtype=torch.float32)
+    before = torch.unique(m.score).tolist()
+    m.score += bias
+    biased = torch.unique(m.score).tolist()
+    g, h = obj.get_gradients(m.score)
+    m.score -= bias
+    label = obj.label
+    split = {}
+    for v in torch.unique(label).tolist():
+        rows = label == v
+        gh = torch.stack([g[rows].reshape(-1), h[rows].reshape(-1)], 1)
+        vals, counts = torch.unique(gh, dim=0, return_counts=True)
+        if len(vals) > 1:
+            split[v] = list(zip(vals.tolist(), counts.tolist()))
+
+    def where(t):
+        return f"{t.data_ptr():#x} (mod 64: {t.data_ptr() % 64})"
+    assert not split and len(before) == 1 and len(biased) == 1, (
+        f"iteration-0 gradients not tied within a label: score before the "
+        f"bias {before}, after {biased}, labels "
+        f"{torch.unique(label).tolist()}, (g, h) by label {split}; score "
+        f"at {where(m.score)}, label at {where(label)}, g at {where(g)}, "
+        f"h at {where(h)}, torch threads {torch.get_num_threads()}")
+
+
+_iteration0_ties.before_iteration = True
+
+
 def _train(mod, params, data, rounds, path):
     x, y, xv, yv = data
     p = {"verbosity": -1, "max_bin": 31, "fused_chunk": 3, **params,
@@ -75,8 +119,10 @@ def _train(mod, params, data, rounds, path):
     vs = None
     if path != "fused_chunk":
         vs = [mod.Dataset(xv, yv, reference=tr)]
-    bst = mod.train(p, tr, rounds, valid_sets=vs,
-                    callbacks=[mod.record_evaluation(ev)])
+    cbs = [mod.record_evaluation(ev)]
+    if mod is lgt and path == "per_iteration":
+        cbs.append(_iteration0_ties)
+    bst = mod.train(p, tr, rounds, valid_sets=vs, callbacks=cbs)
     return bst, ev
 
 
