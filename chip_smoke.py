@@ -145,7 +145,26 @@ Phases, one JSON line each:
    EFB_LEAF_RTOL of the f64 sums of their rows, the unbundled binary
    run's predictions, leaf error and steady it/s and B1's root pass
    reported beside the bundled one; efb_wide_train: 255 leaves (K = 16) with
-   bagging for EFB_WIDE_ROUNDS rounds (EFB_WIDE_PER_ITERATION);
+   bagging for EFB_WIDE_ROUNDS rounds (EFB_WIDE_PER_ITERATION); the
+   unbundled twin's first-tree leaves are held to EFB_UNBUNDLED_LEAF_RTOL,
+   and the two first trees to equal structure;
+   rank_data, rank_kernels, rank_train and xendcg_train (after
+   efb_train): an MSLR-WEB30K-shaped set (``make_mslr_like``: 2,270,296 x
+   136 in about 18,900 queries, labels 0-4, most features zero; 200,000
+   valid rows), then B13a and B13b against their plain versions on the
+   card over every query (ranks and draws bit for bit, g and h within
+   RANK_GRAD_RTOL of each query's largest; tied, tied-in-part and random
+   scores, all-zero-label queries, truncation 30 and 3, norm on and off,
+   sigmoid 1 and 2, one query past the shared-memory tile), with times
+   and bounds; rank_train: lambdarank at 255 leaves on the per-iteration
+   loop (NDCG on the valid queries, RANK_PER_ITERATION) and as
+   super-epochs without a valid set (B13a in the graph), the same model
+   text, a profiled run; xendcg_train: rank_xendcg on the per-iteration
+   loop and a byte-identical rerun;
+   objectives_train (after multiclass_serve): each of the ten pointwise
+   objectives on the HIGGS-shaped rows with a label in its domain, every
+   path the JAX package allows with equal model text, the engine route's
+   predictions equal to the host walk's;
 10. serving_model: the serving model, SERVE_ROUNDS rounds of 31 leaves on
    the 1M x 28 train set without a valid set (fused chunks);
 11. serve_kernels: B10a (forest walk), B10b (device binning) and B10c
@@ -231,7 +250,8 @@ PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "grow_step_batched": 0, "bag_vals": 0, "goss_vals": 0,
                  "node_draws": 0, "predict": 1, "auc": 1, "pointwise": 1,
                  "forest_walk": 0, "bin_rows": 0, "fused_predict": 0,
-                 "split_cat": 0, "multi_logloss": 0, "expand_group_hist": 0}
+                 "split_cat": 0, "multi_logloss": 0, "expand_group_hist": 0,
+                 "lambdarank": 0, "xendcg": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -264,6 +284,10 @@ EXTRA_PARAMS = {"num_leaves": NUM_LEAVES, "extra_trees": True,
                 "feature_fraction_bynode": 0.8}
 EXTRA_PER_ITERATION = {**PER_ITERATION, "node_draws": NUM_LEAVES}
 SAMPLED_PER_ITERATION_ROUNDS = 10
+# the super-epoch rounds of goss_train, cat_train and cat_strict_train,
+# cut from ROUNDS so that the script keeps near its former length beside
+# the ranking and objective cells
+CUT_ROUNDS = 20
 # the categorical cells: an airline-shaped set (the reference's Expo
 # experiment, docs/Experiments.rst, in the common 8-column airline schema):
 # Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest categorical
@@ -346,18 +370,61 @@ EFB_WIDE_ROUNDS = 10
 # histogram sum exact in f32) the two write the same trees, bit for bit,
 # in EFB_EXACT_ROUNDS rounds; on the binary run the bundled first tree's
 # leaf values sit within EFB_LEAF_RTOL of the f64 sums of their rows (f32
-# sums of up to 500,000 rows; the unbundled run's B1 sums a one-hot
-# feature's bin 0, nearly every row, in long f32 runs and is reported,
-# not held: ROADMAP C)
+# sums of up to 500,000 rows: B1 sums a one-hot feature's bin 0, nearly
+# every row, in f64; the unbundled one within EFB_UNBUNDLED_LEAF_RTOL),
+# and the two first trees are equal in structure
 EFB_EXACT_ROUNDS = 10
 EFB_LEAF_RTOL = 1e-4
+# the unbundled first tree's leaves: B1 now sums bin 0 in f64, but a small
+# leaf's sums still come through f32 prefix sums over 255 bins (B2) and
+# f32 parent - child subtractions of bins that hold nearly every row, the
+# JAX package's own arithmetic (the bundled run rebuilds bin 0 from the
+# leaf's totals instead)
+EFB_UNBUNDLED_LEAF_RTOL = 2e-4
+# the ranking cells: an MSLR-WEB30K-Fold1-shaped set (Microsoft's LETOR web
+# search set, Qin & Liu 2013; the reference's "MS LTR" row of
+# docs/Experiments.rst): 2,270,296 train documents in about 18,900 queries
+# (about 120 a query, a tail to 1,251), 136 features, relevance labels 0-4
+# at about 51/33/13/2/1 %; 200,000 valid documents from another seed; 255
+# bins at the default enable_bundle
+RANK_TRAIN, RANK_FEAT, RANK_VALID, RANK_MAX_QUERY = \
+    2_270_296, 136, 200_000, 1_251
+RANK_LABEL_SHARE = (0.51, 0.33, 0.13, 0.02, 0.01)
+RANK_MAX_BIN = 255
+RANK_PARAMS = {"objective": "lambdarank", "num_leaves": WIDE_LEAVES,
+               "learning_rate": 0.1, "max_bin": RANK_MAX_BIN,
+               "metric": "ndcg", "eval_at": [1, 3, 5, 10], "verbosity": -1}
+RANK_ROUNDS, XENDCG_ROUNDS, RANK_PROFILE_ROUNDS = 20, 10, 5
+# B13 against its plain version: f32 sums of the same pair terms in
+# another order, g and h within this share of each query's largest |g|
+# (|h|)
+RANK_GRAD_RTOL = 1e-5
+# f32 operations of one pair B13a's function needs: delta 5 (two
+# differences, a product, abs, the 1/maxDCG product), the clipped sigmoid
+# argument 4, p 3 (exp among them), lambda 2, the hessian term 4, two sums
+RANK_PAIR_OPS = 20
+# a query past csrc/rank.cu's shared-memory tile (kTile, 2,048 documents):
+# the global tile loop
+RANK_BIG_QUERY = 5_000
+# per iteration of rank_train: the wide grower without bagging, one valid
+# walk and B13a (B9 beside every B2 when the set bundles)
+RANK_PER_ITERATION = {**WIDE_PER_ITERATION, "bag_vals": 0, "auc": 0,
+                      "pointwise": 0, "lambdarank": 1}
+# the ten pointwise objectives on the HIGGS-shaped rows (objectives_train):
+# the main path's tree shape, OBJ_ROUNDS rounds each
+OBJECTIVES_FUSABLE = ("huber", "fair", "poisson", "gamma", "tweedie",
+                      "cross_entropy", "cross_entropy_lambda")
+OBJECTIVES_RENEWING = ("regression_l1", "quantile", "mape")
+OBJ_ROUNDS = 10
+OBJ_PARAMS = {"num_leaves": NUM_LEAVES, "max_bin": MAX_BIN,
+              "learning_rate": 0.1, "verbosity": -1}
 KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
                 "partition",
                 "grow_step", "histogram_slots", "partition_slots",
                 "grow_step_batched", "bag_vals", "goss_vals", "node_draws",
                 "predict", "predict_column", "auc", "pointwise",
-                "multi_logloss", "expand_group_hist", "forest_walk",
-                "bin_rows", "fused_predict")
+                "multi_logloss", "expand_group_hist", "lambdarank",
+                "xendcg", "forest_walk", "bin_rows", "fused_predict")
 # the launch counter of a kernels-line entry, where it is not its own key
 # (B2's per-child form is B2's wrapper and counter, B4's column form B4's)
 KERNEL_COUNTER = {"split_per_child": "split", "predict_column": "predict"}
@@ -372,7 +439,8 @@ KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "split_per_child": "extra_train", "split_cat": "cat_train",
                "predict_column": "multiclass_train",
                "multi_logloss": "multiclass_train_fused_eval",
-               "expand_group_hist": "efb_train"}
+               "expand_group_hist": "efb_train",
+               "lambdarank": "rank_train", "xendcg": "xendcg_train"}
 
 
 def times(counts, n: int):
@@ -381,10 +449,11 @@ def times(counts, n: int):
 
 def source_digest(root: Path = Path(__file__).resolve().parent) -> str:
     """sha256 over the relative path and bytes of this script and every
-    ``.py`` and ``.cu`` file of ``lightgbm_torch``: names the code a run
-    measured.  Raises if the package is not beside the script."""
+    ``.py``, ``.cu`` and ``.cuh`` file of ``lightgbm_torch``: names the
+    code a run measured.  Raises if the package is not beside the script."""
     pkg = root / "lightgbm_torch"
-    files = sorted(p for p in pkg.rglob("*") if p.suffix in (".py", ".cu")
+    files = sorted(p for p in pkg.rglob("*")
+                   if p.suffix in (".py", ".cu", ".cuh")
                    and "_build" not in p.relative_to(pkg).parts)
     if not files:
         raise FileNotFoundError(f"no lightgbm_torch sources under {root}")
@@ -2931,11 +3000,13 @@ def phase_efb_train(torch, lgt, lgt_kernels, train, valid, xv, train_u,
     fused chunks with the same trees, a profiled byte-identical rerun,
     engine predict), then against the unbundled twin: on exact gradients
     (``_exact_l2``, the per-iteration path) the two write the same trees
-    bit for bit, and on the binary run the bundled first tree's leaf
-    values sit within EFB_LEAF_RTOL of the f64 sums of their rows; the
-    unbundled binary run's predictions, steady it/s and first-tree error,
-    and B1's ms a launch (the root pass, all rows) on both matrices, are
-    reported beside the bundled run's.  efb_wide_train: 255 leaves
+    bit for bit, and on the binary run the first trees' leaf values sit
+    within EFB_LEAF_RTOL (bundled) and EFB_UNBUNDLED_LEAF_RTOL of the f64
+    sums of their rows and the two first trees are equal in structure; the unbundled binary run's predictions
+    (their gap after the run beside the JAX test's bound, rtol 1e-5 and
+    atol 1e-6), steady it/s and first-tree error, and B1's ms a launch (the
+    root pass, all rows) on both matrices, are reported beside the bundled
+    run's.  efb_wide_train: 255 leaves
     (K = 16) with bagging for EFB_WIDE_ROUNDS rounds, held to
     EFB_WIDE_PER_ITERATION.  Returns the launches by path."""
     from lightgbm_torch.ops.histogram import compute_histogram
@@ -2967,15 +3038,22 @@ def phase_efb_train(torch, lgt, lgt_kernels, train, valid, xv, train_u,
         if mu.efb_dev is not None:
             raise AssertionError("the unbundled run bundled")
         err_b, err_u = _tree0_leaf_err(bst, x, y), _tree0_leaf_err(bu, x, y)
-        if not err_b <= EFB_LEAF_RTOL:
-            raise AssertionError(f"the bundled first tree's leaf values sit "
-                                 f"{err_b} from the f64 sums of their rows")
+        for tag, err, tol in (("bundled", err_b, EFB_LEAF_RTOL),
+                              ("unbundled", err_u, EFB_UNBUNDLED_LEAF_RTOL)):
+            if not err <= tol:
+                raise AssertionError(f"the {tag} first tree's leaf values "
+                                     f"sit {err} from the f64 sums of "
+                                     "their rows")
         pb, pu = bst.predict(xv), bu.predict(xv)
+        fields = ("split_feature", "threshold", "left_child", "right_child",
+                  "leaf_count")
         first = next((i for i, (a, b) in enumerate(zip(m.models, mu.models))
-                      if not (np.array_equal(a.split_feature,
-                                             b.split_feature)
-                              and np.array_equal(a.threshold, b.threshold))),
-                     None)
+                      if not all(np.array_equal(getattr(a, f_),
+                                                getattr(b, f_))
+                                 for f_ in fields)), None)
+        if first == 0:
+            raise AssertionError("the bundled and unbundled first trees "
+                                 "differ in structure")
         dev = m.device
         vals = torch.rand((m.num_data, 3), device=dev)
         bins = {}
@@ -3484,6 +3562,529 @@ def phase_mc_serve(torch, lgt, lgt_kernels, bst, xv):
             "multiclass_serve_fused": phase_serve(
                 torch, lgt, lgt_kernels, bst, x, device_binning=True,
                 name="multiclass_serve_fused")}
+
+
+# ---------------------------------------------------------------------------
+# ranking (B13a lambdarank, B13b XE-NDCG) and the pointwise objectives
+# ---------------------------------------------------------------------------
+
+def make_mslr_like(n: int, seed: int):
+    """An MSLR-WEB30K-shaped set (Microsoft's LETOR web search set, Qin &
+    Liu 2013): ``n`` documents in queries of about 120 (log-normal, a tail
+    to RANK_MAX_QUERY; the first query has RANK_MAX_QUERY documents), 136
+    features each zero for most documents (each nonzero for 5-45% of them,
+    log-normal values), and relevance labels 0-4 at RANK_LABEL_SHARE from a
+    hidden relevance (twelve of the features, a per-query shift and noise),
+    cut at the global quantiles.  Returns (x f32 [n, 136], labels f32 [n],
+    query sizes int64)."""
+    rng = np.random.default_rng(seed)
+    nq = max(1, int(round(n / 120)))
+    sizes = np.clip(np.round(rng.lognormal(np.log(90.0), 0.75, nq)), 1,
+                    RANK_MAX_QUERY).astype(np.int64)
+    sizes[0] = min(RANK_MAX_QUERY, n)
+    while sizes.sum() != n:
+        diff = int(n - sizes.sum())
+        pick = np.unique(rng.integers(1, nq, min(abs(diff), nq)))
+        sizes[pick] = np.clip(sizes[pick] + np.sign(diff), 1,
+                              RANK_MAX_QUERY)
+    x = np.zeros((n, RANK_FEAT), np.float32)
+    for f in range(RANK_FEAT):
+        on = np.flatnonzero(rng.random(n, dtype=np.float32)
+                            < rng.uniform(0.05, 0.45))
+        x[on, f] = np.exp(rng.standard_normal(len(on), dtype=np.float32))
+    eff = np.random.default_rng(4321).standard_normal(12)
+    rel = (np.log1p(x[:, :12]) * eff).sum(axis=1)
+    rel += np.repeat(0.5 * rng.standard_normal(nq), sizes) \
+        + 0.6 * rng.standard_normal(n)
+    cuts = np.quantile(rel, np.cumsum(RANK_LABEL_SHARE)[:-1])
+    return x, np.digitize(rel, cuts).astype(np.float32), sizes
+
+
+def phase_rank_data(lgt):
+    """The MSLR-WEB30K-shaped train and valid sets, binned at 255 bins at
+    the default ``enable_bundle``, with their query groups."""
+    t0 = time.perf_counter()
+    x, y, sizes = make_mslr_like(RANK_TRAIN, seed=70)
+    xv, yv, sv = make_mslr_like(RANK_VALID, seed=71)
+    t_make = time.perf_counter() - t0
+    params = {"max_bin": RANK_MAX_BIN, "verbosity": -1}
+    t1 = time.perf_counter()
+    train = lgt.Dataset(x, y, group=sizes, params=params).construct()
+    valid = lgt.Dataset(xv, yv, group=sv, reference=train,
+                        params=params).construct()
+    t_build = time.perf_counter() - t1
+    del x, xv
+    b = np.asarray(train.metadata.query_boundaries)
+    if len(b) - 1 != len(sizes) or b[-1] != RANK_TRAIN \
+            or train.binned.dtype != np.uint8:
+        raise AssertionError(f"unexpected ranking set: {len(b) - 1} "
+                             f"queries, {b[-1]} rows, {train.binned.dtype}")
+    share = np.bincount(y.astype(np.int64), minlength=5) / len(y)
+    classes = {f"({lo}, {hi}]": int(((sizes > lo) & (sizes <= hi)).sum())
+               for lo, hi in ((0, 16), (16, 64), (64, 256), (256, 1024),
+                              (1024, RANK_MAX_QUERY))}
+    emit({"phase": "rank_data", "seconds": time.perf_counter() - t0,
+          "make_seconds": t_make, "dataset_build_seconds": t_build,
+          "train": [RANK_TRAIN, RANK_FEAT], "valid": [RANK_VALID, RANK_FEAT],
+          "queries": len(sizes), "valid_queries": len(sv),
+          "query_size_mean": float(sizes.mean()),
+          "query_size_max": int(sizes.max()), "queries_by_size": classes,
+          "label_share": share.tolist(),
+          "zero_share": float((train.feature_binned() == 0).mean())
+          if train.efb is None else None,
+          "columns": int(train.binned.shape[1]),
+          "groups": None if train.efb is None else train.efb.num_groups,
+          "max_bin": int(train.max_bin),
+          "reduced": ["none: MSLR-WEB30K Fold1's train rows, queries and "
+                      "136 features; the valid set cut to 200,000 rows"]})
+    return train, valid
+
+
+def _query_err(torch, a, b, qid, q):
+    """Largest |a - b| over each query's largest |b|; a query whose b is
+    all zero must give a of zero (inf otherwise)."""
+    den = torch.zeros(q, device=b.device).scatter_reduce_(
+        0, qid, b.abs(), "amax")[qid]
+    d = (a - b).abs()
+    inf = torch.full_like(d, float("inf"))
+    rel = torch.where(den > 0, d / den.clamp_min(1e-30),
+                      torch.where(d > 0, inf, torch.zeros_like(d)))
+    return float(rel.max()) if rel.numel() else 0.0
+
+
+def phase_rank_kernels(torch, lgt, train):
+    """B13a and B13b against their plain versions on the card, on the
+    train set's 18,919 queries (every size class) and on a query past the
+    kernel's shared-memory tile (RANK_BIG_QUERY documents, the global tile
+    loop): ranks and the draws bit for bit, g and h within RANK_GRAD_RTOL
+    of each query's largest magnitude; B13a at iteration 0 (all scores
+    tied), on random scores with forced ties and on all-zero-label
+    queries, at truncation 30 and 3, lambdarank_norm on and off, sigmoid 1
+    and 2; B13b's draws also against ``ops.random.uniform`` per query;
+    times and bounds from this run's inputs (B13a's by the pairs the
+    function needs)."""
+    from lightgbm_torch.objectives import default_label_gain, \
+        inverse_max_dcg
+    from lightgbm_torch.ops import random as rnd
+    from lightgbm_torch.ops import rank as tr
+    dev = torch.device("cuda")
+    md = train.metadata
+    b_np = np.asarray(md.query_boundaries, np.int64)
+    label_np = np.asarray(md.label, np.float32)
+    n, q = len(label_np), len(b_np) - 1
+    gains = default_label_gain(label_np, None)
+    bnd = torch.as_tensor(b_np.astype(np.int32)).to(dev)
+    label = torch.as_tensor(label_np).to(dev)
+    lg = torch.as_tensor(gains).to(dev)
+    qid = torch.as_tensor(np.repeat(np.arange(q), np.diff(b_np))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(90)
+    # 300 queries' labels zeroed: no gain, no valid pair
+    zl_np = label_np.copy()
+    for qi in np.random.RandomState(91).choice(q, min(300, q // 2),
+                                               replace=False):
+        zl_np[b_np[qi]:b_np[qi + 1]] = 0.0
+    zlabel = torch.as_tensor(zl_np).to(dev)
+    inv = {}
+    for trunc in (30, 3):
+        for name, lab in (("labels", label_np), ("zeroed", zl_np)):
+            inv[(trunc, name)] = torch.as_tensor(
+                inverse_max_dcg(lab, b_np, gains, trunc)).to(dev)
+    rnd_s = torch.randn(n, device=dev, generator=gen)
+    scores = {"iteration0": torch.zeros(n, device=dev),
+              "ties": torch.round(rnd_s * 2) / 2, "random": rnd_s}
+    cases = [("iteration0", "labels", 30, True, 1.0),
+             ("ties", "labels", 30, False, 2.0),
+             ("random", "zeroed", 3, True, 2.0),
+             ("ties", "zeroed", 3, False, 1.0),
+             ("random", "labels", 30, True, 1.0)]
+    worst_g = worst_h = 0.0
+    for sname, lname, trunc, norm, sig in cases:
+        lab = label if lname == "labels" else zlabel
+        args = (scores[sname], lab, bnd, lg, inv[(trunc, lname)])
+        kw = dict(trunc=trunc, norm=norm, sigmoid=sig, with_ranks=True)
+        gk, hk, rk = tr.lambdarank_grad(*args, **kw)
+        gp, hp, rp = tr.lambdarank_grad_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(rk, rp):
+            raise AssertionError(f"B13a ranks ({sname}, {lname}) differ "
+                                 f"from the plain version's in "
+                                 f"{int((rk != rp).sum())} rows")
+        eg, eh = _query_err(torch, gk, gp, qid, q), \
+            _query_err(torch, hk, hp, qid, q)
+        if not (eg <= RANK_GRAD_RTOL and eh <= RANK_GRAD_RTOL):
+            raise AssertionError(f"B13a ({sname}, {lname}, trunc {trunc}, "
+                                 f"norm {norm}, sigmoid {sig}): g {eg}, "
+                                 f"h {eh} of the query's largest")
+        if lname == "zeroed":
+            z = torch.as_tensor(zl_np == 0).to(dev) & (
+                torch.zeros(q, device=dev).scatter_reduce_(
+                    0, qid, lab, "amax")[qid] == 0)
+            if bool((gk[z] != 0).any()) or bool((hk[z] != 1e-9).any()):
+                raise AssertionError("B13a: a query without gain moved")
+        worst_g, worst_h = max(worst_g, eg), max(worst_h, eh)
+    # one query past the shared-memory tile, beside small ones
+    rs = np.random.RandomState(92)
+    big_sizes = np.asarray([RANK_BIG_QUERY, 1, 2, 17, 300])
+    bb = torch.as_tensor(np.concatenate([[0], np.cumsum(big_sizes)])
+                         .astype(np.int32)).to(dev)
+    nb = int(big_sizes.sum())
+    bl = torch.as_tensor(rs.choice(5, nb, p=RANK_LABEL_SHARE)
+                         .astype(np.float32)).to(dev)
+    bqid = torch.as_tensor(np.repeat(np.arange(5), big_sizes)).to(dev)
+    binv = torch.rand(5, device=dev, generator=gen)
+    for bs in (torch.zeros(nb, device=dev),
+               torch.round(torch.randn(nb, device=dev, generator=gen) * 2)
+               / 2):
+        kw = dict(trunc=30, norm=True, sigmoid=1.0, with_ranks=True)
+        gk, hk, rk = tr.lambdarank_grad(bs, bl, bb, lg, binv, **kw)
+        gp, hp, rp = tr.lambdarank_grad_plain(bs, bl, bb, lg, binv, **kw)
+        torch.cuda.synchronize()
+        eg, eh = _query_err(torch, gk, gp, bqid, 5), \
+            _query_err(torch, hk, hp, bqid, 5)
+        if not torch.equal(rk, rp) or not (eg <= RANK_GRAD_RTOL
+                                           and eh <= RANK_GRAD_RTOL):
+            raise AssertionError(f"B13a on a {RANK_BIG_QUERY}-document "
+                                 f"query: ranks equal {torch.equal(rk, rp)}"
+                                 f", g {eg}, h {eh}")
+        worst_g, worst_h = max(worst_g, eg), max(worst_h, eh)
+    sc, inv30 = scores["random"], inv[(30, "labels")]
+    a_kw = dict(trunc=30, norm=True, sigmoid=1.0)
+    t_k = median_ms(torch, lambda: tr.lambdarank_grad(
+        sc, label, bnd, lg, inv30, **a_kw))
+    t_k0 = median_ms(torch, lambda: tr.lambdarank_grad(
+        scores["iteration0"], label, bnd, lg, inv30, **a_kw))
+    t_p = median_ms(torch, lambda: tr.lambdarank_grad_plain(
+        sc, label, bnd, lg, inv30, **a_kw), reps=3, warmup=1)
+    pairs = tr.valid_pairs(sc, label, bnd, lg, 30)
+    bytes_a = 16 * n + 8 * q + 4 + 4 * len(gains)
+    ba = bound_ms(bytes_a, RANK_PAIR_OPS * pairs)
+    rows = {"lambdarank": {
+        "name": "B13a lambdarank gradients", "route": "cuda",
+        "source": "lightgbm_torch/csrc/rank.cu",
+        "replaces": "lightgbm_tpu/objectives.py:515",
+        "max_abs_err": worst_g, "ms": t_k, "plain_ms": t_p,
+        "bound_ms": ba[0], "bound_by": ba[1], "library_ms": None}}
+    emit({"phase": "kernel", **rows["lambdarank"],
+          "max_rel_err_g": worst_g, "max_rel_err_h": worst_h,
+          "ms_iteration0": t_k0, "rows": n, "queries": q,
+          "valid_pairs": pairs, "bound_bytes": bytes_a,
+          "pair_ops": RANK_PAIR_OPS,
+          "big_query": RANK_BIG_QUERY,
+          "cases": [list(c) for c in cases]})
+
+    # B13b: the first iteration's key at objective_seed 5
+    key = rnd.fold_in(rnd.prng_key(5), 1)
+    gk, hk, gak = tr.xendcg_grad(sc, label, bnd, key, with_gamma=True)
+    gp, hp, gap = tr.xendcg_grad_plain(sc, label, bnd, key, with_gamma=True)
+    torch.cuda.synchronize()
+    if not torch.equal(gak, gap):
+        raise AssertionError("B13b's draws differ from the plain "
+                             "version's")
+    for qi in np.random.RandomState(93).choice(q, min(200, q),
+                                               replace=False):
+        lo, hi = int(b_np[qi]), int(b_np[qi + 1])
+        want = rnd.uniform(rnd.fold_in(key, int(qi)), hi - lo, dev)
+        if not torch.equal(gak[lo:hi], want):
+            raise AssertionError(f"B13b's draws of query {qi} differ from "
+                                 "ops.random.uniform")
+    egx, ehx = _query_err(torch, gk, gp, qid, q), \
+        _query_err(torch, hk, hp, qid, q)
+    if not (egx <= RANK_GRAD_RTOL and ehx <= RANK_GRAD_RTOL):
+        raise AssertionError(f"B13b: g {egx}, h {ehx} of the query's "
+                             "largest")
+    t_xk = median_ms(torch, lambda: tr.xendcg_grad(sc, label, bnd, key))
+    t_xp = median_ms(torch, lambda: tr.xendcg_grad_plain(
+        sc, label, bnd, key), reps=3, warmup=1)
+    bx = bound_ms(16 * n + 4 * (q + 1), n * (THREEFRY_OPS + 15))
+    rows["xendcg"] = {
+        "name": "B13b rank_xendcg gradients", "route": "cuda",
+        "source": "lightgbm_torch/csrc/rank.cu",
+        "replaces": "lightgbm_tpu/objectives.py:597",
+        "max_abs_err": egx, "ms": t_xk, "plain_ms": t_xp,
+        "bound_ms": bx[0], "bound_by": bx[1], "library_ms": None}
+    emit({"phase": "kernel", **rows["xendcg"], "max_rel_err_g": egx,
+          "max_rel_err_h": ehx, "draws_bit_for_bit": True,
+          "draws_checked_against_uniform": 200, "rows": n, "queries": q})
+    return rows
+
+
+def _profile_busy(torch, fn):
+    """Run ``fn`` under ``torch.profiler``: the device kernels' total ms,
+    the wall seconds, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total", 0) or 0)
+    events = [e for e in prof.key_averages() if dev_us(e) > 0
+              and not e.key.startswith(("aten::", "Memcpy HtoD"))]
+    dev_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(((e.key[:90], dev_us(e) / 1e3, e.count) for e in events),
+                 key=lambda r: -r[1])[:10]
+    return out, dev_ms, secs, [{"name": n_, "device_ms": d, "count": c}
+                               for n_, d, c in top]
+
+
+def phase_rank_train(torch, lgt, lgt_kernels, train, valid):
+    """rank_train: ``objective=lambdarank`` at 255 leaves (K = 16), NDCG at
+    RANK_PARAMS' eval_at on the valid queries (no traced form: the
+    per-iteration loop), RANK_ROUNDS rounds, launches held to
+    RANK_PER_ITERATION, one tree and one valid-score fetch an iteration,
+    NDCG@10 above its first value, ms by phase (the gradients span is
+    B13a); then the same rounds without a valid set as super-epochs of
+    RANK_ROUNDS / 2 (B13a captured in the graph and replayed; launches
+    held), the same model text; a profiled super-epoch run of
+    RANK_PROFILE_ROUNDS rounds (device busy share).  xendcg_train:
+    ``rank_xendcg`` at 255 leaves, XENDCG_ROUNDS rounds on the
+    per-iteration loop (the fused paths refuse it with the JAX package's
+    reason), launches held to XENDCG_PER_ITERATION, a byte-identical
+    rerun.  Returns the launches by path."""
+    per_it = dict(RANK_PER_ITERATION)
+    ev, clock = {}, _IterClock()
+    lgt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    clock.stamps[0] = t0
+    bst = lgt.train(RANK_PARAMS, train, RANK_ROUNDS, valid_sets=[valid],
+                    callbacks=[lgt.record_evaluation(ev), clock,
+                               _attach_timer])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = lgt_kernels.launch_counts()
+    m = bst._model
+    if m.efb_dev is not None:
+        per_it["expand_group_hist"] = WIDE_LEAVES
+    n = m.num_iterations_trained
+    if m.split_batch != WIDE_K or n != RANK_ROUNDS:
+        raise AssertionError(f"rank_train: split_batch {m.split_batch}, "
+                             f"{n} iterations")
+    if launches != times(per_it, n):
+        raise AssertionError(f"rank_train launches {launches} for {n} "
+                             f"iterations, expected {per_it} each")
+    if m.fetch_counts != {"tree": n, "valid_score": n}:
+        raise AssertionError(f"rank_train fetches {m.fetch_counts}")
+    nd = ev["valid_0"]
+    if not nd["ndcg@10"][-1] > nd["ndcg@10"][0]:
+        raise AssertionError(f"rank_train NDCG@10 {nd['ndcg@10']}")
+    phases = {k: v / n for k, v in m.phase_timer.totals_ms().items()}
+    text = bst.model_to_string()
+
+    # super-epochs without a valid set: B13a inside the captured graph
+    no_valid = {**per_it, "predict": 0}
+    lgt_kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    bs = lgt.train({**RANK_PARAMS, "superepoch": RANK_ROUNDS // 2}, train,
+                   RANK_ROUNDS)
+    torch.cuda.synchronize()
+    secs_se = time.perf_counter() - t1
+    eager = lgt_kernels.launch_counts()
+    ms = bs._model
+    prog = fused_program(ms)
+    if ms.fetch_counts != {"epoch": 2} or prog.replays != RANK_ROUNDS:
+        raise AssertionError(f"rank_train super-epochs: fetches "
+                             f"{ms.fetch_counts}, {prog.replays} replays")
+    if prog.captured != no_valid or prog.warmup != no_valid \
+            or eager != times(no_valid, 2):
+        raise AssertionError(f"rank_train super-epoch launches: captured "
+                             f"{prog.captured}, warm-up {prog.warmup}, "
+                             f"wrapper calls {eager}, expected {no_valid}")
+    device = {k: prog.warmup[k] + v for k, v in prog.launches().items()}
+    if without_path_params(bs.model_to_string()) \
+            != without_path_params(text):
+        raise AssertionError("rank_train: the super-epoch model text "
+                             "differs from the per-iteration one")
+    se_ms = ms.epoch_ms[1] / (RANK_ROUNDS // 2)
+    _, dev_ms, psecs, top = _profile_busy(torch, lambda: lgt.train(
+        {**RANK_PARAMS, "superepoch": RANK_PROFILE_ROUNDS}, train,
+        RANK_PROFILE_ROUNDS))
+    # the warm-up and every replay ran the body once each
+    dev_it = dev_ms / (RANK_PROFILE_ROUNDS + 1)
+    emit({"phase": "rank_train", "params": RANK_PARAMS,
+          "iterations": n, "seconds": secs, "iterations_per_s": n / secs,
+          "steady_ms_per_iteration": clock.steady_ms(),
+          "steady_iterations_per_s": 1e3 / clock.steady_ms(),
+          "phase_ms_per_iteration": phases,
+          "b13a_ms_per_iteration": phases.get("gradients"),
+          "valid_ndcg": {k: [v[0], v[-1]] for k, v in nd.items()},
+          "host_fetches": m.fetch_counts, "launches": launches,
+          "split_steps_live_per_tree": statistics.mean(m.step_counts),
+          "leaves_per_tree": statistics.mean(t.num_leaves
+                                             for t in m.models),
+          "superepoch": {"seconds": secs_se,
+                         "steady_ms_per_iteration": se_ms,
+                         "steady_iterations_per_s": 1e3 / se_ms,
+                         "epoch_ms": ms.epoch_ms,
+                         "capture_ms": prog.capture_ms,
+                         "host_fetches": ms.fetch_counts,
+                         "device_launches": device,
+                         "same_model_text": True},
+          "profile": {"iterations": RANK_PROFILE_ROUNDS, "seconds": psecs,
+                      "device_ms_per_iteration": dev_it,
+                      "steady_busy_share": dev_it / se_ms,
+                      "busy_share_of_profiled_wall":
+                          dev_ms / (1e3 * psecs),
+                      "top_kernels": top}})
+    by_path = {"rank_train": launches, "rank_train_superepoch": device}
+
+    # rank_xendcg: per-iteration only, keyed draws
+    xparams = {**RANK_PARAMS, "objective": "rank_xendcg"}
+    xper = {**per_it, "lambdarank": 0, "xendcg": 1}
+    runs = []
+    for _ in range(2):
+        ev, clock = {}, _IterClock()
+        lgt_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        clock.stamps[0] = t0
+        bx = lgt.train(xparams, train, XENDCG_ROUNDS, valid_sets=[valid],
+                       callbacks=[lgt.record_evaluation(ev), clock])
+        torch.cuda.synchronize()
+        runs.append((bx, ev, clock, time.perf_counter() - t0,
+                     lgt_kernels.launch_counts()))
+    (bx, ev, clock, secs_x, lx), (bx2, *_rest) = runs
+    nx = bx._model.num_iterations_trained
+    reason = "objective=rank_xendcg mutates host state every iteration"
+    if lx != times(xper, nx) or reason not in bx.fused_reasons() \
+            or bx._model.fetch_counts != {"tree": nx, "valid_score": nx}:
+        raise AssertionError(f"xendcg_train: launches {lx}, reasons "
+                             f"{bx.fused_reasons()}, fetches "
+                             f"{bx._model.fetch_counts}")
+    if bx2.model_to_string() != bx.model_to_string():
+        raise AssertionError("a second xendcg_train run gave other model "
+                             "text")
+    emit({"phase": "xendcg_train", "params": xparams, "iterations": nx,
+          "seconds": secs_x, "iterations_per_s": nx / secs_x,
+          "steady_ms_per_iteration": clock.steady_ms(),
+          "steady_iterations_per_s": 1e3 / clock.steady_ms(),
+          "valid_ndcg": {k: [v[0], v[-1]] for k, v in ev["valid_0"].items()},
+          "fused_reason": reason, "rerun_byte_identical": True,
+          "host_fetches": bx._model.fetch_counts, "launches": lx})
+    by_path["xendcg_train"] = lx
+    return by_path
+
+
+def objective_target(obj: str, x: np.ndarray, seed: int) -> np.ndarray:
+    """A label in ``obj``'s domain from the HIGGS-shaped rows' hidden
+    function: continuous for the L1 family, counts for poisson, positive
+    for gamma, zero-inflated positive for tweedie, away from zero for mape,
+    probabilities for the cross-entropy pair."""
+    rng = np.random.RandomState(seed)
+    base = (1.2 * x[:, 0] - 0.8 * x[:, 1] + 0.6 * x[:, 2] * x[:, 3]
+            + 0.4 * np.abs(x[:, 4]) + 0.5 * rng.randn(len(x)))
+    if obj == "poisson":
+        y = rng.poisson(np.exp(0.4 * base))
+    elif obj == "gamma":
+        y = rng.gamma(2.0, np.exp(0.3 * base) / 2.0)
+    elif obj == "tweedie":
+        y = rng.poisson(np.exp(0.3 * base)) * rng.gamma(2.0, 1.0, len(x))
+    elif obj == "mape":
+        y = 10.0 + base
+    elif obj in ("cross_entropy", "cross_entropy_lambda"):
+        y = 1.0 / (1.0 + np.exp(-base))
+    else:
+        y = base
+    return np.asarray(y, np.float32)
+
+
+def phase_objectives_train(torch, lgt, lgt_kernels, train, x, y, xv):
+    """objectives_train: each of the ten pointwise objectives
+    (OBJECTIVES_FUSABLE, OBJECTIVES_RENEWING) for OBJ_ROUNDS rounds of the
+    main path's tree shape on the HIGGS-shaped rows with a label in its
+    domain (``objective_target``): the fusable ones as one super-epoch
+    and on the per-iteration loop (equal model text), l1, quantile and
+    mape on the per-iteration loop (their leaves renewed on the host:
+    four fetches an iteration; the fused paths refuse them with the JAX
+    package's reason); launches held to PER_ITERATION_NO_VALID;
+    ``Booster.predict`` of the valid rows through the engine route equal
+    to the host walk's, output transform included; the objective's own
+    metric on the train rows better after OBJ_ROUNDS rounds than after
+    one.  The train set's label is restored afterwards.  Returns the
+    launches by path."""
+    from lightgbm_torch.metrics import create_metric
+    from lightgbm_torch.config import Config
+    per_it = PER_ITERATION_NO_VALID
+    out, by_path = {}, {}
+    try:
+        for i, obj in enumerate(OBJECTIVES_FUSABLE + OBJECTIVES_RENEWING):
+            yo = objective_target(obj, x, 80 + i)
+            train.set_label(yo)
+            params = {**OBJ_PARAMS, "objective": obj}
+            paths = {"per_iteration": {"superepoch": -1, "fused_chunk": 1}}
+            if obj in OBJECTIVES_FUSABLE:
+                paths["superepoch"] = {}
+            texts, rec = {}, {"label_mean": float(yo.mean())}
+            for path, extra in paths.items():
+                lgt_kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                bst = lgt.train({**params, **extra}, train, OBJ_ROUNDS)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = lgt_kernels.launch_counts()
+                m = bst._model
+                nit = m.num_iterations_trained
+                if path == "superepoch":
+                    prog = fused_program(m)
+                    if m.fetch_counts != {"epoch": 1} \
+                            or prog.captured != per_it \
+                            or launches != times(per_it, 2):
+                        raise AssertionError(
+                            f"objectives_train {obj}: fetches "
+                            f"{m.fetch_counts}, captured {prog.captured}, "
+                            f"wrapper calls {launches}")
+                    launches = {k: prog.warmup[k] + v
+                                for k, v in prog.launches().items()}
+                    rec["superepoch_epoch_ms_with_capture"] = \
+                        m.epoch_ms[0]
+                else:
+                    want_f = {"tree": nit}
+                    if obj in OBJECTIVES_RENEWING:
+                        want_f["renew"] = 4 * nit
+                        if not any("RenewTreeOutput" in r
+                                   for r in bst.fused_reasons()):
+                            raise AssertionError(f"{obj}: fused_reasons "
+                                                 f"{bst.fused_reasons()}")
+                    if launches != times(per_it, nit) \
+                            or m.fetch_counts != want_f:
+                        raise AssertionError(
+                            f"objectives_train {obj}: launches {launches}"
+                            f", fetches {m.fetch_counts}")
+                    rec["per_iteration_seconds"] = secs
+                    rec["per_iteration_ms_per_iteration"] = 1e3 * secs / nit
+                texts[path] = without_path_params(bst.model_to_string())
+                by_path[f"objectives_{obj}_{path}"] = launches
+            if len(set(texts.values())) != 1:
+                raise AssertionError(f"objectives_train {obj}: the paths "
+                                     "wrote other model text")
+            eng = bst.predict(xv)
+            host = host_walk(bst, xv)
+            if bst._engine_cache in (None, False) \
+                    or not np.array_equal(eng, host) \
+                    or not np.isfinite(eng).all():
+                raise AssertionError(f"objectives_train {obj}: the engine "
+                                     "route's predictions differ from the "
+                                     "host walk's")
+            metric = create_metric(Config(params).default_metric()[0],
+                                   Config(params))
+            metric.init(train.metadata, train.num_data)
+            first = metric.eval(bst.predict(x, raw_score=True,
+                                            num_iteration=1))[0]
+            last = metric.eval(bst.predict(x, raw_score=True))[0]
+            if not last[1] < first[1]:
+                raise AssertionError(f"objectives_train {obj}: {first} -> "
+                                     f"{last}")
+            rec.update({"paths": sorted(paths), "metric": last[0],
+                        "metric_round1": first[1], "metric_last": last[1],
+                        "prediction_mean": float(eng.mean())})
+            out[obj] = rec
+    finally:
+        train.set_label(y)
+    emit({"phase": "objectives_train", "params": OBJ_PARAMS,
+          "rounds": OBJ_ROUNDS, "objectives": out,
+          "engine_equals_host_walk": True})
+    return by_path
 
 
 # ---------------------------------------------------------------------------
@@ -4124,23 +4725,28 @@ def main() -> int:
           "bound_ms_per_iteration": wb_ms, "bound_by": wb_by,
           "bound_bytes_per_iteration": wb_bytes, "library_ms": None})
     sampled_counts = {}
-    for prefix, params, per_it in (
-            ("goss", GOSS_PARAMS, GOSS_PER_ITERATION),
-            ("extra", EXTRA_PARAMS, EXTRA_PER_ITERATION)):
+    for prefix, params, per_it, rounds in (
+            ("goss", GOSS_PARAMS, GOSS_PER_ITERATION, CUT_ROUNDS),
+            ("extra", EXTRA_PARAMS, EXTRA_PER_ITERATION, ROUNDS)):
         sampled_counts.update(phase_sampled_train(
             torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
-            per_it)[0])
+            per_it, rounds=rounds)[0])
     for prefix, params, per_it in (
             ("cat", CAT_PARAMS, CAT_PER_ITERATION),
             ("cat_strict", CAT_STRICT_PARAMS, CAT_STRICT_PER_ITERATION)):
         sampled_counts.update(phase_sampled_train(
             torch, lgt, lgt_kernels, cat_train, cat_valid, cat_xv, prefix,
-            params, per_it,
+            params, per_it, rounds=CUT_ROUNDS,
             after=cat_after(torch, lgt, lgt_kernels, cat_xv, prefix))[0])
     sampled_counts.update(phase_efb_train(
         torch, lgt, lgt_kernels, efb_sets[1], efb_sets[2], efb_sets[0],
         *efb_sets[3:]))
     del efb_sets
+    rank_train, rank_valid = phase_rank_data(lgt)
+    kernels.update(phase_rank_kernels(torch, lgt, rank_train))
+    sampled_counts.update(phase_rank_train(torch, lgt, lgt_kernels,
+                                           rank_train, rank_valid))
+    del rank_train, rank_valid
     mc_bst, mc_counts = phase_mc_train(
         torch, lgt, lgt_kernels, mc_train, mc_valid, "multiclass_train",
         None, MC_ROUNDS, MC_PER_TREE, profile_rounds=MC_PROFILE_ROUNDS)
@@ -4154,6 +4760,8 @@ def main() -> int:
             rounds, per_tree, fused_eval=full, rerun=full)[1])
     mc_counts.update(phase_mc_serve(torch, lgt, lgt_kernels, mc_bst,
                                     mc_xv[:MC_SERVE_ROWS]))
+    mc_counts.update(phase_objectives_train(torch, lgt, lgt_kernels, train,
+                                            x, y, xv))
     serve_bst = phase_serving_model(torch, lgt, lgt_kernels, train)
     kernels.update(phase_serve_kernels(torch, lgt, serve_bst, xv))
     by_path = {"main_path": counts, "per_iteration": per_it_counts,
@@ -4176,7 +4784,8 @@ def main() -> int:
                                             for p, c in by_path.items()}}
                       for k in KERNEL_ORDER]})
     for k in ("goss_vals", "node_draws", "split_per_child", "split_cat",
-              "predict_column", "multi_logloss", "expand_group_hist"):
+              "predict_column", "multi_logloss", "expand_group_hist",
+              "lambdarank", "xendcg"):
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

@@ -3,9 +3,10 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds).  Libraries go to ``lightgbm_torch/_build/`` under a
-name that carries a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  Nothing is built or
-loaded when this module is imported: the first launch of a kernel builds
+name that carries a hash of the source, the shared headers and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded.  Nothing is built or loaded when this module is imported: the
+first launch of a kernel builds
 its library, or ``build_all`` builds every library at once, one ``nvcc``
 process per source, all started together.  When a library is loaded, its
 ``lgbt_<name>_setup`` entry point runs once: it loads the kernels on the
@@ -50,6 +51,7 @@ SOURCES: Dict[str, str] = {
     "metrics": "metrics.cu",        # B12a, B12b, B12c
     "forest": "forest.cu",          # B10a, B10b, B10c
     "efb": "efb.cu",                # B9
+    "rank": "rank.cu",              # B13a, B13b
 }
 
 # kernel (launch-counter key) -> library
@@ -63,6 +65,7 @@ KERNELS: Dict[str, str] = {
     "pointwise": "metrics", "multi_logloss": "metrics",
     "forest_walk": "forest", "bin_rows": "forest",
     "fused_predict": "forest", "expand_group_hist": "efb",
+    "lambdarank": "rank", "xendcg": "rank",
 }
 
 # dynamic shared memory the B1 and B10c kernels may use (227 KB, all a
@@ -142,6 +145,12 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                    _P, _P, _P),
         "lgbt_efb_setup": (),
     },
+    "rank": {
+        "lgbt_lambdarank": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _P,
+                            _P, _P, _P),
+        "lgbt_xendcg": (_P, _P, _P, _I, _U, _U, _P, _P, _P, _P),
+        "lgbt_rank_setup": (),
+    },
 }
 
 # arguments of each library's setup entry point
@@ -201,7 +210,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
+    # the source, every shared header (``*.cuh``) and the flags
+    src = (_CSRC / SOURCES[name]).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

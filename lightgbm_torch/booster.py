@@ -116,7 +116,6 @@ class Booster:
         self._num_tree_per_iteration = 1
         self._average_output = False
         self._max_feature_idx = 0
-        self._unported_objective = None
         # the predictor engine of the current model (serve/engine.py):
         # None until built, False when the model cannot use one
         self._engine_cache = None
@@ -361,12 +360,6 @@ class Booster:
             raise NotImplementedError(
                 "pred_contrib (SHAP) is not ported to lightgbm_torch yet "
                 "(ROADMAP A14)")
-        if not pred_leaf and not raw_score \
-                and self._unported_objective is not None:
-            raise NotImplementedError(
-                f"the output transform of objective="
-                f"{self._unported_objective} is not ported to lightgbm_torch "
-                "yet (ROADMAP A9); pass raw_score=True")
         x, _, _ = _to_numpy_2d(data)
         disable_shape_check = bool(kw.get(
             "predict_disable_shape_check",
@@ -553,12 +546,7 @@ class Booster:
         params = {"objective": obj_kv.pop("objective", "regression")}
         params.update(obj_kv)
         self.config = Config(params)
-        try:
-            self.objective = create_objective(self.config)
-        except NotImplementedError:
-            # the trees still load, save and predict raw scores
-            self.objective = None
-            self._unported_objective = self.config.objective
+        self.objective = create_objective(self.config)
 
         body = "Tree=" + rest
         tree_blocks = body.split("\nend of trees")[0]

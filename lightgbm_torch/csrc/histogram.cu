@@ -25,12 +25,22 @@
 // that the shapes alone fix:
 //   1. `hist_partial`: each block takes a fixed range of rows.  Each thread
 //      owns one (feature, row sub-range) pair and walks its rows in order
-//      into a private [B, 3] f32 slice of shared memory (no atomics).  The
-//      block then sums the slices of each feature in sub-range order and
-//      writes one partial [F, B, 3] to global memory.  Features are tiled
-//      over grid.y when F*B does not fit in shared memory.
+//      into a private [B, 3] f64 slice of shared memory (no atomics).  The
+//      block then sums the slices of each feature in sub-range order, in
+//      f64, and writes one partial [F, B, 3], rounded once to f32, to
+//      global memory.  Features are tiled over grid.y when F*B does not
+//      fit in shared memory.
 //   2. `hist_reduce`: one thread per (f, b, c) sums the partials in block
-//      order.
+//      order, in f64, and rounds the total once to f32.
+// Precision.  A bin that holds nearly every row (a one-hot column's bin 0,
+// a sparse feature's zero bin) is a sum of thousands of f32 values a
+// thread.  In f32 that sum drifts by about n * 2^-24 of its size (0.86% on
+// a 500,000-row one-hot set); in f64 its error is that of the one final
+// rounding of each block's partial, no worse than a pairwise f32 sum
+// (LightGBM's own `hist_t` is double).  The f64 slices take twice the
+// shared memory of f32 ones (a 255-bin slice 6,120 B), so a block holds
+// half the (feature, sub-range) pairs it held in f32.  Sums that are
+// exact in f32 stay exact, bit for bit.
 // Bins >= num_bins add nothing (the TPU program's one-hot drops them too).
 // This is a first, simple design: every pass reads all N rows, and a
 // thread's slice accesses hit data-dependent banks.
@@ -55,7 +65,7 @@
 //   1. `hist_slots_partial`: grid (row blocks, pair tiles).  Thread t of
 //      tile y owns pair p = y * pairs_per_block + t, feature p % F and slot
 //      p / F (so a warp's lanes read neighbouring bytes of a row), and
-//      walks the block's rows in order into a private [B, 3] f32 slice of
+//      walks the block's rows in order into a private [B, 3] f64 slice of
 //      shared memory, adding the rows whose slot is its own.  The block
 //      stages its rows a chunk at a time in shared memory (slots, vals and
 //      binned rows, read once and coalesced), then marks each slot's
@@ -66,8 +76,9 @@
 //      groups are dealt over several threads, whose slices are summed in
 //      a fixed order; the tiles of unused slots only write zeros.  The
 //      block then writes its pairs to the partial [row blocks, K, F, B, 3]
-//      (they are contiguous there), coalesced.
-//   2. `hist_reduce` sums the partials in block order, as for one slot.
+//      (they are contiguous there, rounded once to f32), coalesced.
+//   2. `hist_reduce` sums the partials in block order in f64, as for one
+//      slot.
 // The order of every sum is fixed by the shapes and the count of slots
 // in use, so reruns are bitwise equal.  Bytes per pass do not grow with K (N*F + 12N + 4N, about 44 MB
 // at the main path); the partial buffer does: row blocks x K*F*B*3*4 B,
@@ -88,11 +99,11 @@ __global__ void hist_partial(const uint8_t* __restrict__ binned,
                              const int32_t* __restrict__ active,
                              float* __restrict__ partial) {
   if (active != nullptr && *active == 0) return;
-  extern __shared__ float smem[];
+  extern __shared__ double smem[];
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;                 // tile_f * subranges
   const int slice = num_bins * kChannels;
-  for (int i = tid; i < nthreads * slice; i += nthreads) smem[i] = 0.f;
+  for (int i = tid; i < nthreads * slice; i += nthreads) smem[i] = 0.0;
   __syncthreads();
 
   const int f0 = blockIdx.y * tile_f;
@@ -104,7 +115,7 @@ __global__ void hist_partial(const uint8_t* __restrict__ binned,
   const int sub = (rows_per_block + subranges - 1) / subranges;
   const long long r_begin = row0 + (long long)s * sub;
   const long long r_end = min(r_begin + sub, row_stop);
-  float* mine = smem + tid * slice;
+  double* mine = smem + tid * slice;
   if (f < num_features) {
     for (long long r = r_begin; r < r_end; ++r) {
       if (slot != nullptr && slot[r] < 0) continue;
@@ -124,10 +135,11 @@ __global__ void hist_partial(const uint8_t* __restrict__ binned,
     const int rest = e % slice;
     const int fg = f0 + flocal;
     if (fg >= num_features) continue;
-    float acc = smem[flocal * slice + rest];
+    double acc = smem[flocal * slice + rest];
     for (int ss = 1; ss < subranges; ++ss)
       acc += smem[(ss * tile_f + flocal) * slice + rest];
-    partial[((long long)blockIdx.x * num_features + fg) * slice + rest] = acc;
+    partial[((long long)blockIdx.x * num_features + fg) * slice + rest] =
+        (float)acc;
   }
 }
 
@@ -137,9 +149,9 @@ __global__ void hist_reduce(const float* __restrict__ partial, int nblocks,
   if (active != nullptr && *active == 0) return;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= elems) return;
-  float acc = partial[e];
+  double acc = partial[e];
   for (int k = 1; k < nblocks; ++k) acc += partial[(long long)k * elems + e];
-  out[e] = acc;
+  out[e] = (float)acc;
 }
 
 // Copy nbytes from global to shared memory with the whole block: 16-byte
@@ -176,7 +188,7 @@ __device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src,
 }
 
 // one staged row i into a thread's [B, 3] slice
-__device__ __forceinline__ void add_row(float* mine, const uint8_t* s_bin,
+__device__ __forceinline__ void add_row(double* mine, const uint8_t* s_bin,
                                         const float* s_vals, int i,
                                         int num_features, int f,
                                         int num_bins) {
@@ -198,7 +210,7 @@ __global__ void hist_slots_partial(const uint8_t* __restrict__ binned,
                                    const int32_t* __restrict__ slots_used,
                                    float* __restrict__ partial) {
   if (active != nullptr && *active == 0) return;
-  extern __shared__ float smem[];
+  extern __shared__ double smem[];
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
@@ -231,8 +243,8 @@ __global__ void hist_slots_partial(const uint8_t* __restrict__ binned,
   uint8_t* s_bin = reinterpret_cast<uint8_t*>(s_vals + chunk * kChannels);
   uint32_t* s_mask = reinterpret_cast<uint32_t*>(
       s_bin + ((chunk * num_features + 15) & ~15));
-  float* mine = smem + tid * slice;
-  for (int i = 0; i < slice; ++i) mine[i] = 0.f;
+  double* mine = smem + tid * slice;
+  for (int i = 0; i < slice; ++i) mine[i] = 0.0;
 
   const long long row0 = (long long)blockIdx.x * rows_per_block;
   const long long row_stop = min(row0 + rows_per_block, (long long)n);
@@ -279,12 +291,12 @@ __global__ void hist_slots_partial(const uint8_t* __restrict__ binned,
   __syncthreads();
   for (int e = tid; e < npairs * slice; e += nthreads) {
     const int pl = e / slice, i = e - pl * slice;
-    float acc = 0.f;
+    double acc = 0.0;
     if (pl < q) {
       acc = smem[pl * slice + i];
       for (int sb = 1; sb < subs; ++sb) acc += smem[(sb * q + pl) * slice + i];
     }
-    dst[e] = acc;
+    dst[e] = (float)acc;
   }
 }
 
@@ -302,7 +314,7 @@ extern "C" int lgbt_histogram(const uint8_t* binned, const float* vals,
   const int nblocks = (n + rows_per_block - 1) / rows_per_block;
   const int ntiles = (num_features + tile_f - 1) / tile_f;
   const int threads = tile_f * subranges;
-  const size_t smem = (size_t)threads * num_bins * kChannels * sizeof(float);
+  const size_t smem = (size_t)threads * num_bins * kChannels * sizeof(double);
   hist_partial<<<dim3(nblocks, ntiles), threads, smem, stream>>>(
       binned, vals, slot, n, num_features, num_bins, rows_per_block, tile_f,
       subranges, active, partial);
@@ -330,7 +342,7 @@ extern "C" int lgbt_histogram_slots(const uint8_t* binned, const float* vals,
   const int ntiles = (pairs + pairs_per_block - 1) / pairs_per_block;
   const int threads = ((pairs_per_block + 31) / 32) * 32;
   const size_t smem =
-      (size_t)threads * num_bins * kChannels * sizeof(float) +
+      (size_t)threads * num_bins * kChannels * sizeof(double) +
       (size_t)chunk * (sizeof(int32_t) + kChannels * sizeof(float)) +
       (((size_t)chunk * num_features + 15) & ~(size_t)15) +
       (size_t)(chunk / 32) * num_slots * sizeof(uint32_t);

@@ -1,8 +1,8 @@
 // B6 — the sampling draws: bagging, GOSS and the growers' per-node draws.
 //
-// All three draw jax.random's threefry2x32 stream under its defaults (see
-// lightgbm_torch/ops/random.py, the plain versions, which hold the same
-// bits): the key is two uint32 words, PRNGKey(seed) = (0, seed mod 2^32);
+// All three draw jax.random's threefry2x32 stream under its defaults
+// (threefry.cuh; see lightgbm_torch/ops/random.py, the plain versions,
+// which hold the same bits): the key is two uint32 words, PRNGKey(seed) = (0, seed mod 2^32);
 // fold_in(key, d) = threefry2x32(key, (0, d)); and with
 // jax_threefry_partitionable the word of flat index i is o0 ^ o1 of
 // threefry2x32(key, (i >> 32, i & 0xffffffff)), mapped to f32 as
@@ -79,29 +79,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
-  }
-}
 
 __global__ void bag_vals(const float* __restrict__ g,
                          const float* __restrict__ h,
@@ -136,18 +116,6 @@ __global__ void bag_vals(const float* __restrict__ g,
   v[0] = g[r] * w;
   v[1] = h[r] * w;
   v[2] = w;
-}
-
-__device__ __forceinline__ float unit_float(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f;
-}
-
-__device__ __forceinline__ void fold_in(uint32_t& k0, uint32_t& k1,
-                                        uint32_t data) {
-  uint32_t x0 = 0u, x1 = data;
-  threefry2x32(k0, k1, x0, x1);
-  k0 = x0;
-  k1 = x1;
 }
 
 // --- B6-GOSS ---------------------------------------------------------------

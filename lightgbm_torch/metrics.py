@@ -2,13 +2,15 @@
 
 Two families, as in the JAX package's ``metrics.py``:
 
-- the host-side NumPy metric classes the port runs (l2, rmse, l1,
-  binary_logloss, binary_error, auc, and over [N, K] scores
-  multi_logloss, multi_error and auc_mu), on scores fetched from the
-  device, which the per-iteration path reports by default: in f64, but
-  multi_logloss's softmax in the scores' f32, as the JAX package's.  All
-  support sample weights; each reports ``(name, value,
-  is_higher_better)``;
+- the host-side NumPy metric classes, every metric of the JAX package
+  (the regression losses, binary_logloss, binary_error, auc,
+  average_precision, the cross-entropy family and kldiv; over [N, K]
+  scores multi_logloss, multi_error and auc_mu; over query groups ndcg
+  and map at ``eval_at``), copies of the JAX package's NumPy code, on
+  scores fetched from the device, which the per-iteration path reports
+  by default: in f64, but multi_logloss's softmax in the scores' f32, as
+  the JAX package's.  All support sample weights; each reports ``(name,
+  value, is_higher_better)``;
 - the traced metrics (kernel B12, ``csrc/metrics.cu``): f32
   ``(score, label, weight) -> value`` functions on device tensors that
   the fused training loop evaluates inside its captured iteration, for
@@ -20,9 +22,9 @@ Two families, as in the JAX package's ``metrics.py``:
   ``1 - 1e-15`` rounds to 1 in f32); multi_logloss over [N, K] raw
   scores (B12c) likewise, clipped at 1e-7.  ``traced_metric_fn`` returns
   None for a metric without a traced form, which sends the engine to the
-  per-iteration host path.
-
-The other metrics raise ``NotImplementedError`` naming their ROADMAP item.
+  per-iteration host path.  The ranking metrics have no traced form (the
+JAX package has none), so a run that reports them on a valid set trains
+on the per-iteration loop.
 """
 
 from __future__ import annotations
@@ -93,6 +95,81 @@ class L1Metric(_PointwiseMetric):
     def point(self, y, s): return np.abs(y - s)
 
 
+class QuantileMetric(_PointwiseMetric):
+    name = "quantile"
+    def point(self, y, s):
+        a = self.config.alpha
+        d = y - s
+        return np.where(d >= 0, a * d, (a - 1.0) * d)
+
+
+class HuberMetric(_PointwiseMetric):
+    name = "huber"
+    def point(self, y, s):
+        a = self.config.alpha
+        d = np.abs(y - s)
+        return np.where(d <= a, 0.5 * d * d, a * (d - 0.5 * a))
+
+
+class FairMetric(_PointwiseMetric):
+    name = "fair"
+    def point(self, y, s):
+        c = self.config.fair_c
+        d = np.abs(y - s)
+        return c * c * (d / c - np.log1p(d / c))
+
+
+class PoissonMetric(_PointwiseMetric):
+    name = "poisson"
+    def transform(self, s): return np.exp(s)
+    def point(self, y, s):
+        eps = 1e-10
+        return s - y * np.log(np.maximum(s, eps))
+
+
+class MAPEMetric(_PointwiseMetric):
+    name = "mape"
+    def point(self, y, s):
+        return np.abs(y - s) / np.maximum(np.abs(y), 1.0)
+
+
+class GammaMetric(_PointwiseMetric):
+    name = "gamma"
+    def transform(self, s): return np.exp(s)
+    def point(self, y, s):
+        eps = 1e-10
+        psi = y / np.maximum(s, eps)
+        theta = -1.0 / np.maximum(s, eps)
+        a = -np.log(-theta)
+        return -np.log(np.maximum(y, eps)) - theta * y + a + psi * 0  # deviance core
+    def eval(self, score):
+        s = self.transform(score)
+        eps = 1e-10
+        ll = (self.label / np.maximum(s, eps) + np.log(np.maximum(s, eps)))
+        return [(self.name, self._avg(ll), False)]
+
+
+class GammaDevianceMetric(_PointwiseMetric):
+    name = "gamma_deviance"
+    def transform(self, s): return np.exp(s)
+    def point(self, y, s):
+        eps = 1e-10
+        f = y / np.maximum(s, eps)
+        return 2.0 * (np.log(np.maximum(1.0 / np.maximum(f, eps), eps)) + f - 1.0)
+
+
+class TweedieMetric(_PointwiseMetric):
+    name = "tweedie"
+    def transform(self, s): return np.exp(s)
+    def point(self, y, s):
+        rho = self.config.tweedie_variance_power
+        eps = 1e-10
+        s = np.maximum(s, eps)
+        a = y * np.power(s, 1.0 - rho) / (1.0 - rho)
+        b = np.power(s, 2.0 - rho) / (2.0 - rho)
+        return -a + b
+
+
 # ---- binary metrics (binary_metric.hpp:388) -------------------------------
 
 def _sigmoid(x, k=1.0):
@@ -147,6 +224,21 @@ class AUCMetric(Metric):
         return [(self.name, _auc(self.label, score, self.weight), True)]
 
 
+class AveragePrecisionMetric(Metric):
+    name = "average_precision"
+    is_higher_better = True
+
+    def eval(self, score):
+        order = np.argsort(-score, kind="mergesort")
+        y = self.label[order]
+        w = self.weight[order] if self.weight is not None else np.ones_like(y)
+        tp = np.cumsum(y * w)
+        all_ = np.cumsum(w)
+        precision = tp / np.maximum(all_, 1e-15)
+        ap = float(np.sum(precision * y * w) / max(np.sum(y * w), 1e-15))
+        return [(self.name, ap, True)]
+
+
 # ---- multiclass metrics (multiclass_metric.hpp:368) -----------------------
 
 class MultiLoglossMetric(Metric):
@@ -198,6 +290,101 @@ class AucMuMetric(Metric):
                 w = self.weight[m] if self.weight is not None else None
                 aucs.append(_auc(y, s, w))
         return [(self.name, float(np.mean(aucs)) if aucs else 1.0, True)]
+
+
+# ---- ranking metrics (rank_metric.hpp:169, dcg_calculator.cpp) ------------
+
+class NDCGMetric(Metric):
+    name = "ndcg"
+    is_higher_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        lg = self.config.label_gain
+        max_label = int(self.label.max()) if len(self.label) else 0
+        if lg is None:
+            lg = [(1 << i) - 1 for i in range(max_label + 2)]
+        self.label_gain = np.asarray(lg, np.float64)
+
+    def eval(self, score):
+        if self.boundaries is None:
+            raise ValueError("ndcg metric requires query information")
+        eval_at = [int(k) for k in self.config.eval_at]
+        b = self.boundaries
+        sums = np.zeros(len(eval_at))
+        cnt = 0
+        for qi in range(len(b) - 1):
+            y = self.label[b[qi]:b[qi + 1]].astype(np.int64)
+            s = score[b[qi]:b[qi + 1]]
+            order = np.argsort(-s, kind="mergesort")
+            ideal = np.sort(y)[::-1]
+            cnt += 1
+            for j, k in enumerate(eval_at):
+                kk = min(k, len(y))
+                disc = 1.0 / np.log2(np.arange(2, kk + 2))
+                dcg = float((self.label_gain[y[order[:kk]]] * disc).sum())
+                idcg = float((self.label_gain[ideal[:kk]] * disc).sum())
+                sums[j] += dcg / idcg if idcg > 0 else 1.0
+        return [(f"ndcg@{k}", sums[j] / max(cnt, 1), True)
+                for j, k in enumerate(eval_at)]
+
+
+class MAPMetric(Metric):
+    name = "map"
+    is_higher_better = True
+
+    def eval(self, score):
+        if self.boundaries is None:
+            raise ValueError("map metric requires query information")
+        eval_at = [int(k) for k in self.config.eval_at]
+        b = self.boundaries
+        sums = np.zeros(len(eval_at))
+        cnt = 0
+        for qi in range(len(b) - 1):
+            y = (self.label[b[qi]:b[qi + 1]] > 0).astype(np.float64)
+            s = score[b[qi]:b[qi + 1]]
+            order = np.argsort(-s, kind="mergesort")
+            ys = y[order]
+            cnt += 1
+            hits = np.cumsum(ys)
+            prec = hits / np.arange(1, len(ys) + 1)
+            for j, k in enumerate(eval_at):
+                kk = min(k, len(ys))
+                npos = ys[:kk].sum()
+                sums[j] += (prec[:kk] * ys[:kk]).sum() / npos if npos > 0 else 0.0
+        return [(f"map@{k}", sums[j] / max(cnt, 1), True)
+                for j, k in enumerate(eval_at)]
+
+
+# ---- cross-entropy metrics (xentropy_metric.hpp:358) ----------------------
+
+class CrossEntropyMetric(Metric):
+    name = "cross_entropy"
+
+    def eval(self, score):
+        p = np.clip(_sigmoid(score), 1e-15, 1 - 1e-15)
+        ll = -(self.label * np.log(p) + (1 - self.label) * np.log(1 - p))
+        return [(self.name, self._avg(ll), False)]
+
+
+class CrossEntropyLambdaMetric(Metric):
+    name = "cross_entropy_lambda"
+
+    def eval(self, score):
+        lam = np.log1p(np.exp(score))
+        p = np.clip(-np.expm1(-lam), 1e-15, 1 - 1e-15)
+        ll = -(self.label * np.log(p) + (1 - self.label) * np.log(1 - p))
+        return [(self.name, self._avg(ll), False)]
+
+
+class KLDivMetric(Metric):
+    name = "kldiv"
+
+    def eval(self, score):
+        p = np.clip(_sigmoid(score), 1e-15, 1 - 1e-15)
+        y = np.clip(self.label, 1e-15, 1 - 1e-15)
+        kl = (y * np.log(y / p) + (1 - y) * np.log((1 - y) / (1 - p)))
+        return [(self.name, self._avg(kl), False)]
 
 
 # ---- traced metrics (kernel B12) -------------------------------------------
@@ -417,17 +604,17 @@ def build_traced_eval(eval_spec: Sequence[Tuple],
 
 _METRICS = {
     "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
+    "quantile": QuantileMetric, "huber": HuberMetric, "fair": FairMetric,
+    "poisson": PoissonMetric, "mape": MAPEMetric, "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric, "tweedie": TweedieMetric,
     "binary_logloss": BinaryLoglossMetric, "binary_error": BinaryErrorMetric,
-    "auc": AUCMetric, "multi_logloss": MultiLoglossMetric,
-    "multi_error": MultiErrorMetric, "auc_mu": AucMuMetric,
-}
-
-# metrics of the JAX package that this slice does not port yet
-_UNPORTED = {
-    "quantile", "huber", "fair", "poisson", "mape", "gamma",
-    "gamma_deviance", "tweedie", "average_precision", "ndcg", "map",
-    "cross_entropy",
-    "cross_entropy_lambda", "kldiv",
+    "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
+    "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
+    "auc_mu": AucMuMetric,
+    "ndcg": NDCGMetric, "map": MAPMetric,
+    "cross_entropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric,
+    "kldiv": KLDivMetric,
 }
 
 
@@ -436,9 +623,6 @@ def create_metric(name: str, config: Config) -> Optional[Metric]:
     if name in ("custom", "none", ""):
         return None
     cls = _METRICS.get(name)
-    if cls is not None:
-        return cls(config)
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"metric={name} is not ported to lightgbm_torch yet (ROADMAP A9)")
-    raise ValueError(f"Unknown metric: {name}")
+    if cls is None:
+        raise ValueError(f"Unknown metric: {name}")
+    return cls(config)

@@ -46,6 +46,11 @@ order fixed by the shapes, so the in-graph values are reported directly
 (tests/test_torch_fused.py pins them to the ``fused_eval=true``
 per-iteration values).
 
+An objective that renews its leaf values (l1, quantile, mape) runs the
+body eagerly only: after growth it calls ``model.renew_leaves``, which
+fetches the tree and the score, renews the values on the host and
+returns them for the score update and the valid walks.
+
 A failed capture, build or launch raises; nothing falls back to eager
 launches, the plain versions or the CPU.
 """
@@ -166,9 +171,14 @@ class IterationProgram:
             torch.index_select(self.fmasks, 0, self.row, out=self.fmask_cur)
             fmask = self.fmask_cur[0]
         arrays = self._grow(g, h, fmask, mark)
-        mark("score")
         nl = arrays.num_leaves[0]
-        lv = m.shrink(arrays.leaf_value)
+        if m.objective is not None and m.objective.need_renew_tree_output:
+            # per-iteration only: the leaf values renewed on the host
+            mark("renew")
+            lv = m.renew_leaves(arrays)
+        else:
+            lv = m.shrink(arrays.leaf_value)
+        mark("score")
         ok = ~blocked & (nl > 1)
         lv_ok = torch.where(ok, lv, self.zero)
         m.score.add_(lv_ok.index_select(0, arrays.leaf_of_row))

@@ -34,6 +34,13 @@ its class column of the train and valid scores (B4's column form); the
 iteration stops training only when all K trees are stumps.  Tree ``t``
 belongs to class ``t % K``.
 
+An objective that renews its leaf values on the host (l1, quantile,
+mape: RenewTreeOutput) or that advances host state each iteration
+(rank_xendcg's draws) has no fused-path semantics, as in the JAX package:
+it runs the per-iteration path, the renewal between growth and the score
+update (``renew_leaves``).  lambdarank's gradients (B13a) run inside the
+captured iteration like any other objective's.
+
 The three give the same trees.  The reported metric values are not the
 same: the fused paths (and ``fused_eval=true`` per-iteration runs) report
 the traced f32 metrics, the per-iteration path by default the host f64
@@ -354,6 +361,9 @@ class GBDTModel:
         self.es_state: Optional[Tuple[torch.Tensor, ...]] = None
         # device milliseconds of every fused epoch (CUDA events)
         self.epoch_ms: List[float] = []
+        # the renewed, shrunk f64 leaf values of the iteration in flight
+        # (``renew_leaves``), for its host tree
+        self._renewed_lv: Optional[np.ndarray] = None
         self._fusable = not self._config_blockers()
 
     # -- sampling (gbdt.cpp:230 Bagging; the JAX package's :1297-1404) -------
@@ -509,6 +519,25 @@ class GBDTModel:
             return leaf_value * self._lr32
         return (leaf_value.double() * self.learning_rate).float()
 
+    def renew_leaves(self, arrays) -> torch.Tensor:
+        """RenewTreeOutput (the JAX package's ``train_one_iter``
+        :2806-2814), for an objective that renews (l1, quantile, mape):
+        fetch the tree's leaf values, its rows' leaves and the score before
+        the tree, renew the values on the host, shrink them in f64 (such a
+        configuration never fuses), keep them for the host tree and return
+        them as the f32 device vector the score update and the valid walks
+        add.  A stump keeps its values (they are zeroed later)."""
+        lv = self._fetch(arrays.leaf_value, "renew").astype(np.float64)
+        nl = int(self._fetch(arrays.num_leaves, "renew")[0])
+        if nl > 1:
+            score = self._fetch(self.score, "renew")
+            lor = self._fetch(arrays.leaf_of_row, "renew")
+            lv[:nl] = self.objective.renew_leaf_values(score, lor, nl,
+                                                       lv[:nl].copy())
+        lv *= self.learning_rate
+        self._renewed_lv = lv
+        return torch.tensor(lv.astype(np.float32), device=self.device)
+
     def _program(self, eval_spec: Tuple = (), es_spec=None,
                  rows: int = 1) -> IterationProgram:
         key = (tuple(eval_spec), repr(es_spec))
@@ -559,9 +588,13 @@ class GBDTModel:
         if self.objective is None:
             reasons.append("custom objective (fobj): gradients arrive from "
                            "the host every iteration")
-        elif self.objective.need_renew_tree_output:
-            reasons.append(f"objective={self.objective.name} renews leaf "
-                           "outputs host-side (RenewTreeOutput)")
+        else:
+            if self.objective.need_renew_tree_output:
+                reasons.append(f"objective={self.objective.name} renews "
+                               "leaf outputs host-side (RenewTreeOutput)")
+            if self.objective.host_state_per_iter:
+                reasons.append(f"objective={self.objective.name} mutates "
+                               "host state every iteration")
         if self.num_class != 1:
             reasons.append(f"num_class={self.num_class}: multiclass grows "
                            "one tree per class per iteration through the "
@@ -686,6 +719,8 @@ class GBDTModel:
                 self.step_counts.append(tj.n_steps)
                 if fusable:
                     lvj = fields["lv"].astype(np.float64)
+                elif self._renewed_lv is not None:
+                    lvj, self._renewed_lv = self._renewed_lv, None
                 else:
                     lvj = np.asarray(tj.leaf_value, np.float64) * lr
                 if nl <= 1:

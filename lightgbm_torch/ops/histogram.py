@@ -11,7 +11,13 @@ one histogram per slot over the rows whose ``slot`` is that slot.
 Channels are (grad*w, hess*w, w).  On a CUDA tensor this launches the
 hand-written kernel of ``csrc/histogram.cu`` (deterministic: its summation
 order is fixed by the shapes alone); on a CPU tensor it runs
-``histogram_plain``, the kernel's plain PyTorch version.
+``histogram_plain``, the kernel's plain PyTorch version.  Neither sums a
+bin in one long f32 run, so a bin that holds nearly every row is as exact
+as a pairwise sum: the kernel sums in f64 (its per-block partials rounded
+once to f32 before their f64 total); the plain version adds each bin's
+rows in row order in f32 runs of ``PLAIN_RUN`` rows and the runs in f64
+(``_bin_sums``), so a bin of at most ``PLAIN_RUN`` rows is the plain f32
+sum of its rows in row order.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ import torch
 from .. import _kernels
 
 # shared memory a block may use on Hopper (227 KB, raised once at load),
+# the bytes of one accumulator (the kernel's per-thread slices are f64),
 # and the caps of the kernel's launch shape (see csrc/histogram.cu)
 _SMEM_BYTES = _kernels.SMEM_BYTES
+_ACC_BYTES = 8
 _MAX_SUBRANGES = 8
 _MAX_THREADS = 1024
 # row blocks: about one per SM of an H100 (132), but never under 1024 rows.
@@ -35,6 +43,14 @@ _MIN_ROWS_PER_BLOCK = 1024
 # rows the K-slot kernel stages in shared memory at a time (slot, vals,
 # binned row and the row masks: 16 + F + K/8 bytes a row)
 _SLOT_CHUNK = 512
+# rows of one f32 run of a bin in the plain versions (``_bin_sums``): a
+# bin of up to this many rows is the f32 sum of its rows in row order, as
+# the plain versions summed every bin before runs (so small problems keep
+# their former rounding, and the trees of the CPU parity tests, whose
+# near-ties the JAX package breaks by its own rounding, stay as they
+# were); a heavy bin's drift stays under 1e-6 of the bin
+# (tests/test_torch_hist_precision.py; runs of 1,024 rows reach 2e-6)
+PLAIN_RUN = 768
 
 
 def launch_shape(n: int, num_features: int,
@@ -42,7 +58,7 @@ def launch_shape(n: int, num_features: int,
     """(rows_per_block, tile_f, subranges) of the B1 kernel for these
     shapes: as many features per block as fit in shared memory with up to
     ``_MAX_SUBRANGES`` row sub-ranges each."""
-    slice_bytes = num_bins * 3 * 4
+    slice_bytes = num_bins * 3 * _ACC_BYTES
     tile_f = min(num_features, _SMEM_BYTES // slice_bytes, _MAX_THREADS)
     if tile_f < 1:
         raise ValueError(f"num_bins={num_bins} is too large for one "
@@ -59,24 +75,28 @@ def slots_launch_shape(n: int, num_features: int, num_bins: int,
                        num_slots: int) -> Tuple[int, int, int]:
     """(rows_per_block, pairs_per_block, chunk) of the K-slot kernel: as
     many (feature, slot) pairs per block as fit in shared memory beside
-    the staged chunk of rows, in whole warps, spread evenly over the
+    the staged chunk of rows, in whole warps (the kernel's block is whole
+    warps, each thread with its slice, so a block holds at least 32
+    slices: the chunk shrinks until they fit), spread evenly over the
     tiles; row blocks of whole chunks."""
-    slice_bytes = num_bins * 3 * 4
+    slice_bytes = num_bins * 3 * _ACC_BYTES
 
     def staged(c):
         return c * 16 + -(-c * num_features // 16) * 16 + c // 32 * \
             num_slots * 4
 
+    def fit(c):
+        return min(_MAX_THREADS, (_SMEM_BYTES - staged(c)) // slice_bytes)
+
     chunk = _SLOT_CHUNK
-    while chunk > 32 and staged(chunk) > _SMEM_BYTES // 4:
+    while chunk > 32 and (staged(chunk) > _SMEM_BYTES // 4
+                          or fit(chunk) < 32):
         chunk //= 2
-    max_pairs = min(_MAX_THREADS, (_SMEM_BYTES - staged(chunk))
-                    // slice_bytes)
-    if max_pairs >= 32:
-        max_pairs -= max_pairs % 32
-    if max_pairs < 1:
-        raise ValueError(f"num_bins={num_bins} is too large for one "
-                         "feature's histogram in shared memory")
+    max_pairs = fit(chunk)
+    max_pairs -= max_pairs % 32
+    if max_pairs < 32:
+        raise ValueError(f"num_bins={num_bins} is too large for a warp's "
+                         "histograms in shared memory")
     pairs = num_features * num_slots
     tiles = -(-pairs // max_pairs)
     per = -(-pairs // tiles)
@@ -201,13 +221,12 @@ def histogram_slots_plain(binned: torch.Tensor, vals: torch.Tensor,
                           num_bins: int,
                           active: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """Plain PyTorch version of B1-K: ``index_add_`` over
+    """Plain PyTorch version of B1-K: ``_bin_sums`` over
     ``(slot * F + f) * B + bin``; an inactive step returns zeros."""
     f = binned.shape[1]
-    out = torch.zeros((num_slots * f * num_bins, 3), dtype=torch.float32,
-                      device=binned.device)
     if active is not None and not bool(active[0]):
-        return out.reshape(num_slots, f, num_bins, 3)
+        return torch.zeros((num_slots, f, num_bins, 3), dtype=torch.float32,
+                           device=binned.device)
     keep = (slot >= 0) & (slot < num_slots)
     b = binned[keep].to(torch.int64)
     s = slot[keep].to(torch.int64)
@@ -215,7 +234,7 @@ def histogram_slots_plain(binned: torch.Tensor, vals: torch.Tensor,
     idx = (b + offs + (s * (f * num_bins))[:, None]).reshape(-1)
     ok = (b < num_bins).reshape(-1)
     src = vals[keep].repeat_interleave(f, dim=0)
-    out.index_add_(0, idx[ok], src[ok])
+    out = _bin_sums(idx[ok], src[ok], num_slots * f * num_bins)
     return out.reshape(num_slots, f, num_bins, 3)
 
 
@@ -223,7 +242,7 @@ def histogram_plain(binned: torch.Tensor, vals: torch.Tensor, *,
                     num_bins: int,
                     slot: Optional[torch.Tensor] = None,
                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of B1: ``index_add_`` over ``f*B + bin``.
+    """Plain PyTorch version of B1: ``_bin_sums`` over ``f*B + bin``.
     Bins >= num_bins add nothing, as in the kernel; an inactive step
     returns zeros."""
     if active is not None and not bool(active[0]):
@@ -238,7 +257,34 @@ def histogram_plain(binned: torch.Tensor, vals: torch.Tensor, *,
     idx = (b + offs).reshape(-1)
     ok = (b < num_bins).reshape(-1)
     src = vals.repeat_interleave(f, dim=0)
-    out = torch.zeros((f * num_bins, 3), dtype=torch.float32,
-                      device=binned.device)
-    out.index_add_(0, idx[ok], src[ok])
-    return out.reshape(f, num_bins, 3)
+    return _bin_sums(idx[ok], src[ok], f * num_bins).reshape(f, num_bins, 3)
+
+
+def _bin_sums(idx: torch.Tensor, src: torch.Tensor,
+              size: int) -> torch.Tensor:
+    """[size, 3] f32 sums of the rows of ``src`` by cell ``idx``: each
+    cell's rows in row order, in f32 runs of ``PLAIN_RUN`` rows (an
+    ``index_add_``, which adds each cell's rows in index order on the
+    CPU), the runs summed in f64 and rounded once to f32.  A cell of at
+    most ``PLAIN_RUN`` rows is the f32 sum of its rows in row order; a
+    cell of nearly every row (a heavy bin) errs about as a pairwise sum
+    does, where one f32 run would drift by about n * 2^-25."""
+    dev = src.device
+    if idx.numel() == 0:
+        return torch.zeros((size, 3), dtype=torch.float32, device=dev)
+    # each row's position among its cell's rows, in row order
+    order = torch.sort(idx, stable=True).indices
+    sidx = idx[order]
+    counts = torch.bincount(sidx, minlength=size)
+    start = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(idx)
+    pos[order] = torch.arange(idx.numel(), device=dev) - start[sidx]
+    # one accumulator a (cell, run) that has rows
+    cell_run, inv = torch.unique(idx + size * (pos // PLAIN_RUN),
+                                 return_inverse=True)
+    runs = torch.zeros((cell_run.numel(), 3), dtype=torch.float32,
+                       device=dev)
+    runs.index_add_(0, inv, src)
+    out = torch.zeros((size, 3), dtype=torch.float64, device=dev)
+    out.index_add_(0, cell_run % size, runs.to(torch.float64))
+    return out.to(torch.float32)

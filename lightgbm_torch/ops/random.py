@@ -55,11 +55,14 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & MASK32
 
 
-def threefry2x32(key: Tuple[int, int], x0: torch.Tensor,
+def threefry2x32(key, x0: torch.Tensor,
                  x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """threefry2x32 of the counter words ``(x0, x1)`` (int64 tensors
-    holding uint32 values) under ``key`` = (k0, k1) uint32 ints."""
-    k0, k1 = int(key[0]) & MASK32, int(key[1]) & MASK32
+    holding uint32 values) under ``key`` = (k0, k1): uint32 ints, or int64
+    tensors of uint32 values that broadcast against the counters (one key
+    a row: the per-query keys of ``ops/rank.py``)."""
+    k0, k1 = ((k & MASK32) if torch.is_tensor(k) else int(k) & MASK32
+              for k in key)
     ks = (k0, k1, k0 ^ k1 ^ KS_PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32

@@ -222,8 +222,7 @@ class PredictorEngine:
                  average_output: bool = False, *,
                  max_batch: Optional[int] = None, min_bucket: int = 16,
                  fingerprint: Optional[str] = None, packed: bool = True,
-                 device_type: str = "cuda",
-                 unported_objective: Optional[str] = None):
+                 device_type: str = "cuda"):
         from ..models.gbdt import device_for
 
         self.trees = list(trees)
@@ -231,9 +230,6 @@ class PredictorEngine:
         self.num_class = max(1, int(num_class))
         self.num_features = int(num_features)
         self.objective = objective
-        # a loaded model whose objective's transform is not ported: raw
-        # scores only, as Booster.predict
-        self.unported_objective = unported_objective
         self.average_output = bool(average_output)
         self.max_batch = int(max_batch) if max_batch else None
         self.min_bucket = max(1, int(min_bucket))
@@ -604,13 +600,6 @@ class PredictorEngine:
             d["cat_index"], d["cat_table"], leaf_value, tree_weight,
             self._avg_denom, steps=self._steps, num_class=self.num_class)
 
-    def _check_transform(self, raw_score: bool) -> None:
-        if not raw_score and self.unported_objective is not None:
-            raise NotImplementedError(
-                f"the output transform of objective="
-                f"{self.unported_objective} is not ported to "
-                "lightgbm_torch yet (ROADMAP A9); pass raw_score=True")
-
     def fused_predict(self, x: np.ndarray,
                       raw_score: bool = False) -> np.ndarray:
         """Full prediction through the ONE device-resident kernel (B10c:
@@ -626,7 +615,6 @@ class PredictorEngine:
         accumulation rounding, ``serve_device_binning``'s accepted cost."""
         if self.fused_reason is not None:
             raise EngineUnsupported(self.fused_reason)
-        self._check_transform(raw_score)
         x = np.asarray(x, np.float64)
         n = len(x)
         k = self.num_class
@@ -658,7 +646,6 @@ class PredictorEngine:
         (a host transform would differ from the card's in the last bit).
         ``self_check`` compares :meth:`fused_predict` against this byte
         for byte on rows where f32 and f64 binning provably agree."""
-        self._check_transform(raw_score)
         x = np.asarray(x, np.float64)
         n = len(x)
         k = self.num_class
@@ -709,7 +696,6 @@ class PredictorEngine:
         contract (averaging for RF, objective output conversion — the
         shared ``booster._finalize_score`` tail)."""
         from ..booster import _finalize_score
-        self._check_transform(raw_score)
         x = np.asarray(x, np.float64)
         k = self.num_class
         n, t1 = len(x), len(self.trees)
@@ -798,7 +784,6 @@ class PredictorEngine:
         cands = self._probe_candidates()
         if not cands or not self.trees:
             return True
-        raw = self.unported_objective is not None
         total = min(max(len(c) for c in cands), max_total_rows)
         for off in range(0, total, max_rows):
             rows = min(max_rows, total - off)
@@ -821,9 +806,8 @@ class PredictorEngine:
                             host[mask]):
                         return False
                     if self.fused_reason is None and not np.array_equal(
-                            self.fused_predict(probe[mask], raw_score=raw),
-                            self._fused_reference(probe[mask],
-                                                  raw_score=raw)):
+                            self.fused_predict(probe[mask]),
+                            self._fused_reference(probe[mask])):
                         return False
         return True
 
@@ -878,5 +862,4 @@ class PredictorEngine:
                    average_output=booster._average_output,
                    max_batch=max_batch, min_bucket=min_bucket,
                    packed=packed,
-                   device_type=device_type or booster.config.device_type,
-                   unported_objective=booster._unported_objective)
+                   device_type=device_type or booster.config.device_type)

@@ -56,16 +56,11 @@ from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
 # each at most an ulp of the child's total (the histograms below are real
 # ones: every partial sum is at most the total in size)
 FIX0_ULPS = 2
-# tests/test_efb.py's bound on bundled against unbundled predictions
+# tests/test_efb.py's bound on bundled against unbundled predictions; the
+# port's bundled predictions are held to the JAX package's and to the
+# port's own unbundled ones at it (B1 sums in f64, so a one-hot feature's
+# bin 0, nearly every row, rounds once)
 PRED_RTOL, PRED_ATOL = 1e-5, 1e-6
-# the port's unbundled run sums a one-hot feature's bin 0 (nearly every
-# row) one row at a time (the plain B1 is ``index_add_``), where the JAX
-# package's matmul and the bundled run's FixHistogram (the total, a
-# pairwise torch.sum, minus the few other bins) round far less (ROADMAP
-# C, "B1 sums a heavy bin imprecisely"): the port's bundled predictions
-# are held to the JAX package's at the JAX test's bound, and to the
-# port's own unbundled ones at this one
-PORT_UNBUNDLED_RTOL = 1e-4
 PATHS = {"per_iteration": {"superepoch": -1, "fused_chunk": 1},
          "fused_chunk": {"fused_chunk": 3}, "superepoch": {"fused_chunk": 3}}
 _PATH_PARAMS = ("[superepoch:", "[fused_eval:", "[fused_chunk:")
@@ -622,7 +617,7 @@ def test_bundled_predicts_as_unbundled():
     np.testing.assert_allclose(b1.predict(x), np.asarray(bj.predict(x)),
                                rtol=PRED_RTOL, atol=PRED_ATOL)
     np.testing.assert_allclose(b1.predict(x), b2.predict(x),
-                               rtol=PORT_UNBUNDLED_RTOL, atol=PRED_ATOL)
+                               rtol=PRED_RTOL, atol=PRED_ATOL)
 
 
 def test_multiclass_on_bundles_equals_jax():

@@ -63,7 +63,7 @@ def test_bins_past_num_bins_add_nothing():
 def test_kernel_launch_shape_fits_the_card(n, f, bins):
     rows, tile_f, sub = th.launch_shape(n, f, bins)
     assert tile_f * sub <= 1024
-    assert tile_f * sub * bins * 3 * 4 <= 227 * 1024
+    assert tile_f * sub * bins * 3 * 8 <= 227 * 1024
     assert rows % sub == 0 and rows * 132 >= n
     assert 1 <= tile_f <= f
 

@@ -82,32 +82,22 @@ def test_server_matches_booster_and_jax(models, tag):
     Booster.predict on the same model text."""
     text, xt = models[tag]
     port = lgt.Booster(params=CPU, model_str=text)
-    raw = port._unported_objective is not None
-    kw = {"raw_score": True} if raw else {}
-    ref = host_walk(port, xt, **kw)
+    ref = host_walk(port, xt)
     srv = Server({**CPU, "serve_max_batch": 32, "serve_max_wait_ms": 20.0},
                  model_str=text)
     try:
         # uneven request sizes force coalescing AND splitting across
         # several micro-batches (32-row cap, 150 rows)
-        if raw:
-            with pytest.raises(NotImplementedError, match="A9"):
-                srv.predict(xt[:3], timeout=30)
-            got = srv.registry.current().booster.predict(xt, raw_score=True)
-            futs = []
-        else:
-            futs = [srv.submit(xt[i:i + 13])
-                    for i in range(0, len(xt), 13)]
-            got = np.concatenate([f.result(30) for f in futs])
+        futs = [srv.submit(xt[i:i + 13]) for i in range(0, len(xt), 13)]
+        got = np.concatenate([f.result(30) for f in futs])
         assert srv.registry.current().engine is not None
     finally:
         srv.close()
     assert got.dtype == ref.dtype
     np.testing.assert_array_equal(got, ref)
-    if futs:
-        assert futs[0].info["model_version"] == "v1"
-    want = np.asarray(lgb.Booster(model_str=text).predict(xt, **kw))
-    if raw or port.objective is None or tag == "regression":
+    assert futs[0].info["model_version"] == "v1"
+    want = np.asarray(lgb.Booster(model_str=text).predict(xt))
+    if port.objective is None or tag == "regression":
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=TRANSFORM_RTOL)

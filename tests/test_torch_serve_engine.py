@@ -90,10 +90,9 @@ def test_leaf_ids_and_scores_equal(models, tag):
     # the port's engine equals the port's host walk exactly
     np.testing.assert_array_equal(te.predict(x, raw_score=True),
                                   host_walk(tb, x, raw_score=True))
-    if te.unported_objective is None:
-        pt, pj = te.predict(x), np.asarray(je.predict(x))
-        assert pt.dtype == pj.dtype
-        np.testing.assert_allclose(pt, pj, rtol=TRANSFORM_RTOL)
+    pt, pj = te.predict(x), np.asarray(je.predict(x))
+    assert pt.dtype == pj.dtype
+    np.testing.assert_allclose(pt, pj, rtol=TRANSFORM_RTOL)
 
 
 @pytest.mark.parametrize("tag", TAGS)
@@ -107,10 +106,6 @@ def test_fused_predict_against_jax_and_reference(models, tag):
     np.testing.assert_array_equal(raw_t[mask],
                                   te._fused_reference(x[mask],
                                                       raw_score=True))
-    if te.unported_objective is not None:
-        with pytest.raises(NotImplementedError, match="A9"):
-            te.fused_predict(x)
-        return
     got = te.fused_predict(x)
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got[mask], te._fused_reference(x[mask]))

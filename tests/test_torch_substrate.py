@@ -135,8 +135,8 @@ def test_default_device_without_card_raises(monkeypatch):
     ({"quant_train": True}, "A10"),
     ({"tree_learner": "data"}, "A16"),
     ({"monotone_constraints": [1, 0, 0, 0]}, "A9"),
-    ({"objective": "huber"}, "A9"),
-    ({"objective": "lambdarank"}, "A9"),
+    ({"finite_check_freq": 2}, "A12"),
+    ({"hist_tune": "on"}, "A17"),
     ({"integrity_check_freq": 2}, "A17"),
     ({"snapshot_freq": 5}, "A12"),
 ])

@@ -24,7 +24,7 @@ the three paths (per-iteration, fused chunks, super-epochs):
   engine route as by the host walk;
 - GOSS, feature_fraction_bynode and extra_trees train (their parity is
   tests/test_torch_train_sampling.py); with a parameter whose module is
-  still to port (DART, the huber objective, linear trees) they still
+  still to port (DART, monotone constraints, linear trees) they still
   raise, naming ROADMAP A9."""
 
 import numpy as np
@@ -241,7 +241,7 @@ def test_wide_model_round_trip_and_engine(es_runs):
 
 @pytest.mark.parametrize("params", [
     {"data_sample_strategy": "goss", "boosting": "dart"},
-    {"feature_fraction_bynode": 0.5, "objective": "huber"},
+    {"feature_fraction_bynode": 0.5, "monotone_constraints": [1, 0, 0, 0]},
     {"extra_trees": True, "linear_tree": True},
 ])
 def test_remaining_sampling_raises(params):
