@@ -161,6 +161,26 @@ Phases, one JSON line each:
    super-epochs without a valid set (B13a in the graph), the same model
    text, a profiled run; xendcg_train: rank_xendcg on the per-iteration
    loop and a byte-identical rerun;
+   quant_kernels (after efb_kernels): B7a (scales) and B7b (int8/int16
+   packing) bit for bit against their plain versions at 1M x 3 (int8
+   stochastic at four iteration keys and two seeds, int8 nearest) and at
+   65,536 rows (int16), zero rows staying zero; B1-int and B1-K-int bit
+   for bit at the main shape, at 255 bins, at the rank shape (2,270,296 x
+   136) and on efb_data's unbundled 584 columns, and writing nothing on an
+   inactive step; B7c bit for bit on a child pair; each timed beside its
+   bound and library call; the int16 overflow refusal at 1M rows;
+   quant_train and quant_wide_train (after extra_train): the main and the
+   wide configurations with ``quant_train`` (int8, stochastic) as the
+   sampled cells run (QUANT_PER_ITERATION, QUANT_WIDE_PER_ITERATION; three
+   paths with equal trees, a profiled byte-identical rerun, engine
+   predict), quant_train's valid AUC within QUANT_AUC_GAP of the f32 main
+   path's at its best round; quant_efb (after efb_wide_train): efb_train's
+   bundled set with nearest rounding, one super-epoch and the
+   per-iteration path, equal model text (QUANT_EFB_PER_ITERATION: B7c
+   before every B9); quant_rank (after xendcg_train): lambdarank at 255
+   leaves with ``quant_train`` for QUANT_RANK_ROUNDS per-iteration rounds
+   (QUANT_RANK_PER_ITERATION), NDCG@10 rising and within QUANT_NDCG_GAP of
+   rank_train's at the same round;
    objectives_train (after multiclass_serve): each of the ten pointwise
    objectives on the HIGGS-shaped rows with a label in its domain, every
    path the JAX package allows with equal model text, the engine route's
@@ -251,7 +271,9 @@ PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "node_draws": 0, "predict": 1, "auc": 1, "pointwise": 1,
                  "forest_walk": 0, "bin_rows": 0, "fused_predict": 0,
                  "split_cat": 0, "multi_logloss": 0, "expand_group_hist": 0,
-                 "lambdarank": 0, "xendcg": 0}
+                 "lambdarank": 0, "xendcg": 0, "histogram_int": 0,
+                 "histogram_slots_int": 0, "quant_scales": 0,
+                 "quantize_stack": 0, "dequant_hist": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -418,13 +440,52 @@ OBJECTIVES_RENEWING = ("regression_l1", "quantile", "mape")
 OBJ_ROUNDS = 10
 OBJ_PARAMS = {"num_leaves": NUM_LEAVES, "max_bin": MAX_BIN,
               "learning_rate": 0.1, "verbosity": -1}
+# the quantized cells (quant_train=true, int8 stochastic rounding): the
+# main configuration; the wide one with bagging (B1-K-int), CUT_ROUNDS
+# super-epoch rounds; rank_train's lambdarank for QUANT_RANK_ROUNDS
+# per-iteration rounds; efb_train's bundled set with nearest rounding for
+# QUANT_EFB_ROUNDS rounds.  Each iteration packs its rows once (B7a, B7b);
+# every histogram pass takes the integer form (B1-int, B1-K-int) and every
+# split scan's children are dequantized first (B7c, as often as B2)
+QUANT = {"quant_train": True, "quant_bits": 8, "quant_round": "stochastic"}
+QUANT_PARAMS = {"num_leaves": NUM_LEAVES, **QUANT}
+QUANT_ONCE = {"quant_scales": 1, "quantize_stack": 1}
+QUANT_PER_ITERATION = {**PER_ITERATION, **QUANT_ONCE, "histogram": 0,
+                       "histogram_int": NUM_LEAVES,
+                       "dequant_hist": NUM_LEAVES}
+QUANT_WIDE_PARAMS = {**WIDE_PARAMS, **QUANT}
+QUANT_WIDE_PER_ITERATION = {**WIDE_PER_ITERATION, **QUANT_ONCE,
+                            "histogram": 0, "histogram_int": 1,
+                            "histogram_slots": 0,
+                            "histogram_slots_int": WIDE_LEAVES - 1,
+                            "dequant_hist": WIDE_LEAVES}
+# the quantized main cell's valid AUC against the f32 main path's at the
+# same round: the JAX package's own epsilon (tests/test_quant.py:168-174)
+QUANT_AUC_GAP = 0.02
+# quant_rank: NDCG@10 at round QUANT_RANK_ROUNDS against rank_train's
+# (the JAX package's lambdarank epsilon)
+QUANT_RANK_ROUNDS, QUANT_NDCG_GAP = 5, 0.05
+QUANT_RANK_PER_ITERATION = {**RANK_PER_ITERATION, **QUANT_ONCE,
+                            "histogram": 0, "histogram_int": 1,
+                            "histogram_slots": 0,
+                            "histogram_slots_int": WIDE_LEAVES - 1,
+                            "dequant_hist": WIDE_LEAVES}
+QUANT_EFB_PARAMS = {**EFB_PARAMS, **QUANT, "quant_round": "nearest"}
+QUANT_EFB_ROUNDS = 10
+QUANT_EFB_PER_ITERATION = {**EFB_PER_ITERATION, **QUANT_ONCE,
+                           "histogram": 0, "histogram_int": NUM_LEAVES,
+                           "dequant_hist": NUM_LEAVES}
+# the int16 lanes' row cap: rows * 32767 must stay under 2^31
+INT16_MAX_ROWS = (2 ** 31 - 1) // 32767
 KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
                 "partition",
                 "grow_step", "histogram_slots", "partition_slots",
                 "grow_step_batched", "bag_vals", "goss_vals", "node_draws",
                 "predict", "predict_column", "auc", "pointwise",
                 "multi_logloss", "expand_group_hist", "lambdarank",
-                "xendcg", "forest_walk", "bin_rows", "fused_predict")
+                "xendcg", "quant_scales", "quantize_stack", "dequant_hist",
+                "histogram_int", "histogram_slots_int", "forest_walk",
+                "bin_rows", "fused_predict")
 # the launch counter of a kernels-line entry, where it is not its own key
 # (B2's per-child form is B2's wrapper and counter, B4's column form B4's)
 KERNEL_COUNTER = {"split_per_child": "split", "predict_column": "predict"}
@@ -440,7 +501,10 @@ KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "predict_column": "multiclass_train",
                "multi_logloss": "multiclass_train_fused_eval",
                "expand_group_hist": "efb_train",
-               "lambdarank": "rank_train", "xendcg": "xendcg_train"}
+               "lambdarank": "rank_train", "xendcg": "xendcg_train",
+               "quant_scales": "quant_train", "quantize_stack": "quant_train",
+               "dequant_hist": "quant_train", "histogram_int": "quant_train",
+               "histogram_slots_int": "quant_wide_train"}
 
 
 def times(counts, n: int):
@@ -1989,7 +2053,8 @@ def phase_sample_kernels(torch, lgt, train):
 
 def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
                         prefix: str, params: dict, per_it: dict,
-                        dead_ms=None, after=None, rounds=ROUNDS):
+                        dead_ms=None, after=None, rounds=ROUNDS,
+                        ref_auc=None):
     """Default ``train`` with ``params`` (sampling at a tree shape) as
     super-epochs, launch counts held to ``per_it`` per iteration; the
     per-iteration path (SAMPLED_PER_ITERATION_ROUNDS rounds: the same
@@ -2000,7 +2065,10 @@ def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
     Emits the ``{prefix}_train`` line; ``dead_ms`` (batched growth): what
     one dead super-step costs; ``after(bst, prog)``: more checks of the
     super-epoch model, whose dict joins the line; ``rounds``: the
-    super-epoch run's rounds.  Returns (device launches by path, steady ms
+    super-epoch run's rounds; ``ref_auc``: the f32 main path's valid AUC
+    by round, which the run's AUC at its best iteration must stay within
+    QUANT_AUC_GAP of (the gap at every common round is reported).
+    Returns (device launches by path, steady ms
     per iteration, eager ms per iteration, the iteration's (bound ms, by,
     bytes) from the run's own trees)."""
     name = f"{prefix}_train"
@@ -2067,6 +2135,17 @@ def phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
     if dead_ms is not None:
         main["dead_super_steps_ms_per_iteration"] = dead_ms * \
             statistics.mean([L - 1 - x for x in live])
+    if ref_auc is not None:
+        common = min(len(auc), len(ref_auc))
+        gaps = [auc[i] - ref_auc[i] for i in range(common)]
+        if best > common or abs(gaps[best - 1]) > QUANT_AUC_GAP:
+            raise AssertionError(f"{name}: valid AUC {auc[best - 1]} at "
+                                 f"round {best}, the f32 main path's "
+                                 f"{ref_auc[:best][-1]}")
+        main["f32_auc_gap"] = {"round": best, "gap": gaps[best - 1],
+                               "f32_valid_auc": ref_auc[best - 1],
+                               "max_abs_gap": max(abs(g) for g in gaps),
+                               "limit": QUANT_AUC_GAP}
 
     # per-iteration, fewer rounds: the same first trees and evals
     lgt_kernels.reset_launch_counts()
@@ -3963,7 +4042,403 @@ def phase_rank_train(torch, lgt, lgt_kernels, train, valid):
           "fused_reason": reason, "rerun_byte_identical": True,
           "host_fetches": bx._model.fetch_counts, "launches": lx})
     by_path["xendcg_train"] = lx
-    return by_path
+    return by_path, nd["ndcg@10"]
+
+
+# ---------------------------------------------------------------------------
+# quantized training (B7a-c, B1-int, B1-K-int)
+# ---------------------------------------------------------------------------
+
+def _int_index_add(torch, binned, vals, slot, num_bins, num_slots=None):
+    """The library yardstick of B1-int / B1-K-int: one int32
+    ``index_add_`` over precomputed cell indices (None where CUDA has no
+    int32 index_add_)."""
+    n, f = binned.shape
+    keep = slot >= 0
+    b = binned[keep].to(torch.int64)
+    cells = b + torch.arange(f, device=binned.device) * num_bins
+    size = f * num_bins
+    if num_slots is not None:
+        cells = cells + (slot[keep].to(torch.int64) * size)[:, None]
+        size *= num_slots
+    idx = cells.reshape(-1)
+    src = vals[keep].to(torch.int32).repeat_interleave(f, dim=0)
+    acc = torch.zeros((size, 3), dtype=torch.int32, device=binned.device)
+    try:
+        return median_ms(torch, lambda: acc.zero_().index_add_(0, idx, src))
+    except RuntimeError:
+        return None
+
+
+def _dead_int_pass(torch, lgt_kernels, binned, q, slot, B, K=None):
+    """B1-int (K None) or B1-K-int launched on an inactive step into
+    sentinel-filled outputs through the C entry: True when nothing was
+    written (the kernel and its reduce exit at once)."""
+    from lightgbm_torch.ops.histogram import int_launch_shape
+    n, f = binned.shape
+    dev = binned.device
+    rows, tile_f, tile_k = int_launch_shape(n, f, B, K)
+    nb = -(-n // rows)
+    shape = (f, B, 3) if K is None else (K, f, B, 3)
+    out = torch.full(shape, -7, dtype=torch.int32, device=dev)
+    partial = torch.full((nb,) + shape, -7, dtype=torch.int32, device=dev)
+    off = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = lgt_kernels.lib("histogram").lgbt_histogram_int(
+        binned.data_ptr(), q.data_ptr(), 8, slot.data_ptr(), n, f, B, K or 1,
+        rows, tile_f, tile_k, off.data_ptr(), None, partial.data_ptr(),
+        out.data_ptr(), lgt_kernels.stream_ptr(dev))
+    lgt_kernels.check(err, "B1-int on an inactive step")
+    torch.cuda.synchronize()
+    return bool((out == -7).all()) and bool((partial == -7).all())
+
+
+def int_pass_bound(n: int, f: int, B: int, kept: int, K: int = 1,
+                   slotted: bool = True):
+    """bound_ms of one B1-int (K = 1) or B1-K-int pass over int8 vals:
+    every row's slot (4 B, none for the root pass) and, of the ``kept``
+    rows in the pass only, the binned row and the 3 bytes of vals read,
+    the [K, F, B, 3] int32 histogram written; 3 adds a kept row and
+    feature."""
+    return bound_ms(4 * n * slotted + kept * (f + 3) + K * f * B * 12,
+                    3 * kept * f)
+
+
+def phase_quant_kernels(torch, lgt, lgt_kernels, train, train_u):
+    """B7a (scales) and B7b (packing) bit for bit against their plain
+    versions at 1M x 3 (int8 stochastic over four iteration keys and two
+    seeds, int8 nearest) and at 65,536 rows (int16, both roundings), zero
+    rows staying zero; B1-int and B1-K-int bit for bit at the main shape
+    (28 x 63: all rows, a smaller child's slot, K = 16 slots, 5 of 16 in
+    use), at 255 bins, at the rank shape (2,270,296 x 136, 255 bins) and
+    on efb_data's unbundled 584-column matrix, and writing nothing on an
+    inactive step; B7c bit for bit on a child pair and writing nothing on
+    an inactive step; each timed beside its bound and library call; the
+    int16 overflow refusal at 1M rows.  Returns the kernels-line rows."""
+    from lightgbm_torch.ops import quantize as Q
+    from lightgbm_torch.ops.histogram import (compute_histogram,
+                                              histogram_int_plain,
+                                              histogram_slots_int_plain)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    binned = torch.as_tensor(train.binned).to(dev)
+    n, f = binned.shape
+    B = int(train.max_bin)
+
+    def grad_vals(rows):
+        # binary-objective (g, h, w) at a random score, a 0.8 bag
+        y = (torch.rand(rows, device=dev, generator=gen) < 0.5).float()
+        p = torch.sigmoid(torch.randn(rows, device=dev, generator=gen))
+        w = (torch.rand(rows, device=dev, generator=gen) < 0.8).float()
+        return torch.stack([(p - y) * w, p * (1 - p) * w, w], 1) \
+            .contiguous()
+
+    vals = grad_vals(n)
+    pairs7 = []
+    for bits, stochastic, rows, seeds, its in (
+            (8, True, n, (0, 12345), (0, 1, 49, 2 ** 31 - 1)),
+            (8, False, n, (0,), (0,)),
+            (16, True, 65_536, (0, 7), (0, 5)),
+            (16, False, 65_536, (0,), (0,))):
+        v = vals[:rows]
+        spec = Q.QuantSpec(bits, stochastic, 0)
+        s_k = Q.quant_scales(v, spec.qmax)
+        s_p = Q.quant_scales_plain(v, spec.qmax)
+        pairs7.append((s_k, s_p))
+        for seed in seeds:
+            for it in its:
+                sp_ = spec._replace(seed=seed)
+                q_k = Q.quantize_stack(v, s_k, sp_, torch.tensor(
+                    [it], dtype=torch.int32, device=dev))
+                pairs7.append((q_k, Q.quantize_stack_plain(v, s_p, sp_, it)))
+                if not bool((q_k[v[:, 2] == 0] == 0).all()):
+                    raise AssertionError("B7b: a zero row did not stay zero")
+    err7 = exact_err(torch, pairs7, "B7a/B7b")
+    spec = Q.QuantSpec(8, True, 0)
+    it = torch.tensor([3], dtype=torch.int32, device=dev)
+    s = Q.quant_scales(vals, spec.qmax)
+    q = Q.quantize_stack(vals, s, spec, it)
+    t_a = median_ms(torch, lambda: Q.quant_scales(vals, spec.qmax, out=s))
+    t_ap = median_ms(torch, lambda: Q.quant_scales_plain(vals, spec.qmax))
+    t_al = median_ms(torch, lambda: vals.abs().amax(0))
+    t_b = median_ms(torch, lambda: Q.quantize_stack(vals, s, spec, it,
+                                                    out=q))
+    t_bp = median_ms(torch, lambda: Q.quantize_stack_plain(vals, s, spec, 3))
+    b7a = bound_ms(12 * n + 12, 2 * 3 * n)
+    b7b = bound_ms(12 * n + 12 + 3 * n, 10 * 3 * n)
+    rows = {"quant_scales": {
+        "name": "B7a quantized-training scales", "route": "cuda",
+        "source": "lightgbm_torch/csrc/quantize.cu",
+        "replaces": "lightgbm_tpu/ops/quantize.py:98", "max_abs_err": err7,
+        "ms": t_a, "plain_ms": t_ap, "bound_ms": b7a[0],
+        "bound_by": b7a[1], "library_ms": t_al},
+        "quantize_stack": {
+        "name": "B7b int8/int16 packing (stochastic rounding)",
+        "route": "cuda", "source": "lightgbm_torch/csrc/quantize.cu",
+        "replaces": "lightgbm_tpu/ops/quantize.py:109", "max_abs_err": err7,
+        "ms": t_b, "plain_ms": t_bp, "bound_ms": b7b[0], "bound_by": b7b[1],
+        "library_ms": None}}
+
+    # B1-int and B1-K-int at the main shape, on the packed stack
+    slot = torch.where(torch.rand(n, device=dev, generator=gen) < 0.4, 0,
+                       -1).to(torch.int32)
+    kslot = torch.where(torch.rand(n, device=dev, generator=gen) < 0.5,
+                        torch.randint(0, WIDE_K, (n,), device=dev,
+                                      generator=gen), -1).to(torch.int32)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    K16 = torch.tensor([WIDE_K], dtype=torch.int32, device=dev)
+
+    def int_pairs(bn, qq, sl, ks, nbins):
+        used5 = torch.tensor([5], dtype=torch.int32, device=dev)
+        ks5 = torch.where(ks < 5, ks, -1)
+        return [
+            (compute_histogram(bn, qq, num_bins=nbins),
+             histogram_int_plain(bn, qq, num_bins=nbins)),
+            (compute_histogram(bn, qq, num_bins=nbins, slot=sl, active=one),
+             histogram_int_plain(bn, qq, num_bins=nbins, slot=sl)),
+            (compute_histogram(bn, qq, num_bins=nbins, slot=ks,
+                               num_slots=WIDE_K, active=one, slots_used=K16),
+             histogram_slots_int_plain(bn, qq, ks, num_slots=WIDE_K,
+                                       num_bins=nbins)),
+            (compute_histogram(bn, qq, num_bins=nbins, slot=ks5,
+                               num_slots=WIDE_K, active=one,
+                               slots_used=used5),
+             histogram_slots_int_plain(bn, qq, ks5, num_slots=WIDE_K,
+                                       num_bins=nbins))]
+
+    cases = {"main": int_pairs(binned, q, slot, kslot, B)}
+    b255 = torch.randint(0, 255, (n, f), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    cases["bins_255"] = int_pairs(b255, q, slot, kslot, 255)
+    del b255
+    # the rank shape: most features at bin 0, as MSLR's are
+    nr = RANK_TRAIN
+    br = torch.randint(1, 255, (nr, RANK_FEAT), dtype=torch.uint8,
+                       device=dev, generator=gen)
+    br.mul_((torch.randint(0, 10, (nr, RANK_FEAT), dtype=torch.uint8,
+                           device=dev, generator=gen) < 3).to(torch.uint8))
+    vr = grad_vals(nr)
+    qr = Q.quantize_stack(vr, Q.quant_scales(vr, 127), spec, it)
+    slot_r = torch.where(torch.rand(nr, device=dev, generator=gen) < 0.4, 0,
+                         -1).to(torch.int32)
+    kslot_r = torch.where(torch.rand(nr, device=dev, generator=gen) < 0.5,
+                          torch.randint(0, WIDE_K, (nr,), device=dev,
+                                        generator=gen), -1).to(torch.int32)
+    cases["rank_shape"] = int_pairs(br, qr, slot_r, kslot_r, 255)
+    b_rank = (int_pass_bound(nr, RANK_FEAT, 255, int((slot_r >= 0).sum())),
+              int_pass_bound(nr, RANK_FEAT, 255, int((kslot_r >= 0).sum()),
+                             WIDE_K))
+    t_rank_b7 = (median_ms(torch, lambda: Q.quant_scales(vr, 127)),
+                 median_ms(torch, lambda: Q.quantize_stack(
+                     vr, Q.quant_scales(vr, 127), spec, it)))
+    t_rank = (
+        median_ms(torch, lambda: compute_histogram(
+            br, qr, num_bins=255, slot=slot_r, active=one)),
+        median_ms(torch, lambda: compute_histogram(
+            br, qr, num_bins=255, slot=kslot_r, num_slots=WIDE_K,
+            active=one, slots_used=K16)))
+    del br, vr, qr
+    # efb_data's unbundled matrix, 584 columns at 255 bins
+    bu = torch.as_tensor(train_u.binned).to(dev)
+    nu = bu.shape[0]
+    cases["efb_unbundled"] = int_pairs(bu, q[:nu].contiguous(), slot[:nu],
+                                       kslot[:nu], int(train_u.max_bin))
+    t_unb = median_ms(torch, lambda: compute_histogram(
+        bu, q[:nu].contiguous(), num_bins=int(train_u.max_bin)))
+    b_unb = int_pass_bound(nu, bu.shape[1], int(train_u.max_bin), nu,
+                           slotted=False)
+    del bu
+    err1 = {c: exact_err(torch, p_, f"B1-int/B1-K-int ({c})")
+            for c, p_ in cases.items()}
+    dead = (_dead_int_pass(torch, lgt_kernels, binned, q, slot, B),
+            _dead_int_pass(torch, lgt_kernels, binned, q, kslot, B, WIDE_K))
+    if not all(dead):
+        raise AssertionError(f"B1-int/B1-K-int wrote on an inactive step "
+                             f"{dead}")
+
+    t_1 = median_ms(torch, lambda: compute_histogram(
+        binned, q, num_bins=B, slot=slot, active=one))
+    t_1p = median_ms(torch, lambda: histogram_int_plain(
+        binned, q, num_bins=B, slot=slot))
+    t_k = median_ms(torch, lambda: compute_histogram(
+        binned, q, num_bins=B, slot=kslot, num_slots=WIDE_K, active=one,
+        slots_used=K16))
+    t_kp = median_ms(torch, lambda: histogram_slots_int_plain(
+        binned, q, kslot, num_slots=WIDE_K, num_bins=B))
+    b1 = int_pass_bound(n, f, B, int((slot >= 0).sum()))
+    b1k = int_pass_bound(n, f, B, int((kslot >= 0).sum()), WIDE_K)
+    rows["histogram_int"] = {
+        "name": "B1-int integer histogram (smaller child's pass)",
+        "route": "cuda", "source": "lightgbm_torch/csrc/histogram.cu",
+        "replaces": "lightgbm_tpu/ops/histogram.py:143",
+        "max_abs_err": max(err1.values()), "ms": t_1, "plain_ms": t_1p,
+        "bound_ms": b1[0], "bound_by": b1[1],
+        "library_ms": _int_index_add(torch, binned, q, slot, B)}
+    rows["histogram_slots_int"] = {
+        "name": "B1-K-int integer K-slot histogram (K = 16)",
+        "route": "cuda", "source": "lightgbm_torch/csrc/histogram.cu",
+        "replaces": "lightgbm_tpu/ops/histogram.py:143",
+        "max_abs_err": max(err1.values()), "ms": t_k, "plain_ms": t_kp,
+        "bound_ms": b1k[0], "bound_by": b1k[1],
+        "library_ms": _int_index_add(torch, binned, q, kslot, B, WIDE_K)}
+
+    # B7c on a child pair (the smaller child's pass, the larger by
+    # subtraction), and an inactive step
+    small = compute_histogram(binned, q, num_bins=B, slot=slot, active=one)
+    pair = torch.stack([small, compute_histogram(binned, q, num_bins=B)
+                        - small]).contiguous()
+    d_k = Q.dequantize_hist(pair, s)
+    err7c = exact_err(torch, [(d_k, Q.dequantize_hist_plain(pair, s))],
+                      "B7c")
+    out = torch.full(pair.shape, 5.0, device=dev)
+    Q.dequantize_hist(pair, s, active=torch.zeros(1, dtype=torch.int32,
+                                                  device=dev), out=out)
+    torch.cuda.synchronize()
+    if not bool((out == 5.0).all()):
+        raise AssertionError("B7c wrote on an inactive step")
+    t_c = median_ms(torch, lambda: Q.dequantize_hist(pair, s, active=one,
+                                                     out=d_k))
+    t_cp = median_ms(torch, lambda: Q.dequantize_hist_plain(pair, s))
+    t_cl = median_ms(torch, lambda: pair.float() * s)
+    b7c = bound_ms(pair.numel() * 8 + 12, pair.numel())
+    rows["dequant_hist"] = {
+        "name": "B7c histogram dequantization (a child pair)",
+        "route": "cuda", "source": "lightgbm_torch/csrc/quantize.cu",
+        "replaces": "lightgbm_tpu/ops/split.py:29", "max_abs_err": err7c,
+        "ms": t_c, "plain_ms": t_cp, "bound_ms": b7c[0], "bound_by": b7c[1],
+        "library_ms": t_cl}
+
+    # the int16 refusal: 1M rows could overflow an int16 lane's int32 bins
+    try:
+        lgt.train({"objective": "binary", "max_bin": MAX_BIN,
+                   "verbosity": -1, "quant_train": True, "quant_bits": 16},
+                  train, 1)
+    except ValueError as e:
+        if "int32 histogram" not in str(e):
+            raise
+        refusal = str(e)
+    else:
+        raise AssertionError("quant_bits=16 trained 1M rows")
+    for k in ("quant_scales", "quantize_stack", "histogram_int",
+              "histogram_slots_int", "dequant_hist"):
+        emit({"phase": "kernel", **rows[k]})
+    emit({"phase": "quant_kernels", "b7_cases": len(pairs7),
+          "int_max_abs_err": err1, "inactive_steps_write_nothing": True,
+          "b7_rank_shape_ms": {"quant_scales": t_rank_b7[0],
+                               "quantize_stack": t_rank_b7[1],
+                               "rows": RANK_TRAIN},
+          "b7_rank_shape_bound_ms": {
+              "quant_scales": bound_ms(12 * RANK_TRAIN, 0)[0],
+              "quantize_stack": bound_ms(15 * RANK_TRAIN, 0)[0]},
+          "rank_shape_ms": {"histogram_int": t_rank[0],
+                            "histogram_slots_int": t_rank[1],
+                            "rows": RANK_TRAIN, "features": RANK_FEAT,
+                            "bins": 255},
+          "rank_shape_bound_ms": {"histogram_int": b_rank[0][0],
+                                  "histogram_slots_int": b_rank[1][0]},
+          "efb_unbundled_root_ms": t_unb,
+          "efb_unbundled_root_bound_ms": b_unb[0],
+          "int16_refusal": refusal[:160],
+          "int16_max_rows": INT16_MAX_ROWS})
+    return rows
+
+
+def phase_quant_rank(torch, lgt, lgt_kernels, train, valid, f32_ndcg10):
+    """quant_rank: rank_train's lambdarank (255 leaves, K = 16) with
+    ``quant_train`` (int8, stochastic) for QUANT_RANK_ROUNDS per-iteration
+    rounds: launches held to QUANT_RANK_PER_ITERATION, one tree and one
+    valid-score fetch an iteration, NDCG@10 rising and within
+    QUANT_NDCG_GAP of rank_train's at the same round.  Returns the
+    launches by path."""
+    per_it = dict(QUANT_RANK_PER_ITERATION)
+    params = {**RANK_PARAMS, **QUANT}
+    ev, clock = {}, _IterClock()
+    lgt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    clock.stamps[0] = t0
+    bst = lgt.train(params, train, QUANT_RANK_ROUNDS, valid_sets=[valid],
+                    callbacks=[lgt.record_evaluation(ev), clock])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = lgt_kernels.launch_counts()
+    m = bst._model
+    if m.efb_dev is not None:
+        per_it["expand_group_hist"] = WIDE_LEAVES
+    n = m.num_iterations_trained
+    if m.split_batch != WIDE_K or n != QUANT_RANK_ROUNDS or m.quant is None:
+        raise AssertionError(f"quant_rank: split_batch {m.split_batch}, "
+                             f"{n} iterations, quant {m.quant}")
+    hold_launches("quant_rank", launches, times(per_it, n))
+    if m.fetch_counts != {"tree": n, "valid_score": n}:
+        raise AssertionError(f"quant_rank fetches {m.fetch_counts}")
+    nd = ev["valid_0"]["ndcg@10"]
+    r = QUANT_RANK_ROUNDS - 1
+    gap = nd[r] - f32_ndcg10[r]
+    if not nd[-1] > nd[0] or abs(gap) > QUANT_NDCG_GAP:
+        raise AssertionError(f"quant_rank NDCG@10 {nd}, f32 "
+                             f"{f32_ndcg10[:r + 1]}")
+    emit({"phase": "quant_rank", "params": params, "iterations": n,
+          "seconds": secs, "steady_ms_per_iteration": clock.steady_ms(),
+          "steady_iterations_per_s": 1e3 / clock.steady_ms(),
+          "valid_ndcg10": nd, "f32_ndcg10": f32_ndcg10[:r + 1],
+          "ndcg10_gap_at_round": [QUANT_RANK_ROUNDS, gap],
+          "limit": QUANT_NDCG_GAP, "host_fetches": m.fetch_counts,
+          "launches": launches,
+          "leaves_per_tree": statistics.mean(t.num_leaves
+                                             for t in m.models)})
+    return {"quant_rank": launches}
+
+
+def phase_quant_efb(torch, lgt, lgt_kernels, train, valid):
+    """quant_efb: efb_train's bundled set with ``quant_train`` (int8,
+    nearest rounding), QUANT_EFB_ROUNDS rounds as one super-epoch (launches
+    held to QUANT_EFB_PER_ITERATION: B7c before every B9, one fetch) and on
+    the per-iteration path (the same model text, eager launches held).
+    Returns the launches by path."""
+    per_it = QUANT_EFB_PER_ITERATION
+    lgt_kernels.reset_launch_counts()
+    bst, ev, secs = train_main(lgt, train, valid, extra=QUANT_EFB_PARAMS,
+                               rounds=QUANT_EFB_ROUNDS)
+    torch.cuda.synchronize()
+    eager = lgt_kernels.launch_counts()
+    m = bst._model
+    prog = fused_program(m)
+    n = m.num_iterations_trained
+    epochs = len(m.epoch_ms)
+    if m.efb_dev is None or m.quant is None or n != QUANT_EFB_ROUNDS \
+            or m.fetch_counts != {"epoch": epochs}:
+        raise AssertionError(f"quant_efb: efb {m.efb_dev is not None}, "
+                             f"{n} iterations, fetches {m.fetch_counts}")
+    if prog.captured != per_it or prog.warmup != per_it \
+            or eager != times(per_it, 2):
+        raise AssertionError(f"quant_efb launches: captured "
+                             f"{prog.captured}, warm-up {prog.warmup}, "
+                             f"wrapper calls {eager}, expected {per_it}")
+    device = {k: prog.warmup[k] + v for k, v in prog.launches().items()}
+    lgt_kernels.reset_launch_counts()
+    bp, evp, secs_p = train_main(
+        lgt, train, valid, rounds=QUANT_EFB_ROUNDS,
+        extra={**QUANT_EFB_PARAMS, "superepoch": -1, "fused_chunk": 1,
+               "fused_eval": "true"})
+    torch.cuda.synchronize()
+    per_counts = lgt_kernels.launch_counts()
+    hold_launches("quant_efb per-iteration", per_counts,
+                  times(per_it, QUANT_EFB_ROUNDS))
+    text = without_path_params(bst.model_to_string())
+    if without_path_params(bp.model_to_string()) != text:
+        raise AssertionError("quant_efb: the per-iteration model text "
+                             "differs from the super-epoch one")
+    auc = ev["valid_0"]["auc"]
+    if not 0.5 < auc[-1] <= 1.0 or not auc[-1] > auc[0]:
+        raise AssertionError(f"quant_efb valid AUC {auc}")
+    steady = m.epoch_ms[1:] if epochs > 1 else m.epoch_ms
+    emit({"phase": "quant_efb", "params": QUANT_EFB_PARAMS,
+          "iterations": n, "valid_auc": [auc[0], auc[-1]], "seconds": secs,
+          "epoch_ms": m.epoch_ms,
+          "epoch_ms_per_iteration": statistics.median(steady) / n,
+          "per_iteration_seconds": secs_p, "same_model_text": True,
+          "host_fetches": m.fetch_counts, "device_launches": device,
+          "per_iteration_launches": per_counts})
+    return {"quant_efb": device, "quant_efb_per_iteration": per_counts}
 
 
 def objective_target(obj: str, x: np.ndarray, seed: int) -> np.ndarray:
@@ -4699,6 +5174,8 @@ def main() -> int:
     kernels.update(phase_mc_kernels(torch, lgt, mc_valid, mc_xv))
     efb_sets = phase_efb_data(lgt)
     kernels.update(phase_efb_kernels(torch, lgt, *efb_sets[1:3]))
+    kernels.update(phase_quant_kernels(torch, lgt, lgt_kernels, train,
+                                       efb_sets[3]))
     bst, ev, counts, epoch_ms_per_it = phase_main_path(
         torch, lgt, lgt_kernels, train, valid)
     eager_ms_per_it, per_it_counts = phase_per_iteration(
@@ -4731,6 +5208,16 @@ def main() -> int:
         sampled_counts.update(phase_sampled_train(
             torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
             per_it, rounds=rounds)[0])
+    # quantized training: the main configuration (its AUC held to the f32
+    # main path's) and the wide one
+    for prefix, params, per_it, rounds in (
+            ("quant", QUANT_PARAMS, QUANT_PER_ITERATION, ROUNDS),
+            ("quant_wide", QUANT_WIDE_PARAMS, QUANT_WIDE_PER_ITERATION,
+             CUT_ROUNDS)):
+        sampled_counts.update(phase_sampled_train(
+            torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
+            per_it, rounds=rounds,
+            ref_auc=ev["valid_0"]["auc"] if prefix == "quant" else None)[0])
     for prefix, params, per_it in (
             ("cat", CAT_PARAMS, CAT_PER_ITERATION),
             ("cat_strict", CAT_STRICT_PARAMS, CAT_STRICT_PER_ITERATION)):
@@ -4741,11 +5228,17 @@ def main() -> int:
     sampled_counts.update(phase_efb_train(
         torch, lgt, lgt_kernels, efb_sets[1], efb_sets[2], efb_sets[0],
         *efb_sets[3:]))
+    sampled_counts.update(phase_quant_efb(torch, lgt, lgt_kernels,
+                                          *efb_sets[1:3]))
     del efb_sets
     rank_train, rank_valid = phase_rank_data(lgt)
     kernels.update(phase_rank_kernels(torch, lgt, rank_train))
-    sampled_counts.update(phase_rank_train(torch, lgt, lgt_kernels,
-                                           rank_train, rank_valid))
+    rank_counts, rank_ndcg10 = phase_rank_train(torch, lgt, lgt_kernels,
+                                                rank_train, rank_valid)
+    sampled_counts.update(rank_counts)
+    sampled_counts.update(phase_quant_rank(torch, lgt, lgt_kernels,
+                                           rank_train, rank_valid,
+                                           rank_ndcg10))
     del rank_train, rank_valid
     mc_bst, mc_counts = phase_mc_train(
         torch, lgt, lgt_kernels, mc_train, mc_valid, "multiclass_train",
@@ -4785,7 +5278,8 @@ def main() -> int:
                       for k in KERNEL_ORDER]})
     for k in ("goss_vals", "node_draws", "split_per_child", "split_cat",
               "predict_column", "multi_logloss", "expand_group_hist",
-              "lambdarank", "xendcg"):
+              "lambdarank", "xendcg", "quant_scales", "quantize_stack",
+              "dequant_hist", "histogram_int", "histogram_slots_int"):
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

@@ -52,6 +52,7 @@ SOURCES: Dict[str, str] = {
     "forest": "forest.cu",          # B10a, B10b, B10c
     "efb": "efb.cu",                # B9
     "rank": "rank.cu",              # B13a, B13b
+    "quantize": "quantize.cu",      # B7a, B7b, B7c
 }
 
 # kernel (launch-counter key) -> library
@@ -66,6 +67,9 @@ KERNELS: Dict[str, str] = {
     "forest_walk": "forest", "bin_rows": "forest",
     "fused_predict": "forest", "expand_group_hist": "efb",
     "lambdarank": "rank", "xendcg": "rank",
+    "histogram_int": "histogram", "histogram_slots_int": "histogram",
+    "quant_scales": "quantize", "quantize_stack": "quantize",
+    "dequant_hist": "quantize",
 }
 
 # dynamic shared memory the B1 and B10c kernels may use (227 KB, all a
@@ -86,6 +90,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                            _P),
         "lgbt_histogram_slots": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P),
+        "lgbt_histogram_int": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _P),
         "lgbt_histogram_setup": (_I,),
     },
     "split": {
@@ -150,6 +156,12 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                             _P, _P, _P),
         "lgbt_xendcg": (_P, _P, _P, _I, _U, _U, _P, _P, _P, _P),
         "lgbt_rank_setup": (),
+    },
+    "quantize": {
+        "lgbt_quant_scales": (_P, _I, _F, _P, _P, _P),
+        "lgbt_quantize_stack": (_P, _P, _I, _P, _U, _I, _I, _P, _P),
+        "lgbt_dequant_hist": (_P, _P, ctypes.c_longlong, _P, _P, _P),
+        "lgbt_quantize_setup": (),
     },
 }
 

@@ -83,6 +83,38 @@
 // in use, so reruns are bitwise equal.  Bytes per pass do not grow with K (N*F + 12N + 4N, about 44 MB
 // at the main path); the partial buffer does: row blocks x K*F*B*3*4 B,
 // 44.7 MB at 132 row blocks, K = 16, F = 28, B = 63.
+//
+// B1-int and B1-K-int — the integer forms (quantized training, the JAX
+// package's integer branch of `_compute_histogram_matmul`, ops/histogram.py
+// :143-146, which contracts int8/int16 vals into exact int32): the same
+// two functions on vals [N, 3] int8 or int16 (ops/quantize.py), summed
+// into int32.  Integer addition is exact and order-free, so no fixed
+// order is needed: each block keeps an int32 histogram of its tile in
+// shared memory and adds with shared-memory atomicAdd, then writes an
+// int32 partial, which `hist_reduce_int` sums in int32.  The launch shape
+// therefore changes no bit of the result, and the kernel equals its plain
+// version (an int64 `index_add_`) exactly.
+//   `hist_int_partial`: grid (row blocks, slot tiles x feature tiles), a
+//     tile [tile_k, tile_f, B, 3] int32 that fits in shared memory (28 x
+//     64 x 12 B = 21.5 KB at the main path; 136 features at 255 bins take
+//     two tiles; K = 16 x 28 x 63 untiled would need 338 KB).  Each warp
+//     takes 32 rows at a time: each lane reads one row's slot and
+//     channels (coalesced), a warp vote marks the rows in the tile's pass
+//     (slot in the tile's slot range, a nonzero channel), and the warp
+//     then adds those rows one at a time, its lanes over the row's
+//     features (the row's bytes read together, each lane's adds to its
+//     own feature's counters).  B1-int is the launch with K = 1: the
+//     strict grower's slot 0 (the smaller child) or -1, or no slot at all
+//     for the root pass (every row in slot 0).  A tile whose first slot is
+//     at or past the device count `slots_used` writes zeros at once.
+// It reads the step's `active` flag and exits at once on a dead step, so
+// a pass is two launches as in the f32 forms.  Bound on this card: bytes:
+// every row's slot (4 B) and, of the rows in the pass only, the binned
+// row and 3 (int8) or 6 (int16) bytes of vals, plus the histogram out; a
+// pass over 400,000 of 1M rows at the main shape (28 features, int8)
+// moves 4 + 0.4 x 31 = 16.4 MB, about 4.9 us at 3.35 TB/s.  A first, simple design: hot bins
+// serialise on their shared-memory counters, and each tile reads every
+// row's slot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,6 +122,8 @@
 namespace {
 
 constexpr int kChannels = 3;
+// threads of a block of the integer forms
+constexpr int kIntThreads = 1024;
 
 __global__ void hist_partial(const uint8_t* __restrict__ binned,
                              const float* __restrict__ vals,
@@ -223,7 +257,8 @@ __global__ void hist_slots_partial(const uint8_t* __restrict__ binned,
   // the rest have no rows.  With few slots in use each pair's rows are
   // split over `subs` threads (32-row groups dealt round robin), so the
   // work does not fall on one warp.
-  const int used = min(*slots_used, num_slots);
+  const int used =
+      slots_used == nullptr ? num_slots : min(*slots_used, num_slots);
   const int q = max(0, min(npairs, used * num_features - p0));
   if (q == 0) {
     for (int e = tid; e < npairs * slice; e += nthreads) dst[e] = 0.f;
@@ -300,6 +335,133 @@ __global__ void hist_slots_partial(const uint8_t* __restrict__ binned,
   }
 }
 
+
+// the int32 partials of the integer forms, summed in block order (exact;
+// unsigned, so an overflow would wrap as the plain version's cast does)
+__global__ void hist_reduce_int(const int32_t* __restrict__ partial,
+                                int nblocks, int elems,
+                                const int32_t* __restrict__ active,
+                                int32_t* __restrict__ out) {
+  if (active != nullptr && *active == 0) return;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= elems) return;
+  uint32_t acc = 0u;
+  for (int k = 0; k < nblocks; ++k)
+    acc += (uint32_t)partial[(long long)k * elems + e];
+  out[e] = (int32_t)acc;
+}
+
+// the rows of a 32-row group that are in the pass (bit j of `m` for row
+// g + j, whose slot in the tile is lane j's `k` and whose channels are
+// lane j's v0..v2) into the tile's histograms `h` [tile slots, nf, B, 3]:
+// one row at a time, the warp's lanes over the row's nf features, so a
+// row's bytes are read together and its adds go to nf different counters.
+// A one-slot tile passes a `tile_stride` of 0 and skips the slot's
+// shuffle, which costs B1-int measurably.
+__device__ __forceinline__ void add_group_int(
+    int32_t* h, int tile_stride, const uint8_t* __restrict__ binned,
+    long long g, int lane, uint32_t m, int k, int v0, int v1, int v2,
+    int num_features, int f0, int nf, int num_bins) {
+  while (m != 0u) {
+    const int j = __ffs(m) - 1;
+    m &= m - 1u;
+    const int kj = tile_stride == 0 ? 0 : __shfl_sync(0xffffffffu, k, j);
+    const int a0 = __shfl_sync(0xffffffffu, v0, j);
+    const int a1 = __shfl_sync(0xffffffffu, v1, j);
+    const int a2 = __shfl_sync(0xffffffffu, v2, j);
+    const uint8_t* brow = binned + (g + j) * num_features + f0;
+    int32_t* hk = h + kj * tile_stride;
+    for (int fl = lane; fl < nf; fl += 32) {
+      const int b = brow[fl];
+      if (b >= num_bins) continue;
+      int32_t* cell = hk + (fl * num_bins + b) * kChannels;
+      if (a0 != 0) atomicAdd(cell + 0, a0);
+      if (a1 != 0) atomicAdd(cell + 1, a1);
+      if (a2 != 0) atomicAdd(cell + 2, a2);
+    }
+  }
+}
+
+template <typename T>
+__global__ void hist_int_partial(
+    const uint8_t* __restrict__ binned, const T* __restrict__ vals,
+    const int32_t* __restrict__ slot, int n, int num_features, int num_bins,
+    int num_slots, int rows_per_block, int tile_f, int tile_k,
+    const int32_t* __restrict__ active,
+    const int32_t* __restrict__ slots_used, int32_t* __restrict__ partial) {
+  if (active != nullptr && *active == 0) return;
+  extern __shared__ int32_t ihist[];
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int slice = num_bins * kChannels;
+  const int ftiles = (num_features + tile_f - 1) / tile_f;
+  const int f0 = (blockIdx.y % ftiles) * tile_f;
+  const int k0 = (blockIdx.y / ftiles) * tile_k;
+  const int nf = min(tile_f, num_features - f0);
+  const int nk = min(tile_k, num_slots - k0);
+  const int tile_elems = nk * nf * slice;
+  const int used =
+      slots_used == nullptr ? num_slots : min(*slots_used, num_slots);
+  if (k0 < used) {
+    for (int i = tid; i < tile_elems; i += nthreads) ihist[i] = 0;
+    __syncthreads();
+    const long long row0 = (long long)blockIdx.x * rows_per_block;
+    const long long row_stop = min(row0 + rows_per_block, (long long)n);
+    for (long long g = row0 + (long long)warp * 32; g < row_stop;
+         g += (long long)nwarps * 32) {
+      const long long r = g + lane;
+      int v0 = 0, v1 = 0, v2 = 0, k = -1;
+      if (r < row_stop) {
+        k = (slot == nullptr ? 0 : slot[r]) - k0;
+        if (k >= 0 && k < nk) {
+          v0 = vals[r * kChannels + 0];
+          v1 = vals[r * kChannels + 1];
+          v2 = vals[r * kChannels + 2];
+        }
+      }
+      const uint32_t m =
+          __ballot_sync(0xffffffffu, (v0 | v1 | v2) != 0);
+      add_group_int(ihist, nk == 1 ? 0 : nf * slice, binned, g, lane, m, k,
+                    v0, v1, v2, num_features, f0, nf, num_bins);
+    }
+    __syncthreads();
+  }
+  // the tile's (slot, feature) rows of the partial [row blocks, K, F, B, 3],
+  // a row a warp
+  for (int row = warp; row < nk * nf; row += nwarps) {
+    const int kl = row / nf, fl = row - kl * nf;
+    int32_t* dst = partial + (((long long)blockIdx.x * num_slots + k0 + kl) *
+                              num_features + f0 + fl) * slice;
+    const int32_t* srcr = ihist + row * slice;
+    for (int e = lane; e < slice; e += 32) dst[e] = k0 < used ? srcr[e] : 0;
+  }
+}
+
+template <typename T>
+int launch_hist_int(const uint8_t* binned, const void* vals,
+                    const int32_t* slot, int n, int num_features,
+                    int num_bins, int num_slots, int rows_per_block,
+                    int tile_f, int tile_k, const int32_t* active,
+                    const int32_t* slots_used, int32_t* partial,
+                    int32_t* out, cudaStream_t stream) {
+  const int nblocks = (n + rows_per_block - 1) / rows_per_block;
+  const int ftiles = (num_features + tile_f - 1) / tile_f;
+  const int ktiles = (num_slots + tile_k - 1) / tile_k;
+  const size_t smem =
+      (size_t)tile_k * tile_f * num_bins * kChannels * sizeof(int32_t);
+  hist_int_partial<T>
+      <<<dim3(nblocks, ftiles * ktiles), kIntThreads, smem, stream>>>(
+          binned, static_cast<const T*>(vals), slot, n, num_features,
+          num_bins, num_slots, rows_per_block, tile_f, tile_k, active,
+          slots_used, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int elems = num_slots * num_features * num_bins * kChannels;
+  hist_reduce_int<<<(elems + 255) / 256, 256, 0, stream>>>(
+      partial, nblocks, elems, active, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // partial: [ceil(n / rows_per_block), F, B, 3] f32 scratch; out: [F, B, 3].
@@ -357,8 +519,33 @@ extern "C" int lgbt_histogram_slots(const uint8_t* binned, const float* vals,
   return (int)cudaGetLastError();
 }
 
-// Once per process, before any launch: let hist_partial use up to
-// `smem_bytes` of dynamic shared memory, and load the kernels.
+// The integer forms (B1-K-int; B1-int with num_slots 1).  vals [n, 3]
+// int8 (bits 8) or int16 (bits 16); partial: [ceil(n / rows_per_block), K,
+// F, B, 3] int32 scratch; out: [K, F, B, 3] int32.  A row adds to slot
+// slot[r] when that is in [0, K) (to slot 0 when slot is null).  active
+// and slots_used may be null; slots_used (a device int32) promises that no
+// row has a slot >= it.
+extern "C" int lgbt_histogram_int(
+    const uint8_t* binned, const void* vals, int bits, const int32_t* slot,
+    int n, int num_features, int num_bins, int num_slots, int rows_per_block,
+    int tile_f, int tile_k, const int32_t* active, const int32_t* slots_used,
+    int32_t* partial, int32_t* out, cudaStream_t stream) {
+  if (bits == 8)
+    return launch_hist_int<int8_t>(
+        binned, vals, slot, n, num_features, num_bins, num_slots,
+        rows_per_block, tile_f, tile_k, active, slots_used, partial, out,
+        stream);
+  if (bits == 16)
+    return launch_hist_int<int16_t>(
+        binned, vals, slot, n, num_features, num_bins, num_slots,
+        rows_per_block, tile_f, tile_k, active, slots_used, partial, out,
+        stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Once per process, before any launch: let hist_partial, hist_slots_partial
+// and the integer forms use up to `smem_bytes` of dynamic shared memory,
+// and load the kernels.
 extern "C" int lgbt_histogram_setup(int smem_bytes) {
   cudaError_t err = cudaFuncSetAttribute(
       hist_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -367,6 +554,16 @@ extern "C" int lgbt_histogram_setup(int smem_bytes) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (err != cudaSuccess) return (int)err;
+  const void* int_kernels[] = {
+      (const void*)hist_int_partial<int8_t>,
+      (const void*)hist_int_partial<int16_t>};
+  for (const void* k : int_kernels) {
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, hist_reduce_int);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaFuncGetAttributes(&attr, hist_reduce);
 }

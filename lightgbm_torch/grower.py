@@ -26,6 +26,16 @@ root's and each step's children's histograms to feature space [F, B, 3],
 with each child's totals from its step record, just before the node
 draws and B2; B3/B3-K decode each feature's bin from its bundle column.
 
+With quantized training (``quant``, an ``ops.quantize.QuantSpec``; the
+JAX package's ``_quant_prepare``, grower.py:369-397) the root pass first
+takes the tree's shared scales (B7a) and packs (g, h, w) into int8 or
+int16 (B7b, keyed by ``rng_iter``); the histogram passes then give exact
+int32 histograms (B1-int, B1-K-int), the per-leaf histograms and their
+subtraction stay int32, the root's totals are the int32 sum of the packed
+stack dequantized, and each child pair's histograms are dequantized (B7c)
+into the f32 ``GrowWorkspace.pair`` (or, with EFB, the f32 group buffer
+B9 expands) just before B2.
+
 With ``feature_fraction_bynode`` or ``extra_trees`` (``NodeSampling``)
 the root and every step also draw their children's feature subsets and
 random threshold bins on the device (kernel B6-node, ``node_draws``),
@@ -54,6 +64,8 @@ import torch
 from .efb import EFBDevice, expand_group_hist
 from .ops import split as sp
 from .ops.histogram import compute_histogram
+from .ops.quantize import QuantSpec, dequantize_hist, quant_scales, \
+    quantize_stack
 from .ops.random import NodeSampling, node_draws
 from .ops.split import SplitParams, find_best_split, leaf_output
 from . import _kernels
@@ -194,16 +206,24 @@ class GrowWorkspace:
     ``CAT_FIELDS``; without it B3 and B3-K read one identity rank.  With
     ``efb`` the per-leaf histograms are group histograms [rows, G, Bg, 3]
     and ``gpair`` holds a step's children's in group space, ``pair``
-    their expansion; without it ``gpair`` is ``pair``."""
+    their expansion; without it ``gpair`` is ``pair``.  With ``quant`` (a
+    ``QuantSpec``) the per-leaf histograms and ``gpair`` are int32, the
+    workspace holds the packed stack ``qvals`` [N, 3] and the tree's
+    scales ``qscales`` [3], and ``pair`` (with EFB, ``gpair_f``, the f32
+    group histograms B9 reads) receives each child pair dequantized."""
 
     def __init__(self, n: int, num_features: int, num_bins: int,
                  num_leaves: int, device: torch.device, split_batch: int = 1,
                  categorical: bool = False,
-                 efb: Optional[EFBDevice] = None):
+                 efb: Optional[EFBDevice] = None,
+                 quant: Optional[QuantSpec] = None):
         L, F, B = int(num_leaves), int(num_features), int(num_bins)
         K = batch_width(split_batch, L)
         self.num_leaves, self.num_bins, self.split_batch = L, B, K
         self.efb = efb
+        self.quant = quant
+        # exact int32 histograms under quantized training
+        hdt = torch.float32 if quant is None else torch.int32
         # the histograms' columns and bin axis: groups or features
         HF, HB = (F, B) if efb is None else (efb.num_groups, efb.group_bins)
         self.hist_bins = HB
@@ -219,8 +239,7 @@ class GrowWorkspace:
         table_init[:, sp.GAIN] = float("-inf")
         self.table_init = table_init.to(device)
         self.table = self.table_init.clone()
-        self.hist = torch.zeros((rows, HF, HB, 3), dtype=torch.float32,
-                                **kw)
+        self.hist = torch.zeros((rows, HF, HB, 3), dtype=hdt, **kw)
         self.leaf_of_row = torch.zeros(n, dtype=torch.int32, **kw)
         self.rank_iota = torch.arange(B, dtype=torch.int32, **kw)
         self.leaf_cat = self.leaf_rank = None
@@ -233,8 +252,15 @@ class GrowWorkspace:
         self.node_bins = torch.zeros((2 * K, F), dtype=torch.int32, **kw)
         C = 2 if K == 1 else 2 * K
         self.pair = torch.zeros((C, F, B, 3), dtype=torch.float32, **kw)
-        self.gpair = self.pair if efb is None else torch.zeros(
-            (C, HF, HB, 3), dtype=torch.float32, **kw)
+        self.gpair = self.pair if efb is None and quant is None else \
+            torch.zeros((C, HF, HB, 3), dtype=hdt, **kw)
+        self.gpair_f = self.qvals = self.qscales = None
+        if quant is not None:
+            self.qvals = torch.zeros((n, 3), dtype=quant.dtype, **kw)
+            self.qscales = torch.ones(3, dtype=torch.float32, **kw)
+            if efb is not None:
+                self.gpair_f = torch.zeros((C, HF, HB, 3),
+                                           dtype=torch.float32, **kw)
         if K == 1:
             self.rec = torch.zeros(STEP_RECORD, dtype=torch.int32, **kw)
             self.idx = torch.zeros(2, dtype=torch.int64, **kw)
@@ -326,10 +352,13 @@ def _draws(ws: GrowWorkspace, feature_mask, num_bin, sampling, rng_iter,
 
 
 def _check_grow(ws: GrowWorkspace, sampling, rng_iter, is_cat,
-                efb=None) -> None:
+                efb=None, quant=None) -> None:
     if ws.efb is not efb:
         raise ValueError("the workspace must be made with the grower's "
                          "efb maps")
+    if ws.quant != quant:
+        raise ValueError("the workspace must be made with the grower's "
+                         "quant spec")
     if sampling is not None and sampling.on and rng_iter is None:
         raise ValueError("feature_fraction_bynode and extra_trees need the "
                          "device iteration rng_iter")
@@ -338,19 +367,45 @@ def _check_grow(ws: GrowWorkspace, sampling, rng_iter, is_cat,
                          "fields, and such a workspace needs is_cat")
 
 
+def _scan_hist(ws: GrowWorkspace, hist, total, active=None):
+    """The children's histograms ``hist`` [C, ...] (a view of the
+    workspace's ``gpair`` or the root's) as B2 reads them, in feature
+    space: dequantized (B7c) under quant, expanded (B9, with the
+    children's ``total`` [C, 3]) with EFB, into ``ws.pair[:C]``."""
+    c = hist.shape[0]
+    if ws.quant is not None:
+        dst = ws.pair if ws.efb is None else ws.gpair_f
+        hist = dequantize_hist(hist, ws.qscales, active=active, out=dst[:c])
+    if ws.efb is not None:
+        hist = expand_group_hist(hist, total, ws.efb, active=active,
+                                 out=ws.pair[:c])
+    return hist
+
+
 def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
-          params, sampling=None, rng_iter=None, is_cat=None) -> None:
-    """The root pass of either grower: histogram of all rows (B1), sums,
+          params, sampling=None, rng_iter=None, is_cat=None):
+    """The root pass of either grower: under quant the scales (B7a) and
+    the packed stack (B7b), then the histogram of all rows (B1), sums,
     output, the root's node draws (B6-node) and best split (B2, with
     B2-cat), and the reset of the tree, the table and the row -> leaf
-    vector."""
+    vector.  Returns the vals the steps' histogram passes take (the
+    packed stack under quant)."""
     v = ws.fields
+    if ws.quant is not None:
+        scales = quant_scales(vals, ws.quant.qmax, out=ws.qscales)
+        vals = quantize_stack(vals, scales, ws.quant, rng_iter,
+                              out=ws.qvals)
     h0 = compute_histogram(binned, vals, num_bins=ws.hist_bins)
     ws.hist[0].copy_(h0)
-    total0 = vals.sum(dim=0)
+    if ws.quant is None:
+        total0 = vals.sum(dim=0)
+    else:
+        # the exact int32 sums of the packed stack, dequantized as B7c
+        # does (the JAX package's _root_eval, grower.py:590-602)
+        total0 = torch.sum(vals, dim=0, dtype=torch.int32).to(
+            torch.float32) * ws.qscales
     root_out = leaf_output(total0[0], total0[1], params)
-    fh0 = h0[None] if ws.efb is None else expand_group_hist(
-        h0[None], total0[None], ws.efb, out=ws.pair[0:1])
+    fh0 = _scan_hist(ws, h0[None], total0[None])
     fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 1, 0, 0)
     res0 = find_best_split(fh0, total0[None], root_out[None], num_bin,
                            na_bin, fm, params, rand_bin=rb, is_cat=is_cat)
@@ -362,6 +417,7 @@ def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
     v["leaf_weight"][0:1].copy_(total0[1:2])
     v["leaf_count"][0:1].copy_(total0[2:3])
     ws.leaf_of_row.zero_()
+    return vals
 
 
 def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
@@ -372,24 +428,27 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
               sampling: Optional[NodeSampling] = None,
               rng_iter: Optional[torch.Tensor] = None,
               is_cat: Optional[torch.Tensor] = None,
-              efb: Optional[EFBDevice] = None) -> TreeArrays:
+              efb: Optional[EFBDevice] = None,
+              quant: Optional[QuantSpec] = None) -> TreeArrays:
     """Grow one tree on ``binned`` [N, F] uint8 with per-row ``vals``
     [N, 3] f32 = (grad, hess, weight), all on one device, with no host
     round trip.  ``sampling``: the per-node draws, keyed by ``rng_iter``
     (a [1] int32 device tensor).  ``is_cat`` [F] bool: the categorical
     features (the workspace then has categorical fields).  ``efb``: the
-    EFB maps, ``binned`` then the bundled [N, G] matrix.  Returns device
-    views of ``workspace`` (a new one when None); ``fetch_tree`` brings
-    the tree to the host."""
+    EFB maps, ``binned`` then the bundled [N, G] matrix.  ``quant``:
+    quantized training, the stochastic rounding keyed by ``rng_iter``
+    (iteration 0 when None).  Returns device views of ``workspace`` (a new
+    one when None); ``fetch_tree`` brings the tree to the host."""
     n, f = binned.shape[0], num_bin.shape[0]
     L, B = int(num_leaves), int(num_bins)
     ws = workspace if workspace is not None else GrowWorkspace(
-        n, f, B, L, binned.device, categorical=is_cat is not None, efb=efb)
+        n, f, B, L, binned.device, categorical=is_cat is not None, efb=efb,
+        quant=quant)
     if ws.split_batch != 1:
         raise ValueError("grow_tree needs a workspace of split_batch 1")
-    _check_grow(ws, sampling, rng_iter, is_cat, efb)
-    _root(ws, binned, vals, feature_mask, num_bin, na_bin, params, sampling,
-          rng_iter, is_cat)
+    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant)
+    vals = _root(ws, binned, vals, feature_mask, num_bin, na_bin, params,
+                 sampling, rng_iter, is_cat)
     for i in range(L - 1):
         _split_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
                     max_depth, i, sampling, rng_iter, is_cat)
@@ -399,9 +458,10 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
 def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
                 na_bin, params, max_depth, i=0, sampling=None,
                 rng_iter=None, is_cat=None) -> None:
-    """Step ``i``: B3s, B3, B1 on the smaller child, the subtraction (B9
-    after it with EFB), the children's node draws (B6-node), B2 on the
-    pair and the depth mask, all indexed by the device step record."""
+    """Step ``i``: B3s, B3, B1 on the smaller child, the subtraction (B7c
+    after it under quant, then B9 with EFB), the children's node draws
+    (B6-node), B2 on the pair and the depth mask, all indexed by the
+    device step record."""
     grow_step(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
               max_depth=max_depth, rec=ws.rec, idx=ws.idx, fstep=ws.fstep,
               flags=ws.flags, **ws.cat_state())
@@ -414,10 +474,8 @@ def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     torch.where(smaller_left, small, large, out=ws.gpair[0])
     torch.where(smaller_left, large, small, out=ws.gpair[1])
     ws.hist.index_copy_(0, ws.idx, ws.gpair)
-    if ws.efb is not None:
-        # the children's totals: the split's left and right sums
-        expand_group_hist(ws.gpair, ws.fstep[0:6].view(2, 3), ws.efb,
-                          active=active, out=ws.pair)
+    # the children's totals: the split's left and right sums
+    _scan_hist(ws, ws.gpair, ws.fstep[0:6].view(2, 3), active)
     fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2,
                     2 * (i + 1), i + 1, active)
     res = find_best_split(ws.pair, ws.fstep[0:6].view(2, 3), ws.fstep[6:8],
@@ -689,7 +747,8 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
                       sampling: Optional[NodeSampling] = None,
                       rng_iter: Optional[torch.Tensor] = None,
                       is_cat: Optional[torch.Tensor] = None,
-                      efb: Optional[EFBDevice] = None) -> TreeArrays:
+                      efb: Optional[EFBDevice] = None,
+                      quant: Optional[QuantSpec] = None) -> TreeArrays:
     """Grow one tree with K splits per super-step (the JAX package's
     ``grow_tree_batched``, grower.py:945): each super-step takes the top K
     leaves by cached gain and splits the valid prefix of them (B3s-K),
@@ -704,20 +763,20 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
     done, and every kernel of a later super-step exits at once; its torch
     ops write only the scratch rows.  ``sampling``/``rng_iter`` as
     ``grow_tree``; the draws of invalid slots keep their places in the
-    stream.  ``is_cat`` and ``efb`` as ``grow_tree``.  Returns device
-    views of ``workspace``, as ``grow_tree``."""
+    stream.  ``is_cat``, ``efb`` and ``quant`` as ``grow_tree``.  Returns
+    device views of ``workspace``, as ``grow_tree``."""
     n, f = binned.shape[0], num_bin.shape[0]
     L, B = int(num_leaves), int(num_bins)
     K = batch_width(split_batch, L)
     ws = workspace if workspace is not None else GrowWorkspace(
         n, f, B, L, binned.device, split_batch=K,
-        categorical=is_cat is not None, efb=efb)
+        categorical=is_cat is not None, efb=efb, quant=quant)
     if ws.split_batch != K or K < 2:
         raise ValueError(f"grow_tree_batched needs K > 1 and a workspace "
                          f"of split_batch {K} (has {ws.split_batch})")
-    _check_grow(ws, sampling, rng_iter, is_cat, efb)
-    _root(ws, binned, vals, feature_mask, num_bin, na_bin, params, sampling,
-          rng_iter, is_cat)
+    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant)
+    vals = _root(ws, binned, vals, feature_mask, num_bin, na_bin, params,
+                 sampling, rng_iter, is_cat)
     for s in range(L - 1):
         _super_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
                     max_depth, s, sampling, rng_iter, is_cat)
@@ -728,7 +787,8 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
                 na_bin, params, max_depth, s=0, sampling=None,
                 rng_iter=None, is_cat=None) -> None:
     """Super-step ``s``: B3s-K, B3-K, B1-K over the K smaller children,
-    the K subtractions (B9 after them with EFB), the 2K children's node
+    the K subtractions (B7c after them under quant, then B9 with EFB), the
+    2K children's node
     draws (B6-node), B2 on the 2K children with the depth mask, and the
     table update, all indexed by the device step outputs."""
     K, st = ws.split_batch, ws.step
@@ -745,9 +805,7 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     torch.where(sel, small, large, out=ws.gpair[:K])
     torch.where(sel, large, small, out=ws.gpair[K:])
     ws.hist.index_copy_(0, st.idx2, ws.gpair)
-    if ws.efb is not None:
-        expand_group_hist(ws.gpair, st.tot2, ws.efb, active=active,
-                          out=ws.pair)
+    _scan_hist(ws, ws.gpair, st.tot2, active)
     fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2 * K,
                     (s + 1) * 2 * K, s + 1, active)
     res = find_best_split(ws.pair, st.tot2, st.po2, num_bin, na_bin, fm,

@@ -7,11 +7,13 @@ The JAX package runs k iterations in one ``lax.scan``.  Here one
 iteration — gradients, the row weights (B6: the bagging draw or GOSS),
 the device-resident tree build (the strict grower B1-B3s, or the batched
 one B1-K/B3-K/B3s-K from ``split_batch`` 2 on, with the per-node draws
-B6-node, and B9 on an EFB-bundled matrix), the f32 shrinkage, the
+B6-node, B9 on an EFB-bundled matrix, and B7 with the integer B1/B1-K
+under ``quant_train``), the f32 shrinkage, the
 train-score update, each valid set's tree walk (B4), the traced metrics
 (B12) and the early-stop vote — is
 ``IterationProgram.body`` over tensors allocated once.  The
-iteration that keys the bagging, GOSS and per-node draws and the
+iteration that keys the bagging, GOSS and per-node draws (and the
+stochastic rounding of quantized training) and the
 feature_fraction mask come from device tensors set before the first
 replay (``it0``, ``fmasks``) and the row counter, so every replay draws
 its own.  On the card the body is captured once as a
@@ -108,8 +110,11 @@ class IterationProgram:
         self.it_cur = torch.zeros(1, dtype=torch.int32, device=dev)
         self.goss = m._goss
         self.bagging = m._use_bagging
+        # quant: the iteration keys the stochastic rounding, so fused and
+        # per-iteration runs quantize identically (the JAX package's
+        # models/gbdt.py:1584-1588)
         self.keyed = self.goss or self.bagging \
-            or m.node_sampling is not None
+            or m.node_sampling is not None or m.quant is not None
         self.sample_features = m.config.feature_fraction < 1.0
         self.fmask_cur = torch.ones((1, m.num_features), dtype=torch.bool,
                                     device=dev)
@@ -225,8 +230,12 @@ class IterationProgram:
         mark("grow")
         grow = grow_tree if m.split_batch == 1 else grow_tree_batched
         kw = {} if m.split_batch == 1 else {"split_batch": m.split_batch}
+        if self.keyed:
+            kw["rng_iter"] = self.it_cur
         if m.node_sampling is not None:
-            kw.update(sampling=m.node_sampling, rng_iter=self.it_cur)
+            kw["sampling"] = m.node_sampling
+        if m.quant is not None:
+            kw["quant"] = m.quant
         if m.is_cat_dev is not None:
             kw["is_cat"] = m.is_cat_dev
         if m.efb_dev is not None:

@@ -10,7 +10,9 @@ from the device-resident grower (with the per-node draws of
 ``feature_fraction_bynode`` and ``extra_trees``, B6-node)
 (strict B1-B3s below 64 leaves, batched B1-K/B3-K/B3s-K with K =
 ``split_batch`` from there, resolved as the JAX package resolves it; on
-an EFB-bundled matrix with B9 before each split scan) ->
+an EFB-bundled matrix with B9 before each split scan; with
+``quant_train`` on packed int8/int16 rows, B7, and exact int32
+histograms, B1-int/B1-K-int, dequantized by B7c) ->
 f32 shrinkage -> train score += leaf value gathered through the grower's
 row -> leaf vector -> every valid score += tree walk (B4).  The iteration
 is ``models/fused.py``'s ``IterationProgram.body``, and three paths run
@@ -69,6 +71,7 @@ from ..efb import bin_grouped, make_device_efb
 from ..grower import GrowWorkspace, batch_width, host_tree
 from ..metrics import check_class_labels
 from ..objectives import ObjectiveFunction
+from ..ops.quantize import QuantSpec, max_rows
 from ..ops.random import NodeSampling, bag_mask_plain
 from ..ops.split import SplitParams
 from ..predict_device import add_tree_score
@@ -115,7 +118,6 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
         (bool(c.feature_contri), "feature_contri", "A9"),
         (bool(c.forcedsplits_filename), "forced splits", "A11"),
         (c.linear_tree, "linear_tree", "A9"),
-        (c.quant_train, "quantized training", "A10 (B7)"),
         (c.tpu_learner == "partitioned", "tpu_learner=partitioned",
          "A11 (B11)"),
         (c.snapshot_freq > 0 or c.resume, "snapshots and resume", "A12"),
@@ -155,6 +157,29 @@ def resolve_split_batch(config: Config) -> int:
                 "trace_buckets=false to keep an off-set width)")
             k = snapped
     return batch_width(k, L)
+
+
+def quant_spec(config: Config, num_data: int) -> Optional[QuantSpec]:
+    """The ``QuantSpec`` of ``quant_train`` (None when off), as the JAX
+    package builds it (models/gbdt.py:346-362): ``quant_bits`` lanes,
+    stochastic or nearest rounding, keyed by ``seed``.  Refuses a row
+    count whose int32 histograms could overflow (:580-601): one bin may
+    collect every row, each adding up to ``qmax`` a channel."""
+    if not config.quant_train:
+        return None
+    spec = QuantSpec(bits=int(config.quant_bits),
+                     stochastic=config.quant_round == "stochastic",
+                     seed=int(config.seed))
+    if num_data > max_rows(spec):
+        hint = "quant_bits=8 (bound ~16.9M rows) or " \
+            if spec.bits == 16 else ""
+        raise ValueError(
+            f"quant_bits={spec.bits} can overflow the int32 histogram "
+            f"accumulator at {num_data} rows: a single bin may collect "
+            f"every row, so rows * qmax ({spec.qmax}) must stay under 2^31 "
+            f"(at most {max_rows(spec)} rows).  Use {hint}quant_train="
+            "false.")
+    return spec
 
 
 def _refuse_unported(config: Config, ds: Dataset) -> None:
@@ -301,11 +326,12 @@ class GBDTModel:
         self.binned_dev = torch.as_tensor(
             np.ascontiguousarray(ds.binned)).to(dev)
         self.split_batch = resolve_split_batch(config)
+        self.quant = quant_spec(config, self.num_data)
         self.grow_ws = GrowWorkspace(self.num_data, self.num_features,
                                      self.max_bin, config.num_leaves, dev,
                                      split_batch=self.split_batch,
                                      categorical=self.is_cat_dev is not None,
-                                     efb=self.efb_dev)
+                                     efb=self.efb_dev, quant=self.quant)
         # the valid walk's level count: the configuration's worst case, on
         # every path (a row stops at its leaf, so the result is the same)
         self.walk_steps = traversal_steps(config.max_depth,

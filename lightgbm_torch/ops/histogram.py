@@ -11,7 +11,11 @@ one histogram per slot over the rows whose ``slot`` is that slot.
 Channels are (grad*w, hess*w, w).  On a CUDA tensor this launches the
 hand-written kernel of ``csrc/histogram.cu`` (deterministic: its summation
 order is fixed by the shapes alone); on a CPU tensor it runs
-``histogram_plain``, the kernel's plain PyTorch version.  Neither sums a
+``histogram_plain``, the kernel's plain PyTorch version.  With int8 or
+int16 ``vals`` (quantized training, ``ops/quantize.py``) both forms
+return exact int32 histograms (B1-int, B1-K-int; the JAX package's
+integer branch): the kernels add in shared-memory int32 atomics, the
+plain versions in int64, and the two agree bit for bit.  Neither sums a
 bin in one long f32 run, so a bin that holds nearly every row is as exact
 as a pairwise sum: the kernel sums in f64 (its per-block partials rounded
 once to f32 before their f64 total); the plain version adds each bin's
@@ -43,6 +47,12 @@ _MIN_ROWS_PER_BLOCK = 1024
 # rows the K-slot kernel stages in shared memory at a time (slot, vals,
 # binned row and the row masks: 16 + F + K/8 bytes a row)
 _SLOT_CHUNK = 512
+# the integer forms: blocks in all (two an SM of an H100; an integer sum
+# does not depend on the launch shape) and the bytes of a counter
+_INT_BLOCKS = 264
+_INT_BYTES = 4
+# vals dtypes of the integer forms
+INT_VALS = (torch.int8, torch.int16)
 # rows of one f32 run of a bin in the plain versions (``_bin_sums``): a
 # bin of up to this many rows is the f32 sum of its rows in row order, as
 # the plain versions summed every bin before runs (so small problems keep
@@ -105,14 +115,38 @@ def slots_launch_shape(n: int, num_features: int, num_bins: int,
     return -(-rows // chunk) * chunk, per, chunk
 
 
+def int_launch_shape(n: int, num_features: int, num_bins: int,
+                     num_slots: Optional[int] = None
+                     ) -> Tuple[int, int, int]:
+    """(rows_per_block, tile_f, tile_k) of the integer forms: a tile of
+    ``tile_k`` slots (1 without slots) by ``tile_f`` features whose int32
+    [tile_k, tile_f, B, 3] fits in shared memory, tiles balanced, and row
+    blocks so that about ``_INT_BLOCKS`` blocks run in all, never under
+    1024 rows a block."""
+    cap = _SMEM_BYTES // (num_bins * 3 * _INT_BYTES)
+    if cap < 1:
+        raise ValueError(f"num_bins={num_bins} is too large for one "
+                         "feature's histogram in shared memory")
+    f, k = int(num_features), int(num_slots or 1)
+    if f <= cap:
+        tile_f, tile_k = f, min(k, cap // f)
+    else:
+        tile_f, tile_k = -(-f // -(-f // cap)), 1
+    tile_k = -(-k // -(-k // tile_k))
+    tiles = -(-f // tile_f) * -(-k // tile_k)
+    blocks = max(1, min(-(-_INT_BLOCKS // tiles), -(-n // 1024)))
+    return -(-n // blocks), tile_f, tile_k
+
+
 def _check(binned: torch.Tensor, vals: torch.Tensor,
            slot: Optional[torch.Tensor],
            active: Optional[torch.Tensor] = None) -> None:
     if binned.dim() != 2 or binned.dtype != torch.uint8:
         raise TypeError("binned must be a [N, F] uint8 tensor")
     if vals.dim() != 2 or vals.shape != (binned.shape[0], 3) \
-            or vals.dtype != torch.float32:
-        raise TypeError("vals must be a [N, 3] float32 tensor")
+            or vals.dtype not in (torch.float32,) + INT_VALS:
+        raise TypeError("vals must be a [N, 3] float32, int8 or int16 "
+                        "tensor")
     tensors = [binned, vals]
     if slot is not None:
         if slot.shape != (binned.shape[0],) or slot.dtype != torch.int32:
@@ -134,8 +168,9 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
                       active: Optional[torch.Tensor] = None,
                       slots_used: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """[F, num_bins, 3] f32 histogram of ``vals`` over ``binned``; rows
-    whose ``slot`` is negative add nothing.  The strict grower passes
+    """[F, num_bins, 3] f32 histogram of ``vals`` over ``binned`` (int32
+    for int8/int16 ``vals``, exact); rows whose ``slot`` is negative add
+    nothing (in the integer form, rows whose ``slot`` is not 0).  The strict grower passes
     ``slot`` = 0 for the smaller child's rows and -1 elsewhere (the JAX
     package's ``num_slots=1`` form), and its step's ``active`` flag (a [1]
     int32 device tensor): where it is 0 the pass does nothing and the
@@ -156,14 +191,19 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
                             "tensor on the binned matrix's device")
         return _histogram_slots(binned, vals, slot, int(num_slots),
                                 num_bins, active, slots_used)
+    integer = vals.dtype in INT_VALS
     if binned.device.type == "cpu":
-        return histogram_plain(binned, vals, num_bins=num_bins, slot=slot,
-                               active=active)
+        plain = histogram_int_plain if integer else histogram_plain
+        return plain(binned, vals, num_bins=num_bins, slot=slot,
+                     active=active)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
     if not (binned.is_contiguous() and vals.is_contiguous()
             and (slot is None or slot.is_contiguous())):
         raise ValueError("compute_histogram needs contiguous tensors")
+    if integer:
+        return _histogram_int(binned, vals, slot, 1, num_bins, active, None,
+                              "histogram_int")[0]
     n, f = binned.shape
     out = torch.empty((f, num_bins, 3), dtype=torch.float32,
                       device=binned.device)
@@ -184,19 +224,53 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
     return out
 
 
+def _bits(vals: torch.Tensor) -> int:
+    return 8 if vals.dtype == torch.int8 else 16
+
+
+def _histogram_int(binned, vals, slot, num_slots: int, num_bins: int,
+                   active, slots_used, counter: str) -> torch.Tensor:
+    """B1-int (``num_slots`` 1, ``slot`` None for every row) and B1-K-int
+    on the card: [num_slots, F, num_bins, 3] int32."""
+    n, f = binned.shape
+    out = torch.empty((num_slots, f, num_bins, 3), dtype=torch.int32,
+                      device=binned.device)
+    if n == 0:
+        return out.zero_()
+    rows, tile_f, tile_k = int_launch_shape(n, f, num_bins, num_slots)
+    partial = torch.empty((-(-n // rows), num_slots, f, num_bins, 3),
+                          dtype=torch.int32, device=binned.device)
+    err = _kernels.lib("histogram").lgbt_histogram_int(
+        binned.data_ptr(), vals.data_ptr(), _bits(vals),
+        None if slot is None else slot.data_ptr(), n, f, num_bins,
+        num_slots, rows, tile_f, tile_k,
+        None if active is None else active.data_ptr(),
+        None if slots_used is None else slots_used.data_ptr(),
+        partial.data_ptr(), out.data_ptr(),
+        _kernels.stream_ptr(binned.device))
+    _kernels.launched(counter, err)
+    return out
+
+
 def _histogram_slots(binned, vals, slot, num_slots: int, num_bins: int,
                      active, slots_used) -> torch.Tensor:
     if slot is None or num_slots < 1:
         raise ValueError("the K-slot form needs slot and num_slots >= 1")
+    integer = vals.dtype in INT_VALS
     if binned.device.type == "cpu":
-        return histogram_slots_plain(binned, vals, slot, num_slots=num_slots,
-                                     num_bins=num_bins, active=active)
+        plain = histogram_slots_int_plain if integer \
+            else histogram_slots_plain
+        return plain(binned, vals, slot, num_slots=num_slots,
+                     num_bins=num_bins, active=active)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
     if not (binned.is_contiguous() and vals.is_contiguous()
             and slot.is_contiguous()):
         raise ValueError("compute_histogram needs contiguous tensors")
     n, f = binned.shape
+    if integer:
+        return _histogram_int(binned, vals, slot, num_slots, num_bins,
+                              active, slots_used, "histogram_slots_int")
     out = torch.empty((num_slots, f, num_bins, 3), dtype=torch.float32,
                       device=binned.device)
     if n == 0:
@@ -236,6 +310,45 @@ def histogram_slots_plain(binned: torch.Tensor, vals: torch.Tensor,
     src = vals[keep].repeat_interleave(f, dim=0)
     out = _bin_sums(idx[ok], src[ok], num_slots * f * num_bins)
     return out.reshape(num_slots, f, num_bins, 3)
+
+
+def histogram_slots_int_plain(binned: torch.Tensor, vals: torch.Tensor,
+                              slot: torch.Tensor, *, num_slots: int,
+                              num_bins: int,
+                              active: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Plain PyTorch version of B1-K-int: [K, F, num_bins, 3] int32 sums
+    in int64 over ``(slot * F + f) * B + bin``; an inactive step returns
+    zeros."""
+    f = binned.shape[1]
+    if active is not None and not bool(active[0]):
+        return torch.zeros((num_slots, f, num_bins, 3), dtype=torch.int32,
+                           device=binned.device)
+    keep = (slot >= 0) & (slot < num_slots)
+    b = binned[keep].to(torch.int64)
+    s = slot[keep].to(torch.int64)
+    offs = torch.arange(f, device=binned.device, dtype=torch.int64) * num_bins
+    idx = b + offs + (s * (f * num_bins))[:, None]
+    ok = (b < num_bins).reshape(-1)
+    src = vals[keep].to(torch.int64).repeat_interleave(f, dim=0)
+    out = torch.zeros((num_slots * f * num_bins, 3), dtype=torch.int64,
+                      device=binned.device)
+    out.index_add_(0, idx.reshape(-1)[ok], src[ok])
+    return out.to(torch.int32).reshape(num_slots, f, num_bins, 3)
+
+
+def histogram_int_plain(binned: torch.Tensor, vals: torch.Tensor, *,
+                        num_bins: int,
+                        slot: Optional[torch.Tensor] = None,
+                        active: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of B1-int: B1-K-int's with one slot, over
+    the rows whose ``slot`` is 0 (every row without ``slot``)."""
+    if slot is None:
+        slot = torch.zeros(binned.shape[0], dtype=torch.int32,
+                           device=binned.device)
+    return histogram_slots_int_plain(binned, vals, slot, num_slots=1,
+                                     num_bins=num_bins, active=active)[0]
 
 
 def histogram_plain(binned: torch.Tensor, vals: torch.Tensor, *,

@@ -132,7 +132,7 @@ def test_default_device_without_card_raises(monkeypatch):
     ({"forcedsplits_filename": "splits.json"}, "A11"),
     ({"linear_tree": True}, "A9"),
     ({"boosting": "dart"}, "A9"),
-    ({"quant_train": True}, "A10"),
+    ({"tpu_learner": "partitioned"}, "A11"),
     ({"tree_learner": "data"}, "A16"),
     ({"monotone_constraints": [1, 0, 0, 0]}, "A9"),
     ({"finite_check_freq": 2}, "A12"),
