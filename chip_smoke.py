@@ -181,6 +181,29 @@ Phases, one JSON line each:
    leaves with ``quant_train`` for QUANT_RANK_ROUNDS per-iteration rounds
    (QUANT_RANK_PER_ITERATION), NDCG@10 rising and within QUANT_NDCG_GAP of
    rank_train's at the same round;
+   sparse_data, sparse_kernels, sparse_train and sparse_wide_train (after
+   quant_efb): an Allstate-shaped wide sparse set (``make_allstate_like``,
+   the JAX package's own width test's shape: 4,228 columns, 35 stored
+   values a row on two levels; 1M train and 200k valid CSR rows, built
+   with enable_bundle=false), which both sets keep as the k-hot layout
+   (K, its bytes beside the dense matrix's and the construction seconds
+   printed); then B8a against its plain version within HIST_RTOL at every
+   live pass of whole 31-, 255- (K = 16) and 64-leaf (K = 8) trees, and in
+   its three forms (root, a strict step's slot, K = 16 and 8 slots)
+   bitwise on a rerun, nothing written on an inactive step, zeros with
+   every slot at -1; B3/B3-K's k-hot decode bit for bit at every step of
+   those trees; B4's k-hot walk equal to the grower's row -> leaf vector
+   on the train rows and bit for bit on the valid rows; each timed beside
+   its bound and library call (``index_add_`` of the stored entries for
+   B8a); sparse_train: binary at 31 leaves, per-iteration with the k-hot
+   valid set (SPARSE_PI_ROUNDS rounds, host metrics), 50 rounds as
+   super-epochs and 2 x 25 as fused chunks without it, launches held to
+   SPARSE_PER_ITERATION, the shared trees equal on the three paths, a
+   byte-identical rerun, the AUC rising, the first tree's leaves within
+   SPARSE_LEAF_RTOL of their f64 sums (leaves from B8c's walk of the
+   device k-hot rows), the valid scores against the host walk of the raw
+   rows, a profiled run; sparse_wide_train: 255 leaves with bagging and
+   feature_fraction (SPARSE_WIDE_PER_ITERATION) the same way;
    objectives_train (after multiclass_serve): each of the ten pointwise
    objectives on the HIGGS-shaped rows with a label in its domain, every
    path the JAX package allows with equal model text, the engine route's
@@ -273,7 +296,8 @@ PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "split_cat": 0, "multi_logloss": 0, "expand_group_hist": 0,
                  "lambdarank": 0, "xendcg": 0, "histogram_int": 0,
                  "histogram_slots_int": 0, "quant_scales": 0,
-                 "quantize_stack": 0, "dequant_hist": 0}
+                 "quantize_stack": 0, "dequant_hist": 0,
+                 "histogram_sparse": 0, "histogram_slots_sparse": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -475,6 +499,30 @@ QUANT_EFB_ROUNDS = 10
 QUANT_EFB_PER_ITERATION = {**EFB_PER_ITERATION, **QUANT_ONCE,
                            "histogram": 0, "histogram_int": NUM_LEAVES,
                            "dequant_hist": NUM_LEAVES}
+# the sparse cells: an Allstate-shaped set (the reference's Allstate
+# experiment, docs/Experiments.rst: 13.2M rows of 4,228 dummy-encoded
+# columns) drawn as the JAX package's own width test draws it
+# (tests/test_sparse_bin.py:204-232); rows cut to 1M train and 200k valid.
+# The EFB search finds no bundle on such data (every column pair shares
+# rows) but costs minutes at this width, so the set is built with
+# enable_bundle=false: the layout is the same either way
+SPARSE_TRAIN, SPARSE_VALID = 1_000_000, 200_000
+SPARSE_COLS, SPARSE_NNZ = 4228, 35
+SPARSE_DATA_PARAMS = {"verbosity": -1, "enable_bundle": False}
+SPARSE_PARAMS = {"num_leaves": NUM_LEAVES}
+SPARSE_PI_ROUNDS = 20
+# per iteration on the per-iteration loop with the k-hot valid set: the
+# strict grower with B8a in place of B1, one valid walk, host metrics
+SPARSE_PER_ITERATION = {**PER_ITERATION, "histogram": 0,
+                        "histogram_sparse": NUM_LEAVES, "auc": 0,
+                        "pointwise": 0}
+SPARSE_WIDE_PER_ITERATION = {**WIDE_PER_ITERATION, "histogram": 0,
+                             "histogram_sparse": 1, "histogram_slots": 0,
+                             "histogram_slots_sparse": WIDE_LEAVES - 1,
+                             "auc": 0, "pointwise": 0}
+# the first tree's leaves against the f64 sums of their rows (the EFB
+# precedent, EFB_LEAF_RTOL)
+SPARSE_LEAF_RTOL = 1e-4
 # the int16 lanes' row cap: rows * 32767 must stay under 2^31
 INT16_MAX_ROWS = (2 ** 31 - 1) // 32767
 KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
@@ -484,11 +532,17 @@ KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
                 "predict", "predict_column", "auc", "pointwise",
                 "multi_logloss", "expand_group_hist", "lambdarank",
                 "xendcg", "quant_scales", "quantize_stack", "dequant_hist",
-                "histogram_int", "histogram_slots_int", "forest_walk",
-                "bin_rows", "fused_predict")
+                "histogram_int", "histogram_slots_int",
+                "histogram_sparse", "histogram_slots_sparse",
+                "partition_sparse", "partition_slots_sparse",
+                "predict_sparse", "forest_walk", "bin_rows",
+                "fused_predict")
 # the launch counter of a kernels-line entry, where it is not its own key
 # (B2's per-child form is B2's wrapper and counter, B4's column form B4's)
-KERNEL_COUNTER = {"split_per_child": "split", "predict_column": "predict"}
+KERNEL_COUNTER = {"split_per_child": "split", "predict_column": "predict",
+                  "partition_sparse": "partition",
+                  "partition_slots_sparse": "partition_slots",
+                  "predict_sparse": "predict"}
 # the path whose run gives a kernel's ``launches`` (the main path's where
 # not listed)
 KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
@@ -504,7 +558,12 @@ KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "lambdarank": "rank_train", "xendcg": "xendcg_train",
                "quant_scales": "quant_train", "quantize_stack": "quant_train",
                "dequant_hist": "quant_train", "histogram_int": "quant_train",
-               "histogram_slots_int": "quant_wide_train"}
+               "histogram_slots_int": "quant_wide_train",
+               "histogram_sparse": "sparse_train",
+               "histogram_slots_sparse": "sparse_wide_train",
+               "partition_sparse": "sparse_train",
+               "partition_slots_sparse": "sparse_wide_train",
+               "predict_sparse": "sparse_train_per_iteration"}
 
 
 def times(counts, n: int):
@@ -3171,6 +3230,629 @@ def phase_efb_train(torch, lgt, lgt_kernels, train, valid, xv, train_u,
 
 
 # ---------------------------------------------------------------------------
+# sparse binned storage (B8a, the k-hot decode in B3/B3-K and B4)
+# ---------------------------------------------------------------------------
+
+def make_allstate_like(n: int, seed: int):
+    """An Allstate-shaped wide sparse set, drawn as the JAX package's own
+    width test draws it (tests/test_sparse_bin.py:204-232): SPARSE_NNZ
+    stored values a row at distinct random columns of SPARSE_COLS, on two
+    non-zero levels (1 and 2), so that no two columns are exclusive and
+    no bundle can form; a binary label drawn through a logistic of a
+    sparse weight vector (a tenth of the columns, the same for every
+    seed).  Returns (CSR f64 [n, SPARSE_COLS], y f32 [n])."""
+    import scipy.sparse as sps
+    rng = np.random.default_rng(seed)
+    cols = np.sort(rng.integers(0, SPARSE_COLS, size=(n, SPARSE_NNZ)),
+                   axis=1)
+    while True:
+        dup = np.zeros(cols.shape, bool)
+        dup[:, 1:] = cols[:, 1:] == cols[:, :-1]
+        if not dup.any():
+            break
+        cols[dup] = rng.integers(0, SPARSE_COLS, size=int(dup.sum()))
+        cols.sort(axis=1)
+    vals = rng.integers(1, 3, size=(n, SPARSE_NNZ)).astype(np.float64)
+    x = sps.csr_matrix((vals.ravel(), cols.ravel().astype(np.int32),
+                        np.arange(0, n * SPARSE_NNZ + 1, SPARSE_NNZ)),
+                       shape=(n, SPARSE_COLS))
+    wr = np.random.default_rng(1234)
+    w = wr.normal(size=SPARSE_COLS) * (wr.random(SPARSE_COLS) < 0.1)
+    logit = x @ w - 0.5
+    y = rng.random(n) < 1.0 / (1.0 + np.exp(-logit))
+    return x, y.astype(np.float32)
+
+
+def phase_sparse_data(lgt):
+    """The Allstate-shaped set (SPARSE_TRAIN train rows, SPARSE_VALID
+    valid rows from another seed), binned by ``lightgbm_torch.Dataset``
+    with SPARSE_DATA_PARAMS: both sets take the k-hot layout (K entries
+    a row, int32), which is printed beside the dense [N, F] uint8
+    alternative's bytes and the construction seconds."""
+    t0 = time.perf_counter()
+    x, y = make_allstate_like(SPARSE_TRAIN, seed=50)
+    xv, yv = make_allstate_like(SPARSE_VALID, seed=51)
+    t_make = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    train = lgt.Dataset(x, y, params=SPARSE_DATA_PARAMS).construct()
+    t_train = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    valid = lgt.Dataset(xv, yv, reference=train,
+                        params=SPARSE_DATA_PARAMS).construct()
+    t_valid = time.perf_counter() - t2
+    sp, spv = train.binned_sparse, valid.binned_sparse
+    nf = train.num_features
+    if sp is None or spv is None or train.binned is not None \
+            or nf != SPARSE_COLS or sp.stride > 256 \
+            or sp.flat.shape[0] != SPARSE_TRAIN:
+        raise AssertionError(
+            f"the sparse set did not take the k-hot layout: features {nf}, "
+            f"binned {None if train.binned is None else train.binned.shape}"
+            f", k-hot {None if sp is None else sp.flat.shape}")
+    emit({"phase": "sparse_data", "seconds": time.perf_counter() - t0,
+          "make_seconds": t_make, "dataset_build_seconds": t_train,
+          "valid_build_seconds": t_valid,
+          "train": [SPARSE_TRAIN, nf], "valid": [SPARSE_VALID, nf],
+          "stored_per_row": SPARSE_NNZ, "k": sp.k, "valid_k": spv.k,
+          "stride": sp.stride, "khot_bytes": sp.nbytes(),
+          "dense_bytes": SPARSE_TRAIN * nf,
+          "valid_khot_bytes": spv.nbytes(),
+          "positive_share": float(y.mean()),
+          "params": SPARSE_DATA_PARAMS,
+          "reduced": ["rows: 1,000,000 train and 200,000 valid, cut from "
+                      "Allstate's 13.2M"]})
+    return train, valid, x, y, xv, yv
+
+
+def _khot_library(torch, sp, vals, slot=None, num_slots=1):
+    """The library yardstick of B8a: one f32 ``index_add_`` of the stored
+    entries' vals into their (slot, feature, bin) cells, without the
+    default-bin fill."""
+    fl = sp.flat.to(torch.int64)
+    ok = fl >= 0
+    if slot is not None:
+        ok &= ((slot >= 0) & (slot < num_slots))[:, None]
+    rows, ks = torch.nonzero(ok, as_tuple=True)
+    cell = fl[rows, ks]
+    if slot is not None:
+        cell = cell + slot.to(torch.int64)[rows] * (sp.num_features
+                                                    * sp.stride)
+    src = vals.index_select(0, rows)
+    acc = torch.zeros((num_slots * sp.num_features * sp.stride, 3),
+                      device=vals.device)
+    return median_ms(torch, lambda: acc.zero_().index_add_(0, cell, src))
+
+
+def _dead_khot_pass(torch, lgt_kernels, sp, vals, slot, num_slots, B):
+    """B8a launched on an inactive step into a sentinel-filled output
+    through the C entry: True when the output was not written."""
+    dev = vals.device
+    s = max(num_slots, 1)
+    out = torch.full((s, sp.num_features, B, 3), -7.0, device=dev)
+    acc = torch.empty((s, sp.num_features, sp.stride, 3), dtype=torch.int64,
+                      device=dev)
+    tot = torch.empty((s, 3), dtype=torch.int64, device=dev)
+    mx = torch.empty(3, dtype=torch.int32, device=dev)
+    off = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = lgt_kernels.lib("sparse").lgbt_sparse_histogram(
+        sp.flat.data_ptr(), sp.flat.shape[0], sp.k, vals.data_ptr(),
+        slot.data_ptr(), num_slots, sp.num_features, sp.stride, B,
+        sp.default_bin.data_ptr(), off.data_ptr(), acc.data_ptr(),
+        tot.data_ptr(), mx.data_ptr(), out.data_ptr(),
+        lgt_kernels.stream_ptr(dev))
+    lgt_kernels.check(err, "B8a on an inactive step")
+    torch.cuda.synchronize()
+    return bool((out == -7.0).all())
+
+
+def khot_pass_bound(n: int, k: int, f: int, B: int, kept: int, S: int = 1,
+                    slotted: bool = True):
+    """bound_ms of one B8a pass: every row's slot (4 B, none for the root
+    pass) and, of the ``kept`` rows in the pass only, the k-hot entries
+    (4 K) and vals (12) read once, the [S, F, B, 3] f32 output written; 3
+    adds a stored entry of a kept row."""
+    return bound_ms(4 * n * slotted + kept * (4 * k + 12) + S * f * B * 12,
+                    3 * kept * k)
+
+
+def _hist_rel(torch, h_k, h_p) -> float:
+    return float((h_k.double() - h_p.double()).abs().max()
+                 / max(float(h_p.double().abs().max()), 1e-30))
+
+
+def _walk_leaves(torch, sp, tree, na_bin, steps):
+    """B4 (B8c on k-hot rows) walking ``tree`` with leaf values 0..L-1
+    onto a zero score: each row's leaf id."""
+    from lightgbm_torch.predict_device import add_tree_score
+    n = sp.shape[0]
+    lv = torch.arange(tree.leaf_value.shape[0], dtype=torch.float32,
+                      device=sp.device)
+    score = torch.zeros(n, device=sp.device)
+    add_tree_score(score, sp, tree.split_feature, tree.threshold_bin,
+                   tree.default_left, tree.left_child, tree.right_child,
+                   na_bin, lv, 1.0, steps=steps,
+                   is_cat_node=tree.is_cat_node, cat_rank=tree.cat_rank)
+    return score.to(torch.int32)
+
+
+def _grow_checked(torch, sp, vals, fmask, nb, na, B, L, K, params, case,
+                  snap):
+    """One whole tree on the k-hot rows, with B3 (K = 1) or B3-K held bit
+    for bit to its plain version at every step, and B8a within HIST_RTOL
+    of its plain version at every live pass (the root's included);
+    ``snap`` keeps the first live slotted pass's inputs (for timing) and
+    the worst histogram error.  Returns (workspace, steps, live passes)."""
+    from lightgbm_torch import grower as gr
+    from lightgbm_torch.sparse_data import histogram_plain
+    n, f = sp.shape
+    ws = gr.GrowWorkspace(n, f, B, L, sp.device, split_batch=K)
+    hist_k, part_k, slots_k = (gr.compute_histogram, gr.partition,
+                               gr.partition_slots)
+    seen = {"steps": 0, "live": 0}
+
+    def hist_both(binned, vals_, *, num_bins, slot=None, num_slots=None,
+                  active=None, slots_used=None):
+        h = hist_k(binned, vals_, num_bins=num_bins, slot=slot,
+                   num_slots=num_slots, active=active, slots_used=slots_used)
+        if active is not None and not bool(active[0]):
+            return h
+        hp = histogram_plain(binned, vals_, num_bins=num_bins, slot=slot,
+                             num_slots=num_slots)
+        err = _hist_rel(torch, h, hp)
+        if not err <= HIST_RTOL:
+            raise AssertionError(f"B8a ({case}, pass {seen['live']}) "
+                                 f"{err} from its plain version")
+        snap["hist_err"] = max(snap.get("hist_err", 0.0), err)
+        seen["live"] += 1
+        # the pass to time: a mid-tree strict step, or the first
+        # super-step with the most valid slots
+        if slot is not None and (
+                "slot" not in snap and seen["live"] > L // 2
+                if num_slots is None
+                else int(slots_used[0]) > snap.get("most_used", 0)):
+            snap.update(slot=slot.clone(), active=active.clone(),
+                        used=None if slots_used is None
+                        else slots_used.clone())
+            if num_slots is not None:
+                snap["most_used"] = int(slots_used[0])
+        return h
+
+    def part_both(binned, lor, rec, rank, efb=None):
+        lor0, lor_p = lor.clone(), lor.clone()
+        s_p = gr.partition_plain(binned, lor_p, rec, rank, efb)
+        s_k = part_k(binned, lor, rec, rank, efb)
+        if bool(rec[gr.ACTIVE]):
+            check_partition(torch, lor, lor_p, s_k, s_p,
+                            f"{case}, step {seen['steps']}")
+            if "rec" not in snap:
+                snap["rec"], snap["lor"] = rec.clone(), lor0
+        seen["steps"] += 1
+        return s_k
+
+    def slots_both(binned, lor, step, rank, efb=None):
+        lor0, lor_p = lor.clone(), lor.clone()
+        t_p = gr.partition_slots_plain(binned, lor_p, step, rank, efb)
+        t_k = slots_k(binned, lor, step, rank, efb)
+        live = bool(step.status[0])
+        if not torch.equal(lor, lor_p) or (live and not torch.equal(t_k,
+                                                                     t_p)):
+            raise AssertionError(f"B3-K ({case}, super-step "
+                                 f"{seen['steps']}) differs from its plain "
+                                 "version")
+        if live and int(step.status[1]) > snap.get("step_used", 0):
+            snap["step"] = gr.BatchedStep(*[t.clone() for t in step])
+            snap["lor"], snap["step_used"] = lor0, int(step.status[1])
+        seen["steps"] += 1
+        return t_k
+
+    gr.compute_histogram, gr.partition, gr.partition_slots = \
+        hist_both, part_both, slots_both
+    try:
+        if K == 1:
+            gr.grow_tree(sp, vals, fmask, nb, na, num_leaves=L, num_bins=B,
+                         params=params, workspace=ws)
+        else:
+            gr.grow_tree_batched(sp, vals, fmask, nb, na, num_leaves=L,
+                                 num_bins=B, params=params, split_batch=K,
+                                 workspace=ws)
+    finally:
+        gr.compute_histogram, gr.partition, gr.partition_slots = \
+            hist_k, part_k, slots_k
+    return ws, seen["steps"], seen["live"]
+
+
+def phase_sparse_kernels(torch, lgt, lgt_kernels, train, valid):
+    """B8a against its plain version within HIST_RTOL in its three forms
+    on real passes (every live pass of a 31-leaf strict tree, of a
+    255-leaf tree at K = 16 and of a 64-leaf tree at K = 8), bitwise
+    equal on a rerun, writing nothing on an inactive step and zeros
+    with every row's slot at -1; B3 and B3-K's k-hot decode bit for bit
+    to their plain versions at every step of those trees; B4's k-hot walk
+    of each tree over the train rows equal to the grower's row -> leaf
+    vector, and over the valid rows bit for bit to its plain version;
+    each timed beside its bound and library call."""
+    from lightgbm_torch import grower as gr
+    from lightgbm_torch.ops.split import SplitParams
+    from lightgbm_torch.predict_device import (add_tree_score,
+                                               add_tree_score_plain)
+    from lightgbm_torch.sparse_data import histogram, histogram_plain
+    dev = torch.device("cuda", 0)
+    sp = train.binned_sparse.to_device(dev)
+    spv = valid.binned_sparse.to_device(dev)
+    n, F = sp.shape
+    K_e = sp.k
+    nb_np = np.asarray([train.bin_mappers[i].num_bin
+                        for i in train.used_features], np.int32)
+    na_np = np.asarray([train.bin_mappers[i].na_bin
+                        for i in train.used_features], np.int32)
+    B = int(nb_np.max())
+    nb, na = (torch.as_tensor(a).to(dev) for a in (nb_np, na_np))
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+    y = torch.as_tensor(np.asarray(train.metadata.label,
+                                   np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    pr = torch.sigmoid(0.3 * torch.randn(n, device=dev, generator=gen))
+    vals = torch.stack([pr - y, pr * (1 - pr), torch.ones_like(y)], 1)
+    params = SplitParams(min_data_in_leaf=20)
+    trees, snaps = {}, {}
+    for case, L, K in (("strict", NUM_LEAVES, 1),
+                       ("wide", WIDE_LEAVES, WIDE_K), ("k8", 64, 8)):
+        snap = {}
+        ws, steps, live = _grow_checked(torch, sp, vals, fmask, nb, na, B,
+                                        L, K, params, case, snap)
+        tree = gr.fetch_tree(ws)
+        if tree.num_leaves < L // 2:
+            raise AssertionError(f"sparse {case} tree: {tree.num_leaves} "
+                                 "leaves")
+        steps_walk = 64 if K == 1 else 256
+        arrays = ws.arrays()
+        leaves = _walk_leaves(torch, sp, arrays, na, steps_walk)
+        if not torch.equal(leaves, ws.leaf_of_row):
+            raise AssertionError(f"B4 on k-hot rows ({case}) does not walk "
+                                 "the train rows to the grower's leaves")
+        trees[case] = (tree, ws, steps, live)
+        snaps[case] = snap
+    hist_err = max(s["hist_err"] for s in snaps.values())
+
+    # B4 on the valid rows against its plain version, bit for bit
+    arrays = trees["wide"][1].arrays()
+    gen_c = torch.Generator(device=dev).manual_seed(51)
+    lv = torch.randn(WIDE_LEAVES, device=dev, generator=gen_c)
+    s0 = torch.randn(spv.shape[0], device=dev, generator=gen_c)
+    pairs = []
+    for w in (1.0, -0.1):
+        sk, spp = s0.clone(), s0.clone()
+        for fn, sc in ((add_tree_score, sk), (add_tree_score_plain, spp)):
+            fn(sc, spv, arrays.split_feature, arrays.threshold_bin,
+               arrays.default_left, arrays.left_child, arrays.right_child,
+               na, lv, w, steps=256)
+        pairs.append((sk, spp))
+    err4 = exact_err(torch, pairs, "B4 on k-hot valid rows")
+    t4k = median_ms(torch, lambda: add_tree_score(
+        s0, spv, arrays.split_feature, arrays.threshold_bin,
+        arrays.default_left, arrays.left_child, arrays.right_child, na, lv,
+        1.0, steps=256))
+    t4p = median_ms(torch, lambda: add_tree_score_plain(
+        s0, spv, arrays.split_feature, arrays.threshold_bin,
+        arrays.default_left, arrays.left_child, arrays.right_child, na, lv,
+        1.0, steps=256), reps=5, warmup=1)
+    nv = spv.shape[0]
+    b4 = bound_ms(4 * nv * spv.k + 8 * nv, 0)
+
+    # B8a's forms, reruns, an inactive step and empty slots
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    st = snaps["strict"]
+    forms = {
+        "root": dict(),
+        "strict": dict(slot=st["slot"], active=st["active"]),
+        "k16": dict(slot=snaps["wide"]["slot"], num_slots=WIDE_K,
+                    active=one, slots_used=snaps["wide"]["used"]),
+        "k8": dict(slot=snaps["k8"]["slot"], num_slots=8, active=one,
+                   slots_used=snaps["k8"]["used"])}
+    res = {}
+    for form, kw in forms.items():
+        h1 = histogram(sp, vals, num_bins=B, **kw)
+        h2 = histogram(sp, vals, num_bins=B, **kw)
+        kw_p = {k: v for k, v in kw.items() if k != "slots_used"}
+        hp = histogram_plain(sp, vals, num_bins=B, **kw_p)
+        err = _hist_rel(torch, h1, hp)
+        if not same_bits(torch, h1, h2) or not err <= HIST_RTOL:
+            raise AssertionError(f"B8a ({form}): rerun equal "
+                                 f"{same_bits(torch, h1, h2)}, error {err}")
+        slot = kw.get("slot")
+        S = kw.get("num_slots", 1)
+        kept = n if slot is None else int(((slot >= 0)
+                                           & (slot < S)).sum())
+        res[form] = {
+            "ms": median_ms(torch, lambda: histogram(sp, vals, num_bins=B,
+                                                     **kw)),
+            "plain_ms": median_ms(torch, lambda: histogram_plain(
+                sp, vals, num_bins=B, **kw_p), reps=5, warmup=1),
+            "library_ms": _khot_library(torch, sp, vals, slot, S),
+            "bound": khot_pass_bound(n, K_e, F, B, kept, S,
+                                     slot is not None),
+            "rows_in_pass": kept, "max_rel_err": err,
+            "max_abs_err": float((h1.double() - hp.double()).abs().max())}
+    neg = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    empty = histogram(sp, vals, num_bins=B, slot=neg, active=one)
+    if float(empty.abs().max()) != 0.0:
+        raise AssertionError("B8a with every row's slot at -1 is not zero")
+    for S in (0, WIDE_K):
+        if not _dead_khot_pass(torch, lgt_kernels, sp, vals, st["slot"], S,
+                               B):
+            raise AssertionError(f"B8a wrote on an inactive step (num_slots "
+                                 f"{S})")
+
+    # B3 and B3-K on the k-hot rows, timed on the strict tree's first split
+    # and the wide tree's first full super-step
+    rec, lor0 = st["rec"], st["lor"]
+    rank = torch.arange(B, dtype=torch.int32, device=dev)
+    lor = lor0.clone()
+    t3k = median_ms(torch, lambda: gr.partition(sp, lor.copy_(lor0), rec,
+                                                rank))
+    t3p = median_ms(torch, lambda: gr.partition_plain(
+        sp, lor.copy_(lor0), rec, rank), reps=5, warmup=1)
+    # B3 and B3-K read the entries of the rows of a splitting leaf only,
+    # and every row's leaf (read and written) and slot (written)
+    b3_rows = int((lor0 == rec[gr.LEAF]).sum())
+    b3 = bound_ms(4 * K_e * b3_rows + 12 * n, 0)
+    stw = snaps["wide"]
+    t3kk = median_ms(torch, lambda: gr.partition_slots(
+        sp, lor.copy_(stw["lor"]), stw["step"], rank))
+    t3kp = median_ms(torch, lambda: gr.partition_slots_plain(
+        sp, lor.copy_(stw["lor"]), stw["step"], rank), reps=5, warmup=1)
+    b3k_rows = int((stw["step"].slot_of_leaf[stw["lor"].long()]
+                    >= 0).sum())
+    b3k = bound_ms(4 * K_e * b3k_rows + 12 * n, 0)
+    steps = {c: {"steps": t[2], "live_passes": t[3],
+                 "leaves": t[0].num_leaves} for c, t in trees.items()}
+
+    def row(name, route_src, replaces, ms, plain, bd, lib, err):
+        return {"name": name, "route": "cuda", "source": route_src,
+                "replaces": replaces, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bd[0], "bound_by": bd[1],
+                "library_ms": lib}
+    rows = {
+        "histogram_sparse": row(
+            "B8a k-hot histogram (strict step's smaller child)",
+            "lightgbm_torch/csrc/sparse.cu", "lightgbm_tpu/sparse_data.py:108",
+            res["strict"]["ms"], res["strict"]["plain_ms"],
+            res["strict"]["bound"], res["strict"]["library_ms"],
+            res["strict"]["max_abs_err"]),
+        "histogram_slots_sparse": row(
+            "B8a k-hot histogram, K = 16 slots",
+            "lightgbm_torch/csrc/sparse.cu", "lightgbm_tpu/sparse_data.py:108",
+            res["k16"]["ms"], res["k16"]["plain_ms"], res["k16"]["bound"],
+            res["k16"]["library_ms"], res["k16"]["max_abs_err"]),
+        "partition_sparse": row(
+            "B8b B3 row partition, k-hot decode",
+            "lightgbm_torch/csrc/partition.cu",
+            "lightgbm_tpu/sparse_data.py:86", t3k, t3p, b3, None, 0.0),
+        "partition_slots_sparse": row(
+            "B8b B3-K batched partition, k-hot decode",
+            "lightgbm_torch/csrc/partition.cu",
+            "lightgbm_tpu/sparse_data.py:97", t3kk, t3kp, b3k, None, 0.0),
+        "predict_sparse": row(
+            "B8c B4 tree score update on k-hot rows",
+            "lightgbm_torch/csrc/predict.cu",
+            "lightgbm_tpu/sparse_data.py:204", t4k, t4p, b4, None, err4)}
+    for k, r in rows.items():
+        emit({"phase": "kernel", **r})
+    emit({"phase": "sparse_kernels", "rows": n, "features": F, "k": K_e,
+          "bins": B, "valid_rows": nv, "valid_k": spv.k,
+          "b8a_by_form": {f_: {k: (v if k != "bound" else v[0])
+                               for k, v in r.items()}
+                          for f_, r in res.items()},
+          "b8a_max_rel_err_every_pass": hist_err,
+          "b8a_rerun_bitwise": True, "b8a_inactive_writes_nothing": True,
+          "b8a_empty_slots_zero": True, "trees": steps,
+          "b3_rows_read": b3_rows, "b3k_rows_read": b3k_rows,
+          "slots_used_of_timed_pass": {
+              "k16": snaps["wide"]["most_used"],
+              "k8": snaps["k8"]["most_used"]},
+          "b3_b3k_b4_bit_for_bit": True,
+          "b4_train_walk_equals_grower_leaves": True})
+    return rows
+
+
+def _tree0_leaf_err_khot(torch, bst, y) -> float:
+    """``_tree0_leaf_err`` with each row's leaf from B8c's walk of the
+    device k-hot train matrix (no dense copy): the largest relative error
+    of the first tree's shrunk leaf values against the f64 sums of its
+    rows' first gradients."""
+    m = bst._model
+    dt = m.device_trees[0]
+    leaves = _walk_leaves(torch, m.binned_dev, dt, m.na_bin_dev,
+                          dt.steps).cpu().numpy()
+    lbl = y.astype(np.float64)
+    bias = np.log(lbl.mean() / (1 - lbl.mean()))
+    p0 = 1 / (1 + np.exp(-bias))
+    t = m.models[0]
+    nl = t.num_leaves
+    g = np.bincount(leaves, weights=p0 - lbl, minlength=nl)
+    h = np.bincount(leaves, minlength=nl) * p0 * (1 - p0)
+    exact = -0.1 * g / h
+    got = np.asarray(t.leaf_value, np.float64)[:nl] - bias
+    return float(np.max(np.abs(got - exact) / np.abs(exact)))
+
+
+def _sparse_paths(torch, lgt, lgt_kernels, train, valid, name, params,
+                  per_it, se_rounds, pi_rounds):
+    """One sparse cell on the three paths: the per-iteration loop with the
+    sparse valid set (auc and binary_logloss on the host, early stopping
+    ES_ROUNDS; ``pi_rounds`` rounds; launches held to ``per_it``, one tree
+    and one valid-score fetch an iteration), super-epochs of 10 without a
+    valid set (``se_rounds`` rounds, one fetch an epoch; captured and
+    warm-up launches held) and fused chunks of 25 (2 x 25 rounds, or 25);
+    the shared trees equal on the three, and a byte-identical rerun of the
+    super-epoch run.  Returns (line fields, launches by path, per-iteration
+    booster, super-epoch booster)."""
+    no_valid = {**per_it, "predict": 0}
+    base = {"objective": "binary", "learning_rate": 0.1,
+            "verbosity": -1, **params}
+    # per-iteration with the sparse valid set (the super-epoch plan
+    # refuses a k-hot valid set, as in the JAX package)
+    ev, clock = {}, _IterClock()
+    lgt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    clock.stamps[0] = t0
+    bp = lgt.train({**base, "metric": METRICS}, train, pi_rounds,
+                   valid_sets=[valid],
+                   callbacks=[lgt.early_stopping(ES_ROUNDS,
+                                                 first_metric_only=True,
+                                                 verbose=False),
+                              lgt.record_evaluation(ev), clock])
+    torch.cuda.synchronize()
+    secs_p = time.perf_counter() - t0
+    lp = lgt_kernels.launch_counts()
+    mp = bp._model
+    n_p = mp.num_iterations_trained
+    from lightgbm_torch.sparse_data import SparseBinned
+    if not isinstance(mp.binned_dev, SparseBinned) \
+            or not isinstance(mp.valid_sets[0][1], SparseBinned):
+        raise AssertionError(f"{name}: the trainer holds no k-hot rows")
+    if lp != times(per_it, n_p) or mp.fetch_counts != {
+            "tree": n_p, "valid_score": n_p}:
+        raise AssertionError(f"{name} per-iteration: launches {lp} for "
+                             f"{n_p} iterations (expected {per_it} each), "
+                             f"fetches {mp.fetch_counts}")
+    auc = ev["valid_0"]["auc"]
+    if not (n_p == pi_rounds and auc[-1] > auc[0] and 0.5 < auc[-1] <= 1):
+        raise AssertionError(f"{name}: {n_p} iterations, valid AUC {auc}")
+    # super-epochs without a valid set
+    lgt_kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    bs = lgt.train({**base, "superepoch": 10, "fused_chunk": se_rounds + 1},
+                   train, se_rounds)
+    torch.cuda.synchronize()
+    secs_s = time.perf_counter() - t1
+    eager = lgt_kernels.launch_counts()
+    ms = bs._model
+    prog = fused_program(ms)
+    epochs = se_rounds // 10
+    if ms.fetch_counts != {"epoch": epochs} or prog.replays != se_rounds:
+        raise AssertionError(f"{name} super-epochs: fetches "
+                             f"{ms.fetch_counts}, {prog.replays} replays")
+    if prog.captured != no_valid or prog.warmup != no_valid \
+            or eager != times(no_valid, 2):
+        raise AssertionError(f"{name} super-epoch launches: captured "
+                             f"{prog.captured}, warm-up {prog.warmup}, "
+                             f"wrapper calls {eager}, expected {no_valid}")
+    device = {k: prog.warmup[k] + v for k, v in prog.launches().items()}
+    text = bs.model_to_string()
+    # fused chunks of 25
+    crounds = 50 if se_rounds >= 50 else 25
+    lgt_kernels.reset_launch_counts()
+    t2 = time.perf_counter()
+    bc = lgt.train(base, train, crounds)
+    torch.cuda.synchronize()
+    secs_c = time.perf_counter() - t2
+    eager_c = lgt_kernels.launch_counts()
+    pc = fused_program(bc._model)
+    chunk = {k: pc.warmup[k] + v for k, v in pc.launches().items()}
+    if pc.captured != no_valid or eager_c != times(no_valid, 2) \
+            or pc.replays != crounds \
+            or bc._model.fetch_counts != {"epoch": crounds // 25}:
+        raise AssertionError(f"{name} fused chunks: captured {pc.captured}, "
+                             f"wrapper calls {eager_c}, {pc.replays} "
+                             f"replays, fetches {bc._model.fetch_counts}")
+    shared = min(n_p, crounds)
+    tp, ts, tc = (tree_sections(b.model_to_string(), shared)
+                  for b in (bp, bs, bc))
+    if not tp == ts == tc:
+        first = next(i for i, (a, b_, c) in enumerate(zip(tp, ts, tc))
+                     if not a == b_ == c)
+        raise AssertionError(f"{name}: the paths' trees differ from tree "
+                             f"{first}")
+    # a byte-identical rerun of the super-epoch run
+    b2 = lgt.train({**base, "superepoch": 10, "fused_chunk": se_rounds + 1},
+                   train, se_rounds)
+    if b2.model_to_string() != text:
+        raise AssertionError(f"a second {name} super-epoch run gave other "
+                             "model text")
+    steady = ms.epoch_ms[1:] if len(ms.epoch_ms) > 1 else ms.epoch_ms
+    ms_it = statistics.median(steady) / 10
+    fields = {"valid_auc": [auc[0], auc[-1]],
+              "valid_binary_logloss": [ev["valid_0"]["binary_logloss"][0],
+                                       ev["valid_0"]["binary_logloss"][-1]],
+              "per_iteration": {"iterations": n_p, "seconds": secs_p,
+                                "steady_ms_per_iteration": clock.steady_ms(),
+                                "steady_iterations_per_s":
+                                    1e3 / clock.steady_ms(),
+                                "host_fetches": mp.fetch_counts,
+                                "launches": lp},
+              "superepoch": {"iterations": ms.num_iterations_trained,
+                             "seconds": secs_s, "epoch_ms": ms.epoch_ms,
+                             "steady_ms_per_iteration": ms_it,
+                             "steady_iterations_per_s": 1e3 / ms_it,
+                             "capture_ms": prog.capture_ms,
+                             "host_fetches": ms.fetch_counts,
+                             "device_launches": device},
+              "fused_chunk": {"rounds": crounds, "seconds": secs_c,
+                              "epoch_ms": bc._model.epoch_ms,
+                              "host_fetches": bc._model.fetch_counts},
+              "shared_trees_equal": shared, "rerun_byte_identical": True,
+              "live_steps_per_tree": statistics.mean(ms.step_counts),
+              "leaves_per_tree": statistics.mean(t.num_leaves
+                                                 for t in ms.models)}
+    return fields, {name: device, f"{name}_per_iteration": lp,
+                    f"{name}_fused_chunk": chunk}, bp, bs
+
+
+def phase_sparse_train(torch, lgt, lgt_kernels, train, valid, y, xv):
+    """sparse_train: binary at 31 leaves on the Allstate-shaped set on the
+    three paths (``_sparse_paths``: SPARSE_PI_ROUNDS per-iteration rounds
+    with the sparse valid set, ROUNDS as super-epochs, 2 x 25 as fused
+    chunks; SPARSE_PER_ITERATION), the first tree's leaves within
+    SPARSE_LEAF_RTOL of the f64 sums of their rows (each row's leaf from
+    B8c's walk of the device k-hot matrix), the trainer's valid scores
+    against ``Booster.predict`` on raw CSR rows, a profiled super-epoch
+    run (device busy share, top kernels).  sparse_wide_train: 255 leaves
+    (K = 16) with WIDE_PARAMS' bagging and feature_fraction, CUT_ROUNDS
+    super-epoch rounds, SAMPLED_PER_ITERATION_ROUNDS per-iteration, 25 as
+    one chunk (SPARSE_WIDE_PER_ITERATION).  Returns the launches by
+    path."""
+    fields, counts, bp, bs = _sparse_paths(
+        torch, lgt, lgt_kernels, train, valid, "sparse_train",
+        SPARSE_PARAMS, SPARSE_PER_ITERATION, ROUNDS, SPARSE_PI_ROUNDS)
+    err = _tree0_leaf_err_khot(torch, bs, y)
+    if not err <= SPARSE_LEAF_RTOL:
+        raise AssertionError(f"sparse_train: the first tree's leaf values "
+                             f"sit {err} from the f64 sums of their rows")
+    # the trainer's valid scores (B8c walks of k-hot rows) against the
+    # host walk of the raw rows
+    rows = 5_000
+    vscore = bp._model.valid_sets[0][2][:rows].double().cpu().numpy()
+    pred = host_walk(bp, xv[:rows], raw_score=True,
+                     num_iteration=bp.num_trees())
+    walk_err = float(np.max(np.abs(vscore - pred)))
+    if not walk_err <= 1e-4:
+        raise AssertionError(f"sparse_train: valid scores {walk_err} from "
+                             "the host walk of the raw rows")
+    prounds = 10
+    _, dev_ms, psecs, top = _profile_busy(torch, lambda: lgt.train(
+        {"objective": "binary", "verbosity": -1, **SPARSE_PARAMS,
+         "superepoch": prounds, "fused_chunk": prounds + 1}, train,
+        prounds))
+    dev_it = dev_ms / (prounds + 1)
+    se = fields["superepoch"]
+    emit({"phase": "sparse_train", "params": SPARSE_PARAMS, **fields,
+          "tree0_leaf_rel_err": err, "tree0_leaf_rtol": SPARSE_LEAF_RTOL,
+          "valid_score_vs_host_walk_max_abs": walk_err,
+          "profile": {"iterations": prounds, "seconds": psecs,
+                      "device_ms_per_iteration": dev_it,
+                      "steady_busy_share":
+                          dev_it / se["steady_ms_per_iteration"],
+                      "top_kernels": top}})
+    wfields, wcounts, _, _ = _sparse_paths(
+        torch, lgt, lgt_kernels, train, valid, "sparse_wide_train",
+        WIDE_PARAMS, SPARSE_WIDE_PER_ITERATION, CUT_ROUNDS,
+        SAMPLED_PER_ITERATION_ROUNDS)
+    emit({"phase": "sparse_wide_train", "params": WIDE_PARAMS, **wfields})
+    return {**counts, **wcounts}
+
+
+# ---------------------------------------------------------------------------
 # multiclass (K trees an iteration on the per-iteration loop, B4's column
 # form, B12c)
 # ---------------------------------------------------------------------------
@@ -5231,6 +5913,13 @@ def main() -> int:
     sampled_counts.update(phase_quant_efb(torch, lgt, lgt_kernels,
                                           *efb_sets[1:3]))
     del efb_sets
+    sparse_sets = phase_sparse_data(lgt)
+    kernels.update(phase_sparse_kernels(torch, lgt, lgt_kernels,
+                                        *sparse_sets[:2]))
+    sampled_counts.update(phase_sparse_train(
+        torch, lgt, lgt_kernels, sparse_sets[0], sparse_sets[1],
+        sparse_sets[3], sparse_sets[4]))
+    del sparse_sets
     rank_train, rank_valid = phase_rank_data(lgt)
     kernels.update(phase_rank_kernels(torch, lgt, rank_train))
     rank_counts, rank_ndcg10 = phase_rank_train(torch, lgt, lgt_kernels,
@@ -5279,7 +5968,10 @@ def main() -> int:
     for k in ("goss_vals", "node_draws", "split_per_child", "split_cat",
               "predict_column", "multi_logloss", "expand_group_hist",
               "lambdarank", "xendcg", "quant_scales", "quantize_stack",
-              "dequant_hist", "histogram_int", "histogram_slots_int"):
+              "dequant_hist", "histogram_int", "histogram_slots_int",
+              "histogram_sparse", "histogram_slots_sparse",
+              "partition_sparse", "partition_slots_sparse",
+              "predict_sparse"):
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

@@ -53,6 +53,7 @@ SOURCES: Dict[str, str] = {
     "efb": "efb.cu",                # B9
     "rank": "rank.cu",              # B13a, B13b
     "quantize": "quantize.cu",      # B7a, B7b, B7c
+    "sparse": "sparse.cu",          # B8a
 }
 
 # kernel (launch-counter key) -> library
@@ -69,7 +70,8 @@ KERNELS: Dict[str, str] = {
     "lambdarank": "rank", "xendcg": "rank",
     "histogram_int": "histogram", "histogram_slots_int": "histogram",
     "quant_scales": "quantize", "quantize_stack": "quantize",
-    "dequant_hist": "quantize",
+    "dequant_hist": "quantize", "histogram_sparse": "sparse",
+    "histogram_slots_sparse": "sparse",
 }
 
 # dynamic shared memory the B1 and B10c kernels may use (227 KB, all a
@@ -103,9 +105,10 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_split_setup": (),
     },
     "partition": {
-        "lgbt_partition": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P),
+        "lgbt_partition": (_P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                           _P, _P, _P, _P),
         "lgbt_partition_slots": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
-                                 _P, _P, _P, _P),
+                                 _P, _P, _I, _I, _P, _P, _P, _P),
         "lgbt_partition_setup": (),
     },
     "grow_step": {
@@ -126,8 +129,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "predict": {
         "lgbt_add_tree_score": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
-                                _P, _P, _P, _I, _P, _P, _P, _P, _F, _I,
-                                _P),
+                                _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                _P, _P, _F, _I, _P),
         "lgbt_predict_setup": (),
     },
     "metrics": {
@@ -162,6 +165,11 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_quantize_stack": (_P, _P, _I, _P, _U, _I, _I, _P, _P),
         "lgbt_dequant_hist": (_P, _P, ctypes.c_longlong, _P, _P, _P),
         "lgbt_quantize_setup": (),
+    },
+    "sparse": {
+        "lgbt_sparse_histogram": (_P, ctypes.c_longlong, _I, _P, _P, _I, _I,
+                                  _I, _I, _P, _P, _P, _P, _P, _P, _P),
+        "lgbt_sparse_setup": (),
     },
 }
 

@@ -18,7 +18,10 @@ give byte-identical scores.  ``pred_leaf`` runs on both routes,
 (``pred_contrib``) are the rest of ROADMAP A14.  The engine is cached
 until the model changes: every mutation (``update``, ``update_chunk``,
 ``update_superepoch``, ``_sync_trees``, the model's ``drop_iterations``)
-drops it.  A loaded model predicts on the card unless its ``params`` say
+drops it.  A scipy-sparse input is predicted in chunks of
+``SPARSE_PREDICT_ROWS`` rows, each made dense on its own, as the JAX
+package does (its booster.py:526-531), so the host never holds a whole
+wide matrix as f64.  A loaded model predicts on the card unless its ``params`` say
 ``device_type=cpu`` (``_LOADED_PARAMS``).
 """
 
@@ -38,6 +41,10 @@ from .models.gbdt import create_boosting
 from .objectives import create_objective
 from .tree_model import Tree
 from .utils.resilience import atomic_write
+
+
+# rows of one dense chunk of a scipy-sparse predict input
+SPARSE_PREDICT_ROWS = 65536
 
 
 def _objective_to_string(cfg: Config) -> str:
@@ -355,11 +362,23 @@ class Booster:
         Predictor analog): through the predictor engine or the host tree
         walk (module docstring).  ``pred_early_stop``: margin-based early
         exit across trees (prediction_early_stop.cpp:91), host walk."""
-        from .dataset import _to_numpy_2d
+        from .dataset import _is_scipy_sparse, _to_numpy_2d
         if pred_contrib:
             raise NotImplementedError(
                 "pred_contrib (SHAP) is not ported to lightgbm_torch yet "
                 "(ROADMAP A14)")
+        if _is_scipy_sparse(data) and data.shape[0] > SPARSE_PREDICT_ROWS:
+            # CSR prediction (LGBM_BoosterPredictForCSR analog): each chunk
+            # of rows is made dense on its own
+            csr = data.tocsr()
+            step = SPARSE_PREDICT_ROWS
+            return np.concatenate([self.predict(
+                csr[i:i + step], start_iteration=start_iteration,
+                num_iteration=num_iteration, raw_score=raw_score,
+                pred_leaf=pred_leaf, pred_early_stop=pred_early_stop,
+                pred_early_stop_freq=pred_early_stop_freq,
+                pred_early_stop_margin=pred_early_stop_margin, **kw)
+                for i in range(0, csr.shape[0], step)], axis=0)
         x, _, _ = _to_numpy_2d(data)
         disable_shape_check = bool(kw.get(
             "predict_disable_shape_check",

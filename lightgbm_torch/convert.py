@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .grower import TreeArrays
+from .sparse_data import SparseBinned
 
 
 def tree_arrays_from_numpy(d: Dict[str, np.ndarray],
@@ -77,3 +78,20 @@ def dataset_from_numpy(binned: np.ndarray, num_bin: np.ndarray,
         na_bin=torch.as_tensor(np.asarray(na_bin, np.int32)).to(device),
         bin_upper_bounds=[np.asarray(u, np.float64)
                           for u in bin_upper_bounds])
+
+
+def sparse_from_numpy(flat: np.ndarray, default_bin: np.ndarray,
+                      stride: int, num_features: int,
+                      device="cpu") -> SparseBinned:
+    """Device k-hot rows from sparse binned storage (for example the JAX
+    package's ``Dataset.binned_sparse``: its ``flat``, ``default_bin``,
+    ``stride`` and ``num_features``)."""
+    if int(stride) > 256:
+        raise NotImplementedError(
+            "more than 256 bins per feature is not ported to lightgbm_torch "
+            "yet (ROADMAP A9.5)")
+    return SparseBinned(
+        torch.as_tensor(np.ascontiguousarray(flat, np.int32)).to(device),
+        torch.as_tensor(np.ascontiguousarray(default_bin,
+                                             np.int32)).to(device),
+        int(stride), int(num_features))

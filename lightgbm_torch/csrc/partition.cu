@@ -42,6 +42,15 @@
 // decoded bin.  Null maps keep the unbundled path (the column is the
 // feature).
 
+// With sparse k-hot rows (B8b; the JAX package's do_split :772-773 and
+// batched :1036-1037, which read sparse_data.py `column` and
+// `column_per_row`) the rows are the [N, K] int32 entries f * stride + b
+// and the feature's bin is the matching entry's, or the feature's default
+// bin when the row stores none.  The decode of all three layouts is
+// `row_bin` (rowbin.cuh), shared with B4.  A k-hot row is read only for
+// the rows of a splitting leaf: at N = 1M, K = 35 the root's split reads
+// 140 MB of entries plus 12 bytes a row, about 45 us at 3.35 TB/s.
+
 // B3-K — the batched grower's partition (grower.py `grow_tree_batched`
 // :1029-1067): one pass applies the K splits of a super-step.  The row's
 // slot is slot_of_leaf[leaf_of_row[r]] (the table the batched split step
@@ -59,31 +68,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rowbin.cuh"
+
 namespace {
 
-// the feature's bin of row r: its own column, or decoded from its EFB
-// bundle column (maps non-null)
-__device__ __forceinline__ int feature_bin(
-    const uint8_t* __restrict__ binned, long long r, int num_cols,
-    int feature, const int32_t* __restrict__ group_of_feat,
-    const int32_t* __restrict__ off_of_feat,
-    const int32_t* __restrict__ num_bin) {
-  if (group_of_feat == nullptr) return binned[r * num_cols + feature];
-  const int col = binned[r * num_cols + group_of_feat[feature]];
-  const int off = off_of_feat[feature];
-  if (off < 0) return col;
-  return (col >= off && col < off + num_bin[feature] - 1) ? col - off + 1
-                                                          : 0;
-}
-
-__global__ void partition_rows(const uint8_t* __restrict__ binned, int n,
-                               int num_cols,
+__global__ void partition_rows(const RowBins rows, int n,
                                const int32_t* __restrict__ rec,
                                const int32_t* __restrict__ rank,
                                int rank_stride,
-                               const int32_t* __restrict__ group_of_feat,
-                               const int32_t* __restrict__ off_of_feat,
-                               const int32_t* __restrict__ num_bin,
                                int32_t* __restrict__ leaf_of_row,
                                int32_t* __restrict__ slot) {
   if (rec[7] == 0) return;
@@ -94,8 +86,7 @@ __global__ void partition_rows(const uint8_t* __restrict__ binned, int n,
   const int smaller = rec[6];
   int l = leaf_of_row[r];
   if (l == leaf) {
-    const int b = feature_bin(binned, r, num_cols, feature, group_of_feat,
-                              off_of_feat, num_bin);
+    const int b = row_bin(rows, r, feature);
     const bool is_na = na_bin >= 0 && b == na_bin;
     const bool go_left =
         is_na ? default_left != 0
@@ -108,16 +99,12 @@ __global__ void partition_rows(const uint8_t* __restrict__ binned, int n,
   slot[r] = l == smaller ? 0 : -1;
 }
 
-__global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
-                                int num_cols,
+__global__ void partition_slots(const RowBins rows, int n,
                                 const int32_t* __restrict__ recs,
                                 const int32_t* __restrict__ slot_of_leaf,
                                 const int32_t* __restrict__ status,
                                 const int32_t* __restrict__ rank,
                                 int rank_stride,
-                                const int32_t* __restrict__ group_of_feat,
-                                const int32_t* __restrict__ off_of_feat,
-                                const int32_t* __restrict__ num_bin,
                                 int32_t* __restrict__ leaf_of_row,
                                 int32_t* __restrict__ tslot) {
   if (status[0] == 0) return;
@@ -130,8 +117,7 @@ __global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
     return;
   }
   const int32_t* rec = recs + k * 8;
-  const int b = feature_bin(binned, r, num_cols, rec[2], group_of_feat,
-                            off_of_feat, num_bin);
+  const int b = row_bin(rows, r, rec[2]);
   const int na_bin = rec[5];
   const bool is_na = na_bin >= 0 && b == na_bin;
   const bool go_left =
@@ -146,20 +132,25 @@ __global__ void partition_slots(const uint8_t* __restrict__ binned, int n,
 
 }  // namespace
 
-// binned [N, num_cols]; rank [B] (rank_stride 0) or [R, B] (rank_stride
-// B, indexed by the split's leaf); group_of_feat, off_of_feat and num_bin
-// [F] (all null without EFB).
+// binned [N, num_cols] (null for k-hot rows); rank [B] (rank_stride 0)
+// or [R, B] (rank_stride B, indexed by the split's leaf); group_of_feat,
+// off_of_feat and nbm1 [F] (all null without EFB); flat [N, k] with
+// stride and default_bin [F] (all null or 0 for dense rows).
 extern "C" int lgbt_partition(const uint8_t* binned, int n, int num_cols,
                               const int32_t* rec, const int32_t* rank,
                               int rank_stride, const int32_t* group_of_feat,
                               const int32_t* off_of_feat,
-                              const int32_t* num_bin, int32_t* leaf_of_row,
-                              int32_t* slot, cudaStream_t stream) {
+                              const int32_t* nbm1, const int32_t* flat,
+                              int k, int stride, const int32_t* default_bin,
+                              int32_t* leaf_of_row, int32_t* slot,
+                              cudaStream_t stream) {
+  const RowBins rows{binned, num_cols, group_of_feat, off_of_feat, nbm1,
+                     flat,   k,        stride,        default_bin};
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
-  partition_rows<<<blocks, threads, 0, stream>>>(
-      binned, n, num_cols, rec, rank, rank_stride, group_of_feat,
-      off_of_feat, num_bin, leaf_of_row, slot);
+  partition_rows<<<blocks, threads, 0, stream>>>(rows, n, rec, rank,
+                                                 rank_stride, leaf_of_row,
+                                                 slot);
   return (int)cudaGetLastError();
 }
 
@@ -170,14 +161,18 @@ extern "C" int lgbt_partition_slots(const uint8_t* binned, int n,
                                     const int32_t* rank, int rank_stride,
                                     const int32_t* group_of_feat,
                                     const int32_t* off_of_feat,
-                                    const int32_t* num_bin,
+                                    const int32_t* nbm1,
+                                    const int32_t* flat, int k, int stride,
+                                    const int32_t* default_bin,
                                     int32_t* leaf_of_row, int32_t* tslot,
                                     cudaStream_t stream) {
+  const RowBins rows{binned, num_cols, group_of_feat, off_of_feat, nbm1,
+                     flat,   k,        stride,        default_bin};
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   partition_slots<<<blocks, threads, 0, stream>>>(
-      binned, n, num_cols, recs, slot_of_leaf, status, rank, rank_stride,
-      group_of_feat, off_of_feat, num_bin, leaf_of_row, tslot);
+      rows, n, recs, slot_of_leaf, status, rank, rank_stride, leaf_of_row,
+      tslot);
   return (int)cudaGetLastError();
 }
 

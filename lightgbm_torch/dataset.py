@@ -8,10 +8,11 @@ binned matrix is ONE dense uint8/uint16 ``[num_data, num_features]`` array
 handed to the device learner; bin offsets per feature index into a
 concatenated histogram axis.
 
-The port covers dense input.  The branches that reach modules it has not
-ported yet raise ``NotImplementedError`` naming the ROADMAP item: sparse
-binned storage (A11), out-of-core ingest (A17) and the atomic binary-cache
-writer (A12).
+The port covers dense input and scipy-sparse input, which it keeps as the
+padded k-hot layout of ``sparse_data.py`` where that is smaller than the
+dense matrix, as the JAX package does.  The branches that reach modules
+it has not ported yet raise ``NotImplementedError`` naming the ROADMAP
+item: out-of-core ingest (A17) and the atomic binary-cache writer (A12).
 
 Supports: numpy / pandas construction, sampled bin-mapper fitting
 (bin_construct_sample_cnt, dataset_loader.cpp:961), categorical features,
@@ -606,10 +607,35 @@ class Dataset:
         if (cfg is None or csc is None or not cfg.is_enable_sparse
                 or cfg.linear_tree or nf == 0):
             return False
-        raise NotImplementedError(
-            "sparse binned storage (sparse_data.py) is not ported to "
-            "lightgbm_torch yet (ROADMAP A11); construct the Dataset with "
-            "is_enable_sparse=false to bin sparse input densely")
+        from . import sparse_data as spd
+        stride = self.max_bin
+        rows, flat, default_bin = spd.collect_entries_csc(
+            csc, self.bin_mappers, self.used_features, stride)
+        counts = np.bincount(rows, minlength=self.num_data) if len(rows) \
+            else np.zeros(self.num_data, np.int64)
+        k = int(max(counts.max() if self.num_data else 0, 1))
+        sparse_bytes = self.num_data * k * 4
+        if self.efb is not None:
+            g = len(self.efb.group_num_bin)
+            # the grouped matrix's dtype follows the widest BUNDLE bin
+            # axis, not max_bin (bin_grouped) — bundles may exceed 256
+            elt = 1 if int(self.efb.group_num_bin.max()) <= 256 else 2
+        else:
+            g = nf
+            elt = 1 if self.max_bin <= 256 else 2
+        dense_bytes = self.num_data * g * elt
+        if sparse_bytes >= dense_bytes:
+            return False
+        self.binned_sparse = spd.build_khot(rows, flat, default_bin,
+                                            self.num_data, stride, nf,
+                                            counts=counts)
+        self.binned = None
+        self.efb = None     # the k-hot layout replaces bundling outright
+        from .utils.log import Log
+        Log.info(f"sparse binned storage: [N={self.num_data}, K={k}] k-hot "
+                 f"({sparse_bytes / 2**20:.1f} MB) chosen over dense "
+                 f"[N, {g}] ({dense_bytes / 2**20:.1f} MB)")
+        return True
 
     def _bin_data(self, colfn, cfg=None, csc=None) -> None:
         nf = len(self.used_features)
@@ -1063,9 +1089,12 @@ class Dataset:
         ds._raw_input = None
         ds.used_features = [int(x) for x in z["used_features"]]
         if "sparse_flat" in z.files:
-            raise NotImplementedError(
-                "a sparse-binned dataset cache needs sparse_data.py, which "
-                "lightgbm_torch does not have yet (ROADMAP A11)")
+            from .sparse_data import SparseBinnedHost
+            ds.binned = None
+            ds.binned_sparse = SparseBinnedHost(
+                z["sparse_flat"], z["sparse_default_bin"],
+                int(z["sparse_stride"]), len(ds.used_features))
+            ds.num_data = ds.binned_sparse.flat.shape[0]
         else:
             ds.binned = z["binned"]
             ds.binned_sparse = None

@@ -223,8 +223,9 @@ def _superepoch_plan(cfg, booster, fobj, feval, cbs_before, cbs_after,
     Returns ``(base_k, eval_spec, es_spec)`` or None for the
     per-iteration path.  Requirements: a fusable configuration, no custom
     fobj/feval, no training-set eval, only replay-safe callbacks, valid
-    metrics that all have traced kernels, and at most one early-stopping
-    callback in its scalar ``min_delta == 0`` form."""
+    metrics that all have traced kernels, no sparse (k-hot) valid set, and
+    at most one early-stopping callback in its scalar ``min_delta == 0``
+    form."""
     if cfg.superepoch == -1:
         return None
     if not (cfg.superepoch > 0 or cfg.fused_chunk > 1):
@@ -243,6 +244,11 @@ def _superepoch_plan(cfg, booster, fobj, feval, cbs_before, cbs_after,
     if not model._fusable_config():
         return None
     if str(cfg.fused_eval).lower() == "false" and model.valid_sets:
+        return None
+    from .sparse_data import SparseBinned
+    if any(isinstance(vb, SparseBinned) for _, vb, _ in model.valid_sets):
+        # a sparse valid set runs per iteration, as in the JAX package
+        # (its engine.py:459-461 takes only dense device valid matrices)
         return None
     from .metrics import traced_metric_fn
     eval_spec = []

@@ -26,6 +26,13 @@ root's and each step's children's histograms to feature space [F, B, 3],
 with each child's totals from its step record, just before the node
 draws and B2; B3/B3-K decode each feature's bin from its bundle column.
 
+With sparse binned storage ``binned`` is a ``sparse_data.SparseBinned``
+(the padded k-hot rows; the JAX package's masked grower takes it the same
+way, grower.py:360-362, :772-773, :1036-1037): B1/B1-K are the k-hot
+histogram B8a (``compute_histogram`` dispatches on it), and B3/B3-K read a
+feature's bin from the row's entries, or its default bin (B8b); the
+histograms, the workspace and every other kernel are the dense ones.
+
 With quantized training (``quant``, an ``ops.quantize.QuantSpec``; the
 JAX package's ``_quant_prepare``, grower.py:369-397) the root pass first
 takes the tree's shared scales (B7a) and packs (g, h, w) into int8 or
@@ -68,6 +75,7 @@ from .ops.quantize import QuantSpec, dequantize_hist, quant_scales, \
     quantize_stack
 from .ops.random import NodeSampling, node_draws
 from .ops.split import SplitParams, find_best_split, leaf_output
+from .sparse_data import SparseBinned, column_per_row, khot_args
 from . import _kernels
 
 # the tree buffer's fields in order: (name, length, "i" int32 | "f" f32),
@@ -646,15 +654,34 @@ def _check_rank(rank: torch.Tensor) -> int:
 
 
 def _efb_ptrs(efb) -> tuple:
-    """B3's and B3-K's decode maps: (group_of_feat, off_of_feat, num_bin)
+    """B3's and B3-K's decode maps: (group_of_feat, off_of_feat, nbm1)
     data pointers, or nulls without EFB."""
     if efb is None:
         return None, None, None
     return (efb.group_of_feat.data_ptr(), efb.off_of_feat.data_ptr(),
-            efb.num_bin.data_ptr())
+            efb.nbm1.data_ptr())
+
+
+def _check_rows(binned, what: str) -> None:
+    """A dense [N, F] uint8 matrix or k-hot ``SparseBinned`` rows."""
+    if isinstance(binned, SparseBinned):
+        return
+    if binned.dim() != 2 or binned.dtype != torch.uint8:
+        raise TypeError(f"{what}: binned must be a [N, F] uint8 tensor or "
+                        "SparseBinned rows")
+
+
+def _dense_ptr(binned):
+    """The dense matrix's data pointer and columns (null for k-hot
+    rows)."""
+    if isinstance(binned, SparseBinned):
+        return None, binned.num_features
+    return binned.data_ptr(), binned.shape[1]
 
 
 def _check_efb(efb, binned) -> None:
+    if efb is not None and isinstance(binned, SparseBinned):
+        raise ValueError("k-hot rows hold features, never EFB bundles")
     if efb is not None and (binned.shape[1] != efb.num_groups
                             or efb.group_of_feat.device != binned.device):
         raise ValueError(f"binned has {binned.shape[1]} columns on "
@@ -665,7 +692,10 @@ def _check_efb(efb, binned) -> None:
 def _feature_column(binned, feat, efb) -> torch.Tensor:
     """The plain versions' bins of feature ``feat`` ([N] int64 feature
     ids): its column, or decoded from its EFB bundle column as the JAX
-    package's ``do_split`` does (grower.py:780-785)."""
+    package's ``do_split`` does (grower.py:780-785), or from k-hot rows
+    (``sparse_data.column_per_row``)."""
+    if isinstance(binned, SparseBinned):
+        return column_per_row(binned, feat).to(torch.int64)
     if efb is None:
         return torch.gather(binned, 1, feat[:, None])[:, 0].to(torch.int64)
     grp = efb.group_of_feat.to(torch.int64)[feat]
@@ -687,13 +717,13 @@ def partition(binned: torch.Tensor, leaf_of_row: torch.Tensor,
     ``rank`` [B], or the split leaf's row of ``rank`` [R, B]; a
     categorical split's record has NA bin -1).  With ``efb`` (an
     ``efb.EFBDevice``) ``binned`` is the bundled [N, G] matrix and the
-    bin is decoded from the feature's bundle column.  Returns the slot
+    bin is decoded from the feature's bundle column; ``binned`` may also
+    be k-hot ``SparseBinned`` rows (B8b).  Returns the slot
     vector of the next histogram pass (0 where the row is in the smaller
     child, else -1); an inactive step changes nothing and its slot vector
     is unspecified.  CUDA tensors launch the kernel of
     ``csrc/partition.cu``, CPU tensors run ``partition_plain``."""
-    if binned.dim() != 2 or binned.dtype != torch.uint8:
-        raise TypeError("binned must be a [N, F] uint8 tensor")
+    _check_rows(binned, "partition")
     if leaf_of_row.shape != (binned.shape[0],) \
             or leaf_of_row.dtype != torch.int32:
         raise TypeError("leaf_of_row must be a [N] int32 tensor")
@@ -710,14 +740,15 @@ def partition(binned: torch.Tensor, leaf_of_row: torch.Tensor,
     if not (binned.is_contiguous() and leaf_of_row.is_contiguous()
             and rank.is_contiguous() and rec.is_contiguous()):
         raise ValueError("partition needs contiguous tensors")
-    n, f = binned.shape
+    n = binned.shape[0]
     slot = torch.empty(n, dtype=torch.int32, device=binned.device)
     if n == 0:
         return slot
+    ptr, cols = _dense_ptr(binned)
     err = _kernels.lib("partition").lgbt_partition(
-        binned.data_ptr(), n, f, rec.data_ptr(), rank.data_ptr(), stride,
-        *_efb_ptrs(efb), leaf_of_row.data_ptr(), slot.data_ptr(),
-        _kernels.stream_ptr(binned.device))
+        ptr, n, cols, rec.data_ptr(), rank.data_ptr(), stride,
+        *_efb_ptrs(efb), *khot_args(binned), leaf_of_row.data_ptr(),
+        slot.data_ptr(), _kernels.stream_ptr(binned.device))
     _kernels.launched("partition", err)
     return slot
 
@@ -978,10 +1009,10 @@ def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
     histogram pass: k where the row ends in slot k's smaller child, else
     -1; a dead super-step (``step.status[0] == 0``) changes nothing and
     its target slots are unspecified.  ``efb``: the bundled matrix's
-    decode maps, as ``partition``.  CUDA tensors launch the kernel of
+    decode maps, as ``partition``; k-hot ``SparseBinned`` rows as
+    ``partition``.  CUDA tensors launch the kernel of
     ``csrc/partition.cu``, CPU tensors run ``partition_slots_plain``."""
-    if binned.dim() != 2 or binned.dtype != torch.uint8:
-        raise TypeError("binned must be a [N, F] uint8 tensor")
+    _check_rows(binned, "partition_slots")
     if leaf_of_row.shape != (binned.shape[0],) \
             or leaf_of_row.dtype != torch.int32:
         raise TypeError("leaf_of_row must be a [N] int32 tensor")
@@ -1003,15 +1034,17 @@ def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
     if not (binned.is_contiguous() and all(t.is_contiguous()
                                            for t in tensors)):
         raise ValueError("partition_slots needs contiguous tensors")
-    n, f = binned.shape
+    n = binned.shape[0]
     tslot = torch.empty(n, dtype=torch.int32, device=binned.device)
     if n == 0:
         return tslot
+    ptr, cols = _dense_ptr(binned)
     err = _kernels.lib("partition").lgbt_partition_slots(
-        binned.data_ptr(), n, f, step.recs.data_ptr(),
+        ptr, n, cols, step.recs.data_ptr(),
         step.slot_of_leaf.data_ptr(), step.status.data_ptr(),
-        rank.data_ptr(), stride, *_efb_ptrs(efb), leaf_of_row.data_ptr(),
-        tslot.data_ptr(), _kernels.stream_ptr(binned.device))
+        rank.data_ptr(), stride, *_efb_ptrs(efb), *khot_args(binned),
+        leaf_of_row.data_ptr(), tslot.data_ptr(),
+        _kernels.stream_ptr(binned.device))
     _kernels.launched("partition_slots", err)
     return tslot
 

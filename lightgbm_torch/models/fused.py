@@ -7,8 +7,9 @@ The JAX package runs k iterations in one ``lax.scan``.  Here one
 iteration — gradients, the row weights (B6: the bagging draw or GOSS),
 the device-resident tree build (the strict grower B1-B3s, or the batched
 one B1-K/B3-K/B3s-K from ``split_batch`` 2 on, with the per-node draws
-B6-node, B9 on an EFB-bundled matrix, and B7 with the integer B1/B1-K
-under ``quant_train``), the f32 shrinkage, the
+B6-node, B9 on an EFB-bundled matrix, B7 with the integer B1/B1-K
+under ``quant_train``, and the k-hot histogram B8a with the k-hot decode
+in B3/B3-K on sparse binned storage), the f32 shrinkage, the
 train-score update, each valid set's tree walk (B4), the traced metrics
 (B12) and the early-stop vote — is
 ``IterationProgram.body`` over tensors allocated once.  The
@@ -69,7 +70,7 @@ from .. import _kernels
 from ..grower import grow_tree, grow_tree_batched, tree_fields, tree_words
 from ..metrics import build_traced_eval
 from ..ops.random import bag_vals, goss_buffers, goss_vals
-from ..predict_device import add_tree_score
+from ..predict_device import add_tree_score, walk_maps
 
 
 class IterationProgram:
@@ -195,7 +196,8 @@ class IterationProgram:
                            arrays.left_child, arrays.right_child,
                            m.na_bin_dev, lv_ok, 1.0, steps=m.walk_steps,
                            is_cat_node=arrays.is_cat_node,
-                           cat_rank=arrays.cat_rank, efb_maps=m.efb_maps)
+                           cat_rank=arrays.cat_rank,
+                           efb_maps=walk_maps(vbinned, m.efb_maps))
         if self.E:
             ev = self.teval([vs for _, _, vs in m.valid_sets],
                             [m.valid_ops(vi)
@@ -273,7 +275,7 @@ class IterationProgram:
                                m.na_bin_dev, lv_ok, 1.0, steps=m.walk_steps,
                                is_cat_node=arrays.is_cat_node,
                                cat_rank=arrays.cat_rank, column=c,
-                               efb_maps=m.efb_maps)
+                               efb_maps=walk_maps(vbinned, m.efb_maps))
             mark("")
             self.cur_tree.copy_(m.grow_ws.tree)
             self.cur_lv.copy_(lv)

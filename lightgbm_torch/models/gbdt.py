@@ -12,7 +12,8 @@ from the device-resident grower (with the per-node draws of
 ``split_batch`` from there, resolved as the JAX package resolves it; on
 an EFB-bundled matrix with B9 before each split scan; with
 ``quant_train`` on packed int8/int16 rows, B7, and exact int32
-histograms, B1-int/B1-K-int, dequantized by B7c) ->
+histograms, B1-int/B1-K-int, dequantized by B7c; on sparse binned storage
+over the k-hot rows, B8a-c) ->
 f32 shrinkage -> train score += leaf value gathered through the grower's
 row -> leaf vector -> every valid score += tree walk (B4).  The iteration
 is ``models/fused.py``'s ``IterationProgram.body``, and three paths run
@@ -74,7 +75,7 @@ from ..objectives import ObjectiveFunction
 from ..ops.quantize import QuantSpec, max_rows
 from ..ops.random import NodeSampling, bag_mask_plain
 from ..ops.split import SplitParams
-from ..predict_device import add_tree_score
+from ..predict_device import add_tree_score, walk_maps
 from ..tree_model import Tree
 from ..utils.log import Log
 from ..utils.shapes import (SPLIT_BATCH_SET, fit_split_batch, round_up_pow2,
@@ -118,14 +119,17 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
         (bool(c.feature_contri), "feature_contri", "A9"),
         (bool(c.forcedsplits_filename), "forced splits", "A11"),
         (c.linear_tree, "linear_tree", "A9"),
-        (c.tpu_learner == "partitioned", "tpu_learner=partitioned",
-         "A11 (B11)"),
+        # sparse binned storage overrides partitioned to masked
+        # (``GBDTModel.__init__``), as the JAX package does
+        (c.tpu_learner == "partitioned" and ds.binned_sparse is None,
+         "tpu_learner=partitioned", "A11 (B11)"),
         (c.snapshot_freq > 0 or c.resume, "snapshots and resume", "A12"),
         (c.integrity_check_freq > 0, "integrity checks", "A17 (B17)"),
         (c.finite_check_freq > 0, "finite checks", "A12"),
         (c.telemetry or c.telemetry_blackbox, "telemetry", "A15"),
         (c.hist_tune == "on", "hist_tune", "A17 (B15)"),
-        (ds.binned is None or ds.binned.dtype != np.uint8,
+        (ds.binned_sparse.stride > 256 if ds.binned_sparse is not None
+         else ds.binned is None or ds.binned.dtype != np.uint8,
          "more than 256 bins per feature or per EFB bundle", "A9.5"),
     ]
     return [(what, item) for hit, what, item in checks if hit]
@@ -242,17 +246,19 @@ class _DeviceTree:
         self.steps = steps
 
 
-def _apply_tree(score: torch.Tensor, binned: torch.Tensor, dt: _DeviceTree,
+def _apply_tree(score: torch.Tensor, binned, dt: _DeviceTree,
                 na_bin: torch.Tensor, weight: float, column: int = 0,
                 efb_maps=None) -> torch.Tensor:
     """score += weight * tree(binned), in place (kernel B4), into
     ``score[:, column]`` of a multiclass [N, K] score; ``efb_maps`` for
-    the bundled matrix."""
+    the bundled matrix; ``binned`` dense rows or k-hot ``SparseBinned``
+    ones."""
     return add_tree_score(score, binned, dt.split_feature, dt.threshold_bin,
                           dt.default_left, dt.left_child, dt.right_child,
                           na_bin, dt.leaf_value, weight, steps=dt.steps,
                           is_cat_node=dt.is_cat_node, cat_rank=dt.cat_rank,
-                          column=column, efb_maps=efb_maps)
+                          column=column,
+                          efb_maps=walk_maps(binned, efb_maps))
 
 
 def _init_scores(init_score, n: int, k: int) -> np.ndarray:
@@ -283,7 +289,21 @@ class GBDTModel:
         self.num_features = ds.num_features
         if self.num_features == 0:
             raise ValueError("Dataset has no usable (non-trivial) features")
+        # sparse k-hot storage rides the masked grower (the JAX package's
+        # :155-165): an explicit partitioned learner is overridden
+        sparse = ds.binned_sparse is not None
+        if sparse and config.tpu_learner == "partitioned":
+            Log.warning(
+                "tpu_learner=partitioned overridden to masked: the "
+                "dataset chose sparse binned storage (pass "
+                "enable_sparse=false to keep the partitioned learner)")
         _refuse_unported(config, ds)
+        if sparse and config.quant_train:
+            raise ValueError(
+                "quant_train requires dense binned storage (the "
+                "sparse k-hot segment-sum histogram has no integer "
+                "formulation yet); construct the Dataset with "
+                "enable_sparse=false")
         self.device = resolve_device(config)
 
         self.split_params = SplitParams(
@@ -323,8 +343,14 @@ class GBDTModel:
         # and B4 decode bins through the maps
         self.efb_dev = make_device_efb(ds.efb, num_bin, self.max_bin, dev)
         self.efb_maps = None if self.efb_dev is None else self.efb_dev.maps
-        self.binned_dev = torch.as_tensor(
-            np.ascontiguousarray(ds.binned)).to(dev)
+        # sparse binned storage: the k-hot rows on the card (the JAX
+        # package's :364-365, :443-449); B8a builds the histograms and
+        # B3/B3-K and B4 decode a feature's bin from a row's entries
+        if sparse:
+            self.binned_dev = ds.binned_sparse.to_device(dev)
+        else:
+            self.binned_dev = torch.as_tensor(
+                np.ascontiguousarray(ds.binned)).to(dev)
         self.split_batch = resolve_split_batch(config)
         self.quant = quant_spec(config, self.num_data)
         self.grow_ws = GrowWorkspace(self.num_data, self.num_features,
@@ -461,14 +487,15 @@ class GBDTModel:
         return np.ones((k, self.num_features), bool)
 
     # -- plumbing ----------------------------------------------------------
-    def _valid_binned(self, valid: Dataset) -> np.ndarray:
-        """The valid set's rows in the train matrix's layout: bundled by
-        the train set's EFB groups (its own matrix when a ``reference=``
-        set shares them, as the JAX package reads ``valid.binned``,
-        :1242), else per feature."""
-        if valid.binned is None:
-            raise NotImplementedError(
-                "valid sets need dense bins in lightgbm_torch (ROADMAP A11)")
+    def _valid_binned(self, valid: Dataset):
+        """The valid set's rows on the device: its own k-hot rows when it
+        chose sparse binned storage (the JAX package's :1239-1240), else
+        in the train matrix's dense layout, bundled by the train set's EFB
+        groups (its own matrix when a ``reference=`` set shares them, as
+        the JAX package reads ``valid.binned``, :1242), else per feature
+        (also for a sparse train set)."""
+        if valid.binned_sparse is not None:
+            return valid.binned_sparse.to_device(self.device)
         efb = self.train_set.efb
         if efb is None:
             vb = valid.feature_binned()
@@ -483,13 +510,12 @@ class GBDTModel:
                 "valid sets with more than 256 bins per feature or per EFB "
                 "bundle are not ported to lightgbm_torch yet (ROADMAP "
                 "A9.5)")
-        return vb
+        return torch.as_tensor(np.ascontiguousarray(vb)).to(self.device)
 
     def add_valid_set(self, valid: Dataset) -> None:
         valid.construct(self.config)
         nv = valid.num_data
-        binned = torch.as_tensor(np.ascontiguousarray(
-            self._valid_binned(valid))).to(self.device)
+        binned = self._valid_binned(valid)
         init = _init_scores(valid.metadata.init_score, nv, self.num_class)
         # the trees' replay, without the BoostFromAverage bias, tree t
         # into class column t % K, as the JAX package's add_valid_set (its

@@ -22,6 +22,11 @@ once to f32 before their f64 total); the plain version adds each bin's
 rows in row order in f32 runs of ``PLAIN_RUN`` rows and the runs in f64
 (``_bin_sums``), so a bin of at most ``PLAIN_RUN`` rows is the plain f32
 sum of its rows in row order.
+
+On sparse binned storage (``binned`` a ``sparse_data.SparseBinned``, the
+padded k-hot rows) ``compute_histogram`` is the k-hot histogram B8a
+(``sparse_data.histogram``), with the same forms and output, as the JAX
+grower's ``_hist`` dispatches (grower.py:360-362).
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _kernels
+from ..sparse_data import SparseBinned
+from ..sparse_data import histogram as sparse_histogram
 
 # shared memory a block may use on Hopper (227 KB, raised once at load),
 # the bytes of one accumulator (the kernel's per-thread slices are f64),
@@ -181,7 +188,12 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
     also needs ``slots_used``, a [1] int32 device count that promises no
     row's slot is at or past it (the super-step's valid count; a [1]
     tensor holding K for all slots): the kernel spreads the rows of the
-    slots in use over the threads of the others."""
+    slots in use over the threads of the others.  On k-hot
+    ``SparseBinned`` rows this is B8a (module docstring)."""
+    if isinstance(binned, SparseBinned):
+        return sparse_histogram(binned, vals, num_bins=num_bins, slot=slot,
+                                num_slots=num_slots, active=active,
+                                slots_used=slots_used)
     _check(binned, vals, slot, active)
     if num_slots is not None:
         if slots_used is None or slots_used.shape != (1,) \

@@ -22,7 +22,11 @@ column), whose column 0 of a [N] score is the one-column call.
 With ``efb_maps`` (the JAX package's ``(group_of_feat, off_of_feat,
 num_bin - 1)``, each [F] int32) the rows are the EFB-bundled [N, G]
 matrix and each node's bin is decoded from its feature's bundle column
-(``predict_device.py:49-57``).
+(``predict_device.py:49-57``).  ``binned`` may also be k-hot
+``sparse_data.SparseBinned`` rows (B8c: the JAX package's
+``traverse_tree_sparse`` and ``add_tree_score_sparse``, sparse_data.py
+:178-213): each node's bin is the row's entry of its feature, else the
+feature's default bin; ``efb_maps`` do not apply to such rows.
 
 The whole-forest serving functions (kernel B10, ``csrc/forest.cu``; the
 JAX package's ``traverse_forest_binned``, ``bin_rows_device``,
@@ -58,6 +62,7 @@ from typing import Sequence
 import torch
 
 from . import _kernels
+from .sparse_data import SparseBinned, column_per_row, khot_args
 
 
 def _check(score, binned, split_feature, threshold_bin, default_left,
@@ -69,9 +74,13 @@ def _check(score, binned, split_feature, threshold_bin, default_left,
     if not 0 <= column < width:
         raise ValueError(f"column {column} is outside the score's "
                          f"{width} column(s)")
-    if binned.dim() != 2 or binned.dtype != torch.uint8 \
+    sparse = isinstance(binned, SparseBinned)
+    if sparse and efb_maps is not None:
+        raise ValueError("k-hot rows hold features: efb_maps do not apply")
+    if (not sparse and (binned.dim() != 2 or binned.dtype != torch.uint8)) \
             or binned.shape[0] != score.shape[0]:
-        raise TypeError("binned must be a [N, F] uint8 tensor")
+        raise TypeError("binned must be a [N, F] uint8 tensor or "
+                        "SparseBinned rows of the score's length")
     nodes = split_feature.shape
     for name, t in (("split_feature", split_feature),
                     ("threshold_bin", threshold_bin),
@@ -145,6 +154,7 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("add_tree_score needs contiguous tensors")
     n, f = binned.shape
+    sparse = isinstance(binned, SparseBinned)
     if n == 0:
         return score
     if default_left.dtype == torch.bool:
@@ -153,7 +163,8 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
         is_cat_node = is_cat_node.to(torch.int32)
     stride = 1 if score.dim() == 1 else int(score.shape[1])
     err = _kernels.lib("predict").lgbt_add_tree_score(
-        score.data_ptr(), stride, int(column), binned.data_ptr(), n, f,
+        score.data_ptr(), stride, int(column),
+        None if sparse else binned.data_ptr(), n, f,
         split_feature.data_ptr(),
         threshold_bin.data_ptr(), default_left.data_ptr(),
         left_child.data_ptr(), right_child.data_ptr(), na_bin.data_ptr(),
@@ -161,10 +172,18 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
         None if cat_rank is None else cat_rank.data_ptr(),
         0 if cat_rank is None else int(cat_rank.shape[1]),
         *(None if t is None else t.data_ptr() for t in maps),
+        *khot_args(binned),
         leaf_value.data_ptr(), float(weight), int(steps),
         _kernels.stream_ptr(score.device))
     _kernels.launched("predict", err)
     return score
+
+
+def walk_maps(binned, efb_maps):
+    """The EFB maps a tree walk over ``binned`` takes: none for k-hot rows
+    (they hold features), ``efb_maps`` otherwise (the JAX package's
+    ``_apply_tree`` branch, models/gbdt.py:74-93)."""
+    return None if isinstance(binned, SparseBinned) else efb_maps
 
 
 def traverse_tree_plain(binned, split_feature, threshold_bin, default_left,
@@ -174,15 +193,21 @@ def traverse_tree_plain(binned, split_feature, threshold_bin, default_left,
     """Leaf index of every row (a gather loop, one level per step); a walk
     cut short by too few steps ends at leaf 0, as in the kernel.  With
     ``efb_maps`` each level decodes the bin from the feature's bundle
-    column, as the JAX package's ``traverse_tree_binned``."""
+    column, as the JAX package's ``traverse_tree_binned``; on k-hot
+    ``SparseBinned`` rows from the row's entries (``column_per_row``), as
+    its ``traverse_tree_sparse``."""
     n = binned.shape[0]
     node = torch.zeros(n, dtype=torch.int32, device=binned.device)
+    sparse = isinstance(binned, SparseBinned)
     for _ in range(steps):
         internal = node >= 0
         nid = node.clamp_min(0).to(torch.int64)
         f = split_feature[nid].to(torch.int64)
-        col = f if efb_maps is None else efb_maps[0][f].to(torch.int64)
-        v = torch.gather(binned, 1, col[:, None])[:, 0].to(torch.int32)
+        if sparse:
+            v = column_per_row(binned, f)
+        else:
+            col = f if efb_maps is None else efb_maps[0][f].to(torch.int64)
+            v = torch.gather(binned, 1, col[:, None])[:, 0].to(torch.int32)
         if efb_maps is not None:
             off, nbm1 = efb_maps[1][f], efb_maps[2][f]
             v = torch.where(off < 0, v,

@@ -116,6 +116,23 @@ def test_port_imports_no_jax():
     assert bad == []
 
 
+def test_exp_tripwire_warns_and_never_fails(monkeypatch):
+    """The tripwire that every port test runs after itself
+    (``torch_port_fixtures.exp_tripwire``): silent while ``torch.exp``
+    gives the session start's bits, a ``PytestWarning`` naming the test
+    and the last clean one when it does not."""
+    import warnings
+    import torch_port_fixtures as tpf
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tpf.exp_tripwire("tests/x.py::clean")
+    monkeypatch.setattr(tpf, "_EXP_BITS", [b ^ 1 for b in tpf._EXP_BITS])
+    with pytest.warns(pytest.PytestWarning,
+                      match="after tests/x.py::dirty, .* last right after "
+                            "tests/x.py::clean"):
+        tpf.exp_tripwire("tests/x.py::dirty")
+
+
 def test_default_device_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, y = raw_problem(2, n=500, f=4)

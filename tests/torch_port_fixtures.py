@@ -5,12 +5,29 @@ the JAX package (the reference, run on the CPU) and its PyTorch port
 (``device_type="cpu"``, where every kernel runs as its plain version).
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 # the intra-op thread count of every port test (``pin_torch_threads``)
 TORCH_THREADS = 2
+
+# ``exp_tripwire``'s probe: f32 arguments across exp's range (a long
+# vector, for the vectorised path, and a short one) and the bits of their
+# exp taken when this module is imported, at the start of a session
+_EXP_PROBES = (torch.linspace(-80.0, 80.0, 4099, dtype=torch.float32),
+               torch.tensor([-1.5, -1e-3, 0.0, 0.25, 1.0, 7.5, 30.0]))
+
+
+def _exp_bits():
+    return [torch.exp(p).view(torch.int32).clone() for p in _EXP_PROBES]
+
+
+_EXP_BITS = _exp_bits()
+# the last port test after which torch.exp still gave the start's bits
+_exp_clean = {"after": "(session start)"}
 
 
 def binned_problem(seed: int, n: int = 4000, f: int = 8, bins: int = 31,
@@ -154,16 +171,37 @@ def pin_torch_threads_module():
     yield
 
 
+def exp_tripwire(nodeid: str) -> None:
+    """``torch.exp`` on fixed f32 vectors against the bits taken at the
+    start of the session, run by ``pin_torch_threads`` after every port
+    test: a mismatch (a worker in the state in which a first training's
+    gradients come out a last bit off, ROADMAP C) issues a
+    ``PytestWarning`` naming the test ``nodeid`` and the last port test
+    after which exp was still right.  It never fails the test."""
+    now = _exp_bits()
+    bad = sum(int((a != b).sum()) for a, b in zip(now, _EXP_BITS))
+    if bad:
+        warnings.warn(pytest.PytestWarning(
+            f"torch.exp tripwire: after {nodeid}, {bad} of "
+            f"{sum(p.numel() for p in _EXP_PROBES)} probe values differ "
+            "from the session start's bits; exp was last right after "
+            f"{_exp_clean['after']}"))
+    else:
+        _exp_clean["after"] = nodeid
+
+
 @pytest.fixture(autouse=True)
-def pin_torch_threads(pin_torch_threads_module):
+def pin_torch_threads(request, pin_torch_threads_module):
     """Run every port test on ``TORCH_THREADS`` intra-op threads, set just
     before the test whatever an earlier test or module changed: a float
     reduction of the plain versions splits its work by the thread count,
     so a count that moved between two trainings of one test could round
     their sums differently.  Imported into each ``tests/test_torch_*.py``
-    (an imported fixture is the module's own)."""
+    (an imported fixture is the module's own).  After the test it runs
+    ``exp_tripwire``."""
     torch.set_num_threads(TORCH_THREADS)
     yield
+    exp_tripwire(request.node.nodeid)
 
 
 def multiclass_problem(seed: int, n: int = 3000, f: int = 6, k: int = 3,
