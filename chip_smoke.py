@@ -106,7 +106,11 @@ Phases, one JSON line each:
    31 leaves (CAT_STRICT_PER_ITERATION), each as goss_train (three paths,
    profiled byte-identical rerun, engine predict) plus categorical nodes
    a tree (> 0 in every tree), the fetch bytes an epoch, the model text
-   round trip and ``fused_predict`` held as fused_serve;
+   round trip and ``fused_predict`` held as fused_serve; cat_cons_train:
+   cat_strict_train with CAT_CONS_PARAMS (monotone on the two numerical
+   columns, penalty, contri, CEGB), so that B2-cat runs with its control
+   operands on a train path, held to CAT_STRICT_PER_ITERATION, with no
+   monotone violation over CONS_SWEEP_ROWS swept valid rows;
    multiclass_data and multiclass_kernels (after cat_kernels): a
    Covertype-shaped set (``make_covertype_like``: 581,012 rows, 10
    integer numeric and 44 one-hot columns, 7 classes at Covertype's
@@ -204,6 +208,26 @@ Phases, one JSON line each:
    device k-hot rows), the valid scores against the host walk of the raw
    rows, a profiled run; sparse_wide_train: 255 leaves with bagging and
    feature_fraction (SPARSE_WIDE_PER_ITERATION) the same way;
+   constraint_kernels (after sample_kernels): the kernels the split
+   controls extend, B2 and B2-cat (each control alone and all together,
+   each under the grower's params, path_smooth and max_delta_step),
+   B3s/B3s-K (tree, step outputs and the controls' state: output ranges,
+   branch sets, allowed masks, used features) and B6-node (per-child
+   bases), bit for bit against their plain versions at every live step
+   of a 31-leaf strict and a 255-leaf K = 16 tree (bynode 0.5) grown with
+   CONS_PARAMS on the 1M x 28 rows from iteration 0's exact gradients,
+   bitwise on a rerun, each timed on a middle step's inputs (B2 also
+   without the controls); constraint_train and constraint_wide_train
+   (after extra_train): CONS_PARAMS at 31 leaves (PER_ITERATION) and
+   CONS_WIDE_PARAMS at 255 leaves with bynode 0.5 (CONS_WIDE_PER_ITERATION,
+   held against the same run without the controls) as the sampled cells
+   run (three paths,
+   profiled byte-identical rerun, engine predict), plus no monotone
+   violation over CONS_SWEEP_ROWS valid rows swept across each monotone
+   feature's bin bounds on ``Booster.predict``, no root-to-leaf path
+   outside one interaction group, fewer features than without CEGB, each
+   CEGB penalty alone changing the first tree, and the steady it/s beside
+   the unconstrained runs';
    objectives_train (after multiclass_serve): each of the ten pointwise
    objectives on the HIGGS-shaped rows with a label in its domain, every
    path the JAX package allows with equal model text, the engine route's
@@ -213,10 +237,10 @@ Phases, one JSON line each:
 11. serve_kernels: B10a (forest walk), B10b (device binning) and B10c
    (fused forest predict) against their plain versions on the card, bit
    for bit, with the serving model's packed and int32 tables and with a
-   synthetic 500-tree forest with categorical splits and stumps, on the
-   200,000 valid rows with NaNs, exact threshold ties and out-of-range
-   values; then each kernel's, plain version's and library call's times
-   and bound on the plain valid rows;
+   synthetic SERVE_ROUNDS-tree forest with categorical splits and
+   stumps, on the 200,000 valid rows with NaNs, exact threshold ties and
+   out-of-range values; then each kernel's, plain version's and library
+   call's times and bound on the plain valid rows;
 12. predict: ``Booster.predict`` of the main path's booster and of the
    serving model on the 200,000 valid rows at ``predict_bucketed=auto``:
    the engine route (B10a launched once per bucket chunk of each call,
@@ -248,6 +272,7 @@ prints no ``ok`` line.  Without a CUDA card it exits with code 2.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -259,9 +284,11 @@ import numpy as np
 
 N_TRAIN, N_VALID, N_FEAT = 1_000_000, 200_000, 28
 NUM_LEAVES, MAX_BIN, ROUNDS, ES_ROUNDS = 31, 63, 50, 10
-# the serving model and the server's traffic
+# the serving model and the server's traffic (250 trees: the host walks
+# that check every answer set the serving phases' time, which keeps the
+# script within its limit)
 SERVE_ROUNDS, SERVE_REQUESTS, SERVE_THREADS, SERVE_MAX_BATCH = \
-    500, 2000, 8, 1024
+    250, 2000, 8, 1024
 # integer operations of one level of a forest walk (gathers, compares,
 # selects), counted against the f32 rate: the published peaks used here
 # list no int32 rate outside the tensor cores, and the H100 issues int32
@@ -525,6 +552,63 @@ SPARSE_WIDE_PER_ITERATION = {**WIDE_PER_ITERATION, "histogram": 0,
 SPARSE_LEAF_RTOL = 1e-4
 # the int16 lanes' row cap: rows * 32767 must stay under 2^31
 INT16_MAX_ROWS = (2 ** 31 - 1) // 32767
+# the split controls (constraint_kernels, constraint_train,
+# constraint_wide_train) on the HIGGS-shaped rows: monotone +1 on
+# features 0-3 and -1 on 4-5 with monotone_penalty 1 (no monotone split
+# at the root, half gain at depth 1), three overlapping interaction
+# groups, feature_contri 0.5 on features 20-27, and CEGB: a split penalty
+# of CEGB_SPLIT a row and a coupled penalty on features 10-27 (none on
+# 0-9).  The root may split only on non-monotone features, whose gains
+# are noise here (1.3-8.2 at iteration 0, after contri): without CEGB it
+# takes feature 17 and keeps every tree in the second group, away from the
+# signal of features 0-4 (12 features, valid AUC 0.50); a coupled penalty
+# of CEGB_COUPLED (50) moves it to feature 9 and the trees to the first
+# group.  The wide cell draws each root from half the features (bynode
+# 0.5), which may leave out 6-9, so its coupled penalty is
+# CEGB_WIDE_COUPLED (3): enough that each penalty alone changes the first
+# tree and the run uses fewer features, small enough that every root
+# keeps a split.  constraint_after checks both
+CONS_MONO = [1, 1, 1, 1, -1, -1] + [0] * (N_FEAT - 6)
+CONS_INTER = (tuple(range(0, 10)), tuple(range(8, 20)),
+              tuple(range(18, N_FEAT)))
+CEGB_SPLIT, CEGB_COUPLED, CEGB_WIDE_COUPLED = 1e-7, 50.0, 3.0
+CONS_PARAMS = {"monotone_constraints": CONS_MONO, "monotone_penalty": 1.0,
+               "interaction_constraints": ",".join(
+                   "[" + ",".join(map(str, g)) + "]" for g in CONS_INTER),
+               "feature_contri": [1.0] * 20 + [0.5] * (N_FEAT - 20),
+               "cegb_penalty_split": CEGB_SPLIT,
+               "cegb_penalty_feature_coupled":
+                   [0.0] * 10 + [CEGB_COUPLED] * (N_FEAT - 10)}
+# constraint_kernels also compares B2 and B2-cat with the controls under
+# path_smooth and max_delta_step (outputs there are about +-2)
+CONS_PATH_SMOOTH, CONS_MAX_DELTA_STEP = 2.0, 0.5
+# the valid rows swept across each monotone feature's bin bounds
+CONS_SWEEP_ROWS = 1000
+# the live step (strict) and super-step (K = 16) whose inputs
+# constraint_kernels times
+CONS_TIMED_STEP = {1: 10, WIDE_K: 4}
+# the controls ride the unconstrained launches: constraint_train is held
+# to PER_ITERATION, constraint_wide_train (255 leaves, bynode 0.5, no
+# bagging) to the wide grower's launches with a node draw a step, as the
+# same run without the controls (trained beside it)
+CONS_WIDE_BASE = {"num_leaves": WIDE_LEAVES, "feature_fraction_bynode": 0.5}
+CONS_WIDE_PARAMS = {**CONS_WIDE_BASE, **CONS_PARAMS,
+                    "cegb_penalty_feature_coupled":
+                        [0.0] * 10 + [CEGB_WIDE_COUPLED] * (N_FEAT - 10)}
+CONS_WIDE_PER_ITERATION = {**WIDE_PER_ITERATION, "bag_vals": 0,
+                           "node_draws": WIDE_LEAVES}
+# B2-cat with its control operands on a train path: cat_strict_train's
+# airline-shaped set with monotone +1 on DepTime and Distance (the
+# label rises with both), penalty, contri below 1 on two categorical
+# columns and CEGB (a coupled penalty on one), held to
+# CAT_STRICT_PER_ITERATION
+CAT_CONS_MONO = [0] * len(CAT_COLS) + [1, 1]
+CAT_CONS_PARAMS = {**CAT_STRICT_PARAMS, "monotone_constraints": CAT_CONS_MONO,
+                   "monotone_penalty": 1.0,
+                   "feature_contri": [1.0] * 4 + [0.9, 0.9, 1.0, 1.0],
+                   "cegb_penalty_split": CEGB_SPLIT,
+                   "cegb_penalty_feature_coupled":
+                       [0.0] * 4 + [CEGB_WIDE_COUPLED] + [0.0] * 3}
 KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
                 "partition",
                 "grow_step", "histogram_slots", "partition_slots",
@@ -535,14 +619,20 @@ KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
                 "histogram_int", "histogram_slots_int",
                 "histogram_sparse", "histogram_slots_sparse",
                 "partition_sparse", "partition_slots_sparse",
-                "predict_sparse", "forest_walk", "bin_rows",
+                "predict_sparse", "split_cons", "split_cat_cons",
+                "grow_step_cons", "grow_step_batched_cons",
+                "node_draws_base", "forest_walk", "bin_rows",
                 "fused_predict")
 # the launch counter of a kernels-line entry, where it is not its own key
 # (B2's per-child form is B2's wrapper and counter, B4's column form B4's)
 KERNEL_COUNTER = {"split_per_child": "split", "predict_column": "predict",
                   "partition_sparse": "partition",
                   "partition_slots_sparse": "partition_slots",
-                  "predict_sparse": "predict"}
+                  "predict_sparse": "predict", "split_cons": "split",
+                  "split_cat_cons": "split_cat",
+                  "grow_step_cons": "grow_step",
+                  "grow_step_batched_cons": "grow_step_batched",
+                  "node_draws_base": "node_draws"}
 # the path whose run gives a kernel's ``launches`` (the main path's where
 # not listed)
 KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
@@ -563,7 +653,12 @@ KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "histogram_slots_sparse": "sparse_wide_train",
                "partition_sparse": "sparse_train",
                "partition_slots_sparse": "sparse_wide_train",
-               "predict_sparse": "sparse_train_per_iteration"}
+               "predict_sparse": "sparse_train_per_iteration",
+               "split_cons": "constraint_train",
+               "split_cat_cons": "cat_cons_train",
+               "grow_step_cons": "constraint_train",
+               "grow_step_batched_cons": "constraint_wide_train",
+               "node_draws_base": "constraint_wide_train"}
 
 
 def times(counts, n: int):
@@ -2785,6 +2880,27 @@ def cat_after(torch, lgt, lgt_kernels, xv, prefix):
                     int(prog.out[:k].numel()) * 4,
                 "round_trip_equal": True,
                 "fused_serve_launches": launches}
+    return after
+
+
+def cat_cons_after(torch, lgt, lgt_kernels, train, xv):
+    """cat_cons_train's checks: cat_after's, the model's controls on
+    (so B2-cat took its control operands at every launch of the run) and
+    no monotone violation over CONS_SWEEP_ROWS swept valid rows."""
+    cat = cat_after(torch, lgt, lgt_kernels, xv, "cat_cons")
+
+    def after(bst, prog):
+        out = cat(bst, prog)
+        c = bst._model.constraints
+        if c is None or c.mono is None or c.mono_factor is None \
+                or c.contri is None or c.cegb_coupled is None:
+            raise AssertionError(f"cat_cons: the controls are off: {c}")
+        mono = _sweep_violations(bst, train, xv, CONS_SWEEP_ROWS,
+                                 CAT_CONS_MONO)
+        if any(mono.values()):
+            raise AssertionError(f"cat_cons: monotone violations {mono}")
+        return {**out, "monotone_violations": mono,
+                "features_used": sorted(_features_used(bst))}
     return after
 
 
@@ -5248,6 +5364,490 @@ def phase_objectives_train(torch, lgt, lgt_kernels, train, x, y, xv):
 # serving (B10)
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the split controls: monotone basic, interaction constraints,
+# feature_contri and CEGB (B2/B2-cat's operands, B3s/B3s-K's state, B6-node
+# drawing from each child's allowed features)
+# ---------------------------------------------------------------------------
+
+def _cons_config(params: dict, L: int):
+    """The Config of the main path's training with ``params``."""
+    from lightgbm_torch.config import Config
+    return Config({"objective": "binary", "num_leaves": L,
+                   "max_bin": MAX_BIN, "verbosity": -1, **params})
+
+
+def _device_constraints(torch, train, params: dict, L: int):
+    from lightgbm_torch import constraints as tc
+    cfg = _cons_config(params, L)
+    cegb = tc.make_cegb(cfg, train)
+    return tc.device_constraints(
+        L, torch.device("cuda", 0), mono=tc.monotone_vector(cfg, train),
+        mono_penalty=cfg.monotone_penalty,
+        contri=tc.contri_vector(cfg, train),
+        groups=tc.interaction_allow(cfg, train), cegb=cegb)
+
+
+def _split_variants(sp, cons):
+    """B2's split controls of one call, each control alone and all
+    together: name -> SplitConstraints."""
+    if cons is None:
+        return {}
+    return {
+        "mono_penalty": sp.SplitConstraints(
+            mono=cons.mono, out_lo=cons.out_lo, out_hi=cons.out_hi,
+            depth=cons.depth, factor=cons.factor),
+        "contri": sp.SplitConstraints(contri=cons.contri),
+        "cegb": sp.SplitConstraints(cegb_slope=cons.cegb_slope,
+                                    cegb_coupled=cons.cegb_coupled,
+                                    cuse=cons.cuse),
+        "all": cons}
+
+
+def _param_variants(prm):
+    """The split parameters B2's controls are compared under: the
+    grower's, with path smoothing (the monotone recompute's shift then
+    takes the long form of leaf_gain) and with max_delta_step (the
+    outputs clamped before the ranges clip them)."""
+    return {"params": prm,
+            "path_smooth": prm._replace(path_smooth=CONS_PATH_SMOOTH),
+            "max_delta_step": prm._replace(
+                max_delta_step=CONS_MAX_DELTA_STEP)}
+
+
+def _same_state(torch, a, b) -> bool:
+    return all(x is None or equal_bits(torch, x, y) for x, y in zip(a, b))
+
+
+def _cons_tree(torch, gr, sp, rnd, binned, vals, fmask, num_bin, na_bin, B,
+               L, K, params, cons, sampling, cat_flags, counts, snaps):
+    """Grow one tree with the split controls on the card; at every live
+    step hold B3s/B3s-K (tree, step outputs and the controls' state), B2
+    and B2-cat (each control alone and all together, each under the
+    grower's params, path_smooth and max_delta_step; B2-cat on the same
+    children with ``cat_flags`` [F] bool as the categorical features) and
+    B6-node (per-child bases) against their plain versions, bit for
+    bit.  Keeps the
+    middle live step's inputs in ``snaps``.  Returns the workspace."""
+    dev = binned.device
+    ws = gr.GrowWorkspace(binned.shape[0], num_bin.shape[0], B, L, dev,
+                          split_batch=K, constraints=cons)
+    it = torch.tensor([3], dtype=torch.int32, device=dev)
+    real = {"grow_step": gr.grow_step,
+            "grow_step_batched": gr.grow_step_batched,
+            "find_best_split": gr.find_best_split,
+            "node_draws": gr.node_draws}
+    tag = "B3s" if K == 1 else "B3s-K"
+    # the live step whose inputs are kept for timing
+    mid = CONS_TIMED_STEP[K]
+    state = {"live": 0}
+
+    def step_both(table, tree, na, **kw):
+        cs = kw["cons"]
+        nl0 = int(tree[0])
+        if K == 1:
+            outs = ("rec", "idx", "fstep", "flags")
+            kw_p = {k: (v.clone() if torch.is_tensor(v) else v)
+                    for k, v in kw.items()}
+        else:
+            outs = ("step",)
+            kw_p = dict(kw, step=gr.BatchedStep(*[t.clone()
+                                                  for t in kw["step"]]))
+        kw_p["cons"] = gr.StepConstraints(*[None if t is None else t.clone()
+                                            for t in cs])
+        tree_p = tree.clone()
+        pre = None
+        if "b3s" not in snaps.get(K, {}) and counts[tag] == mid:
+            pre = {"table": table.clone(), "tree": tree.clone(),
+                   "kw": {k: (v.clone() if torch.is_tensor(v) else v)
+                          for k, v in kw_p.items()},
+                   "cons": gr.StepConstraints(*[
+                       None if t is None else t.clone() for t in cs])}
+        (gr.grow_step_plain if K == 1 else gr.grow_step_batched_plain)(
+            table, tree_p, na, **kw_p)
+        real["grow_step" if K == 1 else "grow_step_batched"](
+            table, tree, na, **kw)
+        same = torch.equal(tree, tree_p) and _same_state(
+            torch, cs, kw_p["cons"])
+        for o in outs:
+            a, b = kw[o], kw_p[o]
+            same &= _same_state(torch, a, b) if o == "step" \
+                else equal_bits(torch, a, b)
+        if not same:
+            raise AssertionError(f"{tag} with the split controls (step "
+                                 f"{counts['steps'][K]}) differs from its "
+                                 "plain version")
+        counts["steps"][K] += 1
+        live = int(tree[0]) > nl0
+        state["live"] = live
+        counts[tag] += int(live)
+        if pre is not None and live:
+            snaps.setdefault(K, {})["b3s"] = pre
+
+    def split_both(hist, total, po, nb, na, fm, prm, active=None,
+                   rand_bin=None, is_cat=None, cons=None):
+        res = real["find_best_split"](hist, total, po, nb, na, fm, prm,
+                                      active=active, rand_bin=rand_bin,
+                                      is_cat=is_cat, cons=cons)
+        if active is not None and not bool(active[0]):
+            return res
+        args = (hist.clone(), total.clone(), po.clone(), nb, na, fm.clone(),
+                prm)
+        for cat in (None, cat_flags):
+            for (name, c), (pname, pv) in itertools.product(
+                    _split_variants(sp, cons).items(),
+                    _param_variants(prm).items()):
+                va = args[:-1] + (pv,)
+                r_k = real["find_best_split"](*va, rand_bin=rand_bin,
+                                              is_cat=cat, cons=c)
+                r_p = sp.find_best_split_plain(*va, rand_bin=rand_bin,
+                                               is_cat=cat, cons=c)
+                r_k = r_k if cat is not None else (r_k,)
+                r_p = r_p if cat is not None else (r_p,)
+                if not all(equal_bits(torch, a, b)
+                           for a, b in zip(r_k, r_p)):
+                    raise AssertionError(
+                        f"B2{'-cat' if cat is not None else ''} ({name}, "
+                        f"{pname}, {hist.shape[0]} children) differs from "
+                        "its plain version")
+                counts["B2" if cat is None else "B2-cat"] += 1
+            if "b2" not in snaps.get(K, {}) and hist.shape[0] == \
+                    (2 if K == 1 else 2 * K) and state["live"] \
+                    and counts[tag] == mid + 1:
+                snaps.setdefault(K, {})["b2"] = {
+                    "args": args, "rand_bin": rand_bin,
+                    "cons": sp.SplitConstraints(*[
+                        None if t is None else t.clone() for t in cons])}
+        return res
+
+    def draws_both(base, nb, rng_iter, *, masks, bins, active=None, **kw):
+        if active is not None and not bool(active[0]):
+            return real["node_draws"](base, nb, rng_iter, masks=masks,
+                                      bins=bins, active=active, **kw)
+        base_c = base.clone()
+        real["node_draws"](base, nb, rng_iter, masks=masks, bins=bins,
+                           active=active, **kw)
+        mp, bp = rnd.node_draws_plain(base_c, nb, rng_iter, **kw)
+        if not torch.equal(masks, mp) or (
+                kw["sampling"].extra_trees and not torch.equal(bins, bp)):
+            raise AssertionError(f"B6-node ({masks.shape[0]} children, "
+                                 "per-child bases) differs from its plain "
+                                 "version")
+        if base.dim() == 2 and bool((masks & ~base).any()):
+            raise AssertionError("B6-node drew a feature outside its "
+                                 "child's allowed set")
+        counts["B6-node"] += 1
+        if "b6" not in snaps.get(K, {}) and base.dim() == 2 and \
+                masks.shape[0] == 2 * K and counts[tag] == mid + 1:
+            snaps.setdefault(K, {})["b6"] = {
+                "base": base_c, "it": rng_iter.clone(), "kw": kw}
+
+    gr.grow_step, gr.grow_step_batched = step_both, step_both
+    gr.find_best_split, gr.node_draws = split_both, draws_both
+    try:
+        grow = gr.grow_tree if K == 1 else gr.grow_tree_batched
+        kw = {} if K == 1 else {"split_batch": K}
+        ws.cuse.zero_()
+        grow(binned, vals, fmask, num_bin, na_bin, num_leaves=L, num_bins=B,
+             params=params, workspace=ws, sampling=sampling, rng_iter=it,
+             constraints=cons, **kw)
+    finally:
+        gr.grow_step, gr.grow_step_batched = real["grow_step"], \
+            real["grow_step_batched"]
+        gr.find_best_split, gr.node_draws = real["find_best_split"], \
+            real["node_draws"]
+    torch.cuda.synchronize()
+    return ws
+
+
+def phase_constraint_kernels(torch, lgt, train):
+    """The kernels the split controls extend (B2, B2-cat, B3s, B3s-K,
+    B6-node) against their plain versions bit for bit at every live step
+    of a 31-leaf strict tree and a 255-leaf K = 16 tree with bynode 0.5,
+    grown with CONS_PARAMS (CONS_WIDE_PARAMS) on the 1M x 28 rows; the
+    vals are iteration
+    0's binary gradients (g = 0.5 - y, h = 0.25), so every histogram and
+    prefix sum is exact in f32 and the plain versions' other summation
+    orders give the same bits.  Both trees grown twice: the reruns
+    bitwise.  Each kernel timed on its middle live step's inputs beside
+    its plain version (B2 also without the controls, on the same
+    inputs), with the bound of that call's bytes and operations."""
+    from lightgbm_torch import grower as gr
+    from lightgbm_torch.ops import random as rnd
+    from lightgbm_torch.ops import split as sp
+    dev = torch.device("cuda", 0)
+    binned = torch.as_tensor(train.binned).to(dev)
+    n, f = binned.shape
+    B = int(train.max_bin)
+    mappers = [train.bin_mappers[i] for i in train.used_features]
+    num_bin = torch.tensor([m.num_bin for m in mappers], dtype=torch.int32,
+                           device=dev)
+    na_bin = torch.tensor([m.na_bin for m in mappers], dtype=torch.int32,
+                          device=dev)
+    y = torch.as_tensor(np.asarray(train.metadata.label, np.float32)).to(dev)
+    vals = torch.stack([0.5 - y, torch.full_like(y, 0.25),
+                        torch.ones_like(y)], dim=1).contiguous()
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    fmask[13] = False
+    is_cat = torch.zeros(f, dtype=torch.bool, device=dev)
+    is_cat[20:] = True
+    params = sp.SplitParams(min_data_in_leaf=20)
+    counts = {"B2": 0, "B2-cat": 0, "B3s": 0, "B3s-K": 0, "B6-node": 0,
+              "steps": {1: 0, WIDE_K: 0}}
+    snaps, trees = {}, {}
+    for L, K, cparams in ((NUM_LEAVES, 1, CONS_PARAMS),
+                          (WIDE_LEAVES, WIDE_K, CONS_WIDE_PARAMS)):
+        cons = _device_constraints(torch, train, cparams, L)
+        sampling = rnd.NodeSampling(bynode_frac=0.5, bynode_seed=3) \
+            if K > 1 else None
+        words = []
+        for rerun in range(2):
+            ws = _cons_tree(torch, gr, sp, rnd, binned, vals, fmask,
+                            num_bin, na_bin, B, L, K, params, cons, sampling,
+                            is_cat, counts, snaps)
+            words.append([ws.tree.clone(), ws.olo.clone(), ws.fallow.clone(),
+                          ws.cuse.clone()])
+        if not all(torch.equal(a, b) for a, b in zip(*words)):
+            raise AssertionError(f"the {L}-leaf tree with the split "
+                                 "controls differs on a rerun")
+        t = gr.fetch_tree(ws)
+        feats = set(int(v) for v in t.split_feature[:t.num_leaves - 1])
+        if t.num_leaves < L // 2 or 13 in feats:
+            raise AssertionError(f"the {L}-leaf tree: {t.num_leaves} "
+                                 f"leaves, features {sorted(feats)}")
+        trees[L] = {"leaves": t.num_leaves, "features": sorted(feats),
+                    "cuse": int(ws.cuse.sum())}
+        snaps[K]["ws"], snaps[K]["cons"] = ws, cons
+    if min(counts["B2"], counts["B2-cat"], counts["B3s"], counts["B3s-K"],
+           counts["B6-node"]) < 1:
+        raise AssertionError(f"a kernel was not compared: {counts}")
+
+    rows = []
+    # B2 with every control on the strict tree's timed step (2 children),
+    # B2-cat on the wide tree's (2K = 32 children)
+    for K, key, cat in ((1, "split", None), (WIDE_K, "split_cat", is_cat)):
+        s = snaps[K]["b2"]
+        args, cons, rb = s["args"], s["cons"], s["rand_bin"]
+        C = args[0].shape[0]
+        cand = 2 * C * f * B
+        cons_bytes = C * 12 + 4 * f * 4 + f + f * 4
+
+        def kern(c=cons, cat=cat):
+            return sp.find_best_split(*args, rand_bin=rb, is_cat=cat,
+                                      cons=c)
+
+        def plain(c=cons, cat=cat):
+            return sp.find_best_split_plain(*args, rand_bin=rb,
+                                            is_cat=cat, cons=c)
+        t_k = median_ms(torch, kern)
+        t_p = median_ms(torch, plain)
+        t_u = median_ms(torch, lambda: kern(None))
+        r_k, r_p = kern(), plain()
+        r_k = r_k if cat is not None else (r_k,)
+        r_p = r_p if cat is not None else (r_p,)
+        err = exact_err(torch, zip(r_k, r_p), f"{key} with the "
+                        "controls (timed call)")
+        nbytes = args[0].numel() * 4 + C * 16 + 2 * f * 4 + C * f \
+            + cons_bytes + C * sp.RECORD * 4 \
+            + (0 if cat is None else C * B * 4 + f)
+        ops = 60 * cand if cat is None else 60 * cand + 2 * C * f * B * B
+        name = "B2 split scan" if cat is None else "B2-cat scan"
+        rows.append((f"{key}_cons",
+                     f"{name} with monotone clamps, penalty, contri "
+                     f"and CEGB ({C} children)",
+                     "lightgbm_torch/csrc/split.cu",
+                     "lightgbm_tpu/ops/split.py:301" if cat is None
+                     else "lightgbm_tpu/ops/split.py:401", err, t_k, t_p,
+                     bound_ms(nbytes, ops), None,
+                     {"unconstrained_ms": t_u}))
+    # B3s and B3s-K with the controls' state on the timed step
+    for K, key, fn_k, fn_p in ((1, "grow_step_cons", gr.grow_step,
+                                gr.grow_step_plain),
+                               (WIDE_K, "grow_step_batched_cons",
+                                gr.grow_step_batched,
+                                gr.grow_step_batched_plain)):
+        s = snaps[K]["b3s"]
+        L = NUM_LEAVES if K == 1 else WIDE_LEAVES
+        table, tree0, cons0 = s["table"], s["tree"], s["cons"]
+        tree = tree0.clone()
+        kw = dict(s["kw"])
+        live_cons = gr.StepConstraints(*[None if t is None else t.clone()
+                                         for t in cons0])
+        kw["cons"] = live_cons
+
+        def call(fn, reset_state=False, kw=kw, tree=tree, tree0=tree0,
+                 table=table, cons0=cons0, live_cons=live_cons):
+            tree.copy_(tree0)
+            if reset_state:
+                for a, b in zip(live_cons, cons0):
+                    if a is not None:
+                        a.copy_(b)
+            fn(table, tree, na_bin, **kw)
+        # timed from the step's tree (its reset copy in the time); the
+        # controls' state is overwritten by each call, the same work
+        t_k = median_ms(torch, lambda: call(fn_k))
+        t_p = median_ms(torch, lambda: call(fn_p))
+        call(fn_k, True)
+        got_k = [tree.clone()] + [t.clone() for t in live_cons
+                                  if t is not None]
+        call(fn_p, True)
+        got_p = [tree] + [t for t in live_cons if t is not None]
+        err = exact_err(torch, zip(got_k, got_p), f"{key} (the timed "
+                        "step)")
+        state_bytes = sum(t.numel() * t.element_size() for t in cons0
+                          if t is not None)
+        nbytes = table.numel() * 4 + 2 * tree0.numel() * 4 + 2 * state_bytes
+        g = int(cons0.groups.shape[0])
+        rows.append((key, ("B3s split step" if K == 1 else
+                           "B3s-K batched split step")
+                     + " with monotone ranges, branch sets and CEGB marks",
+                     "lightgbm_torch/csrc/grow_step.cu",
+                     "lightgbm_tpu/grower.py:819" if K == 1 else
+                     "lightgbm_tpu/grower.py:1094", err, t_k, t_p,
+                     bound_ms(nbytes, L * L + 3 * K * g * f), None, {}))
+    # B6-node with per-child bases on the wide tree's middle super-step
+    s = snaps[WIDE_K]["b6"]
+    base, it6, kw6 = s["base"], s["it"], s["kw"]
+    C = base.shape[0]
+    mk = torch.zeros((C, f), dtype=torch.bool, device=dev)
+    bk = torch.zeros((C, f), dtype=torch.int32, device=dev)
+    t_k = median_ms(torch, lambda: rnd.node_draws(base, num_bin, it6,
+                                                  masks=mk, bins=bk, **kw6))
+    t_p = median_ms(torch, lambda: rnd.node_draws_plain(base, num_bin, it6,
+                                                        **kw6))
+    mp, _ = rnd.node_draws_plain(base, num_bin, it6, **kw6)
+    err = exact_err(torch, [(mk, mp)], "B6-node per-child bases (timed "
+                    "call)")
+    rows.append(("node_draws_base", "B6-node per-child subsets drawn from "
+                 f"each child's allowed features ({C} children)",
+                 "lightgbm_torch/csrc/sample.cu",
+                 "lightgbm_tpu/grower.py:495", err, t_k, t_p,
+                 bound_ms(C * f + 4 * f + 4 + C * f,
+                          C * f * (THREEFRY_OPS
+                                   + int(np.ceil(np.log2(f))) + 1)), None,
+                 {}))
+    out = {}
+    for key, name, src_path, replaces, e, tk, tp, (bms, by), tl, more \
+            in rows:
+        out[key] = {"name": name, "route": "cuda", "source": src_path,
+                    "replaces": replaces, "max_abs_err": e, "ms": tk,
+                    "plain_ms": tp, "bound_ms": bms, "bound_by": by,
+                    "library_ms": tl}
+        emit({"phase": "kernel", **out[key], "kernel_ms": tk, **more})
+    emit({"phase": "constraint_kernels", "compared_bitwise": {
+        k: v for k, v in counts.items() if k != "steps"},
+        "steps": {str(k): v for k, v in counts["steps"].items()},
+        "trees": {str(k): v for k, v in trees.items()},
+        "reruns_bitwise": True})
+    return out
+
+
+def _sweep_violations(bst, train, xv, rows: int, mono=CONS_MONO) -> dict:
+    """Monotone violations of ``Booster.predict`` (raw scores) over
+    ``rows`` valid rows, each swept across every feature's finite bin
+    bounds that ``mono`` constrains: consecutive predictions that move
+    against the constraint, by feature."""
+    out = {}
+    base = np.ascontiguousarray(xv[:rows], np.float32)
+    for j, sign in enumerate(mono):
+        if sign == 0:
+            continue
+        ub = train.bin_mappers[j].bin_upper_bound
+        grid = np.asarray(ub[np.isfinite(ub)], np.float32)
+        grid = np.concatenate([[grid[0] - 1.0], grid])
+        x = np.repeat(base, len(grid), axis=0)
+        x[:, j] = np.tile(grid, rows)
+        p = np.asarray(bst.predict(x, raw_score=True)).reshape(
+            rows, len(grid))
+        d = np.diff(p, axis=1)
+        out[str(j)] = int((d < 0).sum() if sign > 0 else (d > 0).sum())
+    return out
+
+
+def _interaction_violations(bst) -> int:
+    """Root-to-leaf paths whose features lie in no one group of
+    CONS_INTER."""
+    groups = [set(g) for g in CONS_INTER]
+    bad = 0
+    for t in bst._model.models:
+        if t.num_leaves <= 1:
+            continue
+        stack = [(0, frozenset())]
+        while stack:
+            node, feats = stack.pop()
+            if node < 0:
+                bad += not any(feats <= g for g in groups)
+                continue
+            f2 = feats | {int(t.split_feature[node])}
+            stack += [(int(t.left_child[node]), f2),
+                      (int(t.right_child[node]), f2)]
+    return bad
+
+
+def _features_used(bst) -> set:
+    out = set()
+    for t in bst._model.models:
+        out |= set(int(v) for v in t.split_feature[:t.num_leaves - 1])
+    return out
+
+
+def constraint_after(torch, lgt, lgt_kernels, train, valid, xv, params,
+                     per_it, rounds, plain_steady, twin=None):
+    """More checks of a constraint_train super-epoch model: no monotone
+    violation over CONS_SWEEP_ROWS swept valid rows, no interaction
+    violation, fewer distinct features than the same run without CEGB,
+    each CEGB penalty alone changing the first tree (per-iteration runs
+    of one round), and the steady it/s beside the unconstrained runs'
+    (``plain_steady``: name -> it/s; ``twin``: the params of the same
+    run without the four controls, trained here as super-epochs with
+    launches held to ``per_it``)."""
+    cegb_keys = ("cegb_penalty_split", "cegb_penalty_feature_coupled")
+
+    def after(bst, prog):
+        mono = _sweep_violations(bst, train, xv, CONS_SWEEP_ROWS)
+        inter = _interaction_violations(bst)
+        if any(mono.values()) or inter:
+            raise AssertionError(f"constraint violations: monotone "
+                                 f"{mono}, interaction paths {inter}")
+        no_cegb = {k: v for k, v in params.items() if k not in cegb_keys}
+        b0, _, _ = train_main(lgt, train, valid, extra=no_cegb,
+                              rounds=rounds)
+        used, used0 = _features_used(bst), _features_used(b0)
+        if not len(used) < len(used0):
+            raise AssertionError(f"CEGB: {len(used)} features used, "
+                                 f"{len(used0)} without it")
+        one = {**no_cegb, "superepoch": -1, "fused_chunk": 1}
+        first = {}
+        for name, extra in (("none", {}), *(
+                (k, {k: params[k]}) for k in cegb_keys)):
+            b1, _, _ = train_main(lgt, train, valid, extra={**one, **extra},
+                                  rounds=1)
+            first[name] = tree_sections(b1.model_to_string(), 1)
+        if any(first[k] == first["none"] for k in cegb_keys):
+            raise AssertionError("a CEGB penalty alone leaves the first "
+                                 "tree as it is")
+        out = {"monotone_violations": mono,
+               "interaction_violations": inter,
+               "features_used": len(used),
+               "features_used_without_cegb": len(used0),
+               "cegb_each_changes_first_tree": True,
+               "steady_iterations_per_s_unconstrained": dict(plain_steady)}
+        if twin is not None:
+            lgt_kernels.reset_launch_counts()
+            bt, _, _ = train_main(lgt, train, valid, extra=twin,
+                                  rounds=rounds)
+            pt = fused_program(bt._model)
+            if pt.captured != per_it:
+                raise AssertionError(f"the unconstrained twin's launches "
+                                     f"{pt.captured}, expected {per_it}")
+            st = bt._model.epoch_ms[1:] or bt._model.epoch_ms
+            k = max(2, min(25, ES_ROUNDS))
+            out["steady_iterations_per_s_unconstrained"]["twin"] = \
+                1e3 * k / statistics.median(st)
+        return out
+    return after
+
+
 def host_walk(bst, x, **kw):
     """``Booster.predict`` by the host tree walk (``predict_bucketed=false``),
     leaving the booster's mode and engine cache as they were."""
@@ -5850,6 +6450,7 @@ def main() -> int:
     wide_kernels, dead_ms = phase_wide_kernels(torch, lgt, train)
     kernels.update(wide_kernels)
     kernels.update(phase_sample_kernels(torch, lgt, train))
+    kernels.update(phase_constraint_kernels(torch, lgt, train))
     cat_xv, cat_train, cat_valid = phase_cat_data(lgt)
     kernels.update(phase_cat_kernels(torch, lgt, cat_train, cat_valid))
     mc_xv, mc_train, mc_valid = phase_mc_data(lgt)
@@ -5890,6 +6491,20 @@ def main() -> int:
         sampled_counts.update(phase_sampled_train(
             torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
             per_it, rounds=rounds)[0])
+    # the split controls: the strict and the wide shape, launches held to
+    # those of the same runs without the controls
+    plain_steady = {"main_path": 1e3 / epoch_ms_per_it,
+                    "wide_train": 1e3 / wide_ms}
+    for prefix, params, per_it, rounds, twin in (
+            ("constraint", {"num_leaves": NUM_LEAVES, **CONS_PARAMS},
+             PER_ITERATION, ROUNDS, None),
+            ("constraint_wide", CONS_WIDE_PARAMS, CONS_WIDE_PER_ITERATION,
+             CUT_ROUNDS, CONS_WIDE_BASE)):
+        sampled_counts.update(phase_sampled_train(
+            torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
+            per_it, rounds=rounds, after=constraint_after(
+                torch, lgt, lgt_kernels, train, valid, xv, params, per_it,
+                rounds, plain_steady, twin))[0])
     # quantized training: the main configuration (its AUC held to the f32
     # main path's) and the wide one
     for prefix, params, per_it, rounds in (
@@ -5907,6 +6522,11 @@ def main() -> int:
             torch, lgt, lgt_kernels, cat_train, cat_valid, cat_xv, prefix,
             params, per_it, rounds=CUT_ROUNDS,
             after=cat_after(torch, lgt, lgt_kernels, cat_xv, prefix))[0])
+    sampled_counts.update(phase_sampled_train(
+        torch, lgt, lgt_kernels, cat_train, cat_valid, cat_xv, "cat_cons",
+        CAT_CONS_PARAMS, CAT_STRICT_PER_ITERATION, rounds=CUT_ROUNDS,
+        after=cat_cons_after(torch, lgt, lgt_kernels, cat_train,
+                             cat_xv))[0])
     sampled_counts.update(phase_efb_train(
         torch, lgt, lgt_kernels, efb_sets[1], efb_sets[2], efb_sets[0],
         *efb_sets[3:]))
@@ -5971,7 +6591,9 @@ def main() -> int:
               "dequant_hist", "histogram_int", "histogram_slots_int",
               "histogram_sparse", "histogram_slots_sparse",
               "partition_sparse", "partition_slots_sparse",
-              "predict_sparse"):
+              "predict_sparse", "split_cons", "split_cat_cons",
+              "grow_step_cons", "grow_step_batched_cons",
+              "node_draws_base"):
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

@@ -85,6 +85,13 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# B2's and B2-cat's split controls (csrc/split.cu Cons): mono, lo, hi,
+# depth, factor, n_factor, contri, slope, coupled, cuse
+_SPLIT_CONS = (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P)
+# B3s's and B3s-K's split-control state (csrc/grow_step.cu
+# StepCons): mono, olo, ohi, clo, chi, cdepth, groups, G, F,
+# feature_mask, fallow, cmask, cuse
+_STEP_CONS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P)
 # C entry point -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "histogram": {
@@ -98,10 +105,11 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "split": {
         "lgbt_split": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F,
-                       _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P),
+                       _F, _F, _F, _F, _F, _F, *_SPLIT_CONS, _P, _P, _P, _P,
+                       _P),
         "lgbt_split_cat": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                           _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P,
-                           _P, _P, _P, _P),
+                           _F, _F, _F, _F, _F, _F, _I, _I, *_SPLIT_CONS, _P,
+                           _P, _P, _P, _P, _P, _P, _P),
         "lgbt_split_setup": (),
     },
     "partition": {
@@ -112,10 +120,11 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_partition_setup": (),
     },
     "grow_step": {
-        "lgbt_grow_step": (_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
-                           _P),
-        "lgbt_grow_step_batched": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _P,
-                                   _P, _P, _P, _P, _P, _P, _P, _P),
+        "lgbt_grow_step": (_P, _P, _P, _I, _I, _P, _P, _I, *_STEP_CONS, _P,
+                           _P, _P, _P, _P),
+        "lgbt_grow_step_batched": (_P, _P, _P, _I, _I, _I, _P, _P, _I,
+                                   *_STEP_CONS, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P),
         "lgbt_grow_step_setup": (),
     },
     "sample": {
@@ -123,8 +132,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                           _F, _F, _P, _P),
         "lgbt_goss_vals": (_P, _P, ctypes.c_longlong, _P, _U, _U, _F, _F, _P,
                            _P, _P, _P, _P),
-        "lgbt_node_draws": (_P, _P, _I, _I, _P, _P, _I, _U, _U, _U, _F, _I,
-                            _U, _U, _U, _P, _P, _P),
+        "lgbt_node_draws": (_P, _I, _P, _I, _I, _P, _P, _I, _U, _U, _U, _F,
+                            _I, _U, _U, _U, _P, _P, _P),
         "lgbt_sample_setup": (),
     },
     "predict": {

@@ -51,11 +51,137 @@
 // cost, which a CUDA graph replay makes a few microseconds.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kRecord = 12;
+constexpr int kMaxBatch = 256;
+
+// ---------------------------------------------------------------------------
+// The split controls' state (optional, `StepCons`; the JAX package's
+// grower.py constraint state :126-135 and its updates :819-871,
+// :1094-1152).  Each split of a step also does, in the same launch:
+//   - monotone ranges (`mono` [F] int8): the leaf's output range [olo,
+//     ohi] ([rows] f32; the whole line at the tree's first split, whose
+//     leaf is the root) goes to both children, a +1 split capping the
+//     left child's high end and raising the right child's low end at
+//     mid = 0.5 * (left output + right output) (the already-clipped
+//     outputs of the table row), mirrored for -1; categorical splits and
+//     features without a constraint pass the range on (`_child_ranges`,
+//     :567-577).  The children's ranges and depths also go to clo/chi
+//     [C] f32 and cdepth [C] int32, B2's per-child operands;
+//   - branch sets (`groups` [G, F] uint8, interaction constraints): the
+//     leaf's branch set fallow[leaf] ([rows, F]; empty at the first
+//     split) with the split feature goes to both children, and each
+//     child's allowed features are the branch set and every group that
+//     contains all of it, & feature_mask (`_inter_allowed`, :468-473),
+//     into cmask [C, F], B2's and B6-node's per-child mask;
+//   - CEGB (`cuse` [F] uint8): the split feature is marked used
+//     (:864-868; batched: every valid slot's, :1145-1149), before the
+//     children are scanned.
+// A batched slot that does not split writes the whole line, depth 0 and
+// an empty branch set into its scratch rows and feature_mask into its
+// children's masks: their gains are masked, so the values only have to be
+// the same in the plain version.  The C children of a step are the K
+// leaves, then the K new leaves (K = 1 strict).
+
+struct StepCons {
+  const int8_t* mono;      // [F] or null
+  float* olo;              // [rows] leaf output ranges (with mono)
+  float* ohi;
+  float* clo;              // [C] children's ranges (with mono)
+  float* chi;
+  int32_t* cdepth;         // [C] children's depths (with mono)
+  const uint8_t* groups;   // [G, F] or null
+  int G, F;
+  const uint8_t* fmask;    // [F] feature_mask (with groups)
+  uint8_t* fallow;         // [rows, F] branch sets (with groups)
+  uint8_t* cmask;          // [C, F] children's allowed masks (with groups)
+  uint8_t* cuse;           // [F] used features, or null
+};
+
+// a split as the state update reads it
+struct SlotSplit {
+  int on, leaf, new_leaf, feat, icat, depth;
+  float lo, ro;            // the split's child outputs
+};
+
+// slot k's ranges and depths (one thread a slot); `first`: the tree's
+// first split (the root's state)
+__device__ void cons_ranges(const StepCons& c, const SlotSplit& s, int k,
+                            int n, bool first) {
+  if (c.mono == nullptr) return;
+  float l_lo = -INFINITY, l_hi = INFINITY, r_lo = -INFINITY, r_hi = INFINITY;
+  int d = 0;
+  if (s.on) {
+    const float lo_p = first ? -INFINITY : c.olo[s.leaf];
+    const float hi_p = first ? INFINITY : c.ohi[s.leaf];
+    const int mc = c.mono[s.feat];
+    const bool apply = mc != 0 && !s.icat, up = mc > 0;
+    const float mid = 0.5f * (s.lo + s.ro);
+    l_lo = apply && !up ? fmaxf(lo_p, mid) : lo_p;
+    l_hi = apply && up ? fminf(hi_p, mid) : hi_p;
+    r_lo = apply && up ? fmaxf(lo_p, mid) : lo_p;
+    r_hi = apply && !up ? fminf(hi_p, mid) : hi_p;
+    d = s.depth;
+  }
+  c.olo[s.leaf] = l_lo;
+  c.ohi[s.leaf] = l_hi;
+  c.olo[s.new_leaf] = r_lo;
+  c.ohi[s.new_leaf] = r_hi;
+  c.clo[k] = l_lo;
+  c.chi[k] = l_hi;
+  c.clo[n + k] = r_lo;
+  c.chi[n + k] = r_hi;
+  c.cdepth[k] = c.cdepth[n + k] = d;
+}
+
+// block-wide: the branch sets and allowed masks of n slots' children;
+// s_contains: n * G ints of shared memory
+__device__ void cons_masks(const StepCons& c, const SlotSplit* sp, int n,
+                           bool first, int* s_contains) {
+  if (c.groups == nullptr) return;
+  const int F = c.F, G = c.G, tid = threadIdx.x, nt = blockDim.x;
+  // the children's branch set, staged in the new leaf's row (a fresh or
+  // scratch row that no other slot reads)
+  for (int j = tid; j < n * F; j += nt) {
+    const int k = j / F, f = j % F;
+    const SlotSplit& s = sp[k];
+    uint8_t b = 0;
+    if (s.on)
+      b = ((!first && c.fallow[(long long)s.leaf * F + f] != 0) ||
+           f == s.feat) ? 1 : 0;
+    c.fallow[(long long)s.new_leaf * F + f] = b;
+  }
+  for (int j = tid; j < n * G; j += nt) s_contains[j] = 1;
+  __syncthreads();
+  // group g contains the branch unless a branch feature lies outside it
+  for (long long j = tid; j < (long long)n * G * F; j += nt) {
+    const int k = (int)(j / ((long long)G * F));
+    const int g = (int)((j / F) % G), f = (int)(j % F);
+    if (c.groups[(long long)g * F + f] == 0 &&
+        c.fallow[(long long)sp[k].new_leaf * F + f] != 0)
+      s_contains[k * G + g] = 0;
+  }
+  __syncthreads();
+  for (int j = tid; j < n * F; j += nt) {
+    const int k = j / F, f = j % F;
+    const SlotSplit& s = sp[k];
+    const uint8_t br = c.fallow[(long long)s.new_leaf * F + f];
+    uint8_t a = c.fmask[f];
+    if (s.on) {
+      bool any = br != 0;
+      for (int g = 0; g < G && !any; ++g)
+        any = s_contains[k * G + g] != 0 && c.groups[(long long)g * F + f];
+      a = any && c.fmask[f] != 0 ? 1 : 0;
+    }
+    c.fallow[(long long)s.leaf * F + f] = br;
+    c.cmask[(long long)k * F + f] = a;
+    c.cmask[(long long)(n + k) * F + f] = a;
+  }
+}
 
 __device__ __forceinline__ int32_t as_i(float v) { return __float_as_int(v); }
 
@@ -70,7 +196,7 @@ __device__ void split_node(const float* __restrict__ table,
                            long long* __restrict__ idx,
                            float* __restrict__ fstep,
                            uint8_t* __restrict__ flags, int* out_leaf,
-                           int* out_node) {
+                           int* out_node, SlotSplit* sp, int* first) {
   const int nn = L - 1;
   int32_t* num_leaves = tree;
   int32_t* done = tree + 1;
@@ -102,6 +228,8 @@ __device__ void split_node(const float* __restrict__ table,
   }
   const bool can = *done == 0 && nl < L && best > 0.f;
   const int new_leaf = nl < L ? nl : L - 1;
+  sp->on = 0;
+  *first = nl == 1 ? 1 : 0;
   idx[0] = leaf;
   idx[1] = new_leaf != leaf ? new_leaf : (leaf + 1) % L;
   rec[0] = leaf;
@@ -155,6 +283,7 @@ __device__ void split_node(const float* __restrict__ table,
     *out_leaf = leaf;
     *out_node = i;
   }
+  *sp = SlotSplit{1, leaf, new_leaf, feat, icat ? 1 : 0, d, r[10], r[11]};
   const bool smaller_left = lcount <= rcount;
   rec[2] = feat;
   rec[3] = thr;
@@ -172,19 +301,27 @@ __global__ void grow_step(const float* __restrict__ table,
                           int max_depth,
                           const int32_t* __restrict__ leaf_cat,
                           const int32_t* __restrict__ leaf_rank,
-                          int cat_bins, int32_t* __restrict__ rec,
+                          int cat_bins, StepCons cons,
+                          int32_t* __restrict__ rec,
                           long long* __restrict__ idx,
                           float* __restrict__ fstep,
                           uint8_t* __restrict__ flags) {
-  __shared__ int s_leaf, s_node;
+  extern __shared__ int s_contains[];   // [G]
+  __shared__ int s_leaf, s_node, s_first;
+  __shared__ SlotSplit s_split;
   const int nn = L - 1;
   int32_t* cat_rank = tree + 2 + 9 * nn + 5 * L + 1 + nn;
   if (threadIdx.x == 0) {
     s_leaf = -1;
     split_node(table, tree, na_bin, L, max_depth, leaf_cat, cat_bins, rec,
-               idx, fstep, flags, &s_leaf, &s_node);
+               idx, fstep, flags, &s_leaf, &s_node, &s_split, &s_first);
+    if (s_split.on) {
+      cons_ranges(cons, s_split, 0, 1, s_first != 0);
+      if (cons.cuse != nullptr) cons.cuse[s_split.feat] = 1;
+    }
   }
   __syncthreads();
+  if (s_split.on) cons_masks(cons, &s_split, 1, s_first != 0, s_contains);
   if (cat_bins == 0 || s_leaf < 0) return;
   for (int b = threadIdx.x; b < cat_bins; b += blockDim.x)
     cat_rank[(long long)s_node * cat_bins + b] =
@@ -255,7 +392,7 @@ __global__ void grow_step_batched(const float* __restrict__ table,
                                   int K, int max_depth,
                                   const int32_t* __restrict__ leaf_cat,
                                   const int32_t* __restrict__ leaf_rank,
-                                  int cat_bins,
+                                  int cat_bins, StepCons cons,
                                   int32_t* __restrict__ recs,
                                   int32_t* __restrict__ slot_of_leaf,
                                   long long* __restrict__ idx2,
@@ -264,7 +401,9 @@ __global__ void grow_step_batched(const float* __restrict__ table,
                                   uint8_t* __restrict__ small_left,
                                   uint8_t* __restrict__ keep2,
                                   int32_t* __restrict__ status) {
-  extern __shared__ int32_t top[];   // [K] leaves by rank, then L gains
+  // [K] leaves by rank, then L gains, then K * G containment flags
+  extern __shared__ int32_t top[];
+  __shared__ SlotSplit s_split[kMaxBatch];
   const int nn = L - 1;
   int32_t* num_leaves = tree;
   int32_t* done = tree + 1;
@@ -333,6 +472,7 @@ __global__ void grow_step_batched(const float* __restrict__ table,
     rec[0] = leaf;
     rec[1] = new_leaf;
     rec[7] = valid ? 1 : 0;
+    s_split[k] = SlotSplit{0, leaf, new_leaf, 0, 0, 0, 0.f, 0.f};
     if (!valid) {
       rec[2] = rec[3] = rec[4] = 0;
       rec[5] = -1;
@@ -379,9 +519,15 @@ __global__ void grow_step_batched(const float* __restrict__ table,
       const uint8_t keep = (max_depth <= 0 || d < max_depth) ? 1 : 0;
       keep2[k] = keep2[K + k] = keep;
       slot_of_leaf[leaf] = k;
+      s_split[k] = SlotSplit{1, leaf, new_leaf, feat, icat ? 1 : 0, d, r[10],
+                             r[11]};
+      if (cons.cuse != nullptr) cons.cuse[feat] = 1;
     }
+    cons_ranges(cons, s_split[k], k, K, nl == 1);
   }
   __syncthreads();
+  cons_masks(cons, s_split, K, nl == 1,
+             reinterpret_cast<int*>(top + K) + L);
   if (cat_bins > 0) {
     int32_t* cat_rank = n_steps + 1 + nn;
     for (int j = tid; j < nvalid * cat_bins; j += blockDim.x) {
@@ -404,16 +550,36 @@ __global__ void grow_step_batched(const float* __restrict__ table,
 
 }  // namespace
 
+// The split controls' state (StepCons, each pointer null when off): mono
+// [F] int8 with olo/ohi [rows], clo/chi [C] f32 and cdepth [C] int32;
+// groups [G, F] uint8 with feature_mask [F], fallow [rows, F] and cmask
+// [C, F] uint8; cuse [F] uint8.  G * K must stay within kMaxContains.
+constexpr int kMaxContains = 8192;
+
 // leaf_cat [L] and leaf_rank [L, B] may be null (cat_bins 0).
 extern "C" int lgbt_grow_step(const float* table, int32_t* tree,
                               const int32_t* na_bin, int num_leaves,
                               int max_depth, const int32_t* leaf_cat,
                               const int32_t* leaf_rank, int cat_bins,
-                              int32_t* rec, long long* idx, float* fstep,
-                              uint8_t* flags, cudaStream_t stream) {
-  grow_step<<<1, 32, 0, stream>>>(table, tree, na_bin, num_leaves, max_depth,
-                                  leaf_cat, leaf_rank, cat_bins, rec, idx,
-                                  fstep, flags);
+                              const int8_t* mono, float* olo, float* ohi,
+                              float* clo, float* chi, int32_t* cdepth,
+                              const uint8_t* groups, int G, int F,
+                              const uint8_t* fmask, uint8_t* fallow,
+                              uint8_t* cmask, uint8_t* cuse, int32_t* rec,
+                              long long* idx, float* fstep, uint8_t* flags,
+                              cudaStream_t stream) {
+  if (groups != nullptr && G > kMaxContains)
+    return (int)cudaErrorInvalidValue;
+  const StepCons cons{mono, olo, ohi, clo, chi, cdepth, groups, G, F,
+                      fmask, fallow, cmask, cuse};
+  // a block where the step has per-thread work (the branch sets'
+  // containment test, the rank row's copy), else one warp
+  const int threads = groups != nullptr || cat_bins > 0 ? 256 : 32;
+  const size_t smem = groups != nullptr ? (size_t)G * sizeof(int) : 0;
+  grow_step<<<1, threads, smem, stream>>>(table, tree, na_bin, num_leaves,
+                                      max_depth, leaf_cat, leaf_rank,
+                                      cat_bins, cons, rec, idx, fstep,
+                                      flags);
   return (int)cudaGetLastError();
 }
 
@@ -425,18 +591,31 @@ extern "C" int lgbt_grow_step_batched(const float* table, int32_t* tree,
                                       int split_batch, int max_depth,
                                       const int32_t* leaf_cat,
                                       const int32_t* leaf_rank, int cat_bins,
+                                      const int8_t* mono, float* olo,
+                                      float* ohi, float* clo, float* chi,
+                                      int32_t* cdepth, const uint8_t* groups,
+                                      int G, int F, const uint8_t* fmask,
+                                      uint8_t* fallow, uint8_t* cmask,
+                                      uint8_t* cuse,
                                       int32_t* recs, int32_t* slot_of_leaf,
                                       long long* idx2, float* tot2,
                                       float* po2, uint8_t* small_left,
                                       uint8_t* keep2, int32_t* status,
                                       cudaStream_t stream) {
+  if (split_batch > kMaxBatch ||
+      (groups != nullptr && (long long)G * split_batch > kMaxContains))
+    return (int)cudaErrorInvalidValue;
+  const StepCons cons{mono, olo, ohi, clo, chi, cdepth, groups, G, F,
+                      fmask, fallow, cmask, cuse};
   const int threads = 256;
   const size_t smem = (size_t)split_batch * sizeof(int32_t) +
-                      (size_t)num_leaves * sizeof(float);
+                      (size_t)num_leaves * sizeof(float) +
+                      (groups != nullptr
+                           ? (size_t)G * split_batch * sizeof(int) : 0);
   grow_step_batched<<<1, threads, smem, stream>>>(
       table, tree, na_bin, num_leaves, split_batch, max_depth, leaf_cat,
-      leaf_rank, cat_bins, recs, slot_of_leaf, idx2, tot2, po2, small_left,
-      keep2, status);
+      leaf_rank, cat_bins, cons, recs, slot_of_leaf, idx2, tot2, po2,
+      small_left, keep2, status);
   return (int)cudaGetLastError();
 }
 

@@ -254,7 +254,11 @@ __global__ void goss_weights(const float* __restrict__ g,
 // --- B6-node ---------------------------------------------------------------
 
 // grid (C): one block a child; dynamic smem F floats when bynode is on.
-__global__ void node_draws(const uint8_t* __restrict__ base,
+// Child c draws from row c of base (base_stride F: the children's allowed
+// features under interaction constraints, grower.py :839-854,
+// :1113-1134) or from the one row (base_stride 0).
+__global__ void node_draws(const uint8_t* __restrict__ base_all,
+                           int base_stride,
                            const int32_t* __restrict__ num_bin, int F,
                            const int32_t* __restrict__ rng_iter,
                            const int32_t* __restrict__ active, int bynode,
@@ -268,6 +272,7 @@ __global__ void node_draws(const uint8_t* __restrict__ base,
   __shared__ uint32_t bk[2], ek[2];
   __shared__ int nvalid;
   const int c = blockIdx.x, tid = threadIdx.x;
+  const uint8_t* base = base_all + (long long)c * base_stride;
   if (tid == 0) {
     const uint32_t it = (uint32_t)(*rng_iter);
     if (bynode) {
@@ -369,9 +374,11 @@ extern "C" int lgbt_goss_vals(const float* g, const float* h, long long n,
   return (int)cudaGetLastError();
 }
 
-// base: [F] bool; masks/bins: [C, F]; rng_iter a device int32; active a
-// device int32 or null.  Writes only the draws that are on.
-extern "C" int lgbt_node_draws(const uint8_t* base, const int32_t* num_bin,
+// base: [F] bool (base_stride 0) or [C, F] (base_stride F); masks/bins:
+// [C, F]; rng_iter a device int32; active a device int32 or null.  Writes
+// only the draws that are on.
+extern "C" int lgbt_node_draws(const uint8_t* base, int base_stride,
+                               const int32_t* num_bin,
                                int F, int C, const int32_t* rng_iter,
                                const int32_t* active, int bynode,
                                unsigned int bn_k0, unsigned int bn_k1,
@@ -383,8 +390,8 @@ extern "C" int lgbt_node_draws(const uint8_t* base, const int32_t* num_bin,
   if (threads > 256) threads = 256;
   const size_t smem = bynode ? (size_t)F * sizeof(float) : 0;
   node_draws<<<C, threads, smem, stream>>>(
-      base, num_bin, F, rng_iter, active, bynode, bn_k0, bn_k1, bn_id0, frac,
-      extra, et_k0, et_k1, et_step, masks, bins);
+      base, base_stride, num_bin, F, rng_iter, active, bynode, bn_k0, bn_k1,
+      bn_id0, frac, extra, et_k0, et_k1, et_step, masks, bins);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,25 @@
 // leaves one threshold bin a (leaf, feature) valid, in both NA
 // directions.  Without them the launches and results are as before.
 //
+// Split controls (optional, `Cons`; the rest of ops/split.py
+// `find_best_split`, :343-485): with `mono` ([F] int8, the monotone
+// `basic` method) each valid candidate's two child outputs (leaf_output
+// with the child's count, :315-318) are clamped to the leaf's range
+// [lo[k], hi[k]]; where either moved, the gain is recomputed from the
+// clamped outputs less leaf_gain(total) + min_gain_to_split, without the
+// parent output or the count (:334-336); a candidate against the
+// feature's direction, or left at or below kEpsilon, is dropped
+// (`_monotone_adjust`, :301).  Then every valid gain is scaled by
+// factor[depth[k]] on a monotone feature (monotone_penalty, a table of
+// the factor by depth that the host computes once) times contri[f]
+// (:380-385), and the CEGB penalty slope[f] * total[k, 2] + coupled[f] *
+// !cuse[f] is subtracted, a result at or below kEpsilon being invalid
+// (:386-392).  `split_pick` clips the winner's outputs to the range
+// (:462-485).  B2-cat takes the scale and the penalty, and its winner is
+// clipped too; categorical gains never go through the monotone
+// adjustment.  Every pointer of `Cons` null: the launches and results are
+// as without controls.
+//
 // Design.  `split_gains`: one block per (feature, leaf) loads the [B, 3]
 // histogram into shared memory; three threads scan the bins in order, one
 // channel each (the same sequential order as the plain version's cumsum on
@@ -91,6 +110,49 @@ __device__ float leaf_gain(float g, float h, float count, float parent,
   return -(2.f * tg * out + (h + p.l2) * out * out);
 }
 
+// GetLeafGainGivenOutput
+__device__ float gain_given(float g, float h, float out, const Params& p) {
+  const float tg = threshold_l1(g, p.l1);
+  return -(2.f * tg * out + (h + p.l2) * out * out);
+}
+
+// the split controls' operands (see the header); a null pointer is off
+struct Cons {
+  const int8_t* mono;      // [F]: monotone basic
+  const float* lo;         // [K] leaf output ranges (with mono)
+  const float* hi;
+  const int32_t* depth;    // [K] leaf depths (with factor)
+  const float* factor;     // [n_factor] monotone penalty factor by depth
+  int n_factor;
+  const float* contri;     // [F]
+  const float* slope;      // [F]: CEGB on
+  const float* coupled;    // [F]
+  const uint8_t* cuse;     // [F] (with coupled)
+};
+
+// a valid gain of leaf k and feature f, scaled and penalised; -inf where
+// the penalised gain is at or below kEpsilon
+__device__ float scale_penalise(float g, const Cons& c, int k, int f,
+                                float count) {
+  if (c.factor != nullptr || c.contri != nullptr) {
+    float s = 1.f;
+    if (c.factor != nullptr && c.mono[f] != 0) {
+      int d = c.depth[k];
+      d = d < 0 ? 0 : (d >= c.n_factor ? c.n_factor - 1 : d);
+      s = c.factor[d];
+    }
+    if (c.contri != nullptr) s = s * c.contri[f];
+    g = g * s;
+  }
+  if (c.slope != nullptr) {
+    float pen = c.slope[f] * count;
+    if (c.coupled != nullptr)
+      pen = pen + c.coupled[f] * (c.cuse[f] != 0 ? 0.f : 1.f);
+    g = g - pen > kEpsilon ? g - pen : -INFINITY;
+  }
+  return g;
+}
+
 // grid (F, K); block >= B threads; smem B*3 floats.
 __global__ void split_gains(const float* __restrict__ hist,
                             const float* __restrict__ total,
@@ -102,7 +164,7 @@ __global__ void split_gains(const float* __restrict__ hist,
                             const int32_t* __restrict__ rand_bin,
                             const uint8_t* __restrict__ is_cat,
                             int num_features, int num_bins, Params p,
-                            const int32_t* __restrict__ active,
+                            Cons cons, const int32_t* __restrict__ active,
                             float* __restrict__ gains,
                             float* __restrict__ cum_out) {
   if (active != nullptr && *active == 0) return;
@@ -134,6 +196,20 @@ __global__ void split_gains(const float* __restrict__ hist,
               t2 = total[k * 3 + 2];
   const float po = parent_out[k];
   const float shift = leaf_gain(t0, t1, t2, po, p) + p.min_gain;
+  // the monotone recompute's shift: leaf_gain(total) without the parent
+  // output, which takes the long form with the unsmoothed output whenever
+  // max_delta_step or path_smooth is on (ops/split.py leaf_gain with no
+  // parent output)
+  Params q = p;
+  q.path_smooth = 0.f;
+  const float shift_np =
+      (p.max_delta > 0.f || p.path_smooth > 0.f
+           ? gain_given(t0, t1, leaf_output(t0, t1, t2, 0.f, q), p)
+           : leaf_gain(t0, t1, t2, 0.f, p)) +
+      p.min_gain;
+  const float lo = cons.mono != nullptr ? cons.lo[k] : 0.f;
+  const float hi = cons.mono != nullptr ? cons.hi[k] : 0.f;
+  const int mf = cons.mono != nullptr ? cons.mono[f] : 0;
   const bool in_range =
       b <= num_bin[f] - 2 && feature_mask[k * mask_stride + f] != 0 &&
       (is_cat == nullptr || is_cat[f] == 0) &&
@@ -144,12 +220,23 @@ __global__ void split_gains(const float* __restrict__ hist,
     const float lh = dir ? c1 + na_h : c1;
     const float lc = dir ? c2 + na_c : c2;
     const float rg = t0 - lg, rh = t1 - lh, rc = t2 - lc;
-    const float gain = leaf_gain(lg, lh, lc, po, p) +
-                       leaf_gain(rg, rh, rc, po, p) - shift;
-    const bool valid = in_range && (dir == 0 || has_na) &&
-                       lc >= p.min_data && rc >= p.min_data &&
-                       lh >= p.min_hess && rh >= p.min_hess &&
-                       gain > kEpsilon;
+    float gain = leaf_gain(lg, lh, lc, po, p) +
+                 leaf_gain(rg, rh, rc, po, p) - shift;
+    bool valid = in_range && (dir == 0 || has_na) &&
+                 lc >= p.min_data && rc >= p.min_data &&
+                 lh >= p.min_hess && rh >= p.min_hess && gain > kEpsilon;
+    if (valid && cons.mono != nullptr) {
+      const float ol = leaf_output(lg, lh, lc, po, p);
+      const float orr = leaf_output(rg, rh, rc, po, p);
+      const float cl = fminf(fmaxf(ol, lo), hi);
+      const float cr = fminf(fmaxf(orr, lo), hi);
+      if (cl != ol || cr != orr)
+        gain = gain_given(lg, lh, cl, p) + gain_given(rg, rh, cr, p) -
+               shift_np;
+      const bool ok = mf > 0 ? cl <= cr : (mf < 0 ? cl >= cr : true);
+      valid = ok && gain > kEpsilon;
+    }
+    if (valid) gain = scale_penalise(gain, cons, k, f, t2);
     gains[(((long long)k * 2 + dir) * num_features + f) * num_bins + b] =
         valid ? gain : -INFINITY;
   }
@@ -167,6 +254,8 @@ __global__ void split_pick(const float* __restrict__ gains,
                            const float* __restrict__ parent_out,
                            const int32_t* __restrict__ na_bin,
                            int num_features, int num_bins, Params p,
+                           const float* __restrict__ out_lo,
+                           const float* __restrict__ out_hi,
                            const int32_t* __restrict__ active,
                            float* __restrict__ out) {
   if (active != nullptr && *active == 0) return;
@@ -221,6 +310,10 @@ __global__ void split_pick(const float* __restrict__ gains,
   for (int c = 0; c < 3; ++c) rec[7 + c] = r[c];
   rec[10] = leaf_output(l[0], l[1], l[2], po, p);
   rec[11] = leaf_output(r[0], r[1], r[2], po, p);
+  if (out_lo != nullptr) {
+    rec[10] = fminf(fmaxf(rec[10], out_lo[k]), out_hi[k]);
+    rec[11] = fminf(fmaxf(rec[11], out_lo[k]), out_hi[k]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -301,7 +394,7 @@ __global__ void split_cat_gains(const float* __restrict__ hist,
                                 const uint8_t* __restrict__ is_cat,
                                 const uint8_t* __restrict__ feature_mask,
                                 int mask_stride, int num_features,
-                                int num_bins, CatParams cp,
+                                int num_bins, CatParams cp, Cons cons,
                                 const int32_t* __restrict__ active,
                                 float* __restrict__ fbest,
                                 int32_t* __restrict__ fidx,
@@ -385,10 +478,11 @@ __global__ void split_cat_gains(const float* __restrict__ hist,
       }
       const float lg = l[0], lh = l[1], lc = l[2];
       const float rg = t0 - lg, rh = t1 - lh, rc = t2 - lc;
-      const float gain = leaf_gain(lg, lh, lc, po, p) +
-                         leaf_gain(rg, rh, rc, po, p) - shift;
+      float gain = leaf_gain(lg, lh, lc, po, p) +
+                   leaf_gain(rg, rh, rc, po, p) - shift;
       ok = ok && lc >= p.min_data && rc >= p.min_data &&
            lh >= p.min_hess && rh >= p.min_hess && gain > kEpsilon;
+      if (ok) gain = scale_penalise(gain, cons, k, f, t2);
       if (ok && gain > bg) {
         bg = gain;
         bi = mode * fb + f * B + t;
@@ -427,6 +521,8 @@ __global__ void split_cat_gains(const float* __restrict__ hist,
 __global__ void split_cat_pick(const float* __restrict__ total,
                                const float* __restrict__ parent_out,
                                int num_features, int num_bins, Params pc,
+                               const float* __restrict__ out_lo,
+                               const float* __restrict__ out_hi,
                                const int32_t* __restrict__ active,
                                const float* __restrict__ fbest,
                                const int32_t* __restrict__ fidx,
@@ -484,6 +580,10 @@ __global__ void split_cat_pick(const float* __restrict__ total,
       for (int c = 0; c < 3; ++c) rec[7 + c] = r[c];
       rec[10] = leaf_output(l[0], l[1], l[2], po, pc);
       rec[11] = leaf_output(r[0], r[1], r[2], po, pc);
+      if (out_lo != nullptr) {
+        rec[10] = fminf(fmaxf(rec[10], out_lo[k]), out_hi[k]);
+        rec[11] = fminf(fmaxf(rec[11], out_lo[k]), out_hi[k]);
+      }
     }
     cat[k] = take_cat ? 1 : 0;
     s_take = take_cat ? 1 : 0;
@@ -496,11 +596,15 @@ __global__ void split_cat_pick(const float* __restrict__ total,
 
 }  // namespace
 
+// The split controls' pointers, each null when off: mono [F] int8, lo/hi
+// [K] f32 (with mono), depth [K] int32 and factor [n_factor] f32, contri
+// [F] f32, slope [F] f32, coupled [F] f32, cuse [F] uint8 (with coupled).
 // hist [K, F, B, 3], total [K, 3], parent_out [K], num_bin/na_bin [F]
 // int32, feature_mask [F] (mask_stride 0) or [K, F] (mask_stride F) uint8,
-// rand_bin [K, F] int32 or null, is_cat [F] uint8 or null; scratch gains
-// [K, 2, F, B] and cum [K, F, B, 3]; out [K, 12]; active may be null.  Returns
-// cudaGetLastError() after the launches.
+// rand_bin [K, F] int32 or null, is_cat [F] uint8 or null; the split
+// controls (Cons, in its field order); scratch gains [K, 2, F, B] and cum [K, F, B, 3];
+// out [K, 12]; active may be null.  Returns cudaGetLastError() after the
+// launches.
 extern "C" int lgbt_split(const float* hist, const float* total,
                           const float* parent_out, const int32_t* num_bin,
                           const int32_t* na_bin, const uint8_t* feature_mask,
@@ -509,26 +613,35 @@ extern "C" int lgbt_split(const float* hist, const float* total,
                           int num_features, int num_bins,
                           float l1, float l2, float min_data, float min_hess,
                           float min_gain, float max_delta, float path_smooth,
+                          const int8_t* mono, const float* lo,
+                          const float* hi, const int32_t* depth,
+                          const float* factor, int n_factor,
+                          const float* contri, const float* slope,
+                          const float* coupled, const uint8_t* cuse,
                           const int32_t* active, float* gains, float* cum,
                           float* out, cudaStream_t stream) {
   const Params p{l1, l2, min_data, min_hess, min_gain, max_delta,
                  path_smooth};
+  const Cons cons{mono, lo, hi, depth, factor, n_factor, contri, slope,
+                  coupled, cuse};
   const int threads = ((num_bins + 31) / 32) * 32;
   split_gains<<<dim3(num_features, num_leaves), threads,
                 num_bins * 3 * sizeof(float), stream>>>(
       hist, total, parent_out, num_bin, na_bin, feature_mask, mask_stride,
-      rand_bin, is_cat, num_features, num_bins, p, active, gains, cum);
+      rand_bin, is_cat, num_features, num_bins, p, cons, active, gains, cum);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_pick<<<num_leaves, kPickThreads, 0, stream>>>(
       gains, cum, hist, total, parent_out, na_bin, num_features, num_bins, p,
+      mono != nullptr ? lo : nullptr, mono != nullptr ? hi : nullptr,
       active, out);
   return (int)cudaGetLastError();
 }
 
 // B2-cat after B2 on the same leaves: hist [K, F, B, 3] (B <= 256), total
 // [K, 3], parent_out [K], is_cat [F] uint8, feature_mask [F] or [K, F]
-// uint8 (mask_stride 0 or F); l2 is lambda_l2 + cat_l2; scratch fbest
+// uint8 (mask_stride 0 or F); l2 is lambda_l2 + cat_l2; the split
+// controls as lgbt_split's; scratch fbest
 // [K, F, 4], fidx [K, F], frank [K, F, B]; out [K, 12] (B2's records,
 // merged in place), cat [K], rank [K, B]; active may be null.  Returns
 // cudaGetLastError() after the launches.
@@ -540,7 +653,12 @@ extern "C" int lgbt_split_cat(const float* hist, const float* total,
                               float min_hess, float min_gain, float max_delta,
                               float path_smooth, float cat_smooth,
                               float used_min, int max_cat_threshold,
-                              int max_cat_to_onehot, const int32_t* active,
+                              int max_cat_to_onehot, const int8_t* mono,
+                              const float* lo, const float* hi,
+                              const int32_t* depth, const float* factor,
+                              int n_factor, const float* contri,
+                              const float* slope, const float* coupled,
+                              const uint8_t* cuse, const int32_t* active,
                               float* fbest, int32_t* fidx, int32_t* frank,
                               float* out, int32_t* cat, int32_t* rank,
                               cudaStream_t stream) {
@@ -549,16 +667,19 @@ extern "C" int lgbt_split_cat(const float* hist, const float* total,
                   path_smooth};
   const CatParams cp{pc, cat_smooth, used_min, max_cat_threshold,
                      max_cat_to_onehot};
+  const Cons cons{mono, lo, hi, depth, factor, n_factor, contri, slope,
+                  coupled, cuse};
   const size_t smem = (size_t)(15 * num_bins + 2 * kCatThreads) * 4;
   split_cat_gains<<<dim3(num_features, num_leaves), kCatThreads, smem,
                     stream>>>(hist, total, parent_out, is_cat, feature_mask,
-                              mask_stride, num_features, num_bins, cp,
+                              mask_stride, num_features, num_bins, cp, cons,
                               active, fbest, fidx, frank);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_cat_pick<<<num_leaves, kPickThreads, 0, stream>>>(
-      total, parent_out, num_features, num_bins, pc, active, fbest, fidx,
-      frank, out, cat, rank);
+      total, parent_out, num_features, num_bins, pc,
+      mono != nullptr ? lo : nullptr, mono != nullptr ? hi : nullptr,
+      active, fbest, fidx, frank, out, cat, rank);
   return (int)cudaGetLastError();
 }
 

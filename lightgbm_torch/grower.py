@@ -51,6 +51,20 @@ keyed by the device iteration ``rng_iter`` and the step's fixed position
 and 2(i+1)+1 and the extra_trees step i+1, batched super-step s its 2K
 children (s+1)·2K + j and step s+1), and B2 takes them per child.
 
+With the split controls (``constraints``, a ``constraints.GrowConstraints``:
+monotone ``basic``, interaction constraints, ``feature_contri``, CEGB;
+the JAX package's masked grower, grower.py:258-273, :457-489) the
+workspace also holds each leaf's output range and branch feature set,
+each step's children's ranges, depths and allowed masks, and the used
+features ``cuse``: B3s/B3s-K update them in the step's one launch (range
+propagation, branch sets and subset containment against the groups,
+CEGB marks), B6-node draws each child's bynode subset from its allowed
+features, and B2/B2-cat take the ranges, depths and used features as
+per-child operands.  The root's allowed features are ``feature_mask``
+and the union of the groups (one torch op a tree); its range is the
+whole line at depth 0.  ``cuse`` is never reset by a tree: the trainer
+sets it from its host state before a tree or an epoch of trees.
+
 A step that cannot split (no positive gain) sets the tree's ``done`` flag;
 every later step's kernels then exit at once, as the reference's loop exit
 (grower.py:908-915).  The tree arrays live in one int32 buffer (f32 fields
@@ -63,18 +77,20 @@ valid.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .constraints import GrowConstraints, check_operands
 from .efb import EFBDevice, expand_group_hist
 from .ops import split as sp
 from .ops.histogram import compute_histogram
 from .ops.quantize import QuantSpec, dequantize_hist, quant_scales, \
     quantize_stack
 from .ops.random import NodeSampling, node_draws
-from .ops.split import SplitParams, find_best_split, leaf_output
+from .ops.split import SplitConstraints, SplitParams, find_best_split, \
+    leaf_output
 from .sparse_data import SparseBinned, column_per_row, khot_args
 from . import _kernels
 
@@ -218,13 +234,20 @@ class GrowWorkspace:
     ``QuantSpec``) the per-leaf histograms and ``gpair`` are int32, the
     workspace holds the packed stack ``qvals`` [N, 3] and the tree's
     scales ``qscales`` [3], and ``pair`` (with EFB, ``gpair_f``, the f32
-    group histograms B9 reads) receives each child pair dequantized."""
+    group histograms B9 reads) receives each child pair dequantized.
+    With ``constraints`` (a ``GrowConstraints``) it holds the split
+    controls' state (``step_cons``, ``split_cons``): per-leaf output
+    ranges ``olo``/``ohi`` and branch sets ``fallow`` [rows, F], the
+    children's ranges ``clo``/``chi``, depths ``cdepth`` and allowed
+    masks ``cmask`` [C + 1, F] (C = 2, or 2K batched; the last row the
+    root's) and the used features ``cuse`` [F]."""
 
     def __init__(self, n: int, num_features: int, num_bins: int,
                  num_leaves: int, device: torch.device, split_batch: int = 1,
                  categorical: bool = False,
                  efb: Optional[EFBDevice] = None,
-                 quant: Optional[QuantSpec] = None):
+                 quant: Optional[QuantSpec] = None,
+                 constraints: Optional[GrowConstraints] = None):
         L, F, B = int(num_leaves), int(num_features), int(num_bins)
         K = batch_width(split_batch, L)
         self.num_leaves, self.num_bins, self.split_batch = L, B, K
@@ -259,6 +282,19 @@ class GrowWorkspace:
         self.node_mask = torch.ones((2 * K, F), dtype=torch.bool, **kw)
         self.node_bins = torch.zeros((2 * K, F), dtype=torch.int32, **kw)
         C = 2 if K == 1 else 2 * K
+        self.cons = constraints
+        if constraints is not None:
+            inf = float("inf")
+            self.olo = torch.full((rows,), -inf, **kw)
+            self.ohi = torch.full((rows,), inf, **kw)
+            self.fallow = torch.zeros((rows, F), dtype=torch.bool, **kw)
+            # the children's rows 0..C-1, then the root's (the whole
+            # line at depth 0), which no kernel writes
+            self.clo = torch.full((C + 1,), -inf, **kw)
+            self.chi = torch.full((C + 1,), inf, **kw)
+            self.cdepth = torch.zeros(C + 1, dtype=torch.int32, **kw)
+            self.cmask = torch.ones((C + 1, F), dtype=torch.bool, **kw)
+            self.cuse = torch.zeros(F, dtype=torch.bool, **kw)
         self.pair = torch.zeros((C, F, B, 3), dtype=torch.float32, **kw)
         self.gpair = self.pair if efb is None and quant is None else \
             torch.zeros((C, HF, HB, 3), dtype=hdt, **kw)
@@ -311,6 +347,43 @@ class GrowWorkspace:
         return {} if self.leaf_rank is None else {
             "leaf_cat": self.leaf_cat, "leaf_rank": self.leaf_rank}
 
+    def step_cons(self, feature_mask: torch.Tensor
+                  ) -> Optional["StepConstraints"]:
+        """B3s's and B3s-K's split-control state, None without controls."""
+        c = self.cons
+        if c is None:
+            return None
+        mono = c.mono is not None
+        inter = c.groups is not None
+        return StepConstraints(
+            mono=c.mono, olo=self.olo if mono else None,
+            ohi=self.ohi if mono else None,
+            clo=self.clo[:-1] if mono else None,
+            chi=self.chi[:-1] if mono else None,
+            cdepth=self.cdepth[:-1] if mono else None, groups=c.groups,
+            feature_mask=feature_mask if inter else None,
+            fallow=self.fallow if inter else None,
+            cmask=self.cmask[:-1] if inter else None,
+            cuse=self.cuse if c.cegb else None)
+
+    def split_cons(self, count: int, root: bool = False
+                   ) -> Optional[SplitConstraints]:
+        """B2's split controls for the root (``root``) or a step's
+        ``count`` children, None without controls."""
+        c = self.cons
+        if c is None:
+            return None
+        rows = slice(-1, None) if root else slice(0, count)
+        lo, hi, depth = self.clo[rows], self.chi[rows], self.cdepth[rows]
+        mono = c.mono is not None
+        return SplitConstraints(
+            mono=c.mono, out_lo=lo if mono else None,
+            out_hi=hi if mono else None,
+            depth=depth if c.mono_factor is not None else None,
+            factor=c.mono_factor, contri=c.contri, cegb_slope=c.cegb_slope,
+            cegb_coupled=c.cegb_coupled,
+            cuse=self.cuse if c.cegb_coupled is not None else None)
+
     def put_best(self, rows, res) -> None:
         """Write B2's result ``res`` (records, or records, cat flags and
         rank rows) into the table rows ``rows`` (an index tensor or a
@@ -337,6 +410,126 @@ class BatchedStep(NamedTuple):
     status: torch.Tensor         # [2] int32 active, valid count
 
 
+class StepConstraints(NamedTuple):
+    """The split controls' state that B3s and B3s-K update (layouts in
+    csrc/grow_step.cu), each None when its control is off: ``mono`` [F]
+    int8 with the leaves' ranges ``olo``/``ohi`` [rows] f32 and the
+    children's ``clo``/``chi`` [C] f32 and ``cdepth`` [C] int32;
+    ``groups`` [G, F] bool with ``feature_mask`` [F], the branch sets
+    ``fallow`` [rows, F] and the children's allowed masks ``cmask`` [C, F]
+    (bool); ``cuse`` [F] bool (CEGB)."""
+    mono: Optional[torch.Tensor] = None
+    olo: Optional[torch.Tensor] = None
+    ohi: Optional[torch.Tensor] = None
+    clo: Optional[torch.Tensor] = None
+    chi: Optional[torch.Tensor] = None
+    cdepth: Optional[torch.Tensor] = None
+    groups: Optional[torch.Tensor] = None
+    feature_mask: Optional[torch.Tensor] = None
+    fallow: Optional[torch.Tensor] = None
+    cmask: Optional[torch.Tensor] = None
+    cuse: Optional[torch.Tensor] = None
+
+
+def _check_step_cons(cons: Optional[StepConstraints], rows: int, C: int,
+                     device) -> None:
+    if cons is None:
+        return
+    i8, f32, u8 = torch.int8, torch.float32, torch.bool
+    ts = check_operands(
+        cons, {"mono": ((None,), i8), "olo": ((rows,), f32),
+               "ohi": ((rows,), f32), "clo": ((C,), f32),
+               "chi": ((C,), f32), "cdepth": ((C,), torch.int32),
+               "groups": ((None, None), u8), "feature_mask": ((None,), u8),
+               "fallow": ((rows, None), u8), "cmask": ((C, None), u8),
+               "cuse": ((None,), u8)},
+        together=(("mono", "olo", "ohi", "clo", "chi", "cdepth"),
+                  ("groups", "feature_mask", "fallow", "cmask")))
+    if any(t.device != device for t in ts):
+        raise ValueError("the split controls' state must be on the "
+                         "table's device")
+    if cons.groups is not None and any(
+            t.shape[-1] != cons.groups.shape[1]
+            for t in (cons.feature_mask, cons.fallow, cons.cmask)):
+        raise TypeError("groups, feature_mask, fallow and cmask must have "
+                        "one feature count")
+
+
+def _step_cons_args(cons: Optional[StepConstraints]) -> tuple:
+    """The kernels' split-control arguments (csrc/grow_step.cu
+    ``StepCons``, in its field order)."""
+    c = cons if cons is not None else StepConstraints()
+    g, f = (0, 0) if c.groups is None else tuple(c.groups.shape)
+    return (_ptr(c.mono), _ptr(c.olo), _ptr(c.ohi), _ptr(c.clo),
+            _ptr(c.chi), _ptr(c.cdepth), _ptr(c.groups), int(g), int(f),
+            _ptr(c.feature_mask), _ptr(c.fallow), _ptr(c.cmask),
+            _ptr(c.cuse))
+
+
+_CONS_INPUTS = ("mono", "groups", "feature_mask")
+
+
+def _cons_plain(cons: Optional[StepConstraints], splits: List[tuple],
+                first: bool) -> None:
+    """The plain versions' update of the split controls' state for a
+    step's slots ``splits``: (on, leaf, new leaf, feature, is
+    categorical, depth, left output, right output) each; the children of
+    slot k are rows k and n + k (csrc/grow_step.cu), in place on
+    ``cons``."""
+    if cons is None:
+        return
+    h = {k: v.cpu().numpy().copy() for k, v in cons._asdict().items()
+         if v is not None}
+    n = len(splits)
+    inf = np.float32(np.inf)
+    if "mono" in h:
+        for k, (on, leaf, new, feat, icat, depth, lo, ro) in \
+                enumerate(splits):
+            l_lo, l_hi, r_lo, r_hi, d = -inf, inf, -inf, inf, 0
+            if on:
+                lo_p = -inf if first else h["olo"][leaf]
+                hi_p = inf if first else h["ohi"][leaf]
+                mc = int(h["mono"][feat])
+                apply, up = mc != 0 and not icat, mc > 0
+                mid = np.float32(0.5) * (np.float32(lo) + np.float32(ro))
+                l_lo = np.maximum(lo_p, mid) if apply and not up else lo_p
+                l_hi = np.minimum(hi_p, mid) if apply and up else hi_p
+                r_lo = np.maximum(lo_p, mid) if apply and up else lo_p
+                r_hi = np.minimum(hi_p, mid) if apply and not up else hi_p
+                d = depth
+            h["olo"][leaf], h["ohi"][leaf] = l_lo, l_hi
+            h["olo"][new], h["ohi"][new] = r_lo, r_hi
+            h["clo"][k], h["chi"][k] = l_lo, l_hi
+            h["clo"][n + k], h["chi"][n + k] = r_lo, r_hi
+            h["cdepth"][k] = h["cdepth"][n + k] = d
+    if "cuse" in h:
+        for on, _, _, feat, *_ in splits:
+            if on:
+                h["cuse"][feat] = True
+    if "groups" in h:
+        g, fm = h["groups"], h["feature_mask"]
+        branches = []
+        for on, leaf, _, feat, *_ in splits:
+            br = np.zeros(g.shape[1], bool)
+            if on:
+                if not first:
+                    br |= h["fallow"][leaf]
+                br[feat] = True
+            branches.append(br)
+        for k, ((on, leaf, new, *_), br) in enumerate(zip(splits,
+                                                           branches)):
+            a = fm.copy()
+            if on:
+                contains = (g | ~br[None]).all(axis=1)
+                a = ((g & contains[:, None]).any(axis=0) | br) & fm
+            h["fallow"][leaf] = h["fallow"][new] = br
+            h["cmask"][k] = h["cmask"][n + k] = a
+    for name, arr in h.items():
+        if name not in _CONS_INPUTS:
+            t = getattr(cons, name)
+            t.copy_(torch.from_numpy(arr).to(t.device))
+
+
 def batch_width(split_batch: int, num_leaves: int) -> int:
     """The super-step width K the grower runs: the JAX package's clamp
     ``max(1, min(split_batch, num_leaves - 1))``."""
@@ -348,7 +541,9 @@ def _draws(ws: GrowWorkspace, feature_mask, num_bin, sampling, rng_iter,
            count: int, bynode_id0: int, extra_step: int, active=None):
     """The per-node draws of ``count`` children (B6-node) into the
     workspace, and B2's mask and random-bin operands: (mask, rand_bin),
-    ``(feature_mask, None)`` when no draw is on."""
+    ``(feature_mask, None)`` when no draw is on.  ``feature_mask`` is
+    [F], or the children's own allowed masks [count, F] (interaction
+    constraints), from which each child's subset is drawn."""
     if sampling is None or not sampling.on:
         return feature_mask, None
     masks, bins = ws.node_mask[:count], ws.node_bins[:count]
@@ -360,7 +555,10 @@ def _draws(ws: GrowWorkspace, feature_mask, num_bin, sampling, rng_iter,
 
 
 def _check_grow(ws: GrowWorkspace, sampling, rng_iter, is_cat,
-                efb=None, quant=None) -> None:
+                efb=None, quant=None, constraints=None) -> None:
+    if ws.cons is not constraints:
+        raise ValueError("the workspace must be made with the grower's "
+                         "constraints")
     if ws.efb is not efb:
         raise ValueError("the workspace must be made with the grower's "
                          "efb maps")
@@ -395,9 +593,10 @@ def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
     """The root pass of either grower: under quant the scales (B7a) and
     the packed stack (B7b), then the histogram of all rows (B1), sums,
     output, the root's node draws (B6-node) and best split (B2, with
-    B2-cat), and the reset of the tree, the table and the row -> leaf
-    vector.  Returns the vals the steps' histogram passes take (the
-    packed stack under quant)."""
+    B2-cat; with interaction constraints on ``feature_mask`` and the union
+    of the groups, the JAX package's :628-632), and the reset of the tree,
+    the table and the row -> leaf vector.  Returns the vals the steps'
+    histogram passes take (the packed stack under quant)."""
     v = ws.fields
     if ws.quant is not None:
         scales = quant_scales(vals, ws.quant.qmax, out=ws.qscales)
@@ -414,9 +613,14 @@ def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
             torch.float32) * ws.qscales
     root_out = leaf_output(total0[0], total0[1], params)
     fh0 = _scan_hist(ws, h0[None], total0[None])
-    fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 1, 0, 0)
+    base = feature_mask
+    if ws.cons is not None and ws.cons.groups is not None:
+        base = torch.logical_and(feature_mask, ws.cons.root_allow,
+                                 out=ws.cmask[-1])[None]
+    fm, rb = _draws(ws, base, num_bin, sampling, rng_iter, 1, 0, 0)
     res0 = find_best_split(fh0, total0[None], root_out[None], num_bin,
-                           na_bin, fm, params, rand_bin=rb, is_cat=is_cat)
+                           na_bin, fm, params, rand_bin=rb, is_cat=is_cat,
+                           cons=ws.split_cons(1, root=True))
     ws.table.copy_(ws.table_init)
     ws.put_best(slice(0, 1), res0)
     ws.tree.copy_(ws.tree_init)
@@ -437,7 +641,8 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
               rng_iter: Optional[torch.Tensor] = None,
               is_cat: Optional[torch.Tensor] = None,
               efb: Optional[EFBDevice] = None,
-              quant: Optional[QuantSpec] = None) -> TreeArrays:
+              quant: Optional[QuantSpec] = None,
+              constraints: Optional[GrowConstraints] = None) -> TreeArrays:
     """Grow one tree on ``binned`` [N, F] uint8 with per-row ``vals``
     [N, 3] f32 = (grad, hess, weight), all on one device, with no host
     round trip.  ``sampling``: the per-node draws, keyed by ``rng_iter``
@@ -445,16 +650,18 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
     features (the workspace then has categorical fields).  ``efb``: the
     EFB maps, ``binned`` then the bundled [N, G] matrix.  ``quant``:
     quantized training, the stochastic rounding keyed by ``rng_iter``
-    (iteration 0 when None).  Returns device views of ``workspace`` (a new
-    one when None); ``fetch_tree`` brings the tree to the host."""
+    (iteration 0 when None).  ``constraints``: the split controls (the
+    workspace's ``cuse`` holds the used features on entry).  Returns
+    device views of ``workspace`` (a new one when None); ``fetch_tree``
+    brings the tree to the host."""
     n, f = binned.shape[0], num_bin.shape[0]
     L, B = int(num_leaves), int(num_bins)
     ws = workspace if workspace is not None else GrowWorkspace(
         n, f, B, L, binned.device, categorical=is_cat is not None, efb=efb,
-        quant=quant)
+        quant=quant, constraints=constraints)
     if ws.split_batch != 1:
         raise ValueError("grow_tree needs a workspace of split_batch 1")
-    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant)
+    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant, constraints)
     vals = _root(ws, binned, vals, feature_mask, num_bin, na_bin, params,
                  sampling, rng_iter, is_cat)
     for i in range(L - 1):
@@ -472,7 +679,8 @@ def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     device step record."""
     grow_step(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
               max_depth=max_depth, rec=ws.rec, idx=ws.idx, fstep=ws.fstep,
-              flags=ws.flags, **ws.cat_state())
+              flags=ws.flags, cons=ws.step_cons(feature_mask),
+              **ws.cat_state())
     active = ws.rec[ACTIVE:ACTIVE + 1]
     slot = partition(binned, ws.leaf_of_row, ws.rec, ws.rank, ws.efb)
     small = compute_histogram(binned, vals, num_bins=ws.hist_bins, slot=slot,
@@ -484,15 +692,24 @@ def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     ws.hist.index_copy_(0, ws.idx, ws.gpair)
     # the children's totals: the split's left and right sums
     _scan_hist(ws, ws.gpair, ws.fstep[0:6].view(2, 3), active)
-    fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2,
-                    2 * (i + 1), i + 1, active)
+    fm, rb = _draws(ws, _child_base(ws, feature_mask, 2), num_bin, sampling,
+                    rng_iter, 2, 2 * (i + 1), i + 1, active)
     res = find_best_split(ws.pair, ws.fstep[0:6].view(2, 3), ws.fstep[6:8],
                           num_bin, na_bin, fm, params, active=active,
-                          rand_bin=rb, is_cat=is_cat)
+                          rand_bin=rb, is_cat=is_cat, cons=ws.split_cons(2))
     children = res if is_cat is None else res[0]
     children[:, sp.GAIN] = torch.where(ws.flags[1], children[:, sp.GAIN],
                                        ws.neg_inf)
     ws.put_best(ws.idx, res)
+
+
+def _child_base(ws: GrowWorkspace, feature_mask, count: int):
+    """The features a step's ``count`` children may split on: their
+    allowed masks [count, F] under interaction constraints (written by
+    B3s/B3s-K), else ``feature_mask``."""
+    if ws.cons is not None and ws.cons.groups is not None:
+        return ws.cmask[:count]
+    return feature_mask
 
 
 def _cat_bins(table, leaf_cat, leaf_rank) -> int:
@@ -540,29 +757,34 @@ def grow_step(table: torch.Tensor, tree: torch.Tensor, na_bin: torch.Tensor,
               *, num_leaves: int, max_depth: int, rec: torch.Tensor,
               idx: torch.Tensor, fstep: torch.Tensor, flags: torch.Tensor,
               leaf_cat: Optional[torch.Tensor] = None,
-              leaf_rank: Optional[torch.Tensor] = None) -> None:
+              leaf_rank: Optional[torch.Tensor] = None,
+              cons: Optional[StepConstraints] = None) -> None:
     """One split step's bookkeeping (kernel B3s), in place on ``tree`` and
     the step outputs ``rec``, ``idx``, ``fstep`` and ``flags`` (layouts in
     csrc/grow_step.cu).  With the table's categorical companions
     ``leaf_cat`` [L] and ``leaf_rank`` [L, B] (the tree buffer then has
     ``CAT_FIELDS``) the new node takes the leaf's flag and rank row, and a
-    categorical split's record has NA_BIN -1.  CUDA tensors launch the
+    categorical split's record has NA_BIN -1.  ``cons``: the split
+    controls' state (``StepConstraints``),
+    updated for the split in the same launch.  CUDA tensors launch the
     kernel, CPU tensors run ``grow_step_plain``."""
     cat_bins = _cat_bins(table, leaf_cat, leaf_rank)
     _check_step(table, tree, na_bin, num_leaves, rec, idx, fstep, flags,
                 cat_bins)
+    _check_step_cons(cons, int(num_leaves), 2, table.device)
     if table.device.type == "cpu":
         return grow_step_plain(table, tree, na_bin, num_leaves=num_leaves,
                                max_depth=max_depth, rec=rec, idx=idx,
                                fstep=fstep, flags=flags, leaf_cat=leaf_cat,
-                               leaf_rank=leaf_rank)
+                               leaf_rank=leaf_rank, cons=cons)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     err = _kernels.lib("grow_step").lgbt_grow_step(
         table.data_ptr(), tree.data_ptr(), na_bin.data_ptr(),
         int(num_leaves), int(max_depth), _ptr(leaf_cat), _ptr(leaf_rank),
-        cat_bins, rec.data_ptr(), idx.data_ptr(), fstep.data_ptr(),
-        flags.data_ptr(), _kernels.stream_ptr(table.device))
+        cat_bins, *_step_cons_args(cons), rec.data_ptr(), idx.data_ptr(),
+        fstep.data_ptr(), flags.data_ptr(),
+        _kernels.stream_ptr(table.device))
     _kernels.launched("grow_step", err)
 
 
@@ -581,7 +803,7 @@ def _copy_cat(v, node: int, leaf: int, leaf_cat, leaf_rank) -> bool:
 
 def grow_step_plain(table, tree, na_bin, *, num_leaves: int,
                     max_depth: int, rec, idx, fstep, flags, leaf_cat=None,
-                    leaf_rank=None) -> None:
+                    leaf_rank=None, cons=None) -> None:
     """Plain version of B3s: the same step on host copies (numpy), copied
     back in place."""
     L = int(num_leaves)
@@ -637,6 +859,9 @@ def grow_step_plain(table, tree, na_bin, *, num_leaves: int,
         r[SMALLER] = leaf if smaller_left else new_leaf
         fs[:] = rw[4:12]
         fl[:] = (smaller_left, max_depth <= 0 or d < max_depth)
+        _cons_plain(cons, [(1, leaf, new_leaf, feat, bool(icat), d,
+                            rw[sp.LEFT_OUTPUT], rw[sp.RIGHT_OUTPUT])],
+                    nl == 1)
     dev = tree.device
     tree.copy_(torch.from_numpy(words).to(dev))
     rec.copy_(torch.from_numpy(r).to(dev))
@@ -779,7 +1004,9 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
                       rng_iter: Optional[torch.Tensor] = None,
                       is_cat: Optional[torch.Tensor] = None,
                       efb: Optional[EFBDevice] = None,
-                      quant: Optional[QuantSpec] = None) -> TreeArrays:
+                      quant: Optional[QuantSpec] = None,
+                      constraints: Optional[GrowConstraints] = None
+                      ) -> TreeArrays:
     """Grow one tree with K splits per super-step (the JAX package's
     ``grow_tree_batched``, grower.py:945): each super-step takes the top K
     leaves by cached gain and splits the valid prefix of them (B3s-K),
@@ -794,18 +1021,20 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
     done, and every kernel of a later super-step exits at once; its torch
     ops write only the scratch rows.  ``sampling``/``rng_iter`` as
     ``grow_tree``; the draws of invalid slots keep their places in the
-    stream.  ``is_cat``, ``efb`` and ``quant`` as ``grow_tree``.  Returns
-    device views of ``workspace``, as ``grow_tree``."""
+    stream.  ``is_cat``, ``efb``, ``quant`` and ``constraints`` as
+    ``grow_tree``.  Returns device views of ``workspace``, as
+    ``grow_tree``."""
     n, f = binned.shape[0], num_bin.shape[0]
     L, B = int(num_leaves), int(num_bins)
     K = batch_width(split_batch, L)
     ws = workspace if workspace is not None else GrowWorkspace(
         n, f, B, L, binned.device, split_batch=K,
-        categorical=is_cat is not None, efb=efb, quant=quant)
+        categorical=is_cat is not None, efb=efb, quant=quant,
+        constraints=constraints)
     if ws.split_batch != K or K < 2:
         raise ValueError(f"grow_tree_batched needs K > 1 and a workspace "
                          f"of split_batch {K} (has {ws.split_batch})")
-    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant)
+    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant, constraints)
     vals = _root(ws, binned, vals, feature_mask, num_bin, na_bin, params,
                  sampling, rng_iter, is_cat)
     for s in range(L - 1):
@@ -825,7 +1054,7 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     K, st = ws.split_batch, ws.step
     grow_step_batched(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
                       split_batch=K, max_depth=max_depth, step=st,
-                      **ws.cat_state())
+                      cons=ws.step_cons(feature_mask), **ws.cat_state())
     active = st.status[0:1]
     tslot = partition_slots(binned, ws.leaf_of_row, st, ws.rank, ws.efb)
     small = compute_histogram(binned, vals, num_bins=ws.hist_bins,
@@ -837,10 +1066,12 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     torch.where(sel, large, small, out=ws.gpair[K:])
     ws.hist.index_copy_(0, st.idx2, ws.gpair)
     _scan_hist(ws, ws.gpair, st.tot2, active)
-    fm, rb = _draws(ws, feature_mask, num_bin, sampling, rng_iter, 2 * K,
-                    (s + 1) * 2 * K, s + 1, active)
+    fm, rb = _draws(ws, _child_base(ws, feature_mask, 2 * K), num_bin,
+                    sampling, rng_iter, 2 * K, (s + 1) * 2 * K, s + 1,
+                    active)
     res = find_best_split(ws.pair, st.tot2, st.po2, num_bin, na_bin, fm,
-                          params, active=active, rand_bin=rb, is_cat=is_cat)
+                          params, active=active, rand_bin=rb, is_cat=is_cat,
+                          cons=ws.split_cons(2 * K))
     children = res if is_cat is None else res[0]
     children[:, sp.GAIN] = torch.where(st.keep2, children[:, sp.GAIN],
                                        ws.neg_inf)
@@ -882,27 +1113,31 @@ def grow_step_batched(table: torch.Tensor, tree: torch.Tensor,
                       na_bin: torch.Tensor, *, num_leaves: int,
                       split_batch: int, max_depth: int, step: BatchedStep,
                       leaf_cat: Optional[torch.Tensor] = None,
-                      leaf_rank: Optional[torch.Tensor] = None) -> None:
+                      leaf_rank: Optional[torch.Tensor] = None,
+                      cons: Optional[StepConstraints] = None) -> None:
     """One batched super-step's bookkeeping (kernel B3s-K), in place on
     ``tree`` and the step outputs ``step`` (layouts in
     csrc/grow_step.cu).  A super-step that finds the tree already done
     changes nothing: the outputs of the super-step that found it done
     stay.  ``leaf_cat``/``leaf_rank`` [L + 2K, ..] as ``grow_step``: each
-    valid slot's node takes its leaf's flag and rank row.  CUDA tensors
-    launch the kernel, CPU tensors run ``grow_step_batched_plain``."""
+    valid slot's node takes its leaf's flag and rank row.  ``cons`` as
+    ``grow_step`` (rows L + 2K, 2K children).  CUDA tensors launch the
+    kernel, CPU tensors run ``grow_step_batched_plain``."""
     L, K = int(num_leaves), int(split_batch)
     cat_bins = _cat_bins(table, leaf_cat, leaf_rank)
     _check_batched(table, tree, na_bin, L, K, step, cat_bins)
+    _check_step_cons(cons, L + 2 * K, 2 * K, table.device)
     if table.device.type == "cpu":
         return grow_step_batched_plain(table, tree, na_bin, num_leaves=L,
                                        split_batch=K, max_depth=max_depth,
                                        step=step, leaf_cat=leaf_cat,
-                                       leaf_rank=leaf_rank)
+                                       leaf_rank=leaf_rank, cons=cons)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     err = _kernels.lib("grow_step").lgbt_grow_step_batched(
         table.data_ptr(), tree.data_ptr(), na_bin.data_ptr(), L, K,
         int(max_depth), _ptr(leaf_cat), _ptr(leaf_rank), cat_bins,
+        *_step_cons_args(cons),
         *[getattr(step, name).data_ptr() for name in BatchedStep._fields],
         _kernels.stream_ptr(table.device))
     _kernels.launched("grow_step_batched", err)
@@ -911,7 +1146,7 @@ def grow_step_batched(table: torch.Tensor, tree: torch.Tensor,
 def grow_step_batched_plain(table, tree, na_bin, *, num_leaves: int,
                             split_batch: int, max_depth: int,
                             step: BatchedStep, leaf_cat=None,
-                            leaf_rank=None) -> None:
+                            leaf_rank=None, cons=None) -> None:
     """Plain version of B3s-K: the same super-step on host copies (numpy),
     copied back in place."""
     L, K = int(num_leaves), int(split_batch)
@@ -938,10 +1173,12 @@ def grow_step_batched_plain(table, tree, na_bin, *, num_leaves: int,
     po2 = np.zeros(2 * K, np.float32)
     small_left = np.zeros(K, bool)
     keep2 = np.zeros(2 * K, bool)
+    splits = []
     for k in range(K):
         valid = k < nvalid
         leaf = int(top[k]) if valid else L + k
         new_leaf = nl + k if valid else L + K + k
+        splits.append((0, leaf, new_leaf, 0, False, 0, 0.0, 0.0))
         r = tab[leaf]
         idx2[k], idx2[K + k] = leaf, new_leaf
         tot2[k], tot2[K + k] = r[4:7], r[7:10]
@@ -982,6 +1219,8 @@ def grow_step_batched_plain(table, tree, na_bin, *, num_leaves: int,
         recs[k, SMALLER] = leaf if sleft else new_leaf
         keep2[k] = keep2[K + k] = max_depth <= 0 or d < max_depth
         slot_of_leaf[leaf] = k
+        splits[k] = (1, leaf, new_leaf, feat, bool(icat), d, r[10], r[11])
+    _cons_plain(cons, splits, nl == 1)
     if nvalid > 0:
         v["num_leaves"][0] = nl + nvalid
         v["n_steps"][0] += 1

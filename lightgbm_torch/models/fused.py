@@ -9,7 +9,8 @@ the device-resident tree build (the strict grower B1-B3s, or the batched
 one B1-K/B3-K/B3s-K from ``split_batch`` 2 on, with the per-node draws
 B6-node, B9 on an EFB-bundled matrix, B7 with the integer B1/B1-K
 under ``quant_train``, and the k-hot histogram B8a with the k-hot decode
-in B3/B3-K on sparse binned storage), the f32 shrinkage, the
+in B3/B3-K on sparse binned storage, the split controls inside B2,
+B3s/B3s-K and B6-node), the f32 shrinkage, the
 train-score update, each valid set's tree walk (B4), the traced metrics
 (B12) and the early-stop vote — is
 ``IterationProgram.body`` over tensors allocated once.  The
@@ -17,8 +18,10 @@ iteration that keys the bagging, GOSS and per-node draws (and the
 stochastic rounding of quantized training) and the
 feature_fraction mask come from device tensors set before the first
 replay (``it0``, ``fmasks``) and the row counter, so every replay draws
-its own.  On the card the body is captured once as a
-``torch.cuda.CUDAGraph`` and an epoch of k iterations is k replays: the
+its own; CEGB's used features (the workspace's ``cuse``) are set from
+the host state before the first replay and carried from replay to
+replay by the trees that mark them.  On the card the body is captured
+once as a ``torch.cuda.CUDAGraph`` and an epoch of k iterations is k replays: the
 iteration index lives in a device counter (``row``), and each iteration
 writes its outputs to row ``row`` of the static ``out`` buffer (its tree
 buffer, shrunk leaf values, eval values and stop flag, packed in int32
@@ -60,6 +63,7 @@ launches, the plain versions or the CPU.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -242,6 +246,8 @@ class IterationProgram:
             kw["is_cat"] = m.is_cat_dev
         if m.efb_dev is not None:
             kw["efb"] = m.efb_dev
+        if m.constraints is not None:
+            kw["constraints"] = m.constraints
         return grow(m.binned_dev, vals, fmask, m.num_bin_dev,
                     m.na_bin_dev, num_leaves=cfg.num_leaves,
                     num_bins=m.max_bin, params=m.split_params,
@@ -302,6 +308,8 @@ class IterationProgram:
         """Every tensor the body changes that outlives it."""
         m = self.model
         ts = [m.score, self.dead, self.row, self.it_cur, self.fmask_cur]
+        if m.constraints is not None:
+            ts.append(m.grow_ws.cuse)
         ts += [vs for _, _, vs in m.valid_sets]
         if self.es_spec is not None:
             ts += list(m.es_state)
@@ -314,7 +322,10 @@ class IterationProgram:
         changed is then restored.  The capture runs on the side stream
         through ``capture_begin``/``capture_end``, without the
         ``torch.cuda.graph`` context's garbage collection and cache
-        emptying, which cost more than the capture itself."""
+        emptying, which cost more than the capture itself; Python's
+        cyclic collector is held off during the capture instead, so that
+        the graph of an earlier, unreachable program is never destroyed
+        on the capturing stream (which would invalidate the capture)."""
         _kernels.load_all()
         t0 = time.perf_counter()
         saved = [t.clone() for t in self._mutable()]
@@ -332,12 +343,18 @@ class IterationProgram:
         mid = _kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            graph.capture_begin()
-            try:
-                self.body()
-            finally:
-                graph.capture_end()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                try:
+                    self.body()
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         main.wait_stream(side)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -368,6 +385,11 @@ class IterationProgram:
         self.it0.fill_(int(it0))
         if self.sample_features:
             self.fmasks[:k].copy_(torch.as_tensor(np.asarray(fmasks, bool)))
+        if self.model.cegb is not None:
+            # CEGB's used features as the host has them; the trees of the
+            # run mark the device copy, which no tree resets
+            self.model.grow_ws.cuse.copy_(
+                torch.as_tensor(self.model.cegb.used))
         if eager:
             for _ in range(k):
                 self.body(gh, mark)

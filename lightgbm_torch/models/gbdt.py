@@ -13,7 +13,9 @@ from the device-resident grower (with the per-node draws of
 an EFB-bundled matrix with B9 before each split scan; with
 ``quant_train`` on packed int8/int16 rows, B7, and exact int32
 histograms, B1-int/B1-K-int, dequantized by B7c; on sparse binned storage
-over the k-hot rows, B8a-c) ->
+over the k-hot rows, B8a-c; with the split controls, monotone ``basic``,
+interaction constraints, ``feature_contri`` and CEGB, inside B2, B3s/B3s-K
+and B6-node, CEGB's used features carried from tree to tree) ->
 f32 shrinkage -> train score += leaf value gathered through the grower's
 row -> leaf vector -> every valid score += tree walk (B4).  The iteration
 is ``models/fused.py``'s ``IterationProgram.body``, and three paths run
@@ -67,6 +69,8 @@ import torch
 from ..basic import LightGBMError
 from ..binning import BinType
 from ..config import Config
+from ..constraints import (contri_vector, device_constraints,
+                           interaction_allow, make_cegb, monotone_vector)
 from ..dataset import Dataset
 from ..efb import bin_grouped, make_device_efb
 from ..grower import GrowWorkspace, batch_width, host_tree
@@ -111,12 +115,13 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
         (c.boosting not in ("gbdt", "gbrt"), f"boosting={c.boosting}", "A9"),
         (c.tree_learner != "serial" or c.num_machines > 1,
          "distributed training (tree_learner/num_machines)", "A16"),
-        (bool(c.monotone_constraints) and any(c.monotone_constraints),
-         "monotone constraints", "A9"),
-        (bool(c.interaction_constraints), "interaction constraints", "A9"),
-        (c.cegb_penalty_split > 0 or bool(c.cegb_penalty_feature_coupled)
-         or bool(c.cegb_penalty_feature_lazy), "CEGB", "A9"),
-        (bool(c.feature_contri), "feature_contri", "A9"),
+        # monotone basic runs on the masked grower; intermediate and
+        # advanced need the partitioned learner (the JAX package's
+        # :205-229)
+        (monotone_vector(c, ds) is not None
+         and c.monotone_constraints_method != "basic",
+         f"monotone_constraints_method={c.monotone_constraints_method}",
+         "A11b"),
         (bool(c.forcedsplits_filename), "forced splits", "A11"),
         (c.linear_tree, "linear_tree", "A9"),
         # sparse binned storage overrides partitioned to masked
@@ -353,11 +358,23 @@ class GBDTModel:
                 np.ascontiguousarray(ds.binned)).to(dev)
         self.split_batch = resolve_split_batch(config)
         self.quant = quant_spec(config, self.num_data)
+        # the split controls (the JAX package's :176-195, :883-906,
+        # :1207-1234): monotone basic with its penalty, interaction
+        # groups, feature_contri and CEGB, whose cross-tree used features
+        # ``cegb.used`` the trainer keeps on the host and sets into the
+        # workspace's ``cuse`` before each tree or epoch
+        self.cegb = make_cegb(config, ds)
+        self.constraints = device_constraints(
+            config.num_leaves, dev, mono=monotone_vector(config, ds),
+            mono_penalty=config.monotone_penalty,
+            contri=contri_vector(config, ds),
+            groups=interaction_allow(config, ds), cegb=self.cegb)
         self.grow_ws = GrowWorkspace(self.num_data, self.num_features,
                                      self.max_bin, config.num_leaves, dev,
                                      split_batch=self.split_batch,
                                      categorical=self.is_cat_dev is not None,
-                                     efb=self.efb_dev, quant=self.quant)
+                                     efb=self.efb_dev, quant=self.quant,
+                                     constraints=self.constraints)
         # the valid walk's level count: the configuration's worst case, on
         # every path (a row stops at its leaf, so the result is the same)
         self.walk_steps = traversal_steps(config.max_depth,
@@ -769,6 +786,12 @@ class GBDTModel:
                                cat_bins=self.grow_ws.cat_bins)
                 nl = tj.num_leaves
                 self.step_counts.append(tj.n_steps)
+                if self.cegb is not None and nl > 1:
+                    # the tree's split features into the cross-tree used
+                    # set that the next tree or epoch starts from (the
+                    # JAX package's :2762-2764, :2466-2468)
+                    self.cegb.used[np.asarray(tj.split_feature)[:nl - 1]] \
+                        = True
                 if fusable:
                     lvj = fields["lv"].astype(np.float64)
                 elif self._renewed_lv is not None:

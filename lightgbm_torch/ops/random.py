@@ -412,17 +412,19 @@ def node_draws_plain(base: torch.Tensor, num_bin: torch.Tensor,
     """Plain PyTorch version of B6-node: the ``count`` children's [C, F]
     bool masks (child c: ``bynode_mask_plain`` of
     ``fold_in(node_key(bynode_seed, rng_iter), bynode_id0 + c)`` over
-    ``base``) and [C, F] int32 random bins (``rand_bins_plain`` of
+    ``base``, or over child c's own row of a [C, F] ``base``) and [C, F]
+    int32 random bins (``rand_bins_plain`` of
     ``fold_in(node_key(extra_seed, rng_iter), extra_step)`` at shape (C,
     F)).  A draw that is off gives ``base`` repeated, or zeros."""
     it = int(rng_iter.cpu()[0])
-    C, F = int(count), base.shape[0]
-    masks = base[None].expand(C, F).clone()
+    C, F = int(count), base.shape[-1]
+    rows = base.expand(C, F)
+    masks = rows.clone()
     bins = torch.zeros((C, F), dtype=torch.int32, device=base.device)
     if sampling.bynode:
         bk = node_key(sampling.bynode_seed, it)
         masks = torch.stack([bynode_mask_plain(fold_in(bk, bynode_id0 + c),
-                                               base, sampling.bynode_frac)
+                                               rows[c], sampling.bynode_frac)
                              for c in range(C)])
     if sampling.extra_trees:
         ek = fold_in(node_key(sampling.extra_seed, it), extra_step)
@@ -443,15 +445,17 @@ def node_draws(base: torch.Tensor, num_bin: torch.Tensor,
                active: Optional[torch.Tensor] = None) -> None:
     """B6-node, in place on ``masks`` [C, F] bool and ``bins`` [C, F]
     int32 (C = ``count``): the per-child feature subsets and random
-    threshold bins of one grower step (``node_draws_plain``).  Only the
+    threshold bins of one grower step (``node_draws_plain``), each child's
+    subset drawn from ``base`` [F], or from its own row of ``base`` [C, F]
+    (the children's allowed features under interaction constraints).  Only the
     draws that are on are written.  ``rng_iter``: the device iteration (a
     [1] int32 tensor); ``active`` (a [1] int32 device tensor, the step's
     flag): where it is 0 nothing is written.  CUDA tensors launch the
     kernel of ``csrc/sample.cu``, CPU tensors run ``node_draws_plain``;
     both give the same bits."""
-    C, F = int(count), base.shape[0]
-    if base.dim() != 1 or base.dtype != torch.bool:
-        raise TypeError("base must be a [F] bool tensor")
+    C, F = int(count), base.shape[-1]
+    if base.shape not in ((F,), (C, F)) or base.dtype != torch.bool:
+        raise TypeError("base must be a [F] or [count, F] bool tensor")
     if num_bin.shape != (F,) or num_bin.dtype != torch.int32:
         raise TypeError("num_bin must be a [F] int32 tensor")
     if rng_iter.shape != (1,) or rng_iter.dtype != torch.int32:
@@ -487,7 +491,8 @@ def node_draws(base: torch.Tensor, num_bin: torch.Tensor,
     bk = prng_key(sampling.bynode_seed)
     ek = prng_key(sampling.extra_seed)
     err = _kernels.lib("sample").lgbt_node_draws(
-        base.data_ptr(), num_bin.data_ptr(), F, C, rng_iter.data_ptr(),
+        base.data_ptr(), F if base.dim() == 2 else 0, num_bin.data_ptr(), F,
+        C, rng_iter.data_ptr(),
         None if active is None else active.data_ptr(),
         int(sampling.bynode), bk[0], bk[1], int(bynode_id0) & MASK32,
         float(np.float32(sampling.bynode_frac)), int(sampling.extra_trees),

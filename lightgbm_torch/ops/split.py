@@ -33,17 +33,31 @@ in the winning order for a subset, 0 for the chosen bin and B elsewhere
 (threshold 0) for one-vs-rest.  ``rand_bin`` does not touch the
 categorical scan, as in the JAX package.
 
+The split controls (``SplitConstraints``; the rest of the JAX package's
+``find_best_split``, :343-485) are per-leaf operands: with ``mono`` (the
+monotone ``basic`` method) every numerical candidate's child outputs are
+clamped to the leaf's output range [``out_lo``, ``out_hi``], its gain
+recomputed from the clamped outputs where they moved, and candidates
+against the feature's direction dropped (``_monotone_adjust``, :301);
+then every valid gain, numerical and categorical, is scaled by the
+feature's ``monotone_penalty`` factor at the leaf's ``depth`` (monotone
+features only) times its ``contri``, and the CEGB penalty ``cegb_slope *
+count + cegb_coupled * (not cuse)`` is subtracted (a gain left at or
+below kEpsilon is invalid); the winner's outputs are clipped to the
+range.
+
 On a CUDA tensor ``find_best_split`` launches the kernels of
 ``csrc/split.cu``; on a CPU tensor it runs ``find_best_split_plain``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import _kernels
+from ..constraints import check_operands
 
 kEpsilon = 1e-15
 kMinScore = float("-inf")
@@ -91,6 +105,24 @@ class SplitResult(NamedTuple):
     right_output: torch.Tensor   # f32
 
 
+class SplitConstraints(NamedTuple):
+    """B2's and B2-cat's split-control operands for K leaves, each None
+    when off: ``mono`` [F] int8 with the leaves' output ranges
+    ``out_lo``/``out_hi`` [K] f32; ``factor`` [T] f32, the monotone
+    penalty factor of each depth, with the leaves' ``depth`` [K] int32
+    (needs ``mono``); ``contri`` [F] f32; ``cegb_slope`` [F] f32, and
+    ``cegb_coupled`` [F] f32 with the used features ``cuse`` [F] bool."""
+    mono: Optional[torch.Tensor] = None
+    out_lo: Optional[torch.Tensor] = None
+    out_hi: Optional[torch.Tensor] = None
+    depth: Optional[torch.Tensor] = None
+    factor: Optional[torch.Tensor] = None
+    contri: Optional[torch.Tensor] = None
+    cegb_slope: Optional[torch.Tensor] = None
+    cegb_coupled: Optional[torch.Tensor] = None
+    cuse: Optional[torch.Tensor] = None
+
+
 def unpack(rec: torch.Tensor) -> SplitResult:
     return SplitResult(
         gain=rec[..., GAIN], feature=rec[..., FEATURE].to(torch.int32),
@@ -135,7 +167,7 @@ def leaf_gain(sum_g, sum_h, p: SplitParams, parent_output=None, count=None):
 
 
 def _check(hist, total, parent_output, num_bin, na_bin, feature_mask,
-           active=None, rand_bin=None, is_cat=None):
+           active=None, rand_bin=None, is_cat=None, cons=None):
     if hist.dim() != 4 or hist.shape[-1] != 3 \
             or hist.dtype != torch.float32:
         raise TypeError("hist must be a [K, F, B, 3] float32 tensor")
@@ -163,8 +195,38 @@ def _check(hist, total, parent_output, num_bin, na_bin, feature_mask,
         if active.shape != (1,) or active.dtype != torch.int32:
             raise TypeError("active must be a [1] int32 tensor")
         others.append(active)
+    if cons is not None:
+        others += _check_cons(cons, k, f)
     if any(t.device != hist.device for t in others):
         raise ValueError("find_best_split inputs must be on one device")
+
+
+def _check_cons(cons: SplitConstraints, k: int, f: int) -> list:
+    """Shapes, types and pairings of the split controls; returns the
+    tensors."""
+    f32 = torch.float32
+    return check_operands(
+        cons, {"mono": ((f,), torch.int8), "out_lo": ((k,), f32),
+               "out_hi": ((k,), f32), "depth": ((k,), torch.int32),
+               "factor": (None, f32), "contri": ((f,), f32),
+               "cegb_slope": ((f,), f32), "cegb_coupled": ((f,), f32),
+               "cuse": ((f,), torch.bool)},
+        together=(("mono", "out_lo", "out_hi"), ("factor", "depth"),
+                  ("cegb_coupled", "cuse")),
+        needs=(("factor", "mono"), ("cegb_coupled", "cegb_slope")))
+
+
+def _cons_args(cons: Optional[SplitConstraints]) -> tuple:
+    """The kernels' split-control arguments (csrc/split.cu ``Cons``, in
+    its field order)."""
+    c = cons if cons is not None else SplitConstraints()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    n_factor = 0 if c.factor is None else int(c.factor.shape[0])
+    return (ptr(c.mono), ptr(c.out_lo), ptr(c.out_hi), ptr(c.depth),
+            ptr(c.factor), n_factor, ptr(c.contri), ptr(c.cegb_slope),
+            ptr(c.cegb_coupled), ptr(c.cuse))
 
 
 def find_best_split(hist: torch.Tensor, total: torch.Tensor,
@@ -173,7 +235,8 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
                     params: SplitParams,
                     active: torch.Tensor | None = None,
                     rand_bin: torch.Tensor | None = None,
-                    is_cat: torch.Tensor | None = None):
+                    is_cat: torch.Tensor | None = None,
+                    cons: SplitConstraints | None = None):
     """Best split of each of K leaves.
 
     hist [K, F, B, 3] f32, total [K, 3] (the leaves' g/h/count sums),
@@ -185,9 +248,10 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
     (records, cat [K] int32 = 1 where the winner is categorical, rank
     [K, B] int32 = the winner's rank row).  ``active`` (a [1] int32
     device tensor, the grower's step flag): where it is 0 nothing is
-    computed and the outputs are unspecified."""
+    computed and the outputs are unspecified.  ``cons``: the split
+    controls (``SplitConstraints``), None for none."""
     _check(hist, total, parent_output, num_bin, na_bin, feature_mask, active,
-           rand_bin, is_cat)
+           rand_bin, is_cat, cons)
     k, f, b, _ = hist.shape
     if hist.device.type == "cpu":
         if active is not None and not bool(active[0]):
@@ -197,11 +261,12 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
                 torch.zeros((k, b), dtype=torch.int32))
         return find_best_split_plain(hist, total, parent_output, num_bin,
                                      na_bin, feature_mask, params, rand_bin,
-                                     is_cat)
+                                     is_cat, cons)
     if hist.device.type != "cuda":
         raise ValueError(f"unsupported device {hist.device}")
     tensors = (hist, total, parent_output, num_bin, na_bin, feature_mask) \
-        + tuple(t for t in (rand_bin, is_cat) if t is not None)
+        + tuple(t for t in (rand_bin, is_cat) if t is not None) \
+        + tuple(t for t in (cons or ()) if t is not None)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("find_best_split needs contiguous tensors")
     if b > 1024:
@@ -220,18 +285,18 @@ def find_best_split(hist: torch.Tensor, total: torch.Tensor,
         None if is_cat is None else is_cat.data_ptr(),
         k, f, b, p.lambda_l1, p.lambda_l2,
         float(p.min_data_in_leaf) - 0.5, p.min_sum_hessian_in_leaf,
-        p.min_gain_to_split, p.max_delta_step, p.path_smooth, act,
-        gains.data_ptr(), cum.data_ptr(), out.data_ptr(),
-        _kernels.stream_ptr(dev))
+        p.min_gain_to_split, p.max_delta_step, p.path_smooth,
+        *_cons_args(cons), act, gains.data_ptr(), cum.data_ptr(),
+        out.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.launched("split", err)
     if is_cat is None:
         return out
     return _split_cat(hist, total, parent_output, feature_mask, mask_stride,
-                      is_cat, p, act, out)
+                      is_cat, p, act, out, cons)
 
 
 def _split_cat(hist, total, parent_output, feature_mask, mask_stride,
-               is_cat, p: SplitParams, act, out):
+               is_cat, p: SplitParams, act, out, cons=None):
     """Kernel B2-cat: the categorical scan of every (leaf, categorical
     feature) and its merge into the numerical records ``out`` (in place).
     Returns (out, cat, rank)."""
@@ -252,7 +317,8 @@ def _split_cat(hist, total, parent_output, feature_mask, mask_stride,
         pc.lambda_l1, pc.lambda_l2, float(p.min_data_in_leaf) - 0.5,
         p.min_sum_hessian_in_leaf, p.min_gain_to_split, p.max_delta_step,
         p.path_smooth, p.cat_smooth, _used_min(p), int(p.max_cat_threshold),
-        int(p.max_cat_to_onehot), act, fbest.data_ptr(), fidx.data_ptr(),
+        int(p.max_cat_to_onehot), *_cons_args(cons), act,
+        fbest.data_ptr(), fidx.data_ptr(),
         frank.data_ptr(), out.data_ptr(), cat.data_ptr(), rank.data_ptr(),
         _kernels.stream_ptr(dev))
     _kernels.launched("split_cat", err)
@@ -269,20 +335,92 @@ def find_best_split_plain(hist: torch.Tensor, total: torch.Tensor,
                           na_bin: torch.Tensor, feature_mask: torch.Tensor,
                           params: SplitParams,
                           rand_bin: torch.Tensor | None = None,
-                          is_cat: torch.Tensor | None = None):
+                          is_cat: torch.Tensor | None = None,
+                          cons: SplitConstraints | None = None):
     """Plain PyTorch version of B2 and B2-cat (cumsum-based), same
     outputs."""
     num_mask = feature_mask if is_cat is None else feature_mask & ~is_cat
     rec = _numerical_plain(hist, total, parent_output, num_bin, na_bin,
-                           num_mask, params, rand_bin)
-    if is_cat is None:
-        return rec
-    return _categorical_plain(hist, total, parent_output,
-                              feature_mask & is_cat, params, rec)
+                           num_mask, params, rand_bin, cons)
+    if is_cat is not None:
+        rec, cat, rank = _categorical_plain(
+            hist, total, parent_output, feature_mask & is_cat, params, rec,
+            cons)
+    if cons is not None and cons.mono is not None:
+        # the winner's outputs within the leaf's range (:462-485)
+        for col in (LEFT_OUTPUT, RIGHT_OUTPUT):
+            rec[:, col] = torch.minimum(torch.maximum(
+                rec[:, col], cons.out_lo), cons.out_hi)
+    return rec if is_cat is None else (rec, cat, rank)
+
+
+def _monotone_plain(gains, lefts, total, parent_output, params, cons):
+    """The JAX package's ``_monotone_adjust`` (ops/split.py:301) over K
+    leaves: ``gains`` [K, 2, F, B], ``lefts`` [K, 2, F, B, 3]."""
+    rights = total[:, None, None, None, :] - lefts
+    po = parent_output[:, None, None, None]
+    out_l = leaf_output(lefts[..., 0], lefts[..., 1], params, po,
+                        lefts[..., 2])
+    out_r = leaf_output(rights[..., 0], rights[..., 1], params, po,
+                        rights[..., 2])
+    lo = cons.out_lo[:, None, None, None]
+    hi = cons.out_hi[:, None, None, None]
+    cl_l = torch.minimum(torch.maximum(out_l, lo), hi)
+    cl_r = torch.minimum(torch.maximum(out_r, lo), hi)
+
+    def gain_given(sums, out):
+        tg = threshold_l1(sums[..., 0], params.lambda_l1)
+        return -(2.0 * tg * out + (sums[..., 1] + params.lambda_l2)
+                 * out * out)
+
+    mono_f = cons.mono.to(torch.int32)[None, None, :, None]
+    was_valid = gains > kMinScore
+    clamped = (cl_l != out_l) | (cl_r != out_r)
+    shift = leaf_gain(total[:, 0], total[:, 1], params) \
+        + params.min_gain_to_split
+    new_gain = gain_given(lefts, cl_l) + gain_given(rights, cl_r) \
+        - shift[:, None, None, None]
+    gains = torch.where(was_valid & clamped, new_gain, gains)
+    ok = torch.where(mono_f > 0, cl_l <= cl_r,
+                     torch.where(mono_f < 0, cl_l >= cl_r, True))
+    return torch.where(was_valid & ok & (gains > kEpsilon), gains,
+                       torch.full((), kMinScore, device=gains.device))
+
+
+def _scale_penalise_plain(gains, total, cons):
+    """The gain scale (monotone penalty by depth on monotone features,
+    times ``contri``) and the CEGB penalty of ``find_best_split``
+    (:380-392, :401-409) on valid gains [K, M, F, B]."""
+    if cons is None:
+        return gains
+    k, f = gains.shape[0], gains.shape[2]
+    dev = gains.device
+    scale = None
+    if cons.factor is not None:
+        d = cons.depth.to(torch.int64).clamp(0, cons.factor.shape[0] - 1)
+        scale = torch.where(cons.mono[None] != 0, cons.factor[d][:, None],
+                            torch.ones((), device=dev))         # [K, F]
+    if cons.contri is not None:
+        scale = cons.contri[None].expand(k, f) if scale is None \
+            else scale * cons.contri[None]
+    if scale is not None:
+        gains = torch.where(gains > kMinScore,
+                            gains * scale[:, None, :, None], gains)
+    if cons.cegb_slope is not None:
+        pen = cons.cegb_slope[None] * total[:, 2:3]              # [K, F]
+        if cons.cegb_coupled is not None:
+            pen = pen + cons.cegb_coupled[None] \
+                * (~cons.cuse).to(torch.float32)[None]
+        pen = pen[:, None, :, None]
+        gains = torch.where(
+            gains > kMinScore,
+            torch.where(gains - pen > kEpsilon, gains - pen,
+                        torch.full((), kMinScore, device=dev)), gains)
+    return gains
 
 
 def _numerical_plain(hist, total, parent_output, num_bin, na_bin,
-                     feature_mask, params, rand_bin):
+                     feature_mask, params, rand_bin, cons=None):
     k, f, b, _ = hist.shape
     dev = hist.device
     cum = torch.cumsum(hist, dim=2)                         # [K, F, B, 3]
@@ -315,6 +453,10 @@ def _numerical_plain(hist, total, parent_output, num_bin, na_bin,
     valid = valid & (split_gain > kEpsilon)
     gains = torch.where(valid, split_gain,
                         torch.full((), kMinScore, device=dev))
+    if cons is not None and cons.mono is not None:
+        gains = _monotone_plain(gains, lefts, total, parent_output, params,
+                                cons)
+    gains = _scale_penalise_plain(gains, total, cons)
 
     best = torch.argmax(gains.reshape(k, -1), dim=1)        # first max
     d, rem = best // (f * b), best % (f * b)
@@ -349,7 +491,8 @@ def _order_key(key: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(key), float("inf"), key)
 
 
-def _categorical_plain(hist, total, parent_output, cat_mask, params, nrec):
+def _categorical_plain(hist, total, parent_output, cat_mask, params, nrec,
+                       cons=None):
     """The JAX package's ``_categorical_candidates`` over K leaves and the
     merge into the numerical records ``nrec``: (records, cat, rank)."""
     k, f, b, _ = hist.shape
@@ -394,6 +537,7 @@ def _categorical_plain(hist, total, parent_output, cat_mask, params, nrec):
     valid = valid & (split_gain > kEpsilon)
     gains = torch.where(valid, split_gain,
                         torch.full((), kMinScore, device=dev))
+    gains = _scale_penalise_plain(gains, total, cons)
 
     flat = gains.reshape(k, -1)
     best = torch.argmax(flat, dim=1)                        # first max

@@ -142,16 +142,19 @@ def test_default_device_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"interaction_constraints": [[0, 1]]}, "A9"),
-    ({"feature_contri": [1.0, 0.5, 1.0, 1.0]}, "A9"),
-    ({"cegb_penalty_split": 1.0}, "A9"),
+    ({"cegb_penalty_split": 1.0, "boosting": "dart"}, "A9"),
+    ({"monotone_constraints": [1, 0, 0, 0],
+      "monotone_constraints_method": "intermediate"}, "A11"),
+    ({"monotone_constraints": [1, 0, 0, 0],
+      "monotone_constraints_method": "advanced"}, "A11"),
     ({"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5}, "A9"),
     ({"forcedsplits_filename": "splits.json"}, "A11"),
     ({"linear_tree": True}, "A9"),
     ({"boosting": "dart"}, "A9"),
     ({"tpu_learner": "partitioned"}, "A11"),
     ({"tree_learner": "data"}, "A16"),
-    ({"monotone_constraints": [1, 0, 0, 0]}, "A9"),
+    ({"forcedsplits_filename": "splits.json",
+      "monotone_constraints": [1, 0, 0, 0]}, "A11"),
     ({"finite_check_freq": 2}, "A12"),
     ({"hist_tune": "on"}, "A17"),
     ({"integrity_check_freq": 2}, "A17"),

@@ -241,7 +241,8 @@ def test_wide_model_round_trip_and_engine(es_runs):
 
 @pytest.mark.parametrize("params", [
     {"data_sample_strategy": "goss", "boosting": "dart"},
-    {"feature_fraction_bynode": 0.5, "monotone_constraints": [1, 0, 0, 0]},
+    {"feature_fraction_bynode": 0.5, "monotone_constraints": [1, 0, 0, 0],
+     "linear_tree": True},
     {"extra_trees": True, "linear_tree": True},
 ])
 def test_remaining_sampling_raises(params):
