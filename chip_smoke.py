@@ -228,6 +228,23 @@ Phases, one JSON line each:
    outside one interaction group, fewer features than without CEGB, each
    CEGB penalty alone changing the first tree, and the steady it/s beside
    the unconstrained runs';
+   partitioned_kernels (after constraint_kernels): B11a (segment
+   histogram, f32 and int8, on the root segment and a 7,500-row segment
+   of a permuted order), B11b (the root split, a mid-tree segment with an
+   NA bin and with a categorical rank vector) and B11c (a finished
+   partitioned tree's segment table) against their plain versions at 1M
+   x 28, 63 bins, B11b bit for bit and B11a f32 within HIST_RTOL, int8
+   exact, and B2/B2-cat with the mono_bounds form, the per-leaf CEGB
+   penalty, the monotone penalty and contri bit for bit (also under
+   path_smooth and max_delta_step); B11b through an EFB group column
+   inside efb_kernels; partitioned_train (after constraint_wide_train):
+   the partitioned learner on the per-iteration loop, six runs (the main
+   configuration against the masked main path's first tree and AUC; 255
+   leaves with WIDE_PARAMS against the batched wide path's AUC; monotone
+   intermediate and advanced with no violation, advanced's training loss
+   against basic's; forced splits starting every tree; quant_train int8),
+   each with steady ms an iteration, host syncs a tree and B11a/b/c
+   launches an iteration held to the learner's counts;
    objectives_train (after multiclass_serve): each of the ten pointwise
    objectives on the HIGGS-shaped rows with a label in its domain, every
    path the JAX package allows with equal model text, the engine route's
@@ -324,7 +341,9 @@ PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "lambdarank": 0, "xendcg": 0, "histogram_int": 0,
                  "histogram_slots_int": 0, "quant_scales": 0,
                  "quantize_stack": 0, "dequant_hist": 0,
-                 "histogram_sparse": 0, "histogram_slots_sparse": 0}
+                 "histogram_sparse": 0, "histogram_slots_sparse": 0,
+                 "segment_histogram": 0, "segment_histogram_int": 0,
+                 "partition_segment": 0, "leaf_of_row": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -609,6 +628,21 @@ CAT_CONS_PARAMS = {**CAT_STRICT_PARAMS, "monotone_constraints": CAT_CONS_MONO,
                    "cegb_penalty_split": CEGB_SPLIT,
                    "cegb_penalty_feature_coupled":
                        [0.0] * 4 + [CEGB_WIDE_COUPLED] + [0.0] * 3}
+# the partitioned learner (partitioned_kernels, partitioned_*_train): the
+# small segment B11a is timed on (about a strict step's smaller child at
+# the main path); the main configuration's best valid AUC against the
+# masked strict main path's (the same first tree; later trees' f32 sums
+# differ in order, the masked root totals from the rows, the partitioned
+# from the root histogram); the 255-leaf strict run's AUC against the
+# batched wide path's at the same round (a different growth order: top-K
+# batches against strict leaf-wise); advanced's training logloss against
+# basic's on the same learner (the JAX package's criterion,
+# tests/test_constraints.py:164-178); the forced cell's rounds
+PART_SMALL_ROWS = 7_500
+PART_AUC_ATOL = 1e-3
+PART_WIDE_AUC_GAP = 0.01
+PART_ADV_LOSS_RATIO = 1.05
+PART_FORCED_ROUNDS = 10
 KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
                 "partition",
                 "grow_step", "histogram_slots", "partition_slots",
@@ -621,7 +655,9 @@ KERNEL_ORDER = ("histogram", "split", "split_per_child", "split_cat",
                 "partition_sparse", "partition_slots_sparse",
                 "predict_sparse", "split_cons", "split_cat_cons",
                 "grow_step_cons", "grow_step_batched_cons",
-                "node_draws_base", "forest_walk", "bin_rows",
+                "node_draws_base", "segment_histogram",
+                "segment_histogram_int", "partition_segment", "leaf_of_row",
+                "split_mono_bounds", "forest_walk", "bin_rows",
                 "fused_predict")
 # the launch counter of a kernels-line entry, where it is not its own key
 # (B2's per-child form is B2's wrapper and counter, B4's column form B4's)
@@ -632,7 +668,8 @@ KERNEL_COUNTER = {"split_per_child": "split", "predict_column": "predict",
                   "split_cat_cons": "split_cat",
                   "grow_step_cons": "grow_step",
                   "grow_step_batched_cons": "grow_step_batched",
-                  "node_draws_base": "node_draws"}
+                  "node_draws_base": "node_draws",
+                  "split_mono_bounds": "split"}
 # the path whose run gives a kernel's ``launches`` (the main path's where
 # not listed)
 KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
@@ -658,7 +695,12 @@ KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "split_cat_cons": "cat_cons_train",
                "grow_step_cons": "constraint_train",
                "grow_step_batched_cons": "constraint_wide_train",
-               "node_draws_base": "constraint_wide_train"}
+               "node_draws_base": "constraint_wide_train",
+               "segment_histogram": "partitioned_train",
+               "segment_histogram_int": "partitioned_quant_train",
+               "partition_segment": "partitioned_train",
+               "leaf_of_row": "partitioned_train",
+               "split_mono_bounds": "partitioned_advanced_train"}
 
 
 def times(counts, n: int):
@@ -2999,7 +3041,8 @@ def phase_efb_kernels(torch, lgt, train, valid):
     split through a permuted rank row as a categorical split is); B4 with
     the maps on the grouped valid matrix (numerical and categorical
     nodes, one column and the column form) against its plain version on
-    CPU copies; each timed."""
+    CPU copies; B11b through a bundled feature's group column and offset
+    (``check_b11b_efb``); each timed."""
     from lightgbm_torch.efb import (EFBInfo, expand_group_hist,
                                     expand_group_hist_plain,
                                     make_device_efb)
@@ -3219,6 +3262,8 @@ def phase_efb_kernels(torch, lgt, train, valid):
               err4, "ms": t4k, "plain_ms": t4p, "bound_ms": b4[0],
           "bound_by": b4[1], "library_ms": None, "rows": nv,
           "columns": G})
+    # B11b (the partitioned learner's partition) through a bundle column
+    check_b11b_efb(torch, train)
     return rows
 
 
@@ -4224,8 +4269,11 @@ class _IterClock:
     def __call__(self, env):
         self.stamps.append(time.perf_counter())
 
-    def steady_ms(self) -> float:
-        d = np.diff(self.stamps[1:])
+    def steady_ms(self, warmup: int = 1) -> float:
+        """Median gap between iterations, the first ``warmup`` gaps
+        dropped where more are left."""
+        d = np.diff(self.stamps)
+        d = d[warmup:] if len(d) > warmup else d
         return 1e3 * float(np.median(d)) if len(d) else float("nan")
 
 
@@ -5848,6 +5896,504 @@ def constraint_after(torch, lgt, lgt_kernels, train, valid, xv, params,
     return after
 
 
+def _segment_library(torch, binned, vals, order, begin, count, B):
+    """``index_add_`` of a segment's gathered rows over precomputed (f*B +
+    bin) cells: one library call computing B11a's sums, timed."""
+    f = binned.shape[1]
+    idx_rows = order[begin:begin + count].to(torch.int64)
+    cells = (binned.index_select(0, idx_rows).to(torch.int64)
+             + torch.arange(f, device=binned.device) * B).reshape(-1)
+    src = vals.index_select(0, idx_rows)
+    src = (src.to(torch.int32) if src.dtype != torch.float32 else src) \
+        .repeat_interleave(f, dim=0)
+    acc = torch.zeros((f * B, 3), dtype=src.dtype, device=binned.device)
+    return median_ms(torch, lambda: acc.zero_().index_add_(0, cells, src))
+
+
+def segment_pass_bound(count: int, f: int, B: int, val_bytes: int):
+    """B11a's least time: the segment's ids (4 B), its rows of the matrix
+    (f B) and of vals, and the histogram written."""
+    return bound_ms(count * (4 + f + val_bytes) + f * B * 12, 3 * count * f)
+
+
+def phase_partitioned_kernels(torch, lgt, train):
+    """B11a (f32 and int8), B11b, B11c and B2's mono_bounds form against
+    their plain versions at the main path's shapes (1M x 28, 63 bins):
+    B11a on the root segment and on a small segment of PART_SMALL_ROWS
+    rows of a permuted order, f32 within HIST_RTOL of the largest bin
+    (random-score gradients) and bitwise on a rerun, int8 exact; B11b on
+    the root split and on a mid-tree segment with an NA bin and with a
+    categorical rank vector, order and left count bitwise; B11c on a
+    finished partitioned tree's segment table, bitwise; B2 (and B2-cat)
+    with the mono_bounds, the per-leaf CEGB penalty, the monotone penalty
+    and contri on two children of exact histograms, bitwise under the
+    default parameters, path_smooth CONS_PATH_SMOOTH and max_delta_step
+    CONS_MAX_DELTA_STEP.  Each timed beside its plain version, its bound
+    and a library call where one computes it."""
+    from lightgbm_torch import grower_partitioned as gp
+    from lightgbm_torch.ops import segment as seg
+    from lightgbm_torch.ops import split as sp
+    from lightgbm_torch.ops.quantize import (QuantSpec, quant_scales,
+                                             quantize_stack)
+    dev = torch.device("cuda", 0)
+    binned = torch.as_tensor(train.binned).to(dev)
+    n, f = binned.shape
+    B = int(train.max_bin)
+    mappers = [train.bin_mappers[i] for i in train.used_features]
+    num_bin = np.asarray([m.num_bin for m in mappers], np.int32)
+    na_bin = np.asarray([m.na_bin for m in mappers], np.int32)
+    y = torch.as_tensor(np.asarray(train.metadata.label, np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = torch.sigmoid(torch.randn(n, device=dev, generator=gen))
+    vals = torch.stack([p - y, p * (1 - p), torch.ones_like(y)],
+                       dim=1).contiguous()
+    spec = QuantSpec(bits=8, stochastic=True, seed=0)
+    qvals = quantize_stack(vals, quant_scales(vals, spec.qmax), spec,
+                           torch.zeros(1, dtype=torch.int32, device=dev))
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    perm = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+    small = (123_457, PART_SMALL_ROWS)
+    rows, checked = [], {"B11a": 0, "B11a-int": 0, "B11b": 0, "B11c": 0,
+                         "B2 mono_bounds": 0}
+
+    # B11a: f32 and int8, the root segment and a small one
+    times_a = {}
+    for key, v, vb in (("segment_histogram", vals, 12),
+                       ("segment_histogram_int", qvals, 3)):
+        errs = []
+        for what, order, (begin, count) in (("root", iota, (0, n)),
+                                            ("small", perm, small)):
+            h_k = seg.segment_histogram(binned, v, order, begin, count,
+                                        num_bins=B)
+            h_p = seg.segment_histogram_plain(binned, v, order, begin, count,
+                                              num_bins=B)
+            h_k2 = seg.segment_histogram(binned, v, order, begin, count,
+                                         num_bins=B)
+            torch.cuda.synchronize()
+            if not torch.equal(h_k, h_k2):
+                raise AssertionError(f"B11a ({key}, {what}) is not bitwise "
+                                     "reproducible")
+            if v.dtype == torch.float32:
+                err = float((h_k - h_p).abs().max())
+                scale = float(h_p.abs().max())
+                if not torch.equal(h_k[..., 2], h_p[..., 2]) \
+                        or err > HIST_RTOL * max(1.0, scale):
+                    raise AssertionError(f"B11a ({what}) max abs error "
+                                         f"{err} (scale {scale})")
+                errs.append(err)
+            else:
+                errs.append(exact_err(torch, [(h_k, h_p)],
+                                      f"B11a-int ({what})"))
+            checked["B11a" if v.dtype == torch.float32 else "B11a-int"] += 1
+            t_k = median_ms(torch, lambda: seg.segment_histogram(
+                binned, v, order, begin, count, num_bins=B))
+            t_p = median_ms(torch, lambda: seg.segment_histogram_plain(
+                binned, v, order, begin, count, num_bins=B))
+            t_l = _segment_library(torch, binned, v, order, begin, count, B)
+            times_a[(key, what)] = (t_k, t_p, t_l,
+                                    segment_pass_bound(count, f, B, vb))
+        tk, tp, tl, (bms, by) = times_a[(key, "root")]
+        sk, spp, sl, (sbms, _) = times_a[(key, "small")]
+        rows.append((key, "B11a segment histogram" + (
+            "" if v.dtype == torch.float32 else ", int8 packed vals, exact "
+            "int32") + " (root segment of 1M rows; small_* a 7,500-row "
+            "segment)", "lightgbm_torch/csrc/segment.cu",
+            "lightgbm_tpu/grower_partitioned.py:55", max(errs), tk, tp,
+            (bms, by), tl, {"small_ms": sk, "small_plain_ms": spp,
+                            "small_library_ms": sl, "small_bound_ms": sbms}))
+
+    # B11b: the root split, then a mid-tree segment with an NA bin (the
+    # feature's top bin taken as NA) and with a categorical rank vector
+    rank_iota = torch.arange(B, dtype=torch.int32, device=dev)
+    rank_perm = torch.randperm(B, device=dev, generator=gen).to(torch.int32)
+    mid = (250_000, 400_000)
+    order0 = perm.clone()
+    cases = (("root", iota, (0, n), dict(col=0, na_bin=int(na_bin[0]),
+                                         goff=-1, nbm1=int(num_bin[0]) - 1,
+                                         threshold=int(num_bin[0]) // 2,
+                                         default_left=False,
+                                         rank=rank_iota)),
+             ("mid_na", order0, mid, dict(col=3, na_bin=int(num_bin[3]) - 1,
+                                          goff=-1, nbm1=int(num_bin[3]) - 1,
+                                          threshold=int(num_bin[3]) // 3,
+                                          default_left=True,
+                                          rank=rank_iota)),
+             ("mid_categorical", order0, mid, dict(
+                 col=7, na_bin=-1, goff=-1, nbm1=int(num_bin[7]) - 1,
+                 threshold=B // 2, default_left=False, rank=rank_perm)))
+    scratch = torch.empty(n, dtype=torch.int32, device=dev)
+    err_b, lefts = 0.0, {}
+    for what, base, (begin, count), kw in cases:
+        ok_, op_ = base.clone(), base.clone()
+        lk = seg.partition_segment(binned, ok_, begin, count,
+                                   scratch=scratch, **kw)
+        lp = seg.partition_segment_plain(binned, op_, begin, count, **kw)
+        err_b = max(err_b, exact_err(torch, [(ok_, op_), (lk, lp)],
+                                     f"B11b ({what})"))
+        lefts[what] = int(lk[0])
+        if not 0 < lefts[what] < count:
+            raise AssertionError(f"B11b ({what}) moves every row one way")
+        checked["B11b"] += 1
+    # timed on the root split; each call restores the identity order (a
+    # 4 MB copy, counted in both times)
+    work = iota.clone()
+    root_kw = cases[0][3]
+    t_k = median_ms(torch, lambda: seg.partition_segment(
+        binned, work.copy_(iota), 0, n, scratch=scratch, **root_kw))
+    t_p = median_ms(torch, lambda: seg.partition_segment_plain(
+        binned, work.copy_(iota), 0, n, **root_kw))
+    # bound: what the function needs, each id and its column byte read
+    # once and each id written once (9 B a row), not this design's passes
+    rows.append(("partition_segment", "B11b stable segment partition "
+                 "(the root split of 1M rows)",
+                 "lightgbm_torch/csrc/segment.cu",
+                 "lightgbm_tpu/grower_partitioned.py:69", err_b, t_k, t_p,
+                 bound_ms(9 * n, 6 * n), None, {"left_counts": lefts}))
+
+    # B11c on a finished partitioned tree: grow one 31-leaf tree and read
+    # its segment table back from the order and the row -> leaf vector
+    grower = gp.PartitionedGrower(
+        num_leaves=NUM_LEAVES, num_bins=B, params=sp.SplitParams(),
+        num_bin=num_bin, na_bin=na_bin, device=dev)
+    exact = torch.stack([0.5 - y, torch.full_like(y, 0.25),
+                         torch.ones_like(y)], dim=1).contiguous()
+    arrays = grower.grow(binned, exact, np.ones(f, bool))
+    order = grower._order
+    lor_tree = arrays.leaf_of_row.clone()
+    by_pos = lor_tree.index_select(0, order.to(torch.int64)).cpu().numpy()
+    starts = np.concatenate([[0], np.nonzero(np.diff(by_pos))[0] + 1])
+    seg_begin = torch.as_tensor(starts.astype(np.int32)).to(dev)
+    seg_leaf = torch.as_tensor(by_pos[starts].astype(np.int32)).to(dev)
+    if len(starts) != int(arrays.num_leaves[0]):
+        raise AssertionError("the tree's segments are not its leaves")
+    out_k = torch.empty(n, dtype=torch.int32, device=dev)
+    seg.leaf_of_row(order, seg_begin, seg_leaf, out=out_k)
+    err_c = exact_err(torch, [(out_k, seg.leaf_of_row_plain(
+        order, seg_begin, seg_leaf)), (out_k, lor_tree)], "B11c")
+    checked["B11c"] += 1
+    t_k = median_ms(torch, lambda: seg.leaf_of_row(order, seg_begin,
+                                                   seg_leaf, out=out_k))
+    t_p = median_ms(torch, lambda: seg.leaf_of_row_plain(order, seg_begin,
+                                                         seg_leaf))
+    S = len(starts)
+    rows.append(("leaf_of_row", f"B11c leaf of row ({S} segments, 1M rows)",
+                 "lightgbm_torch/csrc/segment.cu",
+                 "lightgbm_tpu/grower_partitioned.py:103", err_c, t_k, t_p,
+                 bound_ms(8 * n + 8 * S, n * int(np.ceil(np.log2(S + 1)))),
+                 None, {}))
+
+    # B2's mono_bounds form with every control: the root split's two
+    # children of exact histograms (iteration 0's gradients)
+    h0 = seg.segment_histogram(binned, exact, iota, 0, n, num_bins=B)
+    lo_cnt = lefts["root"]
+    order_r = iota.clone()
+    seg.partition_segment(binned, order_r, 0, n, scratch=scratch,
+                          **root_kw)
+    h_l = seg.segment_histogram(binned, exact, order_r, 0, lo_cnt,
+                                num_bins=B)
+    pair = torch.stack([h_l, h0 - h_l]).contiguous()
+    tot = pair[:, 0].sum(dim=1).contiguous()
+    po = torch.tensor([0.01, -0.02], device=dev)
+    rs = np.random.RandomState(3)
+    C = 2
+
+    def bnd(lo):
+        a = np.where(rs.rand(C, f, B) < 0.5, np.inf if not lo else -np.inf,
+                     (-1 if lo else 1) * 0.3 * rs.rand(C, f, B))
+        return torch.as_tensor(a.astype(np.float32)).to(dev)
+    mono = torch.as_tensor(np.asarray(CONS_MONO, np.int8)).to(dev)
+    fmax = float(np.finfo(np.float32).max)
+    from lightgbm_torch.constraints import monotone_penalty_factor
+    cons = sp.SplitConstraints(
+        mono=mono, out_lo=torch.full((C,), -fmax, device=dev),
+        out_hi=torch.full((C,), fmax, device=dev),
+        depth=torch.tensor([1, 1], dtype=torch.int32, device=dev),
+        factor=torch.as_tensor(monotone_penalty_factor(
+            1.0, np.arange(NUM_LEAVES + 1))).to(dev),
+        contri=torch.as_tensor(np.asarray(CONS_PARAMS["feature_contri"],
+                                          np.float32)).to(dev),
+        penalty=torch.as_tensor((rs.rand(C, f) * 50).astype(
+            np.float32)).to(dev),
+        lo_l=bnd(True), hi_l=bnd(False), lo_r=bnd(True), hi_r=bnd(False))
+    nb_d = torch.as_tensor(num_bin).to(dev)
+    na_d = torch.as_tensor(na_bin).to(dev)
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    is_cat = torch.zeros(f, dtype=torch.bool, device=dev)
+    is_cat[20:] = True
+    prm = sp.SplitParams(min_data_in_leaf=20)
+    err_2 = 0.0
+    for pname, pv in _param_variants(prm).items():
+        for cat in (None, is_cat):
+            r_k = sp.find_best_split(pair, tot, po, nb_d, na_d, fmask, pv,
+                                     is_cat=cat, cons=cons)
+            r_p = sp.find_best_split_plain(pair, tot, po, nb_d, na_d, fmask,
+                                           pv, is_cat=cat, cons=cons)
+            r_k = r_k if cat is not None else (r_k,)
+            r_p = r_p if cat is not None else (r_p,)
+            err_2 = max(err_2, exact_err(torch, zip(r_k, r_p),
+                                         f"B2 mono_bounds ({pname}, "
+                                         f"{'cat' if cat is not None else 'num'})"))
+            checked["B2 mono_bounds"] += 1
+    t_k = median_ms(torch, lambda: sp.find_best_split(
+        pair, tot, po, nb_d, na_d, fmask, prm, cons=cons))
+    t_p = median_ms(torch, lambda: sp.find_best_split_plain(
+        pair, tot, po, nb_d, na_d, fmask, prm, cons=cons))
+    t_u = median_ms(torch, lambda: sp.find_best_split(
+        pair, tot, po, nb_d, na_d, fmask, prm))
+    cand = 2 * C * f * B
+    nbytes = pair.numel() * 4 + C * 16 + 2 * f * 4 + f + C * 12 \
+        + 4 * C * f * B * 4 + C * f * 4 + 2 * f * 4 + C * sp.RECORD * 4
+    rows.append(("split_mono_bounds", "B2 split scan with mono_bounds "
+                 "(advanced), per-leaf CEGB penalty, monotone penalty and "
+                 "contri (2 children)", "lightgbm_torch/csrc/split.cu",
+                 "lightgbm_tpu/ops/split.py:301", err_2, t_k, t_p,
+                 bound_ms(nbytes, 60 * cand), None,
+                 {"unconstrained_ms": t_u}))
+    out = {}
+    for key, name, src_path, replaces, e, tk, tp, (bms, by), tl, more \
+            in rows:
+        out[key] = {"name": name, "route": "cuda", "source": src_path,
+                    "replaces": replaces, "max_abs_err": e, "ms": tk,
+                    "plain_ms": tp, "bound_ms": bms, "bound_by": by,
+                    "library_ms": tl}
+        emit({"phase": "kernel", **out[key], "kernel_ms": tk, **more})
+    emit({"phase": "partitioned_kernels", "compared": checked,
+          "tree_leaves": int(arrays.num_leaves[0])})
+    return out
+
+
+def check_b11b_efb(torch, train):
+    """B11b on an EFB-bundled matrix: the root segment partitioned by a
+    bundled feature through its group column and offset, order and left
+    count bitwise against the plain version, timed."""
+    from lightgbm_torch.ops import segment as seg
+    dev = torch.device("cuda", 0)
+    efb = train.efb
+    binned = torch.as_tensor(np.ascontiguousarray(train.binned)).to(dev)
+    n = binned.shape[0]
+    mappers = [train.bin_mappers[i] for i in train.used_features]
+    bundled = [j for j in range(len(mappers)) if efb.off_of_feat[j] >= 0]
+    j = max(bundled, key=lambda k: mappers[k].num_bin)
+    nb = int(mappers[j].num_bin)
+    kw = dict(col=int(efb.group_of_feat[j]), na_bin=int(mappers[j].na_bin),
+              goff=int(efb.off_of_feat[j]), nbm1=nb - 1, threshold=0,
+              default_left=False,
+              rank=torch.arange(int(train.max_bin), dtype=torch.int32,
+                                device=dev))
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    ok_, op_ = iota.clone(), iota.clone()
+    lk = seg.partition_segment(binned, ok_, 0, n, **kw)
+    lp = seg.partition_segment_plain(binned, op_, 0, n, **kw)
+    exact_err(torch, [(ok_, op_), (lk, lp)], "B11b on the EFB group column")
+    if not 0 < int(lk[0]) < n:
+        raise AssertionError("B11b (EFB) moves every row one way")
+    work = iota.clone()
+    t_k = median_ms(torch, lambda: seg.partition_segment(
+        binned, work.copy_(iota), 0, n, **kw))
+    emit({"phase": "kernel_check", "kernel": "partition_segment",
+          "case": "EFB group column", "feature": j, "group": kw["col"],
+          "offset": kw["goff"], "left_count": int(lk[0]), "rows": n,
+          "ms": t_k, "bitwise": True})
+
+
+def _train_partitioned(lgt, train, valid, params, rounds, es=True):
+    """One partitioned run on the per-iteration loop (binary, MAX_BIN,
+    learning_rate 0.1, auc and logloss on the valid set by the traced
+    metrics, ``fused_eval=true``, as phase_per_iteration runs the masked
+    twin; phase timer on): (booster, evals, per-iteration clock)."""
+    ev = {}
+    clock = _IterClock()
+    cbs = [lgt.record_evaluation(ev), clock, _attach_timer]
+    if es:
+        cbs.insert(0, lgt.early_stopping(ES_ROUNDS, first_metric_only=True,
+                                         verbose=False))
+    p = {"objective": "binary", "num_leaves": NUM_LEAVES,
+         "max_bin": MAX_BIN, "learning_rate": 0.1, "metric": METRICS,
+         "verbosity": -1, "tpu_learner": "partitioned",
+         "fused_eval": "true", **params}
+    bst = lgt.train(p, train, rounds, valid_sets=[valid], callbacks=cbs)
+    return bst, ev, clock
+
+
+def _part_report(torch, lgt_kernels, name, bst, ev, clock, twin=None,
+                 extra=None):
+    """Checks and one JSON line of a partitioned run: the per-iteration
+    path only (no epoch, no captured program), launches held to the
+    learner's count (B11a once at the root and once a split, or more
+    with pool rebuilds; B11b once a split; B11c once a tree; B2 at the
+    root and once a split; the valid walk once an iteration; no B1, B3
+    or B3s), host syncs a tree.  Returns the launches."""
+    torch.cuda.synchronize()
+    launches = lgt_kernels.launch_counts()
+    m = bst._model
+    iters = m.num_iterations_trained
+    splits = sum(m.step_counts)
+    fc = m.fetch_counts
+    if m.learner != "partitioned" or "epoch" in fc \
+            or fc.get("tree") != iters:
+        raise AssertionError(f"{name}: learner {m.learner}, fetches {fc}")
+    hist = launches["segment_histogram"] + launches["segment_histogram_int"]
+    want = {"partition_segment": splits, "leaf_of_row": iters,
+            "predict": iters, "auc": iters, "pointwise": iters,
+            "histogram": 0, "histogram_int": 0, "partition": 0,
+            "grow_step": 0}
+    got = {k: launches[k] for k in want}
+    if got != want or hist < iters + splits \
+            or launches["split"] < iters + splits:
+        raise AssertionError(f"{name}: launches {launches} for {iters} "
+                             f"iterations and {splits} splits")
+    syncs = sum(fc.get(k, 0) for k in ("root", "split_count",
+                                       "split_records", "forced"))
+    phase_ms = {k: v / iters for k, v in
+                m.phase_timer.totals_ms().items()}
+    auc = ev["valid_0"]["auc"]
+    line = {"phase": name, "path": "per-iteration", "iterations": iters,
+            "splits": splits, "valid_auc_last": auc[-1],
+            "valid_auc_best": max(auc),
+            "steady_ms_per_iteration": clock.steady_ms(warmup=2),
+            "host_syncs_per_tree": syncs / iters,
+            "phase_ms_per_iteration": phase_ms, "host_fetches": fc,
+            "launches_per_iteration": {
+                k: launches[k] / iters for k in (
+                    "segment_histogram", "segment_histogram_int",
+                    "partition_segment", "leaf_of_row", "split",
+                    "split_cat", "dequant_hist", "predict")},
+            **(twin or {}), **(extra or {})}
+    if not all(np.isfinite(auc)) or not 0.5 < max(auc) <= 1.0:
+        raise AssertionError(f"{name}: valid AUC {auc}")
+    emit(line)
+    return launches
+
+
+def _train_logloss(bst, train) -> float:
+    s = np.asarray(bst._model.train_score(), np.float64)
+    y = np.asarray(train.metadata.label, np.float64)
+    p = np.clip(1.0 / (1.0 + np.exp(-s)), 1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def phase_partitioned_train(torch, lgt, lgt_kernels, train, valid, x, xv,
+                            main_bst, main_ev, main_ms, eager_ms):
+    """The partitioned learner through ``lightgbm_torch.train`` on the
+    HIGGS-shaped set, on the per-iteration loop, six runs: the main
+    configuration (first tree's integer arrays equal to the masked strict
+    main path's, best AUC within PART_AUC_ATOL); 255 leaves with
+    WIDE_PARAMS for CUT_ROUNDS (AUC within PART_WIDE_AUC_GAP of the
+    batched wide path's at that round); monotone intermediate and
+    advanced with CONS_MONO at penalty 0 (no violation over
+    CONS_SWEEP_ROWS swept rows; advanced's training logloss at most
+    PART_ADV_LOSS_RATIO times basic's on the same learner); forced splits
+    (every tree starts with them); quant_train int8 stochastic (AUC within
+    QUANT_AUC_GAP of the main run's at the same round, B11a's integer
+    form launched).  Returns launches by path."""
+    import tempfile
+    out = {}
+    twin = {"masked_steady_ms_per_iteration_fused": main_ms,
+            "masked_ms_per_iteration_per_iteration_path": eager_ms}
+
+    # 1. the main configuration
+    lgt_kernels.reset_launch_counts()
+    bst, ev, clock = _train_partitioned(lgt, train, valid, {}, ROUNDS)
+    t0, m0 = bst._model.models[0], main_bst._model.models[0]
+    nl = t0.num_leaves
+    same = nl == m0.num_leaves and all(
+        np.array_equal(np.asarray(getattr(t0, k))[:nl - 1],
+                       np.asarray(getattr(m0, k))[:nl - 1])
+        for k in ("split_feature", "threshold_bin", "decision_type",
+                  "left_child", "right_child")) and np.array_equal(
+        np.asarray(t0.leaf_count)[:nl], np.asarray(m0.leaf_count)[:nl])
+    best_p = max(ev["valid_0"]["auc"])
+    best_m = max(main_ev["valid_0"]["auc"])
+    if not same or abs(best_p - best_m) > PART_AUC_ATOL:
+        raise AssertionError(f"partitioned_train: first tree equal {same}, "
+                             f"AUC {best_p} against {best_m}")
+    out["partitioned_train"] = _part_report(
+        torch, lgt_kernels, "partitioned_train", bst, ev, clock, twin,
+        {"first_tree_integer_arrays_equal_masked": same,
+         "masked_valid_auc_best": best_m})
+    auc_main = ev["valid_0"]["auc"]
+
+    # 2. 255 leaves, bagging and feature_fraction, against the batched
+    # wide path (super-epochs) at the same round
+    _, wev, _ = train_main(lgt, train, valid, extra=WIDE_PARAMS,
+                           rounds=CUT_ROUNDS)
+    lgt_kernels.reset_launch_counts()
+    bst, ev, clock = _train_partitioned(lgt, train, valid, WIDE_PARAMS,
+                                        CUT_ROUNDS, es=False)
+    a = ev["valid_0"]["auc"][-1]
+    wide_auc = wev["valid_0"]["auc"][min(len(wev["valid_0"]["auc"]),
+                                         len(ev["valid_0"]["auc"])) - 1]
+    if abs(a - wide_auc) > PART_WIDE_AUC_GAP:
+        raise AssertionError(f"partitioned_wide_train AUC {a} against the "
+                             f"batched wide path's {wide_auc}")
+    out["partitioned_wide_train"] = _part_report(
+        torch, lgt_kernels, "partitioned_wide_train", bst, ev, clock,
+        extra={"batched_wide_valid_auc": wide_auc})
+
+    # 3, 4. monotone intermediate and advanced (and basic, the loss
+    # reference, on the same learner)
+    losses = {}
+    for method in ("basic", "intermediate", "advanced"):
+        lgt_kernels.reset_launch_counts()
+        bst, ev, clock = _train_partitioned(
+            lgt, train, valid, {"monotone_constraints": CONS_MONO,
+                                "monotone_penalty": 0.0,
+                                "monotone_constraints_method": method},
+            CUT_ROUNDS, es=False)
+        losses[method] = _train_logloss(bst, train)
+        if method == "basic":
+            continue
+        bad = _sweep_violations(bst, train, xv, CONS_SWEEP_ROWS)
+        if any(bad.values()):
+            raise AssertionError(f"monotone {method}: violations {bad}")
+        name = f"partitioned_{method}_train"
+        out[name] = _part_report(
+            torch, lgt_kernels, name, bst, ev, clock,
+            extra={"monotone_violations": bad,
+                   "train_logloss": losses[method],
+                   "basic_train_logloss": losses["basic"]})
+    if losses["advanced"] > PART_ADV_LOSS_RATIO * losses["basic"]:
+        raise AssertionError(f"advanced's training loss {losses}")
+
+    # 5. forced splits: the root on feature 0 at its median, its left
+    # child on feature 1 at its median
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "forced.json"
+        path.write_text(json.dumps({
+            "feature": 0, "threshold": float(np.median(x[:, 0])),
+            "left": {"feature": 1, "threshold": float(np.median(x[:, 1]))}}))
+        lgt_kernels.reset_launch_counts()
+        bst, ev, clock = _train_partitioned(
+            lgt, train, valid, {"forcedsplits_filename": str(path)},
+            PART_FORCED_ROUNDS, es=False)
+    for t in bst._model.models:
+        lc = int(t.left_child[0])
+        if int(t.split_feature[0]) != 0 or lc < 0 \
+                or int(t.split_feature[lc]) != 1:
+            raise AssertionError("a tree does not start with the forced "
+                                 "splits")
+    out["partitioned_forced_train"] = _part_report(
+        torch, lgt_kernels, "partitioned_forced_train", bst, ev, clock,
+        extra={"trees_starting_with_the_forced_splits":
+               len(bst._model.models)})
+
+    # 6. quantized training (int8, stochastic rounding)
+    lgt_kernels.reset_launch_counts()
+    bst, ev, clock = _train_partitioned(lgt, train, valid, QUANT,
+                                        CUT_ROUNDS, es=False)
+    a_q = ev["valid_0"]["auc"][-1]
+    a_f = auc_main[min(CUT_ROUNDS, len(auc_main)) - 1]
+    launches = _part_report(
+        torch, lgt_kernels, "partitioned_quant_train", bst, ev, clock,
+        extra={"f32_valid_auc_same_round": a_f})
+    if abs(a_q - a_f) > QUANT_AUC_GAP or launches["segment_histogram"] \
+            or launches["segment_histogram_int"] < 1:
+        raise AssertionError(f"partitioned quant: AUC {a_q} against {a_f}, "
+                             f"launches {launches}")
+    out["partitioned_quant_train"] = launches
+    return out
+
+
 def host_walk(bst, x, **kw):
     """``Booster.predict`` by the host tree walk (``predict_bucketed=false``),
     leaving the booster's mode and engine cache as they were."""
@@ -6451,6 +6997,7 @@ def main() -> int:
     kernels.update(wide_kernels)
     kernels.update(phase_sample_kernels(torch, lgt, train))
     kernels.update(phase_constraint_kernels(torch, lgt, train))
+    kernels.update(phase_partitioned_kernels(torch, lgt, train))
     cat_xv, cat_train, cat_valid = phase_cat_data(lgt)
     kernels.update(phase_cat_kernels(torch, lgt, cat_train, cat_valid))
     mc_xv, mc_train, mc_valid = phase_mc_data(lgt)
@@ -6505,6 +7052,10 @@ def main() -> int:
             per_it, rounds=rounds, after=constraint_after(
                 torch, lgt, lgt_kernels, train, valid, xv, params, per_it,
                 rounds, plain_steady, twin))[0])
+    # the partitioned learner's six runs, on the per-iteration loop
+    sampled_counts.update(phase_partitioned_train(
+        torch, lgt, lgt_kernels, train, valid, x, xv, bst, ev,
+        epoch_ms_per_it, eager_ms_per_it))
     # quantized training: the main configuration (its AUC held to the f32
     # main path's) and the wide one
     for prefix, params, per_it, rounds in (
@@ -6593,7 +7144,9 @@ def main() -> int:
               "partition_sparse", "partition_slots_sparse",
               "predict_sparse", "split_cons", "split_cat_cons",
               "grow_step_cons", "grow_step_batched_cons",
-              "node_draws_base"):
+              "node_draws_base", "segment_histogram",
+              "segment_histogram_int", "partition_segment", "leaf_of_row",
+              "split_mono_bounds"):
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

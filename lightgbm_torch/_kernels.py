@@ -54,6 +54,7 @@ SOURCES: Dict[str, str] = {
     "rank": "rank.cu",              # B13a, B13b
     "quantize": "quantize.cu",      # B7a, B7b, B7c
     "sparse": "sparse.cu",          # B8a
+    "segment": "segment.cu",        # B11a, B11b, B11c
 }
 
 # kernel (launch-counter key) -> library
@@ -72,9 +73,11 @@ KERNELS: Dict[str, str] = {
     "quant_scales": "quantize", "quantize_stack": "quantize",
     "dequant_hist": "quantize", "histogram_sparse": "sparse",
     "histogram_slots_sparse": "sparse",
+    "segment_histogram": "segment", "segment_histogram_int": "segment",
+    "partition_segment": "segment", "leaf_of_row": "segment",
 }
 
-# dynamic shared memory the B1 and B10c kernels may use (227 KB, all a
+# dynamic shared memory the B1, B10c and B11a kernels may use (227 KB, all a
 # block may have on Hopper), set once at load
 SMEM_BYTES = 227 * 1024
 
@@ -86,8 +89,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # B2's and B2-cat's split controls (csrc/split.cu Cons): mono, lo, hi,
-# depth, factor, n_factor, contri, slope, coupled, cuse
-_SPLIT_CONS = (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P)
+# depth, factor, n_factor, contri, slope, coupled, cuse, pen, lo_l,
+# hi_l, lo_r, hi_r
+_SPLIT_CONS = (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P)
 # B3s's and B3s-K's split-control state (csrc/grow_step.cu
 # StepCons): mono, olo, ohi, clo, chi, cdepth, groups, G, F,
 # feature_mask, fallow, cmask, cuse
@@ -180,11 +184,23 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                   _I, _I, _P, _P, _P, _P, _P, _P, _P),
         "lgbt_sparse_setup": (),
     },
+    "segment": {
+        "lgbt_segment_histogram": (_P, _P, _P, ctypes.c_longlong, _I, _I,
+                                   _I, _I, _I, _I, _P, _P, _P),
+        "lgbt_segment_histogram_int": (_P, _P, _I, _P, ctypes.c_longlong,
+                                       _I, _I, _I, _I, _I, _P, _P, _P),
+        "lgbt_partition_segment": (_P, _I, _P, ctypes.c_longlong, _I, _I,
+                                   _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+                                   _P),
+        "lgbt_leaf_of_row": (_P, _I, _P, _P, _I, _P, _P),
+        "lgbt_segment_setup": (_I,),
+    },
 }
 
 # arguments of each library's setup entry point
 _SETUP_ARGS: Dict[str, tuple] = {"histogram": (SMEM_BYTES,),
-                                  "forest": (SMEM_BYTES,)}
+                                  "forest": (SMEM_BYTES,),
+                                  "segment": (SMEM_BYTES,)}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

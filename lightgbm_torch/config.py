@@ -200,8 +200,9 @@ _PARAMS: Dict[str, tuple] = {
     # (every shard holds all global histograms) — A/B escape hatch
     "dp_owner_shard": (bool, True, []),
     "hist_dtype": (str, "float32", []),      # histogram accumulation dtype
-    # auto: partitioned on CPU, masked (one jitted program per tree) on
-    # accelerators where per-split host round-trips dominate
+    # auto: masked on both devices (the port's CPU path is its card
+    # path's twin); forced splits and the monotone methods past basic
+    # promote it to partitioned (models/gbdt.py resolve_learner)
     "tpu_learner": (str, "auto", []),  # auto | partitioned | masked
     "rows_per_block": (int, 0, []),          # 0 = auto-tune histogram row blocking
     # iterations fused into one on-device program (lax.scan) when the

@@ -6,7 +6,8 @@ The port's own copy of the JAX package's host pieces (held equal to them
 by tests/test_torch_constraints.py): the monotone vector over used-feature
 slots (``models/gbdt.py`` :176-181), ``_interaction_allow`` (:1207-1234),
 the ``feature_contri`` vector (:189-195), ``_make_cegb`` (:883-906) with
-``CEGBState`` (``grower_partitioned.py`` :140-168), and
+``CEGBState`` (``grower_partitioned.py`` :140-168, with the partitioned
+learner's ``penalty_vector`` and ``mark_used``), and
 ``monotone_penalty_factor`` (``ops/split.py`` :132-142).  The arithmetic
 is the JAX package's f32 host arithmetic, written in numpy with the same
 operand types, so every vector has the same bits.
@@ -40,6 +41,22 @@ class CEGBState(NamedTuple):
     coupled: Optional[np.ndarray]     # [F] or None
     lazy: Optional[np.ndarray]        # [F] or None
     used: np.ndarray                  # [F] bool, mutated in place
+
+    def penalty_vector(self, num_data_in_leaf: float) -> np.ndarray:
+        """The [F] f32 penalty of a leaf of ``num_data_in_leaf`` rows, as
+        the partitioned learner computes it on the host
+        (``grower_partitioned.py`` :152-160)."""
+        f = len(self.used)
+        pen = np.full(f, self.tradeoff * self.penalty_split
+                      * float(num_data_in_leaf), np.float32)
+        if self.coupled is not None:
+            pen += self.tradeoff * self.coupled * (~self.used)
+        if self.lazy is not None:
+            pen += self.tradeoff * self.lazy * float(num_data_in_leaf)
+        return pen
+
+    def mark_used(self, feature: int) -> None:
+        self.used[feature] = True
 
     @property
     def active(self) -> bool:

@@ -58,6 +58,19 @@
 // adjustment.  Every pointer of `Cons` null: the launches and results are
 // as without controls.
 //
+// The partitioned learner's forms (grower_partitioned.py `_find_leaf`
+// :322-362, ops/split.py :301-341 and :462-485): `pen` ([K, F] f32) is
+// the leaf's CEGB penalty vector as that learner computes it on the host
+// (`CEGBState.penalty_vector`), subtracted in place of slope * count +
+// coupled * !cuse; the `mono_bounds` form (monotone `advanced`) gives
+// four [K, F, B] f32 bound arrays `lo_l`, `hi_l`, `lo_r`, `hi_r`: each
+// candidate (k, f, b) clips its left child's output to [lo_l, hi_l] and
+// its right child's to [lo_r, hi_r] at that (feature, threshold bin)
+// instead of to the leaf's scalar range, in the clamp, the recompute and
+// the winner's clip; a categorical winner's outputs are clipped to the
+// tightest bound over all of its feature's bins (lower bound max(lo),
+// upper max(min(hi), max(lo))).
+//
 // Design.  `split_gains`: one block per (feature, leaf) loads the [B, 3]
 // histogram into shared memory; three threads scan the bins in order, one
 // channel each (the same sequential order as the plain version's cumsum on
@@ -128,12 +141,17 @@ struct Cons {
   const float* slope;      // [F]: CEGB on
   const float* coupled;    // [F]
   const uint8_t* cuse;     // [F] (with coupled)
+  const float* pen;        // [K, F] penalty vectors (in place of slope)
+  const float* lo_l;       // [K, F, B] mono_bounds (with mono)
+  const float* hi_l;
+  const float* lo_r;
+  const float* hi_r;
 };
 
 // a valid gain of leaf k and feature f, scaled and penalised; -inf where
 // the penalised gain is at or below kEpsilon
 __device__ float scale_penalise(float g, const Cons& c, int k, int f,
-                                float count) {
+                                int num_f, float count) {
   if (c.factor != nullptr || c.contri != nullptr) {
     float s = 1.f;
     if (c.factor != nullptr && c.mono[f] != 0) {
@@ -144,13 +162,49 @@ __device__ float scale_penalise(float g, const Cons& c, int k, int f,
     if (c.contri != nullptr) s = s * c.contri[f];
     g = g * s;
   }
-  if (c.slope != nullptr) {
+  if (c.pen != nullptr) {
+    const float pen = c.pen[k * num_f + f];
+    g = g - pen > kEpsilon ? g - pen : -INFINITY;
+  } else if (c.slope != nullptr) {
     float pen = c.slope[f] * count;
     if (c.coupled != nullptr)
       pen = pen + c.coupled[f] * (c.cuse[f] != 0 ? 0.f : 1.f);
     g = g - pen > kEpsilon ? g - pen : -INFINITY;
   }
   return g;
+}
+
+// the winner's (left, right) output clip of leaf k (with mono): the
+// leaf's range, or the mono_bounds at (f, b), or for a categorical winner
+// (`cat`) the tightest bound over f's bins
+__device__ void clip_outputs(const Cons& c, int k, int f, int b, bool cat,
+                             int num_f, int num_bins, float* out_l,
+                             float* out_r) {
+  if (c.mono == nullptr) return;
+  float llo = c.lo[k], lhi = c.hi[k], rlo = c.lo[k], rhi = c.hi[k];
+  if (c.lo_l != nullptr) {
+    const long long row = ((long long)k * num_f + f) * num_bins;
+    if (!cat) {
+      llo = c.lo_l[row + b];
+      lhi = c.hi_l[row + b];
+      rlo = c.lo_r[row + b];
+      rhi = c.hi_r[row + b];
+    } else {
+      float mll = -INFINITY, nhl = INFINITY, mlr = -INFINITY, nhr = INFINITY;
+      for (int j = 0; j < num_bins; ++j) {
+        mll = fmaxf(mll, c.lo_l[row + j]);
+        nhl = fminf(nhl, c.hi_l[row + j]);
+        mlr = fmaxf(mlr, c.lo_r[row + j]);
+        nhr = fminf(nhr, c.hi_r[row + j]);
+      }
+      llo = mll;
+      lhi = fmaxf(nhl, mll);
+      rlo = mlr;
+      rhi = fmaxf(nhr, mlr);
+    }
+  }
+  *out_l = fminf(fmaxf(*out_l, llo), lhi);
+  *out_r = fminf(fmaxf(*out_r, rlo), rhi);
 }
 
 // grid (F, K); block >= B threads; smem B*3 floats.
@@ -228,15 +282,22 @@ __global__ void split_gains(const float* __restrict__ hist,
     if (valid && cons.mono != nullptr) {
       const float ol = leaf_output(lg, lh, lc, po, p);
       const float orr = leaf_output(rg, rh, rc, po, p);
-      const float cl = fminf(fmaxf(ol, lo), hi);
-      const float cr = fminf(fmaxf(orr, lo), hi);
+      float cl, cr;
+      if (cons.lo_l != nullptr) {
+        const long long o = ((long long)k * num_features + f) * num_bins + b;
+        cl = fminf(fmaxf(ol, cons.lo_l[o]), cons.hi_l[o]);
+        cr = fminf(fmaxf(orr, cons.lo_r[o]), cons.hi_r[o]);
+      } else {
+        cl = fminf(fmaxf(ol, lo), hi);
+        cr = fminf(fmaxf(orr, lo), hi);
+      }
       if (cl != ol || cr != orr)
         gain = gain_given(lg, lh, cl, p) + gain_given(rg, rh, cr, p) -
                shift_np;
       const bool ok = mf > 0 ? cl <= cr : (mf < 0 ? cl >= cr : true);
       valid = ok && gain > kEpsilon;
     }
-    if (valid) gain = scale_penalise(gain, cons, k, f, t2);
+    if (valid) gain = scale_penalise(gain, cons, k, f, num_features, t2);
     gains[(((long long)k * 2 + dir) * num_features + f) * num_bins + b] =
         valid ? gain : -INFINITY;
   }
@@ -254,9 +315,7 @@ __global__ void split_pick(const float* __restrict__ gains,
                            const float* __restrict__ parent_out,
                            const int32_t* __restrict__ na_bin,
                            int num_features, int num_bins, Params p,
-                           const float* __restrict__ out_lo,
-                           const float* __restrict__ out_hi,
-                           const int32_t* __restrict__ active,
+                           Cons cons, const int32_t* __restrict__ active,
                            float* __restrict__ out) {
   if (active != nullptr && *active == 0) return;
   __shared__ float best_g[kPickThreads];
@@ -310,10 +369,8 @@ __global__ void split_pick(const float* __restrict__ gains,
   for (int c = 0; c < 3; ++c) rec[7 + c] = r[c];
   rec[10] = leaf_output(l[0], l[1], l[2], po, p);
   rec[11] = leaf_output(r[0], r[1], r[2], po, p);
-  if (out_lo != nullptr) {
-    rec[10] = fminf(fmaxf(rec[10], out_lo[k]), out_hi[k]);
-    rec[11] = fminf(fmaxf(rec[11], out_lo[k]), out_hi[k]);
-  }
+  clip_outputs(cons, k, f, b, false, num_features, num_bins, rec + 10,
+               rec + 11);
 }
 
 // ---------------------------------------------------------------------------
@@ -482,7 +539,7 @@ __global__ void split_cat_gains(const float* __restrict__ hist,
                    leaf_gain(rg, rh, rc, po, p) - shift;
       ok = ok && lc >= p.min_data && rc >= p.min_data &&
            lh >= p.min_hess && rh >= p.min_hess && gain > kEpsilon;
-      if (ok) gain = scale_penalise(gain, cons, k, f, t2);
+      if (ok) gain = scale_penalise(gain, cons, k, f, num_features, t2);
       if (ok && gain > bg) {
         bg = gain;
         bi = mode * fb + f * B + t;
@@ -521,9 +578,7 @@ __global__ void split_cat_gains(const float* __restrict__ hist,
 __global__ void split_cat_pick(const float* __restrict__ total,
                                const float* __restrict__ parent_out,
                                int num_features, int num_bins, Params pc,
-                               const float* __restrict__ out_lo,
-                               const float* __restrict__ out_hi,
-                               const int32_t* __restrict__ active,
+                               Cons cons, const int32_t* __restrict__ active,
                                const float* __restrict__ fbest,
                                const int32_t* __restrict__ fidx,
                                const int32_t* __restrict__ frank,
@@ -580,10 +635,7 @@ __global__ void split_cat_pick(const float* __restrict__ total,
       for (int c = 0; c < 3; ++c) rec[7 + c] = r[c];
       rec[10] = leaf_output(l[0], l[1], l[2], po, pc);
       rec[11] = leaf_output(r[0], r[1], r[2], po, pc);
-      if (out_lo != nullptr) {
-        rec[10] = fminf(fmaxf(rec[10], out_lo[k]), out_hi[k]);
-        rec[11] = fminf(fmaxf(rec[11], out_lo[k]), out_hi[k]);
-      }
+      clip_outputs(cons, k, f, 0, true, num_features, B, rec + 10, rec + 11);
     }
     cat[k] = take_cat ? 1 : 0;
     s_take = take_cat ? 1 : 0;
@@ -598,7 +650,9 @@ __global__ void split_cat_pick(const float* __restrict__ total,
 
 // The split controls' pointers, each null when off: mono [F] int8, lo/hi
 // [K] f32 (with mono), depth [K] int32 and factor [n_factor] f32, contri
-// [F] f32, slope [F] f32, coupled [F] f32, cuse [F] uint8 (with coupled).
+// [F] f32, slope [F] f32, coupled [F] f32, cuse [F] uint8 (with coupled),
+// pen [K, F] f32 (in place of slope), lo_l/hi_l/lo_r/hi_r [K, F, B] f32
+// (with mono).
 // hist [K, F, B, 3], total [K, 3], parent_out [K], num_bin/na_bin [F]
 // int32, feature_mask [F] (mask_stride 0) or [K, F] (mask_stride F) uint8,
 // rand_bin [K, F] int32 or null, is_cat [F] uint8 or null; the split
@@ -618,12 +672,15 @@ extern "C" int lgbt_split(const float* hist, const float* total,
                           const float* factor, int n_factor,
                           const float* contri, const float* slope,
                           const float* coupled, const uint8_t* cuse,
-                          const int32_t* active, float* gains, float* cum,
-                          float* out, cudaStream_t stream) {
+                          const float* pen, const float* lo_l,
+                          const float* hi_l, const float* lo_r,
+                          const float* hi_r, const int32_t* active,
+                          float* gains, float* cum, float* out,
+                          cudaStream_t stream) {
   const Params p{l1, l2, min_data, min_hess, min_gain, max_delta,
                  path_smooth};
-  const Cons cons{mono, lo, hi, depth, factor, n_factor, contri, slope,
-                  coupled, cuse};
+  const Cons cons{mono,  lo,   hi,   depth, factor, n_factor, contri, slope,
+                  coupled, cuse, pen, lo_l, hi_l,   lo_r,     hi_r};
   const int threads = ((num_bins + 31) / 32) * 32;
   split_gains<<<dim3(num_features, num_leaves), threads,
                 num_bins * 3 * sizeof(float), stream>>>(
@@ -633,8 +690,7 @@ extern "C" int lgbt_split(const float* hist, const float* total,
   if (err != cudaSuccess) return (int)err;
   split_pick<<<num_leaves, kPickThreads, 0, stream>>>(
       gains, cum, hist, total, parent_out, na_bin, num_features, num_bins, p,
-      mono != nullptr ? lo : nullptr, mono != nullptr ? hi : nullptr,
-      active, out);
+      cons, active, out);
   return (int)cudaGetLastError();
 }
 
@@ -658,17 +714,20 @@ extern "C" int lgbt_split_cat(const float* hist, const float* total,
                               const int32_t* depth, const float* factor,
                               int n_factor, const float* contri,
                               const float* slope, const float* coupled,
-                              const uint8_t* cuse, const int32_t* active,
-                              float* fbest, int32_t* fidx, int32_t* frank,
-                              float* out, int32_t* cat, int32_t* rank,
+                              const uint8_t* cuse, const float* pen,
+                              const float* lo_l, const float* hi_l,
+                              const float* lo_r, const float* hi_r,
+                              const int32_t* active, float* fbest,
+                              int32_t* fidx, int32_t* frank, float* out,
+                              int32_t* cat, int32_t* rank,
                               cudaStream_t stream) {
   if (num_bins > kCatThreads) return (int)cudaErrorInvalidValue;
   const Params pc{l1, l2, min_data, min_hess, min_gain, max_delta,
                   path_smooth};
   const CatParams cp{pc, cat_smooth, used_min, max_cat_threshold,
                      max_cat_to_onehot};
-  const Cons cons{mono, lo, hi, depth, factor, n_factor, contri, slope,
-                  coupled, cuse};
+  const Cons cons{mono,  lo,   hi,   depth, factor, n_factor, contri, slope,
+                  coupled, cuse, pen, lo_l, hi_l,   lo_r,     hi_r};
   const size_t smem = (size_t)(15 * num_bins + 2 * kCatThreads) * 4;
   split_cat_gains<<<dim3(num_features, num_leaves), kCatThreads, smem,
                     stream>>>(hist, total, parent_out, is_cat, feature_mask,
@@ -677,9 +736,8 @@ extern "C" int lgbt_split_cat(const float* hist, const float* total,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_cat_pick<<<num_leaves, kPickThreads, 0, stream>>>(
-      total, parent_out, num_features, num_bins, pc,
-      mono != nullptr ? lo : nullptr, mono != nullptr ? hi : nullptr,
-      active, fbest, fidx, frank, out, cat, rank);
+      total, parent_out, num_features, num_bins, pc, cons, active, fbest,
+      fidx, frank, out, cat, rank);
   return (int)cudaGetLastError();
 }
 

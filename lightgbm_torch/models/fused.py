@@ -52,6 +52,15 @@ order fixed by the shapes, so the in-graph values are reported directly
 (tests/test_torch_fused.py pins them to the ``fused_eval=true``
 per-iteration values).
 
+A model on the partitioned learner (``grower_partitioned.py``: forced
+splits, monotone ``intermediate``/``advanced``, or ``tpu_learner=
+partitioned``) runs the body eagerly only, as the JAX package runs it in
+its host loop: its tree comes from the host-orchestrated split loop
+(B11a-c, B2 and one host sync a split), which takes the iteration's
+feature_fraction mask from the host copy of ``fmasks`` and the device
+iteration ``it_cur`` for the quantizer's key; the rest of the body is
+the same.
+
 An objective that renews its leaf values (l1, quantile, mape) runs the
 body eagerly only: after growth it calls ``model.renew_leaves``, which
 fetches the tree and the score, renews the values on the host and
@@ -123,6 +132,9 @@ class IterationProgram:
         self.sample_features = m.config.feature_fraction < 1.0
         self.fmask_cur = torch.ones((1, m.num_features), dtype=torch.bool,
                                     device=dev)
+        # the partitioned learner's host copy of the iteration's mask (it
+        # runs one iteration a run)
+        self.fmask_host = np.ones(m.num_features, bool)
         self.vals = torch.zeros((m.num_data, 3), dtype=torch.float32,
                                 device=dev) \
             if self.bagging or self.goss else None
@@ -221,7 +233,8 @@ class IterationProgram:
         """The row weights of g, h (B6: GOSS, the bagging draw, or none)
         keyed by ``it_cur``, then one tree from the grower (B1-B3s, or
         B1-K/B3-K/B3s-K, with the per-node draws B6-node, and B9 on an
-        EFB-bundled matrix)."""
+        EFB-bundled matrix; or the partitioned learner, on the host
+        mask)."""
         m = self.model
         cfg = m.config
         if self.goss:
@@ -234,6 +247,12 @@ class IterationProgram:
         else:
             vals = torch.stack([g, h, torch.ones_like(g)], dim=1)
         mark("grow")
+        if m.partitioned is not None:
+            return m.partitioned.grow(
+                m.binned_dev, vals, self.fmask_host, is_cat=m.is_cat_dev,
+                forced=m.forced, cegb_state=m.cegb,
+                rng_iter=self.it_cur if m.quant is not None else None,
+                workspace=m.grow_ws)
         grow = grow_tree if m.split_batch == 1 else grow_tree_batched
         kw = {} if m.split_batch == 1 else {"split_batch": m.split_batch}
         if self.keyed:
@@ -383,6 +402,8 @@ class IterationProgram:
         self.dead.zero_()
         self.es_base.fill_(int(es_it0))
         self.it0.fill_(int(it0))
+        if fmasks is not None:
+            self.fmask_host = np.asarray(fmasks[0], bool)
         if self.sample_features:
             self.fmasks[:k].copy_(torch.as_tensor(np.asarray(fmasks, bool)))
         if self.model.cegb is not None:

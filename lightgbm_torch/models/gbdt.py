@@ -17,7 +17,12 @@ over the k-hot rows, B8a-c; with the split controls, monotone ``basic``,
 interaction constraints, ``feature_contri`` and CEGB, inside B2, B3s/B3s-K
 and B6-node, CEGB's used features carried from tree to tree) ->
 f32 shrinkage -> train score += leaf value gathered through the grower's
-row -> leaf vector -> every valid score += tree walk (B4).  The iteration
+row -> leaf vector -> every valid score += tree walk (B4).  With
+``tpu_learner=partitioned`` (or forced splits, or monotone
+``intermediate``/``advanced``, which promote ``auto`` to it) the tree
+comes from the partitioned learner (``grower_partitioned.py``: B11a-c,
+histogram work that grows with the smaller child, the per-node controls
+on the host), on the per-iteration path only.  The iteration
 is ``models/fused.py``'s ``IterationProgram.body``, and three paths run
 it, as in the JAX package:
 
@@ -60,6 +65,7 @@ Parameter values that need modules the port does not have yet raise
 
 from __future__ import annotations
 
+import json
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -74,6 +80,7 @@ from ..constraints import (contri_vector, device_constraints,
 from ..dataset import Dataset
 from ..efb import bin_grouped, make_device_efb
 from ..grower import GrowWorkspace, batch_width, host_tree
+from ..grower_partitioned import PartitionedGrower
 from ..metrics import check_class_labels
 from ..objectives import ObjectiveFunction
 from ..ops.quantize import QuantSpec, max_rows
@@ -115,19 +122,7 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
         (c.boosting not in ("gbdt", "gbrt"), f"boosting={c.boosting}", "A9"),
         (c.tree_learner != "serial" or c.num_machines > 1,
          "distributed training (tree_learner/num_machines)", "A16"),
-        # monotone basic runs on the masked grower; intermediate and
-        # advanced need the partitioned learner (the JAX package's
-        # :205-229)
-        (monotone_vector(c, ds) is not None
-         and c.monotone_constraints_method != "basic",
-         f"monotone_constraints_method={c.monotone_constraints_method}",
-         "A11b"),
-        (bool(c.forcedsplits_filename), "forced splits", "A11"),
         (c.linear_tree, "linear_tree", "A9"),
-        # sparse binned storage overrides partitioned to masked
-        # (``GBDTModel.__init__``), as the JAX package does
-        (c.tpu_learner == "partitioned" and ds.binned_sparse is None,
-         "tpu_learner=partitioned", "A11 (B11)"),
         (c.snapshot_freq > 0 or c.resume, "snapshots and resume", "A12"),
         (c.integrity_check_freq > 0, "integrity checks", "A17 (B17)"),
         (c.finite_check_freq > 0, "finite checks", "A12"),
@@ -138,6 +133,92 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
          "more than 256 bins per feature or per EFB bundle", "A9.5"),
     ]
     return [(what, item) for hit, what, item in checks if hit]
+
+
+def load_forced(config: Config, ds: Dataset):
+    """``forcedsplits_filename``'s JSON tree in used-feature slot and bin
+    space (the JAX package's ``_load_forced``, models/gbdt.py:908-933):
+    each node's threshold is ``value_to_bin`` of its feature's mapper;
+    a node on a feature the dataset does not use is dropped with its
+    subtree.  None without a file."""
+    if not config.forcedsplits_filename:
+        return None
+    with open(config.forcedsplits_filename) as f:
+        spec = json.load(f)
+    slot_of_orig = {f: i for i, f in enumerate(ds.used_features)}
+
+    def conv(node):
+        if not isinstance(node, dict) or "feature" not in node:
+            return None
+        orig = int(node["feature"])
+        if orig not in slot_of_orig:
+            return None
+        mapper = ds.bin_mappers[orig]
+        thr_bin = int(mapper.value_to_bin(
+            np.asarray([float(node["threshold"])]))[0])
+        out = {"feature": slot_of_orig[orig], "threshold_bin": thr_bin}
+        for side in ("left", "right"):
+            c = conv(node.get(side))
+            if c is not None:
+                out[side] = c
+        return out
+
+    return conv(spec)
+
+
+def resolve_learner(config: Config, ds: Dataset, forced) -> str:
+    """``masked`` or ``partitioned``, by the JAX package's rules
+    (models/gbdt.py:144-165, :200-229, :659-666): ``auto`` is ``masked``
+    on both devices (the JAX package's rule for a non-CPU backend, and
+    the port's CPU path is the card path's twin); sparse binned storage
+    overrides an explicit ``partitioned`` with the JAX package's warning;
+    forced splits (``forced``, the parsed tree) and the monotone methods
+    ``intermediate``/``advanced`` promote ``auto`` to ``partitioned`` and
+    raise the JAX package's ``ValueError`` on sparse storage or with an
+    explicit ``masked``."""
+    learner = "partitioned" if config.tpu_learner == "partitioned" \
+        else "masked"
+    if ds.binned_sparse is not None:
+        if learner == "partitioned":
+            Log.warning(
+                "tpu_learner=partitioned overridden to masked: the "
+                "dataset chose sparse binned storage (pass "
+                "enable_sparse=false to keep the partitioned learner)")
+        learner = "masked"
+    node_controls = (monotone_vector(config, ds) is not None
+                     and config.monotone_constraints_method != "basic") \
+        or forced is not None
+    if node_controls and ds.binned_sparse is not None:
+        raise ValueError(
+            "forced splits and monotone intermediate/advanced need the "
+            "host-orchestrated learner, which requires dense binned "
+            "storage; construct the Dataset with enable_sparse=false")
+    if node_controls and config.tpu_learner == "auto":
+        learner = "partitioned"
+    if node_controls and learner != "partitioned":
+        raise ValueError(
+            "monotone intermediate/advanced and forced splits "
+            "currently require the partitioned learner "
+            "(tpu_learner=partitioned, single-chip); monotone "
+            "basic, interaction constraints, CEGB and "
+            "feature_fraction_bynode work on the masked learner")
+    return learner
+
+
+def pool_entries(config: Config, num_features: int, max_bin: int,
+                 efb) -> int:
+    """``histogram_pool_size`` (MB) as the partitioned learner's count of
+    cached leaf histograms (the JAX package's ``_pool_entries``,
+    models/gbdt.py:935-950): 0 (unbounded) when not set; ``efb`` the
+    host ``EFBInfo`` or None."""
+    if config.histogram_pool_size <= 0:
+        return 0
+    cols = efb.max_group_bin if efb is not None else max_bin
+    nf = (int(np.max(efb.group_of_feat)) + 1 if efb is not None
+          else num_features)
+    bytes_per_leaf = max(nf, 1) * max(cols, 2) * 3 * 4
+    return max(2, int(config.histogram_pool_size * 1024 * 1024
+                      / bytes_per_leaf))
 
 
 def resolve_split_batch(config: Config) -> int:
@@ -294,14 +375,12 @@ class GBDTModel:
         self.num_features = ds.num_features
         if self.num_features == 0:
             raise ValueError("Dataset has no usable (non-trivial) features")
-        # sparse k-hot storage rides the masked grower (the JAX package's
-        # :155-165): an explicit partitioned learner is overridden
+        # the learner (``resolve_learner``): sparse k-hot storage rides the
+        # masked grower; forced splits and the monotone methods past
+        # basic need the partitioned one
         sparse = ds.binned_sparse is not None
-        if sparse and config.tpu_learner == "partitioned":
-            Log.warning(
-                "tpu_learner=partitioned overridden to masked: the "
-                "dataset chose sparse binned storage (pass "
-                "enable_sparse=false to keep the partitioned learner)")
+        self.forced = load_forced(config, ds)
+        self.learner = resolve_learner(config, ds, self.forced)
         _refuse_unported(config, ds)
         if sparse and config.quant_train:
             raise ValueError(
@@ -356,7 +435,9 @@ class GBDTModel:
         else:
             self.binned_dev = torch.as_tensor(
                 np.ascontiguousarray(ds.binned)).to(dev)
-        self.split_batch = resolve_split_batch(config)
+        partitioned = self.learner == "partitioned"
+        # the partitioned learner grows strictly leaf-wise
+        self.split_batch = 1 if partitioned else resolve_split_batch(config)
         self.quant = quant_spec(config, self.num_data)
         # the split controls (the JAX package's :176-195, :883-906,
         # :1207-1234): monotone basic with its penalty, interaction
@@ -375,6 +456,28 @@ class GBDTModel:
                                      categorical=self.is_cat_dev is not None,
                                      efb=self.efb_dev, quant=self.quant,
                                      constraints=self.constraints)
+        # the partitioned learner (its host RNG streams live across trees)
+        self.partitioned: Optional[PartitionedGrower] = None
+        if partitioned:
+            self.partitioned = PartitionedGrower(
+                num_leaves=config.num_leaves, num_bins=self.max_bin,
+                params=self.split_params, num_bin=num_bin, na_bin=na_bin,
+                device=dev, max_depth=config.max_depth,
+                mono=monotone_vector(config, ds),
+                mono_method=config.monotone_constraints_method,
+                mono_penalty=config.monotone_penalty,
+                interaction_groups=interaction_allow(config, ds),
+                bynode_frac=config.feature_fraction_bynode,
+                bynode_seed=config.feature_fraction_seed + 1,
+                efb=self.efb_dev,
+                efb_host=None if ds.efb is None else (
+                    ds.efb.group_of_feat, ds.efb.off_of_feat),
+                pool_entries=pool_entries(config, self.num_features,
+                                          self.max_bin, ds.efb),
+                feature_contri=contri_vector(config, ds),
+                extra_trees=bool(config.extra_trees),
+                extra_seed=config.extra_seed, quant=self.quant,
+                fetch=self._fetch)
         # the valid walk's level count: the configuration's worst case, on
         # every path (a row stops at its leaf, so the result is the same)
         self.walk_steps = traversal_steps(config.max_depth,
@@ -396,7 +499,9 @@ class GBDTModel:
             bynode_seed=config.feature_fraction_seed + 1,
             extra_trees=bool(config.extra_trees),
             extra_seed=config.extra_seed)
-        self.node_sampling = sampling if sampling.on else None
+        # the partitioned learner draws its nodes from host streams
+        self.node_sampling = sampling if sampling.on and not partitioned \
+            else None
         self.bag_positive: Optional[torch.Tensor] = None
         if self._use_bagging and self._pos_neg_bagging:
             label = np.asarray(ds.metadata.label).reshape(-1)
@@ -668,6 +773,12 @@ class GBDTModel:
             reasons.append(f"num_class={self.num_class}: multiclass grows "
                            "one tree per class per iteration through the "
                            "host loop")
+        if self.partitioned is not None:
+            reasons.append(f"tpu_learner={self.learner}: only the "
+                           "one-program masked grower runs inside a fused "
+                           "scan")
+        if self.forced is not None:
+            reasons.append("forced_splits need host node bookkeeping")
         return reasons
 
     def fused_reasons(self) -> List[str]:
@@ -786,10 +897,13 @@ class GBDTModel:
                                cat_bins=self.grow_ws.cat_bins)
                 nl = tj.num_leaves
                 self.step_counts.append(tj.n_steps)
-                if self.cegb is not None and nl > 1:
+                if self.cegb is not None and nl > 1 \
+                        and self.partitioned is None:
                     # the tree's split features into the cross-tree used
                     # set that the next tree or epoch starts from (the
-                    # JAX package's :2762-2764, :2466-2468)
+                    # JAX package's :2762-2764, :2466-2468); the
+                    # partitioned learner marks its best-first splits
+                    # itself and never a forced one
                     self.cegb.used[np.asarray(tj.split_feature)[:nl - 1]] \
                         = True
                 if fusable:

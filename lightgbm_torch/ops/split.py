@@ -44,7 +44,15 @@ feature's ``monotone_penalty`` factor at the leaf's ``depth`` (monotone
 features only) times its ``contri``, and the CEGB penalty ``cegb_slope *
 count + cegb_coupled * (not cuse)`` is subtracted (a gain left at or
 below kEpsilon is invalid); the winner's outputs are clipped to the
-range.
+range.  The partitioned learner (``grower_partitioned.py``) gives two more
+forms: ``penalty`` [K, F], each leaf's CEGB penalty vector as that learner
+computes it on the host, subtracted in place of the slope and coupled
+terms; and the ``mono_bounds`` form of the monotone ``advanced`` method
+(the JAX package's :318-324, :462-481), four [K, F, B] bound arrays
+``lo_l``, ``hi_l``, ``lo_r``, ``hi_r`` that clip each candidate's left
+and right outputs at its (feature, threshold bin) in place of the leaf's
+range, a categorical winner's to the tightest bound over its feature's
+bins.
 
 On a CUDA tensor ``find_best_split`` launches the kernels of
 ``csrc/split.cu``; on a CPU tensor it runs ``find_best_split_plain``.
@@ -111,7 +119,11 @@ class SplitConstraints(NamedTuple):
     ``out_lo``/``out_hi`` [K] f32; ``factor`` [T] f32, the monotone
     penalty factor of each depth, with the leaves' ``depth`` [K] int32
     (needs ``mono``); ``contri`` [F] f32; ``cegb_slope`` [F] f32, and
-    ``cegb_coupled`` [F] f32 with the used features ``cuse`` [F] bool."""
+    ``cegb_coupled`` [F] f32 with the used features ``cuse`` [F] bool;
+    ``penalty`` [K, F] f32, the leaves' whole CEGB penalty vectors (in
+    place of ``cegb_slope``); ``lo_l``, ``hi_l``, ``lo_r``, ``hi_r`` [K,
+    F, B] f32, the ``mono_bounds`` of each candidate's children (needs
+    ``mono``)."""
     mono: Optional[torch.Tensor] = None
     out_lo: Optional[torch.Tensor] = None
     out_hi: Optional[torch.Tensor] = None
@@ -121,6 +133,16 @@ class SplitConstraints(NamedTuple):
     cegb_slope: Optional[torch.Tensor] = None
     cegb_coupled: Optional[torch.Tensor] = None
     cuse: Optional[torch.Tensor] = None
+    penalty: Optional[torch.Tensor] = None
+    lo_l: Optional[torch.Tensor] = None
+    hi_l: Optional[torch.Tensor] = None
+    lo_r: Optional[torch.Tensor] = None
+    hi_r: Optional[torch.Tensor] = None
+
+    @property
+    def bounds(self) -> bool:
+        """Whether the ``mono_bounds`` form is on."""
+        return self.lo_l is not None
 
 
 def unpack(rec: torch.Tensor) -> SplitResult:
@@ -196,24 +218,30 @@ def _check(hist, total, parent_output, num_bin, na_bin, feature_mask,
             raise TypeError("active must be a [1] int32 tensor")
         others.append(active)
     if cons is not None:
-        others += _check_cons(cons, k, f)
+        others += _check_cons(cons, k, f, hist.shape[2])
     if any(t.device != hist.device for t in others):
         raise ValueError("find_best_split inputs must be on one device")
 
 
-def _check_cons(cons: SplitConstraints, k: int, f: int) -> list:
+def _check_cons(cons: SplitConstraints, k: int, f: int, b: int) -> list:
     """Shapes, types and pairings of the split controls; returns the
     tensors."""
     f32 = torch.float32
+    if cons.penalty is not None and cons.cegb_slope is not None:
+        raise ValueError("penalty replaces cegb_slope: pass one of them")
     return check_operands(
         cons, {"mono": ((f,), torch.int8), "out_lo": ((k,), f32),
                "out_hi": ((k,), f32), "depth": ((k,), torch.int32),
                "factor": (None, f32), "contri": ((f,), f32),
                "cegb_slope": ((f,), f32), "cegb_coupled": ((f,), f32),
-               "cuse": ((f,), torch.bool)},
+               "cuse": ((f,), torch.bool), "penalty": ((k, f), f32),
+               "lo_l": ((k, f, b), f32), "hi_l": ((k, f, b), f32),
+               "lo_r": ((k, f, b), f32), "hi_r": ((k, f, b), f32)},
         together=(("mono", "out_lo", "out_hi"), ("factor", "depth"),
-                  ("cegb_coupled", "cuse")),
-        needs=(("factor", "mono"), ("cegb_coupled", "cegb_slope")))
+                  ("cegb_coupled", "cuse"),
+                  ("lo_l", "hi_l", "lo_r", "hi_r")),
+        needs=(("factor", "mono"), ("cegb_coupled", "cegb_slope"),
+               ("lo_l", "mono")))
 
 
 def _cons_args(cons: Optional[SplitConstraints]) -> tuple:
@@ -226,7 +254,8 @@ def _cons_args(cons: Optional[SplitConstraints]) -> tuple:
     n_factor = 0 if c.factor is None else int(c.factor.shape[0])
     return (ptr(c.mono), ptr(c.out_lo), ptr(c.out_hi), ptr(c.depth),
             ptr(c.factor), n_factor, ptr(c.contri), ptr(c.cegb_slope),
-            ptr(c.cegb_coupled), ptr(c.cuse))
+            ptr(c.cegb_coupled), ptr(c.cuse), ptr(c.penalty), ptr(c.lo_l),
+            ptr(c.hi_l), ptr(c.lo_r), ptr(c.hi_r))
 
 
 def find_best_split(hist: torch.Tensor, total: torch.Tensor,
@@ -347,11 +376,36 @@ def find_best_split_plain(hist: torch.Tensor, total: torch.Tensor,
             hist, total, parent_output, feature_mask & is_cat, params, rec,
             cons)
     if cons is not None and cons.mono is not None:
-        # the winner's outputs within the leaf's range (:462-485)
-        for col in (LEFT_OUTPUT, RIGHT_OUTPUT):
-            rec[:, col] = torch.minimum(torch.maximum(
-                rec[:, col], cons.out_lo), cons.out_hi)
+        # the winner's outputs within the leaf's range, or its
+        # mono_bounds (:462-485)
+        bounds = _winner_bounds(rec, None if is_cat is None else cat, cons)
+        for col, (lo, hi) in zip((LEFT_OUTPUT, RIGHT_OUTPUT), bounds):
+            rec[:, col] = torch.minimum(torch.maximum(rec[:, col], lo), hi)
     return rec if is_cat is None else (rec, cat, rank)
+
+
+def _winner_bounds(rec, cat, cons: SplitConstraints):
+    """((lo, hi) of the left output, (lo, hi) of the right) [K] each, for
+    the winners ``rec``: the leaves' ranges, or the ``mono_bounds`` at
+    the winner's (feature, threshold), or for a categorical winner
+    (``cat`` != 0) the tightest bound over its feature's bins: lower
+    max(lo), upper max(min(hi), max(lo)) (the JAX package's :466-479)."""
+    if not cons.bounds:
+        return (cons.out_lo, cons.out_hi), (cons.out_lo, cons.out_hi)
+    k = rec.shape[0]
+    ks = torch.arange(k, device=rec.device)
+    f = rec[:, FEATURE].to(torch.int64)
+    t = rec[:, THRESHOLD].to(torch.int64)
+    out = []
+    for lo_b, hi_b in ((cons.lo_l, cons.hi_l), (cons.lo_r, cons.hi_r)):
+        lo, hi = lo_b[ks, f, t], hi_b[ks, f, t]
+        if cat is not None:
+            mx_lo = lo_b[ks, f].amax(dim=1)
+            c_hi = torch.maximum(hi_b[ks, f].amin(dim=1), mx_lo)
+            lo = torch.where(cat != 0, mx_lo, lo)
+            hi = torch.where(cat != 0, c_hi, hi)
+        out.append((lo, hi))
+    return out
 
 
 def _monotone_plain(gains, lefts, total, parent_output, params, cons):
@@ -363,10 +417,15 @@ def _monotone_plain(gains, lefts, total, parent_output, params, cons):
                         lefts[..., 2])
     out_r = leaf_output(rights[..., 0], rights[..., 1], params, po,
                         rights[..., 2])
-    lo = cons.out_lo[:, None, None, None]
-    hi = cons.out_hi[:, None, None, None]
-    cl_l = torch.minimum(torch.maximum(out_l, lo), hi)
-    cl_r = torch.minimum(torch.maximum(out_r, lo), hi)
+    if cons.bounds:
+        # [K, 1, F, B]: the same bounds in both NA directions
+        lo_l, hi_l, lo_r, hi_r = (b[:, None] for b in (
+            cons.lo_l, cons.hi_l, cons.lo_r, cons.hi_r))
+    else:
+        lo_l = lo_r = cons.out_lo[:, None, None, None]
+        hi_l = hi_r = cons.out_hi[:, None, None, None]
+    cl_l = torch.minimum(torch.maximum(out_l, lo_l), hi_l)
+    cl_r = torch.minimum(torch.maximum(out_r, lo_r), hi_r)
 
     def gain_given(sums, out):
         tg = threshold_l1(sums[..., 0], params.lambda_l1)
@@ -406,11 +465,14 @@ def _scale_penalise_plain(gains, total, cons):
     if scale is not None:
         gains = torch.where(gains > kMinScore,
                             gains * scale[:, None, :, None], gains)
-    if cons.cegb_slope is not None:
-        pen = cons.cegb_slope[None] * total[:, 2:3]              # [K, F]
-        if cons.cegb_coupled is not None:
-            pen = pen + cons.cegb_coupled[None] \
-                * (~cons.cuse).to(torch.float32)[None]
+    if cons.penalty is not None or cons.cegb_slope is not None:
+        if cons.penalty is not None:
+            pen = cons.penalty                                   # [K, F]
+        else:
+            pen = cons.cegb_slope[None] * total[:, 2:3]
+            if cons.cegb_coupled is not None:
+                pen = pen + cons.cegb_coupled[None] \
+                    * (~cons.cuse).to(torch.float32)[None]
         pen = pen[:, None, :, None]
         gains = torch.where(
             gains > kMinScore,

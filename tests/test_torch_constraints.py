@@ -55,8 +55,8 @@ from lightgbm_tpu.ops import split as js
 from lightgbm_tpu.ops.histogram import compute_histogram
 
 from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
-    binned_problem, pin_torch_threads, pin_torch_threads_module,
-    raw_problem)
+    assert_first_tree_equal, binned_problem, pin_torch_threads,
+    pin_torch_threads_module, raw_problem)
 
 RTOL = 1e-5
 FACTOR_ULP = 1
@@ -533,14 +533,28 @@ def test_wide_first_tree_equals_jax(path):
 
 
 def test_intermediate_and_advanced_name_the_partitioned_learner():
+    """The monotone methods intermediate and advanced select the
+    partitioned learner (``auto``), whose first tree is the JAX
+    package's; with an explicit masked learner both packages raise the
+    JAX package's ValueError naming the partitioned learner."""
     x, y = raw_problem(4, n=400, f=4)
+    y = np.minimum(y, 1)
     for method in ("intermediate", "advanced"):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            lgt.train({"objective": "binary", "verbosity": -1,
-                       "device_type": "cpu",
-                       "monotone_constraints": [1, 0, 0, 0],
-                       "monotone_constraints_method": method},
-                      lgt.Dataset(x, np.minimum(y, 1)), 2)
+        # 7 leaves: past them this 400-row set's best gains fall to f32
+        # rounding noise (about 1e-6), where summation orders decide
+        p = {"objective": "binary", "verbosity": -1, "num_leaves": 7,
+             "monotone_constraints": [1, 0, 0, 0],
+             "monotone_constraints_method": method}
+        bt = lgt.train({**p, "device_type": "cpu"}, lgt.Dataset(x, y), 2)
+        assert bt._model.learner == "partitioned"
+        bj = lgb.train(p, lgb.Dataset(x, label=y), 2)
+        assert_first_tree_equal(bt, bj)
+        for mod, ds in ((lgt, lgt.Dataset(x, y)),
+                        (lgb, lgb.Dataset(x, label=y))):
+            with pytest.raises(ValueError,
+                               match="require the partitioned learner"):
+                mod.train({**p, "tpu_learner": "masked", **(
+                    {"device_type": "cpu"} if mod is lgt else {})}, ds, 2)
 
 
 def test_cegb_used_state_carries_across_trees_and_paths():

@@ -56,7 +56,7 @@ from lightgbm_tpu.grower import make_grower
 from lightgbm_tpu.ops.split import SplitParams as JParams
 
 from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
-    pin_torch_threads, pin_torch_threads_module)
+    assert_first_tree_equal, pin_torch_threads, pin_torch_threads_module)
 
 # the port's plain histogram sums in f64, the JAX one in f32 blocks: held
 # relative to the largest magnitude of the histogram
@@ -657,8 +657,12 @@ def test_partitioned_learner_is_overridden_with_the_jax_warning(
     assert isinstance(bst._model.binned_dev, tspd.SparseBinned)
     assert any("tpu_learner=partitioned overridden to masked" in s
                for s in said)
-    # dense storage keeps the refusal of the partitioned learner (A11)
-    with pytest.raises(NotImplementedError, match="A11"):
-        lgt.train({"objective": "binary", "verbosity": -1,
-                   "device_type": "cpu", "tpu_learner": "partitioned"},
-                  lgt.Dataset(x.toarray(), y), 1)
+    # dense storage keeps the partitioned learner, whose first tree is
+    # the JAX package's
+    p = {"objective": "binary", "verbosity": -1, "num_leaves": 7,
+         "tpu_learner": "partitioned"}
+    bd = lgt.train({**p, "device_type": "cpu"}, lgt.Dataset(x.toarray(), y),
+                   1)
+    assert bd._model.learner == "partitioned"
+    assert_first_tree_equal(bd, lgb.train(p, lgb.Dataset(x.toarray(),
+                                                         label=y), 1))

@@ -3,6 +3,7 @@ Dataset fields, the config table, the model text of the reference
 fixtures, the package's import rule and its device rule."""
 
 import ast
+import json
 import pathlib
 
 import numpy as np
@@ -15,7 +16,8 @@ from lightgbm_torch import config as tconfig
 from lightgbm_tpu import config as jconfig
 
 from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
-    pin_torch_threads, pin_torch_threads_module, raw_problem)
+    assert_first_tree_equal, pin_torch_threads, pin_torch_threads_module,
+    raw_problem)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "fixtures" / "reference"
@@ -141,6 +143,11 @@ def test_default_device_without_card_raises(monkeypatch):
                   lgt.Dataset(x, y), 2)
 
 
+# parameters that select the partitioned learner (ported: they train)
+_PARTITIONED = ("monotone_constraints_method", "forcedsplits_filename",
+                "tpu_learner")
+
+
 @pytest.mark.parametrize("params,item", [
     ({"cegb_penalty_split": 1.0, "boosting": "dart"}, "A9"),
     ({"monotone_constraints": [1, 0, 0, 0],
@@ -160,12 +167,34 @@ def test_default_device_without_card_raises(monkeypatch):
     ({"integrity_check_freq": 2}, "A17"),
     ({"snapshot_freq": 5}, "A12"),
 ])
-def test_unported_parameters_raise(params, item):
+def test_unported_parameters_raise(params, item, tmp_path):
+    """Each parameter value whose module the port lacks raises, naming its
+    ROADMAP item.  The partitioned learner and the controls it serves
+    (forced splits, monotone intermediate/advanced; ROADMAP A11, ported)
+    train instead, and their first tree is the JAX package's."""
     x, y = raw_problem(4, n=400, f=4)
+    y = np.minimum(y, 1)
     full = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
             **params}
+    if any(k in params for k in _PARTITIONED):
+        # 7 leaves: past them this 400-row set's best gains fall to f32
+        # rounding noise (about 1e-6 against a root gain of 110), where
+        # the two packages' summation orders decide
+        full["num_leaves"] = 7
+        if "forcedsplits_filename" in full:
+            path = tmp_path / full["forcedsplits_filename"]
+            path.write_text(json.dumps(
+                {"feature": 1, "threshold": 0.0,
+                 "left": {"feature": 0, "threshold": 0.3}}))
+            full["forcedsplits_filename"] = str(path)
+        bt = lgt.train(full, lgt.Dataset(x, y), 2)
+        assert bt._model.learner == "partitioned"
+        bj = lgb.train({k: v for k, v in full.items() if k != "device_type"},
+                       lgb.Dataset(x, label=y), 2)
+        assert_first_tree_equal(bt, bj)
+        return
     with pytest.raises(NotImplementedError, match=item):
-        lgt.train(full, lgt.Dataset(x, np.minimum(y, 1)), 2)
+        lgt.train(full, lgt.Dataset(x, y), 2)
 
 
 def test_categorical_feature_raises():

@@ -215,3 +215,34 @@ def multiclass_problem(seed: int, n: int = 3000, f: int = 6, k: int = 3,
     y = np.argmax(logits + 0.4 * rs.randn(n, k), axis=1).astype(np.float32)
     x[rs.rand(n, f) < nan_frac] = np.nan
     return x, y
+
+
+# the first tree's integer fields, and its f32 fields within FIRST_TREE_RTOL
+# (f32 sums in other orders than the JAX package's XLA programs)
+FIRST_TREE_INT = ("num_leaves", "split_feature", "threshold", "decision_type",
+                  "left_child", "right_child", "leaf_count", "internal_count")
+FIRST_TREE_FLOAT = ("split_gain", "leaf_value", "internal_value")
+FIRST_TREE_RTOL = 1e-4
+
+
+def assert_first_tree_equal(bt, bj):
+    """The first tree of the port's booster ``bt`` has the structure of
+    the JAX package's ``bj`` and its values within FIRST_TREE_RTOL."""
+    def first(b):
+        text = b.model_to_string().split("end of trees")[0]
+        return text.split("Tree=")[1].split("\n\n")[0]
+
+    def field(tree, name):
+        for ln in tree.splitlines():
+            if ln.startswith(name + "="):
+                return ln.split("=", 1)[1]
+        return ""
+    a, b = first(bt), first(bj)
+    for name in FIRST_TREE_INT:
+        assert field(a, name) == field(b, name), name
+    for name in FIRST_TREE_FLOAT:
+        x = np.asarray(field(a, name).split(), np.float64)
+        y = np.asarray(field(b, name).split(), np.float64)
+        np.testing.assert_allclose(
+            x, y, rtol=FIRST_TREE_RTOL,
+            atol=FIRST_TREE_RTOL * max(np.abs(y).max(), 1.0), err_msg=name)
