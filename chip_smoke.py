@@ -245,6 +245,21 @@ Phases, one JSON line each:
    against basic's; forced splits starting every tree; quant_train int8),
    each with steady ms an iteration, host syncs a tree and B11a/b/c
    launches an iteration held to the learner's counts;
+   fleet_kernels (after quant_kernels): the member forms B1-M, B1-K-M,
+   B1-int-M, B1-K-int-M, B3-M, B3-K-M and B4-M at four members, each
+   member bit for bit against its solo launch with one member on a dead
+   step, and against the plain version (B1-M and B1-K-M within
+   HIST_RTOL, the rest exact), timed beside four solo launches;
+   fleet_train, fleet_sweep_train, fleet_ragged_train, fleet_quant_train
+   and fleet_wide_train (after quant_wide_train, ``FLEET_CELLS``):
+   ``fleet_train`` of seed replicas, of the lr x num_leaves sweep and of
+   an lr sweep whose members leave the fleet early (``FLEET_RAGGED``:
+   one rides its lane dead while the others train on, and the last
+   finishes solo), every member's model text and best iteration equal to
+   its solo run on the card, the fleet graph's launches held to
+   ``fleet_per_iteration``, one ``fleet_fetch`` an epoch, the shared
+   operands one tensor, the fleet's ms an iteration beside the members'
+   solo ms summed;
    objectives_train (after multiclass_serve): each of the ten pointwise
    objectives on the HIGGS-shaped rows with a label in its domain, every
    path the JAX package allows with equal model text, the engine route's
@@ -301,11 +316,11 @@ import numpy as np
 
 N_TRAIN, N_VALID, N_FEAT = 1_000_000, 200_000, 28
 NUM_LEAVES, MAX_BIN, ROUNDS, ES_ROUNDS = 31, 63, 50, 10
-# the serving model and the server's traffic (250 trees: the host walks
+# the serving model and the server's traffic (100 trees: the host walks
 # that check every answer set the serving phases' time, which keeps the
 # script within its limit)
 SERVE_ROUNDS, SERVE_REQUESTS, SERVE_THREADS, SERVE_MAX_BATCH = \
-    250, 2000, 8, 1024
+    100, 2000, 8, 1024
 # integer operations of one level of a forest walk (gathers, compares,
 # selects), counted against the f32 rate: the published peaks used here
 # list no int32 rate outside the tensor cores, and the H100 issues int32
@@ -343,7 +358,11 @@ PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "quantize_stack": 0, "dequant_hist": 0,
                  "histogram_sparse": 0, "histogram_slots_sparse": 0,
                  "segment_histogram": 0, "segment_histogram_int": 0,
-                 "partition_segment": 0, "leaf_of_row": 0}
+                 "partition_segment": 0, "leaf_of_row": 0,
+                 "histogram_members": 0, "histogram_slots_members": 0,
+                 "histogram_int_members": 0,
+                 "histogram_slots_int_members": 0, "partition_members": 0,
+                 "partition_slots_members": 0, "predict_members": 0}
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -701,6 +720,79 @@ KERNEL_PATH = {"forest_walk": "predict", "bin_rows": "serve_fused",
                "partition_segment": "partitioned_train",
                "leaf_of_row": "partitioned_train",
                "split_mono_bounds": "partitioned_advanced_train"}
+# the fleet (fleet_kernels, fleet_*_train): FLEET_MEMBERS seed replicas
+# of the main configuration with bagging 0.8 every 5 and
+# feature_fraction 0.8 (without sampling, seed replicas would be one
+# model); the lr x num_leaves sweep with early stopping at 5 (mixed leaf
+# budgets, 31 and 63: the lockstep runs 62 steps); the lr sweep
+# 0.2|0.5|0.8 with early stopping at 3 (the CPU test's ragged roster),
+# whose larger rates stop at different epochs, so a member rides its lane
+# dead and the last one finishes through the solo path; quant_train
+# int8 and the wide shape (255 leaves, bagging, K = 16) with 2 members
+# each, at CUT_ROUNDS.  Every member's model text is held to its solo run
+# on the card
+FLEET_MEMBERS = 4
+FLEET_RAGGED = "fleet_ragged_train"
+FLEET_BASE = {"objective": "binary", "max_bin": MAX_BIN,
+              "learning_rate": 0.1, "metric": METRICS, "verbosity": -1,
+              "first_metric_only": True, "early_stopping_round": ES_ROUNDS}
+FLEET_CELLS = (
+    ("fleet_train", {"num_leaves": NUM_LEAVES, "bagging_fraction": 0.8,
+                     "bagging_freq": 5, "feature_fraction": 0.8,
+                     "fleet_members": FLEET_MEMBERS}, ROUNDS),
+    ("fleet_sweep_train", {"num_leaves": NUM_LEAVES,
+                           "fleet_sweep": "learning_rate=0.05|0.1;"
+                                          "num_leaves=31|63",
+                           "early_stopping_round": 5}, ROUNDS),
+    (FLEET_RAGGED, {"num_leaves": NUM_LEAVES,
+                    "fleet_sweep": "learning_rate=0.2|0.5|0.8",
+                    "early_stopping_round": 3}, ROUNDS),
+    ("fleet_quant_train", {"num_leaves": NUM_LEAVES, **QUANT,
+                           "fleet_members": 2}, CUT_ROUNDS),
+    ("fleet_wide_train", {**WIDE_PARAMS, "fleet_members": 2}, CUT_ROUNDS))
+# the member forms' kernels-line rows, and the fleet cell whose run gives
+# each one's launches
+FLEET_KERNELS = ("histogram_members", "histogram_slots_members",
+                 "histogram_int_members", "partition_members",
+                 "partition_slots_members", "predict_members")
+KERNEL_ORDER = KERNEL_ORDER + FLEET_KERNELS
+KERNEL_PATH.update({"histogram_members": "fleet_train",
+                    "histogram_slots_members": "fleet_wide_train",
+                    "histogram_int_members": "fleet_quant_train",
+                    "partition_members": "fleet_train",
+                    "partition_slots_members": "fleet_wide_train",
+                    "predict_members": "fleet_train"})
+
+
+def fleet_per_iteration(leaves, K: int, bagging: bool, quant: bool,
+                        valid_sets: int = 1) -> dict:
+    """A fleet iteration's launches (the captured body) of members with
+    leaf budgets ``leaves`` and split batch K: the shared passes once for
+    every member a step of the largest budget (B1-M and B3-M strict, the
+    root's B1-M and B1-K-M and B3-K-M batched, their integer forms under
+    quant) and one B4-M a valid set; the rest a member at a time (B3s or
+    B3s-K a step of its own budget, B2 a node, the bagging draw, B7a/B7b
+    a tree and B7c as often as B2, the two metrics)."""
+    M, Lmax = len(leaves), max(leaves)
+    out = {"split": sum(leaves), "predict_members": valid_sets,
+           "auc": M * valid_sets, "pointwise": M * valid_sets}
+    if K == 1:
+        hist = "histogram_int_members" if quant else "histogram_members"
+        out.update({hist: Lmax, "partition_members": Lmax - 1,
+                    "grow_step": sum(L - 1 for L in leaves)})
+    else:
+        out.update({"histogram_int_members" if quant
+                    else "histogram_members": 1,
+                    "histogram_slots_int_members" if quant
+                    else "histogram_slots_members": Lmax - 1,
+                    "partition_slots_members": Lmax - 1,
+                    "grow_step_batched": sum(L - 1 for L in leaves)})
+    if bagging:
+        out["bag_vals"] = M
+    if quant:
+        out.update({"quant_scales": M, "quantize_stack": M,
+                    "dequant_hist": sum(leaves)})
+    return out
 
 
 def times(counts, n: int):
@@ -6981,6 +7073,407 @@ def phase_serve(torch, lgt, lgt_kernels, bst, xv, device_binning: bool,
     return launches
 
 
+def phase_fleet_kernels(torch, lgt, train, valid):
+    """The member forms of the fleet (B14's member axis: the JAX package's
+    ``build_fleet_superepoch`` vmap) at the main shape with FLEET_MEMBERS
+    members, each with its own operands: B1-M (a smaller child's slot),
+    B1-K-M (K = 16, one member with 5 of 16 slots in use), B1-int-M and
+    B1-K-int-M (int8 packed stacks), B3-M (a strict record each), B3-K-M
+    (16 records each) and B4-M (each member's own 31-leaf tree over the
+    valid matrix).  In the checks member 2 is on a dead step (active 0,
+    or status 0; B4-M, which has no step, walks the other three): every
+    other member's result is bitwise its solo launch's, and the dead
+    member's rows stay as they were.  Each form is held
+    to its plain version (B1-M and B1-K-M within HIST_RTOL, the rest
+    exact), and timed at N = 4 live members beside four solo launches of
+    the same kernel, its plain version and its bound: the shared matrix
+    once plus each member's operands.  Returns the kernels-line rows."""
+    from lightgbm_torch.grower import (ACTIVE, STEP_RECORD, BatchedStep,
+                                       GrowWorkspace, grow_tree, partition,
+                                       partition_members,
+                                       partition_members_plain,
+                                       partition_slots,
+                                       partition_slots_members,
+                                       partition_slots_members_plain)
+    from lightgbm_torch.ops import quantize as Q
+    from lightgbm_torch.ops.histogram import (compute_histogram,
+                                              compute_histogram_members,
+                                              histogram_members_plain)
+    from lightgbm_torch.ops.split import SplitParams
+    from lightgbm_torch.predict_device import (add_tree_score,
+                                               add_tree_score_members,
+                                               add_tree_score_members_plain)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    binned = torch.as_tensor(train.binned).to(dev)
+    vbinned = torch.as_tensor(valid.binned).to(dev)
+    n, f = binned.shape
+    nv = vbinned.shape[0]
+    B, M, K, DEAD = int(train.max_bin), FLEET_MEMBERS, WIDE_K, 2
+    feats = train.used_features
+    na_bin = torch.as_tensor(np.asarray(
+        [train.bin_mappers[j].na_bin for j in feats], np.int32)).to(dev)
+    num_bin = torch.as_tensor(np.asarray(
+        [train.bin_mappers[j].num_bin for j in feats], np.int32)).to(dev)
+    i32 = torch.int32
+
+    def rand(*shape):
+        return torch.rand(*shape, device=dev, generator=gen)
+
+    def grad_vals():
+        y = (rand(n) < 0.5).float()
+        p = torch.sigmoid(torch.randn(n, device=dev, generator=gen))
+        w = (rand(n) < 0.8).float()
+        return torch.stack([(p - y) * w, p * (1 - p) * w, w], 1) \
+            .contiguous()
+
+    one = torch.ones(1, dtype=i32, device=dev)
+    vals = [grad_vals() for _ in range(M)]
+    qvals = [Q.quantize_stack(v, Q.quant_scales(v, 127),
+                              Q.QuantSpec(8, True, j),
+                              torch.tensor([j], dtype=i32, device=dev))
+             for j, v in enumerate(vals)]
+    slots = [torch.where(rand(n) < 0.4, 0, -1).to(i32) for _ in range(M)]
+    used = [K, 5, K, K]
+    kslots = [(torch.floor(rand(n) * (u + 1)) - 1).to(i32) for u in used]
+    kused = [torch.tensor([u], dtype=i32, device=dev) for u in used]
+    actives = [torch.tensor([int(j != DEAD)], dtype=i32, device=dev)
+               for j in range(M)]
+    live = [j for j in range(M) if j != DEAD]
+    rows, errs, checked = {}, {}, {}
+
+    def hist_check(name, vs, ss=None, k=None, su=None):
+        kw = dict(num_bins=B, num_slots=k)
+        out = compute_histogram_members(binned, vs, slots=ss, actives=actives,
+                                        slots_used=su, **kw)
+        plain = histogram_members_plain(binned, vs, slots=ss,
+                                        actives=actives, **kw)
+        for j in live:
+            solo = compute_histogram(binned, vs[j], slot=None if ss is None
+                                     else ss[j], active=actives[j],
+                                     slots_used=None if su is None
+                                     else su[j], **kw)
+            if not equal_bits(torch, out[j], solo):
+                raise AssertionError(f"{name}: member {j} differs from its "
+                                     "solo launch")
+        integer = vs[0].dtype != torch.float32
+        if integer:
+            errs[name] = exact_err(torch, [(out[j], plain[j]) for j in live],
+                                   name)
+        else:
+            errs[name] = max(_hist_rel(torch, out[j], plain[j])
+                             for j in live)
+            if errs[name] > HIST_RTOL:
+                raise AssertionError(f"{name} off its plain version by "
+                                     f"{errs[name]:.3g}")
+        checked[name] = len(live)
+
+    hist_check("B1-M", vals, slots)
+    hist_check("B1-K-M", vals, kslots, K, kused)
+    hist_check("B1-int-M", qvals, slots)
+    hist_check("B1-K-int-M", qvals, kslots, K, kused)
+
+    # B3-M: a strict step's record each (member 2's inactive)
+    lor0 = [torch.floor(rand(n) * 8).to(i32) for _ in range(M)]
+    recs = []
+    for j in range(M):
+        feat = 3 * j + 1
+        rec = [j, 8 + j, feat, 20 + 5 * j, j % 2,
+               int(na_bin[feat]), j if j % 2 else 8 + j, int(j != DEAD)]
+        recs.append(torch.tensor(rec, dtype=i32, device=dev))
+    rank = torch.arange(B, dtype=i32, device=dev)
+    ranks = [rank] * M
+
+    def part_check(name, member_fn, solo_fn, plain_fn):
+        lm = [t.clone() for t in lor0]
+        lp = [t.clone() for t in lor0]
+        out = member_fn(lm)
+        plain = plain_fn(lp)
+        pairs = [(lm[j], lp[j]) for j in range(M)] \
+            + [(out[j], plain[j]) for j in live]
+        for j in live:
+            ls = lor0[j].clone()
+            solo = solo_fn(j, ls)
+            if not (torch.equal(lm[j], ls) and torch.equal(out[j], solo)):
+                raise AssertionError(f"{name}: member {j} differs from its "
+                                     "solo launch")
+        if not torch.equal(lm[DEAD], lor0[DEAD]):
+            raise AssertionError(f"{name}: the dead member's rows moved")
+        errs[name] = exact_err(torch, pairs, name)
+        checked[name] = len(live)
+
+    part_check("B3-M",
+               lambda lm: partition_members(binned, lm, recs, ranks),
+               lambda j, ls: partition(binned, ls, recs[j], rank),
+               lambda lp: partition_members_plain(binned, lp, recs, ranks))
+
+    # B3-K-M: 16 records each over 32 leaves (member 2's status 0)
+    lor0 = [torch.floor(rand(n) * 32).to(i32) for _ in range(M)]
+    steps = []
+    for j in range(M):
+        L = WIDE_LEAVES
+        sol = torch.full((L,), -1, dtype=i32)
+        recs_k = torch.zeros((K, STEP_RECORD), dtype=i32)
+        for k in range(K):
+            leaf, feat = (3 * k + j) % 32, (k + j) % f
+            sol[leaf] = k
+            recs_k[k] = torch.tensor([leaf, 32 + k, feat, 10 + 3 * k,
+                                      k % 2, int(na_bin[feat]),
+                                      leaf if k % 3 else 32 + k, 1])
+        status = torch.tensor([int(j != DEAD), K * int(j != DEAD)],
+                              dtype=i32)
+        z = dict(device=dev)
+        steps.append(BatchedStep(
+            recs=recs_k.to(dev), slot_of_leaf=sol.to(dev),
+            idx2=torch.zeros(2 * K, dtype=torch.int64, **z),
+            tot2=torch.zeros((2 * K, 3), **z), po2=torch.zeros(2 * K, **z),
+            small_left=torch.zeros(K, dtype=torch.bool, **z),
+            keep2=torch.zeros(2 * K, dtype=torch.bool, **z),
+            status=status.to(dev)))
+    part_check("B3-K-M",
+               lambda lm: partition_slots_members(binned, lm, steps, ranks),
+               lambda j, ls: partition_slots(binned, ls, steps[j], rank),
+               lambda lp: partition_slots_members_plain(binned, lp, steps,
+                                                        ranks))
+
+    # B4-M: each member's own 31-leaf tree (the solo strict grower on its
+    # vals) over the valid matrix, member 2's scores left as they were
+    params = SplitParams(min_data_in_leaf=20)
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    trees, lvs = [], []
+    for j in range(M):
+        ws = GrowWorkspace(n, f, B, NUM_LEAVES, dev)
+        grow_tree(binned, vals[j], fmask, num_bin, na_bin,
+                  num_leaves=NUM_LEAVES, num_bins=B, params=params,
+                  workspace=ws)
+        trees.append(ws.fields)
+        lvs.append(ws.fields["leaf_value"] * 0.1)
+    steps_w = [8] * M
+    score0 = [torch.randn(nv, device=dev, generator=gen) for _ in range(M)]
+    walk = [j for j in range(M) if j != DEAD]
+    sm = [score0[j].clone() for j in walk]
+    sp_ = [score0[j].clone() for j in walk]
+    add_tree_score_members(sm, vbinned, [trees[j] for j in walk], na_bin,
+                           [lvs[j] for j in walk], 1.0,
+                           steps=[steps_w[j] for j in walk])
+    add_tree_score_members_plain(sp_, vbinned, [trees[j] for j in walk],
+                                 na_bin, [lvs[j] for j in walk], 1.0,
+                                 steps=[steps_w[j] for j in walk])
+    for i, j in enumerate(walk):
+        ss = score0[j].clone()
+        t = trees[j]
+        add_tree_score(ss, vbinned, t["split_feature"], t["threshold_bin"],
+                       t["default_left"], t["left_child"],
+                       t["right_child"], na_bin, lvs[j], 1.0,
+                       steps=steps_w[j])
+        if not same_bits(torch, sm[i], ss):
+            raise AssertionError(f"B4-M: member {j} differs from its solo "
+                                 "launch")
+    errs["B4-M"] = exact_err(torch, list(zip(sm, sp_)), "B4-M")
+    checked["B4-M"] = len(walk)
+
+    # times at N = 4 live members: the member form, four solo launches,
+    # the plain version; bounds from the shared matrix once plus each
+    # member's operands
+    actives[DEAD].fill_(1)
+    for st in steps:
+        st.status.copy_(torch.tensor([1, K], dtype=i32, device=dev))
+    for r in recs:
+        r[ACTIVE] = 1
+    # bytes: the shared matrix once; a member's slot column, the vals of
+    # its rows in a slot (12 B, or 3 B packed) and its histogram out
+    kept = [int((s_ >= 0).sum()) for s_ in slots]
+    kkept = [int((s_ >= 0).sum()) for s_ in kslots]
+    hist_out = f * B * 12
+    cases = {
+        "histogram_members": (
+            "B1-M member-batched histogram (a smaller child's pass each)",
+            lambda: compute_histogram_members(binned, vals, num_bins=B,
+                                              slots=slots, actives=actives),
+            lambda: [compute_histogram(binned, vals[j], num_bins=B,
+                                       slot=slots[j], active=actives[j])
+                     for j in range(M)],
+            lambda: histogram_members_plain(binned, vals, num_bins=B,
+                                            slots=slots, actives=actives),
+            bound_ms(n * f + sum(4 * n + 12 * kp + hist_out
+                                 for kp in kept),
+                     3 * f * sum(kept)), "B1-M"),
+        "histogram_slots_members": (
+            "B1-K-M member-batched K-slot histogram (K = 16)",
+            lambda: compute_histogram_members(
+                binned, vals, num_bins=B, slots=kslots, num_slots=K,
+                actives=actives, slots_used=kused),
+            lambda: [compute_histogram(binned, vals[j], num_bins=B,
+                                       slot=kslots[j], num_slots=K,
+                                       active=actives[j],
+                                       slots_used=kused[j])
+                     for j in range(M)],
+            lambda: histogram_members_plain(
+                binned, vals, num_bins=B, slots=kslots, num_slots=K,
+                actives=actives),
+            bound_ms(n * f + sum(4 * n + 12 * kp + K * hist_out
+                                 for kp in kkept),
+                     3 * f * sum(kkept)), "B1-K-M"),
+        "histogram_int_members": (
+            "B1-int-M member-batched integer histogram (int8)",
+            lambda: compute_histogram_members(binned, qvals, num_bins=B,
+                                              slots=slots, actives=actives),
+            lambda: [compute_histogram(binned, qvals[j], num_bins=B,
+                                       slot=slots[j], active=actives[j])
+                     for j in range(M)],
+            lambda: histogram_members_plain(binned, qvals, num_bins=B,
+                                            slots=slots, actives=actives),
+            bound_ms(n * f + sum(4 * n + 3 * kp + hist_out for kp in kept),
+                     3 * f * sum(kept)), "B1-int-M"),
+        "partition_members": (
+            "B3-M member-batched row partition",
+            lambda: partition_members(binned, lor0, recs, ranks),
+            lambda: [partition(binned, lor0[j], recs[j], rank)
+                     for j in range(M)],
+            lambda: partition_members_plain(binned, lor0, recs, ranks),
+            bound_ms(n * f + M * 12 * n, 0), "B3-M"),
+        "partition_slots_members": (
+            "B3-K-M member-batched batched partition (K = 16)",
+            lambda: partition_slots_members(binned, lor0, steps, ranks),
+            lambda: [partition_slots(binned, lor0[j], steps[j], rank)
+                     for j in range(M)],
+            lambda: partition_slots_members_plain(binned, lor0, steps,
+                                                  ranks),
+            bound_ms(n * f + M * 12 * n, 0), "B3-K-M"),
+        "predict_members": (
+            "B4-M member-batched tree score update (valid set)",
+            lambda: add_tree_score_members(score0, vbinned, trees, na_bin,
+                                           lvs, 1.0, steps=steps_w),
+            lambda: [add_tree_score(
+                score0[j], vbinned, trees[j]["split_feature"],
+                trees[j]["threshold_bin"], trees[j]["default_left"],
+                trees[j]["left_child"], trees[j]["right_child"], na_bin,
+                lvs[j], 1.0, steps=steps_w[j]) for j in range(M)],
+            lambda: add_tree_score_members_plain(
+                score0, vbinned, trees, na_bin, lvs, 1.0, steps=steps_w),
+            bound_ms(nv * f + M * 8 * nv, 0), "B4-M")}
+    for key, (name, fn, solo, plain, bnd, short) in cases.items():
+        t_m = median_ms(torch, fn)
+        t_s = median_ms(torch, solo)
+        t_p = median_ms(torch, plain, reps=5, warmup=1)
+        rows[key] = {"name": name, "route": "cuda",
+                     "source": "lightgbm_torch/csrc/" + (
+                         "histogram.cu" if key.startswith("histogram")
+                         else "partition.cu" if key.startswith("partition")
+                         else "predict.cu"),
+                     "replaces": "lightgbm_tpu/models/gbdt.py:2200",
+                     "max_abs_err": errs[short], "ms": t_m,
+                     "plain_ms": t_p, "bound_ms": bnd[0],
+                     "bound_by": bnd[1], "library_ms": None,
+                     "members": M, "solo_launches_ms": t_s}
+        emit({"phase": "kernel", **rows[key]})
+    emit({"phase": "fleet_kernels", "members": M, "dead_member": DEAD,
+          "members_checked_bitwise": checked, "max_err": errs,
+          "b1_k_int_m_max_abs_err": errs["B1-K-int-M"]})
+    return rows
+
+
+def phase_fleet_train(torch, lgt, lgt_kernels, train, valid, name: str,
+                      extra: dict, rounds: int):
+    """``lightgbm_torch.fleet.fleet_train`` of one fleet cell (FLEET_CELLS)
+    on the card: every member's model text and best iteration equal to its
+    solo ``train`` on the card; the fleet's launches held to
+    ``fleet_per_iteration`` a replay (captured once, then replayed, with
+    nothing eager besides the warm-up), one ``fleet_fetch`` an epoch on
+    member 0 and no solo fetch while the fleet ran; the shared operands
+    one tensor (member 0's).  Of FLEET_RAGGED, that a member left the
+    fleet before its last epoch (its lane rode dead in the graph) and
+    that the last member finished through the solo path's epochs.
+    Reports the fleet's steady ms an iteration against the members' solo
+    steady ms summed, and the launches of the shared passes an iteration.
+    Returns the cell's device launches."""
+    from lightgbm_torch.fleet import fleet_train
+    params = {**FLEET_BASE, **extra}
+    lgt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fr = fleet_train(dict(params), train, rounds, valid_sets=[valid])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    eager = lgt_kernels.launch_counts()
+    prog = fr.program
+    ms = [b._model for b in fr.boosters]
+    M = len(ms)
+    leaves = [m.config.num_leaves for m in ms]
+    K = ms[0].split_batch
+    per_it = fleet_per_iteration(leaves, K, ms[0]._use_bagging,
+                                 ms[0].quant is not None)
+    got = {k: v for k, v in prog.captured.items() if v}
+    if got != per_it or {k: v for k, v in prog.warmup.items() if v} \
+            != per_it:
+        raise AssertionError(f"{name} launches: captured {got}, warm-up "
+                             f"{prog.warmup}, expected {per_it}")
+    base_k = max(2, min(25, params["early_stopping_round"]))
+    solo_fetch = sum(m.fetch_counts.get("epoch", 0) for m in ms)
+    if ms[0].fetch_counts.get("fleet_fetch") != fr.epochs \
+            or prog.replays != fr.epochs * base_k:
+        raise AssertionError(f"{name}: fetches {ms[0].fetch_counts}, "
+                             f"{prog.replays} replays for {fr.epochs} "
+                             f"epochs of {base_k}")
+    for m in ms[1:]:
+        if m.binned_dev is not ms[0].binned_dev \
+                or m.valid_sets[0][1] is not ms[0].valid_sets[0][1] \
+                or m.na_bin_dev is not ms[0].na_bin_dev:
+            raise AssertionError(f"{name}: a shared operand was copied")
+    its = [b.current_iteration for b in fr.boosters]
+    left_early = [j for j, it in enumerate(its)
+                  if it < fr.epochs * base_k]
+    if name == FLEET_RAGGED and (not left_early or solo_fetch < 1
+                                 or sum(fr.stopped) < 2):
+        raise AssertionError(f"{name}: iterations {its} after {fr.epochs} "
+                             f"fleet epochs of {base_k}, stopped "
+                             f"{fr.stopped}, {solo_fetch} solo epochs: no "
+                             "member rode its lane dead, or none finished "
+                             "solo")
+    device = {k: v * prog.replays + prog.warmup.get(k, 0)
+              for k, v in prog.captured.items() if v}
+    # wrapper calls: the warm-up before capture and the capture, nothing
+    # eager besides (unless members finished solo, whose epochs then
+    # fetched as "epoch")
+    if solo_fetch == 0 and {k: v for k, v in eager.items() if v} \
+            != {k: 2 * v for k, v in per_it.items()}:
+        raise AssertionError(f"{name}: wrapper calls {eager}, expected "
+                             f"twice {per_it}")
+    solo_ms, texts_equal = [], []
+    for j, b in enumerate(fr.boosters):
+        sb = lgt.train(dict(fr.member_params[j]), train, rounds,
+                       valid_sets=[valid])
+        if b.model_to_string() != sb.model_to_string() \
+                or b.best_iteration != sb.best_iteration:
+            raise AssertionError(f"{name}: member {j} differs from its "
+                                 "solo run on the card")
+        texts_equal.append(True)
+        st = sb._model.epoch_ms
+        solo_ms.append(statistics.median(st[1:] if len(st) > 1 else st))
+    steady = fr.epoch_ms[1:] if len(fr.epoch_ms) > 1 else fr.epoch_ms
+    fleet_it_ms = statistics.median(steady) / base_k
+    solo_it_ms = sum(solo_ms) / base_k
+    emit({"phase": name, "members": M, "leaves": leaves,
+          "split_batch": K, "rounds": rounds, "k": base_k,
+          "epochs": fr.epochs, "seconds": secs,
+          "iterations": its, "left_the_fleet_early": left_early,
+          "best_iteration": [b.best_iteration for b in fr.boosters],
+          "stopped": fr.stopped,
+          "valid_auc": [b.best_score.get("valid_0", {}).get("auc")
+                        for b in fr.boosters],
+          "fleet_fetches": ms[0].fetch_counts.get("fleet_fetch", 0),
+          "solo_epoch_fetches": solo_fetch,
+          "graph_replays": prog.replays,
+          "captured_launches_per_replay": got,
+          "shared_pass_launches_per_iteration": {
+              kk: v for kk, v in got.items() if kk.endswith("_members")},
+          "capture_ms": prog.capture_ms, "device_launches": device,
+          "epoch_ms": fr.epoch_ms, "fleet_ms_per_iteration": fleet_it_ms,
+          "solo_ms_per_iteration_summed": solo_it_ms,
+          "solo_ms_per_iteration": [t / base_k for t in solo_ms],
+          "models_equal_solo": texts_equal})
+    return {name: device}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7006,6 +7499,7 @@ def main() -> int:
     kernels.update(phase_efb_kernels(torch, lgt, *efb_sets[1:3]))
     kernels.update(phase_quant_kernels(torch, lgt, lgt_kernels, train,
                                        efb_sets[3]))
+    kernels.update(phase_fleet_kernels(torch, lgt, train, valid))
     bst, ev, counts, epoch_ms_per_it = phase_main_path(
         torch, lgt, lgt_kernels, train, valid)
     eager_ms_per_it, per_it_counts = phase_per_iteration(
@@ -7066,6 +7560,10 @@ def main() -> int:
             torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
             per_it, rounds=rounds,
             ref_auc=ev["valid_0"]["auc"] if prefix == "quant" else None)[0])
+    # the fleet: every member held to its solo run on the card
+    for name, extra, rounds in FLEET_CELLS:
+        sampled_counts.update(phase_fleet_train(
+            torch, lgt, lgt_kernels, train, valid, name, extra, rounds))
     for prefix, params, per_it in (
             ("cat", CAT_PARAMS, CAT_PER_ITERATION),
             ("cat_strict", CAT_STRICT_PARAMS, CAT_STRICT_PER_ITERATION)):
@@ -7146,7 +7644,7 @@ def main() -> int:
               "grow_step_cons", "grow_step_batched_cons",
               "node_draws_base", "segment_histogram",
               "segment_histogram_int", "partition_segment", "leaf_of_row",
-              "split_mono_bounds"):
+              "split_mono_bounds") + FLEET_KERNELS:
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

@@ -42,12 +42,12 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # library -> CUDA source
 SOURCES: Dict[str, str] = {
-    "histogram": "histogram.cu",    # B1, B1-K
+    "histogram": "histogram.cu",    # B1, B1-K (and their member forms)
     "split": "split.cu",            # B2, B2-cat
-    "partition": "partition.cu",    # B3, B3-K
+    "partition": "partition.cu",    # B3, B3-K (and their member forms)
     "grow_step": "grow_step.cu",    # B3s, B3s-K
     "sample": "sample.cu",          # B6 (bagging, GOSS, node draws)
-    "predict": "predict.cu",        # B4
+    "predict": "predict.cu",        # B4, B4-M
     "metrics": "metrics.cu",        # B12a, B12b, B12c
     "forest": "forest.cu",          # B10a, B10b, B10c
     "efb": "efb.cu",                # B9
@@ -75,6 +75,14 @@ KERNELS: Dict[str, str] = {
     "histogram_slots_sparse": "sparse",
     "segment_histogram": "segment", "segment_histogram_int": "segment",
     "partition_segment": "segment", "leaf_of_row": "segment",
+    # the member forms of the fleet (B1-M, B1-K-M, B1-int-M, B1-K-int-M,
+    # B3-M, B3-K-M, B4-M): one launch for every member
+    "histogram_members": "histogram",
+    "histogram_slots_members": "histogram",
+    "histogram_int_members": "histogram",
+    "histogram_slots_int_members": "histogram",
+    "partition_members": "partition",
+    "partition_slots_members": "partition", "predict_members": "predict",
 }
 
 # dynamic shared memory the B1, B10c and B11a kernels may use (227 KB, all a
@@ -105,6 +113,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                  _P, _P, _P, _P, _P),
         "lgbt_histogram_int": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P, _P, _P),
+        "lgbt_histogram_members": (_P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _P),
         "lgbt_histogram_setup": (_I,),
     },
     "split": {
@@ -121,6 +131,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                            _P, _P, _P, _P),
         "lgbt_partition_slots": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
                                  _P, _P, _I, _I, _P, _P, _P, _P),
+        "lgbt_partition_members": (_P, _I, _I, _P, _I, _I, _I, _P, _P, _P,
+                                   _P, _I, _I, _P, _P),
         "lgbt_partition_setup": (),
     },
     "grow_step": {
@@ -144,6 +156,9 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_add_tree_score": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                                 _P, _P, _F, _I, _P),
+        "lgbt_add_tree_score_members": (_I, _I, _P, _I, _I, _P, _I, _P,
+                                        _P, _P, _P, _I, _I, _P, _F, _P, _P,
+                                        _I, _P),
         "lgbt_predict_setup": (),
     },
     "metrics": {
@@ -342,6 +357,15 @@ def launched(kernel: str, err: int) -> None:
     check(err, kernel)
     with _count_lock:
         LAUNCHES[kernel] += 1
+
+
+def pointer_table(rows) -> ctypes.Array:
+    """A host table of pointers for a member form's C entry point: the
+    rows (one a per-member operand, each a list with one tensor or None
+    per member) laid end to end, None as a null pointer.  The caller
+    keeps the tensors alive across the launch."""
+    ptrs = [None if t is None else t.data_ptr() for row in rows for t in row]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 def stream_ptr(device) -> int:

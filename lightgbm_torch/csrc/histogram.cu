@@ -115,6 +115,24 @@
 // moves 4 + 0.4 x 31 = 16.4 MB, about 4.9 us at 3.35 TB/s.  A first, simple design: hot bins
 // serialise on their shared-memory counters, and each tile reads every
 // row's slot.
+//
+// B1-M, B1-K-M and B1-int-M — the member axis of the JAX package's fleet
+// program (models/gbdt.py `build_fleet_superepoch` :2184, which vmaps the
+// super-epoch body over N members that share one binned matrix): every
+// kernel above takes its per-member operands (vals, slot, active,
+// slots_used, partial, out) from a `Members` table passed by value, one
+// entry per member, and grid.z (grid.y for the reduces) is the member.
+// The shared matrix `binned` is one pointer.  A member's blocks take the
+// solo launch's row ranges, tiles and thread roles and sum in its order,
+// so each member's histogram is bitwise the one a solo launch gives; a
+// solo launch is the case of one member, so its bits are unchanged.  A
+// member whose `active` is 0 (a dead step, or a step past its own leaf
+// budget in a fleet of mixed budgets) exits at once.  Bound on this card:
+// bytes, the shared matrix once (the members' blocks read its tiles
+// through L2) plus each member's slot, vals and output; a first design
+// whose blocks of different members read a tile separately, through L2
+// when they run together.  Launches of more than kMaxMembers members go
+// out in groups of kMaxMembers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,15 +142,51 @@ namespace {
 constexpr int kChannels = 3;
 // threads of a block of the integer forms
 constexpr int kIntThreads = 1024;
+// members of one launch (the table below rides in the kernel's parameter
+// space, which holds 4 KB)
+constexpr int kMaxMembers = 32;
+
+// Per-member operands of one launch; member m is grid.z (grid.y in the
+// reduces).  `vals` is f32, int8 or int16 by the kernel; `partial` and
+// `out` are f32 or int32.
+struct Members {
+  const void* vals[kMaxMembers];
+  const int32_t* slot[kMaxMembers];
+  const int32_t* active[kMaxMembers];
+  const int32_t* slots_used[kMaxMembers];
+  void* partial[kMaxMembers];
+  void* out[kMaxMembers];
+};
+
+// the operands of members [m0, m0 + count) from a host table of 6 x
+// members pointers (vals, slot, active, slots_used, partial, out; each
+// `members` long)
+Members members_of(const void* const* ptrs, int members, int m0,
+                   int count) {
+  Members g{};
+  for (int i = 0; i < count; ++i) {
+    const int m = m0 + i;
+    g.vals[i] = ptrs[0 * members + m];
+    g.slot[i] = static_cast<const int32_t*>(ptrs[1 * members + m]);
+    g.active[i] = static_cast<const int32_t*>(ptrs[2 * members + m]);
+    g.slots_used[i] = static_cast<const int32_t*>(ptrs[3 * members + m]);
+    g.partial[i] = const_cast<void*>(ptrs[4 * members + m]);
+    g.out[i] = const_cast<void*>(ptrs[5 * members + m]);
+  }
+  return g;
+}
 
 __global__ void hist_partial(const uint8_t* __restrict__ binned,
-                             const float* __restrict__ vals,
-                             const int32_t* __restrict__ slot,
+                             const __grid_constant__ Members mem,
                              int n, int num_features, int num_bins,
-                             int rows_per_block, int tile_f, int subranges,
-                             const int32_t* __restrict__ active,
-                             float* __restrict__ partial) {
+                             int rows_per_block, int tile_f,
+                             int subranges) {
+  const int mi = blockIdx.z;
+  const int32_t* __restrict__ active = mem.active[mi];
   if (active != nullptr && *active == 0) return;
+  const float* __restrict__ vals = static_cast<const float*>(mem.vals[mi]);
+  const int32_t* __restrict__ slot = mem.slot[mi];
+  float* __restrict__ partial = static_cast<float*>(mem.partial[mi]);
   extern __shared__ double smem[];
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;                 // tile_f * subranges
@@ -177,10 +231,14 @@ __global__ void hist_partial(const uint8_t* __restrict__ binned,
   }
 }
 
-__global__ void hist_reduce(const float* __restrict__ partial, int nblocks,
-                            int elems, const int32_t* __restrict__ active,
-                            float* __restrict__ out) {
+__global__ void hist_reduce(const __grid_constant__ Members mem,
+                            int nblocks, int elems) {
+  const int mi = blockIdx.y;
+  const int32_t* __restrict__ active = mem.active[mi];
   if (active != nullptr && *active == 0) return;
+  const float* __restrict__ partial =
+      static_cast<const float*>(mem.partial[mi]);
+  float* __restrict__ out = static_cast<float*>(mem.out[mi]);
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= elems) return;
   double acc = partial[e];
@@ -235,15 +293,17 @@ __device__ __forceinline__ void add_row(double* mine, const uint8_t* s_bin,
 }
 
 __global__ void hist_slots_partial(const uint8_t* __restrict__ binned,
-                                   const float* __restrict__ vals,
-                                   const int32_t* __restrict__ slot, int n,
-                                   int num_features, int num_bins,
+                                   const __grid_constant__ Members mem,
+                                   int n, int num_features, int num_bins,
                                    int num_slots, int rows_per_block,
-                                   int pairs_per_block, int chunk,
-                                   const int32_t* __restrict__ active,
-                                   const int32_t* __restrict__ slots_used,
-                                   float* __restrict__ partial) {
+                                   int pairs_per_block, int chunk) {
+  const int mi = blockIdx.z;
+  const int32_t* __restrict__ active = mem.active[mi];
   if (active != nullptr && *active == 0) return;
+  const float* __restrict__ vals = static_cast<const float*>(mem.vals[mi]);
+  const int32_t* __restrict__ slot = mem.slot[mi];
+  const int32_t* __restrict__ slots_used = mem.slots_used[mi];
+  float* __restrict__ partial = static_cast<float*>(mem.partial[mi]);
   extern __shared__ double smem[];
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
@@ -338,11 +398,14 @@ __global__ void hist_slots_partial(const uint8_t* __restrict__ binned,
 
 // the int32 partials of the integer forms, summed in block order (exact;
 // unsigned, so an overflow would wrap as the plain version's cast does)
-__global__ void hist_reduce_int(const int32_t* __restrict__ partial,
-                                int nblocks, int elems,
-                                const int32_t* __restrict__ active,
-                                int32_t* __restrict__ out) {
+__global__ void hist_reduce_int(const __grid_constant__ Members mem,
+                                int nblocks, int elems) {
+  const int mi = blockIdx.y;
+  const int32_t* __restrict__ active = mem.active[mi];
   if (active != nullptr && *active == 0) return;
+  const int32_t* __restrict__ partial =
+      static_cast<const int32_t*>(mem.partial[mi]);
+  int32_t* __restrict__ out = static_cast<int32_t*>(mem.out[mi]);
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= elems) return;
   uint32_t acc = 0u;
@@ -384,12 +447,16 @@ __device__ __forceinline__ void add_group_int(
 
 template <typename T>
 __global__ void hist_int_partial(
-    const uint8_t* __restrict__ binned, const T* __restrict__ vals,
-    const int32_t* __restrict__ slot, int n, int num_features, int num_bins,
-    int num_slots, int rows_per_block, int tile_f, int tile_k,
-    const int32_t* __restrict__ active,
-    const int32_t* __restrict__ slots_used, int32_t* __restrict__ partial) {
+    const uint8_t* __restrict__ binned, const __grid_constant__ Members mem,
+    int n, int num_features, int num_bins, int num_slots,
+    int rows_per_block, int tile_f, int tile_k) {
+  const int mi = blockIdx.z;
+  const int32_t* __restrict__ active = mem.active[mi];
   if (active != nullptr && *active == 0) return;
+  const T* __restrict__ vals = static_cast<const T*>(mem.vals[mi]);
+  const int32_t* __restrict__ slot = mem.slot[mi];
+  const int32_t* __restrict__ slots_used = mem.slots_used[mi];
+  int32_t* __restrict__ partial = static_cast<int32_t*>(mem.partial[mi]);
   extern __shared__ int32_t ihist[];
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
@@ -438,28 +505,76 @@ __global__ void hist_int_partial(
 }
 
 template <typename T>
-int launch_hist_int(const uint8_t* binned, const void* vals,
-                    const int32_t* slot, int n, int num_features,
-                    int num_bins, int num_slots, int rows_per_block,
-                    int tile_f, int tile_k, const int32_t* active,
-                    const int32_t* slots_used, int32_t* partial,
-                    int32_t* out, cudaStream_t stream) {
+int launch_hist_int(const uint8_t* binned, const Members& g, int count,
+                    int n, int num_features, int num_bins, int num_slots,
+                    int rows_per_block, int tile_f, int tile_k,
+                    cudaStream_t stream) {
   const int nblocks = (n + rows_per_block - 1) / rows_per_block;
   const int ftiles = (num_features + tile_f - 1) / tile_f;
   const int ktiles = (num_slots + tile_k - 1) / tile_k;
   const size_t smem =
       (size_t)tile_k * tile_f * num_bins * kChannels * sizeof(int32_t);
   hist_int_partial<T>
-      <<<dim3(nblocks, ftiles * ktiles), kIntThreads, smem, stream>>>(
-          binned, static_cast<const T*>(vals), slot, n, num_features,
-          num_bins, num_slots, rows_per_block, tile_f, tile_k, active,
-          slots_used, partial);
+      <<<dim3(nblocks, ftiles * ktiles, count), kIntThreads, smem,
+         stream>>>(binned, g, n, num_features, num_bins, num_slots,
+                   rows_per_block, tile_f, tile_k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int elems = num_slots * num_features * num_bins * kChannels;
-  hist_reduce_int<<<(elems + 255) / 256, 256, 0, stream>>>(
-      partial, nblocks, elems, active, out);
+  hist_reduce_int<<<dim3((elems + 255) / 256, count), 256, 0, stream>>>(
+      g, nblocks, elems);
   return (int)cudaGetLastError();
+}
+
+int launch_hist(const uint8_t* binned, const Members& g, int count, int n,
+                int num_features, int num_bins, int rows_per_block,
+                int tile_f, int subranges, cudaStream_t stream) {
+  const int nblocks = (n + rows_per_block - 1) / rows_per_block;
+  const int ntiles = (num_features + tile_f - 1) / tile_f;
+  const int threads = tile_f * subranges;
+  const size_t smem = (size_t)threads * num_bins * kChannels * sizeof(double);
+  hist_partial<<<dim3(nblocks, ntiles, count), threads, smem, stream>>>(
+      binned, g, n, num_features, num_bins, rows_per_block, tile_f,
+      subranges);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int elems = num_features * num_bins * kChannels;
+  hist_reduce<<<dim3((elems + 255) / 256, count), 256, 0, stream>>>(
+      g, nblocks, elems);
+  return (int)cudaGetLastError();
+}
+
+int launch_hist_slots(const uint8_t* binned, const Members& g, int count,
+                      int n, int num_features, int num_bins, int num_slots,
+                      int rows_per_block, int pairs_per_block, int chunk,
+                      cudaStream_t stream) {
+  const int nblocks = (n + rows_per_block - 1) / rows_per_block;
+  const int pairs = num_features * num_slots;
+  const int ntiles = (pairs + pairs_per_block - 1) / pairs_per_block;
+  const int threads = ((pairs_per_block + 31) / 32) * 32;
+  const size_t smem =
+      (size_t)threads * num_bins * kChannels * sizeof(double) +
+      (size_t)chunk * (sizeof(int32_t) + kChannels * sizeof(float)) +
+      (((size_t)chunk * num_features + 15) & ~(size_t)15) +
+      (size_t)(chunk / 32) * num_slots * sizeof(uint32_t);
+  hist_slots_partial<<<dim3(nblocks, ntiles, count), threads, smem,
+                       stream>>>(binned, g, n, num_features, num_bins,
+                                 num_slots, rows_per_block, pairs_per_block,
+                                 chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int elems = pairs * num_bins * kChannels;
+  hist_reduce<<<dim3((elems + 255) / 256, count), 256, 0, stream>>>(
+      g, nblocks, elems);
+  return (int)cudaGetLastError();
+}
+
+// one member's operands as a table of one
+Members one_member(const void* vals, const int32_t* slot,
+                   const int32_t* active, const int32_t* slots_used,
+                   void* partial, void* out) {
+  const void* ptrs[6] = {vals, slot, active, slots_used, partial, out};
+  return members_of(ptrs, 1, 0, 1);
 }
 
 }  // namespace
@@ -473,19 +588,10 @@ extern "C" int lgbt_histogram(const uint8_t* binned, const float* vals,
                               int subranges, const int32_t* active,
                               float* partial, float* out,
                               cudaStream_t stream) {
-  const int nblocks = (n + rows_per_block - 1) / rows_per_block;
-  const int ntiles = (num_features + tile_f - 1) / tile_f;
-  const int threads = tile_f * subranges;
-  const size_t smem = (size_t)threads * num_bins * kChannels * sizeof(double);
-  hist_partial<<<dim3(nblocks, ntiles), threads, smem, stream>>>(
-      binned, vals, slot, n, num_features, num_bins, rows_per_block, tile_f,
-      subranges, active, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int elems = num_features * num_bins * kChannels;
-  hist_reduce<<<(elems + 255) / 256, 256, 0, stream>>>(partial, nblocks,
-                                                       elems, active, out);
-  return (int)cudaGetLastError();
+  return launch_hist(binned,
+                     one_member(vals, slot, active, nullptr, partial, out),
+                     1, n, num_features, num_bins, rows_per_block, tile_f,
+                     subranges, stream);
 }
 
 // The K-slot form.  partial: [ceil(n / rows_per_block), K, F, B, 3] f32
@@ -499,24 +605,10 @@ extern "C" int lgbt_histogram_slots(const uint8_t* binned, const float* vals,
                                     const int32_t* active,
                                     const int32_t* slots_used, float* partial,
                                     float* out, cudaStream_t stream) {
-  const int nblocks = (n + rows_per_block - 1) / rows_per_block;
-  const int pairs = num_features * num_slots;
-  const int ntiles = (pairs + pairs_per_block - 1) / pairs_per_block;
-  const int threads = ((pairs_per_block + 31) / 32) * 32;
-  const size_t smem =
-      (size_t)threads * num_bins * kChannels * sizeof(double) +
-      (size_t)chunk * (sizeof(int32_t) + kChannels * sizeof(float)) +
-      (((size_t)chunk * num_features + 15) & ~(size_t)15) +
-      (size_t)(chunk / 32) * num_slots * sizeof(uint32_t);
-  hist_slots_partial<<<dim3(nblocks, ntiles), threads, smem, stream>>>(
-      binned, vals, slot, n, num_features, num_bins, num_slots,
-      rows_per_block, pairs_per_block, chunk, active, slots_used, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int elems = pairs * num_bins * kChannels;
-  hist_reduce<<<(elems + 255) / 256, 256, 0, stream>>>(partial, nblocks,
-                                                       elems, active, out);
-  return (int)cudaGetLastError();
+  return launch_hist_slots(
+      binned, one_member(vals, slot, active, slots_used, partial, out), 1,
+      n, num_features, num_bins, num_slots, rows_per_block, pairs_per_block,
+      chunk, stream);
 }
 
 // The integer forms (B1-K-int; B1-int with num_slots 1).  vals [n, 3]
@@ -530,17 +622,54 @@ extern "C" int lgbt_histogram_int(
     int n, int num_features, int num_bins, int num_slots, int rows_per_block,
     int tile_f, int tile_k, const int32_t* active, const int32_t* slots_used,
     int32_t* partial, int32_t* out, cudaStream_t stream) {
+  const Members g = one_member(vals, slot, active, slots_used, partial, out);
   if (bits == 8)
-    return launch_hist_int<int8_t>(
-        binned, vals, slot, n, num_features, num_bins, num_slots,
-        rows_per_block, tile_f, tile_k, active, slots_used, partial, out,
-        stream);
+    return launch_hist_int<int8_t>(binned, g, 1, n, num_features, num_bins,
+                                   num_slots, rows_per_block, tile_f, tile_k,
+                                   stream);
   if (bits == 16)
-    return launch_hist_int<int16_t>(
-        binned, vals, slot, n, num_features, num_bins, num_slots,
-        rows_per_block, tile_f, tile_k, active, slots_used, partial, out,
-        stream);
+    return launch_hist_int<int16_t>(binned, g, 1, n, num_features, num_bins,
+                                    num_slots, rows_per_block, tile_f,
+                                    tile_k, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The member forms (B1-M, B1-K-M, B1-int-M): `ptrs` is a host table of 6 x
+// `members` pointers, each row `members` long: vals, slot, active,
+// slots_used, partial, out (null where the solo form takes null), with the
+// solo form's shapes per member.  `form` 0 is B1 (f32, slot optional), 1
+// B1-K (f32, num_slots K), 2 the integer forms (int8 or int16 vals by
+// `bits`).  Members go out kMaxMembers to a launch.
+extern "C" int lgbt_histogram_members(
+    const uint8_t* binned, const void* const* ptrs, int members, int form,
+    int bits, int n, int num_features, int num_bins, int num_slots,
+    int rows_per_block, int shape1, int shape2, cudaStream_t stream) {
+  if (members < 1 || form < 0 || form > 2) return (int)cudaErrorInvalidValue;
+  for (int m0 = 0; m0 < members; m0 += kMaxMembers) {
+    const int count =
+        members - m0 < kMaxMembers ? members - m0 : kMaxMembers;
+    const Members g = members_of(ptrs, members, m0, count);
+    int err;
+    if (form == 0)
+      err = launch_hist(binned, g, count, n, num_features, num_bins,
+                        rows_per_block, shape1, shape2, stream);
+    else if (form == 1)
+      err = launch_hist_slots(binned, g, count, n, num_features, num_bins,
+                              num_slots, rows_per_block, shape1, shape2,
+                              stream);
+    else if (bits == 8)
+      err = launch_hist_int<int8_t>(binned, g, count, n, num_features,
+                                    num_bins, num_slots, rows_per_block,
+                                    shape1, shape2, stream);
+    else if (bits == 16)
+      err = launch_hist_int<int16_t>(binned, g, count, n, num_features,
+                                     num_bins, num_slots, rows_per_block,
+                                     shape1, shape2, stream);
+    else
+      err = (int)cudaErrorInvalidValue;
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // Once per process, before any launch: let hist_partial, hist_slots_partial

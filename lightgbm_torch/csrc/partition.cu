@@ -65,6 +65,19 @@
 // sectors, leaf_of_row read and written, the target slots written, and
 // slot_of_leaf gathers from L1), about 40 MB at the main path.
 
+// B3-M and B3-K-M — the member axis of the JAX package's fleet program
+// (models/gbdt.py `build_fleet_superepoch` :2184): N members that share
+// one binned matrix (the row decode `RowBins`, EFB maps included) each
+// partition their own rows by their own step record.  The per-member
+// operands (the record or records, slot_of_leaf, status, the rank table,
+// leaf_of_row and the slot output) come from a `Members` table passed by
+// value, and grid.y is the member; each member's threads do what a solo
+// launch's do, so its bits are the solo launch's, and a solo launch is
+// the case of one member.  A member whose step is dead (active 0, or
+// status[0] 0) exits at once.  Bound: bytes, the shared matrix's sectors
+// once plus each member's 12 B a row; a first design whose members read
+// the matrix separately (through L2 when their blocks run together).
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,13 +85,45 @@
 
 namespace {
 
+// members of one launch (the table rides in the parameter space, 4 KB)
+constexpr int kMaxMembers = 32;
+
+struct Members {
+  const int32_t* recs[kMaxMembers];
+  const int32_t* slot_of_leaf[kMaxMembers];
+  const int32_t* status[kMaxMembers];
+  const int32_t* rank[kMaxMembers];
+  int32_t* leaf_of_row[kMaxMembers];
+  int32_t* slot[kMaxMembers];
+};
+
+// members [m0, m0 + count) of a host table of 6 x `members` pointers
+// (recs, slot_of_leaf, status, rank, leaf_of_row, slot)
+Members members_of(const void* const* ptrs, int members, int m0,
+                   int count) {
+  Members g{};
+  for (int i = 0; i < count; ++i) {
+    const int m = m0 + i;
+    g.recs[i] = static_cast<const int32_t*>(ptrs[0 * members + m]);
+    g.slot_of_leaf[i] = static_cast<const int32_t*>(ptrs[1 * members + m]);
+    g.status[i] = static_cast<const int32_t*>(ptrs[2 * members + m]);
+    g.rank[i] = static_cast<const int32_t*>(ptrs[3 * members + m]);
+    g.leaf_of_row[i] =
+        static_cast<int32_t*>(const_cast<void*>(ptrs[4 * members + m]));
+    g.slot[i] = static_cast<int32_t*>(const_cast<void*>(ptrs[5 * members + m]));
+  }
+  return g;
+}
+
 __global__ void partition_rows(const RowBins rows, int n,
-                               const int32_t* __restrict__ rec,
-                               const int32_t* __restrict__ rank,
-                               int rank_stride,
-                               int32_t* __restrict__ leaf_of_row,
-                               int32_t* __restrict__ slot) {
+                               const __grid_constant__ Members mem,
+                               int rank_stride) {
+  const int mi = blockIdx.y;
+  const int32_t* __restrict__ rec = mem.recs[mi];
   if (rec[7] == 0) return;
+  const int32_t* __restrict__ rank = mem.rank[mi];
+  int32_t* __restrict__ leaf_of_row = mem.leaf_of_row[mi];
+  int32_t* __restrict__ slot = mem.slot[mi];
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const int leaf = rec[0], new_leaf = rec[1], feature = rec[2];
@@ -100,14 +145,15 @@ __global__ void partition_rows(const RowBins rows, int n,
 }
 
 __global__ void partition_slots(const RowBins rows, int n,
-                                const int32_t* __restrict__ recs,
-                                const int32_t* __restrict__ slot_of_leaf,
-                                const int32_t* __restrict__ status,
-                                const int32_t* __restrict__ rank,
-                                int rank_stride,
-                                int32_t* __restrict__ leaf_of_row,
-                                int32_t* __restrict__ tslot) {
-  if (status[0] == 0) return;
+                                const __grid_constant__ Members mem,
+                                int rank_stride) {
+  const int mi = blockIdx.y;
+  if (mem.status[mi][0] == 0) return;
+  const int32_t* __restrict__ recs = mem.recs[mi];
+  const int32_t* __restrict__ slot_of_leaf = mem.slot_of_leaf[mi];
+  const int32_t* __restrict__ rank = mem.rank[mi];
+  int32_t* __restrict__ leaf_of_row = mem.leaf_of_row[mi];
+  int32_t* __restrict__ tslot = mem.slot[mi];
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   int l = leaf_of_row[r];
@@ -130,6 +176,18 @@ __global__ void partition_slots(const RowBins rows, int n,
   tslot[r] = l == rec[6] ? k : -1;
 }
 
+int launch_partition(const RowBins& rows, int n, const Members& g,
+                     int count, int rank_stride, bool slots,
+                     cudaStream_t stream) {
+  const int threads = 256;
+  const dim3 grid((n + threads - 1) / threads, count);
+  if (slots)
+    partition_slots<<<grid, threads, 0, stream>>>(rows, n, g, rank_stride);
+  else
+    partition_rows<<<grid, threads, 0, stream>>>(rows, n, g, rank_stride);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // binned [N, num_cols] (null for k-hot rows); rank [B] (rank_stride 0)
@@ -146,12 +204,9 @@ extern "C" int lgbt_partition(const uint8_t* binned, int n, int num_cols,
                               cudaStream_t stream) {
   const RowBins rows{binned, num_cols, group_of_feat, off_of_feat, nbm1,
                      flat,   k,        stride,        default_bin};
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  partition_rows<<<blocks, threads, 0, stream>>>(rows, n, rec, rank,
-                                                 rank_stride, leaf_of_row,
-                                                 slot);
-  return (int)cudaGetLastError();
+  const void* ptrs[6] = {rec, nullptr, nullptr, rank, leaf_of_row, slot};
+  return launch_partition(rows, n, members_of(ptrs, 1, 0, 1), 1,
+                          rank_stride, false, stream);
 }
 
 extern "C" int lgbt_partition_slots(const uint8_t* binned, int n,
@@ -168,12 +223,35 @@ extern "C" int lgbt_partition_slots(const uint8_t* binned, int n,
                                     cudaStream_t stream) {
   const RowBins rows{binned, num_cols, group_of_feat, off_of_feat, nbm1,
                      flat,   k,        stride,        default_bin};
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  partition_slots<<<blocks, threads, 0, stream>>>(
-      rows, n, recs, slot_of_leaf, status, rank, rank_stride, leaf_of_row,
-      tslot);
-  return (int)cudaGetLastError();
+  const void* ptrs[6] = {recs, slot_of_leaf, status, rank, leaf_of_row,
+                         tslot};
+  return launch_partition(rows, n, members_of(ptrs, 1, 0, 1), 1,
+                          rank_stride, true, stream);
+}
+
+// The member forms (B3-M with `slots` 0, B3-K-M with 1) over one shared
+// row decode: `ptrs` is a host table of 6 x `members` pointers, each row
+// `members` long: the record (B3-M) or records (B3-K-M), slot_of_leaf and
+// status (null for B3-M), the rank table, leaf_of_row and the slot
+// output, each as the solo form takes it; rank_stride is the members'
+// one stride.  Members go out kMaxMembers to a launch.
+extern "C" int lgbt_partition_members(
+    const uint8_t* binned, int n, int num_cols, const void* const* ptrs,
+    int members, int slots, int rank_stride, const int32_t* group_of_feat,
+    const int32_t* off_of_feat, const int32_t* nbm1, const int32_t* flat,
+    int k, int stride, const int32_t* default_bin, cudaStream_t stream) {
+  if (members < 1) return (int)cudaErrorInvalidValue;
+  const RowBins rows{binned, num_cols, group_of_feat, off_of_feat, nbm1,
+                     flat,   k,        stride,        default_bin};
+  for (int m0 = 0; m0 < members; m0 += kMaxMembers) {
+    const int count =
+        members - m0 < kMaxMembers ? members - m0 : kMaxMembers;
+    const int err =
+        launch_partition(rows, n, members_of(ptrs, members, m0, count),
+                         count, rank_stride, slots != 0, stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 extern "C" int lgbt_partition_setup() {

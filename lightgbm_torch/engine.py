@@ -102,7 +102,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
 
     # fused chunks: no per-iteration host work, so ``fused_chunk``
     # iterations run as graph replays with one host fetch per chunk; a
-    # remainder falls through to the paths below
+    # remainder falls through to boost_rounds
     start_round = 0
     chunk_stopped = False
     chunk = cfg.fused_chunk
@@ -115,62 +115,41 @@ def train(params: Dict[str, Any], train_set: Dataset,
             chunk_stopped = booster.update_chunk(chunk)
             start_round = booster.current_iteration
 
-    # super-epochs: k full iterations (growth, scores, valid walks, traced
-    # eval, early-stop vote) per fetch, then the fetched eval block
-    # replayed through the real callbacks
-    se_plan = None if chunk_stopped else _superepoch_plan(
-        cfg, booster, fobj, feval, cbs_before, cbs_after, train_eval_name)
+    if not chunk_stopped:
+        se_plan = _superepoch_plan(cfg, booster, fobj, feval, cbs_before,
+                                   cbs_after, train_eval_name)
+        boost_rounds(booster, params, cfg, start_round, num_boost_round,
+                     fobj, feval, cbs_before, cbs_after, se_plan,
+                     train_eval_name)
+    return booster
+
+
+def boost_rounds(booster: Booster, params: Dict[str, Any], cfg: Config,
+                 start_round: int, num_boost_round: int,
+                 fobj: Optional[Callable], feval: Optional[Callable],
+                 cbs_before: List[Callable], cbs_after: List[Callable],
+                 se_plan, train_eval_name: Optional[str]) -> bool:
+    """Train rounds ``start_round`` .. ``num_boost_round`` of a run:
+    super-epochs while they fit (``se_plan`` from ``_superepoch_plan``,
+    None for none), then per-iteration rounds.  The loop of ``train``
+    after its fused chunks, and of a fleet member that finishes alone.
+    Returns whether the run stopped early (early stopping or a stump)."""
     if se_plan is not None:
+        # super-epochs: k full iterations (growth, scores, valid walks,
+        # traced eval, early-stop vote) per fetch, then the fetched eval
+        # block replayed through the real callbacks
         base_k, eval_spec, es_spec = se_plan
-        from .utils.log import Log
-        while not chunk_stopped:
+        while True:
             k_eff = min(base_k, num_boost_round - start_round)
             if k_eff < 2:
                 break
             out = booster.update_superepoch(k_eff, start_round, eval_spec,
                                             es_spec)
-            done = out["done"]
-            es_raised = False
-            for j in range(done):
-                ev_row = [(nm, mn, float(out["evals"][j][e]), hib)
-                          for e, (_vi, nm, mn, hib) in enumerate(eval_spec)]
-                env = CallbackEnv(model=booster, params=params,
-                                  iteration=start_round + j,
-                                  begin_iteration=0,
-                                  end_iteration=num_boost_round,
-                                  evaluation_result_list=ev_row)
-                try:
-                    for cb in cbs_after:
-                        cb(env)
-                except EarlyStopException as e:
-                    booster.best_iteration = e.best_iteration + 1
-                    for (name, metric, value, _) in e.best_score:
-                        booster.best_score.setdefault(name, {})[metric] = \
-                            value
-                    es_raised = True
-                    extra = done - (j + 1)
-                    if extra > 0:
-                        # the vote and this replay read the same fetched
-                        # values, so they agree on the stop row; should
-                        # they not, the surplus trees go
-                        Log.warning(
-                            "super-epoch vote overshot the host early "
-                            f"stop by {extra} iteration(s); dropping "
-                            "surplus trees")
-                        booster._model.drop_iterations(extra)
-                        booster._sync_trees()
-                    break
-            if es_raised or out["stump"]:
-                chunk_stopped = True
-            elif out["stop_row"] is not None:
-                # the vote tripped but the replay did not raise: trust the
-                # host, clear the latch, keep training
-                Log.warning("super-epoch early-stop vote tripped but the "
-                            "host callbacks did not; resuming")
-                booster._model.clear_es_stop()
+            if replay_block(booster, params, cbs_after, eval_spec, out,
+                            start_round, num_boost_round):
+                return True
             start_round = booster.current_iteration
-        if not chunk_stopped and start_round < num_boost_round \
-                and eval_spec:
+        if start_round < num_boost_round and eval_spec:
             # remainder rounds run per iteration but keep the traced
             # values, so the run's record_evals stay those of the traced
             # metrics
@@ -184,7 +163,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                for ms in booster._valid_metrics for mt in ms):
             booster._traced_eval = True
 
-    for i in range(start_round, num_boost_round if not chunk_stopped else 0):
+    for i in range(start_round, num_boost_round):
         env = CallbackEnv(model=booster, params=params, iteration=i,
                           begin_iteration=0, end_iteration=num_boost_round,
                           evaluation_result_list=None)
@@ -206,14 +185,64 @@ def train(params: Dict[str, Any], train_set: Dataset,
             for cb in cbs_after:
                 cb(env)
         except EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
-            for (name, metric, value, _) in e.best_score:
-                booster.best_score.setdefault(name, {})[metric] = value
-            break
+            apply_early_stop(booster, e)
+            return True
         if stopped:
-            break
-    return booster
+            return True
+    return False
 
+
+def replay_block(booster: Booster, params: Dict[str, Any],
+                 cbs_after: List[Callable], eval_spec, out: dict,
+                 start_round: int, num_boost_round: int,
+                 who: str = "super-epoch") -> bool:
+    """Replay one fetched super-epoch block (``out["done"]`` rows of
+    traced metric values from round ``start_round`` on) through the
+    after-iteration callbacks, as a per-iteration run would have called
+    them.  Returns whether the run stops here: the callbacks raised
+    ``EarlyStopException`` (trees past the stop row are dropped) or the
+    block ended on a stump.  A vote that tripped where the callbacks did
+    not raise is cleared, and training goes on."""
+    from .utils.log import Log
+    done = out["done"]
+    for j in range(done):
+        ev_row = [(nm, mn, float(out["evals"][j][e]), hib)
+                  for e, (_vi, nm, mn, hib) in enumerate(eval_spec)]
+        env = CallbackEnv(model=booster, params=params,
+                          iteration=start_round + j, begin_iteration=0,
+                          end_iteration=num_boost_round,
+                          evaluation_result_list=ev_row)
+        try:
+            for cb in cbs_after:
+                cb(env)
+        except EarlyStopException as e:
+            apply_early_stop(booster, e)
+            extra = done - (j + 1)
+            if extra > 0:
+                # the vote and this replay read the same fetched values,
+                # so they agree on the stop row; should they not, the
+                # surplus trees go
+                Log.warning(f"{who} vote overshot the host early stop by "
+                            f"{extra} iteration(s); dropping surplus trees")
+                booster._model.drop_iterations(extra)
+                booster._sync_trees()
+            return True
+    if out["stump"]:
+        return True
+    if out["stop_row"] is not None:
+        # the vote tripped but the replay did not raise: trust the host,
+        # clear the latch, keep training
+        Log.warning(f"{who} early-stop vote tripped but the host callbacks "
+                    "did not; resuming")
+        booster._model.clear_es_stop()
+    return False
+
+
+def apply_early_stop(booster: Booster, e: EarlyStopException) -> None:
+    """Record an ``EarlyStopException``'s best iteration and scores."""
+    booster.best_iteration = e.best_iteration + 1
+    for (name, metric, value, _) in e.best_score:
+        booster.best_score.setdefault(name, {})[metric] = value
 
 
 def _superepoch_plan(cfg, booster, fobj, feval, cbs_before, cbs_after,

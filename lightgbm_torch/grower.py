@@ -65,6 +65,13 @@ and the union of the groups (one torch op a tree); its range is the
 whole line at depth 0.  ``cuse`` is never reset by a tree: the trainer
 sets it from its host state before a tree or an epoch of trees.
 
+``grow_trees_lockstep`` grows one tree for each member of a fleet over one
+shared matrix: each member's root pass and steps in its solo order (the
+phases ``_root_vals``/``_root_finish`` and ``_step_begin``/``_step_finish``
+or ``_super_begin``/``_super_finish`` that the solo growers call), with the
+passes that read the shared matrix (B1-M, B3-M and their K-slot and
+integer forms) launched once for every member.
+
 A step that cannot split (no positive gain) sets the tree's ``done`` flag;
 every later step's kernels then exit at once, as the reference's loop exit
 (grower.py:908-915).  The tree arrays live in one int32 buffer (f32 fields
@@ -77,7 +84,7 @@ valid.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -85,7 +92,7 @@ import torch
 from .constraints import GrowConstraints, check_operands
 from .efb import EFBDevice, expand_group_hist
 from .ops import split as sp
-from .ops.histogram import compute_histogram
+from .ops.histogram import compute_histogram, compute_histogram_members
 from .ops.quantize import QuantSpec, dequantize_hist, quant_scales, \
     quantize_stack
 from .ops.random import NodeSampling, node_draws
@@ -597,12 +604,30 @@ def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
     of the groups, the JAX package's :628-632), and the reset of the tree,
     the table and the row -> leaf vector.  Returns the vals the steps'
     histogram passes take (the packed stack under quant)."""
-    v = ws.fields
+    vals = _root_vals(ws, vals, rng_iter)
+    h0 = compute_histogram(binned, vals, num_bins=ws.hist_bins)
+    _root_finish(ws, h0, vals, feature_mask, num_bin, na_bin, params,
+                 sampling, rng_iter, is_cat)
+    return vals
+
+
+def _root_vals(ws: GrowWorkspace, vals, rng_iter):
+    """The vals of the tree's histogram passes: under quant the tree's
+    scales (B7a) and the packed stack (B7b, keyed by ``rng_iter``), else
+    ``vals``."""
     if ws.quant is not None:
         scales = quant_scales(vals, ws.quant.qmax, out=ws.qscales)
         vals = quantize_stack(vals, scales, ws.quant, rng_iter,
                               out=ws.qvals)
-    h0 = compute_histogram(binned, vals, num_bins=ws.hist_bins)
+    return vals
+
+
+def _root_finish(ws: GrowWorkspace, h0, vals, feature_mask, num_bin,
+                 na_bin, params, sampling=None, rng_iter=None,
+                 is_cat=None) -> None:
+    """The root pass after its histogram ``h0`` (B1): sums, output, node
+    draws, best split and the resets (``_root``)."""
+    v = ws.fields
     ws.hist[0].copy_(h0)
     if ws.quant is None:
         total0 = vals.sum(dim=0)
@@ -629,7 +654,6 @@ def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
     v["leaf_weight"][0:1].copy_(total0[1:2])
     v["leaf_count"][0:1].copy_(total0[2:3])
     ws.leaf_of_row.zero_()
-    return vals
 
 
 def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
@@ -677,14 +701,30 @@ def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     after it under quant, then B9 with EFB), the children's node draws
     (B6-node), B2 on the pair and the depth mask, all indexed by the
     device step record."""
+    _step_begin(ws, feature_mask, na_bin, max_depth)
+    slot = partition(binned, ws.leaf_of_row, ws.rec, ws.rank, ws.efb)
+    small = compute_histogram(binned, vals, num_bins=ws.hist_bins, slot=slot,
+                              active=ws.rec[ACTIVE:ACTIVE + 1])
+    _step_finish(ws, small, feature_mask, num_bin, na_bin, params, i,
+                 sampling, rng_iter, is_cat)
+
+
+def _step_begin(ws: GrowWorkspace, feature_mask, na_bin,
+                max_depth) -> None:
+    """A strict step's split (B3s), which writes the step record."""
     grow_step(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
               max_depth=max_depth, rec=ws.rec, idx=ws.idx, fstep=ws.fstep,
               flags=ws.flags, cons=ws.step_cons(feature_mask),
               **ws.cat_state())
+
+
+def _step_finish(ws: GrowWorkspace, small, feature_mask, num_bin, na_bin,
+                 params, i=0, sampling=None, rng_iter=None,
+                 is_cat=None) -> None:
+    """A strict step after the smaller child's histogram ``small`` (B1):
+    the subtraction, B7c and B9, the node draws, B2 on the pair and the
+    depth mask (``_split_step``)."""
     active = ws.rec[ACTIVE:ACTIVE + 1]
-    slot = partition(binned, ws.leaf_of_row, ws.rec, ws.rank, ws.efb)
-    small = compute_histogram(binned, vals, num_bins=ws.hist_bins, slot=slot,
-                              active=active)
     large = ws.hist.index_select(0, ws.idx[0:1])[0] - small
     smaller_left = ws.flags[0]
     torch.where(smaller_left, small, large, out=ws.gpair[0])
@@ -978,6 +1018,86 @@ def partition(binned: torch.Tensor, leaf_of_row: torch.Tensor,
     return slot
 
 
+def _members_check(binned, leaf_of_rows, ranks, what: str) -> int:
+    """The members' count, their rank operands' one stride, and the
+    checks the member forms of B3/B3-K make on the shared matrix."""
+    if isinstance(binned, SparseBinned):
+        raise TypeError(f"{what}: the member forms take a dense binned "
+                        "matrix (k-hot rows train solo)")
+    _check_rows(binned, what)
+    if len(leaf_of_rows) < 1 or len(ranks) != len(leaf_of_rows):
+        raise ValueError(f"{what}: one leaf_of_row and rank a member")
+    strides = {_check_rank(r) for r in ranks}
+    if len(strides) != 1:
+        raise ValueError(f"{what}: the members' rank operands must share "
+                         "one row stride")
+    return strides.pop()
+
+
+def partition_members(binned: torch.Tensor,
+                      leaf_of_rows: Sequence[torch.Tensor],
+                      recs: Sequence[torch.Tensor],
+                      ranks: Sequence[torch.Tensor],
+                      efb=None) -> torch.Tensor:
+    """``partition`` of N members over one shared matrix (B3-M): member j
+    partitions ``leaf_of_rows[j]`` in place by its step record ``recs[j]``
+    and rank ``ranks[j]``; row j of the [N, N_rows] int32 result is its
+    slot vector, bitwise the solo form's.  CUDA tensors launch the member
+    form of ``csrc/partition.cu`` once for all members, CPU tensors run
+    ``partition_members_plain``."""
+    stride = _members_check(binned, leaf_of_rows, ranks,
+                            "partition_members")
+    if len(recs) != len(leaf_of_rows):
+        raise ValueError("partition_members: one record a member")
+    for lor, rec, rank in zip(leaf_of_rows, recs, ranks):
+        _check_member_rows(binned, lor, (rec, rank))
+        if rec.shape != (STEP_RECORD,) or rec.dtype != torch.int32:
+            raise TypeError("rec must be an int32 step record of 8 columns")
+    _check_efb(efb, binned)
+    if binned.device.type == "cpu":
+        return partition_members_plain(binned, leaf_of_rows, recs, ranks,
+                                       efb)
+    n = binned.shape[0]
+    slot = torch.empty((len(recs), n), dtype=torch.int32,
+                       device=binned.device)
+    if n == 0:
+        return slot
+    none = [None] * len(recs)
+    table = _kernels.pointer_table((recs, none, none, ranks, leaf_of_rows,
+                                    list(slot)))
+    err = _kernels.lib("partition").lgbt_partition_members(
+        binned.data_ptr(), n, binned.shape[1], table, len(recs), 0, stride,
+        *_efb_ptrs(efb), *khot_args(binned),
+        _kernels.stream_ptr(binned.device))
+    _kernels.launched("partition_members", err)
+    return slot
+
+
+def _check_member_rows(binned, leaf_of_row, tensors) -> None:
+    """One member's operands of B3-M/B3-K-M: shapes, one device, and
+    contiguous tensors on the card."""
+    if leaf_of_row.shape != (binned.shape[0],) \
+            or leaf_of_row.dtype != torch.int32:
+        raise TypeError("leaf_of_row must be a [N] int32 tensor")
+    if binned.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {binned.device}")
+    ts = (binned, leaf_of_row) + tuple(tensors)
+    if any(t.device != binned.device for t in ts):
+        raise ValueError("the member forms' inputs must be on one device")
+    if binned.device.type == "cuda" and not all(t.is_contiguous()
+                                                for t in ts):
+        raise ValueError("the member forms need contiguous tensors")
+
+
+def partition_members_plain(binned, leaf_of_rows, recs, ranks, efb=None
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of B3-M: the solo plain version member by
+    member, the slot vectors stacked."""
+    return torch.stack([partition_plain(binned, lor, rec, rank, efb)
+                        for lor, rec, rank in zip(leaf_of_rows, recs,
+                                                  ranks)])
+
+
 def partition_plain(binned, leaf_of_row, rec, rank, efb=None
                     ) -> torch.Tensor:
     """Plain PyTorch version of B3 (``torch.where``, reading the record on
@@ -1052,14 +1172,33 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     draws (B6-node), B2 on the 2K children with the depth mask, and the
     table update, all indexed by the device step outputs."""
     K, st = ws.split_batch, ws.step
-    grow_step_batched(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
-                      split_batch=K, max_depth=max_depth, step=st,
-                      cons=ws.step_cons(feature_mask), **ws.cat_state())
-    active = st.status[0:1]
+    _super_begin(ws, feature_mask, na_bin, max_depth)
     tslot = partition_slots(binned, ws.leaf_of_row, st, ws.rank, ws.efb)
     small = compute_histogram(binned, vals, num_bins=ws.hist_bins,
-                              slot=tslot, num_slots=K, active=active,
+                              slot=tslot, num_slots=K, active=st.status[0:1],
                               slots_used=st.status[1:2])
+    _super_finish(ws, small, feature_mask, num_bin, na_bin, params, s,
+                  sampling, rng_iter, is_cat)
+
+
+def _super_begin(ws: GrowWorkspace, feature_mask, na_bin,
+                 max_depth) -> None:
+    """A super-step's splits (B3s-K), which write the step outputs."""
+    grow_step_batched(ws.table, ws.tree, na_bin, num_leaves=ws.num_leaves,
+                      split_batch=ws.split_batch, max_depth=max_depth,
+                      step=ws.step, cons=ws.step_cons(feature_mask),
+                      **ws.cat_state())
+
+
+def _super_finish(ws: GrowWorkspace, small, feature_mask, num_bin, na_bin,
+                  params, s=0, sampling=None, rng_iter=None,
+                  is_cat=None) -> None:
+    """A super-step after the K smaller children's histograms ``small``
+    (B1-K): the subtractions, B7c and B9, the node draws, B2 on the 2K
+    children with the depth mask, and the table update
+    (``_super_step``)."""
+    K, st = ws.split_batch, ws.step
+    active = st.status[0:1]
     large = ws.hist.index_select(0, st.idx2[:K]) - small
     sel = st.small_left[:, None, None, None]
     torch.where(sel, small, large, out=ws.gpair[:K])
@@ -1076,6 +1215,94 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     children[:, sp.GAIN] = torch.where(st.keep2, children[:, sp.GAIN],
                                        ws.neg_inf)
     ws.put_best(st.idx2, res)
+
+
+# --- lockstep growth of a fleet's members ----------------------------------
+
+class GrowMember(NamedTuple):
+    """One fleet member's operands of ``grow_trees_lockstep``: its
+    workspace (its leaf budget, split batch, quant spec and split controls
+    with it), its row weights ``vals`` [N, 3], feature mask, split
+    parameters, depth limit and node draws keyed by ``rng_iter``."""
+    ws: GrowWorkspace
+    vals: torch.Tensor
+    feature_mask: torch.Tensor
+    params: SplitParams
+    max_depth: int = -1
+    sampling: Optional[NodeSampling] = None
+    rng_iter: Optional[torch.Tensor] = None
+
+
+def grow_trees_lockstep(binned: torch.Tensor, members: Sequence[GrowMember],
+                        num_bin: torch.Tensor, na_bin: torch.Tensor, *,
+                        is_cat: Optional[torch.Tensor] = None,
+                        efb: Optional[EFBDevice] = None
+                        ) -> List[TreeArrays]:
+    """One tree for each fleet member over the shared dense ``binned``,
+    the members in lockstep (the member form of ``grow_tree`` and
+    ``grow_tree_batched``; the JAX package's ``build_fleet_superepoch``
+    vmaps the grower over the member axis).  Each member runs its solo
+    grower's steps in its solo order on its own operands, so its tree is
+    the solo tree bit for bit; the passes that read the shared matrix go
+    out once for every member: the root pass and each step's histogram
+    (B1-M, B1-K-M, or B1-int-M/B1-K-int-M under quant) and partition (B3-M,
+    B3-K-M).  B7a/B7b, B3s/B3s-K, the subtraction, B7c, B9, B6-node and
+    B2/B2-cat stay one launch a member, in member order.  Every member
+    has one split batch K; with different leaf budgets the lockstep runs
+    the largest budget's steps, and a member past its own last step has
+    its step record's active flag (K > 1: its status) zeroed, which the
+    shared passes read per member.  Returns each member's device tree
+    views."""
+    if not members:
+        raise ValueError("grow_trees_lockstep needs a member")
+    K = members[0].ws.split_batch
+    if any(m.ws.split_batch != K for m in members):
+        raise ValueError("the members must share one split batch K")
+    if len({m.ws.hist_bins for m in members}) != 1:
+        raise ValueError("the members' histograms must share one bin axis")
+    for m in members:
+        _check_grow(m.ws, m.sampling, m.rng_iter, is_cat, efb, m.ws.quant,
+                    m.ws.cons)
+    hist_bins = members[0].ws.hist_bins
+    vals = [_root_vals(m.ws, m.vals, m.rng_iter) for m in members]
+    h0 = compute_histogram_members(binned, vals, num_bins=hist_bins)
+    for j, m in enumerate(members):
+        _root_finish(m.ws, h0[j], vals[j], m.feature_mask, num_bin, na_bin,
+                     m.params, m.sampling, m.rng_iter, is_cat)
+    last = [m.ws.num_leaves - 1 for m in members]
+    for i in range(max(last)):
+        for m, n_steps in zip(members, last):
+            if i < n_steps:
+                begin = _step_begin if K == 1 else _super_begin
+                begin(m.ws, m.feature_mask, na_bin, m.max_depth)
+            elif i == n_steps:
+                # past its budget: its shared passes exit at once
+                if K == 1:
+                    m.ws.rec[ACTIVE].zero_()
+                else:
+                    m.ws.step.status.zero_()
+        wss = [m.ws for m in members]
+        lors = [ws.leaf_of_row for ws in wss]
+        ranks = [ws.rank for ws in wss]
+        if K == 1:
+            slots = partition_members(binned, lors, [ws.rec for ws in wss],
+                                      ranks, efb)
+            small = compute_histogram_members(
+                binned, vals, num_bins=hist_bins, slots=list(slots),
+                actives=[ws.rec[ACTIVE:ACTIVE + 1] for ws in wss])
+        else:
+            steps = [ws.step for ws in wss]
+            slots = partition_slots_members(binned, lors, steps, ranks, efb)
+            small = compute_histogram_members(
+                binned, vals, num_bins=hist_bins, slots=list(slots),
+                num_slots=K, actives=[st.status[0:1] for st in steps],
+                slots_used=[st.status[1:2] for st in steps])
+        finish = _step_finish if K == 1 else _super_finish
+        for j, (m, n_steps) in enumerate(zip(members, last)):
+            if i < n_steps:
+                finish(m.ws, small[j], m.feature_mask, num_bin, na_bin,
+                       m.params, i, m.sampling, m.rng_iter, is_cat)
+    return [m.ws.arrays() for m in members]
 
 
 def _check_batched(table, tree, na_bin, L, K, step: BatchedStep,
@@ -1286,6 +1513,63 @@ def partition_slots(binned: torch.Tensor, leaf_of_row: torch.Tensor,
         _kernels.stream_ptr(binned.device))
     _kernels.launched("partition_slots", err)
     return tslot
+
+
+def partition_slots_members(binned: torch.Tensor,
+                            leaf_of_rows: Sequence[torch.Tensor],
+                            steps: Sequence[BatchedStep],
+                            ranks: Sequence[torch.Tensor],
+                            efb=None) -> torch.Tensor:
+    """``partition_slots`` of N members over one shared matrix (B3-K-M):
+    member j partitions ``leaf_of_rows[j]`` in place by its super-step
+    outputs ``steps[j]`` (records, slot_of_leaf, status) and rank
+    ``ranks[j]``; row j of the [N, N_rows] int32 result is its target
+    slots, bitwise the solo form's.  CUDA tensors launch the member form of
+    ``csrc/partition.cu`` once for all members, CPU tensors run
+    ``partition_slots_members_plain``."""
+    stride = _members_check(binned, leaf_of_rows, ranks,
+                            "partition_slots_members")
+    if len(steps) != len(leaf_of_rows):
+        raise ValueError("partition_slots_members: one step a member")
+    for st in steps:
+        if st.recs.dim() != 2 or st.recs.shape[1] != STEP_RECORD \
+                or st.recs.dtype != torch.int32 \
+                or st.slot_of_leaf.dtype != torch.int32 \
+                or st.status.dtype != torch.int32:
+            raise TypeError("step must hold int32 records, slots and "
+                            "status")
+    if len({st.recs.shape[0] for st in steps}) != 1:
+        raise ValueError("the members must share one split batch K")
+    for lor, st, rank in zip(leaf_of_rows, steps, ranks):
+        _check_member_rows(binned, lor, (rank, st.recs, st.slot_of_leaf,
+                                         st.status))
+    _check_efb(efb, binned)
+    if binned.device.type == "cpu":
+        return partition_slots_members_plain(binned, leaf_of_rows, steps,
+                                             ranks, efb)
+    n = binned.shape[0]
+    tslot = torch.empty((len(steps), n), dtype=torch.int32,
+                        device=binned.device)
+    if n == 0:
+        return tslot
+    table = _kernels.pointer_table((
+        [st.recs for st in steps], [st.slot_of_leaf for st in steps],
+        [st.status for st in steps], ranks, leaf_of_rows, list(tslot)))
+    err = _kernels.lib("partition").lgbt_partition_members(
+        binned.data_ptr(), n, binned.shape[1], table, len(steps), 1, stride,
+        *_efb_ptrs(efb), *khot_args(binned),
+        _kernels.stream_ptr(binned.device))
+    _kernels.launched("partition_slots_members", err)
+    return tslot
+
+
+def partition_slots_members_plain(binned, leaf_of_rows, steps, ranks,
+                                  efb=None) -> torch.Tensor:
+    """Plain PyTorch version of B3-K-M: the solo plain version member by
+    member, the target slots stacked."""
+    return torch.stack([partition_slots_plain(binned, lor, st, rank, efb)
+                        for lor, st, rank in zip(leaf_of_rows, steps,
+                                                 ranks)])
 
 
 def partition_slots_plain(binned, leaf_of_row, step: BatchedStep,

@@ -66,6 +66,14 @@ body eagerly only: after growth it calls ``model.renew_leaves``, which
 fetches the tree and the score, renews the values on the host and
 returns them for the score update and the valid walks.
 
+A fleet (``FleetProgram``, the JAX package's ``build_fleet_superepoch``
+:2184) runs N members' iterations in lockstep in one body: each member's
+phases of ``IterationProgram.body`` on its own tensors, with the passes
+that read the shared matrices (B1-M, B3-M and their K-slot and integer
+forms in the growers, B4-M on each valid set) launched once for all
+members.  One graph replay is one iteration of every member, and the
+epoch's rows of every member come back in one fetch.
+
 A failed capture, build or launch raises; nothing falls back to eager
 launches, the plain versions or the CPU.
 """
@@ -80,10 +88,68 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..grower import grow_tree, grow_tree_batched, tree_fields, tree_words
+from ..grower import (GrowMember, grow_tree, grow_tree_batched,
+                      grow_trees_lockstep, tree_fields, tree_words)
 from ..metrics import build_traced_eval
 from ..ops.random import bag_vals, goss_buffers, goss_vals
-from ..predict_device import add_tree_score, walk_maps
+from ..predict_device import add_tree_score, add_tree_score_members, \
+    walk_maps
+
+
+def _no_mark(phase: str) -> None:
+    """The phase marker of a run that times no phase."""
+
+
+def capture_graph(body, mutable):
+    """Capture ``body()`` as a CUDA graph; ``mutable()`` lists every tensor
+    the body changes that outlives it.  The kernels are built and loaded
+    first and the body runs once eagerly on a side stream (so lazy
+    initialisation happens outside the capture); the state it changed is
+    then restored.  The capture runs on the side stream through
+    ``capture_begin``/``capture_end``, without the ``torch.cuda.graph``
+    context's garbage collection and cache emptying, which cost more than
+    the capture itself; Python's cyclic collector is held off during the
+    capture instead, so that the graph of an earlier, unreachable program
+    is never destroyed on the capturing stream (which would invalidate
+    the capture).  Returns (graph, the warm-up's launch counts, the
+    captured launch counts, host ms of the warm-up and the capture)."""
+    _kernels.load_all()
+    t0 = time.perf_counter()
+    saved = [t.clone() for t in mutable()]
+    before = _kernels.launch_counts()
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        body()
+    main.wait_stream(side)
+    for t, s in zip(mutable(), saved):
+        t.copy_(s)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mid = _kernels.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(main)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                body()
+            finally:
+                graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
+    main.wait_stream(side)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    after = _kernels.launch_counts()
+    warmup = {k: mid[k] - before[k] for k in mid}
+    captured = {k: after[k] - mid[k] for k in after}
+    return graph, warmup, captured, {"warmup": 1e3 * (t1 - t0),
+                                     "capture": 1e3 * (t2 - t1)}
 
 
 class IterationProgram:
@@ -172,13 +238,29 @@ class IterationProgram:
     def body(self, gh=None, mark=None) -> None:
         """One boosting iteration, entirely on the device.  ``gh``: host
         gradients (custom objective, per-iteration path only); ``mark``:
-        the model's phase marker (per-iteration path only)."""
+        the model's phase marker (per-iteration path only).  Its phases
+        (``_begin``, ``_vals``, ``_grow``, ``_apply``, ``_walk_valid``,
+        ``_finish``) are the ones ``FleetProgram.body`` runs for each
+        member."""
         if self.K > 1:
             self._body_multiclass(gh, mark)
             return
+        mark = mark or _no_mark
+        blocked, stop, g, h, fmask = self._begin(gh, mark)
+        vals = self._vals(g, h)
+        mark("grow")
+        arrays = self._grow(vals, fmask)
+        lv, lv_ok = self._apply(arrays, blocked, mark)
+        mark("valid")
+        self._walk_valid(arrays, lv_ok)
+        self._finish(lv, blocked, stop, mark)
+
+    def _begin(self, gh=None, mark=_no_mark):
+        """The iteration's start: the blocked flag (a stump this epoch or
+        the tripped vote), the gradients, the device iteration ``it_cur``
+        and the feature_fraction mask of the current row.  Returns
+        (blocked, stop, g, h, fmask)."""
         m = self.model
-        cfg = m.config
-        mark = mark or (lambda phase: None)
         stop = m.es_state[3] if self.es_spec is not None else None
         blocked = self.dead.clone() if stop is None else self.dead | stop
         mark("gradients")
@@ -192,61 +274,36 @@ class IterationProgram:
         if self.sample_features:
             torch.index_select(self.fmasks, 0, self.row, out=self.fmask_cur)
             fmask = self.fmask_cur[0]
-        arrays = self._grow(g, h, fmask, mark)
-        nl = arrays.num_leaves[0]
-        if m.objective is not None and m.objective.need_renew_tree_output:
-            # per-iteration only: the leaf values renewed on the host
-            mark("renew")
-            lv = m.renew_leaves(arrays)
-        else:
-            lv = m.shrink(arrays.leaf_value)
-        mark("score")
-        ok = ~blocked & (nl > 1)
-        lv_ok = torch.where(ok, lv, self.zero)
-        m.score.add_(lv_ok.index_select(0, arrays.leaf_of_row))
-        torch.logical_or(self.dead, nl <= 1, out=self.dead)
-        mark("valid")
-        for _, vbinned, vscore in m.valid_sets:
-            add_tree_score(vscore, vbinned, arrays.split_feature,
-                           arrays.threshold_bin, arrays.default_left,
-                           arrays.left_child, arrays.right_child,
-                           m.na_bin_dev, lv_ok, 1.0, steps=m.walk_steps,
-                           is_cat_node=arrays.is_cat_node,
-                           cat_rank=arrays.cat_rank,
-                           efb_maps=walk_maps(vbinned, m.efb_maps))
-        if self.E:
-            ev = self.teval([vs for _, _, vs in m.valid_sets],
-                            [m.valid_ops(vi)
-                             for vi in range(len(m.valid_sets))])
-            self.cur_ev.copy_(ev)
-            if self.es_spec is not None:
-                self._vote(ev, blocked)
-        mark("")
-        self.cur_tree.copy_(m.grow_ws.tree)
-        self.cur_lv.copy_(lv)
-        if stop is not None:
-            self.cur_stop.copy_(stop)
-        self.out.index_copy_(0, self.row, self.cur[None])
-        self.row.add_(1)
+        return blocked, stop, g, h, fmask
 
-    def _grow(self, g, h, fmask, mark):
+    def _vals(self, g, h) -> torch.Tensor:
         """The row weights of g, h (B6: GOSS, the bagging draw, or none)
-        keyed by ``it_cur``, then one tree from the grower (B1-B3s, or
-        B1-K/B3-K/B3s-K, with the per-node draws B6-node, and B9 on an
-        EFB-bundled matrix; or the partitioned learner, on the host
-        mask)."""
+        keyed by ``it_cur``: the [N, 3] (grad*w, hess*w, w)."""
         m = self.model
-        cfg = m.config
         if self.goss:
-            vals = goss_vals(g.contiguous(), h.contiguous(), self.it_cur,
+            return goss_vals(g.contiguous(), h.contiguous(), self.it_cur,
                              out=self.vals, buffers=self.goss_buffers,
                              **m.goss_args())
-        elif self.bagging:
-            vals = bag_vals(g.contiguous(), h.contiguous(), self.it_cur,
+        if self.bagging:
+            return bag_vals(g.contiguous(), h.contiguous(), self.it_cur,
                             out=self.vals, **m.bagging_args())
-        else:
-            vals = torch.stack([g, h, torch.ones_like(g)], dim=1)
-        mark("grow")
+        return torch.stack([g, h, torch.ones_like(g)], dim=1)
+
+    def grow_member(self, vals, fmask) -> GrowMember:
+        """This model's operands of the fleet's lockstep grower."""
+        m = self.model
+        return GrowMember(ws=m.grow_ws, vals=vals, feature_mask=fmask,
+                          params=m.split_params,
+                          max_depth=m.config.max_depth,
+                          sampling=m.node_sampling,
+                          rng_iter=self.it_cur if self.keyed else None)
+
+    def _grow(self, vals, fmask):
+        """One tree from the grower (B1-B3s, or B1-K/B3-K/B3s-K, with the
+        per-node draws B6-node, and B9 on an EFB-bundled matrix; or the
+        partitioned learner, on the host mask)."""
+        m = self.model
+        cfg = m.config
         if m.partitioned is not None:
             return m.partitioned.grow(
                 m.binned_dev, vals, self.fmask_host, is_cat=m.is_cat_dev,
@@ -272,12 +329,63 @@ class IterationProgram:
                     num_bins=m.max_bin, params=m.split_params,
                     max_depth=cfg.max_depth, workspace=m.grow_ws, **kw)
 
+    def _apply(self, arrays, blocked, mark=_no_mark):
+        """The tree's shrunk (or renewed) leaf values ``lv``, and the
+        train-score update by ``lv_ok`` (zero when blocked or a stump),
+        which latches ``dead`` on a stump.  Returns (lv, lv_ok)."""
+        m = self.model
+        nl = arrays.num_leaves[0]
+        if m.objective is not None and m.objective.need_renew_tree_output:
+            # per-iteration only: the leaf values renewed on the host
+            mark("renew")
+            lv = m.renew_leaves(arrays)
+        else:
+            lv = m.shrink(arrays.leaf_value)
+        mark("score")
+        ok = ~blocked & (nl > 1)
+        lv_ok = torch.where(ok, lv, self.zero)
+        m.score.add_(lv_ok.index_select(0, arrays.leaf_of_row))
+        torch.logical_or(self.dead, nl <= 1, out=self.dead)
+        return lv, lv_ok
+
+    def _walk_valid(self, arrays, lv_ok) -> None:
+        """Every valid score += the tree's walk (B4)."""
+        m = self.model
+        for _, vbinned, vscore in m.valid_sets:
+            add_tree_score(vscore, vbinned, arrays.split_feature,
+                           arrays.threshold_bin, arrays.default_left,
+                           arrays.left_child, arrays.right_child,
+                           m.na_bin_dev, lv_ok, 1.0, steps=m.walk_steps,
+                           is_cat_node=arrays.is_cat_node,
+                           cat_rank=arrays.cat_rank,
+                           efb_maps=walk_maps(vbinned, m.efb_maps))
+
+    def _finish(self, lv, blocked, stop, mark=_no_mark) -> None:
+        """The traced metrics (B12) and the vote, then the iteration's
+        output row (tree buffer, shrunk leaf values, eval values, stop
+        flag) into ``out[row]``."""
+        m = self.model
+        if self.E:
+            ev = self.teval([vs for _, _, vs in m.valid_sets],
+                            [m.valid_ops(vi)
+                             for vi in range(len(m.valid_sets))])
+            self.cur_ev.copy_(ev)
+            if self.es_spec is not None:
+                self._vote(ev, blocked)
+        mark("")
+        self.cur_tree.copy_(m.grow_ws.tree)
+        self.cur_lv.copy_(lv)
+        if stop is not None:
+            self.cur_stop.copy_(stop)
+        self.out.index_copy_(0, self.row, self.cur[None])
+        self.row.add_(1)
+
     def _body_multiclass(self, gh=None, mark=None) -> None:
         """One multiclass iteration, eagerly (module docstring): the
         [N, K] gradients once, then K trees, each into its score column
         and its own row of ``out``."""
         m = self.model
-        mark = mark or (lambda phase: None)
+        mark = mark or _no_mark
         mark("gradients")
         g_all, h_all = m.objective.get_gradients(m.score) if gh is None \
             else gh
@@ -287,7 +395,9 @@ class IterationProgram:
             self.it_cur.copy_(self.it0)
         fmask = self.fmasks[0] if self.sample_features else m.feature_mask
         for c in range(self.K):
-            arrays = self._grow(g_all[:, c], h_all[:, c], fmask, mark)
+            vals = self._vals(g_all[:, c], h_all[:, c])
+            mark("grow")
+            arrays = self._grow(vals, fmask)
             mark("score")
             lv = m.shrink(arrays.leaf_value)
             lv_ok = torch.where(arrays.num_leaves[0] > 1, lv, self.zero)
@@ -335,54 +445,9 @@ class IterationProgram:
         return ts
 
     def _capture(self) -> None:
-        """Capture the body as a CUDA graph.  The kernels are built and
-        loaded first and the body runs once eagerly on a side stream (so
-        lazy initialisation happens outside the capture); the state it
-        changed is then restored.  The capture runs on the side stream
-        through ``capture_begin``/``capture_end``, without the
-        ``torch.cuda.graph`` context's garbage collection and cache
-        emptying, which cost more than the capture itself; Python's
-        cyclic collector is held off during the capture instead, so that
-        the graph of an earlier, unreachable program is never destroyed
-        on the capturing stream (which would invalidate the capture)."""
-        _kernels.load_all()
-        t0 = time.perf_counter()
-        saved = [t.clone() for t in self._mutable()]
-        before = _kernels.launch_counts()
-        main = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self.body()
-        main.wait_stream(side)
-        for t, s in zip(self._mutable(), saved):
-            t.copy_(s)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        mid = _kernels.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        side.wait_stream(main)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.stream(side):
-                graph.capture_begin()
-                try:
-                    self.body()
-                finally:
-                    graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        main.wait_stream(side)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        after = _kernels.launch_counts()
-        self.warmup = {k: mid[k] - before[k] for k in mid}
-        self.captured = {k: after[k] - mid[k] for k in after}
-        self.capture_ms = {"warmup": 1e3 * (t1 - t0),
-                           "capture": 1e3 * (t2 - t1)}
-        self.graph = graph
+        """Capture the body as a CUDA graph (``capture_graph``)."""
+        (self.graph, self.warmup, self.captured,
+         self.capture_ms) = capture_graph(self.body, self._mutable)
 
     def run(self, k: int, es_it0: int = 0, *, eager: bool,
             gh=None, mark=None, fmasks=None, it0: int = 0) -> torch.Tensor:
@@ -397,6 +462,26 @@ class IterationProgram:
         if self.K > 1 and (k != 1 or not eager):
             raise ValueError("a multiclass iteration runs eagerly, one "
                              "at a time")
+        self.prepare(k, es_it0, fmasks=fmasks, it0=it0)
+        if eager:
+            for _ in range(k):
+                self.body(gh, mark)
+        else:
+            if self.model.device.type != "cuda":
+                raise ValueError("graph replay needs a CUDA device")
+            if self.graph is None:
+                self._capture()
+            for _ in range(k):
+                self.graph.replay()
+            self.replays += k
+        return self.out[:k * self.K]
+
+    def prepare(self, k: int, es_it0: int = 0, *, fmasks=None,
+                it0: int = 0) -> None:
+        """Set the device state a run of k iterations starts from: the row
+        counter and ``dead`` cleared, the vote's first iteration
+        ``es_it0``, the keying iteration ``it0``, the [k, F] feature
+        masks ``fmasks`` and CEGB's used features."""
         self._ensure_rows(k * self.K)
         self.row.zero_()
         self.dead.zero_()
@@ -411,18 +496,6 @@ class IterationProgram:
             # run mark the device copy, which no tree resets
             self.model.grow_ws.cuse.copy_(
                 torch.as_tensor(self.model.cegb.used))
-        if eager:
-            for _ in range(k):
-                self.body(gh, mark)
-        else:
-            if self.model.device.type != "cuda":
-                raise ValueError("graph replay needs a CUDA device")
-            if self.graph is None:
-                self._capture()
-            for _ in range(k):
-                self.graph.replay()
-            self.replays += k
-        return self.out[:k * self.K]
 
     def launches(self) -> Dict[str, int]:
         """Kernel launches on the device so far through this program's
@@ -441,3 +514,133 @@ class IterationProgram:
         out["ev"] = r[W + L:W + L + E].view(f32)
         out["stop"] = r[W + L + E]
         return out
+
+
+class FleetProgram:
+    """One boosting iteration of every member of a fleet, in lockstep (the
+    port's ``build_fleet_superepoch``, the JAX package's models/gbdt.py
+    :2184, which vmaps the super-epoch body over a member axis).
+
+    It holds the members' ``IterationProgram``s (one eval spec and
+    early-stop spec, one epoch shape) and runs, for one iteration: each
+    member's start, gradients and row weights (B5, B6 / B6-GOSS) keyed by
+    its own seed, learning rate and ``it_cur``; the lockstep growers
+    (``grower.grow_trees_lockstep``: B1-M and B3-M, or B1-K-M and B3-K-M,
+    once for all members, the rest a member at a time); each member's
+    shrinkage and score update; one B4-M a valid set for all members; and
+    each member's traced metrics (B12), vote and output row.  Each member
+    runs its solo phases on its own tensors in its solo order, so its rows
+    are its solo run's.  The members must share their binned matrix, NA
+    table, categorical flags, EFB maps and valid matrices
+    (``GBDTModel.share_from``).  On the card the body is captured once as
+    a CUDA graph and an epoch of k iterations is k replays; on the CPU it
+    runs eagerly through the plain versions.  A member that has left the
+    fleet rides its lane with ``dead`` set, so it changes no state."""
+
+    def __init__(self, programs):
+        self.programs = list(programs)
+        if len(self.programs) < 1:
+            raise ValueError("a fleet program needs a member")
+        m0 = self.programs[0].model
+        for p in self.programs:
+            m = p.model
+            if p.K != 1 or m.partitioned is not None \
+                    or m.split_batch != m0.split_batch \
+                    or not isinstance(m.binned_dev, torch.Tensor):
+                raise ValueError("fleet members run the masked grower on "
+                                 "one dense matrix, one tree an "
+                                 "iteration, with one split batch")
+            if m.objective is None or m.objective.need_renew_tree_output:
+                raise ValueError("fleet members need an objective with "
+                                 "device leaf values")
+            shared = (m.binned_dev is m0.binned_dev
+                      and m.num_bin_dev is m0.num_bin_dev
+                      and m.na_bin_dev is m0.na_bin_dev
+                      and m.is_cat_dev is m0.is_cat_dev
+                      and m.efb_dev is m0.efb_dev
+                      and len(m.valid_sets) == len(m0.valid_sets)
+                      and all(v[1] is v0[1] for v, v0 in
+                              zip(m.valid_sets, m0.valid_sets)))
+            if not shared or p.eval_spec != self.programs[0].eval_spec:
+                raise ValueError("fleet members must share their matrices "
+                                 "(GBDTModel.share_from) and eval spec")
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._outs: List[torch.Tensor] = []
+        self.captured: Dict[str, int] = {}
+        self.warmup: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_ms: Dict[str, float] = {}
+
+    def body(self) -> None:
+        """One iteration of every member (class docstring)."""
+        ps = self.programs
+        m0 = ps[0].model
+        begun = [p._begin() for p in ps]
+        members = [p.grow_member(p._vals(b[2], b[3]), b[4])
+                   for p, b in zip(ps, begun)]
+        arrays = grow_trees_lockstep(m0.binned_dev, members, m0.num_bin_dev,
+                                     m0.na_bin_dev, is_cat=m0.is_cat_dev,
+                                     efb=m0.efb_dev)
+        applied = [p._apply(a, b[0]) for p, a, b in zip(ps, arrays, begun)]
+        for vi, (_, vbinned, _) in enumerate(m0.valid_sets):
+            add_tree_score_members(
+                [p.model.valid_sets[vi][2] for p in ps], vbinned,
+                [p.model.grow_ws.fields for p in ps], m0.na_bin_dev,
+                [a[1] for a in applied], 1.0,
+                steps=[p.model.walk_steps for p in ps],
+                efb_maps=walk_maps(vbinned, m0.efb_maps))
+        for p, a, b in zip(ps, applied, begun):
+            p._finish(a[0], b[0], b[1])
+
+    def _mutable(self) -> List[torch.Tensor]:
+        return [t for p in self.programs for t in p._mutable()]
+
+    def run(self, k: int, es_it0s, fmasks, it0s, *, eager: bool,
+            exited=None) -> List[torch.Tensor]:
+        """Run k iterations of every member into its ``out[:k]`` and
+        return those (device) slices.  Per member j: ``es_it0s[j]`` the
+        vote's first iteration, ``fmasks[j]`` its [k, F] host feature
+        masks, ``it0s[j]`` its keying iteration, ``exited[j]`` whether it
+        has left the fleet (its lane rides with ``dead`` set).  ``eager``
+        as ``IterationProgram.run``."""
+        ps = self.programs
+        exited = exited or [False] * len(ps)
+        for j, p in enumerate(ps):
+            p.prepare(k, es_it0s[j], fmasks=fmasks[j], it0=it0s[j])
+            if exited[j]:
+                p.dead.fill_(True)
+        if eager:
+            for _ in range(k):
+                self.body()
+        else:
+            if ps[0].model.device.type != "cuda":
+                raise ValueError("graph replay needs a CUDA device")
+            if self.graph is None or any(
+                    p.out is not o for p, o in zip(ps, self._outs)):
+                (self.graph, self.warmup, self.captured,
+                 self.capture_ms) = capture_graph(self.body, self._mutable)
+                self._outs = [p.out for p in ps]
+            for _ in range(k):
+                self.graph.replay()
+            self.replays += k
+        return [p.out[:k] for p in ps]
+
+    def fetch(self, blocks: List[torch.Tensor], site: str = "fleet_fetch"):
+        """Every member's rows in one host copy, counted under ``site`` on
+        member 0's model: returns (host rows, device rows), one [k, width]
+        array and tensor a member; the device rows are views of one new
+        buffer, so the next epoch leaves them alone."""
+        flat = torch.cat([b.reshape(-1) for b in blocks])
+        host = self.programs[0].model._fetch(flat, site)
+        hosts, devs, off = [], [], 0
+        for b in blocks:
+            n = b.numel()
+            hosts.append(host[off:off + n].reshape(b.shape))
+            devs.append(flat[off:off + n].view(b.shape))
+            off += n
+        return hosts, devs
+
+    def launches(self) -> Dict[str, int]:
+        """Kernel launches on the device so far through the fleet's graph:
+        captured launches times replays."""
+        return {k: n * self.replays for k, n in self.captured.items()}

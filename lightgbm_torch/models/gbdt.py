@@ -51,6 +51,12 @@ it runs the per-iteration path, the renewal between growth and the score
 update (``renew_leaves``).  lambdarank's gradients (B13a) run inside the
 captured iteration like any other objective's.
 
+A fleet (``fleet/trainer.py``) runs the super-epoch path of N models
+over one Dataset in lockstep: each model's epoch prologue, operands and
+ingest are ``_se_begin``, ``_se_operands`` and ``_se_ingest``, the calls
+``train_superepoch`` makes, and ``share_from`` points a member's shared
+matrices at member 0's.
+
 The three give the same trees.  The reported metric values are not the
 same: the fused paths (and ``fused_eval=true`` per-iteration runs) report
 the traced f32 metrics, the per-iteration path by default the host f64
@@ -820,7 +826,8 @@ class GBDTModel:
                          fmasks=self._feature_mask()[None],
                          it0=start_iter + self._iter_rng_offset)
         host = self._fetch(block, "tree")
-        out = self._ingest(prog, host, block.clone(), 1, start_iter, init0)
+        out = self._se_ingest(prog, host, block.clone(), 1, start_iter,
+                              init0)
         return out["stump"]
 
     def train_chunk(self, k: int) -> bool:
@@ -848,17 +855,9 @@ class GBDTModel:
 
     def _epoch(self, k: int, es_it0: int, eval_spec, es_spec) -> dict:
         start_iter = self.iter_
-        init0 = self._boost_from_average()
-        E = len(eval_spec)
-        if es_spec is not None and (self.es_state is None
-                                    or self.es_state[0].shape[0] != E):
-            dev = self.device
-            self.es_state = (torch.zeros(E, dtype=torch.float32, device=dev),
-                            torch.zeros(E, dtype=torch.int32, device=dev),
-                            torch.zeros(E, dtype=torch.bool, device=dev),
-                            torch.zeros((), dtype=torch.bool, device=dev))
+        init0 = self._se_begin(len(eval_spec), es_spec)
         prog = self._program(eval_spec, es_spec, k)
-        fmasks = self._feature_masks(k)
+        fmasks, it0 = self._se_operands(k)
         cuda = self.device.type == "cuda"
         if cuda:
             t0 = torch.cuda.Event(enable_timing=True)
@@ -866,23 +865,47 @@ class GBDTModel:
             t0.record()
         else:
             t0 = time.perf_counter()
-        block = prog.run(k, es_it0, eager=not cuda, fmasks=fmasks,
-                         it0=start_iter + self._iter_rng_offset)
+        block = prog.run(k, es_it0, eager=not cuda, fmasks=fmasks, it0=it0)
         if cuda:
             t1.record()
         # the one sync of the epoch (trees + eval block + stop flags)
         host = self._fetch(block, "epoch")
         self.epoch_ms.append(t0.elapsed_time(t1) if cuda else
                              (time.perf_counter() - t0) * 1e3)
-        return self._ingest(prog, host, block.clone(), k, start_iter, init0)
+        return self._se_ingest(prog, host, block.clone(), k, start_iter,
+                               init0)
 
-    def _ingest(self, prog: IterationProgram, host: np.ndarray,
-                block: torch.Tensor, k: int, start_iter: int,
-                init0: List[float]) -> dict:
+    def _se_begin(self, num_evals: int, es_spec) -> List[float]:
+        """An epoch's prologue (the JAX package's ``_se_begin``): the
+        boost-from-average bias on the first iteration (returned, one a
+        class) and the traced early-stop state for ``num_evals`` eval
+        entries, made on first use."""
+        init0 = self._boost_from_average()
+        if es_spec is not None and (self.es_state is None
+                                    or self.es_state[0].shape[0]
+                                    != num_evals):
+            dev, E = self.device, num_evals
+            self.es_state = (torch.zeros(E, dtype=torch.float32, device=dev),
+                             torch.zeros(E, dtype=torch.int32, device=dev),
+                             torch.zeros(E, dtype=torch.bool, device=dev),
+                             torch.zeros((), dtype=torch.bool, device=dev))
+        return init0
+
+    def _se_operands(self, k: int) -> Tuple[np.ndarray, int]:
+        """An epoch's operands (the JAX package's ``_se_operands``): the
+        [k, F] feature masks drawn from this model's host stream, and the
+        iteration ``it0`` that keys the epoch's first draws.  A fleet
+        calls it member by member, in member order."""
+        return self._feature_masks(k), self.iter_ + self._iter_rng_offset
+
+    def _se_ingest(self, prog: IterationProgram, host: np.ndarray,
+                   block: torch.Tensor, k: int, start_iter: int,
+                   init0: List[float]) -> dict:
         """Host ``Tree`` and ``_DeviceTree`` of each fetched row (K rows,
         one a class, for each of the k iterations), up to and including
         the first iteration whose trees are all stumps or that the stop
-        vote ends (the JAX package's ``_se_ingest``)."""
+        vote ends (the JAX package's ``_se_ingest``), from this model's
+        rows ``host`` (numpy) and their device copy ``block``."""
         lr = self.learning_rate
         L = self.config.num_leaves
         K = self.num_class
@@ -942,6 +965,71 @@ class GBDTModel:
             np.zeros((0, prog.E), np.float32)
         return {"evals": evals.reshape(done, prog.E), "done": done,
                 "stump": stopped, "stop_row": stop_row}
+
+    def share_from(self, other: "GBDTModel") -> None:
+        """Point this model's shared operands at ``other``'s tensors, for
+        fleet members built from one training Dataset and one set of valid
+        Datasets (the JAX package's ``in_axes=None`` operands of
+        ``build_fleet_superepoch``): the binned (or EFB-bundled) matrix,
+        ``num_bin``, ``na_bin``, the categorical flags, the EFB maps, the
+        bagging label mask, the objective's arrays, and each valid set's
+        binned matrix, label and weight.  Raises ``ValueError`` if any
+        differs in value."""
+        def same(a, b, what):
+            if a is None and b is None:
+                return None
+            if (a is None) != (b is None) or a.shape != b.shape \
+                    or a.dtype != b.dtype or a.device != b.device \
+                    or not torch.equal(a, b):
+                raise ValueError(f"fleet members must share {what}")
+            return b
+
+        if isinstance(self.binned_dev, torch.Tensor) != isinstance(
+                other.binned_dev, torch.Tensor):
+            raise ValueError("fleet members must share one binned layout")
+        self.binned_dev = same(self.binned_dev, other.binned_dev,
+                               "the binned matrix")
+        self.num_bin_dev = same(self.num_bin_dev, other.num_bin_dev,
+                                "num_bin")
+        self.na_bin_dev = same(self.na_bin_dev, other.na_bin_dev, "na_bin")
+        self.is_cat_dev = same(self.is_cat_dev, other.is_cat_dev,
+                               "the categorical features")
+        self.feature_mask = same(self.feature_mask, other.feature_mask,
+                                 "the feature set")
+        self.bag_positive = same(self.bag_positive, other.bag_positive,
+                                 "the bagging label mask")
+        if (self.efb_dev is None) != (other.efb_dev is None):
+            raise ValueError("fleet members must share the EFB bundles")
+        if other.efb_dev is not None:
+            for a, b in zip(self.efb_dev, other.efb_dev):
+                if isinstance(a, torch.Tensor):
+                    same(a, b, "the EFB maps")
+                elif a != b:
+                    raise ValueError("fleet members must share the EFB "
+                                     "bundles")
+            self.efb_dev, self.efb_maps = other.efb_dev, other.efb_maps
+            self.grow_ws.efb = other.efb_dev
+        if self.objective is not None and other.objective is not None:
+            for name, t in vars(self.objective).items():
+                ot = getattr(other.objective, name, None)
+                if isinstance(t, torch.Tensor) and isinstance(
+                        ot, torch.Tensor):
+                    setattr(self.objective, name,
+                            same(t, ot, f"the objective's {name}"))
+        if len(self.valid_sets) != len(other.valid_sets):
+            raise ValueError("fleet members must share the valid sets")
+        for vi, ((ds, vb, vs), (_, ovb, _)) in enumerate(
+                zip(self.valid_sets, other.valid_sets)):
+            if not isinstance(vb, torch.Tensor):
+                raise ValueError("fleet valid sets must be dense")
+            self.valid_sets[vi] = (ds, same(vb, ovb, "the valid matrix"),
+                                   vs)
+            label, weight = self.valid_ops(vi)
+            olabel, oweight = other.valid_ops(vi)
+            self._valid_ops[vi] = (same(label, olabel, "the valid labels"),
+                                   same(weight, oweight,
+                                        "the valid weights"))
+        self._programs.clear()
 
     def eval_traced(self, eval_spec) -> np.ndarray:
         """Every entry of ``eval_spec`` by the traced metric kernels on

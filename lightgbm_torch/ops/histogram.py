@@ -27,11 +27,19 @@ On sparse binned storage (``binned`` a ``sparse_data.SparseBinned``, the
 padded k-hot rows) ``compute_histogram`` is the k-hot histogram B8a
 (``sparse_data.histogram``), with the same forms and output, as the JAX
 grower's ``_hist`` dispatches (grower.py:360-362).
+
+``compute_histogram_members`` is the member axis of the fleet (B1-M,
+B1-K-M, B1-int-M; the JAX package's ``build_fleet_superepoch`` vmaps the
+contraction over members that share one matrix): N members' passes over
+one shared dense ``binned``, each with its own vals, slot, active flag
+and slot count, in one launch on the card, each member's histogram
+bitwise the solo pass's.  Its plain version is the solo plain version
+member by member.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -234,6 +242,117 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
         _kernels.stream_ptr(binned.device))
     _kernels.launched("histogram", err)
     return out
+
+
+def compute_histogram_members(binned: torch.Tensor,
+                              vals: Sequence[torch.Tensor], *,
+                              num_bins: int,
+                              slots: Optional[Sequence[torch.Tensor]] = None,
+                              num_slots: Optional[int] = None,
+                              actives: Optional[Sequence[torch.Tensor]] = None,
+                              slots_used: Optional[
+                                  Sequence[torch.Tensor]] = None
+                              ) -> torch.Tensor:
+    """``compute_histogram`` of N members over one shared dense
+    ``binned`` (B1-M; B1-K-M with ``num_slots``; B1-int-M and B1-K-int-M
+    on int8/int16 vals): member j's pass takes ``vals[j]``, ``slots[j]``,
+    ``actives[j]`` and ``slots_used[j]`` as the solo form takes them, and
+    its result is row j of the [N, F, num_bins, 3] (or [N, K, F,
+    num_bins, 3]) output, bitwise the solo form's (unspecified where its
+    ``active`` is 0).  CUDA tensors launch the member form of
+    ``csrc/histogram.cu`` once for all members, CPU tensors run
+    ``histogram_members_plain``."""
+    if isinstance(binned, SparseBinned):
+        raise TypeError("the member forms take a dense binned matrix "
+                        "(k-hot rows train solo)")
+    m = len(vals)
+    if m < 1:
+        raise ValueError("compute_histogram_members needs a member")
+    for name, ops in (("slots", slots), ("actives", actives),
+                      ("slots_used", slots_used)):
+        if ops is not None and len(ops) != m:
+            raise ValueError(f"{name} must have one entry a member")
+    if num_slots is not None and (slots is None or slots_used is None):
+        raise TypeError("the K-slot form needs slots and slots_used")
+    if any(v.dtype != vals[0].dtype for v in vals):
+        raise TypeError("the members' vals must share one dtype")
+    for j in range(m):
+        _check(binned, vals[j], None if slots is None else slots[j],
+               None if actives is None else actives[j])
+        if slots_used is not None and (
+                slots_used[j].shape != (1,)
+                or slots_used[j].dtype != torch.int32
+                or slots_used[j].device != binned.device):
+            raise TypeError("slots_used must be [1] int32 tensors on the "
+                            "binned matrix's device")
+    if binned.device.type == "cpu":
+        return histogram_members_plain(
+            binned, vals, num_bins=num_bins, slots=slots,
+            num_slots=num_slots, actives=actives)
+    if binned.device.type != "cuda":
+        raise ValueError(f"unsupported device {binned.device}")
+    if not (binned.is_contiguous() and all(v.is_contiguous() for v in vals)
+            and (slots is None or all(s.is_contiguous() for s in slots))):
+        raise ValueError("compute_histogram_members needs contiguous "
+                         "tensors")
+    n, f = binned.shape
+    integer = vals[0].dtype in INT_VALS
+    k = 1 if num_slots is None else int(num_slots)
+    kdim = () if num_slots is None else (k,)
+    dt = torch.int32 if integer else torch.float32
+    out = torch.empty((m,) + kdim + (f, num_bins, 3), dtype=dt,
+                      device=binned.device)
+    if n == 0:
+        return out.zero_()
+    if integer:
+        form, counter = 2, ("histogram_int_members" if num_slots is None
+                            else "histogram_slots_int_members")
+        rows, shape1, shape2 = int_launch_shape(n, f, num_bins, num_slots)
+    elif num_slots is None:
+        form, counter = 0, "histogram_members"
+        rows, shape1, shape2 = launch_shape(n, f, num_bins)
+    else:
+        form, counter = 1, "histogram_slots_members"
+        rows, shape1, shape2 = slots_launch_shape(n, f, num_bins, k)
+    partial = torch.empty((m, -(-n // rows)) + kdim + (f, num_bins, 3),
+                          dtype=dt, device=binned.device)
+    none = [None] * m
+    table = _kernels.pointer_table((
+        vals, none if slots is None else slots,
+        none if actives is None else actives,
+        none if slots_used is None else slots_used,
+        list(partial), list(out)))
+    err = _kernels.lib("histogram").lgbt_histogram_members(
+        binned.data_ptr(), table, m, form,
+        _bits(vals[0]) if integer else 0, n, f, num_bins, k, rows, shape1,
+        shape2, _kernels.stream_ptr(binned.device))
+    _kernels.launched(counter, err)
+    return out
+
+
+def histogram_members_plain(binned: torch.Tensor,
+                            vals: Sequence[torch.Tensor], *, num_bins: int,
+                            slots: Optional[Sequence[torch.Tensor]] = None,
+                            num_slots: Optional[int] = None,
+                            actives: Optional[Sequence[torch.Tensor]] = None
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of the member forms: the solo plain version
+    of each member's pass, stacked."""
+    outs = []
+    for j, v in enumerate(vals):
+        slot = None if slots is None else slots[j]
+        active = None if actives is None else actives[j]
+        integer = v.dtype in INT_VALS
+        if num_slots is not None:
+            plain = histogram_slots_int_plain if integer \
+                else histogram_slots_plain
+            outs.append(plain(binned, v, slot, num_slots=num_slots,
+                              num_bins=num_bins, active=active))
+        else:
+            plain = histogram_int_plain if integer else histogram_plain
+            outs.append(plain(binned, v, num_bins=num_bins, slot=slot,
+                              active=active))
+    return torch.stack(outs)
 
 
 def _bits(vals: torch.Tensor) -> int:

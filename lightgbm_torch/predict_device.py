@@ -28,6 +28,13 @@ matrix and each node's bin is decoded from its feature's bundle column
 :178-213): each node's bin is the row's entry of its feature, else the
 feature's default bin; ``efb_maps`` do not apply to such rows.
 
+``add_tree_score_members`` is B4-M, the member axis of the fleet (the
+JAX package's ``build_fleet_superepoch`` walks every member's tree over
+the one shared valid matrix): N members' scores, trees and leaf values
+over one shared dense ``binned``, in one launch on the card, each
+member's update bitwise the solo call's; its plain version is the solo
+plain version member by member.
+
 The whole-forest serving functions (kernel B10, ``csrc/forest.cu``; the
 JAX package's ``traverse_forest_binned``, ``bin_rows_device``,
 ``bin_rows_device_full`` and the raw part of ``fused_forest_predict``)
@@ -57,6 +64,7 @@ CUDA kernel does not recompile per shape; the launches are counted in
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -177,6 +185,85 @@ def add_tree_score(score: torch.Tensor, binned: torch.Tensor,
         _kernels.stream_ptr(score.device))
     _kernels.launched("predict", err)
     return score
+
+
+_TREE_KEYS = ("split_feature", "threshold_bin", "default_left",
+              "left_child", "right_child", "is_cat_node", "cat_rank")
+
+
+def add_tree_score_members(scores: Sequence[torch.Tensor], binned,
+                           trees: Sequence, na_bin: torch.Tensor,
+                           leaf_values: Sequence[torch.Tensor],
+                           weight: float, *, steps: Sequence[int],
+                           efb_maps=None) -> None:
+    """``add_tree_score`` of N members over one shared dense ``binned``
+    (B4-M), in place: member j adds ``weight * leaf_values[j][leaf]`` of
+    its tree ``trees[j]`` (a mapping of the node tables ``split_feature``,
+    ``threshold_bin``, ``default_left``, ``left_child``, ``right_child``
+    and, with categorical nodes, ``is_cat_node`` and ``cat_rank``: the
+    grower's tree fields) walked ``steps[j]`` levels into ``scores[j]``
+    ([N] f32).  CUDA tensors launch the member form of
+    ``csrc/predict.cu`` once for all members, CPU tensors run
+    ``add_tree_score_members_plain``."""
+    m = len(scores)
+    if m < 1 or len(trees) != m or len(leaf_values) != m \
+            or len(steps) != m:
+        raise ValueError("add_tree_score_members needs one score, tree, "
+                         "leaf value vector and level count a member")
+    if isinstance(binned, SparseBinned):
+        raise TypeError("the member form takes a dense binned matrix "
+                        "(k-hot valid sets run solo)")
+    nodes = [tuple(t.get(k) for k in _TREE_KEYS) for t in trees]
+    for sc, nd, lv in zip(scores, nodes, leaf_values):
+        if sc.dim() != 1:
+            raise TypeError("the member form takes [N] scores")
+        _check(sc, binned, *nd[:5], na_bin, lv, nd[5], nd[6], 0, efb_maps)
+    cat = {nd[6] is None for nd in nodes}
+    if len(cat) != 1 or (not cat.pop() and len(
+            {int(nd[6].shape[1]) for nd in nodes}) != 1):
+        raise TypeError("the members' trees must all have categorical "
+                        "fields of one width, or none")
+    if binned.device.type == "cpu":
+        return add_tree_score_members_plain(scores, binned, trees, na_bin,
+                                            leaf_values, weight,
+                                            steps=steps, efb_maps=efb_maps)
+    if binned.device.type != "cuda":
+        raise ValueError(f"unsupported device {binned.device}")
+    maps = (None,) * 3 if efb_maps is None else tuple(efb_maps)
+    rows = [list(scores)] + [[nd[i] for nd in nodes] for i in range(7)] \
+        + [list(leaf_values)]
+    if any(t is not None and (not t.is_contiguous()
+                              or t.dtype not in (torch.int32,
+                                                 torch.float32))
+           for row in rows for t in row):
+        raise ValueError("add_tree_score_members needs contiguous int32 "
+                         "node tables (default_left and is_cat_node too) "
+                         "and f32 scores and leaf values")
+    n, f = binned.shape
+    if n == 0:
+        return None
+    table = _kernels.pointer_table(rows)
+    levels = (ctypes.c_int * m)(*[int(x) for x in steps])
+    cat_bins = 0 if nodes[0][6] is None else int(nodes[0][6].shape[1])
+    err = _kernels.lib("predict").lgbt_add_tree_score_members(
+        1, 0, binned.data_ptr(), n, f, na_bin.data_ptr(), cat_bins,
+        *(None if t is None else t.data_ptr() for t in maps),
+        *khot_args(binned), float(weight), table, levels, m,
+        _kernels.stream_ptr(binned.device))
+    _kernels.launched("predict_members", err)
+    return None
+
+
+def add_tree_score_members_plain(scores, binned, trees, na_bin, leaf_values,
+                                 weight: float, *, steps, efb_maps=None
+                                 ) -> None:
+    """Plain PyTorch version of B4-M: the solo plain version member by
+    member."""
+    for sc, tr, lv, st in zip(scores, trees, leaf_values, steps):
+        nd = [tr.get(k) for k in _TREE_KEYS]
+        add_tree_score_plain(sc, binned, *nd[:5], na_bin, lv, weight,
+                             steps=int(st), is_cat_node=nd[5],
+                             cat_rank=nd[6], efb_maps=efb_maps)
 
 
 def walk_maps(binned, efb_maps):

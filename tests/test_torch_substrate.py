@@ -91,6 +91,8 @@ def test_fixture_predicts_like_jax():
 
 
 def _imported_modules(path: pathlib.Path):
+    """Every module a source names in an import statement, or in a call
+    of ``importlib.import_module``/``__import__`` with a literal name."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -98,6 +100,14 @@ def _imported_modules(path: pathlib.Path):
                 yield a.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module or ""
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", "")
+            if name in ("import_module", "__import__"):
+                yield node.args[0].value
 
 
 def test_port_imports_no_jax():
@@ -105,7 +115,8 @@ def test_port_imports_no_jax():
     # compiled kernels and is no part of it)
     files = sorted(p for p in (ROOT / "lightgbm_torch").rglob("*.py")
                    if "_build" not in p.relative_to(ROOT).parts) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "tools").glob("torch_*.py"))
     assert len(files) > 15
     # the threefry stream (bagging, GOSS and the node draws) and the
     # growers that key on it are the port's own, not jax.random's
