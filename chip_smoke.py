@@ -260,6 +260,31 @@ Phases, one JSON line each:
    ``fleet_per_iteration``, one ``fleet_fetch`` an epoch, the shared
    operands one tensor, the fleet's ms an iteration beside the members'
    solo ms summed;
+   integrity_kernels (after fleet_kernels): the shadow set (the grower's
+   libraries built a second time with ``-DLGBT_SHADOW_BUILD=1`` and
+   loaded apart) grows a 31-leaf and a 255-leaf (K = 16) tree bit for bit
+   as the primary set, each shadow launch counted under ``shadow:`` as
+   the primary's, B1 through it bitwise the primary's; B17a (tree
+   invariants) bit for bit against its plain version on the healthy
+   trees, 72 single bit flips of counts, an infinite gain and a stump;
+   B17b (score re-gather) on the healthy gather, a ``score_sdc`` flip,
+   three flipped rows and an out-of-range leaf; B17c (feature totals
+   residual) as the oracle on B1's root pass of the main data (its one
+   launch, ``totals_oracle``), then within TOTALS_RTOL (exact for the
+   int32 form) of its plain version on flipped f32 and int32 inputs;
+   each timed, the shadow grow beside the primary's;
+   integrity_train (after the fleet cells): the main configuration
+   per-iteration with ``integrity_check_freq=1`` for INTEGRITY_ROUNDS
+   rounds: the unchecked run's model text and evals, launches held to
+   ``checked_per_iteration(PER_ITERATION)`` (shadow launches the primary
+   grower's), fetches ``integrity``, ``integrity_score``, ``tree`` and
+   ``traced_eval`` once an iteration, ms an iteration checked and
+   unchecked; ``hist_sdc:3`` and ``score_sdc:3`` absorbed byte-identically
+   over INTEGRITY_FAULT_ROUNDS rounds, ``hist_sdc:3-4`` raising
+   ``IntegrityFailure`` (kind sdc, iteration 3, leaf_count, the card
+   named) under ``raise`` and ``quarantine`` (the card marked); and the
+   255-leaf ``quant_train`` configuration checked the same way at
+   CUT_ROUNDS;
    objectives_train (after multiclass_serve): each of the ten pointwise
    objectives on the HIGGS-shaped rows with a label in its domain, every
    path the JAX package allows with equal model text, the engine route's
@@ -363,6 +388,28 @@ PER_ITERATION = {"histogram": NUM_LEAVES, "split": NUM_LEAVES,
                  "histogram_int_members": 0,
                  "histogram_slots_int_members": 0, "partition_members": 0,
                  "partition_slots_members": 0, "predict_members": 0}
+# the integrity layer's kernels (B17a-c) and the kernels of the shadow
+# set's libraries, counted under "shadow:<kernel>": none on an unchecked
+# iteration (phase_environment holds these keys to the port's counters)
+SHADOW_COUNTED = ("histogram", "split", "split_cat", "partition",
+                  "grow_step", "histogram_slots", "partition_slots",
+                  "grow_step_batched", "bag_vals", "goss_vals", "node_draws",
+                  "expand_group_hist", "histogram_int",
+                  "histogram_slots_int", "quant_scales", "quantize_stack",
+                  "dequant_hist", "histogram_sparse",
+                  "histogram_slots_sparse", "histogram_members",
+                  "histogram_slots_members", "histogram_int_members",
+                  "histogram_slots_int_members", "partition_members",
+                  "partition_slots_members")
+PER_ITERATION.update({"invariant_flags": 0, "score_recheck": 0,
+                      "totals_residual": 0,
+                      **{"shadow:" + k: 0 for k in SHADOW_COUNTED}})
+# the kernels the grower launches (the bagging and GOSS draws run before
+# it, the member forms in the fleet's lockstep grower): the shadow grower
+# launches each of them as often as the primary one
+GROWER_KERNELS = tuple(k for k in SHADOW_COUNTED
+                       if k not in ("bag_vals", "goss_vals")
+                       and not k.endswith("_members"))
 # without a valid set: no walk and no metric
 PER_ITERATION_NO_VALID = {**PER_ITERATION, "predict": 0, "auc": 0,
                           "pointwise": 0}
@@ -764,6 +811,24 @@ KERNEL_PATH.update({"histogram_members": "fleet_train",
                     "predict_members": "fleet_train"})
 
 
+# the integrity layer (integrity_kernels, integrity_train): the rounds of
+# the checked main run and its unchecked twin (per-iteration), and of the
+# injected runs; the timed grows of each set in the shadow row; B17c sums
+# in f64 in another order than its plain version (torch.sum), so the two
+# agree within TOTALS_RTOL of the largest column total (or residual)
+INTEGRITY_ROUNDS, INTEGRITY_FAULT_ROUNDS, SHADOW_GROW_REPS = 20, 6, 10
+TOTALS_RTOL = 1e-9
+INTEGRITY_KERNELS = ("invariant_flags", "score_recheck", "totals_residual",
+                     "shadow_grow")
+KERNEL_ORDER = KERNEL_ORDER + INTEGRITY_KERNELS
+KERNEL_PATH.update({"invariant_flags": "integrity_train",
+                    "score_recheck": "integrity_train",
+                    "shadow_grow": "integrity_train",
+                    "totals_residual": "totals_oracle"})
+# every library's build seconds (phase_environment)
+BUILD_S = {}
+
+
 def fleet_per_iteration(leaves, K: int, bagging: bool, quant: bool,
                         valid_sets: int = 1) -> dict:
     """A fleet iteration's launches (the captured body) of members with
@@ -1065,9 +1130,14 @@ def phase_environment(torch, lgt_kernels):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if set(lgt_kernels.LAUNCHES) != set(PER_ITERATION):
+        raise AssertionError(
+            "the port's launch counters and PER_ITERATION's keys differ: "
+            f"{sorted(set(lgt_kernels.LAUNCHES) ^ set(PER_ITERATION))}")
     t0 = time.perf_counter()
     per_kernel = lgt_kernels.build_all()
     build_s = time.perf_counter() - t0
+    BUILD_S.update(per_kernel)
     emit({"phase": "environment", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc.stdout.strip().splitlines()[-1],
@@ -7474,6 +7544,436 @@ def phase_fleet_train(torch, lgt, lgt_kernels, train, valid, name: str,
     return {name: device}
 
 
+# --- the computation-integrity layer (B17) ----------------------------------
+
+def grow_bound(t, n: int, f: int, B: int, L: int):
+    """The least time of one tree's growth at the main shape, from the
+    tree ``t`` (host ``TreeArrays``): the root pass (every row's bins and
+    vals in, its histogram out, B2 on it) and each active split step as
+    ``iteration_bound`` counts it (B3s, B3 over the split leaf's rows, B1
+    over the smaller child's, the subtraction, B2 on the pair).  Returns
+    (ms, by, bytes)."""
+    from lightgbm_torch.grower import tree_words
+    hist = f * B * 12
+    rec = 12 * 4
+    books = L * rec + 2 * tree_words(L) * 4
+    nbytes = n * (f + 12) + 2 * hist + rec + 4 * n
+    ops = 3.0 * n * f + 40 * 2 * f * B
+    for s in range(t.num_leaves - 1):
+        kids = [t.internal_count[c] if c >= 0 else t.leaf_count[~c]
+                for c in (t.left_child[s], t.right_child[s])]
+        parent, small = int(t.internal_count[s]), int(min(kids))
+        nbytes += 4 * hist + 2 * hist + 2 * rec + books + 9 * parent \
+            + small * (f + 12)
+        ops += 40 * 2 * 2 * f * B + 3 * f * B + 2 * parent + 3 * small * f
+    ms, by = bound_ms(nbytes, ops)
+    return ms, by, nbytes
+
+
+def checked_per_iteration(per_it: dict) -> dict:
+    """An iteration's launches with ``integrity_check_freq=1``: ``per_it``,
+    one B17a and one B17b, and every grower kernel once more through the
+    shadow set."""
+    return {**per_it, "invariant_flags": 1, "score_recheck": 1,
+            **{"shadow:" + k: per_it[k] for k in GROWER_KERNELS}}
+
+
+def _flip_word(torch, t, idx: int, bit: int):
+    """A copy of the int32/f32 tensor ``t`` with bit ``bit`` of its
+    ``idx``-th flat word flipped."""
+    c = t.clone()
+    c.view(-1).view(torch.int32)[idx] ^= 1 << bit
+    return c
+
+
+def phase_integrity_kernels(torch, lgt, lgt_kernels, train):
+    """B17a, B17b and B17c against their plain versions on the card, on
+    healthy and bit-flipped inputs, and the shadow set against the
+    primary one (trees bit for bit, every shadow launch counted under
+    ``shadow:``); each timed beside its bound and library call.  Returns
+    (kernels-line rows, the launches of B17c's oracle run)."""
+    from lightgbm_torch import grower as gr
+    from lightgbm_torch import integrity as itg
+    from lightgbm_torch.ops import split as sp
+    from lightgbm_torch.ops.histogram import (compute_histogram,
+                                              feature_totals_residual,
+                                              feature_totals_residual_plain,
+                                              histogram_plain)
+    from lightgbm_torch.utils import faultinject
+    dev = torch.device("cuda", 0)
+    binned = torch.as_tensor(train.binned).to(dev)
+    n, f = binned.shape
+    B = int(train.max_bin)
+    L = NUM_LEAVES
+    mappers = [train.bin_mappers[i] for i in train.used_features]
+    num_bin = torch.tensor([m.num_bin for m in mappers], dtype=torch.int32,
+                           device=dev)
+    na_bin = torch.tensor([m.na_bin for m in mappers], dtype=torch.int32,
+                          device=dev)
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    y = torch.as_tensor(train.metadata.label).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p = torch.sigmoid(torch.randn(n, device=dev, generator=gen))
+    vals = torch.stack([p - y, p * (1 - p), torch.ones_like(y)], dim=1)
+    params = sp.SplitParams()
+    out = {}
+
+    # the shadow set: a strict 31-leaf and a 255-leaf K = 16 tree grown by
+    # both sets from the same operands, bit for bit, each shadow launch
+    # the primary's under "shadow:"
+    kw = dict(num_leaves=L, num_bins=B, params=params)
+    ws = gr.GrowWorkspace(n, f, B, L, dev)
+    shadow = gr.make_shadow_grower(ws)
+    if not shadow.independent:
+        raise AssertionError("the shadow grower on the card must be "
+                             "independent")
+    wkw = dict(num_leaves=WIDE_LEAVES, num_bins=B, params=params,
+               split_batch=WIDE_K)
+    wws = gr.GrowWorkspace(n, f, B, WIDE_LEAVES, dev, split_batch=WIDE_K)
+    wshadow = gr.make_shadow_grower(wws)
+    shadow_launches = {}
+    for name, grow, w, sh, k in (("strict", gr.grow_tree, ws, shadow, kw),
+                                 ("wide", gr.grow_tree_batched, wws,
+                                  wshadow, wkw)):
+        lgt_kernels.reset_launch_counts()
+        grow(binned, vals, fmask, num_bin, na_bin, workspace=w, **k)
+        mid = lgt_kernels.launch_counts()
+        sh_tree = sh.grow(grow, binned, vals, fmask, num_bin, na_bin, **k)
+        torch.cuda.synchronize()
+        after = lgt_kernels.launch_counts()
+        prim = {kk: v for kk, v in mid.items() if v}
+        shad = {kk: after[kk] - mid[kk] for kk in after
+                if after[kk] != mid[kk]}
+        if shad != {"shadow:" + kk: v for kk, v in prim.items()}:
+            raise AssertionError(f"shadow {name} tree launched {shad}, the "
+                                 f"primary {prim}")
+        if not torch.equal(sh_tree, w.tree) or not torch.equal(
+                sh.ws.leaf_of_row, w.leaf_of_row):
+            raise AssertionError(f"the shadow set's {name} tree differs "
+                                 "from the primary's")
+        shadow_launches[name] = shad
+    # B1 through the shadow set: the primary's bits, and its plain version
+    # within HIST_RTOL
+    h_k = compute_histogram(binned, vals, num_bins=B)
+    with lgt_kernels.shadow_set():
+        h_s = compute_histogram(binned, vals, num_bins=B)
+    h_p = histogram_plain(binned, vals, num_bins=B)
+    errs = float((h_s - h_p).abs().max())
+    if not torch.equal(h_s, h_k) \
+            or errs > HIST_RTOL * max(1.0, float(h_p.abs().max())):
+        raise AssertionError(f"shadow B1 differs (max abs err {errs} "
+                             "against the plain version)")
+
+    def grow_p():
+        gr.grow_tree(binned, vals, fmask, num_bin, na_bin, workspace=ws,
+                     **kw)
+
+    def grow_s():
+        shadow.grow(gr.grow_tree, binned, vals, fmask, num_bin, na_bin,
+                    **kw)
+    t_p = median_ms(torch, grow_p, reps=SHADOW_GROW_REPS, warmup=2)
+    t_s = median_ms(torch, grow_s, reps=SHADOW_GROW_REPS, warmup=2)
+    t_s2 = median_ms(torch, grow_s, reps=SHADOW_GROW_REPS, warmup=2)
+    t_p2 = median_ms(torch, grow_p, reps=SHADOW_GROW_REPS, warmup=2)
+    if not torch.equal(shadow.ws.tree, ws.tree):
+        raise AssertionError("the timed shadow tree differs")
+    tree = gr.fetch_tree(ws)
+    gb_ms, gb_by, gb_bytes = grow_bound(tree, n, f, B, L)
+    shadow_build = {k: v for k, v in BUILD_S.items()
+                    if k.endswith("_shadow")}
+    out["shadow_grow"] = {
+        "name": "B17-shadow grower (the grower's kernels from the shadow "
+                "libraries; 31-leaf tree)",
+        "route": "cuda", "source": "lightgbm_torch/grower.py",
+        "replaces": "lightgbm_tpu/grower.py:1284", "max_abs_err": 0.0,
+        "ms": statistics.median([t_s, t_s2]),
+        "plain_ms": statistics.median([t_p, t_p2]),
+        "bound_ms": gb_ms, "bound_by": gb_by, "library_ms": None}
+    emit({"phase": "kernel", **out["shadow_grow"],
+          "plain_is": "the primary set's grow of the same tree",
+          "times_p_s_s_p": [t_p, t_s, t_s2, t_p2],
+          "bound_bytes": gb_bytes, "tree_leaves": tree.num_leaves,
+          "shadow_launches_per_tree": shadow_launches,
+          "shadow_build_s": shadow_build})
+
+    # B17a: the healthy trees, then bit flips of counts and gains, a
+    # non-finite gain and a stump
+    lay = gr.tree_layout(L)
+    cases = [("healthy", ws.tree)]
+    for fld in ("leaf_count", "internal_count"):
+        off = lay[fld][0]
+        for i in (0, 3, 11):
+            for bit in range(8, 31, 2):
+                cases.append((f"{fld}[{i}] bit {bit}",
+                              _flip_word(torch, ws.tree, off + i, bit)))
+    g_inf = ws.tree.clone()
+    g_inf[lay["split_gain"][0] + 2] = 0x7F800000       # +inf
+    stump = ws.tree.clone()
+    stump[lay["num_leaves"][0]] = 1
+    cases += [("gain inf", g_inf), ("stump", stump)]
+    tripped = 0
+    for what, t in cases:
+        fk = itg.invariant_flags(t, L)
+        fp = itg.invariant_flags_plain(t, L)
+        if not torch.equal(fk, fp):
+            raise AssertionError(f"B17a ({what}): {fk.item()} against the "
+                                 f"plain version's {fp.item()}")
+        tripped += int(fk.item() == 0)
+    for what, t, LL in (("wide healthy", wws.tree, WIDE_LEAVES),
+                        ("wide leaf_count[0] bit 29",
+                         _flip_word(torch, wws.tree,
+                                    gr.tree_layout(WIDE_LEAVES)
+                                    ["leaf_count"][0], 29), WIDE_LEAVES)):
+        fk = itg.invariant_flags(t, LL)
+        if not torch.equal(fk, itg.invariant_flags_plain(t, LL)):
+            raise AssertionError(f"B17a ({what}) differs")
+        tripped += int(fk.item() == 0)
+    if int(itg.invariant_flags(ws.tree, L)[0]) != 1 \
+            or int(itg.invariant_flags(g_inf, L)[0]) != 0:
+        raise AssertionError("B17a's flags on the healthy tree or the "
+                             "infinite gain are wrong")
+    ta_k = median_ms(torch, lambda: itg.invariant_flags(ws.tree, L))
+    ta_p = median_ms(torch, lambda: itg.invariant_flags_plain(ws.tree, L))
+    a_bytes = 4 + 16 * (L - 1) + 4 * L + 4
+    out["invariant_flags"] = {
+        "name": "B17a tree invariants", "route": "cuda",
+        "source": "lightgbm_torch/csrc/integrity.cu",
+        "replaces": "lightgbm_tpu/integrity.py:179", "max_abs_err": 0.0,
+        "ms": ta_k, "plain_ms": ta_p,
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(a_bytes, 12 * L))),
+        "library_ms": None}
+    emit({"phase": "kernel", **out["invariant_flags"],
+          "cases": len(cases) + 2, "tripped": tripped})
+
+    # B17b: the tree's shrunk values, its rows' leaves and the primary
+    # gather; healthy, flipped rows (one through the score_sdc site) and
+    # a leaf index out of range
+    lv = (ws.fields["leaf_value"] * 0.1).contiguous()
+    lor = ws.leaf_of_row
+    delta = lv.index_select(0, lor)
+    faultinject.configure("score_sdc:1")
+    try:
+        sdc = faultinject.maybe_bitflip("score_sdc", delta.clone())
+    finally:
+        faultinject.clear()
+    lor_out = lor.clone()
+    lor_out[n - 1] = L
+    bcases = [("healthy", lv, lor, delta, 0), ("score_sdc:1", lv, lor, sdc, 1),
+              ("leaf out of range", lv, lor_out, delta, 1)]
+    for r, bit in ((0, 9), (n // 2, 22), (n - 1, 30)):
+        bcases.append((f"row {r} bit {bit}", lv, lor,
+                       _flip_word(torch, delta, r, bit), 1))
+    for what, a, b, c, want in bcases:
+        fk = itg.score_mismatch(a, b, c)
+        fp = itg.score_mismatch_plain(a, b, c)
+        if not torch.equal(fk, fp) or int(fk[0]) != want:
+            raise AssertionError(f"B17b ({what}): {fk.item()}, plain "
+                                 f"{fp.item()}, expected {want}")
+    tb_k = median_ms(torch, lambda: itg.score_mismatch(lv, lor, delta))
+    tb_p = median_ms(torch, lambda: itg.score_mismatch_plain(lv, lor,
+                                                             delta))
+    tb_l = median_ms(torch, lambda: (lv.index_select(0, lor)
+                                     != delta).any())
+    out["score_recheck"] = {
+        "name": "B17b score re-gather check", "route": "cuda",
+        "source": "lightgbm_torch/csrc/integrity.cu",
+        "replaces": "lightgbm_tpu/integrity.py:361", "max_abs_err": 0.0,
+        "ms": tb_k, "plain_ms": tb_p,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(8 * n + 4 * L + 4, 2 * n))),
+        "library_ms": tb_l}
+    emit({"phase": "kernel", **out["score_recheck"], "cases": len(bcases)})
+
+    # B17c: the oracle on B1's root pass of the main data (its path), then
+    # against its plain version on that and on flipped inputs, f32 and
+    # the integer form (B1-int's exact histogram of int8 vals)
+    hist = compute_histogram(binned, vals, num_bins=B)
+    lgt_kernels.reset_launch_counts()
+    r_oracle = float(feature_totals_residual(hist, vals))
+    oracle = lgt_kernels.launch_counts()
+    scale = float(vals.abs().to(torch.float64).sum(0).max())
+    if r_oracle > HIST_RTOL * scale:
+        raise AssertionError(f"B17c: B1's root pass leaves a residual "
+                             f"{r_oracle} (column scale {scale})")
+    qv = torch.randint(-127, 128, (n, 3), dtype=torch.int8, device=dev,
+                       generator=gen)
+    hq = compute_histogram(binned, qv, num_bins=B)
+    ccases = [("f32 root pass", hist, vals),
+              ("f32 hist bit 27", _flip_word(torch, hist, 2 * B * 3 + 17,
+                                             27), vals),
+              ("f32 vals bit 30", hist, _flip_word(torch, vals, 3 * 777,
+                                                   30)),
+              ("int8 root pass", hq, qv),
+              ("int32 hist bit 12", _flip_word(torch, hq, 5 * B * 3 + 4,
+                                               12), qv)]
+    err_c = 0.0
+    for what, h, v in ccases:
+        rk = float(feature_totals_residual(h, v))
+        rp = float(feature_totals_residual_plain(h, v))
+        e = abs(rk - rp)
+        exact = h.dtype == torch.int32
+        if (exact and e != 0.0) or e > TOTALS_RTOL * max(scale, rp):
+            raise AssertionError(f"B17c ({what}): {rk} against the plain "
+                                 f"version's {rp}")
+        if ("bit" in what) != (rk > 1.0):
+            raise AssertionError(f"B17c ({what}): residual {rk}")
+        err_c = max(err_c, e)
+    tc_k = median_ms(torch, lambda: feature_totals_residual(hist, vals))
+    tc_p = median_ms(torch, lambda: feature_totals_residual_plain(hist,
+                                                                  vals))
+    tc_l = median_ms(torch, lambda: (hist.sum(1) - vals.sum(0))
+                     .abs().amax())
+    out["totals_residual"] = {
+        "name": "B17c feature totals residual (f32, B1's root pass)",
+        "route": "cuda", "source": "lightgbm_torch/csrc/integrity.cu",
+        "replaces": "lightgbm_tpu/ops/histogram.py:242",
+        "max_abs_err": err_c, "ms": tc_k, "plain_ms": tc_p,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(hist.numel() * 4 + vals.numel() * 4 + 8,
+                            vals.numel() + hist.numel()))),
+        "library_ms": tc_l}
+    emit({"phase": "kernel", **out["totals_residual"],
+          "oracle_residual": r_oracle, "column_scale": scale,
+          "cases": len(ccases)})
+    return out, oracle
+
+
+def phase_integrity_train(torch, lgt, lgt_kernels, train, valid):
+    """The main configuration on the per-iteration loop with
+    ``integrity_check_freq=1`` against the same run unchecked, the
+    injected transients and sticky failures, and one 255-leaf quant_train
+    checked run (module docstring).  Returns the launches of the checked
+    runs by path."""
+    from lightgbm_torch import integrity as itg
+    from lightgbm_torch.parallel import elastic
+    from lightgbm_torch.utils import faultinject
+    pi = {"superepoch": -1, "fused_chunk": 1, "fused_eval": "true"}
+    chk = {**pi, "integrity_check_freq": 1}
+    drop = "[integrity_check_freq:", "[integrity_policy:"
+
+    def text(b):
+        return without_path_params(b.model_to_string(), *drop)
+
+    def mvals():
+        return {k: v["value"] for k, v in itg.metrics_snapshot().items()}
+
+    out = {}
+    res = {}
+    for name, extra, per_it, rounds in (
+            ("integrity_train", {}, PER_ITERATION, INTEGRITY_ROUNDS),
+            ("integrity_quant_wide_train", QUANT_WIDE_PARAMS,
+             QUANT_WIDE_PER_ITERATION, CUT_ROUNDS)):
+        ref, ref_ev, ref_s = train_main(lgt, train, valid, timed=True,
+                                        extra={**extra, **pi},
+                                        rounds=rounds)
+        rm = ref._model
+        itg.reset_metrics()
+        lgt_kernels.reset_launch_counts()
+        bst, ev, secs = train_main(lgt, train, valid, timed=True,
+                                   extra={**extra, **chk}, rounds=rounds)
+        torch.cuda.synchronize()
+        launches = lgt_kernels.launch_counts()
+        m = bst._model
+        n = m.num_iterations_trained
+        want = checked_per_iteration(per_it)
+        if n != rm.num_iterations_trained \
+                or launches != times(want, n):
+            raise AssertionError(f"{name}: launches {launches} for {n} "
+                                 f"iterations, expected {want} each")
+        shadow = {k: v for k, v in launches.items()
+                  if k.startswith("shadow:") and v}
+        if shadow != {"shadow:" + k: v for k, v in launches.items()
+                      if k in GROWER_KERNELS and v}:
+            raise AssertionError(f"{name}: shadow launches {shadow} are "
+                                 "not the primary grower's")
+        if text(bst) != text(ref) or ev != ref_ev:
+            raise AssertionError(f"{name}: checked model text or evals "
+                                 "differ from the unchecked run's")
+        fetches = {"tree": n, "traced_eval": n, "integrity": n,
+                   "integrity_score": n}
+        mv = mvals()
+        if m.fetch_counts != fetches \
+                or mv.get("integrity.checks{path=grow}") != n \
+                or mv.get("integrity.checks{path=score}") != n \
+                or any("mismatches" in k for k in mv):
+            raise AssertionError(f"{name}: fetches {m.fetch_counts}, "
+                                 f"metrics {mv}")
+        man = m.integrity_manifest(n)
+        if not (man["verified"] and man["independent_trace"]):
+            raise AssertionError(f"{name}: manifest {man}")
+        out[name] = {**launches, "shadow_grow": sum(shadow.values())}
+        res[name] = {
+            "iterations": n, "rounds": rounds,
+            "ms_per_iteration": 1e3 * secs / n,
+            "unchecked_ms_per_iteration":
+                1e3 * ref_s / rm.num_iterations_trained,
+            "phase_ms_per_iteration": {
+                k: v / n for k, v in m.phase_timer.totals_ms().items()},
+            "unchecked_phase_ms_per_iteration": {
+                k: v / n for k, v in rm.phase_timer.totals_ms().items()},
+            "host_fetches": m.fetch_counts,
+            "unchecked_host_fetches": rm.fetch_counts,
+            "launches_per_iteration": {k: v // n for k, v in
+                                       launches.items() if v},
+            "model_text_equal": True, "manifest": man}
+
+    # injected transients, absorbed byte-identically, and sticky failures
+    # under the raise and quarantine policies
+    def fault_run(spec, extra=None):
+        faultinject.configure(spec)
+        try:
+            return train_main(lgt, train, valid, extra={**chk,
+                                                        **(extra or {})},
+                              rounds=INTEGRITY_FAULT_ROUNDS)[0]
+        finally:
+            faultinject.clear()
+
+    clean = text(fault_run(None))
+    faults = {}
+    for spec, path in (("hist_sdc:3", "grow"), ("score_sdc:3", "score")):
+        itg.reset_metrics()
+        b = fault_run(spec)
+        mv = mvals()
+        if text(b) != clean \
+                or mv.get(f"integrity.mismatches{{path={path}}}") != 1 \
+                or mv.get("integrity.transient_absorbed") != 1 \
+                or b._model.fetch_counts.get("integrity_recheck") != 1:
+            raise AssertionError(f"{spec}: not absorbed byte-identically "
+                                 f"({mv}, {b._model.fetch_counts})")
+        faults[spec] = {"absorbed": True, "byte_identical": True,
+                        "metrics": mv}
+    card = torch.cuda.current_device()
+    for policy in ("raise", "quarantine"):
+        elastic.clear_suspects()
+        itg.reset_metrics()
+        try:
+            fault_run("hist_sdc:3-4", {"integrity_policy": policy})
+        except itg.IntegrityFailure as e:
+            fail = e
+        else:
+            raise AssertionError(f"hist_sdc:3-4 ({policy}) raised nothing")
+        suspects = elastic.suspected_devices()
+        if elastic.failure_kind(fail) != "sdc" or fail.iteration != 3 \
+                or fail.devices != (card,) \
+                or not any(d["field"] == "leaf_count"
+                           for d in fail.divergences) \
+                or suspects != (frozenset({card}) if policy == "quarantine"
+                                else frozenset()):
+            raise AssertionError(f"sticky failure ({policy}): {fail!r}, "
+                                 f"devices {fail.devices}, suspects "
+                                 f"{suspects}")
+        faults[f"hist_sdc:3-4 {policy}"] = {
+            "raised": type(fail).__name__, "kind": fail.kind,
+            "iteration": fail.iteration, "devices": list(fail.devices),
+            "fields": [d["field"] for d in fail.divergences],
+            "suspects": sorted(suspects)}
+    elastic.clear_suspects()
+    emit({"phase": "integrity_train", **res["integrity_train"],
+          "faults": faults,
+          "quant_wide": res["integrity_quant_wide_train"]})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7500,6 +8000,9 @@ def main() -> int:
     kernels.update(phase_quant_kernels(torch, lgt, lgt_kernels, train,
                                        efb_sets[3]))
     kernels.update(phase_fleet_kernels(torch, lgt, train, valid))
+    integrity_rows, oracle_counts = phase_integrity_kernels(
+        torch, lgt, lgt_kernels, train)
+    kernels.update(integrity_rows)
     bst, ev, counts, epoch_ms_per_it = phase_main_path(
         torch, lgt, lgt_kernels, train, valid)
     eager_ms_per_it, per_it_counts = phase_per_iteration(
@@ -7564,6 +8067,11 @@ def main() -> int:
     for name, extra, rounds in FLEET_CELLS:
         sampled_counts.update(phase_fleet_train(
             torch, lgt, lgt_kernels, train, valid, name, extra, rounds))
+    # the integrity layer: checked training against unchecked, injected
+    # transients and sticky failures
+    sampled_counts.update(phase_integrity_train(torch, lgt, lgt_kernels,
+                                                train, valid))
+    sampled_counts["totals_oracle"] = oracle_counts
     for prefix, params, per_it in (
             ("cat", CAT_PARAMS, CAT_PER_ITERATION),
             ("cat_strict", CAT_STRICT_PARAMS, CAT_STRICT_PER_ITERATION)):
@@ -7644,7 +8152,7 @@ def main() -> int:
               "grow_step_cons", "grow_step_batched_cons",
               "node_draws_base", "segment_histogram",
               "segment_histogram_int", "partition_segment", "leaf_of_row",
-              "split_mono_bounds") + FLEET_KERNELS:
+              "split_mono_bounds") + FLEET_KERNELS + INTEGRITY_KERNELS:
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

@@ -23,10 +23,25 @@ lock: the serving batcher's worker thread, HTTP handler threads and the
 caller's thread all launch.  A CUDA graph replay calls no wrapper and
 counts nothing: the fused trainer records what it captured and how often
 it replayed it (``models/fused.py``).
+
+The shadow set (the computation-integrity layer's twin of the grower,
+``grower.make_shadow_grower``; the JAX package's ``make_shadow_grower``
+is an independently compiled copy of the grower's program) is a second
+build of the libraries the grower launches (``SHADOW_LIBS``), from the
+same sources with one more define (``SHADOW_DEFINE``, which no source
+reads: the kernels and their launch geometry are the primary set's, so a
+healthy card gives the same bits), into ``lib<name>_shadow-<hash>.so``,
+loaded as libraries of their own: a wrong answer has to come out of two
+separately built and loaded copies of the kernels to pass the compare.
+A launch inside ``with shadow_set():`` takes the shadow library (``lib``
+reads the set from that context, never from a switch left on) and counts
+under ``shadow:<kernel>``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -35,7 +50,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -55,7 +70,15 @@ SOURCES: Dict[str, str] = {
     "quantize": "quantize.cu",      # B7a, B7b, B7c
     "sparse": "sparse.cu",          # B8a
     "segment": "segment.cu",        # B11a, B11b, B11c
+    "integrity": "integrity.cu",    # B17a, B17b, B17c
 }
+
+# the libraries the grower launches, built a second time as the shadow
+# set (module docstring), and the define that keeps the two builds apart
+SHADOW_LIBS = ("histogram", "split", "partition", "grow_step", "sample",
+               "efb", "quantize", "sparse")
+SHADOW_DEFINE = "-DLGBT_SHADOW_BUILD=1"
+SHADOW_PREFIX = "shadow:"
 
 # kernel (launch-counter key) -> library
 KERNELS: Dict[str, str] = {
@@ -83,6 +106,9 @@ KERNELS: Dict[str, str] = {
     "histogram_slots_int_members": "histogram",
     "partition_members": "partition",
     "partition_slots_members": "partition", "predict_members": "predict",
+    # the integrity layer's checks (B17a, B17b, B17c)
+    "invariant_flags": "integrity", "score_recheck": "integrity",
+    "totals_residual": "integrity",
 }
 
 # dynamic shared memory the B1, B10c and B11a kernels may use (227 KB, all a
@@ -210,6 +236,15 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_leaf_of_row": (_P, _I, _P, _P, _I, _P, _P),
         "lgbt_segment_setup": (_I,),
     },
+    "integrity": {
+        "lgbt_invariant_flags": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+        "lgbt_score_check": (_P, _I, _P, _P, ctypes.c_longlong, _I, _P,
+                             _P),
+        "lgbt_totals_residual": (_P, _I, _P, _I, _I, _I, _I,
+                                 ctypes.c_longlong, _I, ctypes.c_longlong,
+                                 _P, _P, _P),
+        "lgbt_integrity_setup": (),
+    },
 }
 
 # arguments of each library's setup entry point
@@ -217,9 +252,16 @@ _SETUP_ARGS: Dict[str, tuple] = {"histogram": (SMEM_BYTES,),
                                   "forest": (SMEM_BYTES,),
                                   "segment": (SMEM_BYTES,)}
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# every kernel's count, and the shadow set's under ``shadow:<kernel>``
+LAUNCHES: Dict[str, int] = {
+    **{name: 0 for name in KERNELS},
+    **{SHADOW_PREFIX + name: 0 for name, lib_name in KERNELS.items()
+       if lib_name in SHADOW_LIBS}}
 
-_libs: Dict[str, ctypes.CDLL] = {}
+# loaded libraries by (name, shadow)
+_libs: Dict[Tuple[str, bool], ctypes.CDLL] = {}
+# whether launches in this context take the shadow set (``shadow_set``)
+_SHADOW = contextvars.ContextVar("lgbt_shadow_set", default=False)
 _lock = threading.Lock()
 # guards LAUNCHES: a count is a read-modify-write and several threads
 # launch (the serving batcher's worker, HTTP handlers, the caller)
@@ -269,43 +311,55 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _flags(shadow: bool) -> Tuple[str, ...]:
+    return NVCC_FLAGS + ((SHADOW_DEFINE,) if shadow else ())
+
+
+def _lib_path(name: str, shadow: bool = False) -> Path:
     # the source, every shared header (``*.cuh``) and the flags
     src = (_CSRC / SOURCES[name]).read_bytes() + b"".join(
         p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256(src + " ".join(_flags(shadow)).encode()) \
+        .hexdigest()[:16]
+    return BUILD_DIR / f"lib{_key(name, shadow)}-{h}.so"
 
 
-def _nvcc_cmd(name: str, out: Path) -> list:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+def _nvcc_cmd(name: str, out: Path, shadow: bool = False) -> list:
+    return [nvcc_path(), *_flags(shadow), "-o", str(out),
             str(_CSRC / SOURCES[name])]
 
 
-def _build(names) -> Dict[str, float]:
-    """Build the missing libraries of ``names``, one ``nvcc`` per source,
-    all started together.  Returns the wall seconds from the start until
-    each build ended (0.0 where the library was already built).  Raises
-    with the compiler's output if any build fails."""
+def _key(name: str, shadow: bool) -> str:
+    """A library's name in file names and build reports: ``<name>`` or
+    ``<name>_shadow``."""
+    return f"{name}_shadow" if shadow else name
+
+
+def _build(libs) -> Dict[str, float]:
+    """Build the missing libraries of ``libs`` ((name, shadow) pairs),
+    one ``nvcc`` per library, all started together.  Returns the wall
+    seconds from the start until each build ended (0.0 where the library
+    was already built), keyed as ``_key``.  Raises with the compiler's
+    output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name in names:
-        out = _lib_path(name)
+    for name, shadow in libs:
+        out = _lib_path(name, shadow)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
-            _nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), tmp, out)
-    times = {name: 0.0 for name in names}
+        procs[_key(name, shadow)] = (subprocess.Popen(
+            _nvcc_cmd(name, tmp, shadow), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out, name)
+    times = {_key(name, shadow): 0.0 for name, shadow in libs}
     errors = []
-    for name, (proc, tmp, out) in procs.items():
+    for key, (proc, tmp, out, name) in procs.items():
         log, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
+        times[key] = time.perf_counter() - t0
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {SOURCES[name]} "
-                          f"(exit {proc.returncode}):\n{log}")
+            errors.append(f"nvcc failed for {SOURCES[name]} ({key}, "
+                          f"exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
@@ -315,34 +369,57 @@ def _build(names) -> Dict[str, float]:
 
 
 def build_all() -> Dict[str, float]:
-    """Build every kernel library (see ``_build``)."""
-    return _build(list(SOURCES))
+    """Build every kernel library, the primary set and the shadow set
+    (see ``_build``)."""
+    return _build([(name, False) for name in SOURCES]
+                  + [(name, True) for name in SHADOW_LIBS])
 
 
-def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+@contextlib.contextmanager
+def shadow_set():
+    """Launches inside the block take the shadow set's libraries and
+    count under ``shadow:<kernel>`` (module docstring); the set before
+    the block is restored on exit."""
+    token = _SHADOW.set(True)
+    try:
+        yield
+    finally:
+        _SHADOW.reset(token)
+
+
+def lib(name: str, shadow: Optional[bool] = None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed: the
+    primary set's, or the shadow set's when ``shadow`` is True (None:
+    the set of this context, ``shadow_set``).  A library outside
+    ``SHADOW_LIBS`` has no shadow build: asking for one raises."""
+    if shadow is None:
+        shadow = _SHADOW.get()
+    if shadow and name not in SHADOW_LIBS:
+        raise KernelError(f"the shadow set has no {name} library (it "
+                          f"holds {', '.join(SHADOW_LIBS)})")
     with _lock:
-        handle = _libs.get(name)
+        handle = _libs.get((name, shadow))
         if handle is not None:
             return handle
-        _build([name])
-        handle = ctypes.CDLL(str(_lib_path(name)))
+        _build([(name, shadow)])
+        handle = ctypes.CDLL(str(_lib_path(name, shadow)))
         for fn, argtypes in _SIGNATURES[name].items():
             cfn = getattr(handle, fn)
             cfn.argtypes = list(argtypes)
             cfn.restype = ctypes.c_int
         check(getattr(handle, f"lgbt_{name}_setup")(
-            *_SETUP_ARGS.get(name, ())), f"{name} setup")
-        _libs[name] = handle
+            *_SETUP_ARGS.get(name, ())), f"{_key(name, shadow)} setup")
+        _libs[(name, shadow)] = handle
         return handle
 
 
 def load_all() -> None:
-    """Build and load every library (and run its setup) now: a caller
-    that is about to capture a CUDA graph does this first."""
+    """Build every library and load the primary set (and run its setup)
+    now: a caller that is about to capture a CUDA graph does this first.
+    The shadow set is never captured; it loads at its first launch."""
     build_all()
     for name in SOURCES:
-        lib(name)
+        lib(name, shadow=False)
 
 
 def check(err: int, what: str) -> None:
@@ -353,10 +430,12 @@ def check(err: int, what: str) -> None:
 
 
 def launched(kernel: str, err: int) -> None:
-    """Check a launch's error code and count the launch."""
-    check(err, kernel)
+    """Check a launch's error code and count the launch (under
+    ``shadow:<kernel>`` inside ``shadow_set``)."""
+    key = SHADOW_PREFIX + kernel if _SHADOW.get() else kernel
+    check(err, key)
     with _count_lock:
-        LAUNCHES[kernel] += 1
+        LAUNCHES[key] += 1
 
 
 def pointer_table(rows) -> ctypes.Array:

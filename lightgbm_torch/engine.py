@@ -270,8 +270,10 @@ def _superepoch_plan(cfg, booster, fobj, feval, cbs_before, cbs_after,
     if any(not getattr(cb, "_replayable", False) for cb in cbs_after):
         return None
     model = booster._model
-    if not model._fusable_config():
+    if not model._fusable_config() or model._faults_active():
         return None
+    if model._integrity is not None:
+        return None       # integrity layer: per-iteration path only
     if str(cfg.fused_eval).lower() == "false" and model.valid_sets:
         return None
     from .sparse_data import SparseBinned

@@ -65,6 +65,11 @@ and the union of the groups (one torch op a tree); its range is the
 whole line at depth 0.  ``cuse`` is never reset by a tree: the trainer
 sets it from its host state before a tree or an epoch of trees.
 
+``make_shadow_grower`` (``ShadowGrower``) is the computation-integrity
+layer's twin of a trainer's grower: the same grower over a workspace of
+its own, its kernels from the separately built shadow libraries
+(``_kernels.shadow_set``).
+
 ``grow_trees_lockstep`` grows one tree for each member of a fleet over one
 shared matrix: each member's root pass and steps in its solo order (the
 phases ``_root_vals``/``_root_finish`` and ``_step_begin``/``_step_finish``
@@ -1215,6 +1220,56 @@ def _super_finish(ws: GrowWorkspace, small, feature_mask, num_bin, na_bin,
     children[:, sp.GAIN] = torch.where(st.keep2, children[:, sp.GAIN],
                                        ws.neg_inf)
     ws.put_best(st.idx2, res)
+
+
+# --- the integrity layer's shadow grower -----------------------------------
+
+class ShadowGrower:
+    """The computation-integrity layer's twin of the grower (the JAX
+    package's ``make_shadow_grower``, grower.py:1284: a second trace and a
+    second compiled executable of the same grower): ``grow`` runs the
+    same ``grow_tree``/``grow_tree_batched`` call as the trainer, over a
+    ``GrowWorkspace`` of its own and, on the card, inside
+    ``_kernels.shadow_set()``, so every kernel it launches comes from the
+    separately built and loaded shadow libraries (counted under
+    ``shadow:<kernel>``).  It writes nothing of the primary's: its tree
+    buffer, row -> leaf vector, split-control state and CEGB marks are
+    its workspace's.  On the CPU it is the plain grower run again
+    (``independent`` False, as the JAX package's re-run shadows)."""
+
+    def __init__(self, primary: GrowWorkspace):
+        p = primary
+        self.ws = GrowWorkspace(
+            p.leaf_of_row.numel(), p.node_mask.shape[1], p.num_bins,
+            p.num_leaves, p.leaf_of_row.device, split_batch=p.split_batch,
+            categorical=p.leaf_rank is not None, efb=p.efb, quant=p.quant,
+            constraints=p.cons)
+        self.independent = p.leaf_of_row.device.type == "cuda"
+
+    def grow(self, grow_fn, binned, vals, feature_mask, num_bin, na_bin, *,
+             cuse: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+        """``grow_fn(binned, vals, feature_mask, num_bin, na_bin,
+        workspace=<the shadow's>, **kw)`` through the shadow set; ``cuse``:
+        the used features the primary's tree started from (CEGB), set
+        into the shadow's workspace first.  Returns the shadow's tree
+        buffer."""
+        ws = self.ws
+        if cuse is not None:
+            ws.cuse.copy_(cuse)
+        if self.independent:
+            with _kernels.shadow_set():
+                grow_fn(binned, vals, feature_mask, num_bin, na_bin,
+                        workspace=ws, **kw)
+        else:
+            grow_fn(binned, vals, feature_mask, num_bin, na_bin,
+                    workspace=ws, **kw)
+        return ws.tree
+
+
+def make_shadow_grower(primary: GrowWorkspace) -> ShadowGrower:
+    """The shadow twin of the grower that grows into ``primary``
+    (``ShadowGrower``)."""
+    return ShadowGrower(primary)
 
 
 # --- lockstep growth of a fleet's members ----------------------------------

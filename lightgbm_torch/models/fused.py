@@ -74,6 +74,21 @@ forms in the growers, B4-M on each valid set) launched once for all
 members.  One graph replay is one iteration of every member, and the
 epoch's rows of every member come back in one fetch.
 
+With the computation-integrity layer on (``integrity_check_freq`` > 0,
+``model._integrity``; the per-iteration loop only, as in the JAX
+package's ``train_one_iter`` :2685-2753, :2860-2880) each tree's growth
+is the checked grow (``_grow_checked``): the primary grow, the
+``hist_sdc`` injection site on its ``leaf_count[0]`` word, the tree
+invariants (B17a), on check iterations the shadow grow
+(``grower.make_shadow_grower``: the grower's kernels from their second,
+separately built libraries), one fetch of the tree words, the flag and
+the shadow's words, and ``IntegrityChecker.verify_grow`` (a mismatch is
+grown once more, primary and shadow); then the score update takes a
+materialised delta, the ``score_sdc`` site, and on check iterations
+``verify_score`` (B17b).  An armed injection site fires on the unchecked
+path too, as in the JAX package.  Without the layer and without armed
+sites the iteration is unchanged.
+
 A failed capture, build or launch raises; nothing falls back to eager
 launches, the plain versions or the CPU.
 """
@@ -90,10 +105,12 @@ import torch
 from .. import _kernels
 from ..grower import (GrowMember, grow_tree, grow_tree_batched,
                       grow_trees_lockstep, tree_fields, tree_words)
+from ..integrity import invariant_flags
 from ..metrics import build_traced_eval
 from ..ops.random import bag_vals, goss_buffers, goss_vals
 from ..predict_device import add_tree_score, add_tree_score_members, \
     walk_maps
+from ..utils import faultinject
 
 
 def _no_mark(phase: str) -> None:
@@ -249,8 +266,8 @@ class IterationProgram:
         blocked, stop, g, h, fmask = self._begin(gh, mark)
         vals = self._vals(g, h)
         mark("grow")
-        arrays = self._grow(vals, fmask)
-        lv, lv_ok = self._apply(arrays, blocked, mark)
+        arrays, check = self._grown(vals, fmask, mark)
+        lv, lv_ok = self._apply(arrays, blocked, mark, check)
         mark("valid")
         self._walk_valid(arrays, lv_ok)
         self._finish(lv, blocked, stop, mark)
@@ -303,13 +320,21 @@ class IterationProgram:
         per-node draws B6-node, and B9 on an EFB-bundled matrix; or the
         partitioned learner, on the host mask)."""
         m = self.model
-        cfg = m.config
         if m.partitioned is not None:
             return m.partitioned.grow(
                 m.binned_dev, vals, self.fmask_host, is_cat=m.is_cat_dev,
                 forced=m.forced, cegb_state=m.cegb,
                 rng_iter=self.it_cur if m.quant is not None else None,
                 workspace=m.grow_ws)
+        grow, kw = self._grower()
+        return grow(m.binned_dev, vals, fmask, m.num_bin_dev,
+                    m.na_bin_dev, workspace=m.grow_ws, **kw)
+
+    def _grower(self):
+        """The masked learner's grower and its keyword arguments but the
+        workspace: ``(grow_tree or grow_tree_batched, kwargs)``."""
+        m = self.model
+        cfg = m.config
         grow = grow_tree if m.split_batch == 1 else grow_tree_batched
         kw = {} if m.split_batch == 1 else {"split_batch": m.split_batch}
         if self.keyed:
@@ -324,15 +349,82 @@ class IterationProgram:
             kw["efb"] = m.efb_dev
         if m.constraints is not None:
             kw["constraints"] = m.constraints
-        return grow(m.binned_dev, vals, fmask, m.num_bin_dev,
-                    m.na_bin_dev, num_leaves=cfg.num_leaves,
-                    num_bins=m.max_bin, params=m.split_params,
-                    max_depth=cfg.max_depth, workspace=m.grow_ws, **kw)
+        kw.update(num_leaves=cfg.num_leaves, num_bins=m.max_bin,
+                  params=m.split_params, max_depth=cfg.max_depth)
+        return grow, kw
 
-    def _apply(self, arrays, blocked, mark=_no_mark):
+    def _grown(self, vals, fmask, mark=_no_mark):
+        """The iteration's tree: ``_grow``, or the checked grow with the
+        integrity layer on (``_grow_checked``); an armed ``hist_sdc``
+        site flips a bit of its ``leaf_count[0]`` word.  Returns (arrays,
+        whether this is a check iteration)."""
+        m = self.model
+        if m._integrity is not None:
+            return self._grow_checked(vals, fmask, mark)
+        arrays = self._grow(vals, fmask)
+        if faultinject.enabled():
+            faultinject.maybe_bitflip("hist_sdc", arrays.leaf_count, index=0)
+        return arrays, False
+
+    def _grow_checked(self, vals, fmask, mark=_no_mark):
+        """The checked grow (module docstring): the primary grow and the
+        ``hist_sdc`` site, B17a on its tree buffer, on check iterations
+        the shadow grow from the same operands (CEGB's used features as
+        the primary's tree started from them), one fetch of the three,
+        and ``verify_grow``, whose re-run grows the primary again into
+        its workspace.  Returns (the primary's arrays, whether this is a
+        check iteration)."""
+        m = self.model
+        ichk = m._integrity
+        ws = m.grow_ws
+        it = m.it_global
+        grow, kw = self._grower()
+        args = (m.binned_dev, vals, fmask, m.num_bin_dev, m.na_bin_dev)
+        cuse0 = ws.cuse.clone() if ws.cons is not None else None
+
+        def primary():
+            if cuse0 is not None:
+                ws.cuse.copy_(cuse0)
+            arrays = grow(*args, workspace=ws, **kw)
+            if faultinject.enabled():
+                faultinject.maybe_bitflip("hist_sdc", arrays.leaf_count,
+                                          index=0)
+            return ws.tree, invariant_flags(ws.tree, self.L)
+
+        def shadow():
+            return ichk.shadow_fn.grow(grow, *args, cuse=cuse0, **kw)
+
+        tree, flag = primary()
+        mark("integrity")
+        check = ichk.should_check(it)
+        sh = shadow() if check else None
+        host, inv_ok, shadow_host = ichk.fetch(m, "integrity", tree, flag,
+                                               sh)
+        ichk.verify_grow(m, it, primary, shadow, host, inv_ok, shadow_host)
+        return ws.arrays(), check
+
+    def _add_score(self, score, lv_ok, leaf_of_row, check: bool) -> None:
+        """``score += lv_ok[leaf_of_row]`` (the primary gather).  With the
+        integrity layer on or injection armed the delta is materialised:
+        the ``score_sdc`` site, then on check iterations ``verify_score``
+        (B17b), which may hand back a re-gathered delta."""
+        m = self.model
+        if m._integrity is None and not faultinject.enabled():
+            score.add_(lv_ok.index_select(0, leaf_of_row))
+            return
+        delta = lv_ok.index_select(0, leaf_of_row)
+        if faultinject.enabled():
+            faultinject.maybe_bitflip("score_sdc", delta)
+        if check:
+            delta = m._integrity.verify_score(m, lv_ok, leaf_of_row, delta,
+                                              m.it_global)
+        score.add_(delta)
+
+    def _apply(self, arrays, blocked, mark=_no_mark, check: bool = False):
         """The tree's shrunk (or renewed) leaf values ``lv``, and the
         train-score update by ``lv_ok`` (zero when blocked or a stump),
-        which latches ``dead`` on a stump.  Returns (lv, lv_ok)."""
+        which latches ``dead`` on a stump; ``check``: a check iteration
+        of the integrity layer (``_add_score``).  Returns (lv, lv_ok)."""
         m = self.model
         nl = arrays.num_leaves[0]
         if m.objective is not None and m.objective.need_renew_tree_output:
@@ -344,7 +436,7 @@ class IterationProgram:
         mark("score")
         ok = ~blocked & (nl > 1)
         lv_ok = torch.where(ok, lv, self.zero)
-        m.score.add_(lv_ok.index_select(0, arrays.leaf_of_row))
+        self._add_score(m.score, lv_ok, arrays.leaf_of_row, check)
         torch.logical_or(self.dead, nl <= 1, out=self.dead)
         return lv, lv_ok
 
@@ -397,11 +489,11 @@ class IterationProgram:
         for c in range(self.K):
             vals = self._vals(g_all[:, c], h_all[:, c])
             mark("grow")
-            arrays = self._grow(vals, fmask)
+            arrays, check = self._grown(vals, fmask, mark)
             mark("score")
             lv = m.shrink(arrays.leaf_value)
             lv_ok = torch.where(arrays.num_leaves[0] > 1, lv, self.zero)
-            m.score[:, c].add_(lv_ok.index_select(0, arrays.leaf_of_row))
+            self._add_score(m.score[:, c], lv_ok, arrays.leaf_of_row, check)
             mark("valid")
             for _, vbinned, vscore in m.valid_sets:
                 add_tree_score(vscore, vbinned, arrays.split_feature,

@@ -65,6 +65,16 @@ goes through ``_fetch``, which counts it by site.  Trees are kept on the
 host (``Tree``) for the model text and on the device (``_DeviceTree``,
 views of the fetched block's device copy) for later tree walks.
 
+With ``integrity_check_freq`` > 0 (policies ``raise`` and ``quarantine``)
+the computation-integrity layer (``integrity.py``; the JAX package's
+:724-748) checks every tree on the per-iteration loop: the tree
+invariants (B17a) every iteration, the shadow grower
+(``grower.make_shadow_grower``, a second, separately built set of the
+grower's kernels) and the score re-gather (B17b) every
+``integrity_check_freq``-th; ``models/fused.py`` runs the checked
+iteration.  The fused paths refuse it, and armed fault injection, as the
+JAX package's do (``fused_reasons``).
+
 Parameter values that need modules the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item (``_refuse_unported``).
 """
@@ -85,7 +95,8 @@ from ..constraints import (contri_vector, device_constraints,
                            interaction_allow, make_cegb, monotone_vector)
 from ..dataset import Dataset
 from ..efb import bin_grouped, make_device_efb
-from ..grower import GrowWorkspace, batch_width, host_tree
+from ..grower import GrowWorkspace, batch_width, host_tree, \
+    make_shadow_grower
 from ..grower_partitioned import PartitionedGrower
 from ..metrics import check_class_labels
 from ..objectives import ObjectiveFunction
@@ -94,6 +105,7 @@ from ..ops.random import NodeSampling, bag_mask_plain
 from ..ops.split import SplitParams
 from ..predict_device import add_tree_score, walk_maps
 from ..tree_model import Tree
+from ..utils import faultinject
 from ..utils.log import Log
 from ..utils.shapes import (SPLIT_BATCH_SET, fit_split_batch, round_up_pow2,
                             snap_split_batch, traversal_steps)
@@ -130,7 +142,8 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
          "distributed training (tree_learner/num_machines)", "A16"),
         (c.linear_tree, "linear_tree", "A9"),
         (c.snapshot_freq > 0 or c.resume, "snapshots and resume", "A12"),
-        (c.integrity_check_freq > 0, "integrity checks", "A17 (B17)"),
+        (c.integrity_check_freq > 0 and c.integrity_policy == "rewind",
+         "integrity_policy=rewind", "A12"),
         (c.finite_check_freq > 0, "finite checks", "A12"),
         (c.telemetry or c.telemetry_blackbox, "telemetry", "A15"),
         (c.hist_tune == "on", "hist_tune", "A17 (B15)"),
@@ -388,6 +401,12 @@ class GBDTModel:
         self.forced = load_forced(config, ds)
         self.learner = resolve_learner(config, ds, self.forced)
         _refuse_unported(config, ds)
+        if config.integrity_check_freq > 0 and self.learner == "partitioned":
+            raise ValueError(
+                "integrity_check_freq > 0 is unsupported with "
+                "tpu_learner=partitioned: its grower keeps host-side "
+                "pool/RNG state, so a shadow re-execution is not a "
+                "pure recompute.  Use the masked learner")
         if sparse and config.quant_train:
             raise ValueError(
                 "quant_train requires dense binned storage (the "
@@ -462,6 +481,16 @@ class GBDTModel:
                                      categorical=self.is_cat_dev is not None,
                                      efb=self.efb_dev, quant=self.quant,
                                      constraints=self.constraints)
+        # the computation-integrity layer (integrity.py): None unless
+        # integrity_check_freq > 0, and then the masked learner's checker
+        # with its shadow grower (the partitioned learner raised above)
+        self._integrity = None
+        if config.integrity_check_freq > 0:
+            from ..integrity import IntegrityChecker
+            shadow = make_shadow_grower(self.grow_ws)
+            self._integrity = IntegrityChecker(
+                config, shadow, shadow.independent,
+                (config.num_leaves, self.max_bin, self.grow_ws.cat_bins))
         # the partitioned learner (its host RNG streams live across trees)
         self.partitioned: Optional[PartitionedGrower] = None
         if partitioned:
@@ -681,6 +710,12 @@ class GBDTModel:
         return t.cpu().numpy()
 
     @property
+    def it_global(self) -> int:
+        """The 0-based number of the iteration in flight, counted from
+        the first iteration of the run it continues (the keys' offset)."""
+        return self.iter_ + self._iter_rng_offset
+
+    @property
     def fetches(self) -> int:
         """Host fetches of training so far, over all sites."""
         return sum(self.fetch_counts.values())
@@ -755,8 +790,33 @@ class GBDTModel:
         return self._fusable
 
     def supports_fused(self) -> bool:
-        """True when whole iterations can run as graph replays."""
-        return self.config.fused_chunk > 1 and self._fusable_config()
+        """True when whole iterations can run as graph replays: a fusable
+        configuration, ``fused_chunk`` > 1, and none of the host-driven
+        work of ``_host_driven`` (path choice only: the numerics stay
+        ``_fusable_config``'s, so checked or injected runs train the same
+        trees as clean ones)."""
+        return self.config.fused_chunk > 1 and self._fusable_config() \
+            and not self._host_driven()
+
+    @staticmethod
+    def _faults_active() -> bool:
+        return faultinject.enabled()
+
+    def _host_driven(self) -> List[str]:
+        """The JAX package's blockers of the fused paths that are not the
+        configuration's semantics (its :1518-1526): armed fault injection
+        and the integrity layer."""
+        reasons = []
+        if self._faults_active():
+            reasons.append(
+                "fault injection active: host-side injection sites "
+                "cannot fire inside a fused device program")
+        if self._integrity is not None:
+            reasons.append(
+                "integrity_check_freq > 0: the computation-integrity "
+                "layer's shadow compares and transient re-runs are "
+                "host-driven (docs/Fault-Tolerance.md layer 7)")
+        return reasons
 
     def _config_blockers(self) -> List[str]:
         """Why this configuration has no fused-path semantics: every
@@ -794,12 +854,13 @@ class GBDTModel:
         if self.config.fused_chunk <= 1:
             reasons.append(f"fused_chunk={self.config.fused_chunk} (set > 1 "
                            "to enable fusion)")
-        return reasons
+        return reasons + self._host_driven()
 
     def _require_fusable(self, what: str) -> None:
-        if not self._fusable_config():
+        reasons = self._config_blockers() + self._host_driven()
+        if reasons:
             raise ValueError(f"{what}: config not fusable: "
-                             + "; ".join(self._config_blockers()))
+                             + "; ".join(reasons))
 
     # -- training ----------------------------------------------------------
     def train_one_iter(self, grad: Optional[np.ndarray] = None,
@@ -1030,6 +1091,22 @@ class GBDTModel:
                                    same(weight, oweight,
                                         "the valid weights"))
         self._programs.clear()
+
+    def integrity_boundary_check(self) -> None:
+        """Shadow-verify the newest committed tree right before a snapshot
+        is written (the JAX package's :1073-1081; ROADMAP A12 calls it
+        ahead of the snapshot write).  No-op when the integrity layer is
+        off or the newest tree already passed a check; raises
+        ``IntegrityFailure`` on a sticky boundary mismatch."""
+        if self._integrity is not None:
+            self._integrity.boundary_check(self)
+
+    def integrity_manifest(self, iteration: int):
+        """The snapshot manifest's ``integrity`` stamp dict, or None when
+        the integrity layer is off (the JAX package's :1083-1089)."""
+        if self._integrity is None:
+            return None
+        return self._integrity.manifest(iteration)
 
     def eval_traced(self, eval_spec) -> np.ndarray:
         """Every entry of ``eval_spec`` by the traced metric kernels on

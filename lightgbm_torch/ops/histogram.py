@@ -532,3 +532,81 @@ def _bin_sums(idx: torch.Tensor, src: torch.Tensor,
     out = torch.zeros((size, 3), dtype=torch.float64, device=dev)
     out.index_add_(0, cell_run % size, runs.to(torch.float64))
     return out.to(torch.float32)
+
+
+# B17c's row blocks (a constant, so the kernel's summation order depends
+# on the shapes alone) and its channel limit (csrc/integrity.cu)
+_RESIDUAL_BLOCKS = 264
+_RESIDUAL_MAX_CHANNELS = 8
+# vals dtypes of B17c and their codes in csrc/integrity.cu, by hist dtype
+_RESIDUAL_VALS = {torch.float32: {torch.float32: 0},
+                  torch.int32: {torch.int8: 1, torch.int16: 2,
+                                torch.int32: 3}}
+
+
+def _check_residual(hist: torch.Tensor, vals: torch.Tensor) -> None:
+    if hist.dim() != 3 or vals.dim() != 2 \
+            or hist.shape[2] != vals.shape[1]:
+        raise TypeError("feature_totals_residual needs hist [F, B, C] and "
+                        "vals [N, C]")
+    ok = _RESIDUAL_VALS.get(hist.dtype, {})
+    if vals.dtype not in ok:
+        raise TypeError(f"feature_totals_residual takes an f32 histogram "
+                        f"with f32 vals or an int32 one with int8/int16/"
+                        f"int32 vals (got {hist.dtype}, {vals.dtype})")
+    if not 1 <= hist.shape[2] <= _RESIDUAL_MAX_CHANNELS:
+        raise ValueError(f"feature_totals_residual takes 1 to "
+                         f"{_RESIDUAL_MAX_CHANNELS} channels")
+    if hist.device != vals.device:
+        raise ValueError("feature_totals_residual inputs must be on one "
+                         "device")
+
+
+def feature_totals_residual(hist: torch.Tensor,
+                            vals: torch.Tensor) -> torch.Tensor:
+    """Max absolute residual of the histogram's defining invariant,
+    ``max_{f,c} |sum_b hist[f, b, c] - sum_n vals[n, c]|``, as a [] f64
+    tensor (kernel B17c; the JAX package's ``ops/histogram.py``
+    ``feature_totals_residual`` :242): every row lands in one bin of
+    every feature, so a healthy f32 histogram leaves a rounding-sized
+    residual and an integer one exactly 0; a flipped bit anywhere in the
+    pass shows as a residual of the flipped magnitude.  Sums are f64 for
+    an f32 ``hist`` (with f32 ``vals``) and exact int64 for an int32 one
+    (with int8/int16/int32 ``vals``, the packed stack of quantized
+    training).  The JAX package calls it from its tests only, and so does
+    the port: the tests and ``chip_smoke.py``, as an oracle on B1.  CUDA
+    tensors launch the kernel of ``csrc/integrity.cu``, CPU tensors run
+    ``feature_totals_residual_plain``."""
+    _check_residual(hist, vals)
+    if hist.device.type == "cpu":
+        return feature_totals_residual_plain(hist, vals)
+    if hist.device.type != "cuda":
+        raise ValueError(f"unsupported device {hist.device}")
+    if not (hist.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("feature_totals_residual needs contiguous tensors")
+    f, b, c = hist.shape
+    n = vals.shape[0]
+    blocks = max(1, min(_RESIDUAL_BLOCKS, n))
+    rows = -(-n // blocks) if n else 0
+    acc = torch.float64 if hist.dtype == torch.float32 else torch.int64
+    partial = torch.empty((blocks, c), dtype=acc, device=hist.device)
+    out = torch.empty((), dtype=torch.float64, device=hist.device)
+    err = _kernels.lib("integrity").lgbt_totals_residual(
+        hist.data_ptr(), int(hist.dtype == torch.int32), vals.data_ptr(),
+        _RESIDUAL_VALS[hist.dtype][vals.dtype], f, b, c, n, blocks, rows,
+        partial.data_ptr(), out.data_ptr(),
+        _kernels.stream_ptr(hist.device))
+    _kernels.launched("totals_residual", err)
+    return out
+
+
+def feature_totals_residual_plain(hist: torch.Tensor,
+                                  vals: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of B17c: the bin sums and the column totals
+    in f64 (f32 ``hist``) or int64 (int32 ``hist``), the residual's
+    maximum as a [] f64 tensor."""
+    _check_residual(hist, vals)
+    acc = torch.float64 if hist.dtype == torch.float32 else torch.int64
+    tot = hist.to(acc).sum(dim=1)
+    col = vals.to(acc).sum(dim=0)
+    return (tot - col[None, :]).abs().amax().to(torch.float64)

@@ -175,7 +175,7 @@ _PARTITIONED = ("monotone_constraints_method", "forcedsplits_filename",
       "monotone_constraints": [1, 0, 0, 0]}, "A11"),
     ({"finite_check_freq": 2}, "A12"),
     ({"hist_tune": "on"}, "A17"),
-    ({"integrity_check_freq": 2}, "A17"),
+    ({"integrity_check_freq": 2, "integrity_policy": "rewind"}, "A12"),
     ({"snapshot_freq": 5}, "A12"),
 ])
 def test_unported_parameters_raise(params, item, tmp_path):
@@ -229,7 +229,9 @@ def test_categorical_feature_raises():
 
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "obs",
-                                 "utils/resilience.py", "utils/shapes.py"])
+                                 "utils/resilience.py", "utils/shapes.py",
+                                 "parallel", "integrity.py",
+                                 "utils/faultinject.py"])
 def test_serving_modules_import_no_jax(sub):
     path = ROOT / "lightgbm_torch" / sub
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
