@@ -273,6 +273,33 @@ Phases, one JSON line each:
    launch, ``totals_oracle``), then within TOTALS_RTOL (exact for the
    int32 form) of its plain version on flipped f32 and int32 inputs;
    each timed, the shadow grow beside the primary's;
+   wide_k_kernels (after wide_kernels): every K-shaped kernel at K = 32
+   and 64 on the wide configuration's rows: whole 255-leaf trees with
+   B3s-K and B3-K bit for bit at every super-step (``check_batched_tree``),
+   then on the first super-step with all K slots valid B1-K within
+   HIST_RTOL (bitwise on a rerun), B1-K-int bit for bit, B3s-K and B3-K,
+   B6-node on the 2K children bit for bit at two iterations, B2 on the 2K
+   children with their masks and random bins and B2-cat on
+   WIDE_K_CAT_COLS columns read as categories, each timed beside its
+   bound and library call; rows_per_block: B1, B1-K and their integer
+   forms at the automatic row block and at RPB_VALUES against their plain
+   versions, bitwise on reruns, the integer forms bitwise across the
+   values, each timed, and the shadow grower's strict and K = 16 trees
+   at an explicit value bit for bit as the primary's;
+   hist_tune_train (after wide_train): HIST_TUNE_PARAMS as super-epochs
+   for CUT_ROUNDS rounds on a cold table: one sweep of the shipped B1-K
+   over K in {8, 16, 32, 64} x three row blocks (record, candidates,
+   sweep seconds, ``tune_counts()``), the model bytes equal to the
+   untuned run at the record's ``split_batch`` and ``rows_per_block``
+   (launches: the tuned run's less the sweep's passes), a warm
+   ``ensure`` from disk with no sweep, ms an iteration tuned, untuned and
+   wide_train's (K = 16); quant_wide_k32_train and quant_wide_k64_train
+   (after quant_wide_train) and cat_k32_train and cat_k64_train (after
+   cat_cons_train): the per-iteration loop for WIDE_K_ROUNDS rounds at
+   each width, ``quant_train`` at the wide configuration (B1-K-int) and
+   the categorical set's 255-leaf configuration with
+   feature_fraction_bynode 0.8 (B1-K, B3-K, B3s-K, B2, B2-cat, B6-node),
+   launches held, reruns byte-identical;
    integrity_train (after the fleet cells): the main configuration
    per-iteration with ``integrity_check_freq=1`` for INTEGRITY_ROUNDS
    rounds: the unchecked run's model text and evals, launches held to
@@ -825,6 +852,34 @@ KERNEL_PATH.update({"invariant_flags": "integrity_train",
                     "score_recheck": "integrity_train",
                     "shadow_grow": "integrity_train",
                     "totals_residual": "totals_oracle"})
+# the wide widths K = 32 and 64 (wide_k_kernels and the wide-K cells):
+# every K-shaped kernel against its plain version at both widths on whole
+# 255-leaf trees of the wide configuration's rows, then the per-iteration
+# loop for WIDE_K_ROUNDS rounds at each width on two cells whose launches
+# give the K forms' rows: quant_train at the wide configuration
+# (B1-K-int) and the categorical set's wide configuration with
+# feature_fraction_bynode 0.8 (B1-K, B3-K, B3s-K, B2 on 2K children,
+# B2-cat, B6-node); B2-cat's check reads the first WIDE_K_CAT_COLS columns
+# of the HIGGS-shaped rows as categories
+WIDE_KS = (32, 64)
+WIDE_K_ROUNDS = 5
+WIDE_K_CAT_COLS = 4
+WIDE_K_FORMS = ("histogram_slots", "histogram_slots_int", "partition_slots",
+                "grow_step_batched", "split_per_child", "split_cat",
+                "node_draws")
+WIDE_K_KERNELS = tuple(f"{form}_k{K}" for K in WIDE_KS
+                       for form in WIDE_K_FORMS)
+KERNEL_ORDER = KERNEL_ORDER + WIDE_K_KERNELS
+KERNEL_COUNTER.update({f"{form}_k{K}": "split" if form == "split_per_child"
+                       else form for K in WIDE_KS for form in WIDE_K_FORMS})
+KERNEL_PATH.update({f"{form}_k{K}": f"quant_wide_k{K}_train"
+                    if form == "histogram_slots_int" else f"cat_k{K}_train"
+                    for K in WIDE_KS for form in WIDE_K_FORMS})
+# the explicit row blocks of the rows_per_block phase, beside the automatic
+# one (7,580 rows for B1 and 7,680 for B1-K at 1M rows)
+RPB_VALUES = (2048, 16384)
+# hist_tune_train: the wide configuration with the tuner on, at CUT_ROUNDS
+HIST_TUNE_PARAMS = {**WIDE_PARAMS, "hist_tune": "on"}
 # every library's build seconds (phase_environment)
 BUILD_S = {}
 
@@ -3714,9 +3769,10 @@ def _grow_checked(torch, sp, vals, fmask, nb, na, B, L, K, params, case,
     seen = {"steps": 0, "live": 0}
 
     def hist_both(binned, vals_, *, num_bins, slot=None, num_slots=None,
-                  active=None, slots_used=None):
+                  active=None, slots_used=None, rows_per_block=0):
         h = hist_k(binned, vals_, num_bins=num_bins, slot=slot,
-                   num_slots=num_slots, active=active, slots_used=slots_used)
+                   num_slots=num_slots, active=active, slots_used=slots_used,
+                   rows_per_block=rows_per_block)
         if active is not None and not bool(active[0]):
             return h
         hp = histogram_plain(binned, vals_, num_bins=num_bins, slot=slot,
@@ -7974,6 +8030,575 @@ def phase_integrity_train(torch, lgt, lgt_kernels, train, valid):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the wide widths K = 32 and 64, rows_per_block and the autotuner (B15)
+# ---------------------------------------------------------------------------
+
+def _wide_operands(torch, train, seed: int):
+    """The wide configuration's device operands on the HIGGS-shaped rows:
+    binned, bin metadata, a logistic step's (g, h) and iteration 0's
+    bagging vals."""
+    from lightgbm_torch.ops.random import bag_vals
+    dev = torch.device("cuda", 0)
+    binned = torch.as_tensor(train.binned).to(dev)
+    mappers = [train.bin_mappers[i] for i in train.used_features]
+    num_bin = torch.tensor([m.num_bin for m in mappers], dtype=torch.int32,
+                           device=dev)
+    na_bin = torch.tensor([m.na_bin for m in mappers], dtype=torch.int32,
+                          device=dev)
+    y = torch.as_tensor(train.metadata.label).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.sigmoid(torch.randn(binned.shape[0], device=dev,
+                                  generator=gen))
+    g, h = (p - y).contiguous(), (p * (1 - p)).contiguous()
+    vals = bag_vals(g, h, torch.tensor([0], dtype=torch.int32, device=dev),
+                    seed=3, freq=5, fraction=0.8)
+    return binned, num_bin, na_bin, vals, gen
+
+
+def _int8_vals(torch, vals):
+    """int8 vals of the same rows (B1-K-int's operand): each channel
+    scaled to 127 by its largest magnitude and rounded."""
+    scale = vals.abs().amax(dim=0).clamp_min(1e-30)
+    return torch.round(vals / scale * 127).to(torch.int8).contiguous()
+
+
+def _slots_library(torch, binned, vals, slot, B, K):
+    """``index_add_`` of the K-slot pass's rows over precomputed cells:
+    B1-K's library yardstick."""
+    n, f = binned.shape
+    keep = slot >= 0
+    sl = slot[keep].to(torch.int64)
+    idx = (binned[keep].to(torch.int64)
+           + torch.arange(f, device=binned.device) * B
+           + (sl * (f * B))[:, None]).reshape(-1)
+    src = vals[keep].repeat_interleave(f, dim=0)
+    acc = torch.zeros((K * f * B, 3), device=binned.device)
+    return median_ms(torch, lambda: acc.zero_().index_add_(0, idx, src))
+
+
+def _kernel_row(key, name, src, replaces, err, rel, t_k, t_p, bound, t_lib,
+                **extra):
+    bms, by = bound
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "max_abs_err": err, "ms": t_k,
+           "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+           "library_ms": t_lib}
+    emit({"phase": "kernel", "key": key, **row, "max_rel_err": rel,
+          "kernel_ms": t_k, **extra})
+    return row
+
+
+def phase_wide_k_kernels(torch, lgt, train):
+    """Every K-shaped kernel at K = 32 and 64 against its plain version on
+    the wide configuration's rows (1M x 28, 63 bins, 255 leaves): whole
+    trees with B3s-K and B3-K bit for bit at every super-step
+    (``check_batched_tree``), then on the first super-step with all K
+    slots valid B1-K (within HIST_RTOL, bitwise on a rerun), B1-K-int
+    (bitwise), B3s-K and B3-K (timed), B6-node on the 2K children (bit
+    for bit, two iterations), B2 on the 2K children with their masks and
+    random bins and B2-cat on WIDE_K_CAT_COLS columns read as categories
+    (against the plain version on CPU copies), each timed beside its
+    bound and library call."""
+    from lightgbm_torch import grower as gr
+    from lightgbm_torch.ops import random as rnd
+    from lightgbm_torch.ops import split as sp
+    from lightgbm_torch.ops.histogram import (compute_histogram,
+                                              histogram_slots_int_plain,
+                                              histogram_slots_plain,
+                                              int_launch_shape,
+                                              slots_launch_shape)
+    binned, num_bin, na_bin, vals, gen = _wide_operands(torch, train, 5)
+    dev = binned.device
+    n, f = binned.shape
+    B, L = int(train.max_bin), WIDE_LEAVES
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    params = sp.SplitParams()
+    q = _int8_vals(torch, vals)
+    root = compute_histogram(binned, vals, num_bins=B)
+    samp = rnd.NodeSampling(bynode_frac=0.8, bynode_seed=3,
+                            extra_trees=True, extra_seed=6)
+    is_cat = torch.zeros(f, dtype=torch.bool, device=dev)
+    is_cat[:WIDE_K_CAT_COLS] = True
+    out, cases = {}, {}
+    for K in WIDE_KS:
+        C = 2 * K
+        snap = {}
+        cases[K] = check_batched_tree(
+            torch, binned, vals, fmask, num_bin, na_bin, B, L, K, params,
+            -1, f"full_k{K}", snap)
+        if cases[K]["leaves"] != L or "state" not in snap:
+            raise AssertionError(f"K = {K}: the tree has no super-step "
+                                 f"with all slots valid: {cases[K]}")
+        st = snap["state"]
+        tslot, used = st["tslot"], st["used"]
+        in_slots = int((tslot >= 0).sum())
+
+        # B1-K: within HIST_RTOL of the plain version, bitwise reruns
+        a = compute_histogram(binned, vals, num_bins=B, slot=tslot,
+                              num_slots=K, slots_used=used)
+        if not torch.equal(a, compute_histogram(
+                binned, vals, num_bins=B, slot=tslot, num_slots=K,
+                slots_used=used)):
+            raise AssertionError(f"B1-K (K = {K}) is not bitwise "
+                                 "reproducible")
+        b = histogram_slots_plain(binned, vals, tslot, num_slots=K,
+                                  num_bins=B)
+        e = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not torch.equal(a[..., 2], b[..., 2]) \
+                or e > HIST_RTOL * max(1.0, scale):
+            raise AssertionError(f"B1-K (K = {K}) max abs error {e} "
+                                 f"(scale {scale})")
+        t_k = median_ms(torch, lambda: compute_histogram(
+            binned, vals, num_bins=B, slot=tslot, num_slots=K,
+            slots_used=used))
+        t_p = median_ms(torch, lambda: histogram_slots_plain(
+            binned, vals, tslot, num_slots=K, num_bins=B), reps=10,
+            warmup=2)
+        t_lib = _slots_library(torch, binned, vals, tslot, B, K)
+        rpb, pairs, chunk = slots_launch_shape(n, f, B, K)
+        out[f"histogram_slots_k{K}"] = _kernel_row(
+            f"histogram_slots_k{K}", f"B1-K K-slot histogram (K = {K})",
+            "lightgbm_torch/csrc/histogram.cu",
+            "lightgbm_tpu/ops/histogram.py:129", e, e / max(scale, 1e-30),
+            t_k, t_p, bound_ms(n * f + 16 * n + K * f * B * 12,
+                               3 * in_slots * f), t_lib,
+            rows_in_slots=in_slots, slots_used=int(used[0]),
+            launch_shape=[rpb, pairs, chunk],
+            partial_mb=-(-n // rpb) * K * f * B * 12 / 1e6)
+
+        # B1-K-int: bitwise against its plain version
+        ai = compute_histogram(binned, q, num_bins=B, slot=tslot,
+                               num_slots=K, slots_used=used)
+        bi = histogram_slots_int_plain(binned, q, tslot, num_slots=K,
+                                       num_bins=B)
+        err_i = exact_err(torch, [(ai, bi)], f"B1-K-int (K = {K})")
+        t_k = median_ms(torch, lambda: compute_histogram(
+            binned, q, num_bins=B, slot=tslot, num_slots=K,
+            slots_used=used))
+        t_p = median_ms(torch, lambda: histogram_slots_int_plain(
+            binned, q, tslot, num_slots=K, num_bins=B), reps=10, warmup=2)
+        err_i = max(err_i, exact_err(torch, [(ai, compute_histogram(
+            binned, q, num_bins=B, slot=tslot, num_slots=K,
+            slots_used=used))], f"B1-K-int (K = {K}, timed call)"))
+        out[f"histogram_slots_int_k{K}"] = _kernel_row(
+            f"histogram_slots_int_k{K}",
+            f"B1-K-int K-slot integer histogram (K = {K}, int8)",
+            "lightgbm_torch/csrc/histogram.cu",
+            "lightgbm_tpu/ops/histogram.py:143", err_i, err_i, t_k, t_p,
+            int_pass_bound(n, f, B, in_slots, K),
+            _int_index_add(torch, binned, q, tslot, B, K),
+            rows_in_slots=in_slots,
+            launch_shape=list(int_launch_shape(n, f, B, K)))
+
+        # B3s-K on the snapshot's table and tree, every timed call from
+        # its state; the outputs of the last timed call of each compared
+        def b3sk_call(fn):
+            st["tree"] = st.get("tree", st["tree0"].clone())
+            st["tree"].copy_(st["tree0"])
+            fn(st["table"], st["tree"], na_bin, num_leaves=L,
+               split_batch=K, max_depth=-1, step=st["step"])
+        t_k = median_ms(torch, lambda: b3sk_call(gr.grow_step_batched))
+        got_k = [t.clone() for t in (st["tree"], *st["step"])]
+        t_p = median_ms(torch, lambda: b3sk_call(gr.grow_step_batched_plain))
+        err3sk = exact_err(torch, zip(got_k, (st["tree"], *st["step"])),
+                           f"B3s-K (K = {K}, timed call)")
+        words = st["tree0"].numel()
+        b3sk_bytes = L * 4 + K * sp.RECORD * 4 + 2 * words * 4 + f * 4 \
+            + K * 8 * 4 + L * 4 + 2 * K * (8 + 16 + 1) + K + 8
+        out[f"grow_step_batched_k{K}"] = _kernel_row(
+            f"grow_step_batched_k{K}", f"B3s-K batched split step (K = {K})",
+            "lightgbm_torch/csrc/grow_step.cu", "lightgbm_tpu/grower.py:999",
+            err3sk, err3sk, t_k, t_p, bound_ms(b3sk_bytes, L * L), None)
+
+        # B3-K on the snapshot's super-step, every timed call from its
+        # state
+        lor, lor_p = st["lor"].clone(), st["lor"].clone()
+        iota = torch.arange(B, dtype=torch.int32, device=dev)
+        step = st["step"]
+        t_k = median_ms(torch, lambda: gr.partition_slots(
+            binned, lor.copy_(st["lor"]), step, iota))
+        t_p = median_ms(torch, lambda: gr.partition_slots_plain(
+            binned, lor_p.copy_(st["lor"]), step, iota))
+        err3k = exact_err(torch, [
+            (gr.partition_slots(binned, lor.copy_(st["lor"]), step, iota),
+             gr.partition_slots_plain(binned, lor_p.copy_(st["lor"]), step,
+                                      iota)), (lor, lor_p)],
+            f"B3-K (K = {K}, timed call)")
+        out[f"partition_slots_k{K}"] = _kernel_row(
+            f"partition_slots_k{K}", f"B3-K batched row partition (K = {K})",
+            "lightgbm_torch/csrc/partition.cu",
+            "lightgbm_tpu/grower.py:1029", err3k, err3k, t_k, t_p,
+            bound_ms(n * f + 12 * n, 3 * n), None)
+
+        # B6-node on the 2K children, two iterations, bit for bit
+        base = fmask.clone()
+        base[torch.randperm(f, device=dev, generator=gen)[:f // 5]] = False
+        draws = {}
+        for it in (0, 9):
+            itd = torch.tensor([it], dtype=torch.int32, device=dev)
+            kw = dict(count=C, bynode_id0=2 * C, extra_step=2,
+                      sampling=samp)
+            mk = torch.zeros((C, f), dtype=torch.bool, device=dev)
+            bk = torch.zeros((C, f), dtype=torch.int32, device=dev)
+            rnd.node_draws(base, num_bin, itd, masks=mk, bins=bk, **kw)
+            mp, bp = rnd.node_draws_plain(base, num_bin, itd, **kw)
+            if not (torch.equal(mk, mp) and torch.equal(bk, bp)):
+                raise AssertionError(f"B6-node ({C} children, iteration "
+                                     f"{it}) differs from its plain "
+                                     "version")
+            draws[it] = (mk, bk)
+        if torch.equal(draws[0][0], draws[9][0]):
+            raise AssertionError(f"B6-node ({C} children): iterations 0 "
+                                 "and 9 drew the same masks")
+        it9 = torch.tensor([9], dtype=torch.int32, device=dev)
+        kw = dict(count=C, bynode_id0=2 * C, extra_step=2, sampling=samp)
+        mk, bk = (t.clone() for t in draws[9])
+        t_k = median_ms(torch, lambda: rnd.node_draws(
+            base, num_bin, it9, masks=mk, bins=bk, **kw))
+        # the plain version's per-child loop takes a few hundred ms a call
+        t_p = median_ms(torch, lambda: rnd.node_draws_plain(
+            base, num_bin, it9, **kw), reps=5, warmup=1)
+        mp, bp = rnd.node_draws_plain(base, num_bin, it9, **kw)
+        err6 = exact_err(torch, [(mk, mp), (bk, bp)],
+                         f"B6-node ({C} children, timed call)")
+        out[f"node_draws_k{K}"] = _kernel_row(
+            f"node_draws_k{K}", "B6-node per-child feature subsets and "
+            f"random bins (2K = {C} children)",
+            "lightgbm_torch/csrc/sample.cu", "lightgbm_tpu/grower.py:495",
+            err6, err6, t_k, t_p,
+            bound_ms(f + 4 * f + 4 + C * f + 4 * C * f,
+                     C * f * (2 * THREEFRY_OPS
+                              + int(np.ceil(np.log2(f))) + 1)), None)
+
+        # B2 on the 2K children (the super-step's smaller children and
+        # their root complements) with the children's masks and random
+        # bins, against the plain version on the same inputs
+        masks, bins = draws[9]
+        pair = torch.cat([a, root[None] - a]).contiguous()
+        tot = pair[:, 0].sum(dim=1).contiguous()
+        po = torch.zeros(C, device=dev)
+        r_k = sp.find_best_split(pair, tot, po, num_bin, na_bin, masks,
+                                 params, rand_bin=bins)
+        r_p = sp.find_best_split_plain(pair, tot, po, num_bin, na_bin,
+                                       masks, params, rand_bin=bins)
+        err2, rel2 = check_split(torch, sp, r_k, r_p,
+                                 f"per child, 2K = {C}")
+        t_k = median_ms(torch, lambda: sp.find_best_split(
+            pair, tot, po, num_bin, na_bin, masks, params, rand_bin=bins))
+        t_p = median_ms(torch, lambda: sp.find_best_split_plain(
+            pair, tot, po, num_bin, na_bin, masks, params, rand_bin=bins))
+        e, r = check_split(torch, sp, sp.find_best_split(
+            pair, tot, po, num_bin, na_bin, masks, params, rand_bin=bins),
+            r_p, f"per child, 2K = {C}, timed inputs")
+        err2, rel2 = max(err2, e), max(rel2, r)
+        b2_bytes = pair.numel() * 4 + C * 3 * 4 + C * 4 + 2 * f * 4 \
+            + C * f * 5 + C * sp.RECORD * 4
+        out[f"split_per_child_k{K}"] = _kernel_row(
+            f"split_per_child_k{K}", "B2 split scan, per-child masks and "
+            f"random bins (2K = {C} children)",
+            "lightgbm_torch/csrc/split.cu", "lightgbm_tpu/ops/split.py:229",
+            err2, rel2, t_k, t_p, bound_ms(b2_bytes, 40 * C * f * B), None,
+            children_with_a_split=int((~torch.isneginf(
+                r_k[:, sp.GAIN])).sum()))
+
+        # B2-cat on the 2K children, the first WIDE_K_CAT_COLS columns read
+        # as categories: B2 with B2-cat against the plain version on CPU
+        # copies (per-child masks), then B2-cat alone timed
+        errc, relc, cat, _ = check_cat_split(
+            torch, sp, (pair, tot, po, num_bin, na_bin, masks), params,
+            is_cat, f"2K = {C}")
+        r_num = sp.find_best_split(pair, tot, po, num_bin, na_bin, fmask,
+                                   params)
+        work = r_num.clone()
+        t_k = median_ms(torch, lambda: sp._split_cat(
+            pair, tot, po, fmask, 0, is_cat, params, None,
+            work.copy_(r_num)))
+        t_p = median_ms(torch, lambda: sp._categorical_plain(
+            pair, tot, po, fmask & is_cat, params, r_num))
+        hc = pair[:, :WIDE_K_CAT_COLS]
+        use = hc[..., 2] >= max(0.5, params.min_data_per_group - 0.5)
+        ratio = hc[..., 0] / (hc[..., 1] + params.cat_smooth)
+        keys = torch.stack([torch.where(use, ratio, 1e30),
+                            torch.where(use, -ratio, 1e30)], dim=2)
+        t_lib = median_ms(torch, lambda: torch.sort(keys, dim=-1,
+                                                    stable=True))
+        nc = WIDE_K_CAT_COLS
+        b2c_bytes = C * nc * B * 12 + C * 16 + 2 * C * sp.RECORD * 4 \
+            + C * 4 + C * B * 4 + 2 * f
+        b2c_ops = C * nc * (2 * B * float(np.log2(B)) + 6 * B + 120 * B)
+        out[f"split_cat_k{K}"] = _kernel_row(
+            f"split_cat_k{K}", f"B2-cat categorical split scan (2K = {C} "
+            "children)", "lightgbm_torch/csrc/split.cu",
+            "lightgbm_tpu/ops/split.py:236", errc, relc, t_k, t_p,
+            bound_ms(b2c_bytes, b2c_ops), t_lib,
+            categorical_winners=int(cat.sum()))
+    emit({"phase": "wide_k_checks", "cases": {str(k): v
+                                              for k, v in cases.items()}})
+    return out
+
+
+def phase_rows_per_block(torch, lgt, lgt_kernels, train):
+    """``rows_per_block`` on the card: B1 and B1-K (K = 16) at the
+    automatic row block and at RPB_VALUES against their plain versions
+    (within HIST_RTOL), bitwise on a rerun at each value; B1-int and
+    B1-K-int bitwise equal across the values and to their plain versions;
+    each timed at every value; and the shadow grower at an explicit value
+    growing a strict and a K = 16 tree bit for bit as the primary grower
+    (the same launch geometry).  Returns the kernel times by value."""
+    from lightgbm_torch import grower as gr
+    from lightgbm_torch.ops import split as sp
+    from lightgbm_torch.ops.histogram import (compute_histogram,
+                                              histogram_int_plain,
+                                              histogram_plain,
+                                              histogram_slots_int_plain,
+                                              histogram_slots_plain,
+                                              int_launch_shape,
+                                              launch_shape,
+                                              slots_launch_shape)
+    binned, num_bin, na_bin, vals, gen = _wide_operands(torch, train, 6)
+    dev = binned.device
+    n, f = binned.shape
+    B, K = int(train.max_bin), WIDE_K
+    q = _int8_vals(torch, vals)
+    slot = torch.randint(-1, K, (n,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    used = torch.tensor([K], dtype=torch.int32, device=dev)
+    plain = {"B1": histogram_plain(binned, vals, num_bins=B),
+             "B1-K": histogram_slots_plain(binned, vals, slot, num_slots=K,
+                                           num_bins=B),
+             "B1-int": histogram_int_plain(binned, q, num_bins=B),
+             "B1-K-int": histogram_slots_int_plain(binned, q, slot,
+                                                   num_slots=K, num_bins=B)}
+    calls = {"B1": lambda r: compute_histogram(binned, vals, num_bins=B,
+                                               rows_per_block=r),
+             "B1-K": lambda r: compute_histogram(
+                 binned, vals, num_bins=B, slot=slot, num_slots=K,
+                 slots_used=used, rows_per_block=r),
+             "B1-int": lambda r: compute_histogram(binned, q, num_bins=B,
+                                                   rows_per_block=r),
+             "B1-K-int": lambda r: compute_histogram(
+                 binned, q, num_bins=B, slot=slot, num_slots=K,
+                 slots_used=used, rows_per_block=r)}
+    shapes = {"B1": lambda r: launch_shape(n, f, B, r),
+              "B1-K": lambda r: slots_launch_shape(n, f, B, K, r),
+              "B1-int": lambda r: int_launch_shape(n, f, B, None, r),
+              "B1-K-int": lambda r: int_launch_shape(n, f, B, K, r)}
+    report = {}
+    for form, call in calls.items():
+        first = None
+        report[form] = {}
+        for r in (0,) + RPB_VALUES:
+            h = call(r)
+            if not torch.equal(h, call(r)):
+                raise AssertionError(f"{form} at rows_per_block={r} is not "
+                                     "bitwise reproducible")
+            p = plain[form]
+            if h.dtype == torch.int32:
+                if not torch.equal(h, p) or (first is not None
+                                             and not torch.equal(h, first)):
+                    raise AssertionError(f"{form} at rows_per_block={r} "
+                                         "differs from its plain version "
+                                         "or from the automatic shape")
+                e = 0.0
+            else:
+                e = float((h - p).abs().max())
+                if e > HIST_RTOL * max(1.0, float(p.abs().max())):
+                    raise AssertionError(f"{form} at rows_per_block={r}: "
+                                         f"max abs error {e}")
+            first = h if first is None else first
+            rows = shapes[form](r)[0]
+            report[form][str(r)] = {
+                "rows_per_block": rows, "row_blocks": -(-n // rows),
+                "max_abs_err": e,
+                "bits_equal_to_automatic": bool(torch.equal(h, first)),
+                "ms": median_ms(torch, lambda: call(r))}
+    # the shadow grower at an explicit row block: a strict and a K = 16
+    # tree bit for bit as the primary's
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    params = sp.SplitParams()
+    rpb = RPB_VALUES[0]
+    shadow_equal = {}
+    for name, L, k, grow in (("strict", NUM_LEAVES, 1, gr.grow_tree),
+                             ("wide", WIDE_LEAVES, WIDE_K,
+                              gr.grow_tree_batched)):
+        kw = dict(num_leaves=L, num_bins=B, params=params)
+        if k > 1:
+            kw["split_batch"] = k
+        ws = gr.GrowWorkspace(n, f, B, L, dev, split_batch=k,
+                              rows_per_block=rpb)
+        shadow = gr.make_shadow_grower(ws)
+        if shadow.ws.rows_per_block != rpb or not shadow.independent:
+            raise AssertionError("the shadow workspace lost the row block")
+        grow(binned, vals, fmask, num_bin, na_bin, workspace=ws, **kw)
+        sh_tree = shadow.grow(grow, binned, vals, fmask, num_bin, na_bin,
+                              **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(sh_tree, ws.tree) or not torch.equal(
+                shadow.ws.leaf_of_row, ws.leaf_of_row):
+            raise AssertionError(f"the shadow {name} tree at rows_per_block"
+                                 f"={rpb} differs from the primary's")
+        shadow_equal[name] = gr.fetch_tree(ws).num_leaves
+    emit({"phase": "rows_per_block", "values": list(RPB_VALUES),
+          "forms": report, "shadow_trees_bit_equal_leaves": shadow_equal})
+    return report
+
+
+def phase_wide_k_train(torch, lgt, lgt_kernels, train, valid, name, params,
+                       per_it, K):
+    """``params`` at ``split_batch=K`` on the per-iteration loop for
+    WIDE_K_ROUNDS rounds (``fused_eval=true``): launches held to ``per_it``
+    an iteration, the trees at 255 leaves with K-wide super-steps, the
+    valid AUC; a rerun byte-identical.  Returns {name: launches}."""
+    extra = {**params, "split_batch": K, "superepoch": -1,
+             "fused_chunk": 1, "fused_eval": "true"}
+    lgt_kernels.reset_launch_counts()
+    bst, ev, secs = train_main(lgt, train, valid, extra=extra,
+                               rounds=WIDE_K_ROUNDS)
+    torch.cuda.synchronize()
+    counts = lgt_kernels.launch_counts()
+    m = bst._model
+    iters = m.num_iterations_trained
+    if m.split_batch != K or iters != WIDE_K_ROUNDS \
+            or counts != times(per_it, iters):
+        raise AssertionError(f"{name}: split_batch {m.split_batch}, "
+                             f"{iters} iterations, launches {counts}")
+    if max(t.num_leaves for t in m.models) != WIDE_LEAVES:
+        raise AssertionError(f"{name}: the trees never reach "
+                             f"{WIDE_LEAVES} leaves")
+    auc = ev["valid_0"]["auc"]
+    if not 0.5 < auc[-1] <= 1.0 or auc[-1] < auc[0]:
+        raise AssertionError(f"{name}: valid AUC {auc}")
+    b2, _, _ = train_main(lgt, train, valid, extra=extra,
+                          rounds=WIDE_K_ROUNDS)
+    if b2.model_to_string() != bst.model_to_string():
+        raise AssertionError(f"a second {name} run gave other model text")
+    emit({"phase": name, "params": extra, "iterations": iters,
+          "seconds": secs, "ms_per_iteration": 1e3 * secs / iters,
+          "valid_auc": auc, "live_steps_per_tree": statistics.mean(
+              m.step_counts),
+          "leaves_per_tree": statistics.mean(t.num_leaves for t in m.models),
+          "rerun_byte_identical": True, "launches": counts})
+    return {name: counts}
+
+
+def phase_hist_tune_train(torch, lgt, lgt_kernels, train, valid, wide_ms):
+    """``hist_tune=on`` at the wide configuration (HIST_TUNE_PARAMS, 255
+    leaves, 1M x 28, 63 bins) as super-epochs for CUT_ROUNDS rounds on a
+    cold table: one sweep of the shipped B1-K over K in {8, 16, 32, 64} x
+    three row blocks (the record, every candidate, the sweep's seconds and
+    ``tune_counts()`` printed); the model bytes equal to the untuned run at
+    the record's ``split_batch`` and ``rows_per_block``, whose launches
+    are the tuned run's less the sweep's passes; a second ``ensure`` with
+    the process memo cleared resolves from disk with no sweep; ms an
+    iteration tuned against the untuned run and against wide_train's
+    (K = 16, ``wide_ms``).  Returns ({hist_tune_train: launches}, the
+    B15 line)."""
+    import shutil
+
+    from lightgbm_torch.ops import hist_tune
+    tune_dir = Path(lgt_kernels.BUILD_DIR) / "hist_tune_smoke"
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    with hist_tune._LOCK:
+        hist_tune._MEM.clear()
+    real_tune, spent = hist_tune.tune, []
+
+    def timed_tune(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_tune(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+
+    params = {**HIST_TUNE_PARAMS, "compile_cache_dir": str(tune_dir)}
+    c0 = hist_tune.tune_counts()
+    hist_tune.tune = timed_tune
+    try:
+        lgt_kernels.reset_launch_counts()
+        bst, ev, secs = train_main(lgt, train, valid, extra=params,
+                                   rounds=CUT_ROUNDS)
+        torch.cuda.synchronize()
+        counts = lgt_kernels.launch_counts()
+    finally:
+        hist_tune.tune = real_tune
+    c1 = hist_tune.tune_counts()
+    m = bst._model
+    rec = m.hist_tuned
+    sweep = hist_tune.last_sweep()
+    if rec is None or c1["sweeps"] != c0["sweeps"] + 1 or len(spent) != 1:
+        raise AssertionError(f"hist_tune_train: no cold sweep ({c0} -> "
+                             f"{c1}, record {rec})")
+    if sorted({c["k"] for c in sweep}) != [8, 16, 32, 64] \
+            or any(sum(c["k"] == k for c in sweep) != 3
+                   for k in (8, 16, 32, 64)):
+        raise AssertionError(f"hist_tune_train: the sweep covered "
+                             f"{[(c['k'], c['block_rows']) for c in sweep]}")
+    if m.split_batch != rec["k"] or m.rows_per_block != rec["block_rows"] \
+            or not (tune_dir / hist_tune.TUNE_FILE).exists():
+        raise AssertionError(f"hist_tune_train: trained at K = "
+                             f"{m.split_batch}, rows {m.rows_per_block}, "
+                             f"record {rec}")
+    sweep_passes = len(sweep) * (1 + rec["reps"])
+    epochs = len(m.epoch_ms)
+    k = max(2, min(25, ES_ROUNDS))
+    tuned_ms = statistics.median(m.epoch_ms[1:] if epochs > 1
+                                 else m.epoch_ms) / k
+    # the untuned twin at the record's K and row block: the same bytes,
+    # and the same launches less the sweep's
+    twin_params = {**WIDE_PARAMS, "split_batch": rec["k"],
+                   "rows_per_block": rec["block_rows"]}
+    lgt_kernels.reset_launch_counts()
+    twin, ev_t, secs_t = train_main(lgt, train, valid, extra=twin_params,
+                                    rounds=CUT_ROUNDS)
+    torch.cuda.synchronize()
+    twin_counts = lgt_kernels.launch_counts()
+    tm = twin._model
+    twin_ms = statistics.median(tm.epoch_ms[1:] if len(tm.epoch_ms) > 1
+                                else tm.epoch_ms) / k
+    if bst.model_to_string().split("parameters:")[0] != \
+            twin.model_to_string().split("parameters:")[0]:
+        raise AssertionError("hist_tune_train: the tuned model differs from "
+                             "the untuned run at the record's shapes")
+    less = dict(counts)
+    less["histogram_slots"] -= sweep_passes
+    if less != twin_counts:
+        raise AssertionError(f"hist_tune_train launches {counts}, less the "
+                             f"sweep's {sweep_passes} passes, differ from "
+                             f"the twin's {twin_counts}")
+    # a second lookup, the process memo cleared: from disk, no sweep
+    with hist_tune._LOCK:
+        hist_tune._MEM.clear()
+    lgt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    again = hist_tune.ensure(m.num_data, int(m.binned_dev.shape[1]),
+                             m.max_bin, itemsize=4, kmax=rec["kmax"],
+                             config=m.config, device=m.device)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_launches = sum(lgt_kernels.launch_counts().values())
+    if again != rec or hist_tune.tune_counts()["sweeps"] != c1["sweeps"] \
+            or warm_launches:
+        raise AssertionError(f"hist_tune_train: the warm lookup gave "
+                             f"{again} (record {rec}) with "
+                             f"{warm_launches} launches")
+    line = {"phase": "hist_tune_train", "params": HIST_TUNE_PARAMS,
+            "record": rec, "candidates": sweep,
+            "sweep_seconds": spent[0], "sweep_passes": sweep_passes,
+            "tune_counts": hist_tune.tune_counts(),
+            "warm_ensure_ms": warm_ms, "warm_ensure_launches": warm_launches,
+            "table": str(tune_dir / hist_tune.TUNE_FILE),
+            "iterations": m.num_iterations_trained, "seconds": secs,
+            "valid_auc": ev["valid_0"]["auc"][bst.best_iteration - 1],
+            "ms_per_iteration_tuned": tuned_ms,
+            "ms_per_iteration_untuned_twin": twin_ms,
+            "ms_per_iteration_wide_k16": wide_ms,
+            "twin_seconds": secs_t, "model_equal_to_twin": True,
+            "launches": counts}
+    emit(line)
+    return {"hist_tune_train": counts, "hist_tune_twin": twin_counts}, line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7988,6 +8613,8 @@ def main() -> int:
     kernels = phase_kernels(torch, lgt, train, valid)
     wide_kernels, dead_ms = phase_wide_kernels(torch, lgt, train)
     kernels.update(wide_kernels)
+    kernels.update(phase_wide_k_kernels(torch, lgt, train))
+    phase_rows_per_block(torch, lgt, lgt_kernels, train)
     kernels.update(phase_sample_kernels(torch, lgt, train))
     kernels.update(phase_constraint_kernels(torch, lgt, train))
     kernels.update(phase_partitioned_kernels(torch, lgt, train))
@@ -8028,7 +8655,10 @@ def main() -> int:
           "plain_ms_per_iteration": wide_eager_ms,
           "bound_ms_per_iteration": wb_ms, "bound_by": wb_by,
           "bound_bytes_per_iteration": wb_bytes, "library_ms": None})
-    sampled_counts = {}
+    # the histogram autotuner (B15) at the wide configuration, against
+    # the untuned run at its record and wide_train's K = 16
+    sampled_counts = dict(phase_hist_tune_train(
+        torch, lgt, lgt_kernels, train, valid, wide_ms)[0])
     for prefix, params, per_it, rounds in (
             ("goss", GOSS_PARAMS, GOSS_PER_ITERATION, CUT_ROUNDS),
             ("extra", EXTRA_PARAMS, EXTRA_PER_ITERATION, ROUNDS)):
@@ -8063,6 +8693,11 @@ def main() -> int:
             torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
             per_it, rounds=rounds,
             ref_auc=ev["valid_0"]["auc"] if prefix == "quant" else None)[0])
+    # B1-K-int at the wide widths on a train path
+    for K in WIDE_KS:
+        sampled_counts.update(phase_wide_k_train(
+            torch, lgt, lgt_kernels, train, valid, f"quant_wide_k{K}_train",
+            QUANT_WIDE_PARAMS, QUANT_WIDE_PER_ITERATION, K))
     # the fleet: every member held to its solo run on the card
     for name, extra, rounds in FLEET_CELLS:
         sampled_counts.update(phase_fleet_train(
@@ -8084,6 +8719,13 @@ def main() -> int:
         CAT_CONS_PARAMS, CAT_STRICT_PER_ITERATION, rounds=CUT_ROUNDS,
         after=cat_cons_after(torch, lgt, lgt_kernels, cat_train,
                              cat_xv))[0])
+    # the wide widths on a train path: B1-K, B3-K, B3s-K, B2 on 2K
+    # children, B2-cat and B6-node at K = 32 and 64
+    for K in WIDE_KS:
+        sampled_counts.update(phase_wide_k_train(
+            torch, lgt, lgt_kernels, cat_train, cat_valid, f"cat_k{K}_train",
+            {**CAT_PARAMS, "feature_fraction_bynode": 0.8},
+            {**CAT_PER_ITERATION, "node_draws": WIDE_LEAVES}, K))
     sampled_counts.update(phase_efb_train(
         torch, lgt, lgt_kernels, efb_sets[1], efb_sets[2], efb_sets[0],
         *efb_sets[3:]))
@@ -8152,7 +8794,8 @@ def main() -> int:
               "grow_step_cons", "grow_step_batched_cons",
               "node_draws_base", "segment_histogram",
               "segment_histogram_int", "partition_segment", "leaf_of_row",
-              "split_mono_bounds") + FLEET_KERNELS + INTEGRITY_KERNELS:
+              "split_mono_bounds") + FLEET_KERNELS + INTEGRITY_KERNELS \
+            + WIDE_K_KERNELS:
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

@@ -204,7 +204,14 @@ _PARAMS: Dict[str, tuple] = {
     # path's twin); forced splits and the monotone methods past basic
     # promote it to partitioned (models/gbdt.py resolve_learner)
     "tpu_learner": (str, "auto", []),  # auto | partitioned | masked
-    "rows_per_block": (int, 0, []),          # 0 = auto-tune histogram row blocking
+    # rows of one row block of every dense histogram pass (B1, B1-K and
+    # their integer and member forms, the partitioned learner's segment
+    # histogram), rounded up to the kernel's granularity
+    # (ops/histogram.py); 0 = the kernels' automatic shape, or under
+    # hist_tune=on the tuner's choice.  Another value re-partitions the
+    # f32 sums (a histogram a few ulps away; the integer forms are
+    # exact at every value); k-hot sparse storage keeps its own blocking
+    "rows_per_block": (int, 0, []),
     # iterations fused into one on-device program (lax.scan) when the
     # objective/bagging config allows it — amortizes the host<->device
     # round-trip over the chunk (JAX package; this port runs per iteration).
@@ -266,14 +273,15 @@ _PARAMS: Dict[str, tuple] = {
     # different (still best-first) growth order.  0 = auto: 1 below 64
     # leaves, then 8.
     "split_batch": (int, 0, []),
-    # on-device (K, block_rows) autotuner for the histogram contraction
-    # (ops/hist_tune.py; docs/Contraction-Width.md): "on" runs a
-    # one-shot measured sweep over the shipped split_batch widths and a
-    # block_rows neighborhood at FIRST fit per (platform, shape
-    # bucket), persists the choice next to the persistent compile
-    # cache, and applies it ONLY when split_batch=0 (auto; an explicit
-    # width is the user's choice and skips the sweep entirely), with
-    # the paired block_rows filling rows_per_block=0.  The tuned K
+    # measured (K, rows_per_block) autotuner of the histogram kernels
+    # (ops/hist_tune.py): "on" runs a one-shot sweep of the shipped B1-K
+    # (B1-K-int under quant_train) over the split_batch widths and three
+    # row blocks each at FIRST fit per (card model, shape bucket),
+    # persists the choice in hist_tune.json (in compile_cache_dir when
+    # set, else the kernels' build directory), and applies it ONLY on
+    # the masked learner, on dense storage, when split_batch=0 (auto; an
+    # explicit width is the user's choice and skips the sweep entirely),
+    # with the paired block_rows filling rows_per_block=0.  The tuned K
     # changes the (equally valid) growth order, so "on" trades
     # cross-platform model determinism for measured throughput; "off"
     # (default) reproduces today's exact shapes, traces and models

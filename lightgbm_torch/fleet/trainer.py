@@ -185,9 +185,9 @@ def _check_models(boosters: List[Booster]) -> None:
     """Structural uniformity the members' one epoch shape needs beyond the
     param surface, by the JAX package's rule (its ``_check_models``):
     dense binned data, no CEGB, and an equal signature of padded leaf
-    budget, split batch, learner, valid-walk levels, bins, valid sets and
-    objective.  So ``num_leaves`` 31 and 63 (both padded to 64) share a
-    fleet, 15 and 31 (15 is not padded) do not."""
+    budget, split batch, histogram row block, learner, valid-walk levels,
+    bins, valid sets and objective.  So ``num_leaves`` 31 and 63 (both
+    padded to 64) share a fleet, 15 and 31 (15 is not padded) do not."""
     from ..sparse_data import SparseBinned
     sig0 = None
     for j, b in enumerate(boosters):
@@ -203,7 +203,7 @@ def _check_models(boosters: List[Booster]) -> None:
                              "data (sparse_data is solo-only)")
         cfg = m.config
         pad = leaf_pad(cfg, m.learner)
-        sig = (pad, m.split_batch, m.learner,
+        sig = (pad, m.split_batch, m.rows_per_block, m.learner,
                traversal_steps(cfg.max_depth, pad or max(cfg.num_leaves, 2)),
                m.max_bin, len(m.valid_sets), type(m.objective).__name__)
         if sig0 is None:

@@ -252,17 +252,21 @@ class GrowWorkspace:
     ranges ``olo``/``ohi`` and branch sets ``fallow`` [rows, F], the
     children's ranges ``clo``/``chi``, depths ``cdepth`` and allowed
     masks ``cmask`` [C + 1, F] (C = 2, or 2K batched; the last row the
-    root's) and the used features ``cuse`` [F]."""
+    root's) and the used features ``cuse`` [F].  ``rows_per_block`` is
+    the row block of every histogram pass of its trees (the JAX package's
+    ``block_rows``; 0 = automatic, ``ops/histogram.py``)."""
 
     def __init__(self, n: int, num_features: int, num_bins: int,
                  num_leaves: int, device: torch.device, split_batch: int = 1,
                  categorical: bool = False,
                  efb: Optional[EFBDevice] = None,
                  quant: Optional[QuantSpec] = None,
-                 constraints: Optional[GrowConstraints] = None):
+                 constraints: Optional[GrowConstraints] = None,
+                 rows_per_block: int = 0):
         L, F, B = int(num_leaves), int(num_features), int(num_bins)
         K = batch_width(split_batch, L)
         self.num_leaves, self.num_bins, self.split_batch = L, B, K
+        self.rows_per_block = max(0, int(rows_per_block))
         self.efb = efb
         self.quant = quant
         # exact int32 histograms under quantized training
@@ -610,7 +614,8 @@ def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
     the table and the row -> leaf vector.  Returns the vals the steps'
     histogram passes take (the packed stack under quant)."""
     vals = _root_vals(ws, vals, rng_iter)
-    h0 = compute_histogram(binned, vals, num_bins=ws.hist_bins)
+    h0 = compute_histogram(binned, vals, num_bins=ws.hist_bins,
+                           rows_per_block=ws.rows_per_block)
     _root_finish(ws, h0, vals, feature_mask, num_bin, na_bin, params,
                  sampling, rng_iter, is_cat)
     return vals
@@ -709,7 +714,8 @@ def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     _step_begin(ws, feature_mask, na_bin, max_depth)
     slot = partition(binned, ws.leaf_of_row, ws.rec, ws.rank, ws.efb)
     small = compute_histogram(binned, vals, num_bins=ws.hist_bins, slot=slot,
-                              active=ws.rec[ACTIVE:ACTIVE + 1])
+                              active=ws.rec[ACTIVE:ACTIVE + 1],
+                              rows_per_block=ws.rows_per_block)
     _step_finish(ws, small, feature_mask, num_bin, na_bin, params, i,
                  sampling, rng_iter, is_cat)
 
@@ -1181,7 +1187,8 @@ def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
     tslot = partition_slots(binned, ws.leaf_of_row, st, ws.rank, ws.efb)
     small = compute_histogram(binned, vals, num_bins=ws.hist_bins,
                               slot=tslot, num_slots=K, active=st.status[0:1],
-                              slots_used=st.status[1:2])
+                              slots_used=st.status[1:2],
+                              rows_per_block=ws.rows_per_block)
     _super_finish(ws, small, feature_mask, num_bin, na_bin, params, s,
                   sampling, rng_iter, is_cat)
 
@@ -1232,7 +1239,9 @@ class ShadowGrower:
     ``GrowWorkspace`` of its own and, on the card, inside
     ``_kernels.shadow_set()``, so every kernel it launches comes from the
     separately built and loaded shadow libraries (counted under
-    ``shadow:<kernel>``).  It writes nothing of the primary's: its tree
+    ``shadow:<kernel>``).  Its workspace copies the primary's shapes and
+    ``rows_per_block``: the same launch geometry, so its histograms are
+    the primary's bit for bit.  It writes nothing of the primary's: its tree
     buffer, row -> leaf vector, split-control state and CEGB marks are
     its workspace's.  On the CPU it is the plain grower run again
     (``independent`` False, as the JAX package's re-run shadows)."""
@@ -1243,7 +1252,7 @@ class ShadowGrower:
             p.leaf_of_row.numel(), p.node_mask.shape[1], p.num_bins,
             p.num_leaves, p.leaf_of_row.device, split_batch=p.split_batch,
             categorical=p.leaf_rank is not None, efb=p.efb, quant=p.quant,
-            constraints=p.cons)
+            constraints=p.cons, rows_per_block=p.rows_per_block)
         self.independent = p.leaf_of_row.device.type == "cuda"
 
     def grow(self, grow_fn, binned, vals, feature_mask, num_bin, na_bin, *,
@@ -1315,12 +1324,16 @@ def grow_trees_lockstep(binned: torch.Tensor, members: Sequence[GrowMember],
         raise ValueError("the members must share one split batch K")
     if len({m.ws.hist_bins for m in members}) != 1:
         raise ValueError("the members' histograms must share one bin axis")
+    if len({m.ws.rows_per_block for m in members}) != 1:
+        raise ValueError("the members must share one rows_per_block")
     for m in members:
         _check_grow(m.ws, m.sampling, m.rng_iter, is_cat, efb, m.ws.quant,
                     m.ws.cons)
     hist_bins = members[0].ws.hist_bins
+    rpb = members[0].ws.rows_per_block
     vals = [_root_vals(m.ws, m.vals, m.rng_iter) for m in members]
-    h0 = compute_histogram_members(binned, vals, num_bins=hist_bins)
+    h0 = compute_histogram_members(binned, vals, num_bins=hist_bins,
+                                   rows_per_block=rpb)
     for j, m in enumerate(members):
         _root_finish(m.ws, h0[j], vals[j], m.feature_mask, num_bin, na_bin,
                      m.params, m.sampling, m.rng_iter, is_cat)
@@ -1344,14 +1357,16 @@ def grow_trees_lockstep(binned: torch.Tensor, members: Sequence[GrowMember],
                                       ranks, efb)
             small = compute_histogram_members(
                 binned, vals, num_bins=hist_bins, slots=list(slots),
-                actives=[ws.rec[ACTIVE:ACTIVE + 1] for ws in wss])
+                actives=[ws.rec[ACTIVE:ACTIVE + 1] for ws in wss],
+                rows_per_block=rpb)
         else:
             steps = [ws.step for ws in wss]
             slots = partition_slots_members(binned, lors, steps, ranks, efb)
             small = compute_histogram_members(
                 binned, vals, num_bins=hist_bins, slots=list(slots),
                 num_slots=K, actives=[st.status[0:1] for st in steps],
-                slots_used=[st.status[1:2] for st in steps])
+                slots_used=[st.status[1:2] for st in steps],
+                rows_per_block=rpb)
         finish = _step_finish if K == 1 else _super_finish
         for j, (m, n_steps) in enumerate(zip(members, last)):
             if i < n_steps:

@@ -100,7 +100,8 @@ class PartitionedGrower:
     ``feature_contri`` [F]; ``efb`` (an ``EFBDevice``) with ``efb_host``
     (the host (group_of_feat, off_of_feat) of the bundles);
     ``pool_entries`` the histogram pool's size (0: unbounded);
-    ``quant`` a ``QuantSpec``."""
+    ``quant`` a ``QuantSpec``; ``rows_per_block`` the segment histograms'
+    row block (0 = automatic)."""
 
     def __init__(self, *, num_leaves: int, num_bins: int,
                  params: SplitParams, num_bin, na_bin, device,
@@ -111,9 +112,13 @@ class PartitionedGrower:
                  pool_entries: int = 0, feature_contri=None,
                  extra_trees: bool = False, extra_seed: int = 6,
                  quant: Optional[QuantSpec] = None,
+                 rows_per_block: int = 0,
                  fetch: Callable[[torch.Tensor, str], np.ndarray]
                  = _host_fetch):
         self.L = int(num_leaves)
+        # the segment histograms' row block (ops/segment.py; the JAX
+        # package's block_rows, grower_partitioned.py:55-66)
+        self.rows_per_block = int(rows_per_block)
         self.B = int(num_bins)
         self.params = params
         self.max_depth = max_depth
@@ -201,7 +206,8 @@ class PartitionedGrower:
 
         def seg_hist(begin: int, count: int) -> torch.Tensor:
             return segment_histogram(binned, vals, order, begin, count,
-                                     num_bins=self.BH)
+                                     num_bins=self.BH,
+                                     rows_per_block=self.rows_per_block)
 
         # root histogram + split (over EFB groups when bundled)
         hist0 = seg_hist(0, n)

@@ -181,6 +181,8 @@ class IterationProgram:
         dev = m.device
         self.eval_spec = tuple(eval_spec)
         self.es_spec = es_spec
+        # the histogram passes' row block its launches (and graph) take
+        self.rows_per_block = m.grow_ws.rows_per_block
         L = m.config.num_leaves
         # trees an iteration, one output row each
         self.K = m.num_class

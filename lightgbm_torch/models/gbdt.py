@@ -88,6 +88,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..basic import LightGBMError
 from ..binning import BinType
 from ..config import Config
@@ -100,6 +101,7 @@ from ..grower import GrowWorkspace, batch_width, host_tree, \
 from ..grower_partitioned import PartitionedGrower
 from ..metrics import check_class_labels
 from ..objectives import ObjectiveFunction
+from ..ops.histogram import form_launch_shape
 from ..ops.quantize import QuantSpec, max_rows
 from ..ops.random import NodeSampling, bag_mask_plain
 from ..ops.split import SplitParams
@@ -146,7 +148,6 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
          "integrity_policy=rewind", "A12"),
         (c.finite_check_freq > 0, "finite checks", "A12"),
         (c.telemetry or c.telemetry_blackbox, "telemetry", "A15"),
-        (c.hist_tune == "on", "hist_tune", "A17 (B15)"),
         (ds.binned_sparse.stride > 256 if ds.binned_sparse is not None
          else ds.binned is None or ds.binned.dtype != np.uint8,
          "more than 256 bins per feature or per EFB bundle", "A9.5"),
@@ -240,13 +241,61 @@ def pool_entries(config: Config, num_features: int, max_bin: int,
                       / bytes_per_leaf))
 
 
-def resolve_split_batch(config: Config) -> int:
+def hist_tune_record(config: Config, learner: str, sparse: bool,
+                     n_rows: int, n_cols: int, num_bins: int,
+                     itemsize: int, device: torch.device) -> Optional[dict]:
+    """The autotuner's record (``ops/hist_tune.py``, B15) when
+    ``hist_tune=on`` engages, else None, by the JAX package's rule
+    (models/gbdt.py:472-525): only with ``split_batch`` 0 (auto), on the
+    masked learner and dense storage, and when the leaf budget admits a
+    width above 1 (``kmax = fit_split_batch(64, num_leaves)``).  ``n_cols``
+    and ``num_bins`` are the histograms' axes (EFB groups and group bins on
+    a bundled matrix), ``itemsize`` the vals' (4, or 1/2 under
+    ``quant_train``).  A failure of the table's I/O (or of the sweep
+    other than a kernel's) logs a warning and keeps the untuned shapes; a
+    kernel's failure to build or launch propagates."""
+    if config.hist_tune != "on" or config.split_batch >= 1 \
+            or learner != "masked" or sparse:
+        return None
+    kmax = fit_split_batch(SPLIT_BATCH_SET[-1], config.num_leaves)
+    if kmax <= 1:
+        return None
+    from ..ops.hist_tune import ensure
+    try:
+        rec = ensure(n_rows, n_cols, num_bins, itemsize=itemsize, kmax=kmax,
+                     config=config, device=device)
+    except Exception as e:        # the table is best-effort
+        if _kernels.is_kernel_fault(e):
+            raise
+        Log.warning(f"hist_tune failed ({type(e).__name__}: {e}); "
+                    "keeping untuned shapes")
+        return None
+    Log.info(f"hist_tune: measured choice K={rec['k']} "
+             f"block_rows={rec['block_rows']} "
+             f"({rec['ms_per_leaf']} ms/leaf-slot at "
+             f"{rec.get('sample_rows')} sampled rows)")
+    return rec
+
+
+def resolve_rows_per_block(config: Config,
+                           tuned: Optional[dict] = None) -> int:
+    """The histogram passes' row block: ``rows_per_block``, or where it
+    is 0 (automatic) the autotuner's ``block_rows`` (the JAX package's
+    :485, :516-517); 0 = the kernels' automatic shape."""
+    if config.rows_per_block > 0:
+        return int(config.rows_per_block)
+    return int(tuned["block_rows"]) if tuned is not None else 0
+
+
+def resolve_split_batch(config: Config,
+                        tuned: Optional[dict] = None) -> int:
     """The batched grower's width K for this configuration, by the JAX
-    package's rules (models/gbdt.py:451-470, :527-553 with hist_tune off):
-    ``split_batch`` 0 (auto) is 16 from 128 leaves, 8 from 64, else 1;
-    under ``trace_buckets`` a width is snapped into ``SPLIT_BATCH_SET``,
-    and a width past 16 fitted under the leaf budget.  The grower then
-    clamps K to ``num_leaves - 1`` (``grower.batch_width``)."""
+    package's rules (models/gbdt.py:451-553): ``split_batch`` 0 (auto) is
+    16 from 128 leaves, 8 from 64, else 1, or the autotuner's K when
+    ``tuned`` (``hist_tune_record``); under ``trace_buckets`` a width is
+    snapped into ``SPLIT_BATCH_SET``, and a width past 16 fitted under the
+    leaf budget.  The grower then clamps K to ``num_leaves - 1``
+    (``grower.batch_width``)."""
     sb, L = config.split_batch, config.num_leaves
     k = sb if sb >= 1 else (16 if L >= 128 else 8 if L >= 64 else 1)
     if sb < 1 and k > 1:
@@ -254,6 +303,8 @@ def resolve_split_batch(config: Config) -> int:
             f"num_leaves={L} auto-selects split_batch={k} (top-K batched "
             "growth; trees differ slightly from strict leaf-wise order — "
             "set split_batch=1 for exact reference growth)")
+    if tuned is not None:
+        k = int(tuned["k"])
     if config.trace_buckets and k > 1:
         snapped = k if k in SPLIT_BATCH_SET else snap_split_batch(k)
         if snapped > 16:
@@ -461,9 +512,33 @@ class GBDTModel:
             self.binned_dev = torch.as_tensor(
                 np.ascontiguousarray(ds.binned)).to(dev)
         partitioned = self.learner == "partitioned"
-        # the partitioned learner grows strictly leaf-wise
-        self.split_batch = 1 if partitioned else resolve_split_batch(config)
         self.quant = quant_spec(config, self.num_data)
+        # the histogram autotuner (B15; None unless hist_tune=on engages)
+        # over the histograms' axes: EFB groups at group-bin width, else
+        # the features
+        hist_cols = self.num_features if sparse else \
+            int(self.binned_dev.shape[1])
+        hist_bins = self.efb_dev.group_bins if self.efb_dev is not None \
+            else self.max_bin
+        self.hist_tuned = hist_tune_record(
+            config, self.learner, sparse, self.num_data, hist_cols,
+            hist_bins, 4 if self.quant is None else self.quant.bits // 8,
+            dev)
+        # the partitioned learner grows strictly leaf-wise
+        self.split_batch = 1 if partitioned else \
+            resolve_split_batch(config, self.hist_tuned)
+        # every dense histogram pass's row block (0 = automatic); an
+        # explicit value past the partial buffer's cap is refused here,
+        # for the root pass's form and the super-steps'
+        self.rows_per_block = resolve_rows_per_block(config,
+                                                     self.hist_tuned)
+        if self.rows_per_block > 0 and not sparse:
+            widths = (None,) if self.split_batch == 1 \
+                else (None, self.split_batch)
+            for k in widths:
+                form_launch_shape(self.num_data, hist_cols, hist_bins, k,
+                                  self.quant is not None,
+                                  self.rows_per_block)
         # the split controls (the JAX package's :176-195, :883-906,
         # :1207-1234): monotone basic with its penalty, interaction
         # groups, feature_contri and CEGB, whose cross-tree used features
@@ -480,7 +555,8 @@ class GBDTModel:
                                      split_batch=self.split_batch,
                                      categorical=self.is_cat_dev is not None,
                                      efb=self.efb_dev, quant=self.quant,
-                                     constraints=self.constraints)
+                                     constraints=self.constraints,
+                                     rows_per_block=self.rows_per_block)
         # the computation-integrity layer (integrity.py): None unless
         # integrity_check_freq > 0, and then the masked learner's checker
         # with its shadow grower (the partitioned learner raised above)
@@ -512,7 +588,7 @@ class GBDTModel:
                 feature_contri=contri_vector(config, ds),
                 extra_trees=bool(config.extra_trees),
                 extra_seed=config.extra_seed, quant=self.quant,
-                fetch=self._fetch)
+                rows_per_block=self.rows_per_block, fetch=self._fetch)
         # the valid walk's level count: the configuration's worst case, on
         # every path (a row stops at its leaf, so the result is the same)
         self.walk_steps = traversal_steps(config.max_depth,
@@ -757,7 +833,10 @@ class GBDTModel:
                  rows: int = 1) -> IterationProgram:
         key = (tuple(eval_spec), repr(es_spec))
         prog = self._programs.get(key)
-        if prog is None:
+        # a program captures the workspace's row block (the JAX package's
+        # fused cache key, :1932): another row block is another capture
+        if prog is None \
+                or prog.rows_per_block != self.grow_ws.rows_per_block:
             prog = self._programs[key] = IterationProgram(
                 self, eval_spec, es_spec, rows)
         return prog

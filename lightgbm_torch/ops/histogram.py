@@ -35,6 +35,20 @@ one shared dense ``binned``, each with its own vals, slot, active flag
 and slot count, in one launch on the card, each member's histogram
 bitwise the solo pass's.  Its plain version is the solo plain version
 member by member.
+
+Every dense form takes ``rows_per_block`` (the JAX package's
+``block_rows``; the ``rows_per_block`` parameter, or ``hist_tune``'s
+choice): 0 keeps the automatic launch shape of ``launch_shape``,
+``slots_launch_shape`` and ``int_launch_shape``; a positive value sets the
+rows of one row block, rounded up to the kernel's granularity (a multiple
+of the B1 kernel's row sub-ranges, a whole staged chunk of B1-K, a whole
+warp's 32 rows of the integer forms).  The f32 kernels round each block's
+partial to f32 before their f64 total, so another row block gives a
+histogram a few ulps away (runs at one value stay bitwise equal); the
+integer forms are bitwise equal at every value.  The plain versions ignore
+it.  A value whose partial buffer [row blocks, K, F, B, 3] would pass
+``PARTIAL_CAP_BYTES`` is refused.  The k-hot form B8a keeps its own
+blocking, as the JAX package's sparse histogram does.
 """
 
 from __future__ import annotations
@@ -63,9 +77,15 @@ _MIN_ROWS_PER_BLOCK = 1024
 # binned row and the row masks: 16 + F + K/8 bytes a row)
 _SLOT_CHUNK = 512
 # the integer forms: blocks in all (two an SM of an H100; an integer sum
-# does not depend on the launch shape) and the bytes of a counter
+# does not depend on the launch shape), the bytes of a counter, and the
+# rows of a warp (an explicit row block's granularity)
 _INT_BLOCKS = 264
 _INT_BYTES = 4
+_WARP_ROWS = 32
+# the largest partial buffer an explicit ``rows_per_block`` may ask for
+# (1 GiB; the automatic shapes stay under it at the port's shapes: 179 MB
+# at 1M x 28, 63 bins and K = 64)
+PARTIAL_CAP_BYTES = 1 << 30
 # vals dtypes of the integer forms
 INT_VALS = (torch.int8, torch.int16)
 # rows of one f32 run of a bin in the plain versions (``_bin_sums``): a
@@ -78,11 +98,35 @@ INT_VALS = (torch.int8, torch.int16)
 PLAIN_RUN = 768
 
 
-def launch_shape(n: int, num_features: int,
-                 num_bins: int) -> Tuple[int, int, int]:
+def _auto_rows(n: int) -> int:
+    """The automatic rows of a row block of the f32 forms: about
+    ``_ROW_BLOCKS`` blocks, never under ``_MIN_ROWS_PER_BLOCK`` rows."""
+    return max(-(-n // _ROW_BLOCKS), _MIN_ROWS_PER_BLOCK)
+
+
+def _check_partial(n: int, rows: int, num_slots: int, num_features: int,
+                   num_bins: int, rows_per_block: int) -> None:
+    """Refuse an explicit ``rows_per_block`` whose partial buffer would
+    pass ``PARTIAL_CAP_BYTES``."""
+    if rows_per_block <= 0:
+        return
+    nbytes = -(-n // rows) * num_slots * num_features * num_bins * 12
+    if nbytes > PARTIAL_CAP_BYTES:
+        raise ValueError(
+            f"rows_per_block={rows_per_block} gives {-(-n // rows)} row "
+            f"blocks over {n} rows, whose partial histograms ({num_slots} "
+            f"slot(s) x {num_features} columns x {num_bins} bins) would "
+            f"take {nbytes} bytes, past the {PARTIAL_CAP_BYTES}-byte cap; "
+            "set a larger rows_per_block, or 0 for the automatic shape")
+
+
+def launch_shape(n: int, num_features: int, num_bins: int,
+                 rows_per_block: int = 0) -> Tuple[int, int, int]:
     """(rows_per_block, tile_f, subranges) of the B1 kernel for these
     shapes: as many features per block as fit in shared memory with up to
-    ``_MAX_SUBRANGES`` row sub-ranges each."""
+    ``_MAX_SUBRANGES`` row sub-ranges each; rows per block automatic at
+    ``rows_per_block`` 0, else that value rounded up to a multiple of the
+    sub-ranges."""
     slice_bytes = num_bins * 3 * _ACC_BYTES
     tile_f = min(num_features, _SMEM_BYTES // slice_bytes, _MAX_THREADS)
     if tile_f < 1:
@@ -91,19 +135,22 @@ def launch_shape(n: int, num_features: int,
     subranges = max(1, min(_MAX_SUBRANGES,
                            _SMEM_BYTES // (tile_f * slice_bytes),
                            _MAX_THREADS // tile_f))
-    rows = max(-(-n // _ROW_BLOCKS), _MIN_ROWS_PER_BLOCK)
+    rows = _auto_rows(n) if rows_per_block <= 0 else int(rows_per_block)
     rows = -(-rows // subranges) * subranges
+    _check_partial(n, rows, 1, num_features, num_bins, rows_per_block)
     return rows, tile_f, subranges
 
 
 def slots_launch_shape(n: int, num_features: int, num_bins: int,
-                       num_slots: int) -> Tuple[int, int, int]:
+                       num_slots: int,
+                       rows_per_block: int = 0) -> Tuple[int, int, int]:
     """(rows_per_block, pairs_per_block, chunk) of the K-slot kernel: as
     many (feature, slot) pairs per block as fit in shared memory beside
     the staged chunk of rows, in whole warps (the kernel's block is whole
     warps, each thread with its slice, so a block holds at least 32
     slices: the chunk shrinks until they fit), spread evenly over the
-    tiles; row blocks of whole chunks."""
+    tiles; row blocks of whole chunks (``rows_per_block`` as in
+    ``launch_shape``, rounded up to a whole chunk)."""
     slice_bytes = num_bins * 3 * _ACC_BYTES
 
     def staged(c):
@@ -126,18 +173,22 @@ def slots_launch_shape(n: int, num_features: int, num_bins: int,
     tiles = -(-pairs // max_pairs)
     per = -(-pairs // tiles)
     per = min(-(-per // 32) * 32, max_pairs)
-    rows = max(-(-n // _ROW_BLOCKS), _MIN_ROWS_PER_BLOCK)
-    return -(-rows // chunk) * chunk, per, chunk
+    rows = _auto_rows(n) if rows_per_block <= 0 else int(rows_per_block)
+    rows = -(-rows // chunk) * chunk
+    _check_partial(n, rows, num_slots, num_features, num_bins,
+                   rows_per_block)
+    return rows, per, chunk
 
 
 def int_launch_shape(n: int, num_features: int, num_bins: int,
-                     num_slots: Optional[int] = None
-                     ) -> Tuple[int, int, int]:
+                     num_slots: Optional[int] = None,
+                     rows_per_block: int = 0) -> Tuple[int, int, int]:
     """(rows_per_block, tile_f, tile_k) of the integer forms: a tile of
     ``tile_k`` slots (1 without slots) by ``tile_f`` features whose int32
     [tile_k, tile_f, B, 3] fits in shared memory, tiles balanced, and row
     blocks so that about ``_INT_BLOCKS`` blocks run in all, never under
-    1024 rows a block."""
+    1024 rows a block (``rows_per_block`` 0), or of ``rows_per_block``
+    rows rounded up to a whole warp's."""
     cap = _SMEM_BYTES // (num_bins * 3 * _INT_BYTES)
     if cap < 1:
         raise ValueError(f"num_bins={num_bins} is too large for one "
@@ -149,8 +200,27 @@ def int_launch_shape(n: int, num_features: int, num_bins: int,
         tile_f, tile_k = -(-f // -(-f // cap)), 1
     tile_k = -(-k // -(-k // tile_k))
     tiles = -(-f // tile_f) * -(-k // tile_k)
+    if rows_per_block > 0:
+        rows = -(-int(rows_per_block) // _WARP_ROWS) * _WARP_ROWS
+        _check_partial(n, rows, k, f, num_bins, rows_per_block)
+        return rows, tile_f, tile_k
     blocks = max(1, min(-(-_INT_BLOCKS // tiles), -(-n // 1024)))
     return -(-n // blocks), tile_f, tile_k
+
+
+def form_launch_shape(n: int, num_features: int, num_bins: int,
+                      num_slots: Optional[int], integer: bool,
+                      rows_per_block: int = 0) -> Tuple[int, int, int]:
+    """The launch shape of the dense form that ``compute_histogram`` takes
+    for these operands: B1 (``num_slots`` None, f32), B1-K (f32) or the
+    integer forms (the ``rows_per_block`` check of every launch)."""
+    if integer:
+        return int_launch_shape(n, num_features, num_bins, num_slots,
+                                rows_per_block)
+    if num_slots is None:
+        return launch_shape(n, num_features, num_bins, rows_per_block)
+    return slots_launch_shape(n, num_features, num_bins, int(num_slots),
+                              rows_per_block)
 
 
 def _check(binned: torch.Tensor, vals: torch.Tensor,
@@ -181,8 +251,8 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
                       slot: Optional[torch.Tensor] = None,
                       num_slots: Optional[int] = None,
                       active: Optional[torch.Tensor] = None,
-                      slots_used: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      slots_used: Optional[torch.Tensor] = None,
+                      rows_per_block: int = 0) -> torch.Tensor:
     """[F, num_bins, 3] f32 histogram of ``vals`` over ``binned`` (int32
     for int8/int16 ``vals``, exact); rows whose ``slot`` is negative add
     nothing (in the integer form, rows whose ``slot`` is not 0).  The strict grower passes
@@ -196,13 +266,21 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
     also needs ``slots_used``, a [1] int32 device count that promises no
     row's slot is at or past it (the super-step's valid count; a [1]
     tensor holding K for all slots): the kernel spreads the rows of the
-    slots in use over the threads of the others.  On k-hot
-    ``SparseBinned`` rows this is B8a (module docstring)."""
+    slots in use over the threads of the others.  ``rows_per_block``:
+    the rows of a row block on the card (0 = automatic; module
+    docstring).  On k-hot ``SparseBinned`` rows this is B8a (module
+    docstring), which keeps its own blocking."""
     if isinstance(binned, SparseBinned):
         return sparse_histogram(binned, vals, num_bins=num_bins, slot=slot,
                                 num_slots=num_slots, active=active,
                                 slots_used=slots_used)
     _check(binned, vals, slot, active)
+    integer = vals.dtype in INT_VALS
+    if rows_per_block > 0 and binned.device.type == "cpu":
+        # the cap of an explicit row block, which a launch shape checks
+        # on the card
+        form_launch_shape(binned.shape[0], binned.shape[1], num_bins,
+                          num_slots, integer, rows_per_block)
     if num_slots is not None:
         if slots_used is None or slots_used.shape != (1,) \
                 or slots_used.dtype != torch.int32 \
@@ -210,8 +288,8 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
             raise TypeError("the K-slot form needs slots_used, a [1] int32 "
                             "tensor on the binned matrix's device")
         return _histogram_slots(binned, vals, slot, int(num_slots),
-                                num_bins, active, slots_used)
-    integer = vals.dtype in INT_VALS
+                                num_bins, active, slots_used,
+                                rows_per_block)
     if binned.device.type == "cpu":
         plain = histogram_int_plain if integer else histogram_plain
         return plain(binned, vals, num_bins=num_bins, slot=slot,
@@ -223,13 +301,13 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
         raise ValueError("compute_histogram needs contiguous tensors")
     if integer:
         return _histogram_int(binned, vals, slot, 1, num_bins, active, None,
-                              "histogram_int")[0]
+                              "histogram_int", rows_per_block)[0]
     n, f = binned.shape
     out = torch.empty((f, num_bins, 3), dtype=torch.float32,
                       device=binned.device)
     if n == 0:
         return out.zero_()
-    rows, tile_f, subranges = launch_shape(n, f, num_bins)
+    rows, tile_f, subranges = launch_shape(n, f, num_bins, rows_per_block)
     nblocks = -(-n // rows)
     partial = torch.empty((nblocks, f, num_bins, 3), dtype=torch.float32,
                           device=binned.device)
@@ -251,15 +329,15 @@ def compute_histogram_members(binned: torch.Tensor,
                               num_slots: Optional[int] = None,
                               actives: Optional[Sequence[torch.Tensor]] = None,
                               slots_used: Optional[
-                                  Sequence[torch.Tensor]] = None
-                              ) -> torch.Tensor:
+                                  Sequence[torch.Tensor]] = None,
+                              rows_per_block: int = 0) -> torch.Tensor:
     """``compute_histogram`` of N members over one shared dense
     ``binned`` (B1-M; B1-K-M with ``num_slots``; B1-int-M and B1-K-int-M
     on int8/int16 vals): member j's pass takes ``vals[j]``, ``slots[j]``,
     ``actives[j]`` and ``slots_used[j]`` as the solo form takes them, and
     its result is row j of the [N, F, num_bins, 3] (or [N, K, F,
-    num_bins, 3]) output, bitwise the solo form's (unspecified where its
-    ``active`` is 0).  CUDA tensors launch the member form of
+    num_bins, 3]) output, bitwise the solo form's at the same
+    ``rows_per_block`` (unspecified where its ``active`` is 0).  CUDA tensors launch the member form of
     ``csrc/histogram.cu`` once for all members, CPU tensors run
     ``histogram_members_plain``."""
     if isinstance(binned, SparseBinned):
@@ -285,6 +363,13 @@ def compute_histogram_members(binned: torch.Tensor,
                 or slots_used[j].device != binned.device):
             raise TypeError("slots_used must be [1] int32 tensors on the "
                             "binned matrix's device")
+    n, f = binned.shape
+    integer = vals[0].dtype in INT_VALS
+    if rows_per_block > 0 and binned.device.type == "cpu":
+        # the cap of an explicit row block, which a launch shape checks
+        # on the card
+        form_launch_shape(n, f, num_bins, num_slots, integer,
+                          rows_per_block)
     if binned.device.type == "cpu":
         return histogram_members_plain(
             binned, vals, num_bins=num_bins, slots=slots,
@@ -295,8 +380,6 @@ def compute_histogram_members(binned: torch.Tensor,
             and (slots is None or all(s.is_contiguous() for s in slots))):
         raise ValueError("compute_histogram_members needs contiguous "
                          "tensors")
-    n, f = binned.shape
-    integer = vals[0].dtype in INT_VALS
     k = 1 if num_slots is None else int(num_slots)
     kdim = () if num_slots is None else (k,)
     dt = torch.int32 if integer else torch.float32
@@ -304,16 +387,15 @@ def compute_histogram_members(binned: torch.Tensor,
                       device=binned.device)
     if n == 0:
         return out.zero_()
+    rows, shape1, shape2 = form_launch_shape(n, f, num_bins, num_slots,
+                                             integer, rows_per_block)
     if integer:
         form, counter = 2, ("histogram_int_members" if num_slots is None
                             else "histogram_slots_int_members")
-        rows, shape1, shape2 = int_launch_shape(n, f, num_bins, num_slots)
     elif num_slots is None:
         form, counter = 0, "histogram_members"
-        rows, shape1, shape2 = launch_shape(n, f, num_bins)
     else:
         form, counter = 1, "histogram_slots_members"
-        rows, shape1, shape2 = slots_launch_shape(n, f, num_bins, k)
     partial = torch.empty((m, -(-n // rows)) + kdim + (f, num_bins, 3),
                           dtype=dt, device=binned.device)
     none = [None] * m
@@ -360,7 +442,8 @@ def _bits(vals: torch.Tensor) -> int:
 
 
 def _histogram_int(binned, vals, slot, num_slots: int, num_bins: int,
-                   active, slots_used, counter: str) -> torch.Tensor:
+                   active, slots_used, counter: str,
+                   rows_per_block: int = 0) -> torch.Tensor:
     """B1-int (``num_slots`` 1, ``slot`` None for every row) and B1-K-int
     on the card: [num_slots, F, num_bins, 3] int32."""
     n, f = binned.shape
@@ -368,7 +451,8 @@ def _histogram_int(binned, vals, slot, num_slots: int, num_bins: int,
                       device=binned.device)
     if n == 0:
         return out.zero_()
-    rows, tile_f, tile_k = int_launch_shape(n, f, num_bins, num_slots)
+    rows, tile_f, tile_k = int_launch_shape(n, f, num_bins, num_slots,
+                                            rows_per_block)
     partial = torch.empty((-(-n // rows), num_slots, f, num_bins, 3),
                           dtype=torch.int32, device=binned.device)
     err = _kernels.lib("histogram").lgbt_histogram_int(
@@ -384,7 +468,8 @@ def _histogram_int(binned, vals, slot, num_slots: int, num_bins: int,
 
 
 def _histogram_slots(binned, vals, slot, num_slots: int, num_bins: int,
-                     active, slots_used) -> torch.Tensor:
+                     active, slots_used,
+                     rows_per_block: int = 0) -> torch.Tensor:
     if slot is None or num_slots < 1:
         raise ValueError("the K-slot form needs slot and num_slots >= 1")
     integer = vals.dtype in INT_VALS
@@ -401,12 +486,14 @@ def _histogram_slots(binned, vals, slot, num_slots: int, num_bins: int,
     n, f = binned.shape
     if integer:
         return _histogram_int(binned, vals, slot, num_slots, num_bins,
-                              active, slots_used, "histogram_slots_int")
+                              active, slots_used, "histogram_slots_int",
+                              rows_per_block)
     out = torch.empty((num_slots, f, num_bins, 3), dtype=torch.float32,
                       device=binned.device)
     if n == 0:
         return out.zero_()
-    rows, pairs, chunk = slots_launch_shape(n, f, num_bins, num_slots)
+    rows, pairs, chunk = slots_launch_shape(n, f, num_bins, num_slots,
+                                            rows_per_block)
     nblocks = -(-n // rows)
     partial = torch.empty((nblocks, num_slots, f, num_bins, 3),
                           dtype=torch.float32, device=binned.device)

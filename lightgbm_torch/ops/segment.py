@@ -10,7 +10,12 @@ each jitted shape is static; these take the segment's true count.
 
 - ``segment_histogram`` (B11a): the [F, B, 3] histogram of the segment's
   rows, f32 in an order fixed by the count and the shapes, or exact int32
-  on int8/int16 vals (quantized training);
+  on int8/int16 vals (quantized training).  Its launch is B1's over the
+  segment's count, so ``rows_per_block`` (the JAX package's ``block_rows``,
+  which its ``_hist_segment`` hands to ``compute_histogram``) is B1's
+  knob: the rows of one row block of the segment, rounded up as B1 and
+  B1-int round it (``histogram.launch_shape``, ``int_launch_shape``), 0
+  the automatic shape;
 - ``partition_segment`` (B11b): the stable in-place partition of a
   segment by a split (left rows first, each side in its former order);
   returns the left count as a [1] int32 device tensor, which the grower
@@ -30,8 +35,8 @@ from typing import Optional
 import torch
 
 from .. import _kernels
-from .histogram import (INT_VALS, histogram_int_plain, histogram_plain,
-                        int_launch_shape, launch_shape)
+from .histogram import (INT_VALS, form_launch_shape, histogram_int_plain,
+                        histogram_plain, int_launch_shape, launch_shape)
 
 
 def _check_order(order: torch.Tensor, n: int, begin: int,
@@ -58,11 +63,14 @@ def _device(*ts) -> str:
 
 def segment_histogram(binned: torch.Tensor, vals: torch.Tensor,
                       order: torch.Tensor, begin: int, count: int, *,
-                      num_bins: int) -> torch.Tensor:
+                      num_bins: int,
+                      rows_per_block: int = 0) -> torch.Tensor:
     """B11a: the [F, num_bins, 3] histogram of the rows
     ``order[begin:begin + count]`` of ``binned`` [N, F] uint8 (the EFB
     groups on a bundled matrix) with ``vals`` [N, 3]: f32 for f32 vals,
-    exact int32 for int8/int16 vals.  Bins >= num_bins add nothing."""
+    exact int32 for int8/int16 vals.  Bins >= num_bins add nothing.
+    ``rows_per_block``: the rows of a row block on the card (0 =
+    automatic; module docstring)."""
     if binned.dim() != 2 or binned.dtype != torch.uint8:
         raise TypeError("binned must be a [N, F] uint8 tensor")
     n, f = binned.shape
@@ -73,6 +81,11 @@ def segment_histogram(binned: torch.Tensor, vals: torch.Tensor,
     _check_order(order, n, begin, count)
     integer = vals.dtype in INT_VALS
     if _device(binned, vals, order) == "cpu":
+        if rows_per_block > 0:
+            # the cap of an explicit row block, which a launch shape
+            # checks on the card
+            form_launch_shape(count, f, num_bins, None, integer,
+                              rows_per_block)
         return segment_histogram_plain(binned, vals, order, begin, count,
                                        num_bins=num_bins)
     dev = binned.device
@@ -84,7 +97,8 @@ def segment_histogram(binned: torch.Tensor, vals: torch.Tensor,
     lib = _kernels.lib("segment")
     stream = _kernels.stream_ptr(dev)
     if integer:
-        rows, tile_f, _ = int_launch_shape(count, f, num_bins)
+        rows, tile_f, _ = int_launch_shape(count, f, num_bins,
+                                           rows_per_block=rows_per_block)
         partial = torch.empty((-(-count // rows), f, num_bins, 3),
                               dtype=torch.int32, device=dev)
         err = lib.lgbt_segment_histogram_int(
@@ -94,7 +108,8 @@ def segment_histogram(binned: torch.Tensor, vals: torch.Tensor,
             out.data_ptr(), stream)
         _kernels.launched("segment_histogram_int", err)
         return out
-    rows, tile_f, subranges = launch_shape(count, f, num_bins)
+    rows, tile_f, subranges = launch_shape(count, f, num_bins,
+                                           rows_per_block)
     partial = torch.empty((-(-count // rows), f, num_bins, 3),
                           dtype=torch.float32, device=dev)
     err = lib.lgbt_segment_histogram(

@@ -92,6 +92,14 @@ def traversal_steps(max_depth: int, leaf_budget: int) -> int:
     return round_up_pow2(max(cap, 1))
 
 
+def padded_bins(num_bins: int) -> int:
+    """The JAX package's padded bin axis (its ``obs/flops.py``
+    ``padded_bins``: a multiple of 64, at least 64), copied for the
+    autotuner's table key (``ops/hist_tune.shape_key``), so both packages
+    key a shape alike."""
+    return max(64, -(-int(num_bins) // 64) * 64)
+
+
 def snap_split_batch(k: int) -> int:
     """Nearest width of ``SPLIT_BATCH_SET`` at or above the request
     (capped at the largest); 0 and 1 pass through."""

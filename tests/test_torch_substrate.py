@@ -174,7 +174,7 @@ _PARTITIONED = ("monotone_constraints_method", "forcedsplits_filename",
     ({"forcedsplits_filename": "splits.json",
       "monotone_constraints": [1, 0, 0, 0]}, "A11"),
     ({"finite_check_freq": 2}, "A12"),
-    ({"hist_tune": "on"}, "A17"),
+    ({"telemetry": True}, "A15"),
     ({"integrity_check_freq": 2, "integrity_policy": "rewind"}, "A12"),
     ({"snapshot_freq": 5}, "A12"),
 ])
