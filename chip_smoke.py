@@ -122,7 +122,7 @@ Phases, one JSON line each:
    one-column call) and B12c within POINTWISE_RTOL (random scores,
    saturated rows, zero weights; NaN for a label outside [0, K)), each
    timed beside ``cross_entropy``; multiclass_train (softmax, 31 leaves,
-   50 rounds), multiclassova_train (20 rounds) and multiclass_wide (255
+   20 rounds), multiclassova_train (20 rounds) and multiclass_wide (255
    leaves, bagging and feature_fraction, 10 rounds) on the per-iteration
    loop: launches held to K x MC_PER_TREE (MC_WIDE_PER_TREE) plus K
    walks an iteration, one tree fetch and one eval fetch an iteration,
@@ -312,6 +312,29 @@ Phases, one JSON line each:
    named) under ``raise`` and ``quarantine`` (the card marked); and the
    255-leaf ``quant_train`` configuration checked the same way at
    CUT_ROUNDS;
+   dist_kernels (after integrity_kernels): B16a (the best-split
+   select, at S = 2, 4 and 8 ranks and 2 and 2K = 32 children, numerical
+   and categorical records, the owner plan and the offset form) and
+   B16c (the vote's top 2k and the masked histogram, f32 and int32) bit
+   for bit against their plain versions on the card, B16b (the local
+   gains and vote, f32 and a dequantized int32 histogram) within
+   VOTE_RTOL with equal votes, at the HIGGS shape (28 features, 63
+   bins), each timed beside its bound and library call;
+   dist_nccl1 (after integrity_train): a one-rank NCCL process group
+   running every operation of the port's communicator on card tensors
+   (reduce-scatter, all-gather, SUM and MAX all-reduce; f32 and int32);
+   dist_train: ``distributed.run`` spawns DIST_RANKS ranks that share the
+   card over gloo (the communicator stages each operation through pinned
+   host buffers, and the line names them) on the 1M x 28 rows split
+   500k/500k, every rank evaluating the full valid set: DIST_CELLS
+   (owner-shard data-parallel, full-reduce, batched K = 16 at 255 leaves,
+   quant_train under data, voting with top_k DIST_TOP_K, feature); every
+   rank's model text equal, the owner run's first tree's integer arrays
+   equal to the serial per-iteration run's and its valid AUC within
+   DIST_AUC_ATOL, the quant run's trees equal to the serial quant run's,
+   B16a-c launched on every step of the fixed step sequence
+   (``dist_per_iteration``); ms an iteration per rank, collective ms and
+   bytes by CommLedger site;
    objectives_train (after multiclass_serve): each of the ten pointwise
    objectives on the HIGGS-shaped rows with a label in its domain, every
    path the JAX package allows with equal model text, the engine route's
@@ -431,6 +454,9 @@ SHADOW_COUNTED = ("histogram", "split", "split_cat", "partition",
 PER_ITERATION.update({"invariant_flags": 0, "score_recheck": 0,
                       "totals_residual": 0,
                       **{"shadow:" + k: 0 for k in SHADOW_COUNTED}})
+# the distributed learners' kernels (B16a-c): none on a serial iteration
+PER_ITERATION.update({"gather_best": 0, "vote_gains": 0,
+                      "vote_select": 0})
 # the kernels the grower launches (the bagging and GOSS draws run before
 # it, the member forms in the fleet's lockstep grower): the shadow grower
 # launches each of them as often as the primary one
@@ -499,7 +525,7 @@ CAT_STRICT_PER_ITERATION = {**PER_ITERATION, "split_cat": NUM_LEAVES}
 COVTYPE_ROWS, COVTYPE_AREAS, COVTYPE_SOILS = 581_012, 4, 40
 COVTYPE_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
 MC_CLASSES, MC_MAX_BIN, MC_ROUNDS, MC_OVA_ROUNDS, MC_WIDE_ROUNDS = \
-    7, 255, 50, 20, 10
+    7, 255, 20, 20, 10
 # rounds of the traced multiclass run (the tracer's post-processing
 # grows with the launches it saw)
 MC_PROFILE_ROUNDS = 5
@@ -579,7 +605,11 @@ RANK_MAX_BIN = 255
 RANK_PARAMS = {"objective": "lambdarank", "num_leaves": WIDE_LEAVES,
                "learning_rate": 0.1, "max_bin": RANK_MAX_BIN,
                "metric": "ndcg", "eval_at": [1, 3, 5, 10], "verbosity": -1}
-RANK_ROUNDS, XENDCG_ROUNDS, RANK_PROFILE_ROUNDS = 20, 10, 5
+# (RANK_ROUNDS cut from 20, XENDCG_ROUNDS from 10, MC_ROUNDS from 50 and
+# OBJ_ROUNDS from 10, and the wide, extra, constraint and unbundled EFB
+# runs to CUT_ROUNDS, when the distributed phases came, to keep the
+# script well inside its limit on a slow host)
+RANK_ROUNDS, XENDCG_ROUNDS, RANK_PROFILE_ROUNDS = 10, 5, 5
 # B13 against its plain version: f32 sums of the same pair terms in
 # another order, g and h within this share of each query's largest |g|
 # (|h|)
@@ -600,7 +630,7 @@ RANK_PER_ITERATION = {**WIDE_PER_ITERATION, "bag_vals": 0, "auc": 0,
 OBJECTIVES_FUSABLE = ("huber", "fair", "poisson", "gamma", "tweedie",
                       "cross_entropy", "cross_entropy_lambda")
 OBJECTIVES_RENEWING = ("regression_l1", "quantile", "mape")
-OBJ_ROUNDS = 10
+OBJ_ROUNDS = 5
 OBJ_PARAMS = {"num_leaves": NUM_LEAVES, "max_bin": MAX_BIN,
               "learning_rate": 0.1, "verbosity": -1}
 # the quantized cells (quant_train=true, int8 stochastic rounding): the
@@ -882,6 +912,31 @@ RPB_VALUES = (2048, 16384)
 HIST_TUNE_PARAMS = {**WIDE_PARAMS, "hist_tune": "on"}
 # every library's build seconds (phase_environment)
 BUILD_S = {}
+
+
+# distributed training (dist_kernels, dist_nccl1, dist_train): B16a
+# (the best-split select), B16b (the local vote) and B16c (the global
+# vote's mask), counted on the owner-shard and voting cells; the cells'
+# (name, parameters, rounds) on DIST_RANKS ranks sharing the card; B16b's
+# gains within VOTE_RTOL of its plain version (votes equal); the owner
+# run's valid AUC within DIST_AUC_ATOL of the serial run's
+DIST_KERNELS = ("gather_best", "vote_gains", "vote_select")
+KERNEL_ORDER = KERNEL_ORDER + DIST_KERNELS
+KERNEL_PATH.update({"gather_best": "dist_owner_train",
+                    "vote_gains": "dist_voting_train",
+                    "vote_select": "dist_voting_train"})
+DIST_RANKS, DIST_TOP_K = 2, 4
+DIST_SHAPES = (2, 4, 8)
+DIST_CELLS = (
+    ("owner", {"tree_learner": "data"}, 20),
+    ("full", {"tree_learner": "data", "dp_owner_shard": False}, 5),
+    ("batched", {"tree_learner": "data", "num_leaves": WIDE_LEAVES}, 5),
+    ("quant", {"tree_learner": "data", **QUANT}, 10),
+    ("voting", {"tree_learner": "voting", "top_k": DIST_TOP_K}, 10),
+    ("feature", {"tree_learner": "feature"}, 10),
+)
+VOTE_RTOL = 1e-6
+DIST_AUC_ATOL = 1e-3
 
 
 def fleet_per_iteration(leaves, K: int, bagging: bool, quant: bool,
@@ -3549,7 +3604,8 @@ def phase_efb_train(torch, lgt, lgt_kernels, train, valid, xv, train_u,
                 exact["bundled"].predict(xv), exact["unbundled"].predict(xv)):
             raise AssertionError("on exact gradients the bundled and "
                                  "unbundled runs wrote other trees")
-        bu, _, secs_u = train_main(lgt, train_u, valid_u, extra=EFB_PARAMS)
+        bu, _, secs_u = train_main(lgt, train_u, valid_u, extra=EFB_PARAMS,
+                                   rounds=CUT_ROUNDS)
         mu = bu._model
         if mu.efb_dev is not None:
             raise AssertionError("the unbundled run bundled")
@@ -3599,7 +3655,7 @@ def phase_efb_train(torch, lgt, lgt_kernels, train, valid, xv, train_u,
                 "b1_root_pass_ms": bins}
     counts = phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
                                  "efb", EFB_PARAMS, EFB_PER_ITERATION,
-                                 after=after)[0]
+                                 after=after, rounds=CUT_ROUNDS)[0]
     counts.update(phase_sampled_train(
         torch, lgt, lgt_kernels, train, valid, xv, "efb_wide",
         EFB_WIDE_PARAMS, EFB_WIDE_PER_ITERATION,
@@ -7578,6 +7634,34 @@ def phase_fleet_train(torch, lgt, lgt_kernels, train, valid, name: str,
     steady = fr.epoch_ms[1:] if len(fr.epoch_ms) > 1 else fr.epoch_ms
     fleet_it_ms = statistics.median(steady) / base_k
     solo_it_ms = sum(solo_ms) / base_k
+    # B14's fleet form against its bound: every member's iteration_bound
+    # over its own trees, summed, less the shared reads of the root pass
+    # and the valid walk (the matrices once for all members); and against
+    # its plain version, the fleet body run eagerly (fleet_train only)
+    nbytes, bounds = 0.0, []
+    for m in ms:
+        b_ms, b_by, b_bytes = iteration_bound(
+            m.models, N_TRAIN, N_FEAT, int(train.max_bin),
+            m.config.num_leaves, N_VALID,
+            super_steps=m.step_counts if K > 1 else None)
+        nbytes += b_bytes
+        bounds.append((b_ms, b_by))
+    nbytes -= (M - 1) * (N_TRAIN + N_VALID) * N_FEAT
+    fleet_bound = bound_ms(nbytes, 0)
+    if any(by == "operations" for _, by in bounds):
+        fleet_bound = max(fleet_bound, (sum(b for b, _ in bounds),
+                                        "operations"))
+    plain_ms = None
+    if name == FLEET_CELLS[0][0]:
+        eager_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prog.run(1, [0] * M, [m._feature_masks(1) for m in ms],
+                     [m.it_global for m in ms], eager=True)
+            torch.cuda.synchronize()
+            eager_ms.append(1e3 * (time.perf_counter() - t1))
+        plain_ms = statistics.median(eager_ms)
     emit({"phase": name, "members": M, "leaves": leaves,
           "split_batch": K, "rounds": rounds, "k": base_k,
           "epochs": fr.epochs, "seconds": secs,
@@ -7596,7 +7680,11 @@ def phase_fleet_train(torch, lgt, lgt_kernels, train, valid, name: str,
           "epoch_ms": fr.epoch_ms, "fleet_ms_per_iteration": fleet_it_ms,
           "solo_ms_per_iteration_summed": solo_it_ms,
           "solo_ms_per_iteration": [t / base_k for t in solo_ms],
-          "models_equal_solo": texts_equal})
+          "models_equal_solo": texts_equal,
+          "fleet_bound_ms_per_iteration": fleet_bound[0],
+          "fleet_bound_by": fleet_bound[1],
+          "fleet_bound_bytes_per_iteration": nbytes,
+          "fleet_plain_ms_per_iteration": plain_ms})
     return {name: device}
 
 
@@ -8599,6 +8687,353 @@ def phase_hist_tune_train(torch, lgt, lgt_kernels, train, valid, wide_ms):
     return {"hist_tune_train": counts, "hist_tune_twin": twin_counts}, line
 
 
+def _dist_records(torch, S, C, fmax, B, seed, dev):
+    """S ranks' best-split records of C children on the card: gains with
+    cross-rank ties and an all -inf child, local slots, categorical flags
+    and rank rows (B16a's inputs)."""
+    from lightgbm_torch.ops import split as sp
+    rs = np.random.RandomState(seed)
+    rec = rs.uniform(-5, 5, (S, C, sp.RECORD)).astype(np.float32)
+    rec[..., sp.GAIN] = rs.uniform(0.5, 2.0, (S, C))
+    rec[:, 0, sp.GAIN] = 1.75
+    rec[1::2, min(1, C - 1), sp.GAIN] = 3.0
+    rec[:, C - 1, sp.GAIN] = -np.inf
+    rec[..., sp.FEATURE] = rs.randint(0, fmax, (S, C))
+    cat = (rs.rand(S, C) < 0.3).astype(np.int32)
+    rank = np.stack([[rs.permutation(B) for _ in range(C)]
+                     for _ in range(S)]).astype(np.int32)
+    return tuple(torch.as_tensor(a).to(dev) for a in (rec, cat, rank))
+
+
+def phase_dist_kernels(torch, lgt, train):
+    """B16a, B16b and B16c against their plain versions on the card at the
+    HIGGS shape (module docstring), each timed beside its bound and
+    library call.  Returns the kernels-line rows."""
+    from lightgbm_torch.ops import split as sp
+    from lightgbm_torch.ops import vote as vt
+    from lightgbm_torch.ops.histogram import compute_histogram
+    from lightgbm_torch.ops.quantize import (QuantSpec, quant_scales,
+                                             quantize_stack)
+    from lightgbm_torch.parallel.mesh import owner_shard_plan
+    dev = torch.device("cuda", 0)
+    F, B = N_FEAT, int(train.max_bin)
+    out, cases = {}, []
+    # B16a: every S, 2 and 2K children, categorical and numerical records,
+    # the owner plan (S = 8: the last rank owns only pad slots) and the
+    # offset form
+    row16a = None
+    for S in DIST_SHAPES:
+        plan = owner_shard_plan(np.arange(F), S)
+        sf = torch.as_tensor(plan.shard_feat).to(dev)
+        for C in (2, 2 * WIDE_K):
+            rec, cat, rank = _dist_records(torch, S, C, plan.fmax, B,
+                                           S * 100 + C, dev)
+            for form in ("owner", "offset"):
+                kw = {"shard_feat": sf} if form == "owner" \
+                    else {"f_local": -(-F // S)}
+                for with_cat in (True, False):
+                    args = (rec, cat, rank) if with_cat else (rec,)
+                    k = sp.gather_best(*args, **kw)
+                    p = sp.gather_best_plain(*args, **kw)
+                    k, p = (k, p) if with_cat else ((k,), (p,))
+                    if not all(torch.equal(a, b) for a, b in zip(k, p)):
+                        raise AssertionError(
+                            f"B16a differs from its plain version (S {S}, "
+                            f"C {C}, {form}, categorical {with_cat})")
+                    cases.append([S, C, form, with_cat])
+            if S == DIST_RANKS and C == 2:
+                args = (rec, cat, rank)
+                t_k = median_ms(torch, lambda: sp.gather_best(
+                    *args, shard_feat=sf))
+                t_p = median_ms(torch, lambda: sp.gather_best_plain(
+                    *args, shard_feat=sf))
+                nbytes = 4 * (S * C * (sp.RECORD + 1 + B) + sf.numel()
+                              + C * (sp.RECORD + 1 + B))
+                row16a = _kernel_row(
+                    "gather_best", "B16a best-split select",
+                    "lightgbm_torch/csrc/dist.cu",
+                    "lightgbm_tpu/ops/split.py:105", 0.0, 0.0, t_k, t_p,
+                    bound_ms(nbytes, 0), None, S=S, children=C,
+                    cases=len(cases) + 1)
+    out["gather_best"] = row16a
+    # B16b and B16c on a rank's histograms of the HIGGS rows (the first
+    # half: one of DIST_RANKS ranks), f32 and the int8 pass's int32
+    half = N_TRAIN // DIST_RANKS
+    binned = torch.as_tensor(train.binned[:half]).to(dev)
+    y = torch.as_tensor(train.metadata.label[:half]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    prob = torch.sigmoid(torch.randn(half, device=dev, generator=gen))
+    vals = torch.stack([prob - y, prob * (1 - prob), torch.ones_like(y)],
+                       dim=1)
+    h32 = compute_histogram(binned, vals, num_bins=B)
+    spec = QuantSpec(bits=8, stochastic=True, seed=0)
+    scales = quant_scales(vals, spec.qmax)
+    hint = compute_histogram(binned, quantize_stack(vals, scales, spec),
+                             num_bins=B)
+    params = sp.SplitParams(lambda_l1=0.5, lambda_l2=1.0)
+    err16b = 0.0
+    for h, sc in ((h32, None), (hint, scales)):
+        vk, gk = vt.vote_gains(h, params, DIST_RANKS, DIST_TOP_K, sc)
+        vp, gp = vt.vote_gains_plain(h, params, DIST_RANKS, DIST_TOP_K, sc)
+        e = float((gk - gp).abs().max())
+        if not torch.equal(vk, vp) or e > VOTE_RTOL * max(
+                1.0, float(gp.abs().max())):
+            raise AssertionError(f"B16b differs from its plain version "
+                                 f"(votes equal {torch.equal(vk, vp)}, "
+                                 f"gain err {e})")
+        err16b = max(err16b, e)
+    t_k = median_ms(torch, lambda: vt.vote_gains(h32, params, DIST_RANKS,
+                                                 DIST_TOP_K))
+    t_p = median_ms(torch, lambda: vt.vote_gains_plain(
+        h32, params, DIST_RANKS, DIST_TOP_K), reps=10, warmup=2)
+    ops = F * B * 16.0
+    out["vote_gains"] = _kernel_row(
+        "vote_gains", "B16b local vote", "lightgbm_torch/csrc/vote.cu",
+        "lightgbm_tpu/parallel/voting_parallel.py:55", err16b, 0.0, t_k,
+        t_p, bound_ms(4 * (F * B * 3 + 2 * F), ops), None,
+        features=F, bins=B, top_k=DIST_TOP_K)
+    # B16c on the all-reduced pair of two ranks' votes and gains
+    k2 = 2 * DIST_TOP_K
+    votes = vk * 2
+    gsum = gk * 2
+    for h in (h32, hint):
+        a = vt.vote_select(votes, gsum, h.clone(), k2)
+        b = vt.vote_select_plain(votes, gsum, h.clone(), k2)
+        if not torch.equal(a, b):
+            raise AssertionError("B16c differs from its plain version")
+    hk = h32.clone()
+    t_k = median_ms(torch, lambda: vt.vote_select(votes, gsum, hk, k2))
+    hp = h32.clone()
+    t_p = median_ms(torch, lambda: vt.vote_select_plain(votes, gsum, hp,
+                                                        k2))
+    score = vt.vote_score(votes, gsum)
+    t_lib = median_ms(torch, lambda: torch.topk(score, k2))
+    out["vote_select"] = _kernel_row(
+        "vote_select", "B16c global vote mask", "lightgbm_torch/csrc/vote.cu",
+        "lightgbm_tpu/parallel/voting_parallel.py:137", 0.0, 0.0, t_k, t_p,
+        bound_ms(4 * (2 * F + (F - k2) * B * 3), 0), t_lib,
+        features=F, bins=B, k2=k2)
+    # the owner-shard learner's rank-major layout of a K-slot pass: one
+    # strided copy of each rank's feature chunk (OwnerShardHooks.reduce)
+    copy_ms = {}
+    for K in (WIDE_K, 64):
+        hk = torch.randn((K, F, B, 3), device=dev)
+        chunk = -(-F // DIST_RANKS)
+        major = torch.zeros((DIST_RANKS, K, chunk, B, 3), device=dev)
+
+        def lay():
+            for r in range(DIST_RANKS):
+                f0, f1 = r * chunk, min(F, (r + 1) * chunk)
+                major[r, :, :f1 - f0].copy_(hk[:, f0:f1])
+        copy_ms[K] = median_ms(torch, lay)
+    emit({"phase": "dist_kernels", "b16a_cases": cases,
+          "b16b_max_abs_err": err16b, "rank_major_copy_ms": copy_ms,
+          "rows": {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms",
+                                            "library_ms")}
+                   for k, v in out.items()}})
+    return out
+
+
+def phase_dist_nccl1(torch):
+    """A one-rank NCCL process group: every communicator operation on card
+    tensors (f32 and int32), each result held to its input (one rank),
+    with its milliseconds; nothing staged."""
+    import socket
+    import torch.distributed as dist
+    from lightgbm_torch.obs.comm import CommLedger
+    from lightgbm_torch.parallel.mesh import ProcessMesh
+    dev = torch.device("cuda", 0)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = ProcessMesh(None, "data", dev)
+        mesh.timed = True
+        led = CommLedger(1)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for dt in (torch.float32, torch.int32):
+            t = (torch.randn((N_FEAT, MAX_BIN, 3), device=dev,
+                             generator=gen) * 100).to(dt)
+            name = str(dt).split(".")[-1]
+            checks = {
+                "reduce_scatter": mesh.reduce_scatter(
+                    t, ledger=led, site=f"reduce_scatter_{name}"),
+                "all_gather": mesh.all_gather(
+                    t, ledger=led, site=f"all_gather_{name}")[0],
+                "all_reduce_sum": mesh.all_reduce(
+                    t.clone(), "sum", ledger=led,
+                    site=f"all_reduce_sum_{name}"),
+                "all_reduce_max": mesh.all_reduce(
+                    t.clone(), "max", ledger=led,
+                    site=f"all_reduce_max_{name}")}
+            torch.cuda.synchronize()
+            for op, r in checks.items():
+                if not torch.equal(r, t):
+                    raise AssertionError(f"one-rank NCCL {op} ({name}) "
+                                         "changed its tensor")
+        if mesh.backend != "nccl" or mesh.staged:
+            raise AssertionError(f"backend {mesh.backend}, staged "
+                                 f"{mesh.staged}")
+        emit({"phase": "dist_nccl1", "backend": mesh.backend,
+              "calls": led.calls, "bytes": led.bytes, "ms": led.ms,
+              "staged": mesh.staged})
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_per_iteration(name: str, params: dict) -> dict:
+    """B16a-c launches of one iteration of a DIST_CELLS cell: the grower's
+    fixed step sequence (the root pass and L - 1 steps or super-steps,
+    dead ones included); voting builds both children, so B16b and B16c
+    run on the root and twice a step."""
+    L = params.get("num_leaves", NUM_LEAVES)
+    learner = params["tree_learner"]
+    owner = params.get("dp_owner_shard", True)
+    return {"gather_best": L if learner == "feature"
+            or (learner == "data" and owner) else 0,
+            "vote_gains": 1 + 2 * (L - 1) if learner == "voting" else 0,
+            "vote_select": 1 + 2 * (L - 1) if learner == "voting" else 0}
+
+
+def dist_worker(ctx, args):
+    """One rank of dist_train (spawned by ``distributed.run``): every
+    DIST_CELLS cell on this rank's half of the HIGGS rows (every row
+    under feature-parallel) with the full valid set, the collectives
+    timed; returns each cell's model text, valid AUCs, ms an iteration,
+    B16a-c launches, ledger and staged operations."""
+    import torch
+    import lightgbm_torch as lgt
+    from lightgbm_torch import _kernels
+
+    x, y = make_higgs_like(N_TRAIN, N_FEAT, seed=0)
+    xv, yv = make_higgs_like(N_VALID, N_FEAT, seed=1)
+    idx = np.array_split(np.arange(N_TRAIN), ctx.num_workers)[ctx.rank]
+    out = {}
+    for name, extra, rounds in DIST_CELLS:
+        p = {**args["base"], **extra}
+        rows = slice(None) if extra["tree_learner"] == "feature" else idx
+        ds = lgt.Dataset(x[rows], label=y[rows], params=p,
+                         bin_mappers=args["mappers"])
+        vs = lgt.Dataset(xv, label=yv, params=p, reference=ds)
+        ev, stamps = {}, []
+
+        def timed(env):
+            env.model._model.mesh.timed = True
+        timed.before_iteration = True
+
+        def stamp(env):
+            stamps.append(time.perf_counter())
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = lgt.train(p, ds, rounds, valid_sets=[vs],
+                        callbacks=[timed, stamp, lgt.record_evaluation(ev)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _kernels.launch_counts()
+        m = bst._model
+        led = m.dist_grower.comm
+        gaps = np.diff([t0] + stamps) * 1e3
+        out[name] = {
+            "text": bst.model_to_string(), "auc": ev["valid_0"]["auc"],
+            "iterations": m.num_iterations_trained, "seconds": secs,
+            "ms_per_iteration": float(np.median(gaps[1:])),
+            "first_iteration_ms": float(gaps[0]),
+            "launches": {k: launches[k] for k in DIST_KERNELS},
+            "all_launches": {k: v for k, v in launches.items() if v},
+            "sites": {s.site: {"collective": s.collective,
+                               "payload_bytes": s.payload_bytes,
+                               "calls": led.calls[s.site],
+                               "bytes": led.bytes[s.site],
+                               "ms": led.ms.get(s.site, 0.0)}
+                      for s in led.sites()},
+            "staged": dict(m.mesh.staged), "backend": m.mesh.backend}
+    return out
+
+
+def phase_dist_train(torch, lgt, lgt_kernels, train, valid):
+    """dist_train (module docstring).  Returns the launches of the owner
+    and voting cells (rank 0), for the kernels line."""
+    from lightgbm_torch import distributed
+    base = {"objective": "binary", "num_leaves": NUM_LEAVES,
+            "max_bin": MAX_BIN, "learning_rate": 0.1, "metric": "auc",
+            "verbosity": -1}
+    t0 = time.perf_counter()
+    res = distributed.run("chip_smoke:dist_worker", DIST_RANKS,
+                          backend="gloo",
+                          args={"base": base, "mappers": train.bin_mappers},
+                          timeout=900)
+    spawn_s = time.perf_counter() - t0
+    # the serial per-iteration twins of the owner and quant cells
+    serial = {}
+    for name in ("owner", "quant"):
+        _, extra, rounds = next(c for c in DIST_CELLS if c[0] == name)
+        extra = {k: v for k, v in extra.items() if k != "tree_learner"}
+        ev = {}
+        bst = lgt.train({**base, **extra, "superepoch": -1,
+                         "fused_chunk": 1}, train, rounds,
+                        valid_sets=[valid],
+                        callbacks=[lgt.record_evaluation(ev)])
+        serial[name] = (bst.model_to_string(), ev["valid_0"]["auc"])
+    cells = {}
+    for name, extra, rounds in DIST_CELLS:
+        r0 = res[0][name]
+        if any(r[name]["text"] != r0["text"] for r in res):
+            raise AssertionError(f"dist_train {name}: the ranks' model "
+                                 "texts differ")
+        n = r0["iterations"]
+        want = times(dist_per_iteration(name, {**base, **extra}), n)
+        for r in res:
+            if r[name]["launches"] != want:
+                raise AssertionError(
+                    f"dist_train {name}: B16 launches "
+                    f"{r[name]['launches']} for {n} iterations, expected "
+                    f"{want}")
+        cells[name] = {
+            "iterations": n,
+            "ms_per_iteration_by_rank": [r[name]["ms_per_iteration"]
+                                         for r in res],
+            "first_iteration_ms_by_rank": [r[name]["first_iteration_ms"]
+                                           for r in res],
+            "valid_auc": r0["auc"][-1], "b16_launches": r0["launches"],
+            "sites_rank0": r0["sites"], "staged_rank0": r0["staged"],
+            "backend": r0["backend"]}
+    # the owner run's first tree: the serial run's integer arrays
+    st, sauc = serial["owner"]
+    dt = res[0]["owner"]["text"]
+    ints = ("split_feature=", "threshold=", "decision_type=",
+            "left_child=", "right_child=", "leaf_count=", "internal_count=")
+
+    def first_tree(text):
+        tree = text.split("Tree=")[1]
+        return [ln for ln in tree.splitlines() if ln.startswith(ints)]
+    if first_tree(dt) != first_tree(st):
+        raise AssertionError("dist_train owner: the first tree's integer "
+                             "arrays differ from the serial run's")
+    auc_gap = abs(res[0]["owner"]["auc"][-1] - sauc[-1])
+    if auc_gap > DIST_AUC_ATOL:
+        raise AssertionError(f"dist_train owner: valid AUC "
+                             f"{res[0]['owner']['auc'][-1]} against the "
+                             f"serial {sauc[-1]}")
+    qd = without_path_params(res[0]["quant"]["text"], "[tree_learner:")
+    qs = without_path_params(serial["quant"][0], "[tree_learner:")
+    if qd != qs:
+        raise AssertionError("dist_train quant: the model text differs "
+                             "from the serial quant run's")
+    emit({"phase": "dist_train", "ranks": DIST_RANKS,
+          "rows_by_rank": [int(len(a)) for a in np.array_split(
+              np.arange(N_TRAIN), DIST_RANKS)],
+          "seconds": spawn_s, "cells": cells,
+          "owner_first_tree_equal_serial": True,
+          "owner_auc_gap": auc_gap, "quant_text_equal_serial": True,
+          "serial_owner_auc": sauc[-1]})
+    return ({"dist_owner_train": res[0]["owner"]["all_launches"],
+             "dist_voting_train": res[0]["voting"]["all_launches"]})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8630,6 +9065,7 @@ def main() -> int:
     integrity_rows, oracle_counts = phase_integrity_kernels(
         torch, lgt, lgt_kernels, train)
     kernels.update(integrity_rows)
+    kernels.update(phase_dist_kernels(torch, lgt, train))
     bst, ev, counts, epoch_ms_per_it = phase_main_path(
         torch, lgt, lgt_kernels, train, valid)
     eager_ms_per_it, per_it_counts = phase_per_iteration(
@@ -8650,7 +9086,8 @@ def main() -> int:
     phase_profile(torch, lgt, train, valid)
     wide_counts, wide_ms, wide_eager_ms, (wb_ms, wb_by, wb_bytes) = \
         phase_sampled_train(torch, lgt, lgt_kernels, train, valid, xv,
-                            "wide", WIDE_PARAMS, WIDE_PER_ITERATION, dead_ms)
+                            "wide", WIDE_PARAMS, WIDE_PER_ITERATION, dead_ms,
+                            rounds=CUT_ROUNDS)
     emit({"phase": "wide_loop", "ms_per_iteration": wide_ms,
           "plain_ms_per_iteration": wide_eager_ms,
           "bound_ms_per_iteration": wb_ms, "bound_by": wb_by,
@@ -8661,7 +9098,7 @@ def main() -> int:
         torch, lgt, lgt_kernels, train, valid, wide_ms)[0])
     for prefix, params, per_it, rounds in (
             ("goss", GOSS_PARAMS, GOSS_PER_ITERATION, CUT_ROUNDS),
-            ("extra", EXTRA_PARAMS, EXTRA_PER_ITERATION, ROUNDS)):
+            ("extra", EXTRA_PARAMS, EXTRA_PER_ITERATION, CUT_ROUNDS)):
         sampled_counts.update(phase_sampled_train(
             torch, lgt, lgt_kernels, train, valid, xv, prefix, params,
             per_it, rounds=rounds)[0])
@@ -8671,7 +9108,7 @@ def main() -> int:
                     "wide_train": 1e3 / wide_ms}
     for prefix, params, per_it, rounds, twin in (
             ("constraint", {"num_leaves": NUM_LEAVES, **CONS_PARAMS},
-             PER_ITERATION, ROUNDS, None),
+             PER_ITERATION, CUT_ROUNDS, None),
             ("constraint_wide", CONS_WIDE_PARAMS, CONS_WIDE_PER_ITERATION,
              CUT_ROUNDS, CONS_WIDE_BASE)):
         sampled_counts.update(phase_sampled_train(
@@ -8706,6 +9143,11 @@ def main() -> int:
     # transients and sticky failures
     sampled_counts.update(phase_integrity_train(torch, lgt, lgt_kernels,
                                                 train, valid))
+    # distributed training: the NCCL route on one rank, then two ranks
+    # sharing the card over gloo
+    phase_dist_nccl1(torch)
+    sampled_counts.update(phase_dist_train(torch, lgt, lgt_kernels, train,
+                                           valid))
     sampled_counts["totals_oracle"] = oracle_counts
     for prefix, params, per_it in (
             ("cat", CAT_PARAMS, CAT_PER_ITERATION),
@@ -8795,7 +9237,7 @@ def main() -> int:
               "node_draws_base", "segment_histogram",
               "segment_histogram_int", "partition_segment", "leaf_of_row",
               "split_mono_bounds") + FLEET_KERNELS + INTEGRITY_KERNELS \
-            + WIDE_K_KERNELS:
+            + WIDE_K_KERNELS + DIST_KERNELS:
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
     print(smi, flush=True)

@@ -12,6 +12,8 @@ device walk for large inputs, and ``serve.Server`` serves a model with
 micro-batching, hot swap, a circuit breaker and an HTTP frontend.
 Training, prediction and serving run on the CUDA card unless the caller
 passes ``device_type="cpu"``; then every kernel runs as its plain version.
+``tree_learner=data|feature|voting`` trains over ``torch.distributed``, one
+process per rank (``parallel/``, ``distributed.py``).
 """
 
 __version__ = "0.1.0"

@@ -71,6 +71,8 @@ SOURCES: Dict[str, str] = {
     "sparse": "sparse.cu",          # B8a
     "segment": "segment.cu",        # B11a, B11b, B11c
     "integrity": "integrity.cu",    # B17a, B17b, B17c
+    "dist": "dist.cu",              # B16a
+    "vote": "vote.cu",              # B16b, B16c
 }
 
 # the libraries the grower launches, built a second time as the shadow
@@ -79,6 +81,9 @@ SHADOW_LIBS = ("histogram", "split", "partition", "grow_step", "sample",
                "efb", "quantize", "sparse")
 SHADOW_DEFINE = "-DLGBT_SHADOW_BUILD=1"
 SHADOW_PREFIX = "shadow:"
+# set in the environment of ``distributed.run``'s workers: they load the
+# libraries their launcher built and never build one themselves
+NO_BUILD_ENV = "LGBT_NO_BUILD"
 
 # kernel (launch-counter key) -> library
 KERNELS: Dict[str, str] = {
@@ -109,6 +114,9 @@ KERNELS: Dict[str, str] = {
     # the integrity layer's checks (B17a, B17b, B17c)
     "invariant_flags": "integrity", "score_recheck": "integrity",
     "totals_residual": "integrity",
+    # the sharded learners' device work around their collectives (B16a,
+    # B16b, B16c)
+    "gather_best": "dist", "vote_gains": "vote", "vote_select": "vote",
 }
 
 # dynamic shared memory the B1, B10c and B11a kernels may use (227 KB, all a
@@ -170,8 +178,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_grow_step_setup": (),
     },
     "sample": {
-        "lgbt_bag_vals": (_P, _P, _P, ctypes.c_longlong, _P, _U, _U, _I, _F,
-                          _F, _F, _P, _P),
+        "lgbt_bag_vals": (_P, _P, _P, ctypes.c_longlong, _P, _U, _U, _I, _I,
+                          _F, _F, _F, _P, _P),
         "lgbt_goss_vals": (_P, _P, ctypes.c_longlong, _P, _U, _U, _F, _F, _P,
                            _P, _P, _P, _P),
         "lgbt_node_draws": (_P, _I, _P, _I, _I, _P, _P, _I, _U, _U, _U, _F,
@@ -216,7 +224,7 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "quantize": {
         "lgbt_quant_scales": (_P, _I, _F, _P, _P, _P),
-        "lgbt_quantize_stack": (_P, _P, _I, _P, _U, _I, _I, _P, _P),
+        "lgbt_quantize_stack": (_P, _P, _I, _P, _U, _I, _I, _I, _P, _P),
         "lgbt_dequant_hist": (_P, _P, ctypes.c_longlong, _P, _P, _P),
         "lgbt_quantize_setup": (),
     },
@@ -244,6 +252,17 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                  ctypes.c_longlong, _I, ctypes.c_longlong,
                                  _P, _P, _P),
         "lgbt_integrity_setup": (),
+    },
+    "dist": {
+        "lgbt_gather_best": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+                             _P, _P, _P),
+        "lgbt_dist_setup": (),
+    },
+    "vote": {
+        "lgbt_vote_gains": (_P, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P,
+                            _P),
+        "lgbt_vote_select": (_P, _P, _I, _I, _I, _P, _I, _P),
+        "lgbt_vote_setup": (),
     },
 }
 
@@ -348,6 +367,10 @@ def _build(libs) -> Dict[str, float]:
         out = _lib_path(name, shadow)
         if out.exists():
             continue
+        if os.environ.get(NO_BUILD_ENV):
+            raise KernelError(
+                f"{_key(name, shadow)} is not built and {NO_BUILD_ENV} is "
+                "set (a spawned worker loads what its launcher built)")
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[_key(name, shadow)] = (subprocess.Popen(
             _nvcc_cmd(name, tmp, shadow), stdout=subprocess.PIPE,

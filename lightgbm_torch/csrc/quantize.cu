@@ -95,13 +95,14 @@ __global__ void quantize_rows(const float* __restrict__ vals,
                               const float* __restrict__ scales, int n,
                               const int32_t* __restrict__ it,
                               uint32_t seed_mul, int stochastic, int qmax,
-                              T* __restrict__ out) {
+                              int row_offset, T* __restrict__ out) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const uint32_t iter = it != nullptr ? (uint32_t)it[0] : 0u;
   const uint32_t k = fmix32(iter ^ seed_mul);
-  // the row's global id (one device holds every row)
-  const uint32_t row = (uint32_t)r;
+  // the row's global id: its place among this rank's rows plus the rank's
+  // first row (0 when one device holds every row)
+  const uint32_t row = (uint32_t)(r + row_offset);
   const float lim = (float)qmax;
 #pragma unroll
   for (int c = 0; c < kChannels; ++c) {
@@ -154,21 +155,22 @@ extern "C" int lgbt_quant_scales(const float* vals, int n, float qmax,
 }
 
 // vals [n, 3] f32, scales [3] f32, it [1] int32 or null (iteration 0);
-// out [n, 3] int8 (bits 8) or int16 (bits 16).
+// row_offset the global id of the first row; out [n, 3] int8 (bits 8) or
+// int16 (bits 16).
 extern "C" int lgbt_quantize_stack(const float* vals, const float* scales,
                                    int n, const int32_t* it,
                                    unsigned int seed_mul, int stochastic,
-                                   int bits, void* out,
+                                   int bits, int row_offset, void* out,
                                    cudaStream_t stream) {
   if (n < 1) return 0;
   const int qmax = (1 << (bits - 1)) - 1;
   if (bits == 8) {
     quantize_rows<int8_t><<<blocks_for(n), kThreads, 0, stream>>>(
-        vals, scales, n, it, seed_mul, stochastic, qmax,
+        vals, scales, n, it, seed_mul, stochastic, qmax, row_offset,
         static_cast<int8_t*>(out));
   } else if (bits == 16) {
     quantize_rows<int16_t><<<blocks_for(n), kThreads, 0, stream>>>(
-        vals, scales, n, it, seed_mul, stochastic, qmax,
+        vals, scales, n, it, seed_mul, stochastic, qmax, row_offset,
         static_cast<int16_t*>(out));
   } else {
     return (int)cudaErrorInvalidValue;

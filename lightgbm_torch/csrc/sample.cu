@@ -87,14 +87,21 @@ __global__ void bag_vals(const float* __restrict__ g,
                          const float* __restrict__ h,
                          const uint8_t* __restrict__ positive, long long n,
                          const int32_t* __restrict__ iter, uint32_t seed_k0,
-                         uint32_t seed_k1, int freq, float fraction,
-                         float pos_fraction, float neg_fraction,
-                         float* __restrict__ vals) {
+                         uint32_t seed_k1, int freq, int fold,
+                         float fraction, float pos_fraction,
+                         float neg_fraction, float* __restrict__ vals) {
   __shared__ uint32_t key[2];
   if (threadIdx.x == 0) {
     const int it = *iter;
     uint32_t x0 = 0u, x1 = (uint32_t)((it / freq) * freq);
     threefry2x32(seed_k0, seed_k1, x0, x1);
+    if (fold >= 0) {
+      // fold_in(key, fold): a rank's own stream (data-parallel bagging)
+      uint32_t y0 = 0u, y1 = (uint32_t)fold;
+      threefry2x32(x0, x1, y0, y1);
+      x0 = y0;
+      x1 = y1;
+    }
     key[0] = x0;
     key[1] = x1;
   }
@@ -329,17 +336,19 @@ __global__ void node_draws(const uint8_t* __restrict__ base_all,
 }  // namespace
 
 // positive: [n] uint8 label flags, or null for one fraction.  iter: a
-// device int32, the iteration whose refresh epoch keys the draw.
+// device int32, the iteration whose refresh epoch keys the draw.  fold:
+// folded into the epoch's key when >= 0 (a rank's draw), else nothing.
 extern "C" int lgbt_bag_vals(const float* g, const float* h,
                              const uint8_t* positive, long long n,
                              const int32_t* iter, unsigned int seed_k0,
-                             unsigned int seed_k1, int freq, float fraction,
-                             float pos_fraction, float neg_fraction,
-                             float* vals, cudaStream_t stream) {
+                             unsigned int seed_k1, int freq, int fold,
+                             float fraction, float pos_fraction,
+                             float neg_fraction, float* vals,
+                             cudaStream_t stream) {
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
   bag_vals<<<(unsigned int)blocks, threads, 0, stream>>>(
-      g, h, positive, n, iter, seed_k0, seed_k1, freq, fraction,
+      g, h, positive, n, iter, seed_k0, seed_k1, freq, fold, fraction,
       pos_fraction, neg_fraction, vals);
   return (int)cudaGetLastError();
 }

@@ -274,6 +274,8 @@ def _superepoch_plan(cfg, booster, fobj, feval, cbs_before, cbs_after,
         return None
     if model._integrity is not None:
         return None       # integrity layer: per-iteration path only
+    if model.dist is not None:
+        return None       # distributed learners: per-iteration path only
     if str(cfg.fused_eval).lower() == "false" and model.valid_sets:
         return None
     from .sparse_data import SparseBinned

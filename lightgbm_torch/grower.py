@@ -77,6 +77,26 @@ or ``_super_begin``/``_super_finish`` that the solo growers call), with the
 passes that read the shared matrix (B1-M, B3-M and their K-slot and
 integer forms) launched once for every member.
 
+With ``dist`` (a ``DistHooks``: the distributed learners of
+``parallel/``, the JAX package's ``make_grower`` hooks ``hist_reduce``,
+``hist_view``, ``hist_expand``, ``select_best``, ``mono_view``,
+``sum_reduce``, ``scale_reduce``, ``row_offset`` and ``subtract``,
+grower.py:168-329) each rank grows the same tree over its own rows or
+features: every histogram pass reads ``dist.view(binned)`` (a
+feature-parallel rank's column slice), and its result goes through
+``dist.reduce`` before the workspace keeps it (the owner-shard
+reduce-scatter leaves the rank only its chunk of the features, the full
+all-reduce all of them, the PV-tree vote the voted ones); the root's sums
+and the quantization scales are all-reduced, the stochastic rounding is
+keyed by global row ids (``dist.row_offset``); B2 scans the rank's scan
+features (``dist.scan_meta``, ``dist.scan_mono``), and its records go
+through ``dist.select`` (the best-split all-gather and B16a) before the
+table takes them; without subtraction (``dist.subtract`` False, voting)
+the larger child's histogram is a pass of its own.  B3s, B3 and B3-K
+read the global feature of the selected split on the full matrix.  Every
+rank runs the fixed step sequence, dead steps included, so every rank
+runs the same collectives in the same order.
+
 A step that cannot split (no positive gain) sets the tree's ``done`` flag;
 every later step's kernels then exit at once, as the reference's loop exit
 (grower.py:908-915).  The tree arrays live in one int32 buffer (f32 fields
@@ -228,6 +248,57 @@ def fetch_tree(ws: "GrowWorkspace") -> TreeArrays:
                      ws.leaf_of_row, ws.cat_bins)
 
 
+class DistHooks:
+    """The grower's distribution hooks (module docstring), as the serial
+    grower would have them: every hook the identity.  The learners of
+    ``parallel/`` subclass it.  ``hist_cols``: the histograms' feature
+    axis (the rank's owned chunk, its feature slice, or every feature);
+    ``scan_features``: B2's; ``subtract``: the larger child by
+    subtraction; ``row_offset``: this rank's first global row."""
+
+    subtract = True
+    row_offset = 0
+
+    def __init__(self, hist_cols: int, scan_features: int):
+        self.hist_cols = int(hist_cols)
+        self.scan_features = int(scan_features)
+
+    def view(self, binned):
+        """The matrix the histogram passes read."""
+        return binned
+
+    def hist_out(self, dtype: torch.dtype):
+        """A tensor the one-slot pass writes into (None: a new one)."""
+        return None
+
+    def reduce(self, h: torch.Tensor, scales=None) -> torch.Tensor:
+        """A pass's histograms ([F, B, 3], or [K, F, B, 3]) in the carry's
+        layout; ``scales`` the tree's quantization scales (quant)."""
+        return h
+
+    def sum_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The root's [3] sums over every rank (in place)."""
+        return t
+
+    def scale_reduce(self, s: torch.Tensor) -> torch.Tensor:
+        """The tree's [3] quantization scales, maxed over every rank (in
+        place)."""
+        return s
+
+    def scan_meta(self, feature_mask, num_bin, na_bin, is_cat):
+        """B2's feature_mask, num_bin, na_bin and is_cat in scan space."""
+        return feature_mask, num_bin, na_bin, is_cat
+
+    def scan_mono(self, mono: torch.Tensor) -> torch.Tensor:
+        """The monotone constraint vector in scan space."""
+        return mono
+
+    def select(self, res, active=None):
+        """B2's records (or records, cat, rank) of this rank's scan, as
+        the winners over every rank with global features."""
+        return res
+
+
 class GrowWorkspace:
     """Every device tensor of a tree build, allocated once for the
     shapes (N rows, F features, B bins, L leaves, split batch K): the tree
@@ -254,7 +325,9 @@ class GrowWorkspace:
     masks ``cmask`` [C + 1, F] (C = 2, or 2K batched; the last row the
     root's) and the used features ``cuse`` [F].  ``rows_per_block`` is
     the row block of every histogram pass of its trees (the JAX package's
-    ``block_rows``; 0 = automatic, ``ops/histogram.py``)."""
+    ``block_rows``; 0 = automatic, ``ops/histogram.py``).  With ``dist``
+    (a ``DistHooks``) the per-leaf histograms and ``gpair`` hold
+    ``dist.hist_cols`` features and ``pair`` ``dist.scan_features``."""
 
     def __init__(self, n: int, num_features: int, num_bins: int,
                  num_leaves: int, device: torch.device, split_batch: int = 1,
@@ -262,17 +335,29 @@ class GrowWorkspace:
                  efb: Optional[EFBDevice] = None,
                  quant: Optional[QuantSpec] = None,
                  constraints: Optional[GrowConstraints] = None,
-                 rows_per_block: int = 0):
+                 rows_per_block: int = 0,
+                 dist: Optional[DistHooks] = None):
         L, F, B = int(num_leaves), int(num_features), int(num_bins)
         K = batch_width(split_batch, L)
         self.num_leaves, self.num_bins, self.split_batch = L, B, K
         self.rows_per_block = max(0, int(rows_per_block))
         self.efb = efb
         self.quant = quant
+        self.dist = dist
+        if dist is not None and efb is not None:
+            raise ValueError("the distributed learners take the unbundled "
+                             "matrix")
         # exact int32 histograms under quantized training
         hdt = torch.float32 if quant is None else torch.int32
         # the histograms' columns and bin axis: groups or features
         HF, HB = (F, B) if efb is None else (efb.num_groups, efb.group_bins)
+        # B2's features
+        SF = F
+        if dist is not None:
+            HF, SF = dist.hist_cols, dist.scan_features
+            if quant is None and HF != SF:
+                raise ValueError("the carry and the scan must have one "
+                                 "feature axis")
         self.hist_bins = HB
         self.cat_bins = B if categorical else 0
         rows = L + 2 * K if K > 1 else L
@@ -311,7 +396,7 @@ class GrowWorkspace:
             self.cdepth = torch.zeros(C + 1, dtype=torch.int32, **kw)
             self.cmask = torch.ones((C + 1, F), dtype=torch.bool, **kw)
             self.cuse = torch.zeros(F, dtype=torch.bool, **kw)
-        self.pair = torch.zeros((C, F, B, 3), dtype=torch.float32, **kw)
+        self.pair = torch.zeros((C, SF, B, 3), dtype=torch.float32, **kw)
         self.gpair = self.pair if efb is None and quant is None else \
             torch.zeros((C, HF, HB, 3), dtype=hdt, **kw)
         self.gpair_f = self.qvals = self.qscales = None
@@ -393,7 +478,8 @@ class GrowWorkspace:
         lo, hi, depth = self.clo[rows], self.chi[rows], self.cdepth[rows]
         mono = c.mono is not None
         return SplitConstraints(
-            mono=c.mono, out_lo=lo if mono else None,
+            mono=c.mono if self.dist is None or not mono
+            else self.dist.scan_mono(c.mono), out_lo=lo if mono else None,
             out_hi=hi if mono else None,
             depth=depth if c.mono_factor is not None else None,
             factor=c.mono_factor, contri=c.contri, cegb_slope=c.cegb_slope,
@@ -571,7 +657,12 @@ def _draws(ws: GrowWorkspace, feature_mask, num_bin, sampling, rng_iter,
 
 
 def _check_grow(ws: GrowWorkspace, sampling, rng_iter, is_cat,
-                efb=None, quant=None, constraints=None) -> None:
+                efb=None, quant=None, constraints=None, dist=None) -> None:
+    if ws.dist is not dist:
+        raise ValueError("the workspace must be made with the grower's "
+                         "distribution hooks")
+    if dist is not None and sampling is not None and sampling.on:
+        raise ValueError("the distributed learners take no per-node draws")
     if ws.cons is not constraints:
         raise ValueError("the workspace must be made with the grower's "
                          "constraints")
@@ -613,9 +704,16 @@ def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
     of the groups, the JAX package's :628-632), and the reset of the tree,
     the table and the row -> leaf vector.  Returns the vals the steps'
     histogram passes take (the packed stack under quant)."""
+    dist = ws.dist
     vals = _root_vals(ws, vals, rng_iter)
-    h0 = compute_histogram(binned, vals, num_bins=ws.hist_bins,
-                           rows_per_block=ws.rows_per_block)
+    if dist is None:
+        h0 = compute_histogram(binned, vals, num_bins=ws.hist_bins,
+                               rows_per_block=ws.rows_per_block)
+    else:
+        h0 = dist.reduce(compute_histogram(
+            dist.view(binned), vals, num_bins=ws.hist_bins,
+            rows_per_block=ws.rows_per_block,
+            out=dist.hist_out(ws.hist.dtype)), ws.qscales)
     _root_finish(ws, h0, vals, feature_mask, num_bin, na_bin, params,
                  sampling, rng_iter, is_cat)
     return vals
@@ -623,12 +721,17 @@ def _root(ws: GrowWorkspace, binned, vals, feature_mask, num_bin, na_bin,
 
 def _root_vals(ws: GrowWorkspace, vals, rng_iter):
     """The vals of the tree's histogram passes: under quant the tree's
-    scales (B7a) and the packed stack (B7b, keyed by ``rng_iter``), else
+    scales (B7a; maxed over the ranks with ``dist``) and the packed stack
+    (B7b, keyed by ``rng_iter`` and the rows' global ids), else
     ``vals``."""
     if ws.quant is not None:
         scales = quant_scales(vals, ws.quant.qmax, out=ws.qscales)
+        offset = 0
+        if ws.dist is not None:
+            ws.dist.scale_reduce(scales)
+            offset = ws.dist.row_offset
         vals = quantize_stack(vals, scales, ws.quant, rng_iter,
-                              out=ws.qvals)
+                              out=ws.qvals, row_offset=offset)
     return vals
 
 
@@ -638,14 +741,20 @@ def _root_finish(ws: GrowWorkspace, h0, vals, feature_mask, num_bin,
     """The root pass after its histogram ``h0`` (B1): sums, output, node
     draws, best split and the resets (``_root``)."""
     v = ws.fields
+    dist = ws.dist
     ws.hist[0].copy_(h0)
     if ws.quant is None:
         total0 = vals.sum(dim=0)
+        if dist is not None:
+            total0 = dist.sum_reduce(total0)
     else:
         # the exact int32 sums of the packed stack, dequantized as B7c
-        # does (the JAX package's _root_eval, grower.py:590-602)
-        total0 = torch.sum(vals, dim=0, dtype=torch.int32).to(
-            torch.float32) * ws.qscales
+        # does (the JAX package's _root_eval, grower.py:590-602); the
+        # ranks all-reduce the integers
+        ti = torch.sum(vals, dim=0, dtype=torch.int32)
+        if dist is not None:
+            ti = dist.sum_reduce(ti)
+        total0 = ti.to(torch.float32) * ws.qscales
     root_out = leaf_output(total0[0], total0[1], params)
     fh0 = _scan_hist(ws, h0[None], total0[None])
     base = feature_mask
@@ -656,6 +765,8 @@ def _root_finish(ws: GrowWorkspace, h0, vals, feature_mask, num_bin,
     res0 = find_best_split(fh0, total0[None], root_out[None], num_bin,
                            na_bin, fm, params, rand_bin=rb, is_cat=is_cat,
                            cons=ws.split_cons(1, root=True))
+    if dist is not None:
+        res0 = dist.select(res0)
     ws.table.copy_(ws.table_init)
     ws.put_best(slice(0, 1), res0)
     ws.tree.copy_(ws.tree_init)
@@ -676,7 +787,8 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
               is_cat: Optional[torch.Tensor] = None,
               efb: Optional[EFBDevice] = None,
               quant: Optional[QuantSpec] = None,
-              constraints: Optional[GrowConstraints] = None) -> TreeArrays:
+              constraints: Optional[GrowConstraints] = None,
+              dist: Optional[DistHooks] = None) -> TreeArrays:
     """Grow one tree on ``binned`` [N, F] uint8 with per-row ``vals``
     [N, 3] f32 = (grad, hess, weight), all on one device, with no host
     round trip.  ``sampling``: the per-node draws, keyed by ``rng_iter``
@@ -685,39 +797,77 @@ def grow_tree(binned: torch.Tensor, vals: torch.Tensor,
     EFB maps, ``binned`` then the bundled [N, G] matrix.  ``quant``:
     quantized training, the stochastic rounding keyed by ``rng_iter``
     (iteration 0 when None).  ``constraints``: the split controls (the
-    workspace's ``cuse`` holds the used features on entry).  Returns
-    device views of ``workspace`` (a new one when None); ``fetch_tree``
-    brings the tree to the host."""
+    workspace's ``cuse`` holds the used features on entry).  ``dist``:
+    the distribution hooks of a distributed learner (module docstring;
+    the workspace is then made with them).  Returns device views of
+    ``workspace`` (a new one when None); ``fetch_tree`` brings the tree
+    to the host."""
     n, f = binned.shape[0], num_bin.shape[0]
     L, B = int(num_leaves), int(num_bins)
     ws = workspace if workspace is not None else GrowWorkspace(
         n, f, B, L, binned.device, categorical=is_cat is not None, efb=efb,
-        quant=quant, constraints=constraints)
+        quant=quant, constraints=constraints, dist=dist)
     if ws.split_batch != 1:
         raise ValueError("grow_tree needs a workspace of split_batch 1")
-    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant, constraints)
-    vals = _root(ws, binned, vals, feature_mask, num_bin, na_bin, params,
-                 sampling, rng_iter, is_cat)
+    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant, constraints,
+                dist)
+    scan = _scan(dist, feature_mask, num_bin, na_bin, is_cat)
+    vals = _root(ws, binned, vals, *scan[:3], params, sampling, rng_iter,
+                 scan[3])
     for i in range(L - 1):
         _split_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
-                    max_depth, i, sampling, rng_iter, is_cat)
+                    max_depth, i, sampling, rng_iter, is_cat, scan)
     return ws.arrays()
+
+
+def _scan(dist, feature_mask, num_bin, na_bin, is_cat) -> tuple:
+    """B2's (feature_mask, num_bin, na_bin, is_cat): the rank's scan space
+    with ``dist``, else the arguments."""
+    if dist is None:
+        return feature_mask, num_bin, na_bin, is_cat
+    return dist.scan_meta(feature_mask, num_bin, na_bin, is_cat)
+
+
+def _larger_slot(ws: GrowWorkspace) -> torch.Tensor:
+    """The slot vector of a strict step's larger child (0 on its rows,
+    else -1), for a learner that builds both children (``dist.subtract``
+    False): the step record's leaf and new leaf less the smaller one."""
+    r = ws.rec
+    larger = r[LEAF] + r[NEW_LEAF] - r[SMALLER]
+    return torch.where(ws.leaf_of_row == larger, 0, -1).to(torch.int32)
 
 
 def _split_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
                 na_bin, params, max_depth, i=0, sampling=None,
-                rng_iter=None, is_cat=None) -> None:
+                rng_iter=None, is_cat=None, scan=None) -> None:
     """Step ``i``: B3s, B3, B1 on the smaller child, the subtraction (B7c
     after it under quant, then B9 with EFB), the children's node draws
     (B6-node), B2 on the pair and the depth mask, all indexed by the
-    device step record."""
+    device step record.  With the workspace's ``dist`` the passes go
+    through its hooks and B2 takes ``scan`` (``_scan``)."""
+    dist = ws.dist
     _step_begin(ws, feature_mask, na_bin, max_depth)
     slot = partition(binned, ws.leaf_of_row, ws.rec, ws.rank, ws.efb)
-    small = compute_histogram(binned, vals, num_bins=ws.hist_bins, slot=slot,
-                              active=ws.rec[ACTIVE:ACTIVE + 1],
-                              rows_per_block=ws.rows_per_block)
-    _step_finish(ws, small, feature_mask, num_bin, na_bin, params, i,
-                 sampling, rng_iter, is_cat)
+    active = ws.rec[ACTIVE:ACTIVE + 1]
+    if dist is None:
+        small = compute_histogram(binned, vals, num_bins=ws.hist_bins,
+                                  slot=slot, active=active,
+                                  rows_per_block=ws.rows_per_block)
+        _step_finish(ws, small, feature_mask, num_bin, na_bin, params, i,
+                     sampling, rng_iter, is_cat)
+        return
+    view = dist.view(binned)
+
+    def child(sl):
+        return dist.reduce(compute_histogram(
+            view, vals, num_bins=ws.hist_bins, slot=sl, active=active,
+            rows_per_block=ws.rows_per_block,
+            out=dist.hist_out(ws.hist.dtype)), ws.qscales)
+
+    small = child(slot)
+    large = None if dist.subtract else child(_larger_slot(ws))
+    _step_finish(ws, small, *scan[:3], params, i, sampling, rng_iter,
+                 scan[3], large)
 
 
 def _step_begin(ws: GrowWorkspace, feature_mask, na_bin,
@@ -731,12 +881,14 @@ def _step_begin(ws: GrowWorkspace, feature_mask, na_bin,
 
 def _step_finish(ws: GrowWorkspace, small, feature_mask, num_bin, na_bin,
                  params, i=0, sampling=None, rng_iter=None,
-                 is_cat=None) -> None:
+                 is_cat=None, large=None) -> None:
     """A strict step after the smaller child's histogram ``small`` (B1):
-    the subtraction, B7c and B9, the node draws, B2 on the pair and the
-    depth mask (``_split_step``)."""
+    the subtraction (or the larger child's own pass ``large``), B7c and
+    B9, the node draws, B2 on the pair (and the workspace's
+    ``dist.select``) and the depth mask (``_split_step``)."""
     active = ws.rec[ACTIVE:ACTIVE + 1]
-    large = ws.hist.index_select(0, ws.idx[0:1])[0] - small
+    if large is None:
+        large = ws.hist.index_select(0, ws.idx[0:1])[0] - small
     smaller_left = ws.flags[0]
     torch.where(smaller_left, small, large, out=ws.gpair[0])
     torch.where(smaller_left, large, small, out=ws.gpair[1])
@@ -748,6 +900,8 @@ def _step_finish(ws: GrowWorkspace, small, feature_mask, num_bin, na_bin,
     res = find_best_split(ws.pair, ws.fstep[0:6].view(2, 3), ws.fstep[6:8],
                           num_bin, na_bin, fm, params, active=active,
                           rand_bin=rb, is_cat=is_cat, cons=ws.split_cons(2))
+    if ws.dist is not None:
+        res = ws.dist.select(res, active)
     children = res if is_cat is None else res[0]
     children[:, sp.GAIN] = torch.where(ws.flags[1], children[:, sp.GAIN],
                                        ws.neg_inf)
@@ -1136,8 +1290,8 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
                       is_cat: Optional[torch.Tensor] = None,
                       efb: Optional[EFBDevice] = None,
                       quant: Optional[QuantSpec] = None,
-                      constraints: Optional[GrowConstraints] = None
-                      ) -> TreeArrays:
+                      constraints: Optional[GrowConstraints] = None,
+                      dist: Optional[DistHooks] = None) -> TreeArrays:
     """Grow one tree with K splits per super-step (the JAX package's
     ``grow_tree_batched``, grower.py:945): each super-step takes the top K
     leaves by cached gain and splits the valid prefix of them (B3s-K),
@@ -1152,43 +1306,54 @@ def grow_tree_batched(binned: torch.Tensor, vals: torch.Tensor,
     done, and every kernel of a later super-step exits at once; its torch
     ops write only the scratch rows.  ``sampling``/``rng_iter`` as
     ``grow_tree``; the draws of invalid slots keep their places in the
-    stream.  ``is_cat``, ``efb``, ``quant`` and ``constraints`` as
-    ``grow_tree``.  Returns device views of ``workspace``, as
-    ``grow_tree``."""
+    stream.  ``is_cat``, ``efb``, ``quant``, ``constraints`` and ``dist``
+    as ``grow_tree`` (a learner without subtraction grows strictly).
+    Returns device views of ``workspace``, as ``grow_tree``."""
     n, f = binned.shape[0], num_bin.shape[0]
     L, B = int(num_leaves), int(num_bins)
     K = batch_width(split_batch, L)
     ws = workspace if workspace is not None else GrowWorkspace(
         n, f, B, L, binned.device, split_batch=K,
         categorical=is_cat is not None, efb=efb, quant=quant,
-        constraints=constraints)
+        constraints=constraints, dist=dist)
     if ws.split_batch != K or K < 2:
         raise ValueError(f"grow_tree_batched needs K > 1 and a workspace "
                          f"of split_batch {K} (has {ws.split_batch})")
-    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant, constraints)
-    vals = _root(ws, binned, vals, feature_mask, num_bin, na_bin, params,
-                 sampling, rng_iter, is_cat)
+    _check_grow(ws, sampling, rng_iter, is_cat, efb, quant, constraints,
+                dist)
+    if dist is not None and not dist.subtract:
+        raise ValueError("a learner without subtraction grows strictly")
+    scan = _scan(dist, feature_mask, num_bin, na_bin, is_cat)
+    vals = _root(ws, binned, vals, *scan[:3], params, sampling, rng_iter,
+                 scan[3])
     for s in range(L - 1):
         _super_step(ws, binned, vals, feature_mask, num_bin, na_bin, params,
-                    max_depth, s, sampling, rng_iter, is_cat)
+                    max_depth, s, sampling, rng_iter, is_cat, scan)
     return ws.arrays()
 
 
 def _super_step(ws: GrowWorkspace, binned, vals, feature_mask, num_bin,
                 na_bin, params, max_depth, s=0, sampling=None,
-                rng_iter=None, is_cat=None) -> None:
+                rng_iter=None, is_cat=None, scan=None) -> None:
     """Super-step ``s``: B3s-K, B3-K, B1-K over the K smaller children,
     the K subtractions (B7c after them under quant, then B9 with EFB), the
     2K children's node
     draws (B6-node), B2 on the 2K children with the depth mask, and the
-    table update, all indexed by the device step outputs."""
+    table update, all indexed by the device step outputs.  With the
+    workspace's ``dist`` the pass reads ``dist.view(binned)`` and goes
+    through ``dist.reduce``, and B2 takes ``scan``."""
     K, st = ws.split_batch, ws.step
+    dist = ws.dist
     _super_begin(ws, feature_mask, na_bin, max_depth)
     tslot = partition_slots(binned, ws.leaf_of_row, st, ws.rank, ws.efb)
-    small = compute_histogram(binned, vals, num_bins=ws.hist_bins,
+    small = compute_histogram(binned if dist is None else dist.view(binned),
+                              vals, num_bins=ws.hist_bins,
                               slot=tslot, num_slots=K, active=st.status[0:1],
                               slots_used=st.status[1:2],
                               rows_per_block=ws.rows_per_block)
+    if dist is not None:
+        small = dist.reduce(small, ws.qscales)
+        feature_mask, num_bin, na_bin, is_cat = scan
     _super_finish(ws, small, feature_mask, num_bin, na_bin, params, s,
                   sampling, rng_iter, is_cat)
 
@@ -1223,6 +1388,8 @@ def _super_finish(ws: GrowWorkspace, small, feature_mask, num_bin, na_bin,
     res = find_best_split(ws.pair, st.tot2, st.po2, num_bin, na_bin, fm,
                           params, active=active, rand_bin=rb, is_cat=is_cat,
                           cons=ws.split_cons(2 * K))
+    if ws.dist is not None:
+        res = ws.dist.select(res, active)
     children = res if is_cat is None else res[0]
     children[:, sp.GAIN] = torch.where(st.keep2, children[:, sp.GAIN],
                                        ws.neg_inf)

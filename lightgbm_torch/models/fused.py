@@ -334,11 +334,15 @@ class IterationProgram:
 
     def _grower(self):
         """The masked learner's grower and its keyword arguments but the
-        workspace: ``(grow_tree or grow_tree_batched, kwargs)``."""
+        workspace: ``(grow_tree or grow_tree_batched, kwargs)``, or a
+        distributed learner's ``grow`` (``parallel/``)."""
         m = self.model
         cfg = m.config
         grow = grow_tree if m.split_batch == 1 else grow_tree_batched
         kw = {} if m.split_batch == 1 else {"split_batch": m.split_batch}
+        if m.dist_grower is not None:
+            # a distributed learner's grow (its hooks, its K)
+            grow, kw = m.dist_grower, {}
         if self.keyed:
             kw["rng_iter"] = self.it_cur
         if m.node_sampling is not None:

@@ -75,8 +75,24 @@ grower's kernels) and the score re-gather (B17b) every
 iteration.  The fused paths refuse it, and armed fault injection, as the
 JAX package's do (``fused_reasons``).
 
+With ``tree_learner=data|feature|voting`` (or ``num_machines`` > 1,
+which promotes ``serial`` to ``data``) and a ``torch.distributed``
+process group of at least two ranks, the tree comes from a distributed
+learner of ``parallel/`` (the JAX package's :231-276, :598-636), one
+process per rank: data- and voting-parallel ranks hold their own rows,
+feature-parallel ranks every row; every rank grows the same tree (the
+grower's ``DistHooks``) and updates its own rows' scores and its own
+valid sets.  BoostFromScore reads the global label statistics, each
+data-parallel rank draws its own bagging mask (``fold_in`` by rank),
+quantized training checks the global row count and keys its rounding by
+global row ids.  Distributed learners run the per-iteration loop
+(``fused_reasons``).  Without such a group (a lone rank) the learner
+warns as the JAX package does and trains serially
+(``resolve_distribution``).
+
 Parameter values that need modules the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP item (``_refuse_unported``).
+``NotImplementedError`` naming the ROADMAP item (``_refuse_unported``,
+``distributed_refusals``).
 """
 
 from __future__ import annotations
@@ -140,8 +156,6 @@ def _unported(config: Config, ds: Dataset) -> List[Tuple[str, str]]:
     c = config
     checks = [
         (c.boosting not in ("gbdt", "gbrt"), f"boosting={c.boosting}", "A9"),
-        (c.tree_learner != "serial" or c.num_machines > 1,
-         "distributed training (tree_learner/num_machines)", "A16"),
         (c.linear_tree, "linear_tree", "A9"),
         (c.snapshot_freq > 0 or c.resume, "snapshots and resume", "A12"),
         (c.integrity_check_freq > 0 and c.integrity_policy == "rewind",
@@ -350,6 +364,104 @@ def _refuse_unported(config: Config, ds: Dataset) -> None:
             f"{what} is not ported to lightgbm_torch yet (ROADMAP {item})")
 
 
+DIST_LEARNERS = ("data", "feature", "voting")
+
+
+def resolve_distribution(config: Config, device: torch.device):
+    """The distributed learner and its ``ProcessMesh``, or (None, None):
+    the JAX package's ``_resolve_mesh`` (models/gbdt.py:953-1060) over the
+    ranks of the default ``torch.distributed`` group.  ``mesh_shape`` >
+    ``num_machines`` > every rank gives the size; a size above the
+    group's raises, a lone rank warns and trains serially."""
+    kind = config.tree_learner if config.tree_learner in DIST_LEARNERS \
+        else None
+    if kind is None:
+        return None, None
+    import torch.distributed as tdist
+    world = tdist.get_world_size() if tdist.is_available() \
+        and tdist.is_initialized() else 1
+    if config.mesh_shape and len(config.mesh_shape) > 1:
+        raise ValueError(
+            f"mesh_shape={config.mesh_shape}: tree_learner="
+            f"{config.tree_learner} shards a single axis; pass a "
+            "one-element mesh_shape (e.g. [8])")
+    if config.mesh_shape:
+        n = int(np.prod(config.mesh_shape))
+    elif config.num_machines > 1:
+        n = config.num_machines
+    else:
+        n = world
+    if n > world:
+        raise ValueError(
+            f"tree_learner={config.tree_learner} needs {n} ranks "
+            f"(mesh_shape/num_machines), only {world} in the "
+            "torch.distributed process group")
+    if n <= 1:
+        Log.warning(
+            f"tree_learner={config.tree_learner} requested but only one "
+            "device is visible; training serially")
+        return None, None
+    if n != world:
+        raise ValueError(
+            f"tree_learner={config.tree_learner}: the learner spans the "
+            f"whole process group ({world} ranks), not {n}")
+    from ..parallel.mesh import ProcessMesh
+    axis = "feature" if kind == "feature" else "data"
+    return kind, ProcessMesh(None, axis, device)
+
+
+def distributed_checks(config: Config, ds: Dataset, kind: str,
+                       objective) -> None:
+    """The JAX package's ``ValueError``s for the controls a distributed
+    learner cannot take (models/gbdt.py:255-276), then
+    ``NotImplementedError`` naming ROADMAP A16b for what the port's
+    learners do not take yet."""
+    mono = monotone_vector(config, ds)
+    if (mono is not None and config.monotone_constraints_method != "basic") \
+            or config.forcedsplits_filename \
+            or interaction_allow(config, ds) is not None \
+            or config.feature_fraction_bynode < 1.0 \
+            or make_cegb(config, ds) is not None:
+        raise ValueError(
+            "monotone intermediate/advanced, interaction "
+            "constraints, CEGB, forced splits and "
+            "feature_fraction_bynode are not supported with "
+            f"tree_learner={kind} (they require a single-chip "
+            "learner); monotone basic IS supported")
+    if contri_vector(config, ds) is not None or config.extra_trees:
+        raise ValueError(
+            "feature_contri and extra_trees are not yet supported "
+            f"with tree_learner={kind}")
+    if mono is not None and kind in ("feature", "voting"):
+        raise ValueError(
+            f"monotone constraints with tree_learner={kind} are "
+            "not supported (the [F] constraint vector would need "
+            "feature-axis sharding); use tree_learner=data")
+    refusals = [
+        (ds.efb is not None and kind == "data",
+         "EFB bundles under tree_learner=data (the owned-group "
+         "expansion)"),
+        (ds.binned_sparse is not None,
+         "sparse k-hot storage under a distributed learner"),
+        (config.data_sample_strategy == "goss",
+         "GOSS's global threshold across ranks"),
+        (config.num_model_per_iteration > 1,
+         "multiclass under a distributed learner"),
+        (objective is not None and getattr(objective, "is_ranking", False),
+         "ranking under a distributed learner"),
+        (config.integrity_check_freq > 0,
+         "the integrity layer under a distributed learner"),
+        (config.elastic_enable,
+         "the elastic layer (heartbeats, guarded_get, the collective "
+         "deadline, the recovery ladder)"),
+    ]
+    for hit, what in refusals:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported to lightgbm_torch yet (ROADMAP "
+                "A16b)")
+
+
 class PhaseTimer:
     """Per-phase time of the per-iteration loop.  On the card it records
     CUDA events on the stream (no synchronisation while training) and sums
@@ -450,7 +562,14 @@ class GBDTModel:
         # basic need the partitioned one
         sparse = ds.binned_sparse is not None
         self.forced = load_forced(config, ds)
-        self.learner = resolve_learner(config, ds, self.forced)
+        # a distributed learner (None on a lone rank, which trains
+        # serially) over the ranks of the process group
+        self.device = resolve_device(config)
+        self.dist, self.mesh = resolve_distribution(config, self.device)
+        if self.dist is not None:
+            distributed_checks(config, ds, self.dist, objective)
+        self.learner = "masked" if self.dist is not None else \
+            resolve_learner(config, ds, self.forced)
         _refuse_unported(config, ds)
         if config.integrity_check_freq > 0 and self.learner == "partitioned":
             raise ValueError(
@@ -464,7 +583,6 @@ class GBDTModel:
                 "sparse k-hot segment-sum histogram has no integer "
                 "formulation yet); construct the Dataset with "
                 "enable_sparse=false")
-        self.device = resolve_device(config)
 
         self.split_params = SplitParams(
             lambda_l1=config.lambda_l1,
@@ -501,7 +619,11 @@ class GBDTModel:
         # masked learner on one device only): the device matrix stays
         # bundled, [N, G]; the growers expand histograms (B9) and B3/B3-K
         # and B4 decode bins through the maps
-        self.efb_dev = make_device_efb(ds.efb, num_bin, self.max_bin, dev)
+        # the distributed learners take the flat matrix (feature and
+        # voting vote per feature, as the JAX package's :294-298; EFB
+        # under data is A16b)
+        self.efb_dev = make_device_efb(ds.efb, num_bin, self.max_bin, dev) \
+            if self.dist is None else None
         self.efb_maps = None if self.efb_dev is None else self.efb_dev.maps
         # sparse binned storage: the k-hot rows on the card (the JAX
         # package's :364-365, :443-449); B8a builds the histograms and
@@ -509,10 +631,21 @@ class GBDTModel:
         if sparse:
             self.binned_dev = ds.binned_sparse.to_device(dev)
         else:
-            self.binned_dev = torch.as_tensor(
-                np.ascontiguousarray(ds.binned)).to(dev)
+            self.binned_dev = torch.as_tensor(np.ascontiguousarray(
+                ds.binned if ds.efb is None or self.efb_dev is not None
+                else ds.feature_binned())).to(dev)
         partitioned = self.learner == "partitioned"
-        self.quant = quant_spec(config, self.num_data)
+        # the ranks' row counts: the global count, this rank's first
+        # global row (data and voting; feature-parallel replicates rows)
+        self.rank_rows = None
+        self.row_offset = 0
+        n_global = self.num_data
+        if self.dist in ("data", "voting"):
+            self.rank_rows = [int(n) for n in
+                              self.mesh.all_gather_object(self.num_data)]
+            self.row_offset = sum(self.rank_rows[:self.mesh.rank])
+            n_global = sum(self.rank_rows)
+        self.quant = quant_spec(config, n_global)
         # the histogram autotuner (B15; None unless hist_tune=on engages)
         # over the histograms' axes: EFB groups at group-bin width, else
         # the features
@@ -520,12 +653,18 @@ class GBDTModel:
             int(self.binned_dev.shape[1])
         hist_bins = self.efb_dev.group_bins if self.efb_dev is not None \
             else self.max_bin
-        self.hist_tuned = hist_tune_record(
-            config, self.learner, sparse, self.num_data, hist_cols,
-            hist_bins, 4 if self.quant is None else self.quant.bits // 8,
-            dev)
-        # the partitioned learner grows strictly leaf-wise
-        self.split_batch = 1 if partitioned else \
+        # a distributed learner takes no rank-local sweep: the ranks must
+        # grow with one K
+        self.hist_tuned = None if self.dist is not None else \
+            hist_tune_record(
+                config, self.learner, sparse, self.num_data, hist_cols,
+                hist_bins, 4 if self.quant is None else self.quant.bits // 8,
+                dev)
+        if self.dist is not None and config.hist_tune == "on":
+            Log.warning(f"hist_tune=on ignored under tree_learner="
+                        f"{self.dist}: every rank must grow with one K")
+        # the partitioned and voting learners grow strictly leaf-wise
+        self.split_batch = 1 if partitioned or self.dist == "voting" else \
             resolve_split_batch(config, self.hist_tuned)
         # every dense histogram pass's row block (0 = automatic); an
         # explicit value past the partial buffer's cap is refused here,
@@ -550,13 +689,17 @@ class GBDTModel:
             mono_penalty=config.monotone_penalty,
             contri=contri_vector(config, ds),
             groups=interaction_allow(config, ds), cegb=self.cegb)
+        # the distributed learner's grow (None on a single device)
+        self.dist_grower = self._make_dist_grower()
         self.grow_ws = GrowWorkspace(self.num_data, self.num_features,
                                      self.max_bin, config.num_leaves, dev,
                                      split_batch=self.split_batch,
                                      categorical=self.is_cat_dev is not None,
                                      efb=self.efb_dev, quant=self.quant,
                                      constraints=self.constraints,
-                                     rows_per_block=self.rows_per_block)
+                                     rows_per_block=self.rows_per_block,
+                                     dist=None if self.dist_grower is None
+                                     else self.dist_grower.hooks)
         # the computation-integrity layer (integrity.py): None unless
         # integrity_check_freq > 0, and then the masked learner's checker
         # with its shadow grower (the partitioned learner raised above)
@@ -681,7 +824,38 @@ class GBDTModel:
                     fraction=cfg.bagging_fraction,
                     pos_fraction=cfg.pos_bagging_fraction,
                     neg_fraction=cfg.neg_bagging_fraction,
-                    positive=self.bag_positive)
+                    positive=self.bag_positive, fold=self.bag_fold)
+
+    @property
+    def bag_fold(self) -> Optional[int]:
+        """The rank a row-sharded learner folds into its bagging key (the
+        JAX package's multi-process ``_bagging_w``, :1320-1326: each rank
+        draws its own rows' mask); None otherwise (feature-parallel ranks
+        hold the same rows and must draw the same mask)."""
+        return self.mesh.rank if self.dist in ("data", "voting") else None
+
+    def _make_dist_grower(self):
+        """The distributed learner's ``grow`` (``parallel/``), None without
+        one."""
+        cfg = self.config
+        if self.dist is None:
+            return None
+        if self.dist == "data":
+            from ..parallel.data_parallel import make_dp_grower
+            return make_dp_grower(
+                self.mesh, num_features=self.num_features,
+                num_bins=self.max_bin, split_batch=self.split_batch,
+                owner_shard=cfg.dp_owner_shard, row_offset=self.row_offset)
+        if self.dist == "voting":
+            from ..parallel.voting_parallel import make_voting_grower
+            return make_voting_grower(
+                self.mesh, num_features=self.num_features,
+                params=self.split_params, top_k=cfg.top_k,
+                row_offset=self.row_offset)
+        from ..parallel.feature_parallel import make_fp_grower
+        return make_fp_grower(self.mesh, self.binned_dev,
+                              num_features=self.num_features,
+                              split_batch=self.split_batch)
 
     def _bagging_w(self, it: int) -> torch.Tensor:
         """The [N] f32 in-bag mask of iteration ``it`` (the JAX package's
@@ -690,6 +864,28 @@ class GBDTModel:
         iteration through kernel B6 (``models/fused.py``)."""
         return bag_mask_plain(self.num_data, it, device=self.device,
                               **self.bagging_args())
+
+    def _boost_score(self, class_id: int) -> float:
+        """BoostFromScore with the reference's multi-machine semantics
+        (the JAX package's ``_boost_from_score``, :1155-1185): under a
+        row-sharded learner the initial score comes from the GLOBAL label
+        and weight statistics (every rank's rows gathered, a fresh
+        objective initialised on them), not this rank's."""
+        if self.dist not in ("data", "voting"):
+            return self.objective.boost_from_score(class_id)
+        from ..dataset import Metadata
+        md_local = self.train_set.metadata
+        parts = self.mesh.all_gather_object(
+            (np.asarray(md_local.label, np.float32),
+             None if md_local.weight is None
+             else np.asarray(md_local.weight, np.float32)))
+        md = Metadata(sum(len(lab) for lab, _ in parts))
+        md.label = np.concatenate([lab for lab, _ in parts])
+        if md_local.weight is not None:
+            md.weight = np.concatenate([w for _, w in parts])
+        gobj = type(self.objective)(self.config)
+        gobj.init(md, md.num_data, torch.device("cpu"))
+        return gobj.boost_from_score(class_id)
 
     def goss_args(self) -> dict:
         """Keyword arguments of ``ops.random.goss_vals`` for this model."""
@@ -729,7 +925,7 @@ class GBDTModel:
         (also for a sparse train set)."""
         if valid.binned_sparse is not None:
             return valid.binned_sparse.to_device(self.device)
-        efb = self.train_set.efb
+        efb = self.train_set.efb if self.efb_dev is not None else None
         if efb is None:
             vb = valid.feature_binned()
         elif valid.efb is efb:
@@ -852,7 +1048,7 @@ class GBDTModel:
         if not (self.iter_ == 0 and self.objective is not None
                 and cfg.boost_from_average and not self._init_applied):
             return [0.0] * K
-        init = [self.objective.boost_from_score(k) for k in range(K)]
+        init = [self._boost_score(k) for k in range(K)]
         if any(v != 0.0 for v in init):
             bias = torch.tensor(init if K > 1 else init[0],
                                 dtype=torch.float32, device=self.device)
@@ -884,8 +1080,14 @@ class GBDTModel:
     def _host_driven(self) -> List[str]:
         """The JAX package's blockers of the fused paths that are not the
         configuration's semantics (its :1518-1526): armed fault injection
-        and the integrity layer."""
+        and the integrity layer; and a distributed learner (its
+        :1507-1510), whose trees the port shrinks in f32 as a serial run's,
+        so that a data-parallel quantized model equals the serial one."""
         reasons = []
+        if self.dist is not None:
+            reasons.append(
+                f"tree_learner={self.dist}: distributed growers "
+                "re-materialize tree arrays per iteration")
         if self._faults_active():
             reasons.append(
                 "fault injection active: host-side injection sites "

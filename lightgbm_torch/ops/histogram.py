@@ -252,7 +252,8 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
                       num_slots: Optional[int] = None,
                       active: Optional[torch.Tensor] = None,
                       slots_used: Optional[torch.Tensor] = None,
-                      rows_per_block: int = 0) -> torch.Tensor:
+                      rows_per_block: int = 0,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[F, num_bins, 3] f32 histogram of ``vals`` over ``binned`` (int32
     for int8/int16 ``vals``, exact); rows whose ``slot`` is negative add
     nothing (in the integer form, rows whose ``slot`` is not 0).  The strict grower passes
@@ -269,7 +270,19 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
     slots in use over the threads of the others.  ``rows_per_block``:
     the rows of a row block on the card (0 = automatic; module
     docstring).  On k-hot ``SparseBinned`` rows this is B8a (module
-    docstring), which keeps its own blocking."""
+    docstring), which keeps its own blocking.  ``out``: a contiguous [F,
+    num_bins, 3] tensor of the result's dtype to write into (the one-slot
+    dense forms; the data-parallel learner passes a view of its padded
+    reduce-scatter buffer)."""
+    if out is not None:
+        if num_slots is not None or isinstance(binned, SparseBinned):
+            raise TypeError("out is taken by the one-slot dense forms")
+        want = torch.int32 if vals.dtype in INT_VALS else torch.float32
+        if out.shape != (binned.shape[1], num_bins, 3) \
+                or out.dtype != want or not out.is_contiguous() \
+                or out.device != binned.device:
+            raise TypeError(f"out must be a contiguous [F, {num_bins}, 3] "
+                            f"{want} tensor on the binned matrix's device")
     if isinstance(binned, SparseBinned):
         return sparse_histogram(binned, vals, num_bins=num_bins, slot=slot,
                                 num_slots=num_slots, active=active,
@@ -292,8 +305,9 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
                                 rows_per_block)
     if binned.device.type == "cpu":
         plain = histogram_int_plain if integer else histogram_plain
-        return plain(binned, vals, num_bins=num_bins, slot=slot,
-                     active=active)
+        res = plain(binned, vals, num_bins=num_bins, slot=slot,
+                    active=active)
+        return res if out is None else out.copy_(res)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
     if not (binned.is_contiguous() and vals.is_contiguous()
@@ -301,10 +315,12 @@ def compute_histogram(binned: torch.Tensor, vals: torch.Tensor, *,
         raise ValueError("compute_histogram needs contiguous tensors")
     if integer:
         return _histogram_int(binned, vals, slot, 1, num_bins, active, None,
-                              "histogram_int", rows_per_block)[0]
+                              "histogram_int", rows_per_block,
+                              None if out is None else out[None])[0]
     n, f = binned.shape
-    out = torch.empty((f, num_bins, 3), dtype=torch.float32,
-                      device=binned.device)
+    if out is None:
+        out = torch.empty((f, num_bins, 3), dtype=torch.float32,
+                          device=binned.device)
     if n == 0:
         return out.zero_()
     rows, tile_f, subranges = launch_shape(n, f, num_bins, rows_per_block)
@@ -443,12 +459,15 @@ def _bits(vals: torch.Tensor) -> int:
 
 def _histogram_int(binned, vals, slot, num_slots: int, num_bins: int,
                    active, slots_used, counter: str,
-                   rows_per_block: int = 0) -> torch.Tensor:
+                   rows_per_block: int = 0,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B1-int (``num_slots`` 1, ``slot`` None for every row) and B1-K-int
-    on the card: [num_slots, F, num_bins, 3] int32."""
+    on the card: [num_slots, F, num_bins, 3] int32 (into ``out`` when
+    given)."""
     n, f = binned.shape
-    out = torch.empty((num_slots, f, num_bins, 3), dtype=torch.int32,
-                      device=binned.device)
+    if out is None:
+        out = torch.empty((num_slots, f, num_bins, 3), dtype=torch.int32,
+                          device=binned.device)
     if n == 0:
         return out.zero_()
     rows, tile_f, tile_k = int_launch_shape(n, f, num_bins, num_slots,

@@ -176,14 +176,16 @@ def quant_scales(vals: torch.Tensor, qmax: int, *,
 
 def quantize_stack(vals: torch.Tensor, scales: torch.Tensor,
                    spec: QuantSpec, rng_iter: Optional[torch.Tensor] = None,
-                   *, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   *, out: Optional[torch.Tensor] = None,
+                   row_offset: int = 0) -> torch.Tensor:
     """B7b: ``vals`` [N, 3] f32 packed to ``spec.dtype`` under ``scales``
     [3], keyed by ``rng_iter`` (a [1] int32 device tensor, the trainer's
     device iteration; None is iteration 0, as the JAX grower's default
-    key); the rows' global ids are 0..N-1 (one device holds every row).
-    ``out``: the [N, 3] tensor to write into.  CUDA tensors launch the
-    kernel of ``csrc/quantize.cu``, CPU tensors run
-    ``quantize_stack_plain``."""
+    key); the rows' global ids are ``row_offset`` .. ``row_offset`` + N -
+    1 (0 when one device holds every row; a data-parallel rank's first
+    global row otherwise).  ``out``: the [N, 3] tensor to write into.
+    CUDA tensors launch the kernel of ``csrc/quantize.cu``, CPU tensors
+    run ``quantize_stack_plain``."""
     _check_vals(vals)
     if scales.shape != (3,) or scales.dtype != torch.float32:
         raise TypeError("scales must be a [3] float32 tensor")
@@ -195,7 +197,8 @@ def quantize_stack(vals: torch.Tensor, scales: torch.Tensor,
         raise TypeError(f"out must be a [N, 3] {spec.dtype} tensor")
     if _on(vals, scales, it, out) == "cpu":
         key = 0 if it is None else int(it[0])
-        res = quantize_stack_plain(vals, scales, spec, key)
+        res = quantize_stack_plain(vals, scales, spec, key,
+                                   row_offset=row_offset)
         return res if out is None else out.copy_(res)
     if not all(t.is_contiguous() for t in (vals, scales)) or (
             out is not None and not out.is_contiguous()):
@@ -205,7 +208,8 @@ def quantize_stack(vals: torch.Tensor, scales: torch.Tensor,
     err = _kernels.lib("quantize").lgbt_quantize_stack(
         vals.data_ptr(), scales.data_ptr(), vals.shape[0],
         None if it is None else it.data_ptr(), seed_mul(spec.seed),
-        int(bool(spec.stochastic)), int(spec.bits), out.data_ptr(),
+        int(bool(spec.stochastic)), int(spec.bits), int(row_offset),
+        out.data_ptr(),
         _kernels.stream_ptr(vals.device))
     _kernels.launched("quantize_stack", err)
     return out

@@ -163,20 +163,26 @@ def bag_vals(g: torch.Tensor, h: torch.Tensor, it: torch.Tensor, *,
              seed: int, freq: int, fraction: float,
              pos_fraction: float = 1.0, neg_fraction: float = 1.0,
              positive: torch.Tensor | None = None,
-             out: torch.Tensor | None = None) -> torch.Tensor:
+             out: torch.Tensor | None = None,
+             fold: int | None = None) -> torch.Tensor:
     """B6: the [N, 3] f32 ``(g*w, h*w, w)`` of the in-bag mask ``w`` of
     iteration ``it`` (a [1] int32 device tensor): ``w = u < fraction``, or
     with ``positive`` (an [N] uint8 flag of label > 0, binary objectives
     with pos/neg fractions) ``positive ? u < pos_fraction : u <
     neg_fraction``, where ``u = uniform(bagging_key(seed, (it // freq) *
-    freq), N)``.  CUDA tensors launch the kernel of ``csrc/sample.cu``,
-    CPU tensors run ``bag_vals_plain``; both give the same bits."""
+    freq), N)``; with ``fold`` (a data-parallel rank) the key is
+    ``fold_in`` of that key and ``fold``, as the JAX package's
+    multi-process ``_bagging_w`` draws a rank's own mask.  CUDA tensors
+    launch the kernel of ``csrc/sample.cu``, CPU tensors run
+    ``bag_vals_plain``; both give the same bits."""
     _check_bag(g, h, it, positive, out)
     if int(freq) < 1:
         raise ValueError("bagging needs freq >= 1")
+    if fold is not None and int(fold) < 0:
+        raise ValueError("fold must be a rank >= 0")
     kw = dict(seed=seed, freq=freq, fraction=fraction,
               pos_fraction=pos_fraction, neg_fraction=neg_fraction,
-              positive=positive)
+              positive=positive, fold=fold)
     if g.device.type == "cpu":
         vals = bag_vals_plain(g, h, it, **kw)
         return vals if out is None else out.copy_(vals)
@@ -192,7 +198,8 @@ def bag_vals(g: torch.Tensor, h: torch.Tensor, it: torch.Tensor, *,
     err = _kernels.lib("sample").lgbt_bag_vals(
         g.data_ptr(), h.data_ptr(),
         None if positive is None else positive.data_ptr(), g.shape[0],
-        it.data_ptr(), k0, k1, int(freq), float(np.float32(fraction)),
+        it.data_ptr(), k0, k1, int(freq), -1 if fold is None else int(fold),
+        float(np.float32(fraction)),
         float(np.float32(pos_fraction)), float(np.float32(neg_fraction)),
         out.data_ptr(), _kernels.stream_ptr(g.device))
     _kernels.launched("bag_vals", err)
@@ -203,11 +210,14 @@ def bag_mask_plain(n: int, it: int, *, seed: int, freq: int,
                    fraction: float, pos_fraction: float = 1.0,
                    neg_fraction: float = 1.0,
                    positive: torch.Tensor | None = None,
-                   device=None) -> torch.Tensor:
+                   device=None, fold: int | None = None) -> torch.Tensor:
     """The [N] f32 in-bag mask of iteration ``it`` (a host int), in plain
-    PyTorch."""
+    PyTorch; ``fold`` as ``bag_vals``."""
     epoch = (int(it) // int(freq)) * int(freq)
-    u = uniform(bagging_key(seed, epoch), n, device)
+    key = bagging_key(seed, epoch)
+    if fold is not None:
+        key = fold_in(key, int(fold))
+    u = uniform(key, n, device)
     if positive is not None:
         m = torch.where(positive != 0, u < _f32(pos_fraction, device),
                         u < _f32(neg_fraction, device))
@@ -217,13 +227,14 @@ def bag_mask_plain(n: int, it: int, *, seed: int, freq: int,
 
 
 def bag_vals_plain(g, h, it, *, seed, freq, fraction, pos_fraction=1.0,
-                   neg_fraction=1.0, positive=None) -> torch.Tensor:
+                   neg_fraction=1.0, positive=None, fold=None
+                   ) -> torch.Tensor:
     """Plain PyTorch version of B6 (``bag_mask_plain`` and the stack),
     reading the iteration from ``it``."""
     w = bag_mask_plain(g.shape[0], int(it.cpu()[0]), seed=seed, freq=freq,
                        fraction=fraction, pos_fraction=pos_fraction,
                        neg_fraction=neg_fraction, positive=positive,
-                       device=g.device)
+                       device=g.device, fold=fold)
     return torch.stack([g * w, h * w, w], dim=1)
 
 

@@ -619,3 +619,108 @@ def _categorical_plain(hist, total, parent_output, cat_mask, params, nrec,
     rec = torch.where(take_cat[:, None], crec, nrec)
     rank = torch.where(take_cat[:, None], rank, pos[None])
     return rec, take_cat.to(torch.int32), rank.to(torch.int32)
+
+
+# --- B16a: the best-split select of the sharded learners --------------------
+
+def _check_gather(recs, cat, rank, shard_feat, f_local, active):
+    if recs.dim() != 3 or recs.shape[2] != RECORD \
+            or recs.dtype != torch.float32:
+        raise TypeError("recs must be an [S, C, 12] float32 tensor")
+    s, c, _ = recs.shape
+    if (cat is None) != (rank is None):
+        raise TypeError("cat and rank come together (categorical records)")
+    if cat is not None and (cat.shape != (s, c) or cat.dtype != torch.int32
+                            or rank.dim() != 3 or rank.shape[:2] != (s, c)
+                            or rank.dtype != torch.int32):
+        raise TypeError("cat must be [S, C] and rank [S, C, B] int32")
+    if (shard_feat is None) == (f_local is None):
+        raise ValueError("give the owner plan's shard_feat or f_local")
+    if shard_feat is not None and (shard_feat.dim() != 2
+                                   or shard_feat.shape[0] != s
+                                   or shard_feat.dtype != torch.int32):
+        raise TypeError("shard_feat must be an [S, fmax] int32 tensor")
+    if active is not None and (active.shape != (1,)
+                               or active.dtype != torch.int32):
+        raise TypeError("active must be a [1] int32 tensor")
+    ts = [t for t in (recs, cat, rank, shard_feat, active) if t is not None]
+    if any(t.device != recs.device for t in ts):
+        raise ValueError("gather_best inputs must be on one device")
+
+
+def gather_best(recs: torch.Tensor, cat: torch.Tensor | None = None,
+                rank: torch.Tensor | None = None, *,
+                shard_feat: torch.Tensor | None = None,
+                f_local: int | None = None,
+                active: torch.Tensor | None = None):
+    """Kernel B16a (the JAX package's ``gather_best`` with
+    ``globalize_feature``, ``ops/split.py`` :92-121): the all-gathered
+    best-split records ``recs`` [S, C, 12] of S ranks' scans of C
+    children (with ``cat`` [S, C] and ``rank`` [S, C, B] for categorical
+    records), each naming its feature by the rank's local scan slot, to
+    the winner of each child with its global feature: slot -> global id
+    through ``shard_feat`` [S, fmax] (the owner plan; a pad slot -1 is
+    feature 0), or ``slot + s * f_local`` (feature-parallel slices); the
+    largest gain wins, ties to the lowest global feature, then to the
+    lowest rank.  Returns the [C, 12] records, or (records, cat [C],
+    rank [C, B]).  ``active`` (a [1] int32 step flag): where it is 0
+    nothing is computed and the result is unspecified.  CUDA tensors
+    launch the kernel of ``csrc/dist.cu``, CPU tensors run
+    ``gather_best_plain``."""
+    _check_gather(recs, cat, rank, shard_feat, f_local, active)
+    s, c, _ = recs.shape
+    if recs.device.type == "cpu":
+        if active is not None and not bool(active[0]):
+            rec = torch.zeros((c, RECORD))
+            return rec if cat is None else (
+                rec, torch.zeros(c, dtype=torch.int32),
+                torch.zeros((c, rank.shape[2]), dtype=torch.int32))
+        return gather_best_plain(recs, cat, rank, shard_feat=shard_feat,
+                                 f_local=f_local)
+    if recs.device.type != "cuda":
+        raise ValueError(f"unsupported device {recs.device}")
+    dev = recs.device
+    out = (torch.empty((c, RECORD), dtype=torch.float32, device=dev),) \
+        + (() if cat is None else (
+            torch.empty(c, dtype=torch.int32, device=dev),
+            torch.empty((c, rank.shape[2]), dtype=torch.int32, device=dev)))
+    ts = [t for t in (recs, cat, rank, shard_feat, *out) if t is not None]
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("gather_best needs contiguous tensors")
+    b = 0 if rank is None else int(rank.shape[2])
+    err = _kernels.lib("dist").lgbt_gather_best(
+        recs.data_ptr(), None if cat is None else cat.data_ptr(),
+        None if rank is None else rank.data_ptr(), s, c, RECORD, b,
+        None if shard_feat is None else shard_feat.data_ptr(),
+        0 if shard_feat is None else int(shard_feat.shape[1]),
+        0 if f_local is None else int(f_local),
+        None if active is None else active.data_ptr(), out[0].data_ptr(),
+        None if cat is None else out[1].data_ptr(),
+        None if cat is None else out[2].data_ptr(),
+        _kernels.stream_ptr(dev))
+    _kernels.launched("gather_best", err)
+    return out[0] if cat is None else tuple(out)
+
+
+def gather_best_plain(recs, cat=None, rank=None, *, shard_feat=None,
+                      f_local=None):
+    """Plain PyTorch version of B16a, the JAX package's ``jnp.max``, tie
+    mask and ``jnp.argmin`` over the gathered records."""
+    s, c, _ = recs.shape
+    dev = recs.device
+    local = recs[..., FEATURE].to(torch.int64)                 # [S, C]
+    ranks = torch.arange(s, device=dev)[:, None]
+    if shard_feat is None:
+        gf = local + ranks * int(f_local)
+    else:
+        slot = local.clamp(0, shard_feat.shape[1] - 1)
+        gf = torch.clamp_min(shard_feat.to(torch.int64)[ranks, slot], 0)
+    gain = recs[..., GAIN]
+    tie = gain == torch.amax(gain, dim=0, keepdim=True)
+    win = torch.argmin(torch.where(tie, gf, 2 ** 30), dim=0)   # [C]
+    cs = torch.arange(c, device=dev)
+    rec = recs[win, cs].clone()
+    rec[:, FEATURE] = gf[win, cs].to(torch.float32)
+    if cat is None:
+        return rec
+    return rec, cat[win, cs].clone(), rank[win, cs].clone()

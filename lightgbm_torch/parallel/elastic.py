@@ -12,7 +12,7 @@ layer (``integrity.py``) needs.
   (``integrity_policy=quarantine``) and the mesh size the recovery
   ladder's next rung would take without them.
 
-The rest waits for ROADMAP A16: the heartbeat liveness monitor, the
+The rest waits for ROADMAP A16b: the heartbeat liveness monitor, the
 collective deadline (``guarded_get``), ``elastic_train``'s shrink-to-
 survive ladder and its JSONL event file; the flight-recorder dump at a
 classified failure waits for A15 (the blackbox).
@@ -34,7 +34,7 @@ FAILURE_KINDS = ("collective_timeout", "host_loss", "claim_wedge",
 _REGISTRY = MetricsRegistry()
 _REGISTRY_LOCK = threading.Lock()
 # the classified failures of this process, oldest first (the JAX
-# package appends them to ``<output_model>.elastic.jsonl``, A16)
+# package appends them to ``<output_model>.elastic.jsonl``, A16b)
 _EVENTS: List[Dict[str, object]] = []
 
 

@@ -21,19 +21,24 @@ Spec grammar — comma-separated ``site:hits[:action]`` entries:
   ``bitflip``.
 
 The grammar knows every site of the JAX package (``KNOWN_SITES``), so a
-spec written for it parses here.  The port wires two of them, the
-computation-integrity layer's substrate (``integrity.py``):
+spec written for it parses here.  The port wires four of them: the
+computation-integrity layer's substrate (``integrity.py``) and the
+distributed learners' (``parallel/``):
 
-==============  ==========================================================
-``hist_sdc``    the grower's output (``models/fused.py``, the checked
-                iteration): one bit of the new tree's ``leaf_count[0]``
-                word flips in the tree buffer
-``score_sdc``   the score-update delta of the checked iteration
-                (``models/fused.py``)
-==============  ==========================================================
+================  ========================================================
+``hist_sdc``      the grower's output (``models/fused.py``, the checked
+                  iteration): one bit of the new tree's ``leaf_count[0]``
+                  word flips in the tree buffer
+``score_sdc``     the score-update delta of the checked iteration
+                  (``models/fused.py``)
+``collective``    each tree's dispatch to a distributed learner
+                  (``parallel/data_parallel._CollectiveGate``)
+``device_claim``  the process group's bring-up
+                  (``parallel/mesh.init_distributed``)
+================  ========================================================
 
 The other sites are wired with the modules that hold them (snapshots,
-ROADMAP A12; elastic training and ingest, A16; the rest of A17).
+ROADMAP A12; elastic training and ingest, A16b; the rest of A17).
 """
 
 from __future__ import annotations
@@ -180,6 +185,16 @@ def _act(site: str, n: int, action: str) -> None:
         time.sleep(_hang_seconds())
         return
     raise InjectedFault(site, n)
+
+
+def check(site: str) -> None:
+    """Raise, exit or hang if ``site`` fires on this hit (its action);
+    nothing otherwise."""
+    if not _spec:
+        return
+    fire, n, action = _advance(site)
+    if fire:
+        _act(site, n, action)
 
 
 def bitflip_choice(site: str, hit: int, size: int, floating: bool,

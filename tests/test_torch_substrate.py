@@ -182,11 +182,21 @@ def test_unported_parameters_raise(params, item, tmp_path):
     """Each parameter value whose module the port lacks raises, naming its
     ROADMAP item.  The partitioned learner and the controls it serves
     (forced splits, monotone intermediate/advanced; ROADMAP A11, ported)
-    train instead, and their first tree is the JAX package's."""
+    train instead, and their first tree is the JAX package's.  A
+    distributed learner (ROADMAP A16, ported) on a lone rank, with no
+    process group, trains serially: the serial run's trees."""
     x, y = raw_problem(4, n=400, f=4)
     y = np.minimum(y, 1)
     full = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
             **params}
+    if item == "A16":
+        bt = lgt.train(full, lgt.Dataset(x, y), 2)
+        assert bt._model.dist is None
+        bs = lgt.train({k: v for k, v in full.items()
+                        if k != "tree_learner"}, lgt.Dataset(x, y), 2)
+        assert bt.model_to_string().split("end of trees")[0] \
+            == bs.model_to_string().split("end of trees")[0]
+        return
     if any(k in params for k in _PARTITIONED):
         # 7 leaves: past them this 400-row set's best gains fall to f32
         # rounding noise (about 1e-6 against a root gain of 110), where
