@@ -58,7 +58,9 @@ Phases, one JSON line each:
    B3s-K and B3-K bit for bit at every super-step of whole trees (K = 16
    and 8, max_depth 5, a stump; the full trees end in budget-cut
    super-steps) and on a table with tied gains, B1-K within HIST_RTOL at K
-   = 16 and 8 on a real super-step's target slots, B6 bit for bit for a
+   = 16 and 8 on a real super-step's target slots (and ``check_b1k_card``:
+   bitwise at three row ranges, zero past slots_used, no write on a dead
+   step, NaN / +-Inf rows as the plain version's), B6 bit for bit for a
    fraction and pos/neg fractions at two refresh epochs (whose masks
    differ), with times, bounds and ``index_add_`` for B1-K;
    wide_train: the default ``train`` at 255 leaves (split_batch auto ->
@@ -194,7 +196,8 @@ Phases, one JSON line each:
    printed); then B8a against its plain version within HIST_RTOL at every
    live pass of whole 31-, 255- (K = 16) and 64-leaf (K = 8) trees, and in
    its three forms (root, a strict step's slot, K = 16 and 8 slots)
-   bitwise on a rerun, nothing written on an inactive step, zeros with
+   bitwise on a rerun, NaN / +-Inf rows giving exactly the plain
+   version's non-finite cells, nothing written on an inactive step, zeros with
    every slot at -1; B3/B3-K's k-hot decode bit for bit at every step of
    those trees; B4's k-hot walk equal to the grower's row -> leaf vector
    on the train rows and bit for bit on the valid rows; each timed beside
@@ -230,7 +233,9 @@ Phases, one JSON line each:
    the unconstrained runs';
    partitioned_kernels (after constraint_kernels): B11a (segment
    histogram, f32 and int8, on the root segment and a 7,500-row segment
-   of a permuted order), B11b (the root split, a mid-tree segment with an
+   of a permuted order, f32 also on segments of 1 and 33 rows with the
+   scale the root pass computed, bitwise and with NaN / +-Inf rows),
+   B11b (the root split, a mid-tree segment with an
    NA bin and with a categorical rank vector) and B11c (a finished
    partitioned tree's segment table) against their plain versions at 1M
    x 28, 63 bins, B11b bit for bit and B11a f32 within HIST_RTOL, int8
@@ -277,13 +282,14 @@ Phases, one JSON line each:
    and 64 on the wide configuration's rows: whole 255-leaf trees with
    B3s-K and B3-K bit for bit at every super-step (``check_batched_tree``),
    then on the first super-step with all K slots valid B1-K within
-   HIST_RTOL (bitwise on a rerun), B1-K-int bit for bit, B3s-K and B3-K,
+   HIST_RTOL (bitwise on a rerun, ``check_b1k_card``), B1-K-int bit for
+   bit, B3s-K and B3-K,
    B6-node on the 2K children bit for bit at two iterations, B2 on the 2K
    children with their masks and random bins and B2-cat on
    WIDE_K_CAT_COLS columns read as categories, each timed beside its
    bound and library call; rows_per_block: B1, B1-K and their integer
    forms at the automatic row block and at RPB_VALUES against their plain
-   versions, bitwise on reruns, the integer forms bitwise across the
+   versions, bitwise on reruns, B1-K and the integer forms bitwise across the
    values, each timed, and the shadow grower's strict and K = 16 trees
    at an explicit value bit for bit as the primary's;
    hist_tune_train (after wide_train): HIST_TUNE_PARAMS as super-epochs
@@ -1985,7 +1991,9 @@ def check_batched_tree(torch, binned, vals, fmask, num_bin, na_bin, B, L, K,
 def phase_wide_kernels(torch, lgt, train):
     """B1-K, B3-K, B3s-K and B6 against their plain versions at the wide
     path's shapes (1M x 28, 63 bins, 255 leaves, K = 16 and 8), with
-    times, bounds and library times."""
+    times, bounds and library times; B1-K also through
+    ``check_b1k_card`` at K = 16 and 8."""
+    from lightgbm_torch import _kernels as lgt_kernels
     from lightgbm_torch import grower as gr
     from lightgbm_torch.ops import split as sp
     from lightgbm_torch.ops.histogram import (compute_histogram,
@@ -2150,7 +2158,7 @@ def phase_wide_kernels(torch, lgt, train):
     # B1-K at K = 16 and 8 on the target slots of a real super-step with
     # every slot valid, and at K = 16 on the first super-step's (one slot
     # valid), each with the super-step's count of slots in use
-    err, rel, t16 = 0.0, 0.0, None
+    err, rel, t16, fixed = 0.0, 0.0, None, {}
     for case, k, snap_key in (("full_k16", 16, "state"),
                               ("full_k8", 8, "state"),
                               ("full_k16", 16, "first")):
@@ -2174,6 +2182,9 @@ def phase_wide_kernels(torch, lgt, train):
             raise AssertionError(f"B1-K ({what}) max abs error {e} "
                                  f"(scale {scale})")
         err, rel = max(err, e), max(rel, e / max(scale, 1e-30))
+        if snap_key == "state":
+            fixed[k] = check_b1k_card(torch, lgt_kernels, binned, vals,
+                                      tslot, used, B, k, what)
         if k == 16 and snap_key == "state":
             t16, used16 = tslot, used
     first = snaps["full_k16"]["first"]
@@ -2229,9 +2240,6 @@ def phase_wide_kernels(torch, lgt, train):
                              f"version: {oerr}")
     emit({"phase": "wide_kernel_odd", "rows": on, "features": of_,
           "bins": ob, "hist_slots_max_abs_err": oerr})
-    from lightgbm_torch.ops.histogram import slots_launch_shape
-    rpb, pairs, chunk = slots_launch_shape(n, f, B, 16)
-    partial_mb = -(-n // rpb) * 16 * f * B * 12 / 1e6
 
     out = {}
     for key, name, src_path, replaces, e, r, tk, tp, (bms, by), tl in rows:
@@ -2239,8 +2247,7 @@ def phase_wide_kernels(torch, lgt, train):
                     "replaces": replaces, "max_abs_err": e, "ms": tk,
                     "plain_ms": tp, "bound_ms": bms, "bound_by": by,
                     "library_ms": tl}
-        extra = {"rows_in_slots": in_slots, "partial_mb": partial_mb,
-                 "launch_shape": [rpb, pairs, chunk],
+        extra = {"rows_in_slots": in_slots, "fixed_point": fixed,
                  "first_super_step": first_ms} \
             if key == "histogram_slots" else {}
         emit({"phase": "kernel", **out[key], "max_rel_err": r,
@@ -3763,17 +3770,15 @@ def _dead_khot_pass(torch, lgt_kernels, sp, vals, slot, num_slots, B):
     dev = vals.device
     s = max(num_slots, 1)
     out = torch.full((s, sp.num_features, B, 3), -7.0, device=dev)
-    acc = torch.empty((s, sp.num_features, sp.stride, 3), dtype=torch.int64,
-                      device=dev)
-    tot = torch.empty((s, 3), dtype=torch.int64, device=dev)
-    mx = torch.empty(3, dtype=torch.int32, device=dev)
+    ints = s * sp.num_features * sp.stride * 3 + s * 3
+    ws = torch.empty(ints + -(-ints // 2) + 2, dtype=torch.int64,
+                     device=dev)
     off = torch.zeros(1, dtype=torch.int32, device=dev)
     err = lgt_kernels.lib("sparse").lgbt_sparse_histogram(
         sp.flat.data_ptr(), sp.flat.shape[0], sp.k, vals.data_ptr(),
         slot.data_ptr(), num_slots, sp.num_features, sp.stride, B,
-        sp.default_bin.data_ptr(), off.data_ptr(), acc.data_ptr(),
-        tot.data_ptr(), mx.data_ptr(), out.data_ptr(),
-        lgt_kernels.stream_ptr(dev))
+        sp.default_bin.data_ptr(), off.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), lgt_kernels.stream_ptr(dev))
     lgt_kernels.check(err, "B8a on an inactive step")
     torch.cuda.synchronize()
     return bool((out == -7.0).all())
@@ -3792,6 +3797,108 @@ def khot_pass_bound(n: int, k: int, f: int, B: int, kept: int, S: int = 1,
 def _hist_rel(torch, h_k, h_p) -> float:
     return float((h_k.double() - h_p.double()).abs().max()
                  / max(float(h_p.double().abs().max()), 1e-30))
+
+
+# non-finite channel values planted in five rows of a pass: a NaN, a +Inf,
+# a -Inf, then a +Inf and a -Inf in one channel (NaN where they share a
+# cell)
+NONFINITE_PLANT = ((0, float("nan")), (1, float("inf")), (2, float("-inf")),
+                   (0, float("inf")), (0, float("-inf")))
+
+
+def check_nonfinite(torch, run, plain, vals, rows, what: str) -> int:
+    """``run`` (the kernel) and ``plain`` (its plain version) on ``vals``
+    with NONFINITE_PLANT in ``rows`` (five rows of the pass): the same
+    non-finite cells (NaN where NaN, the same infinity), every other cell
+    within HIST_RTOL of the largest finite one.  Returns the count of
+    non-finite cells."""
+    v = vals.clone()
+    for (c, x), r in zip(NONFINITE_PLANT, rows):
+        v[int(r), c] = x
+    a, b = run(v).double(), plain(v).double()
+    na, nb = ~torch.isfinite(a), ~torch.isfinite(b)
+    same = torch.equal(na, nb) \
+        and torch.equal(torch.isnan(a), torch.isnan(b)) \
+        and torch.equal(a[na & ~torch.isnan(a)], b[nb & ~torch.isnan(b)])
+    fin = ~nb
+    err = float((a[fin] - b[fin]).abs().max()) \
+        / max(float(b[fin].abs().max()), 1e-30)
+    if not same or int(nb.sum()) == 0 or err > HIST_RTOL:
+        raise AssertionError(f"{what} with NaN/Inf rows: non-finite cells "
+                             f"equal to the plain version's {same} "
+                             f"({int(nb.sum())} cells), other cells off by "
+                             f"{err:.3g}")
+    return int(nb.sum())
+
+
+def _dead_slots_pass(torch, lgt_kernels, binned, vals, slot, used, B, K):
+    """B1-K launched on an inactive step into a sentinel-filled output and
+    workspace through the C entry: True when nothing was written (its
+    three kernels exit at once)."""
+    from lightgbm_torch.ops import histogram as th
+    n, f = binned.shape
+    dev = binned.device
+    out = torch.full((K, f, B, 3), -7.0, device=dev)
+    ws = torch.full((th._slot_ws_words(K, f, B),), -7, dtype=torch.int64,
+                    device=dev)
+    off = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = lgt_kernels.lib("histogram").lgbt_histogram_slots(
+        binned.data_ptr(), vals.data_ptr(), slot.data_ptr(), n, f, B, K,
+        *th.slots_launch_shape(n, f, B, K), th._SCALE_PARTS, off.data_ptr(),
+        used.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        lgt_kernels.stream_ptr(dev))
+    lgt_kernels.check(err, "B1-K on an inactive step")
+    torch.cuda.synchronize()
+    return bool((out == -7.0).all()) and bool((ws == -7).all())
+
+
+def check_b1k_card(torch, lgt_kernels, binned, vals, slot, used, B, K,
+                   what: str) -> dict:
+    """B1-K's fixed-point checks beyond its plain version, on a real
+    super-step's slots: bitwise equal at three row ranges (half, double
+    and 4,096 rows against the automatic one); zero for every slot at or
+    past a halved ``slots_used`` (the rows of those slots moved to -1);
+    nothing written on a dead step; NaN / +-Inf rows giving exactly the
+    plain version's non-finite cells.  Returns the report."""
+    from lightgbm_torch.ops.histogram import (compute_histogram,
+                                              histogram_slots_plain,
+                                              slots_launch_shape)
+    n, f = binned.shape
+
+    def run(v=vals, r=0, s=slot, u=used):
+        return compute_histogram(binned, v, num_bins=B, slot=s,
+                                 num_slots=K, slots_used=u,
+                                 rows_per_block=r)
+    ref = run()
+    auto = slots_launch_shape(n, f, B, K)[0]
+    rpb = (auto // 2, 2 * auto, 4096)
+    for r in rpb:
+        if not same_bits(torch, run(r=r), ref):
+            raise AssertionError(f"B1-K ({what}) at rows_per_block={r} "
+                                 "differs from the automatic row range")
+    half = max(1, int(used[0]) // 2)
+    s2 = torch.where(slot >= half, -1, slot)
+    h2 = run(s=s2, u=torch.tensor([half], dtype=torch.int32,
+                                  device=binned.device))
+    if not bool((h2[half:] == 0).all()) or _hist_rel(
+            torch, h2, histogram_slots_plain(binned, vals, s2, num_slots=K,
+                                             num_bins=B)) > HIST_RTOL:
+        raise AssertionError(f"B1-K ({what}) with {half} slots in use: "
+                             "slots past them not zero or off the plain "
+                             "version")
+    if not _dead_slots_pass(torch, lgt_kernels, binned, vals, slot, used, B,
+                            K):
+        raise AssertionError(f"B1-K ({what}) wrote on a dead step")
+    rows = torch.nonzero((slot >= 0) & (slot < K)).flatten()[:5]
+    nonfin = check_nonfinite(
+        torch, lambda v: run(v=v),
+        lambda v: histogram_slots_plain(binned, v, slot, num_slots=K,
+                                        num_bins=B), vals, rows,
+        f"B1-K ({what})")
+    return {"rows_per_block_bitwise": [auto] + list(rpb),
+            "zero_past_slots_used": half, "dead_step_clean": True,
+            "nonfinite_cells": nonfin,
+            "launch_shape": list(slots_launch_shape(n, f, B, K))}
 
 
 def _walk_leaves(torch, sp, tree, na_bin, steps):
@@ -3900,7 +4007,9 @@ def phase_sparse_kernels(torch, lgt, lgt_kernels, train, valid):
     """B8a against its plain version within HIST_RTOL in its three forms
     on real passes (every live pass of a 31-leaf strict tree, of a
     255-leaf tree at K = 16 and of a 64-leaf tree at K = 8), bitwise
-    equal on a rerun, writing nothing on an inactive step and zeros
+    equal on a rerun, NaN / +-Inf rows giving exactly the plain version's
+    non-finite cells (``check_nonfinite``), writing nothing on an
+    inactive step and zeros
     with every row's slot at -1; B3 and B3-K's k-hot decode bit for bit
     to their plain versions at every step of those trees; B4's k-hot walk
     of each tree over the train rows equal to the grower's row -> leaf
@@ -3998,7 +4107,14 @@ def phase_sparse_kernels(torch, lgt, lgt_kernels, train, valid):
         S = kw.get("num_slots", 1)
         kept = n if slot is None else int(((slot >= 0)
                                            & (slot < S)).sum())
+        in_pass = torch.ones(n, dtype=torch.bool, device=dev) \
+            if slot is None else (slot >= 0) & (slot < S)
+        nonfin = check_nonfinite(
+            torch, lambda v: histogram(sp, v, num_bins=B, **kw),
+            lambda v: histogram_plain(sp, v, num_bins=B, **kw_p), vals,
+            torch.nonzero(in_pass).flatten()[:5], f"B8a ({form})")
         res[form] = {
+            "nonfinite_cells": nonfin,
             "ms": median_ms(torch, lambda: histogram(sp, vals, num_bins=B,
                                                      **kw)),
             "plain_ms": median_ms(torch, lambda: histogram_plain(
@@ -6194,8 +6310,11 @@ def phase_partitioned_kernels(torch, lgt, train):
     """B11a (f32 and int8), B11b, B11c and B2's mono_bounds form against
     their plain versions at the main path's shapes (1M x 28, 63 bins):
     B11a on the root segment and on a small segment of PART_SMALL_ROWS
-    rows of a permuted order, f32 within HIST_RTOL of the largest bin
-    (random-score gradients) and bitwise on a rerun, int8 exact; B11b on
+    rows of a permuted order (f32 also on segments of 1 and 33 rows, with
+    the scale the root pass computed), f32 within HIST_RTOL of the largest
+    bin (random-score gradients), bitwise on a rerun and with its own
+    scale, NaN / +-Inf rows giving exactly the plain version's non-finite
+    cells, int8 exact; B11b on
     the root split and on a mid-tree segment with an NA bin and with a
     categorical rank vector, order and left count bitwise; B11c on a
     finished partitioned tree's segment table, bitwise; B2 (and B2-cat)
@@ -6230,37 +6349,62 @@ def phase_partitioned_kernels(torch, lgt, train):
     rows, checked = [], {"B11a": 0, "B11a-int": 0, "B11b": 0, "B11c": 0,
                          "B2 mono_bounds": 0}
 
-    # B11a: f32 and int8, the root segment and a small one
-    times_a = {}
+    # B11a: f32 and int8, the root segment and a small one (f32 also
+    # segments of 1 and 33 rows), the f32 scale computed by the root pass
+    # and handed to the others, as the learner does
+    times_a, nonfin_a = {}, {}
+    scale_a = seg.new_scale(dev)
     for key, v, vb in (("segment_histogram", vals, 12),
                        ("segment_histogram_int", qvals, 3)):
         errs = []
-        for what, order, (begin, count) in (("root", iota, (0, n)),
-                                            ("small", perm, small)):
-            h_k = seg.segment_histogram(binned, v, order, begin, count,
-                                        num_bins=B)
+        f32 = v.dtype == torch.float32
+        segs = (("root", iota, (0, n)), ("small", perm, small))
+        if f32:
+            segs += (("one", perm, (5, 1)),
+                     ("thirty_three", perm, (999_000, 33)))
+        for what, order, (begin, count) in segs:
+            kw = dict(num_bins=B)
+            if f32:
+                kw.update(scale=scale_a, fill_scale=what == "root")
+            h_k = seg.segment_histogram(binned, v, order, begin, count, **kw)
             h_p = seg.segment_histogram_plain(binned, v, order, begin, count,
                                               num_bins=B)
+            if f32:
+                kw["fill_scale"] = False
             h_k2 = seg.segment_histogram(binned, v, order, begin, count,
-                                         num_bins=B)
+                                         **kw)
             torch.cuda.synchronize()
             if not torch.equal(h_k, h_k2):
                 raise AssertionError(f"B11a ({key}, {what}) is not bitwise "
                                      "reproducible")
-            if v.dtype == torch.float32:
+            if f32:
                 err = float((h_k - h_p).abs().max())
                 scale = float(h_p.abs().max())
                 if not torch.equal(h_k[..., 2], h_p[..., 2]) \
                         or err > HIST_RTOL * max(1.0, scale):
                     raise AssertionError(f"B11a ({what}) max abs error "
                                          f"{err} (scale {scale})")
+                # its own scale (a pass that computes it) gives the bits
+                if not same_bits(torch, h_k, seg.segment_histogram(
+                        binned, v, order, begin, count, num_bins=B)):
+                    raise AssertionError(f"B11a ({what}): the handed scale "
+                                         "and its own differ")
+                seg_rows = order[begin:begin + count].long()
+                nonfin_a[what] = check_nonfinite(
+                    torch, lambda pv: seg.segment_histogram(
+                        binned, pv, order, begin, count, num_bins=B),
+                    lambda pv: seg.segment_histogram_plain(
+                        binned, pv, order, begin, count, num_bins=B),
+                    vals, (seg_rows.tolist() * 5)[:5], f"B11a ({what})")
                 errs.append(err)
             else:
                 errs.append(exact_err(torch, [(h_k, h_p)],
                                       f"B11a-int ({what})"))
-            checked["B11a" if v.dtype == torch.float32 else "B11a-int"] += 1
+            checked["B11a" if f32 else "B11a-int"] += 1
+            if what not in ("root", "small"):
+                continue
             t_k = median_ms(torch, lambda: seg.segment_histogram(
-                binned, v, order, begin, count, num_bins=B))
+                binned, v, order, begin, count, **kw))
             t_p = median_ms(torch, lambda: seg.segment_histogram_plain(
                 binned, v, order, begin, count, num_bins=B))
             t_l = _segment_library(torch, binned, v, order, begin, count, B)
@@ -6274,7 +6418,9 @@ def phase_partitioned_kernels(torch, lgt, train):
             "segment)", "lightgbm_torch/csrc/segment.cu",
             "lightgbm_tpu/grower_partitioned.py:55", max(errs), tk, tp,
             (bms, by), tl, {"small_ms": sk, "small_plain_ms": spp,
-                            "small_library_ms": sl, "small_bound_ms": sbms}))
+                            "small_library_ms": sl, "small_bound_ms": sbms,
+                            **({"nonfinite_cells": nonfin_a} if f32
+                               else {})}))
 
     # B11b: the root split, then a mid-tree segment with an NA bin (the
     # feature's top bin taken as NA) and with a categorical rank vector
@@ -8182,20 +8328,21 @@ def phase_wide_k_kernels(torch, lgt, train):
     the wide configuration's rows (1M x 28, 63 bins, 255 leaves): whole
     trees with B3s-K and B3-K bit for bit at every super-step
     (``check_batched_tree``), then on the first super-step with all K
-    slots valid B1-K (within HIST_RTOL, bitwise on a rerun), B1-K-int
+    slots valid B1-K (within HIST_RTOL, bitwise on a rerun, and
+    ``check_b1k_card``), B1-K-int
     (bitwise), B3s-K and B3-K (timed), B6-node on the 2K children (bit
     for bit, two iterations), B2 on the 2K children with their masks and
     random bins and B2-cat on WIDE_K_CAT_COLS columns read as categories
     (against the plain version on CPU copies), each timed beside its
     bound and library call."""
+    from lightgbm_torch import _kernels as lgt_kernels
     from lightgbm_torch import grower as gr
     from lightgbm_torch.ops import random as rnd
     from lightgbm_torch.ops import split as sp
     from lightgbm_torch.ops.histogram import (compute_histogram,
                                               histogram_slots_int_plain,
                                               histogram_slots_plain,
-                                              int_launch_shape,
-                                              slots_launch_shape)
+                                              int_launch_shape)
     binned, num_bin, na_bin, vals, gen = _wide_operands(torch, train, 5)
     dev = binned.device
     n, f = binned.shape
@@ -8245,7 +8392,8 @@ def phase_wide_k_kernels(torch, lgt, train):
             binned, vals, tslot, num_slots=K, num_bins=B), reps=10,
             warmup=2)
         t_lib = _slots_library(torch, binned, vals, tslot, B, K)
-        rpb, pairs, chunk = slots_launch_shape(n, f, B, K)
+        fixed = check_b1k_card(torch, lgt_kernels, binned, vals, tslot,
+                               used, B, K, f"K = {K}")
         out[f"histogram_slots_k{K}"] = _kernel_row(
             f"histogram_slots_k{K}", f"B1-K K-slot histogram (K = {K})",
             "lightgbm_torch/csrc/histogram.cu",
@@ -8253,8 +8401,7 @@ def phase_wide_k_kernels(torch, lgt, train):
             t_k, t_p, bound_ms(n * f + 16 * n + K * f * B * 12,
                                3 * in_slots * f), t_lib,
             rows_in_slots=in_slots, slots_used=int(used[0]),
-            launch_shape=[rpb, pairs, chunk],
-            partial_mb=-(-n // rpb) * K * f * B * 12 / 1e6)
+            fixed_point=fixed)
 
         # B1-K-int: bitwise against its plain version
         ai = compute_histogram(binned, q, num_bins=B, slot=tslot,
@@ -8430,8 +8577,9 @@ def phase_wide_k_kernels(torch, lgt, train):
 def phase_rows_per_block(torch, lgt, lgt_kernels, train):
     """``rows_per_block`` on the card: B1 and B1-K (K = 16) at the
     automatic row block and at RPB_VALUES against their plain versions
-    (within HIST_RTOL), bitwise on a rerun at each value; B1-int and
-    B1-K-int bitwise equal across the values and to their plain versions;
+    (within HIST_RTOL), bitwise on a rerun at each value, B1-K bitwise
+    equal across the values; B1-int and B1-K-int bitwise equal across the
+    values and to their plain versions;
     each timed at every value; and the shadow grower at an explicit value
     growing a strict and a K = 16 tree bit for bit as the primary grower
     (the same launch geometry).  Returns the kernel times by value."""
@@ -8495,6 +8643,11 @@ def phase_rows_per_block(torch, lgt, lgt_kernels, train):
                 if e > HIST_RTOL * max(1.0, float(p.abs().max())):
                     raise AssertionError(f"{form} at rows_per_block={r}: "
                                          f"max abs error {e}")
+                # B1-K's fixed-point sums: the same bits at every value
+                if form == "B1-K" and first is not None \
+                        and not same_bits(torch, h, first):
+                    raise AssertionError(f"B1-K at rows_per_block={r} "
+                                         "differs from the automatic shape")
             first = h if first is None else first
             rows = shapes[form](r)[0]
             report[form][str(r)] = {
@@ -9240,6 +9393,7 @@ def main() -> int:
             + WIDE_K_KERNELS + DIST_KERNELS:
         if by_path[KERNEL_PATH[k]].get(counter[k], 0) < 1:
             raise AssertionError(f"{k} was not launched on its path")
+    emit({"phase": "total", "seconds": time.perf_counter() - _START})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -144,11 +144,11 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "lgbt_histogram": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _P),
         "lgbt_histogram_slots": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _P, _P, _P, _P, _P),
+                                 _I, _P, _P, _P, _P, _P),
         "lgbt_histogram_int": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P, _P, _P),
         "lgbt_histogram_members": (_P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _P),
+                                   _I, _I, _I, _I, _P),
         "lgbt_histogram_setup": (_I,),
     },
     "split": {
@@ -230,12 +230,13 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "sparse": {
         "lgbt_sparse_histogram": (_P, ctypes.c_longlong, _I, _P, _P, _I, _I,
-                                  _I, _I, _P, _P, _P, _P, _P, _P, _P),
+                                  _I, _I, _P, _P, _P, _P, _P),
         "lgbt_sparse_setup": (),
     },
     "segment": {
-        "lgbt_segment_histogram": (_P, _P, _P, ctypes.c_longlong, _I, _I,
-                                   _I, _I, _I, _I, _P, _P, _P),
+        "lgbt_segment_histogram": (_P, _P, ctypes.c_longlong, _P,
+                                   ctypes.c_longlong, _I, _I, _I, _I, _I, _I,
+                                   _P, _I, _I, _P, _P, _P),
         "lgbt_segment_histogram_int": (_P, _P, _I, _P, ctypes.c_longlong,
                                        _I, _I, _I, _I, _I, _P, _P, _P),
         "lgbt_partition_segment": (_P, _I, _P, ctypes.c_longlong, _I, _I,

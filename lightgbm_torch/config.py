@@ -208,9 +208,10 @@ _PARAMS: Dict[str, tuple] = {
     # their integer and member forms, the partitioned learner's segment
     # histogram), rounded up to the kernel's granularity
     # (ops/histogram.py); 0 = the kernels' automatic shape, or under
-    # hist_tune=on the tuner's choice.  Another value re-partitions the
-    # f32 sums (a histogram a few ulps away; the integer forms are
-    # exact at every value); k-hot sparse storage keeps its own blocking
+    # hist_tune=on the tuner's choice.  Another value re-partitions B1's
+    # f32 sums (a histogram a few ulps away; B1-K's and the segment
+    # histogram's fixed-point sums and the integer forms are exact at
+    # every value); k-hot sparse storage keeps its own blocking
     "rows_per_block": (int, 0, []),
     # iterations fused into one on-device program (lax.scan) when the
     # objective/bagging config allows it — amortizes the host<->device

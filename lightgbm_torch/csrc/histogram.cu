@@ -59,31 +59,46 @@
 //
 // (the JAX package lays it out as [F, B, 3K] with channel c of slot k at
 // c*K + k; the port keeps [K, F, B, 3], the grower's per-leaf layout).
-// A per-thread [B, 3K] slice would be 12 KB at K = 16 and a block's
-// [F, B, 3K] 338,688 B, beyond the 227 KB a block may have, so the kernel
-// tiles over (feature, slot) pairs instead:
-//   1. `hist_slots_partial`: grid (row blocks, pair tiles).  Thread t of
-//      tile y owns pair p = y * pairs_per_block + t, feature p % F and slot
-//      p / F (so a warp's lanes read neighbouring bytes of a row), and
-//      walks the block's rows in order into a private [B, 3] f64 slice of
-//      shared memory, adding the rows whose slot is its own.  The block
-//      stages its rows a chunk at a time in shared memory (slots, vals and
-//      binned rows, read once and coalesced), then marks each slot's
-//      rows of every 32-row group in one word (warp ballots), so that a
-//      thread visits only its own slot's rows, in row order, and reads no
-//      global memory.  When fewer slots are in use (the device count
-//      `slots_used`, the super-step's valid slots), a pair's 32-row
-//      groups are dealt over several threads, whose slices are summed in
-//      a fixed order; the tiles of unused slots only write zeros.  The
-//      block then writes its pairs to the partial [row blocks, K, F, B, 3]
-//      (they are contiguous there, rounded once to f32), coalesced.
-//   2. `hist_reduce` sums the partials in block order in f64, as for one
-//      slot.
-// The order of every sum is fixed by the shapes and the count of slots
-// in use, so reruns are bitwise equal.  Bytes per pass do not grow with K (N*F + 12N + 4N, about 44 MB
-// at the main path); the partial buffer does: row blocks x K*F*B*3*4 B,
-// 44.7 MB at 132 row blocks, K = 16, F = 28, B = 63.
-//
+// Sums are 64-bit fixed point (csrc/fixed.cuh): exact integers that do
+// not depend on the order of the adds, so atomics keep reruns bitwise and
+// the launch shape changes no bit; each cell is rounded once to f32.
+// Three launches:
+//   1. `slots_prep`: clears the accumulator [K, F, B, 3] int64 and its
+//      non-finite side buffer, and writes the partial maxima of vals that
+//      fix each channel's scale (over all N rows: a function of vals
+//      alone).
+//   2. `hist_slots_tile`: grid (row ranges, tiles); each block owns one
+//      tile [tk slots, tf features, B, 3] of 64-bit counters in shared
+//      memory (as many slots as fit the 227 KB a block has) and adds its
+//      range a warp at a time over 32 rows, as `hist_int_partial`: the
+//      lanes read the rows' slots coalesced, a ballot keeps the rows whose
+//      slot is in the tile's range, and the warp adds each kept row, its
+//      lanes over the row's features (two or four rows at a time when a
+//      tile has at most 16 or 8), each lane the feature's three channels,
+//      with 32-bit shared-memory atomics (a low word whose carry goes to a
+//      high word: the card has no native 64-bit shared add, and
+//      `atomicAdd` on a 64-bit shared word compiles to a compare-and-swap
+//      loop, `ATOMS.CAST.SPIN.64`, 2x slower on the H100).  Each warp reads
+//      its rows with its own loads, so many are in flight.  The block flushes
+//      its tile once, with one global 64-bit atomic a non-zero cell, into
+//      the accumulator (no per-row-block partial).  A tile whose first
+//      slot is at or past `slots_used` exits at once.
+//   3. `slots_finalize`: each cell to f32 (the side value where a
+//      non-finite value landed).
+// `active` = 0 makes all three return at once; slots at or past
+// `slots_used` come out zero.  A first design staged each chunk of rows
+// once per thread-block cluster (TMA bulk copies multicast to the
+// cluster's tiles, double-buffered on mbarriers); on the H100 it took 2.4x
+// (K = 16), 3.9x (K = 64) and 4.4x (136 x 255 bins) this design's device
+// time: every block of a cluster needs every row's slot but only its own
+// rows' bytes, and the cluster's unique bytes in flight were one stage.
+// Bound on this card: bytes, as B1 (N*F + 12N + 4N, about 44 MB at the
+// main path, 13 us at 3.35 TB/s).  What sets the time now: the shared
+// atomics (two 32-bit ones a (feature, channel) add of a kept row, the
+// second skipped where the high part and the carry are zero), every
+// tile's scan of its range's slots, and the flush's blocks x tile cells
+// global atomics.
+
 // B1-int and B1-K-int — the integer forms (quantized training, the JAX
 // package's integer branch of `_compute_histogram_matmul`, ops/histogram.py
 // :143-146, which contracts int8/int16 vals into exact int32): the same
@@ -136,6 +151,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fixed.cuh"
 
 namespace {
 
@@ -246,155 +263,135 @@ __global__ void hist_reduce(const __grid_constant__ Members mem,
   out[e] = (float)acc;
 }
 
-// Copy nbytes from global to shared memory with the whole block: 16-byte
-// words, kStage loads in flight per thread before their stores, then the
-// tail byte by byte (and everything byte by byte when either side is not
-// 16-byte aligned).
-constexpr int kStage = 8;
+// --- B1-K -------------------------------------------------------------
 
-__device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src,
-                                            int nbytes, int tid,
-                                            int nthreads) {
-  int done = 0;
-  if (((reinterpret_cast<uintptr_t>(dst) |
-        reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
-    const int n16 = nbytes >> 4;
-    const int4* s16 = reinterpret_cast<const int4*>(src);
-    int4* d16 = reinterpret_cast<int4*>(dst);
-    for (int base = tid; base < n16; base += nthreads * kStage) {
-      int4 r[kStage];
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const int i = base + u * nthreads;
-        if (i < n16) r[u] = __ldg(s16 + i);
-      }
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const int i = base + u * nthreads;
-        if (i < n16) d16[i] = r[u];
-      }
-    }
-    done = n16 << 4;
-  }
-  for (int i = done + tid; i < nbytes; i += nthreads) dst[i] = src[i];
+// threads of a B1-K block (a warp a 32-row group at a time)
+constexpr int kSlotThreads = 1024;
+
+// One member's B1-K workspace: the accumulator [cells3] int64 and the
+// side buffer [cells3] f32 (both cleared by `slots_prep`), the partial
+// maxima [parts, 3].
+struct SlotWs {
+  unsigned long long* acc;
+  float* side;
+  unsigned int* mxp;
+};
+
+__host__ __device__ __forceinline__ long long slot_clear_words(
+    long long cells3) {
+  return cells3 + (cells3 + 1) / 2;
 }
 
-// one staged row i into a thread's [B, 3] slice
-__device__ __forceinline__ void add_row(double* mine, const uint8_t* s_bin,
-                                        const float* s_vals, int i,
-                                        int num_features, int f,
-                                        int num_bins) {
-  const int b = s_bin[i * num_features + f];
-  if (b >= num_bins) return;
-  const float* v = s_vals + i * kChannels;
-  mine[b * kChannels + 0] += v[0];
-  mine[b * kChannels + 1] += v[1];
-  mine[b * kChannels + 2] += v[2];
+__device__ __forceinline__ SlotWs slot_ws(void* base, long long cells3) {
+  long long* w = static_cast<long long*>(base);
+  return {reinterpret_cast<unsigned long long*>(w),
+          reinterpret_cast<float*>(w + cells3),
+          reinterpret_cast<unsigned int*>(w + slot_clear_words(cells3))};
 }
 
-__global__ void hist_slots_partial(const uint8_t* __restrict__ binned,
-                                   const __grid_constant__ Members mem,
-                                   int n, int num_features, int num_bins,
-                                   int num_slots, int rows_per_block,
-                                   int pairs_per_block, int chunk) {
+__global__ void slots_prep(const __grid_constant__ Members mem, long long n,
+                           long long cells3, int parts) {
+  const int mi = blockIdx.y;
+  const int32_t* __restrict__ active = mem.active[mi];
+  if (active != nullptr && *active == 0) return;
+  long long* w = static_cast<long long*>(mem.partial[mi]);
+  const long long clear = slot_clear_words(cells3);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < clear; i += (long long)parts * blockDim.x)
+    w[i] = 0;
+  lgbt_fixed::absmax_parts(static_cast<const float*>(mem.vals[mi]), 3 * n,
+                           blockIdx.x, parts, slot_ws(w, cells3).mxp);
+}
+
+// grid (row ranges x tiles, members): a block keeps one tile [tk slots,
+// tf features, B, 3] as 32-bit low and high words in shared memory and
+// adds one row range's rows of those slots, a row to kWidth lanes (tf <=
+// kWidth, or 32).  With every slot in use, block x takes tile x % tiles
+// and row range x / tiles (`rows` rows).  With fewer in use (a
+// super-step's early passes; `slots_used` on the device), the tiles of
+// slots past them have no rows, so the blocks are dealt over the live
+// tiles instead and the rows over as many finer ranges: the grid keeps
+// every SM busy whatever the count, and the fixed-point sums make the
+// result independent of the dealing.
+template <int kWidth>
+__global__ void __launch_bounds__(kSlotThreads, 1)
+    hist_slots_tile(const uint8_t* __restrict__ binned,
+                    const __grid_constant__ Members mem, int n,
+                    int num_features, int num_bins, int num_slots, int rows,
+                    int tk, int tf, int parts, int log2n) {
   const int mi = blockIdx.z;
   const int32_t* __restrict__ active = mem.active[mi];
   if (active != nullptr && *active == 0) return;
-  const float* __restrict__ vals = static_cast<const float*>(mem.vals[mi]);
-  const int32_t* __restrict__ slot = mem.slot[mi];
   const int32_t* __restrict__ slots_used = mem.slots_used[mi];
-  float* __restrict__ partial = static_cast<float*>(mem.partial[mi]);
-  extern __shared__ double smem[];
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-  const int slice = num_bins * kChannels;
-  const int pairs = num_features * num_slots;
-  const int p0 = blockIdx.y * pairs_per_block;
-  const int npairs = min(pairs_per_block, pairs - p0);
-  float* dst = partial + ((long long)blockIdx.x * pairs + p0) * slice;
-  // the tile's pairs of slots in use (slots 0..used-1) are its first q;
-  // the rest have no rows.  With few slots in use each pair's rows are
-  // split over `subs` threads (32-row groups dealt round robin), so the
-  // work does not fall on one warp.
   const int used =
       slots_used == nullptr ? num_slots : min(*slots_used, num_slots);
-  const int q = max(0, min(npairs, used * num_features - p0));
-  if (q == 0) {
-    for (int e = tid; e < npairs * slice; e += nthreads) dst[e] = 0.f;
-    return;
+  const int F = num_features, B = num_bins;
+  const int ftiles = (F + tf - 1) / tf;
+  const int tiles = (num_slots + tk - 1) / tk * ftiles;
+  // no row has a slot at or past `used`: the live tiles are a prefix
+  const int live = min(tiles, (max(used, 0) + tk - 1) / tk * ftiles);
+  if (live == 0) return;
+  int tile = blockIdx.x % tiles, range = blockIdx.x / tiles;
+  if (live < tiles) {
+    const int ranges = gridDim.x / live;
+    if ((int)blockIdx.x >= ranges * live) return;
+    tile = blockIdx.x % live;
+    range = blockIdx.x / live;
+    rows = (int)(((n + ranges - 1) / ranges + 31) / 32 * 32);
   }
-  const int subs = max(1, min(nthreads / q, chunk >> 5));
-  const bool owns = tid < q * subs;
-  const int pair = p0 + (owns ? tid % q : 0);
-  const int sub = owns ? tid / q : 0;
-  const int f = pair % num_features;
-  const int k = owns ? pair / num_features : -1;
-  // [threads x slice] slices, then the staged chunk: slots (int32), vals
-  // (f32 x 3), binned rows (bytes), and the chunk's row masks, one 32-bit
-  // word per (32-row group, slot)
-  int32_t* s_slot = reinterpret_cast<int32_t*>(smem + nthreads * slice);
-  float* s_vals = reinterpret_cast<float*>(s_slot + chunk);
-  uint8_t* s_bin = reinterpret_cast<uint8_t*>(s_vals + chunk * kChannels);
-  uint32_t* s_mask = reinterpret_cast<uint32_t*>(
-      s_bin + ((chunk * num_features + 15) & ~15));
-  double* mine = smem + tid * slice;
-  for (int i = 0; i < slice; ++i) mine[i] = 0.0;
-
-  const long long row0 = (long long)blockIdx.x * rows_per_block;
-  const long long row_stop = min(row0 + rows_per_block, (long long)n);
-  for (long long c0 = row0; c0 < row_stop; c0 += chunk) {
-    const int len = (int)min((long long)chunk, row_stop - c0);
-    const int groups = (len + 31) >> 5;
-    __syncthreads();
-    // stage the chunk (coalesced, 16 B loads, several in flight per
-    // thread); slots past len read as -1
-    stage_bytes(reinterpret_cast<uint8_t*>(s_slot),
-                reinterpret_cast<const uint8_t*>(slot + c0), len * 4, tid,
-                nthreads);
-    for (int i = len + tid; i < groups * 32; i += nthreads) s_slot[i] = -1;
-    stage_bytes(reinterpret_cast<uint8_t*>(s_vals),
-                reinterpret_cast<const uint8_t*>(vals + c0 * kChannels),
-                len * kChannels * 4, tid, nthreads);
-    stage_bytes(s_bin, binned + c0 * num_features, len * num_features, tid,
-                nthreads);
-    __syncthreads();
-    // the rows of each slot in use in each 32-row group, by warp ballots
-    for (int gi = warp; gi < groups; gi += nwarps) {
-      const int sl = s_slot[(gi << 5) + lane];
-      for (int kk = 0; kk < used; ++kk) {
-        const uint32_t m = __ballot_sync(0xffffffffu, sl == kk);
-        if (lane == (kk & 31)) s_mask[gi * num_slots + kk] = m;
-      }
-    }
-    __syncthreads();
-    if (!owns) continue;
-    // only this slot's rows of this thread's groups, in row order
-    for (int gi = sub; gi < groups; gi += subs) {
-      uint32_t m = s_mask[gi * num_slots + k];
-      while (m != 0u) {
-        const int j = __ffs(m) - 1;
-        m &= m - 1u;
-        add_row(mine, s_bin, s_vals, (gi << 5) + j, num_features, f,
-                num_bins);
-      }
-    }
-  }
-  // the block's pairs are contiguous in the partial ([K, F] = pair order):
-  // write them out together, coalesced, each the sum of its sub-slices in
-  // sub order (zero for pairs of unused slots)
+  const int k0 = tile / ftiles * tk, f0 = tile % ftiles * tf;
+  const int nk = min(tk, used - k0), nf = min(tf, F - f0);
+  const float* __restrict__ vals = static_cast<const float*>(mem.vals[mi]);
+  const int32_t* __restrict__ slot = mem.slot[mi];
+  const SlotWs ws = slot_ws(mem.partial[mi], (long long)num_slots * F * B * 3);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  extern __shared__ __align__(16) unsigned char shm[];
+  int* s_e = reinterpret_cast<int*>(shm);
+  const int cells = nk * nf * B * 3;
+  unsigned int* lo = reinterpret_cast<unsigned int*>(shm + 16);
+  for (int i = tid; i < 2 * cells; i += blockDim.x) lo[i] = 0u;
+  lgbt_fixed::block_exponents(ws.mxp, parts, log2n, s_e);
   __syncthreads();
-  for (int e = tid; e < npairs * slice; e += nthreads) {
-    const int pl = e / slice, i = e - pl * slice;
-    double acc = 0.0;
-    if (pl < q) {
-      acc = smem[pl * slice + i];
-      for (int sb = 1; sb < subs; ++sb) acc += smem[(sb * q + pl) * slice + i];
-    }
-    dst[e] = (float)acc;
+  double scale[3];
+  for (int c = 0; c < 3; ++c) scale[c] = lgbt_fixed::pow2(s_e[c]);
+  const long long row0 = (long long)range * rows;
+  const long long row_end = min(row0 + rows, (long long)n);
+  for (long long g = row0 + (long long)warp * 32; g < row_end;
+       g += (long long)nwarps * 32) {
+    const long long r = g + lane;
+    const int k = r < row_end ? slot[r] - k0 : -1;
+    long long qv[3];
+    float raw[3];
+    unsigned int nonfin;
+    const bool any = lgbt_fixed::quantize_row(vals + r * 3, k >= 0 && k < nk,
+                                              scale, qv, raw, &nonfin);
+    lgbt_fixed::add_group<kWidth>(lo, lo + cells, nf, B,
+                                  __ballot_sync(0xffffffffu, any), lane, k,
+                                  qv, nonfin, raw, binned + r * F + f0,
+                                  ws.side, k0, f0, F);
   }
+  __syncthreads();
+  lgbt_fixed::flush_tile(lo, lo + cells, nk, nf, B, k0, f0, F, ws.acc);
 }
 
+__global__ void slots_finalize(const __grid_constant__ Members mem,
+                               long long cells3, int parts, int log2n) {
+  const int mi = blockIdx.y;
+  const int32_t* __restrict__ active = mem.active[mi];
+  if (active != nullptr && *active == 0) return;
+  __shared__ int s_e[3];
+  const SlotWs ws = slot_ws(mem.partial[mi], cells3);
+  lgbt_fixed::block_exponents(ws.mxp, parts, log2n, s_e);
+  __syncthreads();
+  double inv[3];
+  for (int c = 0; c < 3; ++c) inv[c] = lgbt_fixed::pow2(-s_e[c]);
+  float* __restrict__ out = static_cast<float*>(mem.out[mi]);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < cells3; i += (long long)gridDim.x * blockDim.x)
+    out[i] = lgbt_fixed::cell_value((long long)ws.acc[i], ws.side[i],
+                                    inv[i % 3]);
+}
 
 // the int32 partials of the integer forms, summed in block order (exact;
 // unsigned, so an overflow would wrap as the plain version's cast does)
@@ -544,28 +541,40 @@ int launch_hist(const uint8_t* binned, const Members& g, int count, int n,
   return (int)cudaGetLastError();
 }
 
+// B1-K's launch: the host table of ops/histogram.py `slots_launch_shape`
+// (rows, tile_k, tile_f) and the scale's partial maxima `parts`; three
+// launches: clear and scale, tiles, finalize.
 int launch_hist_slots(const uint8_t* binned, const Members& g, int count,
                       int n, int num_features, int num_bins, int num_slots,
-                      int rows_per_block, int pairs_per_block, int chunk,
+                      int rows, int tk, int tf, int parts,
                       cudaStream_t stream) {
-  const int nblocks = (n + rows_per_block - 1) / rows_per_block;
-  const int pairs = num_features * num_slots;
-  const int ntiles = (pairs + pairs_per_block - 1) / pairs_per_block;
-  const int threads = ((pairs_per_block + 31) / 32) * 32;
-  const size_t smem =
-      (size_t)threads * num_bins * kChannels * sizeof(double) +
-      (size_t)chunk * (sizeof(int32_t) + kChannels * sizeof(float)) +
-      (((size_t)chunk * num_features + 15) & ~(size_t)15) +
-      (size_t)(chunk / 32) * num_slots * sizeof(uint32_t);
-  hist_slots_partial<<<dim3(nblocks, ntiles, count), threads, smem,
-                       stream>>>(binned, g, n, num_features, num_bins,
-                                 num_slots, rows_per_block, pairs_per_block,
-                                 chunk);
+  const long long cells3 = (long long)num_slots * num_features * num_bins * 3;
+  const int log2n = lgbt_fixed::log2_ceil(n);
+  slots_prep<<<dim3(parts, count), lgbt_fixed::kAbsThreads, 0, stream>>>(
+      g, n, cells3, parts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int elems = pairs * num_bins * kChannels;
-  hist_reduce<<<dim3((elems + 255) / 256, count), 256, 0, stream>>>(
-      g, nblocks, elems);
+  const int tiles =
+      (num_slots + tk - 1) / tk * ((num_features + tf - 1) / tf);
+  const size_t smem = 16 + (size_t)tk * tf * num_bins * kChannels * 8;
+  const dim3 grid((n + rows - 1) / rows * tiles, 1, count);
+  if (tf <= 8)
+    hist_slots_tile<8><<<grid, kSlotThreads, smem, stream>>>(
+        binned, g, n, num_features, num_bins, num_slots, rows, tk, tf, parts,
+        log2n);
+  else if (tf <= 16)
+    hist_slots_tile<16><<<grid, kSlotThreads, smem, stream>>>(
+        binned, g, n, num_features, num_bins, num_slots, rows, tk, tf, parts,
+        log2n);
+  else
+    hist_slots_tile<32><<<grid, kSlotThreads, smem, stream>>>(
+        binned, g, n, num_features, num_bins, num_slots, rows, tk, tf, parts,
+        log2n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long fb = (cells3 + 255) / 256;
+  slots_finalize<<<dim3((unsigned)(fb < 264 ? fb : 264), count), 256, 0,
+                   stream>>>(g, cells3, parts, log2n);
   return (int)cudaGetLastError();
 }
 
@@ -594,21 +603,22 @@ extern "C" int lgbt_histogram(const uint8_t* binned, const float* vals,
                      subranges, stream);
 }
 
-// The K-slot form.  partial: [ceil(n / rows_per_block), K, F, B, 3] f32
-// scratch; out: [K, F, B, 3].  active may be null; slots_used (a device
-// int32) promises that no row has a slot >= it.
+// The K-slot form.  rows, tile_k, tile_f: `slots_launch_shape`; ws: the
+// workspace, int64 [K*F*B*3 + ceil(K*F*B*3 / 2) + ceil(parts*3 / 2)]
+// (cleared here); out: [K, F, B, 3].  active may be null; slots_used (a
+// device int32) promises that no row has a slot >= it.
 extern "C" int lgbt_histogram_slots(const uint8_t* binned, const float* vals,
                                     const int32_t* slot, int n,
                                     int num_features, int num_bins,
-                                    int num_slots, int rows_per_block,
-                                    int pairs_per_block, int chunk,
+                                    int num_slots, int rows, int tile_k,
+                                    int tile_f, int parts,
                                     const int32_t* active,
-                                    const int32_t* slots_used, float* partial,
+                                    const int32_t* slots_used, void* ws,
                                     float* out, cudaStream_t stream) {
   return launch_hist_slots(
-      binned, one_member(vals, slot, active, slots_used, partial, out), 1,
-      n, num_features, num_bins, num_slots, rows_per_block, pairs_per_block,
-      chunk, stream);
+      binned, one_member(vals, slot, active, slots_used, ws, out), 1, n,
+      num_features, num_bins, num_slots, rows, tile_k, tile_f, parts,
+      stream);
 }
 
 // The integer forms (B1-K-int; B1-int with num_slots 1).  vals [n, 3]
@@ -637,13 +647,17 @@ extern "C" int lgbt_histogram_int(
 // The member forms (B1-M, B1-K-M, B1-int-M): `ptrs` is a host table of 6 x
 // `members` pointers, each row `members` long: vals, slot, active,
 // slots_used, partial, out (null where the solo form takes null), with the
-// solo form's shapes per member.  `form` 0 is B1 (f32, slot optional), 1
-// B1-K (f32, num_slots K), 2 the integer forms (int8 or int16 vals by
-// `bits`).  Members go out kMaxMembers to a launch.
+// solo form's shapes per member (shape1, shape2: B1's tile_f and
+// subranges, B1-K's tile_k and tile_f, the integer forms' tile_f and
+// tile_k; shape3 B1-K's parts; B1-K's `partial` is the member's
+// workspace).  `form` 0 is B1 (f32, slot optional), 1 B1-K (f32,
+// num_slots K), 2 the integer forms (int8 or int16 vals by `bits`).
+// Members go out kMaxMembers to a launch.
 extern "C" int lgbt_histogram_members(
     const uint8_t* binned, const void* const* ptrs, int members, int form,
     int bits, int n, int num_features, int num_bins, int num_slots,
-    int rows_per_block, int shape1, int shape2, cudaStream_t stream) {
+    int rows_per_block, int shape1, int shape2, int shape3,
+    cudaStream_t stream) {
   if (members < 1 || form < 0 || form > 2) return (int)cudaErrorInvalidValue;
   for (int m0 = 0; m0 < members; m0 += kMaxMembers) {
     const int count =
@@ -656,7 +670,7 @@ extern "C" int lgbt_histogram_members(
     else if (form == 1)
       err = launch_hist_slots(binned, g, count, n, num_features, num_bins,
                               num_slots, rows_per_block, shape1, shape2,
-                              stream);
+                              shape3, stream);
     else if (bits == 8)
       err = launch_hist_int<int8_t>(binned, g, count, n, num_features,
                                     num_bins, num_slots, rows_per_block,
@@ -672,27 +686,28 @@ extern "C" int lgbt_histogram_members(
   return 0;
 }
 
-// Once per process, before any launch: let hist_partial, hist_slots_partial
+// Once per process, before any launch: let hist_partial, hist_slots_tile
 // and the integer forms use up to `smem_bytes` of dynamic shared memory,
 // and load the kernels.
 extern "C" int lgbt_histogram_setup(int smem_bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(hist_slots_partial,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const void* int_kernels[] = {
-      (const void*)hist_int_partial<int8_t>,
-      (const void*)hist_int_partial<int16_t>};
-  for (const void* k : int_kernels) {
-    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
+  const void* big[] = {(const void*)hist_partial,
+                       (const void*)hist_slots_tile<8>,
+                       (const void*)hist_slots_tile<16>,
+                       (const void*)hist_slots_tile<32>,
+                       (const void*)hist_int_partial<int8_t>,
+                       (const void*)hist_int_partial<int16_t>};
+  for (const void* k : big) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, hist_reduce_int);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncGetAttributes(&attr, hist_reduce);
+  const void* rest[] = {(const void*)hist_reduce_int,
+                        (const void*)hist_reduce, (const void*)slots_prep,
+                        (const void*)slots_finalize};
+  for (const void* k : rest) {
+    const cudaError_t err = cudaFuncGetAttributes(&attr, k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -15,14 +15,20 @@
 // on binned [N, F] uint8 (F = the EFB groups on a bundled matrix), vals
 // [N, 3] f32.  The TPU program gathers the segment padded to a power of
 // two and runs the one-hot matmul; here the kernel reads the segment's
-// true count of rows through `order`.  It follows B1's layout
-// (histogram.cu `hist_partial`): each block takes a fixed range of
-// segment positions, each thread one (feature, position sub-range) pair
-// summed in position order into a private f64 [B, 3] slice in shared
-// memory, the block's slices summed in sub-range order into a partial
-// rounded once to f32, and `seg_reduce` sums the partials in block order
-// in f64.  The order of every sum is fixed by the count and the shapes,
-// so reruns are bitwise equal.
+// true count of rows through `order`.  Sums are B1-K's 64-bit fixed point
+// (csrc/fixed.cuh, scale from all N rows of vals: the partitioned learner
+// has the root pass compute it once a tree and hands it to every segment
+// pass of the tree), so the launch shape changes no bit.  `seg_hist_tile`:
+// each block takes a fixed range of segment positions and keeps a [tf, B,
+// 3] tile of 64-bit counters in shared memory; a chunk of positions at a
+// time its threads read the ids coalesced, then gather those rows'
+// channels and binned bytes with many independent loads in flight (Hopper
+// TMA cannot gather rows), and each warp adds 32 rows at a time, its
+// lanes over a row's features, with shared-memory atomics.  The block
+// flushes its tile with one global 64-bit atomic a non-zero cell into one
+// accumulator [F, B, 3] (cleared on the stream first), and the last block
+// to finish rounds it to f32 (the side value where a non-finite value
+// landed): one launch and the clear, no per-block partial.
 //   The integer form (quantized training; vals int8 or int16, exact int32
 // sums, the JAX package's integer branch of compute_histogram) follows
 // `hist_int_partial`: each block keeps an int32 [tile_f, B, 3] histogram
@@ -72,70 +78,121 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fixed.cuh"
+
 namespace {
 
 constexpr int kChannels = 3;
 constexpr int kIntThreads = 1024;
 constexpr int kTile = 1024;      // B11b positions a block
 
-__global__ void seg_hist_partial(const uint8_t* __restrict__ binned,
-                                 const float* __restrict__ vals,
-                                 const int32_t* __restrict__ order,
-                                 long long begin, int count,
-                                 int num_features, int num_bins,
-                                 int rows_per_block, int tile_f,
-                                 int subranges, float* __restrict__ partial) {
-  extern __shared__ double smem[];
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;                 // tile_f * subranges
-  const int slice = num_bins * kChannels;
-  for (int i = tid; i < nthreads * slice; i += nthreads) smem[i] = 0.0;
-  __syncthreads();
+constexpr int kSegThreads = 512;
 
-  const int f0 = blockIdx.y * tile_f;
-  const int fl = tid % tile_f;
-  const int s = tid / tile_f;
-  const int f = f0 + fl;
-  const long long p0 = (long long)blockIdx.x * rows_per_block;
-  const long long p_stop = min(p0 + rows_per_block, (long long)count);
-  const int sub = (rows_per_block + subranges - 1) / subranges;
-  const long long p_begin = p0 + (long long)s * sub;
-  const long long p_end = min(p_begin + sub, p_stop);
-  double* mine = smem + tid * slice;
-  if (f < num_features) {
-    for (long long p = p_begin; p < p_end; ++p) {
-      const long long r = order[begin + p];
-      const int b = binned[r * num_features + f];
-      if (b >= num_bins) continue;
-      const float* v = vals + r * kChannels;
-      mine[b * kChannels + 0] += v[0];
-      mine[b * kChannels + 1] += v[1];
-      mine[b * kChannels + 2] += v[2];
-    }
-  }
-  __syncthreads();
+// B11a's workspace: the accumulator [F*B*3] int64, the side buffer
+// [F*B*3] f32 and the count of finished blocks, all cleared before the
+// launch
+struct SegWs {
+  unsigned long long* acc;
+  float* side;
+  unsigned int* done;
+};
 
-  const int tile_elems = tile_f * slice;
-  for (int e = tid; e < tile_elems; e += nthreads) {
-    const int flocal = e / slice;
-    const int rest = e % slice;
-    const int fg = f0 + flocal;
-    if (fg >= num_features) continue;
-    double acc = smem[flocal * slice + rest];
-    for (int ss = 1; ss < subranges; ++ss)
-      acc += smem[(ss * tile_f + flocal) * slice + rest];
-    partial[((long long)blockIdx.x * num_features + fg) * slice + rest] =
-        (float)acc;
-  }
+__host__ __device__ __forceinline__ long long seg_ws_words(long long cells3) {
+  return cells3 + (cells3 + 1) / 2 + 1;
 }
 
-__global__ void seg_reduce(const float* __restrict__ partial, int nblocks,
-                           int elems, float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= elems) return;
-  double acc = partial[e];
-  for (int k = 1; k < nblocks; ++k) acc += partial[(long long)k * elems + e];
-  out[e] = (float)acc;
+__device__ __forceinline__ SegWs seg_ws(long long* w, long long cells3) {
+  return {reinterpret_cast<unsigned long long*>(w),
+          reinterpret_cast<float*>(w + cells3),
+          reinterpret_cast<unsigned int*>(w + cells3 + (cells3 + 1) / 2)};
+}
+
+__global__ void seg_absmax(const float* __restrict__ vals, long long n,
+                           unsigned int* __restrict__ mxp) {
+  lgbt_fixed::absmax_parts(vals, 3 * n, blockIdx.x, gridDim.x, mxp);
+}
+
+__global__ void __launch_bounds__(kSegThreads)
+    seg_hist_tile(const uint8_t* __restrict__ binned,
+                  const float* __restrict__ vals,
+                  const int32_t* __restrict__ order, long long begin,
+                  int count, int num_features, int num_bins, int rows,
+                  int tile_f, int chunk, const unsigned int* __restrict__ mxp,
+                  int parts, int log2n, long long* __restrict__ wsp,
+                  float* __restrict__ out) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int F = num_features, B = num_bins;
+  const int f0 = blockIdx.y * tile_f, nf = min(tile_f, F - f0);
+  const long long cells3 = (long long)F * B * kChannels;
+  const SegWs ws = seg_ws(wsp, cells3);
+  // dynamic shared memory only (its limit is all a block may have): the
+  // exponents and the last-block flag, the chunk's ids, vals and bytes,
+  // the tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_e = reinterpret_cast<int*>(smem);
+  int* s_last = s_e + kChannels;
+  int32_t* s_ids = reinterpret_cast<int32_t*>(smem + 16);
+  float* s_vals = reinterpret_cast<float*>(s_ids + chunk);
+  uint8_t* s_bin = reinterpret_cast<uint8_t*>(s_vals + chunk * kChannels);
+  // the tile [nf, B, 3]: 32-bit low words, then high words
+  const int cells = nf * B * kChannels;
+  unsigned int* lo = reinterpret_cast<unsigned int*>(
+      s_bin + (((long long)chunk * tile_f + 15) & ~15ll));
+  for (int i = tid; i < 2 * cells; i += nthreads) lo[i] = 0u;
+  lgbt_fixed::block_exponents(mxp, parts, log2n, s_e);
+  __syncthreads();
+  double scale[kChannels];
+  for (int c = 0; c < kChannels; ++c) scale[c] = lgbt_fixed::pow2(s_e[c]);
+  const long long p0 = (long long)blockIdx.x * rows;
+  const long long p_end = min(p0 + rows, (long long)count);
+  for (long long c0 = p0; c0 < p_end; c0 += chunk) {
+    const int len = (int)min((long long)chunk, p_end - c0);
+    for (int i = tid; i < len; i += nthreads) s_ids[i] = order[begin + c0 + i];
+    __syncthreads();
+    // the rows' channels and the tile's bytes of each row, gathered
+#pragma unroll 4
+    for (int i = tid; i < len * kChannels; i += nthreads) {
+      const int r = i / kChannels;
+      s_vals[i] = vals[(long long)s_ids[r] * kChannels + (i - r * kChannels)];
+    }
+#pragma unroll 4
+    for (int i = tid; i < len * nf; i += nthreads) {
+      const int r = i / nf, c = i - r * nf;
+      s_bin[r * tile_f + c] = binned[(long long)s_ids[r] * F + f0 + c];
+    }
+    __syncthreads();
+    const int groups = (len + 31) >> 5;
+    for (int gi = warp; gi < groups; gi += nwarps) {
+      const int j = (gi << 5) + lane;
+      long long qv[kChannels];
+      float raw[kChannels];
+      unsigned int nonfin;
+      const bool any = lgbt_fixed::quantize_row(s_vals + j * kChannels,
+                                                j < len, scale, qv, raw,
+                                                &nonfin);
+      lgbt_fixed::add_group<32>(lo, lo + cells, nf, B,
+                                __ballot_sync(0xffffffffu, any), lane, 0, qv,
+                                nonfin, raw, s_bin + j * tile_f, ws.side, 0,
+                                f0, F);
+    }
+    __syncthreads();
+  }
+  lgbt_fixed::flush_tile(lo, lo + cells, 1, nf, B, 0, f0, F, ws.acc);
+  // the last block to finish rounds the accumulator to f32
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    *s_last = atomicAdd(ws.done, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  double inv[kChannels];
+  for (int c = 0; c < kChannels; ++c) inv[c] = lgbt_fixed::pow2(-s_e[c]);
+  for (long long i = tid; i < cells3; i += nthreads)
+    out[i] = lgbt_fixed::cell_value(
+        __ldcg(reinterpret_cast<const long long*>(ws.acc) + i),
+        __ldcg(ws.side + i), inv[i % kChannels]);
 }
 
 template <typename T>
@@ -325,25 +382,35 @@ __global__ void seg_leaf_of_row(const int32_t* __restrict__ order, int n,
 
 }  // namespace
 
-// B11a (f32).  partial: [ceil(count / rows_per_block), F, B, 3] f32
-// scratch; out [F, B, 3]; count >= 1.
+// B11a (f32).  vals [n_rows, 3]; mxp [parts, 3] uint32, the partial
+// maxima of vals (filled here first when `fill` is 1); ws: int64
+// [F*B*3 + ceil(F*B*3 / 2) + 1] scratch (cleared here); out [F, B, 3];
+// count >= 1.
 extern "C" int lgbt_segment_histogram(
-    const uint8_t* binned, const float* vals, const int32_t* order,
-    long long begin, int count, int num_features, int num_bins,
-    int rows_per_block, int tile_f, int subranges, float* partial,
-    float* out, cudaStream_t stream) {
+    const uint8_t* binned, const float* vals, long long n_rows,
+    const int32_t* order, long long begin, int count, int num_features,
+    int num_bins, int rows_per_block, int tile_f, int chunk,
+    unsigned int* mxp, int parts, int fill, long long* ws, float* out,
+    cudaStream_t stream) {
+  if (fill) {
+    seg_absmax<<<parts, lgbt_fixed::kAbsThreads, 0, stream>>>(vals, n_rows,
+                                                              mxp);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long cells3 = (long long)num_features * num_bins * kChannels;
+  cudaError_t err = cudaMemsetAsync(
+      ws, 0, sizeof(long long) * seg_ws_words(cells3), stream);
+  if (err != cudaSuccess) return (int)err;
   const int nblocks = (count + rows_per_block - 1) / rows_per_block;
   const int ntiles = (num_features + tile_f - 1) / tile_f;
-  const int threads = tile_f * subranges;
-  const size_t smem = (size_t)threads * num_bins * kChannels * sizeof(double);
-  seg_hist_partial<<<dim3(nblocks, ntiles), threads, smem, stream>>>(
+  const size_t smem = 16 + (size_t)chunk * (4 + 4 * kChannels) +
+                      (((size_t)chunk * tile_f + 15) & ~(size_t)15) +
+                      (size_t)tile_f * num_bins * kChannels * 8;
+  seg_hist_tile<<<dim3(nblocks, ntiles), kSegThreads, smem, stream>>>(
       binned, vals, order, begin, count, num_features, num_bins,
-      rows_per_block, tile_f, subranges, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int elems = num_features * num_bins * kChannels;
-  seg_reduce<<<(elems + 255) / 256, 256, 0, stream>>>(partial, nblocks,
-                                                      elems, out);
+      rows_per_block, tile_f, chunk, mxp, parts,
+      lgbt_fixed::log2_ceil(n_rows), ws, out);
   return (int)cudaGetLastError();
 }
 
@@ -422,7 +489,7 @@ extern "C" int lgbt_leaf_of_row(const int32_t* order, int n,
 // Once per process, before any launch: let the histogram kernels use up to
 // `smem_bytes` of dynamic shared memory, and load the kernels.
 extern "C" int lgbt_segment_setup(int smem_bytes) {
-  const void* big[] = {(const void*)seg_hist_partial,
+  const void* big[] = {(const void*)seg_hist_tile,
                        (const void*)seg_hist_int_partial<int8_t>,
                        (const void*)seg_hist_int_partial<int16_t>};
   for (const void* k : big) {
@@ -430,7 +497,7 @@ extern "C" int lgbt_segment_setup(int smem_bytes) {
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const void* rest[] = {(const void*)seg_reduce, (const void*)seg_reduce_int,
+  const void* rest[] = {(const void*)seg_absmax, (const void*)seg_reduce_int,
                         (const void*)seg_count, (const void*)seg_scan,
                         (const void*)seg_scatter,
                         (const void*)seg_leaf_of_row};

@@ -66,7 +66,8 @@ from .efb import EFBDevice, expand_group_hist
 from .grower import GrowWorkspace, TreeArrays, tree_fields
 from .ops.quantize import QuantSpec, dequantize_hist, quant_scales, \
     quantize_stack
-from .ops.segment import leaf_of_row, partition_segment, segment_histogram
+from .ops.segment import (leaf_of_row, new_scale, partition_segment,
+                          segment_histogram)
 from .ops.split import (FEATURE, GAIN, LEFT_OUTPUT, LEFT_SUM, RECORD,
                         RIGHT_OUTPUT, RIGHT_SUM, THRESHOLD, DEFAULT_LEFT,
                         SplitConstraints, SplitParams, find_best_split,
@@ -204,13 +205,21 @@ class PartitionedGrower:
             vals = quantize_stack(vals, scales, self.quant, rng_iter,
                                   out=ws.qvals)
 
-        def seg_hist(begin: int, count: int) -> torch.Tensor:
+        # the fixed point's scale of the f32 segment histograms: the
+        # root pass computes it from vals once a tree, every later pass
+        # of the tree takes it (the bits depend on vals alone)
+        scale = new_scale(dev) if scales is None and dev.type == "cuda" \
+            else None
+
+        def seg_hist(begin: int, count: int,
+                     fill: bool = False) -> torch.Tensor:
             return segment_histogram(binned, vals, order, begin, count,
                                      num_bins=self.BH,
-                                     rows_per_block=self.rows_per_block)
+                                     rows_per_block=self.rows_per_block,
+                                     scale=scale, fill_scale=fill)
 
         # root histogram + split (over EFB groups when bundled)
-        hist0 = seg_hist(0, n)
+        hist0 = seg_hist(0, n, fill=True)
         if scales is None:
             total0_dev = hist0[0].sum(dim=0)
         else:

@@ -18,16 +18,17 @@ one row block of the kernels (``rows_per_block``).  Under
   of the binned matrix.
 - **the knobs are the Hopper kernels' own.**  The row-block candidates
   are the automatic row block ``b0`` of the form under test at the
-  training's row count (``slots_launch_shape``, or ``int_launch_shape``
-  for itemsize 1 or 2), ``b0 / 2`` and ``2 b0``, each rounded up to the
-  kernel's granularity; a candidate whose partial buffer would pass
-  ``histogram.PARTIAL_CAP_BYTES`` is dropped.  The port's automatic row
-  block grows with the row count (about 132 blocks), which the JAX
-  package's VMEM budget does not, so the sample runs each candidate at
-  the candidate's count of row blocks (its rows scaled by sample rows /
-  training rows): the block count sets the kernel's parallelism, its
-  partial buffer and its reduce, and the record keeps the training-scale
-  rows.
+  training's row count (``slots_launch_shape``, B1-K's row range of one
+  cluster, or ``int_launch_shape`` for itemsize 1 or 2), ``b0 / 2`` and
+  ``2 b0``, each rounded up to the kernel's granularity (a warp's 32
+  rows); a candidate of the integer form whose partial buffer would pass
+  ``histogram.PARTIAL_CAP_BYTES`` is dropped (B1-K keeps no partial).
+  The port's automatic row block grows with the row count, which the
+  JAX package's VMEM budget does not, so the sample runs each candidate
+  at the candidate's count of row blocks (its rows scaled by sample rows
+  / training rows): the block count sets the kernel's parallelism (and
+  the integer form's partial buffer and reduce), and the record keeps
+  the training-scale rows.
 - **timing.**  On the card CUDA events on the current stream: one warm
   call, then ``reps`` calls back to back between two events.  On the CPU
   ``time.perf_counter`` around the plain version (the wrapper's CPU
@@ -43,9 +44,10 @@ one row block of the kernels (``rows_per_block``).  Under
 
 ``hist_tune=off`` (the default) never imports this module.  The tuned K
 changes the grown trees (another, equally valid, growth order), and the
-tuned row block re-partitions the f32 sums (a histogram a few ulps
-away), so a tuned model equals the untuned run at the record's
-``split_batch`` and ``rows_per_block``, not the default run.
+tuned row block re-partitions B1's f32 sums (a histogram a few ulps
+away; B1-K's fixed-point sums and the integer forms keep their bits), so
+a tuned model equals the untuned run at the record's ``split_batch`` and
+``rows_per_block``, not the default run.
 """
 
 from __future__ import annotations
@@ -164,7 +166,7 @@ def _block_candidates(n_rows: int, n_cols: int, num_bins: int,
                       itemsize: int, k: int) -> List[int]:
     """The automatic row block b0 of the form under test at ``n_rows``,
     b0 / 2 and 2 b0, each rounded up to the kernel's granularity, without
-    those whose partial buffer would pass the cap."""
+    those whose partial buffer would pass the cap (the integer form)."""
     b0 = _launch_rows(n_rows, n_cols, num_bins, itemsize, k)
     cands = set()
     for b in (b0, max(1, b0 // 2), 2 * b0):

@@ -9,16 +9,19 @@ over the rows whose ``slot`` is >= 0 (every row when ``slot`` is None),
 and its K-slot form (``num_slots=K``, the batched grower's child pass),
 one histogram per slot over the rows whose ``slot`` is that slot.
 Channels are (grad*w, hess*w, w).  On a CUDA tensor this launches the
-hand-written kernel of ``csrc/histogram.cu`` (deterministic: its summation
-order is fixed by the shapes alone); on a CPU tensor it runs
+hand-written kernel of ``csrc/histogram.cu`` (deterministic: B1's
+summation order is fixed by the shapes alone, B1-K's fixed-point sums
+need no order); on a CPU tensor it runs
 ``histogram_plain``, the kernel's plain PyTorch version.  With int8 or
 int16 ``vals`` (quantized training, ``ops/quantize.py``) both forms
 return exact int32 histograms (B1-int, B1-K-int; the JAX package's
 integer branch): the kernels add in shared-memory int32 atomics, the
 plain versions in int64, and the two agree bit for bit.  Neither sums a
 bin in one long f32 run, so a bin that holds nearly every row is as exact
-as a pairwise sum: the kernel sums in f64 (its per-block partials rounded
-once to f32 before their f64 total); the plain version adds each bin's
+as a pairwise sum: B1 sums in f64 (its per-block partials rounded once to
+f32 before their f64 total), B1-K in exact 64-bit fixed point, each cell
+rounded once to f32; a NaN or +-Inf in a row's vals gives that row's
+cells the plain version's non-finite value; the plain version adds each bin's
 rows in row order in f32 runs of ``PLAIN_RUN`` rows and the runs in f64
 (``_bin_sums``), so a bin of at most ``PLAIN_RUN`` rows is the plain f32
 sum of its rows in row order.
@@ -40,15 +43,18 @@ Every dense form takes ``rows_per_block`` (the JAX package's
 ``block_rows``; the ``rows_per_block`` parameter, or ``hist_tune``'s
 choice): 0 keeps the automatic launch shape of ``launch_shape``,
 ``slots_launch_shape`` and ``int_launch_shape``; a positive value sets the
-rows of one row block, rounded up to the kernel's granularity (a multiple
-of the B1 kernel's row sub-ranges, a whole staged chunk of B1-K, a whole
-warp's 32 rows of the integer forms).  The f32 kernels round each block's
-partial to f32 before their f64 total, so another row block gives a
-histogram a few ulps away (runs at one value stay bitwise equal); the
-integer forms are bitwise equal at every value.  The plain versions ignore
-it.  A value whose partial buffer [row blocks, K, F, B, 3] would pass
-``PARTIAL_CAP_BYTES`` is refused.  The k-hot form B8a keeps its own
-blocking, as the JAX package's sparse histogram does.
+rows of one row block (for B1-K the rows of one row range, which a
+block of each tile adds), rounded up to the kernel's granularity (a multiple of the B1 kernel's row sub-ranges, a
+whole warp's 32 rows of B1-K and of the integer forms).  The B1 kernel
+rounds each block's partial to f32 before its f64 total, so another row
+block gives a histogram a few ulps away (runs at one value stay bitwise
+equal); B1-K sums in 64-bit fixed point (``csrc/fixed.cuh``: integers
+whose sum does not depend on the order, at a scale fixed by ``vals``
+alone) and the integer forms in int32, so both are bitwise equal at
+every value.  The plain versions ignore it.  A value whose partial buffer
+[row blocks, K, F, B, 3] would pass ``PARTIAL_CAP_BYTES`` is refused (B1
+and the integer forms; B1-K keeps no partial).  The k-hot form B8a keeps
+its own blocking, as the JAX package's sparse histogram does.
 """
 
 from __future__ import annotations
@@ -73,15 +79,21 @@ _MAX_THREADS = 1024
 # trained model — depends on the shapes alone.
 _ROW_BLOCKS = 132
 _MIN_ROWS_PER_BLOCK = 1024
-# rows the K-slot kernel stages in shared memory at a time (slot, vals,
-# binned row and the row masks: 16 + F + K/8 bytes a row)
-_SLOT_CHUNK = 512
+# B1-K (csrc/histogram.cu `hist_slots_tile`): a 64-bit counter of its
+# tile (two 32-bit words), the shared memory before the tile, the blocks
+# the automatic row ranges are dealt to (one an SM of an H100, the tiles
+# of a range together), the partial maxima of the scale, and the rows of
+# a warp (a row range's granularity)
+_COUNTER_BYTES = 8
+_SLOT_HEADER = 16
+_SLOT_BLOCKS = 132
+_SCALE_PARTS = 128
+_WARP_ROWS = 32
 # the integer forms: blocks in all (two an SM of an H100; an integer sum
 # does not depend on the launch shape), the bytes of a counter, and the
 # rows of a warp (an explicit row block's granularity)
 _INT_BLOCKS = 264
 _INT_BYTES = 4
-_WARP_ROWS = 32
 # the largest partial buffer an explicit ``rows_per_block`` may ask for
 # (1 GiB; the automatic shapes stay under it at the port's shapes: 179 MB
 # at 1M x 28, 63 bins and K = 64)
@@ -144,40 +156,32 @@ def launch_shape(n: int, num_features: int, num_bins: int,
 def slots_launch_shape(n: int, num_features: int, num_bins: int,
                        num_slots: int,
                        rows_per_block: int = 0) -> Tuple[int, int, int]:
-    """(rows_per_block, pairs_per_block, chunk) of the K-slot kernel: as
-    many (feature, slot) pairs per block as fit in shared memory beside
-    the staged chunk of rows, in whole warps (the kernel's block is whole
-    warps, each thread with its slice, so a block holds at least 32
-    slices: the chunk shrinks until they fit), spread evenly over the
-    tiles; row blocks of whole chunks (``rows_per_block`` as in
-    ``launch_shape``, rounded up to a whole chunk)."""
-    slice_bytes = num_bins * 3 * _ACC_BYTES
-
-    def staged(c):
-        return c * 16 + -(-c * num_features // 16) * 16 + c // 32 * \
-            num_slots * 4
-
-    def fit(c):
-        return min(_MAX_THREADS, (_SMEM_BYTES - staged(c)) // slice_bytes)
-
-    chunk = _SLOT_CHUNK
-    while chunk > 32 and (staged(chunk) > _SMEM_BYTES // 4
-                          or fit(chunk) < 32):
-        chunk //= 2
-    max_pairs = fit(chunk)
-    max_pairs -= max_pairs % 32
-    if max_pairs < 32:
-        raise ValueError(f"num_bins={num_bins} is too large for a warp's "
-                         "histograms in shared memory")
-    pairs = num_features * num_slots
-    tiles = -(-pairs // max_pairs)
-    per = -(-pairs // tiles)
-    per = min(-(-per // 32) * 32, max_pairs)
-    rows = _auto_rows(n) if rows_per_block <= 0 else int(rows_per_block)
-    rows = -(-rows // chunk) * chunk
-    _check_partial(n, rows, num_slots, num_features, num_bins,
-                   rows_per_block)
-    return rows, per, chunk
+    """(rows, tile_k, tile_f) of the B1-K kernel: a block's tile [tile_k,
+    tile_f, B, 3] of 64-bit counters fills the shared memory a block has,
+    as many slots as fit when one slot's features do (spread evenly over
+    the slot tiles), else one slot and as many features as fit, spread
+    evenly; ``rows`` the rows of one row range, a whole warp's 32
+    (automatic at ``rows_per_block`` 0: about ``_SLOT_BLOCKS`` blocks in
+    all, never under ``_MIN_ROWS_PER_BLOCK`` rows a range)."""
+    f, k = int(num_features), int(num_slots)
+    slot_row = num_bins * 3 * _COUNTER_BYTES    # one (slot, feature)
+    room = _SMEM_BYTES - _SLOT_HEADER
+    tf_max = room // slot_row
+    if tf_max < 1:
+        raise ValueError(f"num_bins={num_bins} is too large for one "
+                         "feature's histogram in shared memory")
+    if f <= tf_max:
+        tile_f, tile_k = f, min(k, room // (f * slot_row))
+    else:
+        tile_f, tile_k = -(-f // -(-f // tf_max)), 1
+    tile_k = -(-k // -(-k // tile_k))
+    tiles = -(-k // tile_k) * -(-f // tile_f)
+    if rows_per_block > 0:
+        rows = int(rows_per_block)
+    else:
+        ranges = max(1, _SLOT_BLOCKS // tiles)
+        rows = max(-(-n // ranges), _MIN_ROWS_PER_BLOCK)
+    return -(-rows // _WARP_ROWS) * _WARP_ROWS, tile_k, tile_f
 
 
 def int_launch_shape(n: int, num_features: int, num_bins: int,
@@ -412,8 +416,15 @@ def compute_histogram_members(binned: torch.Tensor,
         form, counter = 0, "histogram_members"
     else:
         form, counter = 1, "histogram_slots_members"
-    partial = torch.empty((m, -(-n // rows)) + kdim + (f, num_bins, 3),
-                          dtype=dt, device=binned.device)
+    shape3 = 0
+    if form == 1:
+        # B1-K-M: each member's workspace in place of a partial
+        partial = torch.empty((m, _slot_ws_words(k, f, num_bins)),
+                              dtype=torch.int64, device=binned.device)
+        shape3 = _SCALE_PARTS
+    else:
+        partial = torch.empty((m, -(-n // rows)) + kdim + (f, num_bins, 3),
+                              dtype=dt, device=binned.device)
     none = [None] * m
     table = _kernels.pointer_table((
         vals, none if slots is None else slots,
@@ -423,7 +434,7 @@ def compute_histogram_members(binned: torch.Tensor,
     err = _kernels.lib("histogram").lgbt_histogram_members(
         binned.data_ptr(), table, m, form,
         _bits(vals[0]) if integer else 0, n, f, num_bins, k, rows, shape1,
-        shape2, _kernels.stream_ptr(binned.device))
+        shape2, shape3, _kernels.stream_ptr(binned.device))
     _kernels.launched(counter, err)
     return out
 
@@ -511,20 +522,26 @@ def _histogram_slots(binned, vals, slot, num_slots: int, num_bins: int,
                       device=binned.device)
     if n == 0:
         return out.zero_()
-    rows, pairs, chunk = slots_launch_shape(n, f, num_bins, num_slots,
-                                            rows_per_block)
-    nblocks = -(-n // rows)
-    partial = torch.empty((nblocks, num_slots, f, num_bins, 3),
-                          dtype=torch.float32, device=binned.device)
+    rows, tile_k, tile_f = slots_launch_shape(n, f, num_bins, num_slots,
+                                              rows_per_block)
+    ws = torch.empty(_slot_ws_words(num_slots, f, num_bins),
+                     dtype=torch.int64, device=binned.device)
     err = _kernels.lib("histogram").lgbt_histogram_slots(
         binned.data_ptr(), vals.data_ptr(), slot.data_ptr(), n, f, num_bins,
-        num_slots, rows, pairs, chunk,
+        num_slots, rows, tile_k, tile_f, _SCALE_PARTS,
         None if active is None else active.data_ptr(),
-        slots_used.data_ptr(),
-        partial.data_ptr(), out.data_ptr(),
+        slots_used.data_ptr(), ws.data_ptr(), out.data_ptr(),
         _kernels.stream_ptr(binned.device))
     _kernels.launched("histogram_slots", err)
     return out
+
+
+def _slot_ws_words(num_slots: int, f: int, num_bins: int) -> int:
+    """int64 words of one B1-K workspace: the accumulator, its f32 side
+    buffer and the scale's partial maxima (``csrc/histogram.cu``
+    ``slot_ws``)."""
+    cells3 = num_slots * f * num_bins * 3
+    return cells3 + -(-cells3 // 2) + -(-_SCALE_PARTS * 3 // 2)
 
 
 def histogram_slots_plain(binned: torch.Tensor, vals: torch.Tensor,

@@ -9,13 +9,15 @@ the host.  The TPU programs pad every segment to a power of two so that
 each jitted shape is static; these take the segment's true count.
 
 - ``segment_histogram`` (B11a): the [F, B, 3] histogram of the segment's
-  rows, f32 in an order fixed by the count and the shapes, or exact int32
-  on int8/int16 vals (quantized training).  Its launch is B1's over the
-  segment's count, so ``rows_per_block`` (the JAX package's ``block_rows``,
-  which its ``_hist_segment`` hands to ``compute_histogram``) is B1's
-  knob: the rows of one row block of the segment, rounded up as B1 and
-  B1-int round it (``histogram.launch_shape``, ``int_launch_shape``), 0
-  the automatic shape;
+  rows, f32 in B1-K's 64-bit fixed point (``csrc/fixed.cuh``: exact
+  integer sums at a scale fixed by all N rows of ``vals``, so no launch
+  shape changes a bit; the partitioned learner has its root pass compute
+  the scale once a tree, ``scale`` and ``fill_scale``), or exact int32 on
+  int8/int16 vals (quantized training).  ``rows_per_block`` (the JAX
+  package's ``block_rows``, which its ``_hist_segment`` hands to
+  ``compute_histogram``) is the rows of one row block of the segment,
+  rounded up to a whole warp's 32 (``segment_launch_shape``; the integer
+  form B1-int's ``int_launch_shape``), 0 the automatic shape;
 - ``partition_segment`` (B11b): the stable in-place partition of a
   segment by a split (left rows first, each side in its former order);
   returns the left count as a [1] int32 device tensor, which the grower
@@ -35,8 +37,45 @@ from typing import Optional
 import torch
 
 from .. import _kernels
-from .histogram import (INT_VALS, form_launch_shape, histogram_int_plain,
-                        histogram_plain, int_launch_shape, launch_shape)
+from .histogram import (_SMEM_BYTES, INT_VALS, form_launch_shape,
+                        histogram_int_plain, histogram_plain,
+                        int_launch_shape)
+
+# B11a (csrc/segment.cu `seg_hist_tile`): positions gathered a chunk, the
+# blocks the automatic shape deals a segment to, a block's rows at the
+# least, the granularity of a row block, a 64-bit counter, and the
+# partial maxima of the scale
+_SEG_CHUNK = 512
+_SEG_BLOCKS = 264
+_SEG_MIN_ROWS = 512
+_WARP_ROWS = 32
+_COUNTER_BYTES = 8
+SCALE_PARTS = 128
+
+
+def segment_launch_shape(count: int, num_features: int, num_bins: int,
+                         rows_per_block: int = 0):
+    """(rows, tile_f, chunk) of the f32 B11a kernel: a block's tile
+    [tile_f, B, 3] of 64-bit counters beside its gathered chunk of
+    ``chunk`` positions (ids, vals, the tile's bytes) in shared memory,
+    features tiled evenly when they do not fit; ``rows`` the positions of
+    one block, a whole warp's 32 (automatic at ``rows_per_block`` 0: about
+    ``_SEG_BLOCKS`` blocks in all, never under ``_SEG_MIN_ROWS``)."""
+    f = int(num_features)
+    chunk = _SEG_CHUNK
+    cap = (_SMEM_BYTES - 32 - chunk * 16) // (chunk + num_bins * 3
+                                               * _COUNTER_BYTES)
+    if cap < 1:
+        raise ValueError(f"num_bins={num_bins} is too large for one "
+                         "feature's histogram in shared memory")
+    tile_f = f if f <= cap else -(-f // -(-f // cap))
+    if rows_per_block > 0:
+        rows = int(rows_per_block)
+    else:
+        blocks = max(1, min(_SEG_BLOCKS // -(-f // tile_f),
+                            -(-count // _SEG_MIN_ROWS)))
+        rows = -(-count // blocks)
+    return -(-rows // _WARP_ROWS) * _WARP_ROWS, tile_f, chunk
 
 
 def _check_order(order: torch.Tensor, n: int, begin: int,
@@ -63,14 +102,20 @@ def _device(*ts) -> str:
 
 def segment_histogram(binned: torch.Tensor, vals: torch.Tensor,
                       order: torch.Tensor, begin: int, count: int, *,
-                      num_bins: int,
-                      rows_per_block: int = 0) -> torch.Tensor:
+                      num_bins: int, rows_per_block: int = 0,
+                      scale: Optional[torch.Tensor] = None,
+                      fill_scale: bool = False) -> torch.Tensor:
     """B11a: the [F, num_bins, 3] histogram of the rows
     ``order[begin:begin + count]`` of ``binned`` [N, F] uint8 (the EFB
     groups on a bundled matrix) with ``vals`` [N, 3]: f32 for f32 vals,
     exact int32 for int8/int16 vals.  Bins >= num_bins add nothing.
     ``rows_per_block``: the rows of a row block on the card (0 =
-    automatic; module docstring)."""
+    automatic; module docstring).  ``scale`` (f32 vals on the card): a
+    [``SCALE_PARTS``, 3] int32 tensor holding the fixed point's partial
+    maxima of ``vals``; with ``fill_scale`` the pass computes them first
+    (over all N rows), and later passes over the same ``vals`` pass the
+    tensor back and compute nothing.  None: the pass computes them into a
+    scratch tensor.  The plain versions ignore both."""
     if binned.dim() != 2 or binned.dtype != torch.uint8:
         raise TypeError("binned must be a [N, F] uint8 tensor")
     n, f = binned.shape
@@ -81,7 +126,7 @@ def segment_histogram(binned: torch.Tensor, vals: torch.Tensor,
     _check_order(order, n, begin, count)
     integer = vals.dtype in INT_VALS
     if _device(binned, vals, order) == "cpu":
-        if rows_per_block > 0:
+        if rows_per_block > 0 and integer:
             # the cap of an explicit row block, which a launch shape
             # checks on the card
             form_launch_shape(count, f, num_bins, None, integer,
@@ -108,16 +153,30 @@ def segment_histogram(binned: torch.Tensor, vals: torch.Tensor,
             out.data_ptr(), stream)
         _kernels.launched("segment_histogram_int", err)
         return out
-    rows, tile_f, subranges = launch_shape(count, f, num_bins,
-                                           rows_per_block)
-    partial = torch.empty((-(-count // rows), f, num_bins, 3),
-                          dtype=torch.float32, device=dev)
+    if scale is None:
+        scale, fill_scale = new_scale(dev), True
+    elif scale.shape != (SCALE_PARTS, 3) or scale.dtype != torch.int32 \
+            or scale.device != dev:
+        raise TypeError(f"scale must be a [{SCALE_PARTS}, 3] int32 tensor "
+                        "on the rows' device")
+    rows, tile_f, chunk = segment_launch_shape(count, f, num_bins,
+                                               rows_per_block)
+    cells3 = f * num_bins * 3
+    ws = torch.empty(cells3 + -(-cells3 // 2) + 1, dtype=torch.int64,
+                     device=dev)
     err = lib.lgbt_segment_histogram(
-        binned.data_ptr(), vals.data_ptr(), order.data_ptr(), begin, count,
-        f, num_bins, rows, tile_f, subranges, partial.data_ptr(),
-        out.data_ptr(), stream)
+        binned.data_ptr(), vals.data_ptr(), n, order.data_ptr(), begin,
+        count, f, num_bins, rows, tile_f, chunk, scale.data_ptr(),
+        SCALE_PARTS, int(bool(fill_scale)), ws.data_ptr(), out.data_ptr(),
+        stream)
     _kernels.launched("segment_histogram", err)
     return out
+
+
+def new_scale(device) -> torch.Tensor:
+    """An unfilled fixed-point scale for ``segment_histogram``
+    (``fill_scale``)."""
+    return torch.empty((SCALE_PARTS, 3), dtype=torch.int32, device=device)
 
 
 def segment_histogram_plain(binned, vals, order, begin: int, count: int, *,

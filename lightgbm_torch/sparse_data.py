@@ -195,19 +195,20 @@ def histogram(sp: SparseBinned, vals: torch.Tensor, *, num_bins: int,
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if n == 0:
         return out.zero_()
-    # fixed-point accumulators [S, F, stride, 3] and totals [S, 3] (int64,
-    # two's complement), and the per-channel largest magnitude (f32 bits)
-    acc = torch.empty((s, f, st, 3), dtype=torch.int64, device=dev)
-    tot = torch.empty((s, 3), dtype=torch.int64, device=dev)
-    mx = torch.empty(3, dtype=torch.int32, device=dev)
+    # one workspace (csrc/sparse.cu `SparseWs`): the fixed-point
+    # accumulators [S, F, stride, 3] and totals [S, 3] (int64, two's
+    # complement), their non-finite side sums (f32), and the per-channel
+    # largest finite magnitude (f32 bits)
+    ints = s * f * st * 3 + s * 3
+    ws = torch.empty(ints + -(-ints // 2) + 2, dtype=torch.int64,
+                     device=dev)
     err = _kernels.lib("sparse").lgbt_sparse_histogram(
         sp.flat.data_ptr(), n, k, vals.data_ptr(),
         None if slot is None else slot.data_ptr(),
         0 if num_slots is None else s, f, st, int(num_bins),
         sp.default_bin.data_ptr(),
-        None if active is None else active.data_ptr(), acc.data_ptr(),
-        tot.data_ptr(), mx.data_ptr(), out.data_ptr(),
-        _kernels.stream_ptr(dev))
+        None if active is None else active.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.launched("histogram_sparse" if num_slots is None
                       else "histogram_slots_sparse", err)
     return out

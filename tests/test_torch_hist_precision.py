@@ -1,7 +1,7 @@
 """B1's precision on a heavy bin: a bin that holds nearly every row.
 
-The port's B1 and B1-K (and their plain versions, which these tests run)
-sum each bin in f64 and round it once to f32, so a bin of about 198,000
+The port's B1 (f64 slices) and B1-K (64-bit fixed point) and their plain
+versions, which these tests run, round each bin once to f32, so a bin of about 198,000
 rows of non-exact, near-constant hessians (0.2) errs by no more than the
 JAX package's one-hot matmul (``_compute_histogram_matmul``) does against
 the f64 sum of the same f32 values, or 1e-6 of the bin's size, whichever
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from lightgbm_torch.ops import histogram as th
+from lightgbm_torch.ops import segment as seg
 from lightgbm_tpu.ops.histogram import _compute_histogram_matmul
 
 from torch_port_fixtures import (  # noqa: F401 (autouse fixtures)
@@ -125,16 +126,20 @@ def test_exact_sums_bit_for_bit():
     (1_000_000, 8, 255, 16),
     (500_000, 584, 255, 16), (581_012, 12, 256, 8), (4000, 3, 16, 2)])
 def test_f64_slices_fit_shared_memory(n, f, bins, k):
-    # the f64 slices take twice the shared memory of f32 ones: the K-slot
-    # kernel's block (whole warps, one slice a thread, beside its staged
-    # chunk of rows) and the one-slot kernel's tile must still fit the
-    # 227 KB a block may have
+    # every block's shared memory within the 227 KB a block may have: B1-K's
+    # tile of 64-bit counters (two 32-bit words each) beside its 16-byte
+    # header, its tiles covering every (slot, feature), one slot a tile
+    # when a slot's features do not fit; B11a's tile
+    # beside its gathered chunk; B1's f64 slices
     smem = 227 * 1024
-    rows, pairs, chunk = th.slots_launch_shape(n, f, bins, k)
-    threads = -(-pairs // 32) * 32
-    staged = chunk * 16 + -(-chunk * f // 16) * 16 + chunk // 32 * k * 4
-    assert 32 <= threads <= 1024
-    assert threads * bins * 3 * 8 + staged <= smem
-    assert rows % chunk == 0 and rows * 132 >= n
+    rows, tk, tf = th.slots_launch_shape(n, f, bins, k)
+    assert 16 + tk * tf * bins * 3 * 8 <= smem
+    assert 1 <= tk <= k and 1 <= tf <= f
+    assert tk == 1 if tf < f else tk >= 1
+    assert rows % 32 == 0 and rows * th._SLOT_BLOCKS >= n
+    srows, stf, schunk = seg.segment_launch_shape(n, f, bins)
+    assert schunk * 16 + -(-schunk * stf // 16) * 16 \
+        + stf * bins * 3 * 8 + 16 <= smem
+    assert 1 <= stf <= f and srows % 32 == 0
     _, tile_f, sub = th.launch_shape(n, f, bins)
     assert tile_f * sub * bins * 3 * 8 <= smem

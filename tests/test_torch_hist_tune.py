@@ -19,7 +19,8 @@
   the untuned shapes;
 - ``rows_per_block``: at 0 every launch shape is the automatic one (the
   shapes pinned here), a positive value is rounded up to each kernel's
-  granularity and refused past the partial buffer's cap, and it reaches
+  granularity and refused past the partial buffer's cap (the forms that
+  keep one), and it reaches
   the workspace, every histogram pass of both growers (the shadow
   grower's too), the fused captures, the super-epochs, the fleet's
   member passes and the partitioned learner's segment histograms; fleet members with different values are refused
@@ -156,14 +157,21 @@ def test_integer_sweep_uses_the_integer_form():
                                  for c in hist_tune.last_sweep()[:3]]
 
 
-def test_block_candidates_drop_those_past_the_cap():
-    # at 1M x 28 x 255 bins and K = 64 the automatic row block's partial
-    # buffer is 723 MB; half of it would pass the 1 GiB cap
-    cands = hist_tune._block_candidates(1_000_000, 28, 255, 4, 64)
+def test_block_candidates_drop_those_past_the_cap(monkeypatch):
+    # B1-K keeps no partial: at 1M x 28 x 255 bins and K = 64 all three
+    # candidates stay, each a whole warp's rows
     b0 = th.slots_launch_shape(1_000_000, 28, 255, 64)[0]
-    assert cands == [b0, 2 * b0]
+    assert hist_tune._block_candidates(1_000_000, 28, 255, 4, 64) == \
+        [-(-(b0 // 2) // 32) * 32, b0, 2 * b0]
     assert hist_tune._block_candidates(1_000_000, 28, 63, 4, 64) == \
-        [4096, 7680, 15360]
+        [50016, 100000, 200000]
+    # B1-K-int: its automatic row block's partial buffer is 49 MB, half of
+    # it 99 MB; under a 60 MB cap half the row block is dropped
+    monkeypatch.setattr(th, "PARTIAL_CAP_BYTES", 60_000_000)
+    i0 = th.int_launch_shape(1_000_000, 28, 255, 64)[0]
+    cands = hist_tune._block_candidates(1_000_000, 28, 255, 1, 64)
+    assert cands == [th.int_launch_shape(1_000_000, 28, 255, 64, b)[0]
+                     for b in (i0, 2 * i0)]
 
 
 # --- hist_tune=on in training ----------------------------------------------
@@ -318,24 +326,24 @@ def test_second_process_reuses_choice(tmp_path):
 # --- rows_per_block --------------------------------------------------------
 
 # the automatic launch shapes (rows_per_block 0): B1, B1-K, B1-int and
-# B1-K-int at (rows, columns, bins, K), as the kernels launched them
-# before the parameter existed
+# B1-K-int at (rows, columns, bins, K), as the kernels launch them (B1-K:
+# rows of a row range, tile slots, tile features)
 AUTO_SHAPES = {
-    (2000, 4, 15, 8): ((1024, 4, 8), (1024, 32, 512), (1000, 4, 1),
+    (2000, 4, 15, 8): ((1024, 4, 8), (1024, 8, 4), (1000, 4, 1),
                        (1000, 4, 8)),
-    (900, 10, 31, 32): ((1024, 10, 8), (1024, 160, 512), (900, 10, 1),
+    (900, 10, 31, 32): ((1024, 10, 8), (1024, 16, 10), (900, 10, 1),
                         (900, 10, 32)),
-    (1_000_000, 28, 63, 16): ((7580, 28, 5), (7680, 128, 512),
+    (1_000_000, 28, 63, 16): ((7580, 28, 5), (30304, 4, 28),
                               (3788, 28, 1), (7576, 28, 8)),
-    (1_000_000, 28, 63, 64): ((7580, 28, 5), (7680, 128, 512),
+    (1_000_000, 28, 63, 64): ((7580, 28, 5), (100000, 5, 28),
                               (3788, 28, 1), (26316, 28, 10)),
-    (1_000_000, 28, 255, 32): ((7576, 28, 1), (7680, 32, 512),
+    (1_000_000, 28, 255, 32): ((7576, 28, 1), (250016, 1, 28),
                                (3788, 28, 1), (58824, 28, 2)),
-    (2_270_296, 136, 255, 16): ((17200, 37, 1), (17280, 32, 128),
+    (2_270_296, 136, 255, 16): ((17200, 37, 1), (1135168, 1, 34),
                                 (17200, 68, 1), (252256, 68, 1)),
-    (50_001, 13, 255, 8): ((1024, 13, 2), (1024, 32, 512), (1021, 13, 1),
+    (50_001, 13, 255, 8): ((1024, 13, 2), (1536, 2, 13), (1021, 13, 1),
                            (1021, 13, 4)),
-    (581_012, 8, 255, 64): ((4404, 8, 4), (4608, 32, 512), (2201, 8, 1),
+    (581_012, 8, 255, 64): ((4404, 8, 4), (72640, 4, 8), (2201, 8, 1),
                             (17607, 8, 8)),
 }
 
@@ -352,6 +360,10 @@ def test_launch_shapes_unchanged_at_zero(shape):
         assert got == want
     assert th.form_launch_shape(n, f, b, k, False) == want[1]
     assert th.form_launch_shape(n, f, b, None, True) == want[2]
+    # B1-K's tile of 64-bit counters fits a block's shared memory
+    rows, tk, tf = want[1]
+    assert 16 + tk * tf * b * 3 * 8 <= 227 * 1024
+    assert 1 <= tk <= k and 1 <= tf <= f and rows % 32 == 0
 
 
 @pytest.mark.parametrize("rpb", [1, 33, 1000, 4097, 20_000])
@@ -359,8 +371,10 @@ def test_explicit_rows_rounded_to_granularity(rpb):
     n, f, b = 20_000, 28, 63
     rows, _, sub = th.launch_shape(n, f, b, rpb)
     assert rows % sub == 0 and rpb <= rows < rpb + sub
-    rows, _, chunk = th.slots_launch_shape(n, f, b, 16, rpb)
-    assert rows % chunk == 0 and rpb <= rows < rpb + chunk
+    # B1-K's row range and the integer forms' row block: a whole warp's
+    # 32 rows
+    rows = th.slots_launch_shape(n, f, b, 16, rpb)[0]
+    assert rows % 32 == 0 and rpb <= rows < rpb + 32
     for k in (None, 32):
         rows = th.int_launch_shape(n, f, b, k, rpb)[0]
         assert rows % 32 == 0 and rpb <= rows < rpb + 32
@@ -371,15 +385,19 @@ def test_explicit_rows_rounded_to_granularity(rpb):
 
 
 def test_rows_per_block_past_the_cap_refused():
-    # K = 64 at 1M x 28 x 63: 512-row blocks give 1,954 partials of
-    # 338,688 cells, 2.65 GB
+    # B1 at 1M x 28 x 63: 10-row blocks give 100,000 partials of 5,292
+    # cells, 2.1 GB
     with pytest.raises(ValueError, match="partial histograms"):
-        th.slots_launch_shape(1_000_000, 28, 63, 64, 512)
+        th.launch_shape(1_000_000, 28, 63, 8)
     with pytest.raises(ValueError, match="rows_per_block=64"):
         th.int_launch_shape(1_000_000, 28, 63, 64, 64)
-    # the automatic shapes and a value under the cap pass
+    # the automatic shapes and a value under the cap pass; B1-K keeps no
+    # partial, so any row range passes
+    th.launch_shape(1_000_000, 28, 63)
+    th.launch_shape(1_000_000, 28, 63, 4096)
     th.slots_launch_shape(1_000_000, 28, 63, 64)
-    th.slots_launch_shape(1_000_000, 28, 63, 64, 4096)
+    th.slots_launch_shape(1_000_000, 28, 63, 64, 512)
+    th.slots_launch_shape(1_000_000, 28, 63, 64, 32)
 
 
 def test_rows_per_block_past_the_cap_refused_by_train(data, monkeypatch):
