@@ -3765,23 +3765,50 @@ def _khot_library(torch, sp, vals, slot=None, num_slots=1):
 
 
 def _dead_khot_pass(torch, lgt_kernels, sp, vals, slot, num_slots, B):
-    """B8a launched on an inactive step into a sentinel-filled output
-    through the C entry: True when the output was not written."""
+    """B8a launched on an inactive step into a sentinel-filled output and
+    workspace through the C entry (``slot`` None: the root form with its
+    tile plan): True when nothing was written (its three kernels exit at
+    once)."""
+    from lightgbm_torch import sparse_data as sd
     dev = vals.device
     s = max(num_slots, 1)
     out = torch.full((s, sp.num_features, B, 3), -7.0, device=dev)
-    ints = s * sp.num_features * sp.stride * 3 + s * 3
-    ws = torch.empty(ints + -(-ints // 2) + 2, dtype=torch.int64,
-                     device=dev)
+    ws = torch.full((sd.ws_words(s, sp.num_features, sp.stride),), -7,
+                    dtype=torch.int64, device=dev)
     off = torch.zeros(1, dtype=torch.int32, device=dev)
+    used = torch.full((1,), s, dtype=torch.int32, device=dev)
+    tile_f, ranges = (0, 0) if slot is not None else sd.root_plan(
+        sp.flat.shape[0], sp.num_features, sp.stride)
     err = lgt_kernels.lib("sparse").lgbt_sparse_histogram(
         sp.flat.data_ptr(), sp.flat.shape[0], sp.k, vals.data_ptr(),
-        slot.data_ptr(), num_slots, sp.num_features, sp.stride, B,
-        sp.default_bin.data_ptr(), off.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), lgt_kernels.stream_ptr(dev))
+        None if slot is None else slot.data_ptr(), num_slots,
+        sp.num_features, sp.stride, B, sp.default_bin.data_ptr(),
+        off.data_ptr(), used.data_ptr() if num_slots else None,
+        sd.SCALE_PARTS, tile_f, ranges, ws.data_ptr(), out.data_ptr(),
+        lgt_kernels.stream_ptr(dev))
     lgt_kernels.check(err, "B8a on an inactive step")
     torch.cuda.synchronize()
-    return bool((out == -7.0).all())
+    return bool((out == -7.0).all()) and bool((ws == -7).all())
+
+
+def kernel_device_us(torch, fn, reps: int = 5) -> dict:
+    """Device microseconds of one ``fn()`` by kernel name
+    (``torch.profiler`` over ``reps`` calls, CUDA activity only; a
+    profile that recorded no kernel is taken once more, then {}: not
+    measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {ev.key[:90]: ev.device_time_total / reps
+               for ev in prof.key_averages() if ev.device_time_total > 0}
+        if out:
+            return out
+    return {}
 
 
 def khot_pass_bound(n: int, k: int, f: int, B: int, kept: int, S: int = 1,
@@ -4009,8 +4036,11 @@ def phase_sparse_kernels(torch, lgt, lgt_kernels, train, valid):
     255-leaf tree at K = 16 and of a 64-leaf tree at K = 8), bitwise
     equal on a rerun, NaN / +-Inf rows giving exactly the plain version's
     non-finite cells (``check_nonfinite``), writing nothing on an
-    inactive step and zeros
-    with every row's slot at -1; B3 and B3-K's k-hot decode bit for bit
+    inactive step (each form) and zeros with every row's slot at -1, the
+    root pass bitwise at other row ranges and through the row pass, and
+    at K = 16 with half the slots in use the slots below bitwise the full
+    pass's and those past zero; each form's device time by kernel
+    (``torch.profiler``); B3 and B3-K's k-hot decode bit for bit
     to their plain versions at every step of those trees; B4's k-hot walk
     of each tree over the train rows equal to the grower's row -> leaf
     vector, and over the valid rows bit for bit to its plain version;
@@ -4115,6 +4145,8 @@ def phase_sparse_kernels(torch, lgt, lgt_kernels, train, valid):
             torch.nonzero(in_pass).flatten()[:5], f"B8a ({form})")
         res[form] = {
             "nonfinite_cells": nonfin,
+            "device_us": kernel_device_us(
+                torch, lambda: histogram(sp, vals, num_bins=B, **kw)),
             "ms": median_ms(torch, lambda: histogram(sp, vals, num_bins=B,
                                                      **kw)),
             "plain_ms": median_ms(torch, lambda: histogram_plain(
@@ -4128,11 +4160,49 @@ def phase_sparse_kernels(torch, lgt, lgt_kernels, train, valid):
     empty = histogram(sp, vals, num_bins=B, slot=neg, active=one)
     if float(empty.abs().max()) != 0.0:
         raise AssertionError("B8a with every row's slot at -1 is not zero")
-    for S in (0, WIDE_K):
-        if not _dead_khot_pass(torch, lgt_kernels, sp, vals, st["slot"], S,
-                               B):
+    for S, sl in ((0, st["slot"]), (WIDE_K, st["slot"]), (0, None)):
+        if not _dead_khot_pass(torch, lgt_kernels, sp, vals, sl, S, B):
             raise AssertionError(f"B8a wrote on an inactive step (num_slots "
-                                 f"{S})")
+                                 f"{S}, {'no ' if sl is None else ''}slot "
+                                 "vector)")
+    # the root pass bitwise at half and twice its planned row ranges and
+    # through the row pass (the plan for more than MAX_ROOT_TILES tiles)
+    from lightgbm_torch import sparse_data as sd
+    planned = sd.root_plan
+    tile_f, ranges = planned(n, F, sp.stride, torch.cuda
+                             .get_device_properties(dev)
+                             .multi_processor_count)
+    root_ref = histogram(sp, vals, num_bins=B)
+    try:
+        for plan in ((tile_f, max(1, ranges // 2)), (tile_f, 2 * ranges),
+                     (0, 0)):
+            sd.root_plan = lambda *a, _p=plan, **k_: _p
+            if not same_bits(torch, histogram(sp, vals, num_bins=B),
+                             root_ref):
+                raise AssertionError(f"B8a's root pass at the plan {plan} "
+                                     f"differs from the planned "
+                                     f"{(tile_f, ranges)}")
+    finally:
+        sd.root_plan = planned
+    # slots_used below K on the K = 16 pass: the slots below it bitwise
+    # those of the full pass (the same rows, the same scale) and within
+    # HIST_RTOL of the plain version over those rows; the slots at or
+    # past it zero, though rows of theirs are still in the slot vector
+    kw16 = forms["k16"]
+    half = max(1, int(kw16["slots_used"][0]) // 2)
+    full = histogram(sp, vals, num_bins=B, **kw16)
+    part = histogram(sp, vals, num_bins=B, **{
+        **kw16, "slots_used": torch.tensor([half], dtype=torch.int32,
+                                           device=dev)})
+    s_half = torch.where(kw16["slot"] >= half, -1, kw16["slot"])
+    hp_half = histogram_plain(sp, vals, num_bins=B, slot=s_half,
+                              num_slots=WIDE_K)
+    if not (same_bits(torch, part[:half], full[:half])
+            and float(part[half:].abs().max()) == 0.0
+            and _hist_rel(torch, part, hp_half) <= HIST_RTOL):
+        raise AssertionError(f"B8a (K = {WIDE_K}, {half} slots in use): the "
+                             "slots below it are not the full pass's, or "
+                             "those past it are not zero")
 
     # B3 and B3-K on the k-hot rows, timed on the strict tree's first split
     # and the wide tree's first full super-step
@@ -4163,18 +4233,30 @@ def phase_sparse_kernels(torch, lgt, lgt_kernels, train, valid):
                 "replaces": replaces, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": bd[0], "bound_by": bd[1],
                 "library_ms": lib}
+
+    def by_form(*names):
+        """each form's rows, ms, device us by kernel, bound and library
+        ms, for the kernel line"""
+        return {"by_form": {f_: {"rows_in_pass": res[f_]["rows_in_pass"],
+                                 "ms": res[f_]["ms"],
+                                 "device_us": res[f_]["device_us"],
+                                 "bound_ms": res[f_]["bound"][0],
+                                 "library_ms": res[f_]["library_ms"]}
+                            for f_ in names},
+                "rows_in_pass": res[names[0]]["rows_in_pass"]}
     rows = {
-        "histogram_sparse": row(
+        "histogram_sparse": {**row(
             "B8a k-hot histogram (strict step's smaller child)",
             "lightgbm_torch/csrc/sparse.cu", "lightgbm_tpu/sparse_data.py:108",
             res["strict"]["ms"], res["strict"]["plain_ms"],
             res["strict"]["bound"], res["strict"]["library_ms"],
-            res["strict"]["max_abs_err"]),
-        "histogram_slots_sparse": row(
-            "B8a k-hot histogram, K = 16 slots",
+            res["strict"]["max_abs_err"]), **by_form("strict", "root")},
+        "histogram_slots_sparse": {**row(
+            "B8a-K k-hot histogram, K = 16 slots",
             "lightgbm_torch/csrc/sparse.cu", "lightgbm_tpu/sparse_data.py:108",
             res["k16"]["ms"], res["k16"]["plain_ms"], res["k16"]["bound"],
             res["k16"]["library_ms"], res["k16"]["max_abs_err"]),
+            **by_form("k16", "k8")},
         "partition_sparse": row(
             "B8b B3 row partition, k-hot decode",
             "lightgbm_torch/csrc/partition.cu",
@@ -4196,7 +4278,14 @@ def phase_sparse_kernels(torch, lgt, lgt_kernels, train, valid):
                           for f_, r in res.items()},
           "b8a_max_rel_err_every_pass": hist_err,
           "b8a_rerun_bitwise": True, "b8a_inactive_writes_nothing": True,
-          "b8a_empty_slots_zero": True, "trees": steps,
+          "b8a_empty_slots_zero": True,
+          "b8a_root_plan": {"tile_f": tile_f, "ranges": ranges,
+                            "bitwise_at": [max(1, ranges // 2), 2 * ranges,
+                                           "row pass"]},
+          "b8a_k16_slots_used_half": {"slots_used": half,
+                                      "below_bitwise_full_pass": True,
+                                      "past_zero": True},
+          "trees": steps,
           "b3_rows_read": b3_rows, "b3k_rows_read": b3k_rows,
           "slots_used_of_timed_pass": {
               "k16": snaps["wide"]["most_used"],

@@ -119,8 +119,8 @@ KERNELS: Dict[str, str] = {
     "gather_best": "dist", "vote_gains": "vote", "vote_select": "vote",
 }
 
-# dynamic shared memory the B1, B10c and B11a kernels may use (227 KB, all a
-# block may have on Hopper), set once at load
+# dynamic shared memory the B1, B8a, B10c and B11a kernels may use (227
+# KB, all a block may have on Hopper), set once at load
 SMEM_BYTES = 227 * 1024
 
 # -fmad=false: no multiply-add contraction, so a kernel's f32 arithmetic
@@ -230,8 +230,9 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "sparse": {
         "lgbt_sparse_histogram": (_P, ctypes.c_longlong, _I, _P, _P, _I, _I,
-                                  _I, _I, _P, _P, _P, _P, _P),
-        "lgbt_sparse_setup": (),
+                                  _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
+                                  _P),
+        "lgbt_sparse_setup": (_I,),
     },
     "segment": {
         "lgbt_segment_histogram": (_P, _P, ctypes.c_longlong, _P,
@@ -270,7 +271,8 @@ _SIGNATURES: Dict[str, Dict[str, tuple]] = {
 # arguments of each library's setup entry point
 _SETUP_ARGS: Dict[str, tuple] = {"histogram": (SMEM_BYTES,),
                                   "forest": (SMEM_BYTES,),
-                                  "segment": (SMEM_BYTES,)}
+                                  "segment": (SMEM_BYTES,),
+                                  "sparse": (SMEM_BYTES,)}
 
 # every kernel's count, and the shadow set's under ``shadow:<kernel>``
 LAUNCHES: Dict[str, int] = {

@@ -35,11 +35,14 @@ the trainer keeps in the place of the dense matrix, and its functions:
 
 On a CUDA tensor ``histogram`` launches its kernel; on a CPU tensor it
 runs ``histogram_plain``.  The kernel sums in 64-bit fixed point (each
-value scaled by a power of two chosen from the call's largest magnitude so
-that no sum can overflow, then rounded to an integer), so its sums do not
-depend on the order in which the rows arrive and every rerun is bitwise
-equal; the plain version sums in f64 in row order.  Both round each bin
-once to f32.
+value scaled by a power of two chosen from the largest magnitude of all N
+rows of vals so that no sum can overflow, then rounded to an integer), so
+its sums do not depend on the order or grouping of the adds: every rerun,
+launch shape and tile plan gives the same bits.  The plain version sums
+in f64 in row order.  Both round each bin once to f32.  The host computes
+the kernel's workspace size (``ws_words``, from the layout
+``ws_layout``) and the root pass's plan of feature tiles and row ranges
+(``root_plan``).
 """
 
 from __future__ import annotations
@@ -50,6 +53,22 @@ import numpy as np
 import torch
 
 from . import _kernels
+
+# the scale's partial maxima (csrc/fixed.cuh ``absmax_parts``): blocks of
+# the prep kernel, rows of its [parts, 3] table
+SCALE_PARTS = 128
+# the root pass's tiles (csrc/sparse.cu ``root_tile``): bytes ahead of a
+# tile in shared memory, the bytes of a (feature, bin) cell's three 64-bit
+# counters, and the most tiles before the root pass takes the row pass
+# instead (each tile reads every entry once more)
+ROOT_TILE_HEAD = 64
+ROOT_CELL_BYTES = 3 * 8
+MAX_ROOT_TILES = 16
+# root-pass blocks an SM (a tile of up to 227 KB keeps one block an SM)
+ROOT_BLOCKS_PER_SM = 1
+# the most slots of the K form on the card (csrc/sparse.cu kMaxRowSlots;
+# the batched grower's K is at most 64)
+MAX_SLOTS = 64
 
 class SparseBinned:
     """Device-side padded k-hot binned matrix.
@@ -162,6 +181,50 @@ def _check_hist(sp, vals, slot, active, num_slots, slots_used) -> None:
                          "on one device")
 
 
+def ws_layout(num_slots: int, num_features: int, stride: int) -> dict:
+    """The regions of B8a's workspace (csrc/sparse.cu ``sparse_ws``) as
+    byte ranges [start, end): ``acc`` [S, F, stride, 3] and ``tot`` [S, 3]
+    int64, ``side_acc`` and ``side_tot`` of the same shapes in f32, and
+    ``mxp`` [SCALE_PARTS, 3] uint32 (the scale's partial maxima);
+    ``words``, the int64 words of the whole."""
+    a = num_slots * num_features * stride * 3
+    t = num_slots * 3
+    ints = a + t
+    f0 = 8 * ints
+    m0 = 8 * (ints + -(-ints // 2))
+    return {"acc": (0, 8 * a), "tot": (8 * a, 8 * ints),
+            "side_acc": (f0, f0 + 4 * a), "side_tot": (f0 + 4 * a,
+                                                       f0 + 4 * ints),
+            "mxp": (m0, m0 + 4 * 3 * SCALE_PARTS),
+            "words": m0 // 8 + -(-SCALE_PARTS * 3 // 2)}
+
+
+def ws_words(num_slots: int, num_features: int, stride: int) -> int:
+    """int64 words of one B8a workspace (``ws_layout``)."""
+    return ws_layout(num_slots, num_features, stride)["words"]
+
+
+def root_plan(n: int, num_features: int, stride: int, sms: int = 132,
+              smem_bytes: int = _kernels.SMEM_BYTES) -> tuple:
+    """The root pass's launch plan: (tile_f, ranges).  The feature axis is
+    cut into the fewest tiles whose [tile_f, stride, 3] 64-bit counters
+    (and ROOT_TILE_HEAD bytes) fit ``smem_bytes``, of equal size but the
+    last, tile t holding features [t * tile_f, min((t + 1) * tile_f, F));
+    the rows into ``ranges`` ranges so that ranges x tiles blocks fill the
+    card's ``sms`` at ROOT_BLOCKS_PER_SM.  (0, 0) when more than
+    MAX_ROOT_TILES tiles would be needed: the root pass then runs the row
+    pass with global atomics.  The launch plan changes no bit."""
+    cap = (smem_bytes - ROOT_TILE_HEAD) // (stride * ROOT_CELL_BYTES)
+    if cap < 1 or num_features < 1:
+        return 0, 0
+    tiles = -(-num_features // cap)
+    if tiles > MAX_ROOT_TILES:
+        return 0, 0
+    tile_f = -(-num_features // tiles)
+    ranges = max(1, min(-(-sms * ROOT_BLOCKS_PER_SM // tiles), -(-n // 32)))
+    return tile_f, ranges
+
+
 def histogram(sp: SparseBinned, vals: torch.Tensor, *, num_bins: int,
               slot: Optional[torch.Tensor] = None,
               num_slots: Optional[int] = None,
@@ -174,9 +237,11 @@ def histogram(sp: SparseBinned, vals: torch.Tensor, *, num_bins: int,
     0..K-1 (rows whose slot is outside add nothing).  Each feature's
     default bin receives the slot's total minus the feature's stored mass.
     ``active`` (a [1] int32 device flag): where it is 0 the pass does
-    nothing and the result is unspecified.  ``slots_used`` as B1-K's (the
-    kernel does not need it; it is checked).  CUDA tensors launch the
-    kernel of ``csrc/sparse.cu``, counted as ``histogram_sparse`` or
+    nothing and the result is unspecified.  ``slots_used`` as B1-K's (a
+    [1] int32 device count that promises no row's slot is at or past
+    it): the kernel touches the accumulators of the slots below it only
+    and writes zeros for the others.  CUDA tensors launch the kernel of
+    ``csrc/sparse.cu``, counted as ``histogram_sparse`` or
     ``histogram_slots_sparse``; CPU tensors run ``histogram_plain``."""
     _check_hist(sp, vals, slot, active, num_slots, slots_used)
     dev = sp.device
@@ -188,6 +253,9 @@ def histogram(sp: SparseBinned, vals: torch.Tensor, *, num_bins: int,
     if not (sp.is_contiguous() and vals.is_contiguous()
             and (slot is None or slot.is_contiguous())):
         raise ValueError("the k-hot histogram needs contiguous tensors")
+    if num_slots is not None and int(num_slots) > MAX_SLOTS:
+        raise ValueError(f"the k-hot histogram takes at most {MAX_SLOTS} "
+                         "slots on the card")
     n, k = sp.flat.shape
     f, st = sp.num_features, sp.stride
     s = 1 if num_slots is None else int(num_slots)
@@ -195,20 +263,19 @@ def histogram(sp: SparseBinned, vals: torch.Tensor, *, num_bins: int,
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if n == 0:
         return out.zero_()
-    # one workspace (csrc/sparse.cu `SparseWs`): the fixed-point
-    # accumulators [S, F, stride, 3] and totals [S, 3] (int64, two's
-    # complement), their non-finite side sums (f32), and the per-channel
-    # largest finite magnitude (f32 bits)
-    ints = s * f * st * 3 + s * 3
-    ws = torch.empty(ints + -(-ints // 2) + 2, dtype=torch.int64,
-                     device=dev)
+    ws = torch.empty(ws_words(s, f, st), dtype=torch.int64, device=dev)
+    tile_f, ranges = root_plan(
+        n, f, st, torch.cuda.get_device_properties(dev).multi_processor_count
+    ) if slot is None else (0, 0)
     err = _kernels.lib("sparse").lgbt_sparse_histogram(
         sp.flat.data_ptr(), n, k, vals.data_ptr(),
         None if slot is None else slot.data_ptr(),
         0 if num_slots is None else s, f, st, int(num_bins),
         sp.default_bin.data_ptr(),
-        None if active is None else active.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), _kernels.stream_ptr(dev))
+        None if active is None else active.data_ptr(),
+        None if num_slots is None else slots_used.data_ptr(), SCALE_PARTS,
+        tile_f, ranges, ws.data_ptr(), out.data_ptr(),
+        _kernels.stream_ptr(dev))
     _kernels.launched("histogram_sparse" if num_slots is None
                       else "histogram_slots_sparse", err)
     return out
